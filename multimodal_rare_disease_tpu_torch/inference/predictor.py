@@ -1,0 +1,247 @@
+"""Batch predictor with the JSON contract: the counterpart of
+`multimodal_rare_disease_tpu/inference/predictor.py` for
+`mode="multimodal"` on one device.
+
+A request is padded to a batch bucket (1, 8, 32, 256), its texts are
+tokenized with the JAX package's WordPiece tokenizer and cut to the
+smallest length bucket (32, 64, 128, 256) that fits, and, for batches of
+8 or more whose packed token count beats the bucket by 15%, packed
+several to a row (inference/packing.py). Images are staged as uint8 at
+256 px and go through the device-side eval resample + normalize
+(ops/preprocess.py). The model computes in `cfg.training.compute_dtype`
+(bf16 by default), as the JAX `create_model` builds it: the weights are
+cast to it once, at construction.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from multimodal_rare_disease_tpu.config import Config, SYNDROME_NAMES
+from multimodal_rare_disease_tpu.data.tokenizer import (
+    BertWordPieceTokenizer,
+    get_tokenizer,
+)
+from multimodal_rare_disease_tpu_torch.inference.packing import (
+    pack_texts,
+    packing_wins,
+)
+from multimodal_rare_disease_tpu_torch.models.classifier import (
+    MultimodalClassifier,
+    create_model,
+)
+from multimodal_rare_disease_tpu_torch.ops.preprocess import eval_preprocess
+
+ImageLike = Union[str, Path, np.ndarray]
+
+# host decode size; the device resamples + crops to cfg.data.image_size
+STAGING_SIZE = 256
+_BATCH_BUCKETS = (1, 8, 32, 256)
+_LENGTH_BUCKETS = (32, 64, 128, 256)
+
+
+class MultimodalPredictor:
+    """Serves the prediction JSON contract from a port model."""
+
+    def __init__(self, cfg: Config, model: MultimodalClassifier, device,
+                 mode: str = "multimodal",
+                 tokenizer: Optional[BertWordPieceTokenizer] = None,
+                 class_names: Optional[Sequence[str]] = None,
+                 length_bucketing: bool = True):
+        if mode != "multimodal":
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported to the torch package")
+        self.cfg = cfg
+        self.mode = mode
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, cfg.training.compute_dtype)
+        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        self.length_bucketing = length_bucketing
+        self.class_names = list(class_names or SYNDROME_NAMES)
+        self.tokenizer = tokenizer or get_tokenizer()
+        # forwards taken by each path (observability; chip_smoke.py)
+        self.packed_calls = 0
+        self.classic_calls = 0
+
+    # -- input preparation -------------------------------------------------
+
+    def _prep_images(self, images: Sequence[ImageLike], n: int) -> np.ndarray:
+        arrs = []
+        for im in images:
+            if isinstance(im, (str, Path)):
+                # PIL only for paths: a serving host need not have it
+                from multimodal_rare_disease_tpu.data.images import (
+                    load_image_uint8,
+                )
+
+                arrs.append(load_image_uint8(str(im), STAGING_SIZE))
+                continue
+            a = np.asarray(im)
+            if a.dtype != np.uint8:
+                a = np.clip(a, 0, 255).astype(np.uint8)
+            if a.shape[:2] != (STAGING_SIZE, STAGING_SIZE):
+                from PIL import Image
+
+                a = np.asarray(Image.fromarray(a).resize(
+                    (STAGING_SIZE, STAGING_SIZE), Image.BILINEAR))
+            arrs.append(a)
+        while len(arrs) < n:
+            arrs.append(np.zeros_like(arrs[0]))
+        return np.stack(arrs)
+
+    def _prep_texts(self, texts: Sequence[str], n: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        t = self.cfg.data.max_text_length
+        ids, mask, _ = self.tokenizer.encode_batch(list(texts), t)
+        if self.length_bucketing:
+            longest = int(mask.sum(axis=1).max())
+            bucket = next((b for b in _LENGTH_BUCKETS if longest <= b < t), t)
+            ids, mask = ids[:, :bucket], mask[:, :bucket]
+        if len(texts) < n:
+            pad = n - len(texts)
+            ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))])
+            mask = np.concatenate([mask, np.tile(mask[-1:], (pad, 1))])
+        return ids, mask
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        for b in _BATCH_BUCKETS:
+            if n <= b:
+                return b
+        step = _BATCH_BUCKETS[-1]
+        return -(-max(n, 1) // step) * step
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if t.dtype == torch.int32:
+            t = t.long()
+        return t.to(self.device)
+
+    # -- prediction --------------------------------------------------------
+
+    def predict(self, image: ImageLike, text: str, top_k: int = 5
+                ) -> Dict[str, Any]:
+        """Single-sample prediction returning the JSON contract."""
+        return self.predict_batch([image], [text], top_k=top_k)[0]
+
+    def _packed_inputs(self, ids: np.ndarray, mask: np.ndarray):
+        """The packed forward's text arrays, or None when packing does
+        not win (the JAX predictor's decision and padding: rows to a
+        multiple of 32 above 32, query slots to a power of two)."""
+        lens = mask.sum(axis=1)
+        cap = max(256, -(-int(lens.max()) // 128) * 128)
+        if not packing_wins(lens, ids.shape[1], capacity=cap):
+            return None
+        pb = pack_texts(ids, mask, capacity=cap, row_multiple=8)
+        r = pb.input_ids.shape[0]
+        pad_r = (r if r <= 32 else -(-r // 32) * 32) - r
+        p = pb.query_positions.shape[1]
+        p2 = 1 << max(0, p - 1).bit_length()
+        rows = ((0, pad_r), (0, 0))
+        return (np.pad(pb.input_ids, rows), np.pad(pb.position_ids, rows),
+                np.pad(pb.segment_ids, rows),
+                np.pad(pb.query_positions, ((0, pad_r), (0, p2 - p))),
+                pb.doc_row, pb.doc_slot)
+
+    @torch.inference_mode()
+    def predict_batch(self, images: Sequence[ImageLike],
+                      texts: Sequence[str], top_k: int = 5,
+                      return_embeddings: bool = False
+                      ) -> List[Dict[str, Any]]:
+        if return_embeddings:
+            raise NotImplementedError(
+                "return_embeddings is not ported to the torch package")
+        if images is None or texts is None:
+            raise ValueError("mode multimodal requires images and texts")
+        n = len(images)
+        b = self._bucket(n)
+        imgs = self._prep_images(images, b)
+        ids, mask = self._prep_texts(texts, b)
+        x = eval_preprocess(self._dev(imgs), self.cfg, dtype=self.dtype)
+        packed = (self._packed_inputs(ids, mask)
+                  if self.length_bucketing and b >= 8 else None)
+        if packed is not None:
+            self.packed_calls += 1
+            out = self.model.packed_forward(x, *(self._dev(a) for a in packed))
+        else:
+            self.classic_calls += 1
+            out = self.model(x, self._dev(ids), self._dev(mask))
+        probs = out["probs"].float().cpu().numpy()[:n]
+        return [self._format_single(probs[i], top_k) for i in range(n)]
+
+    def _format_single(self, probs: np.ndarray, top_k: int) -> Dict[str, Any]:
+        def name(i):
+            return (self.class_names[i] if i < len(self.class_names)
+                    else f"Class_{i}")
+
+        order = np.argsort(probs)[::-1][:top_k]
+        predictions = [
+            {"syndrome": name(i), "class_id": int(i),
+             "confidence": float(probs[i]),
+             "probability_percent": float(probs[i] * 100.0)}
+            for i in order
+        ]
+        return {
+            "predictions": predictions,
+            "top_prediction": predictions[0] if predictions else None,
+            "all_probabilities": {name(i): float(probs[i])
+                                  for i in range(len(probs))},
+        }
+
+    # -- reporting ---------------------------------------------------------
+
+    def format_report(self, result: Dict[str, Any],
+                      patient_id: str = "N/A") -> str:
+        """Clinical-report text rendering."""
+        top = result["top_prediction"]
+        lines = [
+            "=" * 64,
+            "RARE DISEASE DIAGNOSIS REPORT",
+            "=" * 64,
+            f"Patient ID: {patient_id}",
+            "",
+            "TOP PREDICTION:",
+            f"  {top['syndrome']}",
+            f"  Confidence: {top['confidence']:.4f} "
+            f"({top['probability_percent']:.1f}%)",
+            "",
+            "DIFFERENTIAL DIAGNOSIS:",
+        ]
+        for i, p in enumerate(result["predictions"], 1):
+            bar = "#" * int(round(p["confidence"] * 40))
+            lines.append(f"  {i}. {p['syndrome']:<36} "
+                         f"{p['probability_percent']:5.1f}% {bar}")
+        lines += ["", "NOTE: Automated screening output; requires "
+                  "confirmation by a clinical geneticist.", "=" * 64]
+        return "\n".join(lines)
+
+
+def load_predictor(checkpoint_path: str | Path, device,
+                   mode: Optional[str] = None,
+                   cfg: Optional[Config] = None,
+                   tokenizer: Optional[BertWordPieceTokenizer] = None
+                   ) -> MultimodalPredictor:
+    """Build a predictor from a port checkpoint directory
+    (utils/checkpoint.py); the config comes from its meta."""
+    from multimodal_rare_disease_tpu.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    state, meta = load_checkpoint(checkpoint_path)
+    if cfg is None:
+        cfg = (Config.from_dict(meta["config"]) if "config" in meta
+               else resolve_config())
+    mode = mode or meta.get("mode", "multimodal")
+    if tokenizer is None and meta.get("vocab"):
+        tokenizer = BertWordPieceTokenizer(
+            {t: i for i, t in enumerate(meta["vocab"])})
+    model = create_model(cfg, mode=mode, device="cpu", seed=None)
+    model.load_state_dict(state, strict=True)
+    return MultimodalPredictor(cfg, model, device, mode=mode,
+                               tokenizer=tokenizer,
+                               class_names=meta.get("class_names"))

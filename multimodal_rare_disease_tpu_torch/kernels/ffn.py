@@ -1,0 +1,171 @@
+"""K1: the fused post-LN BERT FFN sublayer, by hand for Hopper.
+
+    y = LN2(x + GELU(x @ w1 + b1) @ w2 + b2),   x = LN0(z)
+
+Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`. The
+CUDA kernel (`csrc/ffn_ln.cu`) replaces its `_ffn_pre_ln_kernel`;
+`ffn_ln_plain` is the same math in PyTorch.
+
+Device rule: `fused_ffn_ln` runs `ffn_ln_plain` for CPU tensors; for
+CUDA tensors it launches the kernel or raises. The one exception is the
+stated shape/dtype gate `ffn_ln_fusible` (the counterpart of the TPU
+module's gate of the same name): a CUDA call outside it runs the plain
+version and is counted in `PLAIN_ON_CUDA`, which the main path keeps at
+0. `FORCE_PLAIN` (set only by tests and chip_smoke.py, the counterpart
+of the TPU module's `FORCE_INTERPRET`) sends CUDA tensors to the plain
+version to build an on-card reference.
+
+The variant without the input LayerNorm (the TPU's `_ffn_ln_kernel`,
+reached only after the fused attention-output sublayer, which is off by
+default) is not ported yet: `ffn_ln_plain(input_ln=False)` has its
+math, and a CUDA call of `fused_ffn_ln` without `pre_gamma` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from multimodal_rare_disease_tpu_torch.kernels import build
+
+_SQRT1_2 = 0.7071067811865476
+
+FORCE_PLAIN = False
+# launches of the CUDA kernel (incremented only where it is launched)
+LAUNCHES = 0
+# CUDA calls that the shape/dtype gate sent to the plain version
+PLAIN_ON_CUDA = 0
+
+# the tiling csrc/ffn_ln.cu was written for (see its header)
+KERNEL_HIDDEN = 768
+KERNEL_CHUNK = 64
+
+
+def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
+                   dtype: torch.dtype) -> bool:
+    """Shape/dtype gate of the CUDA kernel. It tiles rows by 32 and masks
+    the ragged tile, so any m >= 1 works (the TPU's m >= 32, m % 16 == 0
+    came from its (8, 128) tiling and does not apply); it is compiled
+    for the BERT-base width and walks F in chunks of 64, in bf16."""
+    return (m >= 1 and hidden == KERNEL_HIDDEN and intermediate > 0
+            and intermediate % KERNEL_CHUNK == 0 and dtype == torch.bfloat16)
+
+
+def _ln_f32(z: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """Two-pass LayerNorm statistics in f32, as the TPU kernel's."""
+    mu = z.mean(dim=-1, keepdim=True)
+    var = (z - mu).square().mean(dim=-1, keepdim=True)
+    return (z - mu) * torch.rsqrt(var + eps) * g + o
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an f32 result that is not rounded to a's dtype."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:  # cuBLAS: bf16 operands, f32 accumulation and output
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def ffn_ln_plain(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, eps: float = 1e-12, *,
+                 input_ln: bool = True,
+                 pre_gamma: Optional[torch.Tensor] = None,
+                 pre_beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's math in PyTorch. x2d [M, H]; w1 [H, F]; b1 [F];
+    w2 [F, H]; b2/gamma/beta [H]. With `input_ln`, x2d is the
+    unnormalized residual z and x = LN0(z) with pre_gamma/pre_beta (K1);
+    without it x2d is x itself (the TPU's `_ffn_ln_kernel`, K2).
+
+    The dots take x2d's dtype and keep their f32 accumulation (as the
+    kernel's, and the TPU kernel's preferred_element_type=f32); GELU
+    (exact erf) and both LayerNorms run in f32; the output is in x2d's
+    dtype."""
+    dt = x2d.dtype
+    f32 = torch.float32
+    if input_ln:
+        if pre_gamma is None or pre_beta is None:
+            raise ValueError("input_ln needs pre_gamma and pre_beta")
+        x = _ln_f32(x2d.to(f32), pre_gamma.to(f32), pre_beta.to(f32),
+                    eps).to(dt)
+    else:
+        x = x2d
+    h = _dot_f32(x, w1.to(dt)) + b1.to(f32)
+    h = (0.5 * h * (1.0 + torch.erf(h * _SQRT1_2))).to(dt)
+    y = _dot_f32(h, w2.to(dt)) + b2.to(f32) + x.to(f32)
+    return _ln_f32(y, gamma.to(f32), beta.to(f32), eps).to(dt)
+
+
+def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, eps: float = 1e-12,
+                 pre_gamma: Optional[torch.Tensor] = None,
+                 pre_beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LN(x + gelu(x @ w1 + b1) @ w2 + b2), x = LN0(x2d) when pre_gamma
+    is given; [M, H] in x2d.dtype. Same layouts as the TPU entry point:
+    w1 [H, F], w2 [F, H] (a transposed view of an nn.Linear weight costs
+    no copy)."""
+    global LAUNCHES, PLAIN_ON_CUDA
+    input_ln = pre_gamma is not None
+    args = (x2d, w1, b1, w2, b2, gamma, beta, eps)
+    if x2d.device.type == "cpu" or FORCE_PLAIN:
+        return ffn_ln_plain(*args, input_ln=input_ln, pre_gamma=pre_gamma,
+                            pre_beta=pre_beta)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"fused_ffn_ln: unsupported device {x2d.device}")
+    if not input_ln:
+        raise NotImplementedError(
+            "the FFN kernel without the input LayerNorm (the TPU's "
+            "_ffn_ln_kernel) is not ported yet")
+    m, hidden = x2d.shape
+    f = w1.shape[1]
+    if not ffn_ln_fusible(m, hidden, f, x2d.dtype):
+        PLAIN_ON_CUDA += 1
+        return ffn_ln_plain(*args, input_ln=True, pre_gamma=pre_gamma,
+                            pre_beta=pre_beta)
+    return _launch(x2d, w1, b1, w2, b2, gamma, beta, pre_gamma, pre_beta,
+                   eps)
+
+
+def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
+    global LAUNCHES
+    dev = z.device
+    m, hidden = z.shape
+    f = w1.shape[1]
+    if w1.shape != (hidden, f) or w2.shape != (f, hidden):
+        raise ValueError(f"fused_ffn_ln: w1 {tuple(w1.shape)} / w2 "
+                         f"{tuple(w2.shape)} do not match x [{m}, {hidden}]")
+    bf = torch.bfloat16
+    z = z.contiguous()
+    # the kernel reads nn.Linear's [out, in] layout: W1^T [F, H], W2^T [H, F]
+    w1t = w1.to(bf).t().contiguous()
+    w2t = w2.to(bf).t().contiguous()
+    # the kernel reads the six vectors as bf16 when all of them are (a
+    # model cast to bf16: no cast per call), otherwise as f32
+    vecs = (b1, b2, gamma, beta, g0, o0)
+    vec_dtype = (bf if all(v.dtype == bf for v in vecs) else torch.float32)
+    vecs = [v.to(device=dev, dtype=vec_dtype).contiguous() for v in vecs]
+    for t in (z, w1t, w2t, *vecs):
+        if t.device != dev:
+            raise ValueError(f"fused_ffn_ln: tensors on {t.device} and {dev}")
+    if w1t.data_ptr() % 32 or w2t.data_ptr() % 32:
+        raise ValueError("fused_ffn_ln: weights must be 32-byte aligned "
+                         "(WMMA fragment loads)")
+    b1v, b2v, gv, ov, g0v, o0v = vecs
+    if b1v.numel() != f or any(v.numel() != hidden for v in vecs[1:]):
+        raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
+    y = torch.empty_like(z)
+    lib = build.load_library(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mrd_ffn_pre_ln_bf16(
+            z.data_ptr(), w1t.data_ptr(), b1v.data_ptr(), w2t.data_ptr(),
+            b2v.data_ptr(), gv.data_ptr(), ov.data_ptr(), g0v.data_ptr(),
+            o0v.data_ptr(), y.data_ptr(), m, f, float(eps),
+            int(vec_dtype == bf), stream)
+    build.check_launch(lib, err, "ffn_pre_ln_bf16")
+    LAUNCHES += 1
+    return y

@@ -1,0 +1,249 @@
+"""BERT-base clinical text encoder: the serving path of
+`multimodal_rare_disease_tpu/models/bert.py`.
+
+Word + position + segment embeddings → post-LN transformer layers
+(fused QKV, additive −1e9 mask bias added to the scores in the compute
+dtype, softmax in f32) → CLS token or tanh pooler. Classic rows take a
+[B, T] attention mask; sequence-packed rows (inference/packing.py) take
+`segment_ids` (block-diagonal bias), per-document `position_ids` and
+`query_positions`. At inference the last layer computes only the
+consumed positions (CLS, or one per packed document).
+
+The FFN sublayer of each layer goes through K1
+(`kernels/ffn.py::fused_ffn_ln`, the hand-written CUDA kernel on the
+card) exactly where the JAX layer dispatches to its Pallas kernel:
+post-LN with `fused_ffn` on. Attention has no kernel (the JAX package
+deleted its Pallas one), so it is plain PyTorch in the JAX formulation.
+
+Module and parameter names follow the flax tree (`layer{i}`, `qkv`,
+`attention_ln`, ...), so `models/convert.py` maps checkpoints leaf by
+leaf. Inference-only knobs of the JAX module that compute the same
+values (K/V lane padding, `flat_residual`, `ln_barrier`) are not ported,
+nor are `fused_attn_out`, `quantized_inference` and `pre_layernorm`:
+a config that turns one on raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodal_rare_disease_tpu_torch.kernels.ffn import fused_ffn_ln
+from multimodal_rare_disease_tpu_torch.models.layers import Embedding, Linear
+
+_BERT_LN_EPS = 1e-12
+
+
+def _take_rows(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x [B, T, ...], positions [B, P] → [B, P, ...]: x[b, positions[b, p]]."""
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, positions]
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int, device):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
+        # fused QKV; output features ordered (3, heads, head_dim) like the
+        # flax [H, 3, h, d] kernel
+        self.qkv = Linear(hidden_size, 3 * hidden_size, device=device)
+        self.output = Linear(hidden_size, hidden_size, device=device)
+
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                cls_query_only: bool = False,
+                query_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """hidden [B, T, H]; bias [B, 1, 1 or T, T] additive. With
+        `cls_query_only`, queries are computed only for position 0 or
+        for `query_positions` [B, P] (K/V stay full-sequence) and the
+        output is [B, P, H]."""
+        b, t, hid = hidden.shape
+        h, d = self.num_heads, self.head_dim
+        if cls_query_only:
+            w, bb = self.qkv.weight, self.qkv.bias
+            q_rows = (_take_rows(hidden, query_positions)
+                      if query_positions is not None else hidden[:, :1])
+            q = F.linear(q_rows, w[:hid], bb[:hid]).view(b, -1, h, d)
+            kv = F.linear(hidden, w[hid:], bb[hid:]).view(b, t, 2, h, d)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            if bias.shape[2] > 1:
+                # packed [B,1,T,T]: keep the restricted queries' rows
+                bias = (_take_rows(bias[:, 0], query_positions)[:, None]
+                        if query_positions is not None else bias[:, :, :1])
+        else:
+            qkv = self.qkv(hidden).view(b, t, 3, h, d)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
+        scores = scores + bias
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        ctx = torch.einsum("bhts,bshd->bthd", probs, v)
+        return self.output(ctx.reshape(b, ctx.shape[1], h * d))
+
+
+class BertLayer(nn.Module):
+    """Post-LN transformer layer (inference)."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 intermediate_size: int, device, fused_ffn: bool = True):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.fused_ffn = fused_ffn
+        self.attention = BertSelfAttention(hidden_size, num_heads, device)
+        self.attention_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
+                                         device=device)
+        self.intermediate = Linear(hidden_size, intermediate_size,
+                                   device=device)
+        self.output = Linear(intermediate_size, hidden_size, device=device)
+        self.output_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
+                                      device=device)
+
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                cls_only: bool = False,
+                query_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        attn_out = self.attention(hidden, bias, cls_query_only=cls_only,
+                                  query_positions=query_positions)
+        if cls_only:
+            # the rest of the layer runs on the consumed positions only
+            hidden = (_take_rows(hidden, query_positions)
+                      if query_positions is not None else hidden[:, :1])
+        z = hidden + attn_out
+        if self.fused_ffn:
+            # the unnormalized residual goes to K1, which applies
+            # attention_ln itself (the JAX layer's pre_gamma dispatch)
+            m = z.shape[0] * z.shape[1]
+            y = fused_ffn_ln(
+                z.reshape(m, self.hidden_size),
+                self.intermediate.weight.t(), self.intermediate.bias,
+                self.output.weight.t(), self.output.bias,
+                self.output_ln.weight, self.output_ln.bias,
+                eps=_BERT_LN_EPS, pre_gamma=self.attention_ln.weight,
+                pre_beta=self.attention_ln.bias)
+            return y.reshape(z.shape)
+        hidden = self.attention_ln(z)
+        inter = F.gelu(self.intermediate(hidden).float()).to(hidden.dtype)
+        return self.output_ln(hidden + self.output(inter))
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
+                 num_heads: int, intermediate_size: int,
+                 max_position_embeddings: int, type_vocab_size: int, device,
+                 fused_ffn: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        self.word_embeddings = Embedding(vocab_size, hidden_size,
+                                         device=device)
+        self.position_embeddings = Embedding(max_position_embeddings,
+                                             hidden_size, device=device)
+        self.token_type_embeddings = Embedding(type_vocab_size, hidden_size,
+                                               device=device)
+        self.embeddings_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
+                                          device=device)
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", BertLayer(
+                hidden_size, num_heads, intermediate_size, device,
+                fused_ffn=fused_ffn))
+        self.pooler = Linear(hidden_size, hidden_size, device=device)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                cls_only_final: bool = False,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                query_positions: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """input_ids [B, T]. Classic rows: attention_mask [B, T] {0,1}.
+        Packed rows: segment_ids [B, T] (0 = pad, 1.. = document),
+        position_ids [B, T], query_positions [B, P]; `cls` is then
+        [B, P, H]. With `cls_only_final` the last layer computes only
+        the consumed positions."""
+        b, t = input_ids.shape
+        dev = input_ids.device
+        packed = segment_ids is not None
+        positions = (position_ids if position_ids is not None
+                     else torch.arange(t, device=dev)[None, :])
+        hidden = (self.word_embeddings(input_ids)
+                  + self.position_embeddings(positions))
+        if token_type_ids is None:
+            # single segment: every position embeds row 0 — broadcast it
+            hidden = hidden + self.token_type_embeddings.weight[0]
+        else:
+            hidden = hidden + self.token_type_embeddings(token_type_ids)
+        hidden = self.embeddings_ln(hidden)
+        dtype = hidden.dtype
+
+        if packed:
+            # block-diagonal: a key is allowed iff same nonzero document
+            same = segment_ids[:, :, None] == segment_ids[:, None, :]
+            allowed = same & (segment_ids[:, None, :] != 0)
+            bias = torch.where(allowed, 0.0, -1e9)[:, None]   # [B,1,T,T]
+        else:
+            bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
+        bias = bias.to(dtype)
+
+        qpos = query_positions if packed else None
+        for i in range(self.num_layers):
+            hidden = getattr(self, f"layer{i}")(
+                hidden, bias,
+                cls_only=cls_only_final and i == self.num_layers - 1,
+                query_positions=qpos)
+
+        if packed and query_positions is not None:
+            cls = hidden if cls_only_final else _take_rows(hidden,
+                                                           query_positions)
+        else:
+            cls = hidden[:, 0]
+        pooled = torch.tanh(self.pooler(cls))
+        return {"last_hidden_state": hidden, "cls": cls,
+                "pooler_output": pooled}
+
+
+class TextEncoder(nn.Module):
+    """BERT → embedding (CLS token, or tanh pooler with
+    use_pooler_output), with the optional projection + relu."""
+
+    def __init__(self, cfg, device, projection_dim: int = 0):
+        super().__init__()
+        for flag in ("fused_attn_out", "quantized_inference",
+                     "pre_layernorm", "flat_residual"):
+            if getattr(cfg, flag, False):
+                raise NotImplementedError(
+                    f"text_encoder.{flag} is not ported to the torch "
+                    f"package")
+        self.use_pooler_output = cfg.use_pooler_output
+        self.bert = BertEncoder(
+            cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+            cfg.intermediate_size, cfg.max_position_embeddings,
+            cfg.type_vocab_size, device,
+            fused_ffn=getattr(cfg, "fused_ffn", True))
+        self.projection = (Linear(cfg.hidden_size, projection_dim,
+                                  device=device)
+                           if projection_dim else None)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                query_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        out = self.bert(input_ids, attention_mask,
+                        token_type_ids=token_type_ids, cls_only_final=True,
+                        position_ids=position_ids, segment_ids=segment_ids,
+                        query_positions=query_positions)
+        emb = out["pooler_output"] if self.use_pooler_output else out["cls"]
+        if self.projection is not None:
+            emb = torch.relu(self.projection(emb))
+        return emb
+
+
+def create_text_encoder(cfg, device, projection_dim: int = 0) -> TextEncoder:
+    """cfg: the JAX package's TextEncoderConfig."""
+    return TextEncoder(cfg, device, projection_dim=projection_dim)

@@ -1,0 +1,37 @@
+"""CNN image encoder: ResNet-50 backbone + proj1 → relu → proj2, the
+counterpart of `multimodal_rare_disease_tpu/models/cnn_encoder.py`
+(resnet50 only; EfficientNet is not ported yet)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from multimodal_rare_disease_tpu_torch.models.layers import Linear
+from multimodal_rare_disease_tpu_torch.models.resnet import ResNet50Encoder
+
+
+class CNNEncoder(nn.Module):
+    def __init__(self, cfg, device):
+        """cfg: the JAX package's CNNEncoderConfig."""
+        super().__init__()
+        if cfg.backbone != "resnet50":
+            raise NotImplementedError(
+                f"backbone {cfg.backbone!r} is not ported to the torch "
+                f"package (resnet50 only)")
+        kw = {}
+        if cfg.stage_sizes is not None:
+            kw["stage_sizes"] = tuple(cfg.stage_sizes)
+        self.backbone = ResNet50Encoder(device, **kw)
+        feat = ResNet50Encoder.feature_dim()
+        self.proj1 = Linear(feat, cfg.embedding_dim, device=device)
+        self.proj2 = Linear(cfg.embedding_dim, cfg.embedding_dim,
+                            device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] normalized images → [B, embedding_dim]."""
+        return self.proj2(torch.relu(self.proj1(self.backbone(images))))
+
+
+def create_cnn_encoder(cfg, device) -> CNNEncoder:
+    return CNNEncoder(cfg, device)

@@ -1,0 +1,155 @@
+"""BERT text tower of the torch package (models/bert.py) against the JAX
+module on the same weights: classic rows, sequence-packed rows and the
+CLS-only last layer, in f32 on the CPU. The JAX side runs its classic
+XLA path, and its Pallas FFN kernel in interpret mode where the JAX
+package's own tests run it that way (FORCE_INTERPRET)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_rare_disease_tpu.config import resolve_config
+from multimodal_rare_disease_tpu.models.bert import create_text_encoder
+from multimodal_rare_disease_tpu.ops.pallas import ffn as jax_ffn_mod
+from multimodal_rare_disease_tpu_torch.inference.packing import pack_texts
+from multimodal_rare_disease_tpu_torch.models import bert as tbert
+from multimodal_rare_disease_tpu_torch.models.convert import (
+    state_dict_from_jax,
+)
+
+# f32 on the CPU, same weights and inputs: summation order, fast vs
+# two-pass LayerNorm variance and (interpret mode) the Pallas erf
+# polynomial (|err| <= 1.5e-7) against exact erf
+ATOL = 1e-5
+
+
+def _cfg(hidden=64, layers=2, ffn=128, **over):
+    return resolve_config("default", {
+        "text_encoder.num_layers": layers, "text_encoder.num_heads": 4,
+        "text_encoder.hidden_size": hidden,
+        "text_encoder.intermediate_size": ffn,
+        "text_encoder.vocab_size": 120,
+        "text_encoder.max_position_embeddings": 128, **over})
+
+
+def _randomize(tree, rng, scale=0.05):
+    """Perturb every leaf so biases / LayerNorm params are not 0 / 1."""
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + rng.normal(size=x.shape).astype(np.float32)
+        * scale, tree)
+
+
+def _pair(cfg, seed=0, t=16, fused_ffn=True):
+    jenc = create_text_encoder(cfg.text_encoder, dtype=jnp.float32)
+    ids = jnp.ones((1, t), jnp.int32)
+    params = jenc.init(jax.random.key(seed), ids, ids)["params"]
+    params = _randomize(params, np.random.default_rng(seed))
+    tcfg = cfg.text_encoder
+    if not fused_ffn:
+        from dataclasses import replace
+        tcfg = replace(tcfg, fused_ffn=False)
+    tenc = tbert.create_text_encoder(tcfg, "cpu")
+    tenc.load_state_dict(state_dict_from_jax(params), strict=True)
+    return jenc, {"params": params}, tenc.eval()
+
+
+def _batch(rng, b, t, vocab=120, lo=5):
+    lens = rng.integers(lo, t + 1, size=b)
+    ids = np.zeros((b, t), np.int32)
+    mask = np.zeros((b, t), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(1, vocab, size=n)
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a)).long()
+
+
+@pytest.fixture(params=[False, True], ids=["jax-xla", "jax-interpret"])
+def jax_interpret(request, monkeypatch):
+    monkeypatch.setattr(jax_ffn_mod, "FORCE_INTERPRET", request.param)
+    return request.param
+
+
+@pytest.mark.parametrize("fused_ffn", [True, False],
+                         ids=["k1-plain", "classic"])
+def test_classic_cls_embedding_matches_jax(jax_interpret, fused_ffn):
+    # H=128 / F=256 / M=B*T=64 is inside the JAX kernel's gate, so the
+    # interpret variant really runs the Pallas kernel in layers 0..L-2
+    cfg = _cfg(hidden=128, ffn=256)
+    jenc, v, tenc = _pair(cfg, seed=1, fused_ffn=fused_ffn)
+    ids, mask = _batch(np.random.default_rng(2), 4, 16)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = tenc(_t(ids), _t(mask)).numpy()
+    assert got.shape == ref.shape == (4, 128)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_full_sequence_and_cls_only_last_layer_match_jax():
+    cfg = _cfg()
+    jenc, v, tenc = _pair(cfg, seed=3)
+    ids, mask = _batch(np.random.default_rng(4), 3, 16)
+    _, jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask),
+                         output_hidden_states=True)  # full forward
+    with torch.no_grad():
+        full = tenc.bert(_t(ids), _t(mask), cls_only_final=False)
+        cls_only = tenc.bert(_t(ids), _t(mask), cls_only_final=True)
+    np.testing.assert_allclose(full["last_hidden_state"].numpy(),
+                               np.asarray(jout["last_hidden_state"]),
+                               atol=ATOL)
+    np.testing.assert_allclose(full["pooler_output"].numpy(),
+                               np.asarray(jout["pooler_output"]), atol=ATOL)
+    assert cls_only["last_hidden_state"].shape == (3, 1, 64)
+    np.testing.assert_allclose(cls_only["cls"].numpy(),
+                               np.asarray(jout["cls"]), atol=ATOL)
+
+
+def test_packed_rows_match_jax_and_unpacked(jax_interpret):
+    cfg = _cfg(hidden=128, ffn=256)
+    jenc, v, tenc = _pair(cfg, seed=5)
+    ids, mask = _batch(np.random.default_rng(6), 7, 40, lo=10)
+    pb = pack_texts(ids, mask, capacity=128)
+    kw = dict(position_ids=pb.position_ids, segment_ids=pb.segment_ids,
+              query_positions=pb.query_positions)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(pb.input_ids), None,
+                                **{k: jnp.asarray(a) for k, a in kw.items()}))
+    with torch.no_grad():
+        got = tenc(_t(pb.input_ids), None,
+                   **{k: _t(a) for k, a in kw.items()}).numpy()
+        unpacked = tenc(_t(ids), _t(mask)).numpy()
+    docs = (pb.doc_row, pb.doc_slot)
+    np.testing.assert_allclose(got[docs], ref[docs], atol=ATOL)
+    np.testing.assert_allclose(got[docs], unpacked, atol=ATOL)
+
+
+@pytest.mark.parametrize("pooler,proj", [(True, 0), (False, 16), (True, 16)])
+def test_pooler_and_projection_readouts_match_jax(pooler, proj):
+    cfg = _cfg(**{"text_encoder.use_pooler_output": pooler})
+    jenc = create_text_encoder(cfg.text_encoder, dtype=jnp.float32,
+                               projection_dim=proj)
+    ones = jnp.ones((1, 16), jnp.int32)
+    params = _randomize(jenc.init(jax.random.key(7), ones, ones)["params"],
+                        np.random.default_rng(7))
+    tenc = tbert.create_text_encoder(cfg.text_encoder, "cpu",
+                                     projection_dim=proj)
+    tenc.load_state_dict(state_dict_from_jax(params), strict=True)
+    ids, mask = _batch(np.random.default_rng(8), 3, 16)
+    ref = np.asarray(jenc.apply({"params": params}, jnp.asarray(ids),
+                                jnp.asarray(mask)))
+    with torch.no_grad():
+        got = tenc.eval()(_t(ids), _t(mask)).numpy()
+    assert got.shape == ref.shape == (3, proj or 64)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("flag", ["fused_attn_out", "quantized_inference",
+                                  "pre_layernorm", "flat_residual"])
+def test_unported_options_raise(flag):
+    cfg = _cfg(**{f"text_encoder.{flag}": True})
+    with pytest.raises(NotImplementedError):
+        tbert.create_text_encoder(cfg.text_encoder, "cpu")

@@ -1,0 +1,144 @@
+"""Assembled multimodal model of the torch package (models/classifier.py,
+fusion.py, convert.py) against the JAX MultimodalClassifier on the same
+weights: `forward` and `packed_forward` probabilities in f32 on the CPU,
+and the strict weight bridge."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_rare_disease_tpu.config import resolve_config
+from multimodal_rare_disease_tpu.models import create_model as jax_model
+from multimodal_rare_disease_tpu_torch.inference.packing import pack_texts
+from multimodal_rare_disease_tpu_torch.models.classifier import create_model
+from multimodal_rare_disease_tpu_torch.models.convert import (
+    state_dict_from_jax,
+)
+
+# f32 on the CPU, same weights and inputs: summation order through the
+# towers, fusion and head; probabilities are in [0, 1]
+ATOL = 1e-5
+
+
+def _cfg(**over):
+    return resolve_config("default", {
+        "text_encoder.num_layers": 2, "text_encoder.num_heads": 4,
+        "text_encoder.hidden_size": 64,
+        "text_encoder.intermediate_size": 128,
+        "text_encoder.vocab_size": 90,
+        "text_encoder.max_position_embeddings": 128,
+        "cnn_encoder.stage_sizes": (1, 1, 1, 1),
+        "cnn_encoder.embedding_dim": 32,
+        "fusion.hidden_dim": 32, "fusion.num_attention_heads": 4,
+        "data.image_size": 32, "training.compute_dtype": "float32", **over})
+
+
+def _randomize(variables, seed):
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        x = np.asarray(x)
+        noise = rng.normal(size=x.shape).astype(np.float32)
+        if path[-1].key == "var":
+            return (1.0 + 0.2 * np.abs(noise)).astype(np.float32)
+        return (x + 0.05 * noise).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _inputs(seed, n, t=40, lo=10):
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+    lens = rng.integers(lo, t + 1, size=n)
+    ids = np.zeros((n, t), np.int32)
+    mask = np.zeros((n, t), np.int32)
+    for i, k in enumerate(lens):
+        ids[i, :k] = rng.integers(1, 90, size=k)
+        mask[i, :k] = 1
+    return images, ids, mask
+
+
+def _pair(cfg, seed):
+    jm = jax_model(cfg, mode="multimodal")
+    images, ids, mask = _inputs(seed, 1)
+    v = jm.init(jax.random.key(seed), jnp.asarray(images), jnp.asarray(ids),
+                jnp.asarray(mask), train=False)
+    v = _randomize(v, seed)
+    tm = create_model(cfg, device="cpu", seed=None)
+    tm.load_state_dict(state_dict_from_jax(v["params"], v["batch_stats"]),
+                       strict=True)
+    return jm, v, tm
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "leaky_relu"])
+def test_forward_probs_match_jax(activation):
+    cfg = _cfg(**{"classifier.activation": activation})
+    jm, v, tm = _pair(cfg, 0)
+    images, ids, mask = _inputs(1, 5)
+    ref = jm.apply(v, jnp.asarray(images), jnp.asarray(ids),
+                   jnp.asarray(mask), train=False)
+    with torch.no_grad():
+        got = tm(_t(images), _t(ids).long(), _t(mask))
+    # logits are O(1-10) before the softmax squeezes them: f32 roundoff
+    # of the same sums in another order
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(ref["logits"]), atol=1e-4)
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(ref["probs"]), atol=ATOL)
+
+
+def test_packed_forward_probs_match_jax():
+    cfg = _cfg()
+    jm, v, tm = _pair(cfg, 2)
+    images, ids, mask = _inputs(3, 7)
+    pb = pack_texts(ids, mask, capacity=128)
+    args = (pb.input_ids, pb.position_ids, pb.segment_ids,
+            pb.query_positions, pb.doc_row, pb.doc_slot)
+    ref = jm.apply(v, jnp.asarray(images), *map(jnp.asarray, args),
+                   method="packed_forward")
+    with torch.no_grad():
+        got = tm.packed_forward(_t(images), *(_t(a).long() for a in args))
+        classic = tm(_t(images), _t(ids).long(), _t(mask))
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(ref["probs"]), atol=ATOL)
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               classic["probs"].numpy(), atol=ATOL)
+
+
+def test_weight_bridge_is_strict():
+    cfg = _cfg()
+    _, v, tm = _pair(cfg, 4)
+    sd = state_dict_from_jax(v["params"], v["batch_stats"])
+    assert set(sd) == set(tm.state_dict())
+    qkv = v["params"]["text_encoder"]["bert"]["layer0"]["attention"]["qkv"]
+    # flax [H, 3, h, d] → Linear [3*h*d, H]
+    np.testing.assert_array_equal(
+        sd["text_encoder.bert.layer0.attention.qkv.weight"].numpy(),
+        np.asarray(qkv["kernel"]).reshape(64, -1).T)
+    missing = dict(sd)
+    missing.pop("head.logits.bias")
+    with pytest.raises(RuntimeError):
+        tm.load_state_dict(missing, strict=True)
+    with pytest.raises(KeyError):
+        state_dict_from_jax({"head": {"logits": {"weird": np.zeros(3)}}})
+
+
+@pytest.mark.parametrize("over", [{"fusion.fusion_type": "gated"},
+                                  {"fusion.fusion_type": "concatenation"}])
+def test_unported_fusions_raise(over):
+    with pytest.raises(NotImplementedError):
+        create_model(_cfg(**over), device="cpu")
+
+
+def test_seeded_init_is_reproducible():
+    cfg = _cfg()
+    a = create_model(cfg, device="cpu", seed=7).state_dict()
+    b = create_model(cfg, device="cpu", seed=7).state_dict()
+    c = create_model(cfg, device="cpu", seed=8).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["head.logits.weight"], c["head.logits.weight"])

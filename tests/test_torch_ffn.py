@@ -1,0 +1,117 @@
+"""K1 of the torch package (kernels/ffn.py): the plain version against
+the JAX package's Pallas kernel run in interpret mode, the device rule
+on the CPU, and the kernel module's import on a machine with no nvcc and
+no triton. The CUDA kernel itself is checked against the plain version
+on the card by tests/test_torch_gpu.py and chip_smoke.py."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_rare_disease_tpu.ops.pallas.ffn import fused_ffn_ln as jax_ffn
+from multimodal_rare_disease_tpu_torch.kernels import ffn as k1
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _make(m, h, f, seed):
+    rng = np.random.default_rng(seed)
+    z = (rng.normal(size=(m, h)) * 0.5).astype(np.float32)
+    w1 = (rng.normal(size=(h, f)) * 0.05).astype(np.float32)
+    b1 = (rng.normal(size=(f,)) * 0.01).astype(np.float32)
+    w2 = (rng.normal(size=(f, h)) * 0.05).astype(np.float32)
+    b2 = (rng.normal(size=(h,)) * 0.01).astype(np.float32)
+    g = (1.0 + rng.normal(size=(h,)) * 0.05).astype(np.float32)
+    o = (rng.normal(size=(h,)) * 0.01).astype(np.float32)
+    g0 = (1.0 + rng.normal(size=(h,)) * 0.05).astype(np.float32)
+    o0 = (rng.normal(size=(h,)) * 0.01).astype(np.float32)
+    return z, (w1, b1, w2, b2, g, o), (g0, o0)
+
+
+def _t(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+@pytest.mark.parametrize("m,h,f,seed", [(32, 128, 256, 0),
+                                        (64, 256, 512, 1)])
+def test_plain_matches_interpreted_k1_f32(m, h, f, seed):
+    z, args, (g0, o0) = _make(m, h, f, seed)
+    ref = np.asarray(jax_ffn(jnp.asarray(z), *map(jnp.asarray, args),
+                             interpret=True, pre_gamma=jnp.asarray(g0),
+                             pre_beta=jnp.asarray(o0)))
+    got = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args), input_ln=True,
+                          pre_gamma=torch.from_numpy(g0),
+                          pre_beta=torch.from_numpy(o0)).numpy()
+    # f32: the Pallas kernel's erf polynomial (|err| <= 1.5e-7) against
+    # torch's exact erf, and summation order; the JAX kernel test's bound
+    np.testing.assert_allclose(got, ref, atol=5e-5)
+
+
+def test_plain_without_input_ln_matches_interpreted_k2_f32():
+    z, args, _ = _make(64, 128, 256, 2)
+    ref = np.asarray(jax_ffn(jnp.asarray(z), *map(jnp.asarray, args),
+                             interpret=True))
+    got = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args),
+                          input_ln=False).numpy()
+    # same bound as above: erf polynomial vs exact erf
+    np.testing.assert_allclose(got, ref, atol=5e-5)
+
+
+def test_cpu_tensor_takes_the_plain_path_and_launches_nothing():
+    z, args, (g0, o0) = _make(37, 128, 256, 3)
+    launches, plain_on_cuda = k1.LAUNCHES, k1.PLAIN_ON_CUDA
+    got = k1.fused_ffn_ln(torch.from_numpy(z), *_t(args),
+                          pre_gamma=torch.from_numpy(g0),
+                          pre_beta=torch.from_numpy(o0))
+    want = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args), input_ln=True,
+                           pre_gamma=torch.from_numpy(g0),
+                           pre_beta=torch.from_numpy(o0))
+    assert torch.equal(got, want)  # the same function on the same inputs
+    assert (k1.LAUNCHES, k1.PLAIN_ON_CUDA) == (launches, plain_on_cuda)
+
+
+def test_fusible_gate_follows_the_cuda_tiling():
+    bf = torch.bfloat16
+    # any row count: the kernel masks its ragged 32-row tile
+    assert all(k1.ffn_ln_fusible(m, 768, 3072, bf) for m in (1, 31, 37, 24576))
+    assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
+    assert not k1.ffn_ln_fusible(64, 512, 3072, bf)      # built for H=768
+    assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
+    assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float32)
+
+
+def test_kernel_module_imports_without_nvcc_or_triton(tmp_path):
+    code = (
+        "import sys\n"
+        "from multimodal_rare_disease_tpu_torch.kernels import build, ffn\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert build.sources(), 'no CUDA sources found'\n"
+        "try:\n"
+        "    build.find_nvcc()\n"
+        "except build.KernelBuildError:\n"
+        "    print('no-nvcc')\n"
+        "else:\n"
+        "    print('nvcc')\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = str(tmp_path)  # nothing on PATH
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not Path("/usr/local/cuda/bin/nvcc").is_file():
+        assert out.stdout.strip() == "no-nvcc"
+
+
+def test_build_is_keyed_by_the_sources():
+    from multimodal_rare_disease_tpu_torch.kernels import build
+
+    p = build.library_path()
+    assert p.name == build.LIB_NAME
+    assert p.parent.parent == build.BUILD_DIR
+    assert any(s.name == "ffn_ln.cu" for s in build.sources())
