@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch package's serving path once on one NVIDIA Hopper card.
+"""Drive the torch package's serving paths once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -13,17 +13,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
    on the card, bf16, at M = 1, 37, 4096 and the packed B=256 row count,
    with f32 and with bf16 bias/LayerNorm vectors; and that the check
    fails for a kernel that drops any one of the six vectors;
-4. the full-width default model (ResNet-50 224 px, BERT-base 12x768,
-   attention fusion, head) from seeded weights in bf16: `predict_batch`
-   on 256 (image, clinical text) pairs through the packed path, with K1
-   launched once per BERT layer and never bypassed; the same batch with
-   the kernel forced off, and with the f32 compute dtype as the reference;
+3b. the same for K2 (the FFN kernel without its input LayerNorm) and K3
+   (the fused attention-output + LayerNorm kernel), which read bf16
+   vectors only (f32 ones go through the counted gate, checked here too),
+   and K4 (the fused uint8 normalize) on 256 images of 256 px and on a
+   ragged batch, in f32 and bf16;
+4. the default path: the full-width model (ResNet-50 224 px, BERT-base
+   12x768, attention fusion, head) from seeded weights in bf16:
+   `predict_batch` on 256 (image, clinical text) pairs through the packed
+   path, with K1 launched once per BERT layer and never bypassed; the
+   same batch with the kernel forced off, and with the f32 compute dtype
+   as the reference;
 5. serving: the predictor behind the MicroBatcher, 8 concurrent requests
    and 3 single ones, answered with the JSON contract;
 6. times: p50 of `predict_batch` at B=256, and K1 against the plain
-   version per layer at the packed row count.
+   version per layer at the packed row count;
+7. the fused-sublayer path: the same model and batch under
+   text_encoder.fused_attn_out with images at image_size 256, where every
+   layer but the CLS-only last one takes K3 then K2, the last one K1, and
+   the images K4; held against every kernel forced off and against the
+   f32 model; then once more behind the MicroBatcher;
+8. times of that path: p50 of `predict_batch`, and K2, K3 and K4 against
+   their plain versions at its shapes, beside each kernel's bound; K4
+   also against the one PyTorch call that computes it (addcmul into a
+   bf16 tensor).
 
-Then one JSON line describing each kernel, and last
+Then the card's name and power limit, one JSON line describing each
+kernel, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -36,31 +52,46 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# K1 bf16 tolerances. Both versions round x = LN0(z), the GELU chunk and
-# y to bf16 from f32 sums taken in another order, so an element may land
-# one bf16 ulp apart: 1.6e-2 at |y| in [2, 4), 3.1e-2 in [4, 8). The phase
-# 3 inputs keep |y| under 8. Max: the bound of the JAX package's bf16
-# kernel test (tests/test_ffn_kernel.py). Mean: such flips are rare; an
-# H100 read 3e-7 to 3.3e-6 (PERF.md), and the bound is 1e-4, 1/78 of an
-# ulp at |y| in [1, 2). Dropping any one bias or LayerNorm vector moves
-# the output by 0.1 or more on average, which phase 3 checks on the card.
-K1_ATOL = 5e-2
-K1_MEAN_ATOL = 1e-4
+# K1-K3 bf16 tolerances. Both versions round the kernel's bf16
+# intermediates and y from f32 sums taken in another order, so an element
+# may land one bf16 ulp apart: 1.6e-2 at |y| in [2, 4), 3.1e-2 in [4, 8).
+# The phase 3 inputs keep |y| under 8. Max: the bound of the JAX package's
+# bf16 kernel tests (tests/test_ffn_kernel.py, test_attn_out_kernel.py).
+# Mean: such flips are rare; an H100 read 3e-7 to 3.3e-6 for K1 (PERF.md),
+# and the bound is 1e-4, 1/78 of an ulp at |y| in [1, 2). Dropping any one
+# bias, LayerNorm vector or the residual moves the output by 0.1 or more
+# on average, which phases 3 and 3b check on the card.
+ROW_ATOL = 5e-2
+ROW_MEAN_ATOL = 1e-4
+# K4: the kernel rounds the product and the sum to f32 as the plain
+# version does. f32: equal up to one rounding (the JAX package's compiled
+# vs XLA bound, tests/test_tpu_kernels.py); bf16: one ulp at |y| < 4
+# (the outputs lie in [-2.2, 2.7]); such flips are rare, so the mean is
+# held to 1e-4 as well.
+K4_ATOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
+K4_MEAN_ATOL = 1e-4
 # Probabilities. The top-k contract (BASELINE.md) is 1e-3, but bf16's own
 # noise is above it for these seeded weights: one ulp of a bf16 logit in
 # [2, 4) is 1.6e-2, i.e. up to 3.9e-3 of probability, and sub-ulp order
 # differences anywhere flip such roundings from layer to layer. On an
 # H100 the kernel read 1.669e-3 from the kernel-off run and 1.95e-3 from
 # the f32 model, where the kernel-off run itself reads 1.937e-3 (PERF.md).
-# Fixed limits: those readings with about half again of margin.
+# Fixed limits: those readings with about half again of margin. Phase 7
+# holds the fused-sublayer path to the same limits.
 PROB_ATOL_PLAIN = 2.5e-3
 PROB_ATOL_F32 = 3e-3
 BATCH = 256
 TIMED_RUNS = 10
+# published H100 SXM peaks at 700 W (NVIDIA's data sheet): dense bf16
+# tensor-core rate, f32 rate outside the tensor cores, HBM3 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -76,25 +107,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def requests(n: int, seed: int):
-    """n seeded (uint8 256-px image, clinical text) pairs."""
-    import numpy as np
-
-    from multimodal_rare_disease_tpu.config import SYNDROME_NAMES
-    from multimodal_rare_disease_tpu.data.clinical_text import (
-        ClinicalTextAugmenter,
-        _builtin_descriptions,
-    )
-
-    rng = np.random.default_rng(seed)
-    aug = ClinicalTextAugmenter(_builtin_descriptions(),
-                                rng=np.random.default_rng(seed + 1))
-    images = list(rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8))
-    texts = [aug.augment(SYNDROME_NAMES[i % len(SYNDROME_NAMES)],
-                         aug.random_level()) for i in range(n)]
-    return images, texts
-
-
 def probs_of(results, class_names):
     import numpy as np
 
@@ -102,16 +114,70 @@ def probs_of(results, class_names):
                      for r in results], np.float64)
 
 
-def run_plain_ffn(pred, images, texts):
-    """Probabilities of one batch with K1 forced off (the on-card
-    reference of the kernel-off model)."""
-    from multimodal_rare_disease_tpu_torch.kernels import ffn as k1
+def kernel_modules():
+    from multimodal_rare_disease_tpu_torch.kernels import attn_out, ffn, image
 
-    k1.FORCE_PLAIN = True
+    return ffn, attn_out, image
+
+
+@contextmanager
+def plain_kernels():
+    """Every kernel forced off: the on-card reference of the kernel-off
+    model."""
+    mods = kernel_modules()
+    for mod in mods:
+        mod.FORCE_PLAIN = True
     try:
-        return probs_of(pred.predict_batch(images, texts), pred.class_names)
+        yield
     finally:
-        k1.FORCE_PLAIN = False
+        for mod in mods:
+            mod.FORCE_PLAIN = False
+
+
+def launch_counts():
+    """(K1, K2, K3, K4 launches, calls the gates sent to plain on CUDA)."""
+    ffn, attn_out, image = kernel_modules()
+    return {"K1": ffn.LAUNCHES_K1, "K2": ffn.LAUNCHES_K2,
+            "K3": attn_out.LAUNCHES, "K4": image.LAUNCHES,
+            "plain_on_cuda": (ffn.PLAIN_ON_CUDA + attn_out.PLAIN_ON_CUDA
+                              + image.PLAIN_ON_CUDA)}
+
+
+def reset_counts():
+    ffn, attn_out, image = kernel_modules()
+    ffn.LAUNCHES_K1 = ffn.LAUNCHES_K2 = ffn.PLAIN_ON_CUDA = 0
+    attn_out.LAUNCHES = attn_out.PLAIN_ON_CUDA = 0
+    image.LAUNCHES = image.PLAIN_ON_CUDA = 0
+
+
+def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def ffn_bound(m: int, h: int, f: int, vec_bytes: int, input_ln: bool):
+    """K1/K2: x in and y out [m, h] bf16, W1 and W2 bf16, the vectors;
+    the two products in bf16 on the tensor cores (the f32 GELU and
+    LayerNorm work, under 5% of it, is left out)."""
+    n_vec = f + (5 if input_ln else 3) * h
+    return bound_ms(2 * 2 * m * h + 2 * 2 * h * f + vec_bytes * n_vec,
+                    4.0 * m * h * f, PEAK_BF16_FLOPS)
+
+
+def attn_out_bound(m: int, h: int, vec_bytes: int):
+    """K3: ctx and x in, y out [m, h] bf16, Wo bf16, three vectors; the
+    product in bf16 on the tensor cores."""
+    return bound_ms(3 * 2 * m * h + 2 * h * h + vec_bytes * 3 * h,
+                    2.0 * m * h * h, PEAK_BF16_FLOPS)
+
+
+def normalize_bound(n: int, out_bytes: int):
+    """K4: n uint8 in, n outputs; a multiply and an add in f32 each."""
+    return bound_ms(n * (1 + out_bytes), 2.0 * n, PEAK_F32_FLOPS)
 
 
 def main() -> int:
@@ -129,17 +195,20 @@ def main() -> int:
         fail(f"the torch package was imported from {port.__file__}, not "
              f"from this checkout")
 
-    from multimodal_rare_disease_tpu.cli.serve import MicroBatcher
-    from multimodal_rare_disease_tpu.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.cli.serve import MicroBatcher
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
     from multimodal_rare_disease_tpu_torch.inference.predictor import (
         MultimodalPredictor,
     )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests as requests,
+    )
     from multimodal_rare_disease_tpu_torch.kernels import build
-    from multimodal_rare_disease_tpu_torch.kernels import ffn as k1
     from multimodal_rare_disease_tpu_torch.models.classifier import (
         create_model,
     )
 
+    k1, k3, k4 = kernel_modules()  # k1 holds K1 and K2
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -160,12 +229,14 @@ def main() -> int:
             (lib_path.parent / "ptxas.log").read_text().splitlines()
             if "registers" in ln]
     print(f"[2 build] {lib_path.relative_to(HERE)} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{build.last_build_seconds:.2f} s) | smem/block "
-          f"{lib.mrd_ffn_smem_bytes()} B | "
+          f"{time.perf_counter() - t0:.2f} s (nvcc, one per source in "
+          f"parallel, {build.last_build_seconds:.2f} s) | smem/block FFN "
+          f"{lib.mrd_ffn_smem_bytes()} B, attn-out "
+          f"{lib.mrd_attn_out_smem_bytes()} B | "
           f"{'; '.join(regs) or 'no ptxas report'}")
 
-    # the serving batch, prepared first so phase 3 tests K1 at its row count
+    # the serving batch, prepared first so phase 3 tests the kernels at
+    # its row count
     cfg = resolve_config("default")
     images, texts = requests(BATCH, seed=0)
     t0 = time.perf_counter()
@@ -179,163 +250,262 @@ def main() -> int:
     rows, cap_tokens = packed[0].shape
     packed_m = rows * cap_tokens
 
-    # ---- 3. K1 against the plain version on the card
     gen = torch.Generator().manual_seed(1)
 
     def rnd(shape, scale, offset=0.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen) * scale + offset).to(
             dev, dtype)
 
-    h, f = cfg.text_encoder.hidden_size, cfg.text_encoder.intermediate_size
-    bf = torch.bfloat16
-    w1, w2 = rnd((h, f), 0.05, dtype=bf), rnd((f, h), 0.05, dtype=bf)
-    # biases and shifts at the scale of the signal, LayerNorm scales at
-    # 1 +- 0.25: every term moves the output well past the tolerances
-    vec = dict(b1=rnd((f,), 0.5), b2=rnd((h,), 0.5),
-               gamma=rnd((h,), 0.25, 1.0), beta=rnd((h,), 0.5),
-               pre_gamma=rnd((h,), 0.25, 1.0), pre_beta=rnd((h,), 0.5))
-
-    def call(fn, z, v):
-        return fn(z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"],
-                  pre_gamma=v["pre_gamma"], pre_beta=v["pre_beta"])
-
-    def ffn(fn, z, v):
-        out = call(fn, z, v)
-        torch.cuda.synchronize()
-        return out.float()
-
     def diff(got, want):
         d = (got - want).abs()
         return d.max().item(), d.mean().item()
 
     def within(err):
-        return err[0] <= K1_ATOL and err[1] <= K1_MEAN_ATOL
+        return err[0] <= ROW_ATOL and err[1] <= ROW_MEAN_ATOL
 
-    errs = {}
-    for m in (1, 37, 4096, packed_m):
-        z = rnd((m, h), 1.0, dtype=bf)
-        got = ffn(k1.fused_ffn_ln, z, vec)
-        if not torch.isfinite(got).all():
-            fail(f"K1 output not finite at M={m}")
-        want = ffn(k1.ffn_ln_plain, z, vec)
-        errs[f"M={m}"] = diff(got, want)
-        if m == 4096:
-            z_4k, want_4k = z, want
-    # the model's own case: the vectors of a bf16 model are bf16
-    vec_bf = {k: v.to(bf) for k, v in vec.items()}
-    errs[f"M={packed_m}, bf16 vectors"] = diff(
-        ffn(k1.fused_ffn_ln, z, vec_bf), ffn(k1.ffn_ln_plain, z, vec_bf))
-    k1_err = max(e[0] for e in errs.values())
-    # a kernel that dropped a term: the kernel given the term's neutral
-    # value, held against the plain version given the real one
-    dropped = {}
-    for name, v in vec.items():
-        neutral = torch.ones_like(v) if "gamma" in name else torch.zeros_like(v)
-        dropped[name] = diff(ffn(k1.fused_ffn_ln, z_4k, {**vec, name: neutral}),
-                             want_4k)
-    print("[3 K1 vs plain] max|diff| / mean|diff| " + ", ".join(
-        f"{k}: {e[0]:.3e} / {e[1]:.3e}" for k, e in errs.items()) +
-        f" (bf16, tolerance {K1_ATOL} / {K1_MEAN_ATOL}) | a kernel that "
-        f"drops a vector reads, at M=4096: " + ", ".join(
-            f"{k} {e[0]:.3e} / {e[1]:.3e}" for k, e in dropped.items()))
-    for k, e in errs.items():
-        if not within(e):
-            fail(f"K1 disagrees with its plain version at {k}: {e}")
-    for k, e in dropped.items():
-        if within(e):
-            fail(f"the K1 check passes a kernel that drops {k}: {e}")
+    def neutral(name, v):
+        return torch.ones_like(v) if "gamma" in name else torch.zeros_like(v)
 
-    # ---- 4. the full-width model through the main path
+    def fmt(errs):
+        return ", ".join(f"{k}: {e[0]:.3e} / {e[1]:.3e}"
+                         for k, e in errs.items())
+
+    # ---- 3. K1 against the plain version on the card
+    h, f = cfg.text_encoder.hidden_size, cfg.text_encoder.intermediate_size
+    bf = torch.bfloat16
+    # drawn in nn.Linear's [out, in] and passed as [in, out] views, as
+    # BertLayer passes them: the wrappers then copy no weight
+    w1, w2 = rnd((f, h), 0.05, dtype=bf).t(), rnd((h, f), 0.05, dtype=bf).t()
+    # biases and shifts at the scale of the signal, LayerNorm scales at
+    # 1 +- 0.25: every term moves the output well past the tolerances
+    vec = dict(b1=rnd((f,), 0.5), b2=rnd((h,), 0.5),
+               gamma=rnd((h,), 0.25, 1.0), beta=rnd((h,), 0.5),
+               pre_gamma=rnd((h,), 0.25, 1.0), pre_beta=rnd((h,), 0.5))
+    # K2 and K3 read bf16 vectors only, as the model passes them
+    k2_vec = {k: vec[k].to(bf) for k in ("b1", "b2", "gamma", "beta")}
+
+    def call(fn, z, v):
+        """K1 (v has pre_gamma) or K2 through `fn`, synchronized, f32."""
+        ln0 = {k: v[k] for k in ("pre_gamma", "pre_beta") if k in v}
+        if fn is k1.ffn_ln_plain:
+            ln0["input_ln"] = bool(ln0)
+        out = fn(z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"], **ln0)
+        torch.cuda.synchronize()
+        return out.float()
+
+    def check_rows(name, kern, plain, make, vecs, dropped_of):
+        """A row kernel against its plain version at the phase-3 row
+        counts with `vecs` (and bf16 ones, where `vecs` are f32), and the
+        check's failure for a kernel that drops a term; returns (worst
+        max|diff|, line)."""
+        errs = {}
+        for m in (1, 37, 4096, packed_m):
+            args = make(m)
+            got = kern(*args, vecs)
+            if not torch.isfinite(got).all():
+                fail(f"{name} output not finite at M={m}")
+            errs[f"M={m}"] = diff(got, plain(*args, vecs))
+            if m == 4096:
+                args_4k, want_4k = args, plain(*args, vecs)
+        if any(v.dtype != bf for v in vecs.values()):
+            vecs_bf = {k: v.to(bf) for k, v in vecs.items()}
+            errs[f"M={packed_m}, bf16 vectors"] = diff(
+                kern(*args, vecs_bf), plain(*args, vecs_bf))
+        dropped = {term: diff(kern(*dropped_args, dropped_vecs), want_4k)
+                   for term, (dropped_args, dropped_vecs)
+                   in dropped_of(args_4k, vecs).items()}
+        for k, e in errs.items():
+            if not within(e):
+                fail(f"{name} disagrees with its plain version at {k}: {e}")
+        for k, e in dropped.items():
+            if within(e):
+                fail(f"the {name} check passes a kernel that drops {k}: {e}")
+        vec_types = sorted({str(v.dtype).split(".")[1]
+                            for v in vecs.values()})
+        return max(e[0] for e in errs.values()), (
+            f"{name} max|diff| / mean|diff| {fmt(errs)} (bf16, "
+            f"{'/'.join(vec_types)} vectors, tolerance "
+            f"{ROW_ATOL} / {ROW_MEAN_ATOL}) | a kernel that drops a term "
+            f"reads, at M=4096: {fmt(dropped)}")
+
+    def drop_vectors(args, vecs):
+        # a kernel that dropped a term: the kernel given the term's
+        # neutral value, held against the plain version given the real one
+        return {k: (args, {**vecs, k: neutral(k, v)})
+                for k, v in vecs.items()}
+
+    def make_z(m):
+        return (rnd((m, h), 1.0, dtype=bf),)
+
+    k1_err, line = check_rows("K1", lambda z, v: call(k1.fused_ffn_ln, z, v),
+                              lambda z, v: call(k1.ffn_ln_plain, z, v),
+                              make_z, vec, drop_vectors)
+    print(f"[3 K1 vs plain] {line}")
+
+    # ---- 3b. K2, K3 and K4 against their plain versions on the card
+    k2_err, line2 = check_rows(
+        "K2", lambda z, v: call(k1.fused_ffn_ln, z, v),
+        lambda z, v: call(k1.ffn_ln_plain, z, v), make_z, k2_vec,
+        drop_vectors)
+    wo = rnd((h, h), 0.05, dtype=bf).t()  # a view of [out, in], as above
+    k3_vec = dict(bo=rnd((h,), 0.5, dtype=bf),
+                  gamma=rnd((h,), 0.25, 1.0, dtype=bf),
+                  beta=rnd((h,), 0.5, dtype=bf))
+
+    def attn(fn, ctx, x, v):
+        out = fn(ctx, x, wo, v["bo"], v["gamma"], v["beta"])
+        torch.cuda.synchronize()
+        return out.float()
+
+    def drop_k3(args, vecs):
+        out = drop_vectors(args, vecs)
+        out["x"] = ((args[0], torch.zeros_like(args[1])), vecs)
+        return out
+
+    k3_err, line3 = check_rows(
+        "K3", lambda c, x, v: attn(k3.fused_attn_out_ln, c, x, v),
+        lambda c, x, v: attn(k3.attn_out_ln_plain, c, x, v),
+        lambda m: (rnd((m, h), 1.0, dtype=bf), rnd((m, h), 1.0, dtype=bf)),
+        k3_vec, drop_k3)
+    # f32 vectors: outside K2's and K3's gate, so the plain version,
+    # counted in PLAIN_ON_CUDA, and no launch
+    reset_counts()
+    call(k1.fused_ffn_ln, make_z(37)[0],
+         {k: v.float() for k, v in k2_vec.items()})
+    attn(k3.fused_attn_out_ln, *make_z(37), *make_z(37),
+         {k: v.float() for k, v in k3_vec.items()})
+    gate = launch_counts()
+    if gate != {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 2}:
+        fail(f"K2 and K3 with f32 vectors: counts {gate}, want the gate's "
+             f"two plain calls and no launch")
+    k4_errs = {}
+    u8_full = None
+    for shape in ((BATCH, 256, 256, 3), (3, 37, 41, 3)):
+        u = torch.randint(0, 256, shape, generator=gen,
+                          dtype=torch.uint8).to(dev)
+        u8_full = u8_full if u8_full is not None else u
+        for dt in (torch.float32, bf):
+            name = str(dt).split(".")[1]
+            got = k4.fused_normalize_u8(u, dt)
+            torch.cuda.synchronize()
+            if got.dtype != dt or got.shape != u.shape:
+                fail(f"K4 returned {got.dtype} {tuple(got.shape)}")
+            e = diff(got.float(), k4.normalize_u8_plain(u, dt).float())
+            k4_errs[f"{list(shape)} {name}"] = e
+            if e[0] > K4_ATOL[name] or e[1] > K4_MEAN_ATOL:
+                fail(f"K4 disagrees with its plain version at {shape} "
+                     f"{name}: {e}")
+    k4_err = max(e[0] for e in k4_errs.values())
+    print(f"[3b K2, K3, K4 vs plain] {line2} || {line3} || K4 max|diff| / "
+          f"mean|diff| {fmt(k4_errs)} (tolerance f32 {K4_ATOL['float32']}, "
+          f"bf16 {K4_ATOL['bfloat16']}; mean {K4_MEAN_ATOL})")
+
+    # ---- 4. the full-width model through the default path
     n_layers = cfg.text_encoder.num_layers
-    k1.LAUNCHES = 0
-    k1.PLAIN_ON_CUDA = 0
+    reset_counts()
     res = pred.predict_batch(images, texts)
-    launches_main, plain_main = k1.LAUNCHES, k1.PLAIN_ON_CUDA
+    main4 = launch_counts()
     if pred.packed_calls < 1:
         fail("the batch did not take the packed path")
-    if launches_main != n_layers or plain_main != 0:
-        fail(f"K1 launches {launches_main} (want {n_layers}), plain on "
-             f"CUDA {plain_main} (want 0)")
+    if main4 != {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
+                 "plain_on_cuda": 0}:
+        fail(f"default path launches {main4} (want K1 {n_layers} and "
+             f"nothing else)")
     probs = probs_of(res, pred.class_names)
     if probs.shape != (BATCH, cfg.num_classes) or not np.isfinite(probs).all():
         fail(f"bad probabilities: shape {probs.shape}")
     if np.abs(probs.sum(1) - 1.0).max() > 1e-3:
         fail("probabilities do not sum to 1")
-    probs_plain = run_plain_ffn(pred, images, texts)
-    # the f32 reference: the same seeded weights with the f32 compute
-    # dtype on the card, FFN in plain f32 (K1 is bf16-only), cuDNN
-    # convolutions without TF32
-    cfg32 = resolve_config("default", {"training.compute_dtype": "float32"})
-    ref = MultimodalPredictor(
-        cfg32, create_model(cfg32, device="cpu", seed=0), dev)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        probs_ref = run_plain_ffn(ref, images, texts)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    del ref
-    d_kp = float(np.abs(probs - probs_plain).max())
-    d_kr = float(np.abs(probs - probs_ref).max())
-    d_pr = float(np.abs(probs_plain - probs_ref).max())
-    top1 = int((probs.argmax(1) == probs_plain.argmax(1)).sum())
+
+    def reference_probs(p, over):
+        """The kernel-off run of `p`, and the same seeded weights under
+        the f32 compute dtype on the card (FFN in plain f32: the kernels
+        are bf16-only; cuDNN convolutions without TF32)."""
+        with plain_kernels():
+            plain = probs_of(p.predict_batch(images, texts), p.class_names)
+            cfg32 = resolve_config("default", {
+                **over, "training.compute_dtype": "float32"})
+            ref = MultimodalPredictor(
+                cfg32, create_model(cfg32, device="cpu", seed=0), dev)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                f32 = probs_of(ref.predict_batch(images, texts),
+                               p.class_names)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+        return plain, f32
+
+    def agreement(tag, p, probs, over):
+        probs_plain, probs_ref = reference_probs(p, over)
+        d_kp = float(np.abs(probs - probs_plain).max())
+        d_kr = float(np.abs(probs - probs_ref).max())
+        d_pr = float(np.abs(probs_plain - probs_ref).max())
+        top1 = int((probs.argmax(1) == probs_plain.argmax(1)).sum())
+        top1_ref = int((probs.argmax(1) == probs_ref.argmax(1)).sum())
+        line = (f"max|dprob| kernels vs plain {d_kp:.3e} (tolerance "
+                f"{PROB_ATOL_PLAIN}), kernels vs f32 {d_kr:.3e} (tolerance "
+                f"{PROB_ATOL_F32}), plain vs f32 {d_pr:.3e}; top-1 kernels = "
+                f"plain in {top1}/{BATCH} rows, = f32 in {top1_ref}/{BATCH}")
+        if d_kp > PROB_ATOL_PLAIN:
+            fail(f"{tag}: kernel and plain probabilities differ by {d_kp}")
+        if d_kr > PROB_ATOL_F32:
+            fail(f"{tag}: kernel path is {d_kr} from the f32 reference")
+        return line
+
+    line4 = agreement("default path", pred, probs, {})
     print(f"[4 model] B={BATCH} packed into {rows}x{cap_tokens} tokens "
           f"(M={packed_m}), classic {ids.shape}; built in {build_s:.1f} s; "
-          f"K1 launches {launches_main}/forward, plain-on-CUDA {plain_main};"
-          f" max|dprob| kernel vs plain {d_kp:.3e} (tolerance "
-          f"{PROB_ATOL_PLAIN}), kernel vs f32 {d_kr:.3e} (tolerance "
-          f"{PROB_ATOL_F32}), plain vs f32 {d_pr:.3e}; top-1 kernel = plain "
-          f"in {top1}/{BATCH} rows")
-    if d_kp > PROB_ATOL_PLAIN:
-        fail(f"kernel and plain probabilities differ by {d_kp}")
-    if d_kr > PROB_ATOL_F32:
-        fail(f"kernel path is {d_kr} from the f32 reference")
+          f"launches {main4}; {line4}")
 
     # ---- 5. serving through the MicroBatcher
-    k1.LAUNCHES = 0
-    k1.PLAIN_ON_CUDA = 0
-    classic0 = pred.classic_calls
-    batcher = MicroBatcher(pred, window_ms=20.0)
-    try:
-        s_images, s_texts = requests(11, seed=2)
-        with ThreadPoolExecutor(8) as ex:
-            futs = [ex.submit(batcher.submit, s_images[i], s_texts[i], 3)
-                    for i in range(8)]
-            answers = [fu.result(timeout=300) for fu in futs]
-        for i in range(8, 11):
-            answers.append(batcher.submit(s_images[i], s_texts[i], 3))
-        calls = batcher.batch_calls
-    finally:
-        batcher.close()
-    launches_serve, plain_serve = k1.LAUNCHES, k1.PLAIN_ON_CUDA
-    for a in answers:
-        if set(a) != {"predictions", "top_prediction", "all_probabilities"} \
-                or len(a["predictions"]) != 3 \
-                or a["top_prediction"] != a["predictions"][0]:
-            fail(f"answer breaks the JSON contract: {a}")
-    if pred.classic_calls <= classic0:
-        fail("single requests did not take the classic path")
-    if calls >= len(answers):
-        fail(f"{calls} forwards for {len(answers)} requests: no batching")
-    if launches_serve != n_layers * calls or plain_serve != 0:
-        fail(f"serving: K1 launches {launches_serve} for {calls} forwards")
-    print(f"[5 serving] {len(answers)} requests in {calls} forwards, "
-          f"K1 launches {launches_serve}, plain-on-CUDA {plain_serve}, "
-          f"classic calls {pred.classic_calls - classic0}")
+    def serve(p, n_concurrent=8, n_single=3):
+        reset_counts()
+        classic0 = p.classic_calls
+        batcher = MicroBatcher(p, window_ms=20.0)
+        try:
+            s_images, s_texts = requests(n_concurrent + n_single, seed=2)
+            with ThreadPoolExecutor(n_concurrent) as ex:
+                futs = [ex.submit(batcher.submit, s_images[i], s_texts[i], 3)
+                        for i in range(n_concurrent)]
+                answers = [fu.result(timeout=300) for fu in futs]
+            for i in range(n_concurrent, n_concurrent + n_single):
+                answers.append(batcher.submit(s_images[i], s_texts[i], 3))
+            calls = batcher.batch_calls
+        finally:
+            batcher.close()
+        for a in answers:
+            if set(a) != {"predictions", "top_prediction",
+                          "all_probabilities"} \
+                    or len(a["predictions"]) != 3 \
+                    or a["top_prediction"] != a["predictions"][0]:
+                fail(f"answer breaks the JSON contract: {a}")
+        if p.classic_calls <= classic0:
+            fail("single requests did not take the classic path")
+        if calls >= len(answers):
+            fail(f"{calls} forwards for {len(answers)} requests: no batching")
+        return len(answers), calls, p.classic_calls - classic0, \
+            launch_counts()
+
+    n_ans, calls, n_classic, serve5 = serve(pred)
+    if serve5 != {"K1": n_layers * calls, "K2": 0, "K3": 0, "K4": 0,
+                  "plain_on_cuda": 0}:
+        fail(f"serving: launches {serve5} for {calls} forwards")
+    print(f"[5 serving] {n_ans} requests in {calls} forwards, launches "
+          f"{serve5}, classic calls {n_classic}")
 
     # ---- 6. times
-    for _ in range(2):
-        pred.predict_batch(images, texts)
-    lat = []
-    for _ in range(TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pred.predict_batch(images, texts)  # ends in a device→host copy
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    p50 = float(np.median(lat))
-
-    z = rnd((packed_m, h), 1.0, dtype=bf)
+    def p50_ms(p):
+        for _ in range(2):
+            p.predict_batch(images, texts)
+        lat = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.predict_batch(images, texts)  # ends in a device→host copy
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(lat)), lat
 
     def per_call_ms(fn, n=20):
         fn()
@@ -349,37 +519,151 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
-    # the vectors in bf16, as the model passes them
-    def run_kernel():
-        return call(k1.fused_ffn_ln, z, vec_bf)
+    def in_turns(kernel, plain):
+        """(kernel ms, plain ms, the four runs) in turns plain, kernel,
+        kernel, plain."""
+        plain_a, kern_a = per_call_ms(plain), per_call_ms(kernel)
+        kern_b, plain_b = per_call_ms(kernel), per_call_ms(plain)
+        return ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2,
+                f"runs {plain_a:.3f} {kern_a:.3f} {kern_b:.3f} {plain_b:.3f}")
 
-    def run_plain():
-        return call(k1.ffn_ln_plain, z, vec_bf)
+    p50, lat = p50_ms(pred)
+    z = rnd((packed_m, h), 1.0, dtype=bf)
+    vec_bf = {k: v.to(bf) for k, v in vec.items()}  # as the model passes them
 
-    plain_a, kern_a = per_call_ms(run_plain), per_call_ms(run_kernel)
-    kern_b, plain_b = per_call_ms(run_kernel), per_call_ms(run_plain)
-    k1_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    def ffn_args(v):
+        ln0 = {k: v[k] for k in ("pre_gamma", "pre_beta") if k in v}
+        return (z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"]), ln0
+
+    a1, ln0 = ffn_args(vec_bf)
+    k1_ms, k1_plain_ms, k1_runs = in_turns(
+        lambda: k1.fused_ffn_ln(*a1, **ln0),
+        lambda: k1.ffn_ln_plain(*a1, input_ln=True, **ln0))
+    k1_bound, k1_by = ffn_bound(packed_m, h, f, 2, True)
     print(f"[6 times] {card} | predict_batch B={BATCH} p50 {p50:.2f} ms "
           f"(of {TIMED_RUNS}: {', '.join(f'{x:.1f}' for x in lat)}) | "
           f"K1 at M={packed_m}: {k1_ms:.3f} ms/layer vs plain "
-          f"{plain_ms:.3f} ms/layer (runs {plain_a:.3f} {kern_a:.3f} "
-          f"{kern_b:.3f} {plain_b:.3f})")
+          f"{k1_plain_ms:.3f} ms/layer ({k1_runs}); bound {k1_bound:.4f} ms "
+          f"({k1_by}), {k1_bound / k1_ms:.1%} of it")
+    del pred, model
+    torch.cuda.empty_cache()
+
+    # ---- 7. the fused-sublayer path: K3 -> K2 in layers 0..10, K1 in
+    # the CLS-only last layer, K4 on images staged at image_size
+    over7 = {"text_encoder.fused_attn_out": True, "data.image_size": 256}
+    cfg7 = resolve_config("default", over7)
+    pred7 = MultimodalPredictor(cfg7, create_model(cfg7, device="cpu",
+                                                   seed=0), dev)
+    want7 = {"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1, "K4": 1,
+             "plain_on_cuda": 0}
+    reset_counts()
+    res7 = pred7.predict_batch(images, texts)
+    main7 = launch_counts()
+    if pred7.packed_calls != 1:
+        fail("the fused-sublayer batch did not take the packed path")
+    if main7 != want7:
+        fail(f"fused-sublayer path launches {main7}, want {want7}")
+    probs7 = probs_of(res7, pred7.class_names)
+    if probs7.shape != (BATCH, cfg7.num_classes) \
+            or not np.isfinite(probs7).all() \
+            or np.abs(probs7.sum(1) - 1.0).max() > 1e-3:
+        fail(f"bad fused-sublayer probabilities: shape {probs7.shape}")
+    line7 = agreement("fused-sublayer path", pred7, probs7, over7)
+    n_ans7, calls7, n_classic7, serve7 = serve(pred7, n_single=1)
+    if serve7 != {k: v * calls7 for k, v in want7.items()}:
+        fail(f"fused-sublayer serving: launches {serve7} for {calls7} "
+             f"forwards")
+    print(f"[7 fused sublayers] B={BATCH}, image_size 256, fused_attn_out; "
+          f"launches per forward {main7}; {line7} | MicroBatcher: "
+          f"{n_ans7} requests in {calls7} forwards ({n_classic7} classic), "
+          f"launches {serve7}")
+
+    # ---- 8. times of the fused-sublayer path
+    p50_7, lat7 = p50_ms(pred7)
+    ids7, mask7 = pred7._prep_texts(texts, BATCH)
+    m7 = int(np.prod(pred7._packed_inputs(ids7, mask7)[0].shape))
+    z7 = rnd((m7, h), 1.0, dtype=bf)
+    c7 = rnd((m7, h), 1.0, dtype=bf)
+    v2, v3 = k2_vec, k3_vec  # bf16, as the model passes them
+    a2 = (z7, w1, v2["b1"], w2, v2["b2"], v2["gamma"], v2["beta"])
+    a3 = (c7, z7, wo, v3["bo"], v3["gamma"], v3["beta"])
+    k2_ms, k2_plain_ms, k2_runs = in_turns(
+        lambda: k1.fused_ffn_ln(*a2),
+        lambda: k1.ffn_ln_plain(*a2, input_ln=False))
+    k3_ms, k3_plain_ms, k3_runs = in_turns(
+        lambda: k3.fused_attn_out_ln(*a3), lambda: k3.attn_out_ln_plain(*a3))
+    k4_ms, k4_plain_ms, k4_runs = in_turns(
+        lambda: k4.fused_normalize_u8(u8_full, bf),
+        lambda: k4.normalize_u8_plain(u8_full, bf))
+    # the one PyTorch call that computes K4: addcmul promotes the uint8
+    # images to f32 and casts the result to its bf16 `out`
+    scale, bias = (torch.from_numpy(a).to(dev) for a in k4.normalize_affine())
+    y_lib = torch.empty(u8_full.shape, dtype=bf, device=dev)
+
+    def k4_library():
+        return torch.addcmul(bias, u8_full, scale, out=y_lib)
+
+    k4_lib_err = diff(k4_library().float(),
+                      k4.normalize_u8_plain(u8_full, bf).float())
+    if k4_lib_err[0] > K4_ATOL["bfloat16"] or k4_lib_err[1] > K4_MEAN_ATOL:
+        fail(f"addcmul does not compute K4's function: {k4_lib_err}")
+    # in turns K4, addcmul, addcmul, K4
+    k4_lib_ms, k4_ms_b, k4_lib_runs = in_turns(
+        k4_library, lambda: k4.fused_normalize_u8(u8_full, bf))
+    k2_bound, k2_by = ffn_bound(m7, h, f, 2, False)
+    k3_bound, k3_by = attn_out_bound(m7, h, 2)
+    k4_bound, k4_by = normalize_bound(u8_full.numel(), 2)
+    print(f"[8 times] {card} | fused-sublayer predict_batch B={BATCH} p50 "
+          f"{p50_7:.2f} ms (of {TIMED_RUNS}: "
+          f"{', '.join(f'{x:.1f}' for x in lat7)}) | at M={m7}: K2 "
+          f"{k2_ms:.3f} ms/layer vs plain {k2_plain_ms:.3f} ({k2_runs}), "
+          f"bound {k2_bound:.4f} ms ({k2_by}), {k2_bound / k2_ms:.1%} of it; "
+          f"K3 {k3_ms:.3f} ms/layer vs plain {k3_plain_ms:.3f} ({k3_runs}), "
+          f"bound {k3_bound:.4f} ms ({k3_by}), {k3_bound / k3_ms:.1%} of it "
+          f"| K4 on {list(u8_full.shape)} uint8 -> bf16: {k4_ms:.4f} ms vs "
+          f"plain {k4_plain_ms:.4f} ({k4_runs}), bound {k4_bound:.4f} ms "
+          f"({k4_by}), {k4_bound / k4_ms:.1%} of it; addcmul into bf16 "
+          f"{k4_lib_ms:.4f} ms vs K4 {k4_ms_b:.4f} ({k4_lib_runs}; "
+          f"max|diff| / mean|diff| from plain {k4_lib_err[0]:.3e} / "
+          f"{k4_lib_err[1]:.3e})")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "jaxlib", "flax", "optax", "orbax"))
+                    ("jax", "jaxlib", "flax", "optax", "orbax",
+                     "multimodal_rare_disease_tpu"))
     if leaked:
-        fail(f"jax modules were imported: {leaked[:5]}")
+        fail(f"jax or JAX-package modules were imported: {leaked[:5]}")
 
+    src = "multimodal_rare_disease_tpu_torch/csrc/"
+    tpu = "multimodal_rare_disease_tpu/ops/pallas/"
+    table = [
+        # library_ms: one PyTorch call that computes the same function.
+        # K1-K3 have none: LayerNorm, the products, GELU and the residual
+        # are separate calls
+        ("ffn_pre_ln_bf16", "ffn_ln.cu", "ffn.py:72", "K1", k1_err, k1_ms,
+         k1_plain_ms, k1_bound, k1_by, None),
+        ("ffn_ln_bf16", "ffn_ln.cu", "ffn.py:103", "K2", k2_err, k2_ms,
+         k2_plain_ms, k2_bound, k2_by, None),
+        ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3",
+         k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by, None),
+        ("normalize_u8", "normalize_u8.cu", "image_kernels.py:37", "K4",
+         k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms),
+    ]
+    print(card)
     print(json.dumps({"kernels": [{
-        "name": "ffn_pre_ln_bf16",
+        "name": name,
         "route": "cuda",
-        "source": "multimodal_rare_disease_tpu_torch/csrc/ffn_ln.cu",
-        "replaces": "multimodal_rare_disease_tpu/ops/pallas/ffn.py:72",
-        "launches": launches_main + launches_serve,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
+        "source": src + source,
+        "replaces": tpu + replaces,
+        # launches on the main paths: phases 4, 5 and 7 (both of its runs)
+        "launches": main4[k] + serve5[k] + main7[k] + serve7[k],
+        "max_abs_err": err,
+        "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+    } for name, source, replaces, k, err, ms, plain_ms, bound, by, lib_ms
+        in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

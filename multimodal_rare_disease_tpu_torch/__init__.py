@@ -1,13 +1,17 @@
 """PyTorch + CUDA port of the multimodal rare-disease diagnosis system.
 
 The JAX package `multimodal_rare_disease_tpu` is the reference; this
-package mirrors its directory and module names. This slice covers the
-serving path: the batch predictor (`inference/predictor.py`) and its
-HTTP daemon (`cli/serve.py`) over ResNet-50 + BERT-base + attention
-fusion, with the BERT FFN sublayer as a hand-written CUDA kernel for
-Hopper (`csrc/ffn_ln.cu`, `kernels/ffn.py`). It imports torch and never
-jax; from the JAX package it shares only jax-free host code (config,
-tokenizer, clinical text, the micro-batcher).
+package mirrors its directory and module names and imports nothing of
+it, keeping its own copies of the host code it needs (config, tokenizer
+with its C++ core, clinical text, image decode, the micro-batcher). It
+covers the serving path: the batch predictor (`inference/predictor.py`)
+and its HTTP daemon (`cli/serve.py`) over ResNet-50 + BERT-base +
+attention fusion. Every TPU kernel of the JAX package has a
+hand-written CUDA counterpart for Hopper under `csrc/`, bound in
+`kernels/`: the fused FFN sublayer with and without its input LayerNorm
+(K1, K2), the fused attention-output sublayer (K3) and the fused uint8
+normalize (K4). Its entry points run on the card unless the caller asks
+for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,23 @@
-// K1: the post-LN BERT FFN sublayer with the attention LayerNorm folded in,
-// written by hand for Hopper (sm_90a).
+// K1 and K2: the post-LN BERT FFN sublayer, written by hand for Hopper
+// (sm_90a). One kernel template, `kInputLN`:
 //
-//   x = bf16(LN0(z))                         z: [M, 768] bf16, the unnormalized
+//   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, 768] bf16, the unnormalized
 //                                               attention residual
+//   K2 (kInputLN = false): x = the input rows [M, 768] bf16 as they are (the
+//                          already-normalized output of K3, attn_out_ln.cu)
+//
 //   h = bf16(GELU(x . W1 + b1))              W1: [768, F] bf16, f32 accumulator,
 //                                               exact-erf GELU in f32
 //   y = bf16(LN2(f32(x) + h . W2 + b2))      W2: [F, 768] bf16
 //
 // LayerNorm statistics are two-pass in f32 (eps given, 1e-12 for BERT).
-// Biases and LayerNorm parameters are read as f32 or as bf16 (a model cast
-// to bf16 passes its own vectors, widened to f32 on load) and used in f32.
+// Biases and LayerNorm parameters are widened to f32 on load. K2 reads them
+// as bf16 (a model cast to bf16 passes its own); K1 as f32 or bf16.
 //
 // Replaces multimodal_rare_disease_tpu/ops/pallas/ffn.py::_ffn_pre_ln_kernel
-// (reached through _fused_ffn_pre_ln_impl and fused_ffn_ln(pre_gamma=...)).
+// (K1, reached through _fused_ffn_pre_ln_impl and fused_ffn_ln(pre_gamma=...))
+// and ::_ffn_ln_kernel (K2, through _fused_ffn_ln_impl and fused_ffn_ln
+// without pre_gamma). The two differ only in the prologue.
 //
 // What bounds it on the H100: the FLOP count is far above the card's ridge
 // (at the packed batch of 256 documents, M of 16k-24k rows, one call is
@@ -27,7 +32,8 @@
 // Design (simple and right first):
 //   - one block of 8 warps per tile of 32 rows; ragged rows are masked, so
 //     any M >= 1 works (M = 1 for a single request's CLS-only last layer);
-//   - LN0 with warp reductions into a bf16 [32, 768] tile in shared memory;
+//   - K1: LN0 with warp reductions into a bf16 [32, 768] tile in shared
+//     memory; K2: the input rows copied into that tile as they are;
 //   - the weights stream through a 4-deep ring of 16-18 KB shared-memory
 //     tiles filled with cp.async, three tiles ahead of the math: per F chunk
 //     of 64, six W1 tiles [64 f x 128 k] then six W2 tiles [128 h x 64 f];
@@ -39,16 +45,20 @@
 // The weights are read in the layout of torch.nn.Linear ([out, in],
 // row-major), i.e. W1 and W2 column-major, which is WMMA's col_major B.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
-#include <cstddef>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using mrd::bf16;
+using mrd::align128;
+using mrd::cmax;
+using mrd::cp_async16;
+using mrd::cp_async_commit;
+using mrd::cp_async_wait;
+using mrd::ld_f32;
+using mrd::warp_sum;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kH = 768;                 // hidden width (BERT-base)
@@ -76,8 +86,6 @@ constexpr int kAS = kH + 4;             // f32 accumulator staging
 constexpr int kW1S = kK1 + 8;           // bf16 W1 tile [64 f][128 k]
 constexpr int kW2S = kFC + 8;           // bf16 W2 tile [128 h][64 f]
 
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 constexpr size_t kXBytes = align128(sizeof(bf16) * kTM * kXS);
 constexpr size_t kHBytes = align128(sizeof(bf16) * kTM * kHS);
 constexpr size_t kPBytes = align128(sizeof(float) * kTM * kPS);
@@ -95,25 +103,6 @@ static_assert(kTM % kWarps == 0, "rows must split evenly over warps");
 static_assert(kFC * kK1 / 8 == 4 * kThreads, "W1 tile: 4 copies per thread");
 static_assert(kN2 * kFC / 8 == 4 * kThreads, "W2 tile: 4 copies per thread");
 static_assert(kSmemBytes <= 227 * 1024, "over the per-block shared memory");
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Issue this thread's share of weight tile g (chunk g / 12, tile g % 12)
 // into `slot`; tiles past the end issue nothing. Every thread commits one
@@ -142,21 +131,20 @@ __device__ __forceinline__ void load_tile(int g, int n_tiles, bf16* slot,
   cp_async_commit();
 }
 
-__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
-__device__ __forceinline__ float ld_f32(const bf16* p) { return __bfloat162float(*p); }
-
-// V: the type of the bias and LayerNorm vectors (float or bf16)
-template <typename V>
+// V: the type of the bias and LayerNorm vectors (float or bf16; bf16 only
+// for K2);
+// kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0 unused)
+template <typename V, bool kInputLN>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_pre_ln_kernel(const bf16* __restrict__ z,     // [M, H]
+ffn_ln_kernel(const bf16* __restrict__ z,         // [M, H]
                   const bf16* __restrict__ w1t,   // [F, H]  (W1 transposed)
                   const V* __restrict__ b1,       // [F]
                   const bf16* __restrict__ w2t,   // [H, F]  (W2 transposed)
                   const V* __restrict__ b2,       // [H]
                   const V* __restrict__ gamma,
                   const V* __restrict__ beta,
-                  const V* __restrict__ g0,       // LN0 scale [H]
-                  const V* __restrict__ o0,       // LN0 bias [H]
+                  const V* __restrict__ g0,       // LN0 scale [H] (K1)
+                  const V* __restrict__ o0,       // LN0 bias [H] (K1)
                   bf16* __restrict__ y,           // [M, H]
                   int M, int F, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -179,30 +167,39 @@ ffn_pre_ln_kernel(const bf16* __restrict__ z,     // [M, H]
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) load_tile(s, n_tiles, slot(s), w1t, w2t, F);
 
-  // ---- LN0: each warp normalizes kTM / kWarps rows into the bf16 x tile
+  // ---- prologue: each warp fills kTM / kWarps rows of the bf16 x tile:
+  // LN0(z) for K1, the rows themselves for K2 (zeros past M either way)
   for (int r = warp; r < kTM; r += kWarps) {
     const long long gr = row0 + r;
-    float v[kPerLane];
-    if (gr < M) {
-      const bf16* src = z + gr * kH;
+    if constexpr (!kInputLN) {
+      const bf16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) v[j] = __bfloat162float(src[lane + 32 * j]);
+      for (int j = 0; j < kPerLane; ++j)
+        xs[r * kXS + lane + 32 * j] = gr < M ? z[gr * kH + lane + 32 * j] : zero;
     } else {
+      float v[kPerLane];
+      if (gr < M) {
+        const bf16* src = z + gr * kH;
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) v[j] = 0.0f;
-    }
-    float s = 0.0f;
+        for (int j = 0; j < kPerLane; ++j) v[j] = __bfloat162float(src[lane + 32 * j]);
+      } else {
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) s += v[j];
-    const float mu = warp_sum(s) * inv_h;
-    float q = 0.0f;
+        for (int j = 0; j < kPerLane; ++j) v[j] = 0.0f;
+      }
+      float s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) q += (v[j] - mu) * (v[j] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * inv_h + eps);
+      for (int j = 0; j < kPerLane; ++j) s += v[j];
+      const float mu = warp_sum(s) * inv_h;
+      float q = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      xs[r * kXS + c] = __float2bfloat16((v[j] - mu) * rstd * ld_f32(g0 + c) + ld_f32(o0 + c));
+      for (int j = 0; j < kPerLane; ++j) q += (v[j] - mu) * (v[j] - mu);
+      const float rstd = rsqrtf(warp_sum(q) * inv_h + eps);
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int c = lane + 32 * j;
+        xs[r * kXS + c] =
+            __float2bfloat16((v[j] - mu) * rstd * ld_f32(g0 + c) + ld_f32(o0 + c));
+      }
     }
   }
   // (the first tile's barrier below also publishes the x tile)
@@ -306,17 +303,17 @@ ffn_pre_ln_kernel(const bf16* __restrict__ z,     // [M, H]
   }
 }
 
-template <typename V>
+template <typename V, bool kInputLN>
 cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, const void* beta, const void* g0,
                    const void* o0, void* y, int M, int F, float eps,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ffn_pre_ln_kernel<V>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<V, kInputLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kTM - 1) / kTM);
-  ffn_pre_ln_kernel<V><<<grid, kThreads, kSmemBytes, stream>>>(
+  ffn_ln_kernel<V, kInputLN><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const bf16*>(z), static_cast<const bf16*>(w1t),
       static_cast<const V*>(b1), static_cast<const bf16*>(w2t), static_cast<const V*>(b2),
       static_cast<const V*>(gamma), static_cast<const V*>(beta), static_cast<const V*>(g0),
@@ -335,7 +332,7 @@ const char* mrd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// y = LN2(x + GELU(x W1 + b1) W2 + b2), x = LN0(z), on `stream`.
+// K1: y = LN2(x + GELU(x W1 + b1) W2 + b2), x = LN0(z), on `stream`.
 // Pointers are device pointers; w1t is [F, H] and w2t is [H, F], row-major,
 // 16-byte aligned. The six vectors are f32, or bf16 when vec_bf16 is non-zero.
 // Returns the cudaError_t of the launch (0 on success). Allocates nothing.
@@ -348,8 +345,22 @@ int mrd_ffn_pre_ln_bf16(const void* z, const void* w1t, const void* b1,
   if (F <= 0 || F % kFC != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      vec_bf16 ? launch<bf16>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s)
-               : launch<float>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s));
+      vec_bf16
+          ? launch<bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s)
+          : launch<float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s));
+}
+
+// K2: y = LN(x + GELU(x W1 + b1) W2 + b2) with x the input rows as they are,
+// on `stream`. Arguments as mrd_ffn_pre_ln_bf16 without the LN0 vectors; the
+// four vectors are bf16.
+int mrd_ffn_ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t,
+                    const void* b2, const void* gamma, const void* beta, void* y,
+                    int M, int F, float eps, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  if (F <= 0 || F % kFC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<bf16, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
+                                              nullptr, y, M, F, eps,
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -3,14 +3,18 @@
 `mode="multimodal"` on one device.
 
 A request is padded to a batch bucket (1, 8, 32, 256), its texts are
-tokenized with the JAX package's WordPiece tokenizer and cut to the
+tokenized with the port's WordPiece tokenizer (`data/tokenizer.py`, a
+copy of the JAX package's) and cut to the
 smallest length bucket (32, 64, 128, 256) that fits, and, for batches of
 8 or more whose packed token count beats the bucket by 15%, packed
 several to a row (inference/packing.py). Images are staged as uint8 at
-256 px and go through the device-side eval resample + normalize
-(ops/preprocess.py). The model computes in `cfg.training.compute_dtype`
-(bf16 by default), as the JAX `create_model` builds it: the weights are
-cast to it once, at construction.
+256 px and go through the device-side eval preprocess
+(ops/preprocess.py): the resample + normalize when `image_size` differs
+from 256, the fused uint8 normalize kernel (K4) when it is 256. The
+model computes in `cfg.training.compute_dtype` (bf16 by default), as the
+JAX `create_model` builds it: the weights are cast to it once, at
+construction. It runs on the card unless the caller passes
+`device="cpu"`; without a card it raises.
 """
 
 from __future__ import annotations
@@ -21,8 +25,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from multimodal_rare_disease_tpu.config import Config, SYNDROME_NAMES
-from multimodal_rare_disease_tpu.data.tokenizer import (
+from multimodal_rare_disease_tpu_torch.config import (
+    SYNDROME_NAMES,
+    Config,
+    resolve_config,
+)
+from multimodal_rare_disease_tpu_torch.data.tokenizer import (
     BertWordPieceTokenizer,
     get_tokenizer,
 )
@@ -33,6 +41,7 @@ from multimodal_rare_disease_tpu_torch.inference.packing import (
 from multimodal_rare_disease_tpu_torch.models.classifier import (
     MultimodalClassifier,
     create_model,
+    resolve_device,
 )
 from multimodal_rare_disease_tpu_torch.ops.preprocess import eval_preprocess
 
@@ -47,8 +56,8 @@ _LENGTH_BUCKETS = (32, 64, 128, 256)
 class MultimodalPredictor:
     """Serves the prediction JSON contract from a port model."""
 
-    def __init__(self, cfg: Config, model: MultimodalClassifier, device,
-                 mode: str = "multimodal",
+    def __init__(self, cfg: Config, model: MultimodalClassifier,
+                 device="cuda", mode: str = "multimodal",
                  tokenizer: Optional[BertWordPieceTokenizer] = None,
                  class_names: Optional[Sequence[str]] = None,
                  length_bucketing: bool = True):
@@ -57,7 +66,7 @@ class MultimodalPredictor:
                 f"mode {mode!r} is not ported to the torch package")
         self.cfg = cfg
         self.mode = mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.training.compute_dtype)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.length_bucketing = length_bucketing
@@ -74,7 +83,7 @@ class MultimodalPredictor:
         for im in images:
             if isinstance(im, (str, Path)):
                 # PIL only for paths: a serving host need not have it
-                from multimodal_rare_disease_tpu.data.images import (
+                from multimodal_rare_disease_tpu_torch.data.images import (
                     load_image_uint8,
                 )
 
@@ -220,14 +229,15 @@ class MultimodalPredictor:
         return "\n".join(lines)
 
 
-def load_predictor(checkpoint_path: str | Path, device,
+def load_predictor(checkpoint_path: str | Path, device="cuda",
                    mode: Optional[str] = None,
                    cfg: Optional[Config] = None,
                    tokenizer: Optional[BertWordPieceTokenizer] = None
                    ) -> MultimodalPredictor:
     """Build a predictor from a port checkpoint directory
-    (utils/checkpoint.py); the config comes from its meta."""
-    from multimodal_rare_disease_tpu.config import resolve_config
+    (utils/checkpoint.py); the config comes from its meta. The model is
+    built on the CPU, loaded, and moved to `device` (the card unless the
+    caller asks for the CPU)."""
     from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
         load_checkpoint,
     )

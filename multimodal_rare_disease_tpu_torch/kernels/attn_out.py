@@ -1,0 +1,111 @@
+"""K3: the fused post-LN BERT attention-output sublayer, by hand for
+Hopper.
+
+    y = LN(x + ctx @ wo + bo)
+
+Counterpart of `multimodal_rare_disease_tpu/ops/pallas/attn_out.py`. The
+CUDA kernel (`csrc/attn_out_ln.cu`) replaces its `_attn_out_ln_kernel`;
+`attn_out_ln_plain` is the same math in PyTorch, under the TPU module's
+numerics contract: the product accumulates in f32 and is not rounded,
+bo and the residual are added in f32, and the two-pass LayerNorm runs in
+f32 (unlike the JAX `attn_out_ln_reference`, which rounds the projection
+and the residual sum to the compute dtype first).
+
+Device rule, as `kernels/ffn.py`: CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise, except where the stated gate
+`attn_out_ln_fusible` sends them to the plain version, which counts in
+`PLAIN_ON_CUDA`. `FORCE_PLAIN` is set only by tests and chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multimodal_rare_disease_tpu_torch.kernels import build
+from multimodal_rare_disease_tpu_torch.kernels.ffn import dot_f32, ln_f32
+
+FORCE_PLAIN = False
+# launches of the CUDA kernel (incremented only where it is launched)
+LAUNCHES = 0
+# CUDA calls that the shape/dtype gate sent to the plain version
+PLAIN_ON_CUDA = 0
+
+# the width csrc/attn_out_ln.cu was written for (see its header)
+KERNEL_HIDDEN = 768
+
+
+def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
+    """Shape/dtype gate of the CUDA kernel: it masks its ragged 32-row
+    tile, so any m >= 1 works (the TPU's m >= 32, m % 16 == 0 came from
+    its (8, 128) tiling), and it is compiled for H = 768 in bf16. The
+    wrapper also asks for bf16 bo, gamma and beta (the model passes its
+    own, cast to bf16)."""
+    return m >= 1 and hidden == KERNEL_HIDDEN and dtype == torch.bfloat16
+
+
+def attn_out_ln_plain(ctx2d: torch.Tensor, x2d: torch.Tensor,
+                      wo: torch.Tensor, bo: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """The kernel's math in PyTorch. ctx2d, x2d [M, H]; wo [H, H] as
+    (in, out); bo, gamma, beta [H]. The output is in ctx2d's dtype."""
+    dt = ctx2d.dtype
+    f32 = torch.float32
+    z = dot_f32(ctx2d, wo.to(dt)) + bo.to(f32) + x2d.to(f32)
+    return ln_f32(z, gamma.to(f32), beta.to(f32), eps).to(dt)
+
+
+def fused_attn_out_ln(ctx2d: torch.Tensor, x2d: torch.Tensor,
+                      wo: torch.Tensor, bo: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """LN(x + ctx @ wo + bo) as [M, H] in ctx2d.dtype. Same layout as the
+    TPU entry point: wo [H_in, H_out] (a transposed view of an nn.Linear
+    weight costs no copy)."""
+    global PLAIN_ON_CUDA
+    args = (ctx2d, x2d, wo, bo, gamma, beta, eps)
+    if ctx2d.device.type == "cpu" or FORCE_PLAIN:
+        return attn_out_ln_plain(*args)
+    if ctx2d.device.type != "cuda":
+        raise RuntimeError(
+            f"fused_attn_out_ln: unsupported device {ctx2d.device}")
+    m, hidden = ctx2d.shape
+    if not (attn_out_ln_fusible(m, hidden, ctx2d.dtype)
+            and x2d.dtype == ctx2d.dtype
+            and all(v.dtype == torch.bfloat16 for v in (bo, gamma, beta))):
+        PLAIN_ON_CUDA += 1
+        return attn_out_ln_plain(*args)
+    return _launch(*args)
+
+
+def _launch(ctx, x, wo, bo, gamma, beta, eps):
+    global LAUNCHES
+    dev = ctx.device
+    m, hidden = ctx.shape
+    if x.shape != ctx.shape or wo.shape != (hidden, hidden):
+        raise ValueError(f"fused_attn_out_ln: x {tuple(x.shape)} / wo "
+                         f"{tuple(wo.shape)} do not match ctx [{m}, {hidden}]")
+    bf = torch.bfloat16
+    ctx, x = ctx.contiguous(), x.contiguous()
+    # the kernel reads nn.Linear's [out, in] layout: Wo^T
+    wot = wo.to(bf).t().contiguous()
+    vecs = [v.contiguous() for v in (bo, gamma, beta)]  # bf16 (the gate)
+    for t in (x, wot, *vecs):
+        if t.device != dev:
+            raise ValueError(
+                f"fused_attn_out_ln: tensors on {t.device} and {dev}")
+    if any(v.numel() != hidden for v in vecs):
+        raise ValueError("fused_attn_out_ln: bias/LayerNorm vectors do not "
+                         "match")
+    if ctx.data_ptr() % 16 or wot.data_ptr() % 16:
+        raise ValueError("fused_attn_out_ln: ctx and wo must be 16-byte "
+                         "aligned (vector and cp.async loads)")
+    y = torch.empty_like(ctx)
+    lib = build.load_library(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mrd_attn_out_ln_bf16(
+            ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
+            *(v.data_ptr() for v in vecs), y.data_ptr(), m, float(eps),
+            stream)
+    build.check_launch(lib, err, "attn_out_ln_bf16")
+    LAUNCHES += 1
+    return y

@@ -2,12 +2,14 @@
 
 Counterpart of the JAX package's capability probe
 (`multimodal_rare_disease_tpu/ops/pallas/capability.py`), with one
-difference: there is no fallback. On first use the sources under
-`csrc/` are compiled by `nvcc` for Hopper (`sm_90a`) into a shared
-library with a plain C interface, keyed by a hash of the sources and
-flags, under the repository's `build/kernels/` (ignored by git), and
-loaded with `ctypes`. A failed build, a missing `nvcc` or a device that
-is not compute capability 9.0 raises `KernelBuildError`.
+difference: there is no fallback. On first use each source under
+`csrc/` (`*.cu`) is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all of them at once, and the objects are linked into one shared library
+with a plain C interface. The library is keyed by a hash of the sources,
+the headers they include (`csrc/*.cuh`) and the flags, lives under the
+repository's `build/kernels/` (ignored by git), and is loaded with
+`ctypes`. A failed build, a missing `nvcc` or a device that is not
+compute capability 9.0 raises `KernelBuildError`.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no `nvcc` and no card.
@@ -31,8 +33,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libmrd_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v")
 REQUIRED_CAPABILITY = (9, 0)
 
 _LOCK = threading.Lock()
@@ -50,6 +53,10 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
         if cand and (Path(cand) / "bin" / "nvcc").is_file():
@@ -65,34 +72,51 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    """Where the library for the current sources, headers and flags
+    lives."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in (*sources(), *headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once, wait for all of them, and return their
+    output; raise KernelBuildError if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it already exists.
-    The compiler's resource report (-Xptxas=-v) is kept beside it as
-    ptxas.log."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link the
+    shared library, unless it already exists. The compilers' resource
+    report (-Xptxas=-v) is kept beside it as ptxas.log."""
     global last_build_seconds
     out = library_path()
     if out.is_file():
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f".{src.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_name(f".{LIB_NAME}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    logs = _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(src)]
+                 for src, o in zip(sources(), objs)])
+    _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+           *map(str, objs)]])
     last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    for o in objs:
+        o.unlink()
+    (out.parent / "ptxas.log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     return out
 
@@ -113,12 +137,21 @@ def check_device(device: torch.device) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mrd_ffn_pre_ln_bf16.argtypes = [p] * 10 + [i, i, f, i, p]
-    lib.mrd_ffn_pre_ln_bf16.restype = i
-    lib.mrd_error_string.argtypes = [i]
+    f3 = ctypes.POINTER(ctypes.c_float)
+    sigs = {
+        "mrd_ffn_pre_ln_bf16": [p] * 10 + [i, i, f, i, p],
+        "mrd_ffn_ln_bf16": [p] * 8 + [i, i, f, p],
+        "mrd_attn_out_ln_bf16": [p] * 7 + [i, f, p],
+        "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
+        "mrd_error_string": [i],
+        "mrd_ffn_smem_bytes": [],
+        "mrd_attn_out_smem_bytes": [],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.mrd_error_string.restype = ctypes.c_char_p
-    lib.mrd_ffn_smem_bytes.argtypes = []
-    lib.mrd_ffn_smem_bytes.restype = i
     return lib
 
 

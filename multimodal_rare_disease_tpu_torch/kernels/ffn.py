@@ -1,24 +1,23 @@
-"""K1: the fused post-LN BERT FFN sublayer, by hand for Hopper.
+"""K1 and K2: the fused post-LN BERT FFN sublayer, by hand for Hopper.
 
-    y = LN2(x + GELU(x @ w1 + b1) @ w2 + b2),   x = LN0(z)
+    y = LN2(x + GELU(x @ w1 + b1) @ w2 + b2)
+    K1: x = LN0(z), with pre_gamma / pre_beta (the default layer)
+    K2: x = the input rows (after K3, `kernels/attn_out.py`)
 
-Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`. The
-CUDA kernel (`csrc/ffn_ln.cu`) replaces its `_ffn_pre_ln_kernel`;
-`ffn_ln_plain` is the same math in PyTorch.
+Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`. One CUDA
+kernel template (`csrc/ffn_ln.cu`) replaces its `_ffn_pre_ln_kernel`
+(K1) and `_ffn_ln_kernel` (K2); `ffn_ln_plain` is the same math in
+PyTorch.
 
 Device rule: `fused_ffn_ln` runs `ffn_ln_plain` for CPU tensors; for
 CUDA tensors it launches the kernel or raises. The one exception is the
 stated shape/dtype gate `ffn_ln_fusible` (the counterpart of the TPU
-module's gate of the same name): a CUDA call outside it runs the plain
-version and is counted in `PLAIN_ON_CUDA`, which the main path keeps at
-0. `FORCE_PLAIN` (set only by tests and chip_smoke.py, the counterpart
-of the TPU module's `FORCE_INTERPRET`) sends CUDA tensors to the plain
-version to build an on-card reference.
-
-The variant without the input LayerNorm (the TPU's `_ffn_ln_kernel`,
-reached only after the fused attention-output sublayer, which is off by
-default) is not ported yet: `ffn_ln_plain(input_ln=False)` has its
-math, and a CUDA call of `fused_ffn_ln` without `pre_gamma` raises.
+module's gate of the same name), to which K2 adds bf16 vectors (the
+model passes its own, cast to bf16): a CUDA call outside it runs the
+plain version and is counted in `PLAIN_ON_CUDA`, which the main path
+keeps at 0. `FORCE_PLAIN` (set only by tests and chip_smoke.py, the
+counterpart of the TPU module's `FORCE_INTERPRET`) sends CUDA tensors to
+the plain version to build an on-card reference.
 """
 
 from __future__ import annotations
@@ -32,8 +31,10 @@ from multimodal_rare_disease_tpu_torch.kernels import build
 _SQRT1_2 = 0.7071067811865476
 
 FORCE_PLAIN = False
-# launches of the CUDA kernel (incremented only where it is launched)
-LAUNCHES = 0
+# launches of the CUDA kernel with (K1) and without (K2) the input
+# LayerNorm, incremented only where it is launched
+LAUNCHES_K1 = 0
+LAUNCHES_K2 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
@@ -52,7 +53,7 @@ def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
             and intermediate % KERNEL_CHUNK == 0 and dtype == torch.bfloat16)
 
 
-def _ln_f32(z: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
+def ln_f32(z: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
             eps: float) -> torch.Tensor:
     """Two-pass LayerNorm statistics in f32, as the TPU kernel's."""
     mu = z.mean(dim=-1, keepdim=True)
@@ -60,7 +61,7 @@ def _ln_f32(z: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
     return (z - mu) * torch.rsqrt(var + eps) * g + o
 
 
-def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result that is not rounded to a's dtype."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
@@ -89,14 +90,14 @@ def ffn_ln_plain(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if input_ln:
         if pre_gamma is None or pre_beta is None:
             raise ValueError("input_ln needs pre_gamma and pre_beta")
-        x = _ln_f32(x2d.to(f32), pre_gamma.to(f32), pre_beta.to(f32),
-                    eps).to(dt)
+        x = ln_f32(x2d.to(f32), pre_gamma.to(f32), pre_beta.to(f32),
+                   eps).to(dt)
     else:
         x = x2d
-    h = _dot_f32(x, w1.to(dt)) + b1.to(f32)
+    h = dot_f32(x, w1.to(dt)) + b1.to(f32)
     h = (0.5 * h * (1.0 + torch.erf(h * _SQRT1_2))).to(dt)
-    y = _dot_f32(h, w2.to(dt)) + b2.to(f32) + x.to(f32)
-    return _ln_f32(y, gamma.to(f32), beta.to(f32), eps).to(dt)
+    y = dot_f32(h, w2.to(dt)) + b2.to(f32) + x.to(f32)
+    return ln_f32(y, gamma.to(f32), beta.to(f32), eps).to(dt)
 
 
 def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -105,10 +106,10 @@ def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                  pre_gamma: Optional[torch.Tensor] = None,
                  pre_beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LN(x + gelu(x @ w1 + b1) @ w2 + b2), x = LN0(x2d) when pre_gamma
-    is given; [M, H] in x2d.dtype. Same layouts as the TPU entry point:
-    w1 [H, F], w2 [F, H] (a transposed view of an nn.Linear weight costs
-    no copy)."""
-    global LAUNCHES, PLAIN_ON_CUDA
+    is given (K1), x = x2d otherwise (K2); [M, H] in x2d.dtype. Same
+    layouts as the TPU entry point: w1 [H, F], w2 [F, H] (a transposed
+    view of an nn.Linear weight costs no copy)."""
+    global PLAIN_ON_CUDA
     input_ln = pre_gamma is not None
     args = (x2d, w1, b1, w2, b2, gamma, beta, eps)
     if x2d.device.type == "cpu" or FORCE_PLAIN:
@@ -116,22 +117,21 @@ def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                             pre_beta=pre_beta)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"fused_ffn_ln: unsupported device {x2d.device}")
-    if not input_ln:
-        raise NotImplementedError(
-            "the FFN kernel without the input LayerNorm (the TPU's "
-            "_ffn_ln_kernel) is not ported yet")
     m, hidden = x2d.shape
     f = w1.shape[1]
-    if not ffn_ln_fusible(m, hidden, f, x2d.dtype):
+    vectors_ok = input_ln or all(v.dtype == torch.bfloat16
+                                 for v in (b1, b2, gamma, beta))
+    if not (ffn_ln_fusible(m, hidden, f, x2d.dtype) and vectors_ok):
         PLAIN_ON_CUDA += 1
-        return ffn_ln_plain(*args, input_ln=True, pre_gamma=pre_gamma,
+        return ffn_ln_plain(*args, input_ln=input_ln, pre_gamma=pre_gamma,
                             pre_beta=pre_beta)
     return _launch(x2d, w1, b1, w2, b2, gamma, beta, pre_gamma, pre_beta,
                    eps)
 
 
 def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
-    global LAUNCHES
+    global LAUNCHES_K1, LAUNCHES_K2
+    input_ln = g0 is not None
     dev = z.device
     m, hidden = z.shape
     f = w1.shape[1]
@@ -143,9 +143,9 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     # the kernel reads nn.Linear's [out, in] layout: W1^T [F, H], W2^T [H, F]
     w1t = w1.to(bf).t().contiguous()
     w2t = w2.to(bf).t().contiguous()
-    # the kernel reads the six vectors as bf16 when all of them are (a
-    # model cast to bf16: no cast per call), otherwise as f32
-    vecs = (b1, b2, gamma, beta, g0, o0)
+    # K1 reads the vectors as bf16 when all of them are (a model cast to
+    # bf16: no cast per call), otherwise as f32; K2 reads bf16 (its gate)
+    vecs = (b1, b2, gamma, beta) + ((g0, o0) if input_ln else ())
     vec_dtype = (bf if all(v.dtype == bf for v in vecs) else torch.float32)
     vecs = [v.to(device=dev, dtype=vec_dtype).contiguous() for v in vecs]
     for t in (z, w1t, w2t, *vecs):
@@ -154,18 +154,24 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     if w1t.data_ptr() % 32 or w2t.data_ptr() % 32:
         raise ValueError("fused_ffn_ln: weights must be 32-byte aligned "
                          "(WMMA fragment loads)")
-    b1v, b2v, gv, ov, g0v, o0v = vecs
-    if b1v.numel() != f or any(v.numel() != hidden for v in vecs[1:]):
+    if vecs[0].numel() != f or any(v.numel() != hidden for v in vecs[1:]):
         raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
     y = torch.empty_like(z)
     lib = build.load_library(dev)
+    ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mrd_ffn_pre_ln_bf16(
-            z.data_ptr(), w1t.data_ptr(), b1v.data_ptr(), w2t.data_ptr(),
-            b2v.data_ptr(), gv.data_ptr(), ov.data_ptr(), g0v.data_ptr(),
-            o0v.data_ptr(), y.data_ptr(), m, f, float(eps),
-            int(vec_dtype == bf), stream)
-    build.check_launch(lib, err, "ffn_pre_ln_bf16")
-    LAUNCHES += 1
+        if input_ln:
+            err = lib.mrd_ffn_pre_ln_bf16(*ptrs, y.data_ptr(), m, f,
+                                          float(eps), int(vec_dtype == bf),
+                                          stream)
+        else:
+            err = lib.mrd_ffn_ln_bf16(*ptrs, y.data_ptr(), m, f, float(eps),
+                                      stream)
+    if input_ln:
+        build.check_launch(lib, err, "ffn_pre_ln_bf16")
+        LAUNCHES_K1 += 1
+    else:
+        build.check_launch(lib, err, "ffn_ln_bf16")
+        LAUNCHES_K2 += 1
     return y

@@ -9,18 +9,25 @@ dtype, softmax in f32) → CLS token or tanh pooler. Classic rows take a
 `query_positions`. At inference the last layer computes only the
 consumed positions (CLS, or one per packed document).
 
-The FFN sublayer of each layer goes through K1
-(`kernels/ffn.py::fused_ffn_ln`, the hand-written CUDA kernel on the
-card) exactly where the JAX layer dispatches to its Pallas kernel:
-post-LN with `fused_ffn` on. Attention has no kernel (the JAX package
-deleted its Pallas one), so it is plain PyTorch in the JAX formulation.
+The sublayers dispatch to the hand-written kernels exactly where the
+JAX layer dispatches to its Pallas kernels (`bert.py:323-427` there):
+
+- `fused_attn_out` on, in every layer that is not the CLS-only last
+  one: the attention output projection + residual + attention_ln run in
+  K3 (`kernels/attn_out.py`), and the FFN sublayer, whose input is then
+  already normalized, in K2 (`kernels/ffn.py` without the input LN);
+- otherwise, with `fused_ffn` on (the default): the unnormalized
+  residual goes to K1 (`kernels/ffn.py` with attention_ln folded in).
+
+Attention has no kernel (the JAX package deleted its Pallas one), so it
+is plain PyTorch in the JAX formulation.
 
 Module and parameter names follow the flax tree (`layer{i}`, `qkv`,
 `attention_ln`, ...), so `models/convert.py` maps checkpoints leaf by
-leaf. Inference-only knobs of the JAX module that compute the same
-values (K/V lane padding, `flat_residual`, `ln_barrier`) are not ported,
-nor are `fused_attn_out`, `quantized_inference` and `pre_layernorm`:
-a config that turns one on raises NotImplementedError.
+leaf, whichever kernels a layer takes. Inference-only knobs of the JAX
+module that compute the same values (K/V lane padding, `flat_residual`,
+`ln_barrier`) are not ported, nor are `quantized_inference` and
+`pre_layernorm`: a config that turns one on raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_rare_disease_tpu_torch.kernels.attn_out import (
+    fused_attn_out_ln,
+)
 from multimodal_rare_disease_tpu_torch.kernels.ffn import fused_ffn_ln
 from multimodal_rare_disease_tpu_torch.models.layers import Embedding, Linear
 
@@ -56,12 +66,14 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 cls_query_only: bool = False,
-                query_positions: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                query_positions: Optional[torch.Tensor] = None,
+                return_unprojected: bool = False):
         """hidden [B, T, H]; bias [B, 1, 1 or T, T] additive. With
         `cls_query_only`, queries are computed only for position 0 or
         for `query_positions` [B, P] (K/V stay full-sequence) and the
-        output is [B, P, H]."""
+        output is [B, P, H]. With `return_unprojected` it is
+        (ctx [B, P or T, H], Wo [H_in, H_out], bo): the output projection
+        left for K3 to apply (the JAX `return_unprojected`)."""
         b, t, hid = hidden.shape
         h, d = self.num_heads, self.head_dim
         if cls_query_only:
@@ -82,17 +94,22 @@ class BertSelfAttention(nn.Module):
         scores = scores + bias
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v)
-        return self.output(ctx.reshape(b, ctx.shape[1], h * d))
+        ctx = ctx.reshape(b, ctx.shape[1], h * d)
+        if return_unprojected:
+            return ctx, self.output.weight.t(), self.output.bias
+        return self.output(ctx)
 
 
 class BertLayer(nn.Module):
     """Post-LN transformer layer (inference)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 intermediate_size: int, device, fused_ffn: bool = True):
+                 intermediate_size: int, device, fused_ffn: bool = True,
+                 fused_attn_out: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.fused_ffn = fused_ffn
+        self.fused_attn_out = fused_attn_out
         self.attention = BertSelfAttention(hidden_size, num_heads, device)
         self.attention_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                          device=device)
@@ -106,26 +123,48 @@ class BertLayer(nn.Module):
                 cls_only: bool = False,
                 query_positions: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        # K3 runs on the full rows; the CLS-only last layer keeps the
+        # classic projection (the JAX layer's `not cls_only` gate)
+        use_k3 = self.fused_attn_out and not cls_only
         attn_out = self.attention(hidden, bias, cls_query_only=cls_only,
-                                  query_positions=query_positions)
+                                  query_positions=query_positions,
+                                  return_unprojected=use_k3)
         if cls_only:
             # the rest of the layer runs on the consumed positions only
             hidden = (_take_rows(hidden, query_positions)
                       if query_positions is not None else hidden[:, :1])
-        z = hidden + attn_out
+        if use_k3:
+            # K3: attention_ln(x + ctx @ Wo + bo) in one pass
+            ctx, wo, bo = attn_out
+            hid = self.hidden_size
+            hidden = fused_attn_out_ln(
+                ctx.reshape(-1, hid), hidden.reshape(-1, hid), wo, bo,
+                self.attention_ln.weight, self.attention_ln.bias,
+                eps=_BERT_LN_EPS).reshape(hidden.shape)
+            if self.fused_ffn:
+                return self._ffn_fused(hidden, input_ln=False)  # K2
+            return self._ffn_classic(hidden)
         if self.fused_ffn:
-            # the unnormalized residual goes to K1, which applies
-            # attention_ln itself (the JAX layer's pre_gamma dispatch)
-            m = z.shape[0] * z.shape[1]
-            y = fused_ffn_ln(
-                z.reshape(m, self.hidden_size),
-                self.intermediate.weight.t(), self.intermediate.bias,
-                self.output.weight.t(), self.output.bias,
-                self.output_ln.weight, self.output_ln.bias,
-                eps=_BERT_LN_EPS, pre_gamma=self.attention_ln.weight,
-                pre_beta=self.attention_ln.bias)
-            return y.reshape(z.shape)
-        hidden = self.attention_ln(z)
+            # K1 takes the unnormalized residual and applies attention_ln
+            # itself (the JAX layer's pre_gamma dispatch)
+            return self._ffn_fused(hidden + attn_out, input_ln=True)
+        return self._ffn_classic(self.attention_ln(hidden + attn_out))
+
+    def _ffn_fused(self, x: torch.Tensor, input_ln: bool) -> torch.Tensor:
+        """The FFN sublayer in K1 (x unnormalized, attention_ln folded
+        in) or K2 (x already normalized)."""
+        ln0 = (dict(pre_gamma=self.attention_ln.weight,
+                    pre_beta=self.attention_ln.bias) if input_ln else {})
+        y = fused_ffn_ln(
+            x.reshape(-1, self.hidden_size),
+            self.intermediate.weight.t(), self.intermediate.bias,
+            self.output.weight.t(), self.output.bias,
+            self.output_ln.weight, self.output_ln.bias, eps=_BERT_LN_EPS,
+            **ln0)
+        return y.reshape(x.shape)
+
+    def _ffn_classic(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The FFN sublayer without a kernel, on normalized rows."""
         inter = F.gelu(self.intermediate(hidden).float()).to(hidden.dtype)
         return self.output_ln(hidden + self.output(inter))
 
@@ -134,7 +173,7 @@ class BertEncoder(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_heads: int, intermediate_size: int,
                  max_position_embeddings: int, type_vocab_size: int, device,
-                 fused_ffn: bool = True):
+                 fused_ffn: bool = True, fused_attn_out: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.word_embeddings = Embedding(vocab_size, hidden_size,
@@ -148,7 +187,7 @@ class BertEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", BertLayer(
                 hidden_size, num_heads, intermediate_size, device,
-                fused_ffn=fused_ffn))
+                fused_ffn=fused_ffn, fused_attn_out=fused_attn_out))
         self.pooler = Linear(hidden_size, hidden_size, device=device)
 
     def forward(self, input_ids: torch.Tensor,
@@ -211,8 +250,8 @@ class TextEncoder(nn.Module):
 
     def __init__(self, cfg, device, projection_dim: int = 0):
         super().__init__()
-        for flag in ("fused_attn_out", "quantized_inference",
-                     "pre_layernorm", "flat_residual"):
+        for flag in ("quantized_inference", "pre_layernorm",
+                     "flat_residual"):
             if getattr(cfg, flag, False):
                 raise NotImplementedError(
                     f"text_encoder.{flag} is not ported to the torch "
@@ -221,8 +260,8 @@ class TextEncoder(nn.Module):
         self.bert = BertEncoder(
             cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.intermediate_size, cfg.max_position_embeddings,
-            cfg.type_vocab_size, device,
-            fused_ffn=getattr(cfg, "fused_ffn", True))
+            cfg.type_vocab_size, device, fused_ffn=cfg.fused_ffn,
+            fused_attn_out=cfg.fused_attn_out)
         self.projection = (Linear(cfg.hidden_size, projection_dim,
                                   device=device)
                            if projection_dim else None)
@@ -245,5 +284,5 @@ class TextEncoder(nn.Module):
 
 
 def create_text_encoder(cfg, device, projection_dim: int = 0) -> TextEncoder:
-    """cfg: the JAX package's TextEncoderConfig."""
+    """cfg: a TextEncoderConfig (`config.py`)."""
     return TextEncoder(cfg, device, projection_dim=projection_dim)

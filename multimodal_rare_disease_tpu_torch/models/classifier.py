@@ -92,18 +92,31 @@ class MultimodalClassifier(nn.Module):
         return self._tail(self.cnn_encoder(images), txt[doc_row, doc_slot])
 
 
-def create_model(cfg, mode: str = "multimodal", device="cpu",
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    asks for the CPU. A CUDA device without a card raises; nothing falls
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available; "
+            f"pass device='cpu' to run on the CPU")
+    return device
+
+
+def create_model(cfg, mode: str = "multimodal", device="cuda",
                  dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0) -> MultimodalClassifier:
-    """Build the model on `device` in `dtype`, in inference mode.
-    `seed` fills the weights from torch.Generator().manual_seed(seed)
-    (the same weights on every device); `seed=None` leaves them
-    uninitialized, for a state dict to be loaded on top."""
+    """Build the model on `device` (the card unless the caller asks for
+    the CPU) in `dtype`, in inference mode. `seed` fills the weights
+    from torch.Generator().manual_seed(seed) (the same weights on every
+    device); `seed=None` leaves them uninitialized, for a state dict to
+    be loaded on top."""
     if mode != "multimodal":
         raise NotImplementedError(
             f"mode {mode!r} is not ported to the torch package "
             f"(multimodal only)")
-    model = MultimodalClassifier(cfg, torch.device(device))
+    model = MultimodalClassifier(cfg, resolve_device(device))
     if seed is not None:
         gen = torch.Generator().manual_seed(seed)
         init_weights(model.cnn_encoder, gen)

@@ -4,7 +4,9 @@
 uint8 images staged at 256 px → antialiased separable bilinear resample
 composed with the center crop to `image_size` (two batched f32 matmuls,
 which the JAX package leaves to XLA and this port to PyTorch) →
-ImageNet normalization. Layout is NHWC throughout, as in the JAX package.
+ImageNet normalization. Images that already arrive at `image_size` are
+only normalized, by K4 (`kernels/image.py`, a hand-written CUDA kernel
+on the card). Layout is NHWC throughout, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -84,18 +86,19 @@ def eval_preprocess(images_uint8: torch.Tensor, cfg,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[B, S, S, 3] uint8 → [B, image_size, image_size, 3] normalized.
 
-    Images that already arrive at `image_size` take the TPU package's
-    fused uint8 normalize kernel (`ops/pallas/image_kernels.py`), which
-    is not ported yet: on CUDA that case raises; the predictor always
-    stages at 256 px and takes the resample."""
+    Images that already arrive at `image_size` (S == image_size, e.g.
+    the predictor's 256-px staging with image_size 256) are only
+    normalized, by the fused uint8 normalize K4: its CUDA kernel on the
+    card, its plain version for CPU tensors, as the JAX package's
+    `eval_preprocess(use_pallas=True)` takes its Pallas kernel."""
     d = cfg.data
     b, in_size = images_uint8.shape[0], images_uint8.shape[1]
     if in_size == d.image_size:
-        if images_uint8.device.type != "cpu":
-            raise NotImplementedError(
-                "the fused uint8 normalize kernel for images staged at "
-                "image_size is not ported yet; stage images at 256 px")
-        return _normalize01(images_uint8.to(torch.float32) / 255.0, dtype)
+        from multimodal_rare_disease_tpu_torch.kernels.image import (
+            fused_normalize_u8,
+        )
+
+        return fused_normalize_u8(images_uint8, dtype)
     scale, shift, fw = eval_resample_params(
         in_size, d.image_size, getattr(d, "eval_transform", "resize_crop"))
     dev = images_uint8.device

@@ -1,0 +1,79 @@
+"""K3 of the torch package (kernels/attn_out.py): the plain version
+against the JAX package's Pallas kernel run in interpret mode, at the
+tolerances of tests/test_attn_out_kernel.py, and the device rule on the
+CPU. The CUDA kernel itself is checked against the plain version on the
+card by tests/test_torch_gpu.py and chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_rare_disease_tpu.ops.pallas.attn_out import (
+    fused_attn_out_ln as jax_attn_out,
+)
+from multimodal_rare_disease_tpu_torch.kernels import attn_out as k3
+
+
+def _make(m, h, seed):
+    """The inputs of tests/test_attn_out_kernel.py, as numpy f32."""
+    rng = np.random.default_rng(seed)
+    ctx = (rng.normal(size=(m, h)) * 0.5).astype(np.float32)
+    x = (rng.normal(size=(m, h)) * 0.5).astype(np.float32)
+    wo = (rng.normal(size=(h, h)) * 0.05).astype(np.float32)
+    bo = (rng.normal(size=(h,)) * 0.01).astype(np.float32)
+    g = (1.0 + rng.normal(size=(h,)) * 0.05).astype(np.float32)
+    o = (rng.normal(size=(h,)) * 0.01).astype(np.float32)
+    return ctx, x, (wo, bo, g, o)
+
+
+# f32: summation order of the 256-term dot and the LayerNorm sums; bf16:
+# the output rounds to bf16 from f32 values that differ by summation
+# order, so an element may land one bf16 ulp apart. Both are the bounds
+# of tests/test_attn_out_kernel.py.
+@pytest.mark.parametrize("dtype,atol,m,seed", [
+    ("float32", 5e-5, 64, 0), ("float32", 5e-5, 96, 3),
+    ("bfloat16", 5e-2, 64, 1)])
+def test_plain_matches_interpreted_k3(dtype, atol, m, seed):
+    ctx, x, args = _make(m, 256, seed)
+    jdt = jnp.dtype(dtype)
+    ref = np.asarray(jax_attn_out(jnp.asarray(ctx, jdt), jnp.asarray(x, jdt),
+                                  *map(jnp.asarray, args), interpret=True),
+                     np.float32)
+    tdt = getattr(torch, dtype)
+    got = k3.attn_out_ln_plain(torch.from_numpy(ctx).to(tdt),
+                               torch.from_numpy(x).to(tdt),
+                               *map(torch.from_numpy, args))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=atol)
+
+
+def test_cpu_tensor_takes_the_plain_path_and_launches_nothing():
+    ctx, x, args = _make(37, 128, 2)
+    t = [torch.from_numpy(a) for a in (ctx, x, *args)]
+    launches, plain_on_cuda = k3.LAUNCHES, k3.PLAIN_ON_CUDA
+    got = k3.fused_attn_out_ln(*t)
+    assert torch.equal(got, k3.attn_out_ln_plain(*t))
+    assert (k3.LAUNCHES, k3.PLAIN_ON_CUDA) == (launches, plain_on_cuda)
+
+
+def test_plain_keeps_the_projection_in_f32():
+    # the numerics contract: ctx @ wo is not rounded to bf16 before the
+    # residual; a version that rounds it differs from this one
+    ctx, x, args = _make(64, 256, 4)
+    bf = torch.bfloat16
+    c, xx = torch.from_numpy(ctx).to(bf), torch.from_numpy(x).to(bf)
+    wo, bo, g, o = map(torch.from_numpy, args)
+    got = k3.attn_out_ln_plain(c, xx, wo, bo, g, o).float()
+    want = k3.ln_f32(c.float() @ wo.to(bf).float() + bo + xx.float(),
+                     g, o, 1e-12).to(bf).float()
+    assert torch.equal(got, want)
+
+
+def test_fusible_gate_follows_the_cuda_tiling():
+    bf = torch.bfloat16
+    # any row count: the kernel masks its ragged 32-row tile
+    assert all(k3.attn_out_ln_fusible(m, 768, bf) for m in (1, 8, 37, 16384))
+    assert not k3.attn_out_ln_fusible(0, 768, bf)
+    assert not k3.attn_out_ln_fusible(64, 512, bf)     # built for H=768
+    assert not k3.attn_out_ln_fusible(64, 768, torch.float32)

@@ -1,8 +1,10 @@
 """BERT text tower of the torch package (models/bert.py) against the JAX
 module on the same weights: classic rows, sequence-packed rows and the
-CLS-only last layer, in f32 on the CPU. The JAX side runs its classic
-XLA path, and its Pallas FFN kernel in interpret mode where the JAX
-package's own tests run it that way (FORCE_INTERPRET)."""
+CLS-only last layer, in f32 on the CPU, with the default FFN dispatch
+(K1) and with `fused_attn_out` (K3 then K2 in every layer but the
+CLS-only last one). The JAX side runs its classic XLA path, and its
+Pallas kernels in interpret mode where the JAX package's own tests run
+them that way (FORCE_INTERPRET)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 
 from multimodal_rare_disease_tpu.config import resolve_config
 from multimodal_rare_disease_tpu.models.bert import create_text_encoder
+from multimodal_rare_disease_tpu.ops.pallas import attn_out as jax_ao_mod
 from multimodal_rare_disease_tpu.ops.pallas import ffn as jax_ffn_mod
 from multimodal_rare_disease_tpu_torch.inference.packing import pack_texts
 from multimodal_rare_disease_tpu_torch.models import bert as tbert
@@ -147,8 +150,84 @@ def test_pooler_and_projection_readouts_match_jax(pooler, proj):
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("flag", ["fused_attn_out", "quantized_inference",
-                                  "pre_layernorm", "flat_residual"])
+@pytest.fixture
+def jax_kernels_interpreted(monkeypatch):
+    """The JAX layer's fused attention-output (K3) and FFN (K1/K2)
+    dispatch, run by the Pallas interpreter, as
+    tests/test_attn_out_kernel.py runs it."""
+    monkeypatch.setattr(jax_ao_mod, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(jax_ffn_mod, "FORCE_INTERPRET", True)
+
+
+def _k3_cfg(**over):
+    # H=128 / F=256 and M = B*T a multiple of 16 and >= 32 are inside the
+    # JAX kernels' gates, so the interpreted Pallas kernels really run
+    return _cfg(hidden=128, ffn=256, **{"text_encoder.fused_attn_out": True,
+                                        **over})
+
+
+@pytest.mark.parametrize("fused_ffn", [True, False],
+                         ids=["k3-k2-plain", "k3-classic-ffn"])
+def test_fused_attn_out_classic_rows_match_jax(jax_kernels_interpreted,
+                                               fused_ffn):
+    cfg = _k3_cfg()
+    jenc, v, tenc = _pair(cfg, seed=11, fused_ffn=fused_ffn)
+    assert all(getattr(tenc.bert, f"layer{i}").fused_attn_out
+               for i in range(2))
+    ids, mask = _batch(np.random.default_rng(12), 4, 16)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = tenc(_t(ids), _t(mask)).numpy()
+    assert got.shape == ref.shape == (4, 128)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_fused_attn_out_full_sequence_layers_match_jax(
+        jax_kernels_interpreted):
+    # no CLS-only layer: every BertLayer takes K3 then K2
+    cfg = _k3_cfg()
+    jenc, v, tenc = _pair(cfg, seed=13)
+    ids, mask = _batch(np.random.default_rng(14), 2, 32)
+    _, jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask),
+                         output_hidden_states=True)
+    with torch.no_grad():
+        full = tenc.bert(_t(ids), _t(mask), cls_only_final=False)
+    np.testing.assert_allclose(full["last_hidden_state"].numpy(),
+                               np.asarray(jout["last_hidden_state"]),
+                               atol=ATOL)
+
+
+def test_fused_attn_out_packed_rows_match_jax_and_unpacked(
+        jax_kernels_interpreted):
+    cfg = _k3_cfg()
+    jenc, v, tenc = _pair(cfg, seed=15)
+    ids, mask = _batch(np.random.default_rng(16), 7, 40, lo=10)
+    pb = pack_texts(ids, mask, capacity=128)
+    kw = dict(position_ids=pb.position_ids, segment_ids=pb.segment_ids,
+              query_positions=pb.query_positions)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(pb.input_ids), None,
+                                **{k: jnp.asarray(a) for k, a in kw.items()}))
+    with torch.no_grad():
+        got = tenc(_t(pb.input_ids), None,
+                   **{k: _t(a) for k, a in kw.items()}).numpy()
+        unpacked = tenc(_t(ids), _t(mask)).numpy()
+    docs = (pb.doc_row, pb.doc_slot)
+    np.testing.assert_allclose(got[docs], ref[docs], atol=ATOL)
+    np.testing.assert_allclose(got[docs], unpacked, atol=ATOL)
+
+
+def test_fused_attn_out_keeps_the_parameter_tree():
+    # K3 uses the attention output and attention_ln modules as they are:
+    # the same state dict keys and shapes as the default layer
+    a = tbert.create_text_encoder(_k3_cfg().text_encoder, "cpu")
+    b = tbert.create_text_encoder(_cfg(hidden=128, ffn=256).text_encoder,
+                                  "cpu")
+    assert {k: v.shape for k, v in a.state_dict().items()} == \
+        {k: v.shape for k, v in b.state_dict().items()}
+
+
+@pytest.mark.parametrize("flag", ["quantized_inference", "pre_layernorm",
+                                  "flat_residual"])
 def test_unported_options_raise(flag):
     cfg = _cfg(**{f"text_encoder.{flag}": True})
     with pytest.raises(NotImplementedError):

@@ -128,6 +128,27 @@ def test_weight_bridge_is_strict():
         state_dict_from_jax({"head": {"logits": {"weird": np.zeros(3)}}})
 
 
+def test_weight_bridge_loads_a_fused_attn_out_tree_strictly(monkeypatch):
+    # the JAX model built (and run) with its fused attention-output
+    # sublayer engaged has the same tree, and the port's model with
+    # fused_attn_out loads it with no key missing or left over
+    from multimodal_rare_disease_tpu.ops.pallas import attn_out as jax_ao
+
+    monkeypatch.setattr(jax_ao, "FORCE_INTERPRET", True)
+    cfg = _cfg(**{"text_encoder.fused_attn_out": True,
+                  "text_encoder.hidden_size": 128,
+                  "text_encoder.intermediate_size": 256})
+    jm, v, tm = _pair(cfg, 5)
+    assert tm.text_encoder.bert.layer0.fused_attn_out
+    images, ids, mask = _inputs(6, 2, t=16)
+    ref = jm.apply(v, jnp.asarray(images), jnp.asarray(ids),
+                   jnp.asarray(mask), train=False)
+    with torch.no_grad():
+        got = tm(_t(images), _t(ids).long(), _t(mask))
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(ref["probs"]), atol=ATOL)
+
+
 @pytest.mark.parametrize("over", [{"fusion.fusion_type": "gated"},
                                   {"fusion.fusion_type": "concatenation"}])
 def test_unported_fusions_raise(over):

@@ -1,8 +1,9 @@
-"""K1 of the torch package (kernels/ffn.py): the plain version against
-the JAX package's Pallas kernel run in interpret mode, the device rule
-on the CPU, and the kernel module's import on a machine with no nvcc and
-no triton. The CUDA kernel itself is checked against the plain version
-on the card by tests/test_torch_gpu.py and chip_smoke.py."""
+"""K1 and K2 of the torch package (kernels/ffn.py): the plain version
+against the JAX package's Pallas kernels run in interpret mode, the
+device rule on the CPU, the kernel build's key, and the kernel modules'
+import on a machine with no nvcc and no triton. The CUDA kernels
+themselves are checked against the plain version on the card by
+tests/test_torch_gpu.py and chip_smoke.py."""
 
 import os
 import subprocess
@@ -53,8 +54,10 @@ def test_plain_matches_interpreted_k1_f32(m, h, f, seed):
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
-def test_plain_without_input_ln_matches_interpreted_k2_f32():
-    z, args, _ = _make(64, 128, 256, 2)
+@pytest.mark.parametrize("m,h,f,seed", [(64, 128, 256, 2),
+                                        (128, 256, 512, 5)])
+def test_plain_without_input_ln_matches_interpreted_k2_f32(m, h, f, seed):
+    z, args, _ = _make(m, h, f, seed)
     ref = np.asarray(jax_ffn(jnp.asarray(z), *map(jnp.asarray, args),
                              interpret=True))
     got = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args),
@@ -63,17 +66,32 @@ def test_plain_without_input_ln_matches_interpreted_k2_f32():
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
-def test_cpu_tensor_takes_the_plain_path_and_launches_nothing():
+def test_plain_without_input_ln_matches_interpreted_k2_bf16():
+    z, args, _ = _make(64, 128, 256, 6)
+    bf = torch.bfloat16
+    ref = np.asarray(jax_ffn(jnp.asarray(z, jnp.bfloat16),
+                             *map(jnp.asarray, args), interpret=True),
+                     np.float32)
+    got = k1.ffn_ln_plain(torch.from_numpy(z).to(bf), *_t(args),
+                          input_ln=False)
+    assert got.dtype == bf
+    # bf16 roundings of x, the GELU chunk and y from f32 sums taken in
+    # another order: one bf16 ulp apart at most; the JAX kernel test's
+    # bf16 bound
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=5e-2)
+
+
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_cpu_tensor_takes_the_plain_path_and_launches_nothing(input_ln):
     z, args, (g0, o0) = _make(37, 128, 256, 3)
-    launches, plain_on_cuda = k1.LAUNCHES, k1.PLAIN_ON_CUDA
-    got = k1.fused_ffn_ln(torch.from_numpy(z), *_t(args),
-                          pre_gamma=torch.from_numpy(g0),
-                          pre_beta=torch.from_numpy(o0))
-    want = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args), input_ln=True,
-                           pre_gamma=torch.from_numpy(g0),
-                           pre_beta=torch.from_numpy(o0))
+    ln0 = (dict(pre_gamma=torch.from_numpy(g0), pre_beta=torch.from_numpy(o0))
+           if input_ln else {})
+    counts = (k1.LAUNCHES_K1, k1.LAUNCHES_K2, k1.PLAIN_ON_CUDA)
+    got = k1.fused_ffn_ln(torch.from_numpy(z), *_t(args), **ln0)
+    want = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args),
+                           input_ln=input_ln, **ln0)
     assert torch.equal(got, want)  # the same function on the same inputs
-    assert (k1.LAUNCHES, k1.PLAIN_ON_CUDA) == (launches, plain_on_cuda)
+    assert (k1.LAUNCHES_K1, k1.LAUNCHES_K2, k1.PLAIN_ON_CUDA) == counts
 
 
 def test_fusible_gate_follows_the_cuda_tiling():
@@ -89,7 +107,8 @@ def test_fusible_gate_follows_the_cuda_tiling():
 def test_kernel_module_imports_without_nvcc_or_triton(tmp_path):
     code = (
         "import sys\n"
-        "from multimodal_rare_disease_tpu_torch.kernels import build, ffn\n"
+        "from multimodal_rare_disease_tpu_torch.kernels import (\n"
+        "    attn_out, build, ffn, image)\n"
         "assert 'triton' not in sys.modules\n"
         "assert build.sources(), 'no CUDA sources found'\n"
         "try:\n"
@@ -114,4 +133,19 @@ def test_build_is_keyed_by_the_sources():
     p = build.library_path()
     assert p.name == build.LIB_NAME
     assert p.parent.parent == build.BUILD_DIR
-    assert any(s.name == "ffn_ln.cu" for s in build.sources())
+    assert {s.name for s in build.sources()} >= {
+        "ffn_ln.cu", "attn_out_ln.cu", "normalize_u8.cu"}
+
+
+def test_build_key_covers_the_headers(tmp_path, monkeypatch):
+    # a header-only edit must not reuse a library built before it
+    from multimodal_rare_disease_tpu_torch.kernels import build
+
+    assert [h.name for h in build.headers()] == ["common.cuh"]
+    for src in (*build.sources(), *build.headers()):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build.library_path()
+    with open(tmp_path / "common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path() != before

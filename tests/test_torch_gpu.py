@@ -1,6 +1,10 @@
-"""The torch package's CUDA kernels on the card. Every test here is
-marked `gpu` and skips without a CUDA device; the file imports no jax,
-so it runs on a machine that has only torch:
+"""The torch package's CUDA kernels on the card: K1 and K2 (the fused
+FFN sublayer with and without its input LayerNorm), K3 (the fused
+attention-output sublayer) and K4 (the fused uint8 normalize), each
+against its plain version, and the BERT layers' and the predictor's
+launch counts. Every test here is marked `gpu` and skips without a CUDA
+device; the file imports neither jax nor the JAX package, so it runs on
+a machine that has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -10,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_rare_disease_tpu_torch.kernels import ffn as k1
+from multimodal_rare_disease_tpu_torch.kernels import attn_out as k3
+from multimodal_rare_disease_tpu_torch.kernels import ffn as kffn
+from multimodal_rare_disease_tpu_torch.kernels import image as k4
 
 pytestmark = pytest.mark.gpu
 
@@ -22,38 +28,62 @@ def cuda():
     return torch.device("cuda")
 
 
-_VECTORS = ("b1", "b2", "gamma", "beta", "pre_gamma", "pre_beta")
 # bf16 outputs of LayerNorm scale, |y| < 8 for these inputs: an element
 # may land one bf16 ulp apart (1.6e-2 at |y| in [2, 4), 3.1e-2 in [4, 8))
 # where the two versions' f32 sums, taken in another order, round x, the
-# GELU chunk or y the other way. Max: the JAX kernel test's bf16 bound.
-# Mean: such flips are rare (an H100 read 3e-7 to 3.3e-6); 1e-4 is 1/78
-# of an ulp at |y| in [1, 2).
+# GELU chunk or y the other way. Max: the JAX kernel tests' bf16 bound.
+# Mean: such flips are rare (an H100 read 3e-7 to 3.3e-6 for K1); 1e-4 is
+# 1/78 of an ulp at |y| in [1, 2).
 _MAX_ATOL, _MEAN_ATOL = 5e-2, 1e-4
 
 
-def _inputs(m, dev, seed=0, h=768, f=3072, vec_dtype=torch.float32):
+def _rng_tensor(rng, dev):
+    def t(shape, scale, offset=0.0, dtype=torch.float32):
+        a = (offset + rng.normal(size=shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+    return t
+
+
+def _ffn_inputs(m, dev, seed=0, h=768, f=3072, vec_dtype=torch.float32):
     """z, (w1, w2) and the six vectors: biases and shifts at the scale of
     the signal and LayerNorm scales at 1 +- 0.25, so that each term moves
     the output far past the tolerances."""
-    rng = np.random.default_rng(seed)
-
-    def t(shape, scale, offset=0.0, dtype=vec_dtype):
-        a = (offset + rng.normal(size=shape) * scale).astype(np.float32)
-        return torch.from_numpy(a).to(dev, dtype)
-
+    t = _rng_tensor(np.random.default_rng(seed), dev)
     bf = torch.bfloat16
     z = t((m, h), 1.0, dtype=bf)
     w = (t((h, f), 0.05, dtype=bf), t((f, h), 0.05, dtype=bf))
-    vec = dict(b1=t((f,), 0.5), b2=t((h,), 0.5), gamma=t((h,), 0.25, 1.0),
-               beta=t((h,), 0.5), pre_gamma=t((h,), 0.25, 1.0),
-               pre_beta=t((h,), 0.5))
+    vec = dict(b1=t((f,), 0.5, dtype=vec_dtype),
+               b2=t((h,), 0.5, dtype=vec_dtype),
+               gamma=t((h,), 0.25, 1.0, dtype=vec_dtype),
+               beta=t((h,), 0.5, dtype=vec_dtype),
+               pre_gamma=t((h,), 0.25, 1.0, dtype=vec_dtype),
+               pre_beta=t((h,), 0.5, dtype=vec_dtype))
     return z, w, vec
 
 
-def _ffn(fn, z, w, v):
-    out = fn(z, w[0], v["b1"], w[1], v["b2"], v["gamma"], v["beta"],
-             pre_gamma=v["pre_gamma"], pre_beta=v["pre_beta"])
+def _ffn(fn, z, w, v, input_ln=True):
+    ln0 = (dict(pre_gamma=v["pre_gamma"], pre_beta=v["pre_beta"])
+           if input_ln else {})
+    if fn is kffn.ffn_ln_plain:
+        ln0["input_ln"] = input_ln
+    out = fn(z, w[0], v["b1"], w[1], v["b2"], v["gamma"], v["beta"], **ln0)
+    torch.cuda.synchronize()
+    return out.float()
+
+
+def _attn_inputs(m, dev, seed=0, h=768, vec_dtype=torch.float32):
+    """ctx, x, wo and (bo, gamma, beta) at the scales of _ffn_inputs."""
+    t = _rng_tensor(np.random.default_rng(seed), dev)
+    bf = torch.bfloat16
+    return (t((m, h), 1.0, dtype=bf), t((m, h), 1.0, dtype=bf),
+            t((h, h), 0.05, dtype=bf),
+            dict(bo=t((h,), 0.5, dtype=vec_dtype),
+                 gamma=t((h,), 0.25, 1.0, dtype=vec_dtype),
+                 beta=t((h,), 0.5, dtype=vec_dtype)))
+
+
+def _attn(fn, ctx, x, wo, v):
+    out = fn(ctx, x, wo, v["bo"], v["gamma"], v["beta"])
     torch.cuda.synchronize()
     return out.float()
 
@@ -63,31 +93,104 @@ def _diff(got, want):
     return d.max().item(), d.mean().item()
 
 
+def _neutral(name, v):
+    return torch.ones_like(v) if "gamma" in name else torch.zeros_like(v)
+
+
+def _ffn_counts():
+    return kffn.LAUNCHES_K1, kffn.LAUNCHES_K2, kffn.PLAIN_ON_CUDA
+
+
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [1, 37, 4096])
-def test_ffn_kernel_matches_plain(cuda, m, vec_dtype):
-    z, w, vec = _inputs(m, cuda, seed=m, vec_dtype=vec_dtype)
-    before = k1.LAUNCHES
-    got = _ffn(k1.fused_ffn_ln, z, w, vec)
-    assert k1.LAUNCHES == before + 1
-    worst, mean = _diff(got, _ffn(k1.ffn_ln_plain, z, w, vec))
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_ffn_kernel_matches_plain(cuda, m, vec_dtype, input_ln):
+    z, w, vec = _ffn_inputs(m, cuda, seed=m, vec_dtype=vec_dtype)
+    before = _ffn_counts()
+    got = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+    want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+    if not input_ln and vec_dtype == torch.float32:
+        # K2 reads bf16 vectors only: f32 ones take the counted gate
+        assert _ffn_counts() == (before[0], before[1], before[2] + 1)
+        assert torch.equal(got, want)
+        return
+    assert _ffn_counts() == (before[0] + input_ln,
+                             before[1] + (not input_ln), before[2])
+    worst, mean = _diff(got, want)
     assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
 
 
-@pytest.mark.parametrize("name", _VECTORS)
-def test_ffn_check_fails_a_kernel_that_drops_a_vector(cuda, name):
+@pytest.mark.parametrize("name,input_ln", [
+    (n, True) for n in ("b1", "b2", "gamma", "beta", "pre_gamma",
+                        "pre_beta")] + [
+    (n, False) for n in ("b1", "b2", "gamma", "beta")])
+def test_ffn_check_fails_a_kernel_that_drops_a_vector(cuda, name, input_ln):
     # the kernel given the vector's neutral value stands for a kernel that
-    # leaves the term out; the plain version gets the real vector
-    z, w, vec = _inputs(256, cuda, seed=7)
-    v = vec[name]
-    neutral = torch.ones_like(v) if "gamma" in name else torch.zeros_like(v)
-    worst, mean = _diff(_ffn(k1.fused_ffn_ln, z, w, {**vec, name: neutral}),
-                        _ffn(k1.ffn_ln_plain, z, w, vec))
+    # leaves the term out; the plain version gets the real vector (bf16
+    # for K2, the only vectors it reads)
+    z, w, vec = _ffn_inputs(256, cuda, seed=7, vec_dtype=(
+        torch.float32 if input_ln else torch.bfloat16))
+    before = _ffn_counts()
+    dropped = {**vec, name: _neutral(name, vec[name])}
+    worst, mean = _diff(_ffn(kffn.fused_ffn_ln, z, w, dropped, input_ln),
+                        _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln))
+    assert _ffn_counts() == (before[0] + input_ln,
+                             before[1] + (not input_ln), before[2])
     assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
 
 
-def test_bert_layers_launch_the_kernel(cuda):
-    from multimodal_rare_disease_tpu.config import resolve_config
+@pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 37, 4096])
+def test_attn_out_kernel_matches_plain(cuda, m, vec_dtype):
+    ctx, x, wo, vec = _attn_inputs(m, cuda, seed=m, vec_dtype=vec_dtype)
+    before = (k3.LAUNCHES, k3.PLAIN_ON_CUDA)
+    got = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
+    if vec_dtype == torch.float32:
+        # K3 reads bf16 vectors only: f32 ones take the counted gate
+        assert (k3.LAUNCHES, k3.PLAIN_ON_CUDA) == (before[0], before[1] + 1)
+        assert torch.equal(got, want)
+        return
+    assert (k3.LAUNCHES, k3.PLAIN_ON_CUDA) == (before[0] + 1, before[1])
+    worst, mean = _diff(got, want)
+    assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
+def test_attn_out_check_fails_a_kernel_that_drops_a_term(cuda, name):
+    # neutral bo / gamma / beta, or a zero residual x, stand for a kernel
+    # that leaves the term out
+    ctx, x, wo, vec = _attn_inputs(256, cuda, seed=8, vec_dtype=torch.bfloat16)
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
+    before = k3.LAUNCHES
+    if name == "x":
+        got = _attn(k3.fused_attn_out_ln, ctx, torch.zeros_like(x), wo, vec)
+    else:
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo,
+                    {**vec, name: _neutral(name, vec[name])})
+    assert k3.LAUNCHES == before + 1
+    worst, mean = _diff(got, want)
+    assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (3, 37, 41, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normalize_kernel_matches_plain(cuda, shape, dtype):
+    u = torch.from_numpy(np.random.default_rng(sum(shape)).integers(
+        0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = k4.LAUNCHES
+    got = k4.fused_normalize_u8(u, dtype)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1 and got.dtype == dtype
+    # the kernel rounds the product and the sum as the plain version does:
+    # f32 equal within one rounding; bf16 within one ulp at |y| < 4
+    worst, mean = _diff(got.float(), k4.normalize_u8_plain(u, dtype).float())
+    atol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    assert worst <= atol and mean <= 1e-4, (worst, mean)
+
+
+def _predictor(cuda, **over):
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
     from multimodal_rare_disease_tpu_torch.inference.predictor import (
         MultimodalPredictor,
     )
@@ -97,15 +200,36 @@ def test_bert_layers_launch_the_kernel(cuda):
 
     cfg = resolve_config("default", {"text_encoder.num_layers": 2,
                                      "cnn_encoder.stage_sizes": (1, 1, 1, 1),
-                                     "data.image_size": 64})
-    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu"), cuda)
+                                     "data.image_size": 64, **over})
+    return MultimodalPredictor(cfg, create_model(cfg, device="cpu"), cuda)
+
+
+def _counts():
+    return (kffn.LAUNCHES_K1, kffn.LAUNCHES_K2, k3.LAUNCHES, k4.LAUNCHES,
+            kffn.PLAIN_ON_CUDA, k3.PLAIN_ON_CUDA, k4.PLAIN_ON_CUDA)
+
+
+def _run(pred):
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
             for _ in range(3)]
-    before, plain = k1.LAUNCHES, k1.PLAIN_ON_CUDA
+    before = _counts()
     out = pred.predict_batch(imgs, ["short text", "a longer clinical "
                                     "description of the face", "x"])
     torch.cuda.synchronize()
-    assert k1.LAUNCHES - before == 2 and k1.PLAIN_ON_CUDA == plain
     assert len(out) == 3 and all(np.isfinite(
         list(r["all_probabilities"].values())).all() for r in out)
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def test_bert_layers_launch_the_kernel(cuda):
+    # the default configuration: K1 in both layers, nothing else
+    assert _run(_predictor(cuda)) == (2, 0, 0, 0, 0, 0, 0)
+
+
+def test_slice_configuration_launches_k3_k2_k1_k4(cuda):
+    # fused_attn_out with images at image_size: K3 and K2 in the first
+    # layer, K1 in the CLS-only last one, K4 for the images
+    pred = _predictor(cuda, **{"text_encoder.fused_attn_out": True,
+                               "data.image_size": 256})
+    assert _run(pred) == (1, 1, 1, 1, 0, 0, 0)

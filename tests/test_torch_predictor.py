@@ -1,7 +1,9 @@
 """Predictor and serving of the torch package against the JAX package:
 the JSON contract and probabilities of `predict_batch` on the classic
-(n=1) and packed (n=12) paths, the numpy packing copy, an HTTP round
-trip through cli/serve.py, and a jax-free import in a fresh process."""
+(n=1) and packed (n=12) paths, under the default configuration and
+under the fused-sublayer one (K3, K2, K1 and K4 on the path), the numpy
+packing copy, an HTTP round trip through the port's MicroBatcher, and a
+run in a fresh process that loads neither jax nor the JAX package."""
 
 import base64
 import io
@@ -19,19 +21,27 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.cli.serve import MicroBatcher
-from multimodal_rare_disease_tpu.config import SYNDROME_NAMES, resolve_config
-from multimodal_rare_disease_tpu.data.clinical_text import (
-    ClinicalTextAugmenter,
-    _builtin_descriptions,
-)
-from multimodal_rare_disease_tpu.data.tokenizer import get_tokenizer
+from multimodal_rare_disease_tpu.config import resolve_config as jax_config
 from multimodal_rare_disease_tpu.inference import packing as jax_packing
 from multimodal_rare_disease_tpu.inference.predictor import (
     MultimodalPredictor as JaxPredictor,
 )
 from multimodal_rare_disease_tpu.models import create_model as jax_model
-from multimodal_rare_disease_tpu_torch.cli.serve import make_torch_handler
+from multimodal_rare_disease_tpu.ops.pallas import attn_out as jax_ao_mod
+from multimodal_rare_disease_tpu.ops.pallas import ffn as jax_ffn_mod
+from multimodal_rare_disease_tpu_torch.cli.serve import (
+    MicroBatcher,
+    make_handler,
+)
+from multimodal_rare_disease_tpu_torch.config import (
+    SYNDROME_NAMES,
+    resolve_config,
+)
+from multimodal_rare_disease_tpu_torch.data.clinical_text import (
+    ClinicalTextAugmenter,
+    _builtin_descriptions,
+)
+from multimodal_rare_disease_tpu_torch.data.tokenizer import get_tokenizer
 from multimodal_rare_disease_tpu_torch.inference import packing
 from multimodal_rare_disease_tpu_torch.inference.predictor import (
     MultimodalPredictor,
@@ -48,26 +58,34 @@ from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _cfg():
-    return resolve_config("default", {
-        "text_encoder.num_layers": 1, "text_encoder.num_heads": 4,
-        "text_encoder.hidden_size": 64,
-        "text_encoder.intermediate_size": 128,
-        "text_encoder.vocab_size": 8192,
-        "cnn_encoder.stage_sizes": (1, 1, 1, 1),
-        "cnn_encoder.embedding_dim": 32,
-        "fusion.hidden_dim": 32, "fusion.num_attention_heads": 4,
-        "classifier.hidden_dims": (32,),
-        "data.image_size": 32, "data.max_text_length": 128,
-        # the JAX model is otherwise built in bf16
-        "training.compute_dtype": "float32"})
+_SMALL = {
+    "text_encoder.num_layers": 1, "text_encoder.num_heads": 4,
+    "text_encoder.hidden_size": 64,
+    "text_encoder.intermediate_size": 128,
+    "text_encoder.vocab_size": 8192,
+    "cnn_encoder.stage_sizes": (1, 1, 1, 1),
+    "cnn_encoder.embedding_dim": 32,
+    "fusion.hidden_dim": 32, "fusion.num_attention_heads": 4,
+    "classifier.hidden_dims": (32,),
+    "data.image_size": 32, "data.max_text_length": 128,
+    # the JAX model is otherwise built in bf16
+    "training.compute_dtype": "float32"}
+# the fused-sublayer serving configuration at a small width: 2 layers,
+# so the first takes K3 then K2 and the CLS-only last one K1; images
+# arrive at image_size (the 256-px staging), so the preprocess is K4.
+# H=128 / F=256 keep the JAX kernels' gates open.
+_SLICE = {**_SMALL, "text_encoder.num_layers": 2,
+          "text_encoder.hidden_size": 128,
+          "text_encoder.intermediate_size": 256,
+          "text_encoder.fused_attn_out": True, "data.image_size": 256}
 
 
-@pytest.fixture(scope="module")
-def predictors():
-    cfg = _cfg()
-    jm = jax_model(cfg, mode="multimodal")
-    v = jm.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)),
+def _pair(over):
+    """The JAX and the torch predictor on the same perturbed weights."""
+    cfg, jcfg = resolve_config("default", over), jax_config("default", over)
+    s = jcfg.data.image_size
+    jm = jax_model(jcfg, mode="multimodal")
+    v = jm.init(jax.random.key(0), jnp.zeros((1, s, s, 3)),
                 jnp.zeros((1, 16), jnp.int32), jnp.ones((1, 16), jnp.int32),
                 train=False)
     rng = np.random.default_rng(0)
@@ -76,11 +94,16 @@ def predictors():
         .astype(np.float32), v)
     v["batch_stats"] = jax.tree_util.tree_map(np.abs, v["batch_stats"])
     tok = get_tokenizer()
-    jp = JaxPredictor(cfg, v["params"], v["batch_stats"], tokenizer=tok)
+    jp = JaxPredictor(jcfg, v["params"], v["batch_stats"], tokenizer=tok)
     tm = create_model(cfg, device="cpu", seed=None)
     tm.load_state_dict(state_dict_from_jax(v["params"], v["batch_stats"]),
                        strict=True)
     return jp, MultimodalPredictor(cfg, tm, "cpu", tokenizer=tok), v
+
+
+@pytest.fixture(scope="module")
+def predictors():
+    return _pair(_SMALL)
 
 
 def _requests(n, seed=0):
@@ -184,7 +207,7 @@ def test_http_round_trip(predictors):
 
     _, tp, _ = predictors
     batcher = MicroBatcher(tp, window_ms=50.0)
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_torch_handler(batcher))
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     try:
@@ -217,26 +240,64 @@ def test_http_round_trip(predictors):
         batcher.close()
 
 
+def test_slice_predictor_matches_jax(monkeypatch):
+    # the JAX predictor with its fused attention-output and FFN kernels
+    # engaged (interpreted on the CPU) and its fused normalize (Pallas,
+    # interpreted), against the port's plain versions of K3, K2, K1, K4
+    monkeypatch.setattr(jax_ao_mod, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(jax_ffn_mod, "FORCE_INTERPRET", True)
+    jp, tp, _ = _pair(_SLICE)
+    layers = [getattr(tp.model.text_encoder.bert, f"layer{i}")
+              for i in range(2)]
+    assert all(la.fused_attn_out for la in layers)
+    images, texts = _requests(12, seed=5)
+    _assert_same(tp.predict_batch(images, texts),
+                 jp.predict_batch(images, texts))
+    _assert_same(tp.predict_batch(images[:1], texts[:1]),
+                 jp.predict_batch(images[:1], texts[:1]))
+    assert tp.packed_calls == tp.classic_calls == 1
+
+
+def test_missing_card_raises_instead_of_falling_back(predictors, tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, tp, _ = predictors
+    cfg = tp.cfg
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultimodalPredictor(cfg, tp.model)
+    save_checkpoint(tmp_path / "ck", tp.model.state_dict(),
+                    {"config": cfg.to_dict(), "mode": "multimodal"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_predictor(tmp_path / "ck")
+
+
 def test_port_imports_and_runs_without_jax():
-    # a fresh process: tests/conftest.py imports jax into this one
+    # a fresh process: tests/conftest.py imports jax into this one. The
+    # slice configuration at a small width: K3, K2, K1 and K4 on the path
     code = """
 import sys
 import numpy as np
-from multimodal_rare_disease_tpu.config import resolve_config
 from multimodal_rare_disease_tpu_torch.cli import serve
+from multimodal_rare_disease_tpu_torch.config import resolve_config
 from multimodal_rare_disease_tpu_torch.inference.predictor import (
     MultimodalPredictor)
 from multimodal_rare_disease_tpu_torch.models.classifier import create_model
 cfg = resolve_config("default", {
-    "text_encoder.num_layers": 1, "text_encoder.hidden_size": 32,
+    "text_encoder.num_layers": 2, "text_encoder.hidden_size": 32,
     "text_encoder.num_heads": 2, "text_encoder.intermediate_size": 64,
-    "cnn_encoder.stage_sizes": (1, 1, 1, 1), "data.image_size": 32})
+    "text_encoder.fused_attn_out": True,
+    "cnn_encoder.stage_sizes": (1, 1, 1, 1), "data.image_size": 256})
 p = MultimodalPredictor(cfg, create_model(cfg, device="cpu"), "cpu")
 img = np.zeros((256, 256, 3), np.uint8)
 out = p.predict_batch([img] * 9, ["a short report"] * 9)
 assert len(out) == 9 and p.classic_calls + p.packed_calls == 1
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "optax", "orbax")]
+       ("jax", "jaxlib", "flax", "optax", "orbax",
+        "multimodal_rare_disease_tpu")]
 assert not bad, bad
 print("ok")
 """
