@@ -10,9 +10,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 2. build: the hand-written CUDA kernels, compiled by nvcc from csrc/ into
    build/kernels/ (seconds taken, registers per thread);
 3. K1 (the fused FFN + LayerNorm kernel) against its plain PyTorch version
-   on the card, bf16, at M = 1, 37, 4096 and the packed B=256 row count,
-   with f32 and with bf16 bias/LayerNorm vectors; and that the check
-   fails for a kernel that drops any one of the six vectors;
+   on the card, bf16, at M = 1, 37, 64, 1024, 4096 and the packed B=256
+   row count (the split-F path below 132 row tiles, whole F at the packed
+   count), with f32 and with bf16 bias/LayerNorm vectors; and that the
+   check fails for a kernel that drops any one of the six vectors;
 3b. the same for K2 (the FFN kernel without its input LayerNorm) and K3
    (the fused attention-output + LayerNorm kernel), which read bf16
    vectors only (f32 ones go through the counted gate, checked here too),
@@ -27,7 +28,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
 5. serving: the predictor behind the MicroBatcher, 8 concurrent requests
    and 3 single ones, answered with the JSON contract;
 6. times: p50 of `predict_batch` at B=256, and K1 against the plain
-   version per layer at the packed row count;
+   version per layer at the packed row count, at the 1,024 CLS rows of
+   the last layer and at the single request's 64 and 1 rows, each beside
+   its bound;
 7. the fused-sublayer path: the same model and batch under
    text_encoder.fused_attn_out with images at image_size 256, where every
    layer but the CLS-only last one takes K3 then K2, the last one K1, and
@@ -87,6 +90,12 @@ PROB_ATOL_PLAIN = 2.5e-3
 PROB_ATOL_F32 = 3e-3
 BATCH = 256
 TIMED_RUNS = 10
+# phase 3's row counts besides the packed one: the single request (1, then
+# its length bucket 64), a ragged tile, the CLS-only last layer at B=256
+# and a mid size
+PHASE3_ROWS = (1, 37, 64, 1024, 4096)
+# phase 6's extra K1 row counts: the CLS-only last layer, the single request
+SMALL_ROWS = (1024, 64, 1)
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): dense bf16
 # tensor-core rate, f32 rate outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -299,7 +308,7 @@ def main() -> int:
         check's failure for a kernel that drops a term; returns (worst
         max|diff|, line)."""
         errs = {}
-        for m in (1, 37, 4096, packed_m):
+        for m in PHASE3_ROWS + (packed_m,):
             args = make(m)
             got = kern(*args, vecs)
             if not torch.isfinite(got).all():
@@ -540,11 +549,25 @@ def main() -> int:
         lambda: k1.fused_ffn_ln(*a1, **ln0),
         lambda: k1.ffn_ln_plain(*a1, input_ln=True, **ln0))
     k1_bound, k1_by = ffn_bound(packed_m, h, f, 2, True)
+    small = []
+    for m in SMALL_ROWS:
+        zm = rnd((m, h), 1.0, dtype=bf)
+        am = (zm,) + a1[1:]
+        ms, plain_ms, runs = in_turns(
+            lambda: k1.fused_ffn_ln(*am, **ln0),
+            lambda: k1.ffn_ln_plain(*am, input_ln=True, **ln0))
+        bound, by = ffn_bound(m, h, f, 2, True)
+        plan = k1.ffn_plan(m, f, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        small.append(f"M={m} ({plan.tiles} tiles x {plan.slices} slices): "
+                     f"{ms:.4f} ms vs plain {plain_ms:.4f} ({runs}), bound "
+                     f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it")
     print(f"[6 times] {card} | predict_batch B={BATCH} p50 {p50:.2f} ms "
           f"(of {TIMED_RUNS}: {', '.join(f'{x:.1f}' for x in lat)}) | "
           f"K1 at M={packed_m}: {k1_ms:.3f} ms/layer vs plain "
           f"{k1_plain_ms:.3f} ms/layer ({k1_runs}); bound {k1_bound:.4f} ms "
-          f"({k1_by}), {k1_bound / k1_ms:.1%} of it")
+          f"({k1_by}), {k1_bound / k1_ms:.1%} of it | K1 at "
+          f"{'; '.join(small)}")
     del pred, model
     torch.cuda.empty_cache()
 

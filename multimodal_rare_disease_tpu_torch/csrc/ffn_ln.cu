@@ -19,306 +19,656 @@
 // and ::_ffn_ln_kernel (K2, through _fused_ffn_ln_impl and fused_ffn_ln
 // without pre_gamma). The two differ only in the prologue.
 //
-// What bounds it on the H100: the FLOP count is far above the card's ridge
-// (at the packed batch of 256 documents, M of 16k-24k rows, one call is
-// 4*M*768*F = 155-232 GFLOP against 60-85 MB of device-memory traffic), and
-// the [M, F] intermediate never goes to device memory: each block keeps a
-// [32, 64] chunk of it in shared memory and folds it into a [32, 768] f32
-// accumulator held in registers. With 32 rows per block every block streams
-// the whole of W1 and W2 (9.4 MB, resident in the 50 MB L2), so what bounds
-// this design is L2-to-SM bandwidth; a larger row tile (wgmma, clusters
-// sharing weight tiles) is the next step.
+// What bounds it on the H100: the operations. One call is 4*M*768*F flops
+// (155 GFLOP at M = 16,384 and F = 3072: 0.156 ms at the bf16 tensor-core
+// peak) against 60-85 MB of device-memory traffic, and the [M, F]
+// intermediate never goes to device memory. What a design has to beat is
+// the weight stream and the register file: every block that owns a tile of
+// rows reads all of W1 and W2 (9.4 MB) from L2, so the rows per block set
+// the L2-to-SM traffic (4.8 GB per call at 32 rows per block, 2.4 GB at
+// 64); only wgmma reaches the tensor-core rate; LN2 needs whole
+// 768-wide rows, so a 64-row tile keeps a [64, 768] f32 accumulator, three
+// quarters of the SM's registers; and few rows leave SMs idle.
 //
-// Design (simple and right first):
-//   - one block of 8 warps per tile of 32 rows; ragged rows are masked, so
-//     any M >= 1 works (M = 1 for a single request's CLS-only last layer);
-//   - K1: LN0 with warp reductions into a bf16 [32, 768] tile in shared
-//     memory; K2: the input rows copied into that tile as they are;
-//   - the weights stream through a 4-deep ring of 16-18 KB shared-memory
-//     tiles filled with cp.async, three tiles ahead of the math: per F chunk
-//     of 64, six W1 tiles [64 f x 128 k] then six W2 tiles [128 h x 64 f];
-//   - WMMA bf16 16x16x16 with f32 accumulation: x . W1[:, chunk] + b1 ->
-//     GELU -> bf16 chunk in shared memory, then chunk . W2[chunk, :] into
-//     the accumulator, 12 fragments per warp (warp w owns output columns
-//     128 j + 16 w .. +16 for j = 0..5, all 32 rows);
-//   - the residual + b2 + LN2 epilogue, then a bf16 store.
+// Design:
+//   - a block owns 64 rows (one wgmma M) and three warpgroups of 128
+//     threads: two for stage 2 and one for stage 1. setmaxnreg gives each
+//     stage-2 warpgroup 224 registers (its 192 accumulator registers stay
+//     pinned; at 208 ptxas swaps one 64-register block through local memory
+//     every chunk) and stage 1 the remaining 56;
+//   - the weights stream by TMA (cp.async.bulk.tensor, tensor maps passed
+//     as __grid_constant__ parameters) into two rings of 128-byte-swizzled
+//     shared memory with an mbarrier per slot: W1 tiles [32 f x 128 k] (6
+//     slots of 8 KB) for stage 1, W2 tiles [128 h x 64 f] (4 slots of 16 KB)
+//     for stage 2. There is no producer warp: thread 0 fills both rings and
+//     a slot's consumer refills it once its products are done;
+//   - the bf16 x tile [64, 768] (96 KB) stays in shared memory in the same
+//     swizzled layout, written by all threads in the prologue (LN0 of z for
+//     K1, the rows themselves for K2; zeros past M). It is stage 1's A
+//     operand and the epilogue's residual;
+//   - stage 1, per F chunk of 64 and in two passes of 32 columns:
+//     x . W1[:, cols] with wgmma m64n32k16 (A and B from shared memory),
+//     + b1, exact-erf GELU in f32, bf16 into one of two [64, 64] chunk
+//     buffers in the swizzled layout, handed to stage 2 by full/empty
+//     mbarriers, so stage 1 runs up to two chunks ahead;
+//   - stage 2, split by output columns: warpgroup wg accumulates its 384
+//     columns of chunk . W2[chunk, :] with wgmma m64n128k16 into a [64, 384]
+//     f32 accumulator, one wgmma group in flight;
+//   - epilogue from registers: + b2 + x, then LN2 with per-row partial sums
+//     exchanged between the two stage-2 warpgroups through shared memory
+//     (two-pass), and a bf16 store of the valid rows.
+// Split-F path for small M: when the row tiles would fill fewer blocks than
+// the card has SMs, the launch adds a grid dimension of S slices of F (S
+// chosen by kernels/ffn.py::ffn_plan). Each block then runs its slice's
+// chunks only and stores its f32 partial of h . W2 for the valid rows into a
+// scratch buffer [S, M, 768]; a second kernel sums the S partials in slice
+// order, adds b2 and x (LN0 recomputed for K1, by the same code) and applies
+// LN2. No atomics: the result is the same bits on every launch.
 // The weights are read in the layout of torch.nn.Linear ([out, in],
-// row-major), i.e. W1 and W2 column-major, which is WMMA's col_major B.
+// row-major): W1^T [F, H] and W2^T [H, F] are the K-major B operands of the
+// two products, which wgmma takes without a transpose.
 
-#include <mma.h>
+#include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using mrd::bf16;
-using mrd::align128;
-using mrd::cmax;
-using mrd::cp_async16;
-using mrd::cp_async_commit;
-using mrd::cp_async_wait;
+using mrd::fence_barrier_init;
+using mrd::fence_proxy_async;
 using mrd::ld_f32;
+using mrd::mbar_arrive;
+using mrd::mbar_arrive_expect_tx;
+using mrd::mbar_init;
+using mrd::mbar_wait;
+using mrd::named_bar_sync;
+using mrd::smem_addr;
+using mrd::sw128_desc;
+using mrd::sw128_offset;
+using mrd::tma_load_2d;
 using mrd::warp_sum;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kH = 768;                 // hidden width (BERT-base)
-constexpr int kTM = 32;                 // rows per block
-constexpr int kFC = 64;                 // F chunk per loop step
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowTiles = kTM / 16;     // 2
-constexpr int kPerLane = kH / 32;       // 24 columns per lane in LN passes
+constexpr int kH = 768;                      // hidden width (BERT-base)
+constexpr int kTM = 64;                      // rows per block (wgmma M)
+constexpr int kFC = 64;                      // F chunk per loop step
+constexpr int kS2 = 2;                       // stage-2 warpgroups (0 and 1)
+constexpr int kS1WG = kS2;                   // the stage-1 warpgroup (2)
+constexpr int kThreads = 128 * (kS2 + 1);
+constexpr int kS2Threads = 128 * kS2;
+constexpr int kHalf = kH / kS2;              // 384 output columns per stage-2 WG
+constexpr int kGroups = kH / 8;              // 16-byte groups per x row
+constexpr int kGroupsPerLane = kGroups / 32; // 3
+// registers per thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 =
+// 384 x 168, the registers the block is launched with. Stage 2 needs its
+// 192 accumulator registers pinned at R24 .. R215 and a few above; with
+// fewer, ptxas swaps an accumulator through local memory every chunk
+constexpr int kS2Regs = 224;
+constexpr int kS1Regs = 56;
 
-// weight tiles streamed per F chunk: W1 in k-slices, W2 in h-slices
-constexpr int kK1 = 128;                // k (= H) columns of a W1 tile
-constexpr int kN2 = 128;                // h rows of a W2 tile
-constexpr int kW1Tiles = kH / kK1;      // 6
-constexpr int kW2Tiles = kH / kN2;      // 6
-constexpr int kTilesPerChunk = kW1Tiles + kW2Tiles;
-constexpr int kStages = 4;              // ring depth (3 tiles in flight)
+// W1 tiles [32 f][128 k] (stage 1 takes a chunk as two halves of 32
+// columns, 6 tiles each) and W2 tiles [128 h][64 f] (tile u of a chunk
+// goes to stage-2 WG u % 2), each ring refilled by its consumers
+constexpr int kS1N = 32;                     // chunk columns per stage-1 pass
+constexpr int kW1K = 128;                    // k (= H) columns of a W1 tile
+constexpr int kW1PerHalf = kH / kW1K;        // 6
+constexpr int kW1PerChunk = 2 * kW1PerHalf;  // 12
+constexpr int kW2N = 128;                    // h rows of a W2 tile
+constexpr int kW2PerChunk = kH / kW2N;       // 6
+constexpr int kW1Stages = 6;
+constexpr int kW2Stages = 4;
+constexpr int kHStages = 2;                  // GELU chunks between the stages
 
-// shared-memory row strides, padded against bank conflicts (multiples of
-// 8 bf16 / 4 f32 elements as WMMA's ldm requires, rows 16-byte aligned)
-constexpr int kXS = kH + 8;             // bf16 x tile
-constexpr int kHS = kFC + 8;            // bf16 GELU chunk
-constexpr int kPS = kFC + 4;            // f32 stage-1 staging
-constexpr int kAS = kH + 4;             // f32 accumulator staging
-constexpr int kW1S = kK1 + 8;           // bf16 W1 tile [64 f][128 k]
-constexpr int kW2S = kFC + 8;           // bf16 W2 tile [128 h][64 f]
+// shared memory, from a 1024-byte aligned base: the x tile as 12 column
+// blocks of [64 rows][64 bf16], the GELU chunks, the two weight rings, the
+// barriers and the LN2 exchange
+constexpr uint32_t kBlockBytes = kTM * 128;              // [64][64] bf16, 8 KB
+constexpr uint32_t kW1Bytes = kS1N * kW1K * 2;           // 8 KB
+constexpr uint32_t kW2Bytes = kW2N * kFC * 2;            // 16 KB
+constexpr uint32_t kOffX = 0;
+constexpr uint32_t kOffH = kOffX + (kH / 64) * kBlockBytes;
+constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
+constexpr uint32_t kOffW2 = kOffW1 + kW1Stages * kW1Bytes;
+// the rings' full barriers (TMA bytes) and the GELU chunks' full and
+// empty barriers, 8 bytes each
+constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
+constexpr uint32_t kBarW2Full = kBarW1Full + 8 * kW1Stages;
+constexpr uint32_t kBarHFull = kBarW2Full + 8 * kW2Stages;
+constexpr uint32_t kBarHEmpty = kBarHFull + 8 * kHStages;
+constexpr uint32_t kOffRed = kBarHEmpty + 8 * kHStages;  // float [2][2][64]
+constexpr uint32_t kSmemBytes = kOffRed + 2 * kS2 * kTM * 4 + 1024;
 
-constexpr size_t kXBytes = align128(sizeof(bf16) * kTM * kXS);
-constexpr size_t kHBytes = align128(sizeof(bf16) * kTM * kHS);
-constexpr size_t kPBytes = align128(sizeof(float) * kTM * kPS);
-constexpr size_t kSlotBytes =
-    align128(cmax(sizeof(bf16) * kFC * kW1S, sizeof(bf16) * kN2 * kW2S));
-constexpr size_t kABytes = sizeof(float) * kTM * kAS;
-// the epilogue staging aliases the stage-1 staging and the ring, which are
-// no longer live by then
-constexpr size_t kUnionBytes = cmax(kPBytes + kStages * kSlotBytes, kABytes);
-constexpr size_t kSmemBytes = kXBytes + kHBytes + kUnionBytes;
+static_assert(kW1Bytes == 2 * kS1N * 128, "W1 tile: two [32][64] boxes");
+static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
+static_assert(kW2Stages % kS2 == 0, "tile g + kW2Stages has the owner of tile g");
+static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0, "1024-byte swizzle atoms");
+static_assert(2 * 128 * kS2Regs + 128 * kS1Regs == kThreads * 168,
+              "setmaxnreg must hand over exactly the registers it frees");
+static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
 
-static_assert(kWarps == kRowTiles * (kFC / 16), "one stage-1 tile per warp");
-static_assert(kN2 == 16 * kWarps, "one W2 column tile per warp per tile");
-static_assert(kTM % kWarps == 0, "rows must split evenly over warps");
-static_assert(kFC * kK1 / 8 == 4 * kThreads, "W1 tile: 4 copies per thread");
-static_assert(kN2 * kFC / 8 == 4 * kThreads, "W2 tile: 4 copies per thread");
-static_assert(kSmemBytes <= 227 * 1024, "over the per-block shared memory");
+// a ring position: slot and the parity of its current round
+struct Ring {
+  uint32_t slot = 0, phase = 0;
+  template <int kStages>
+  __device__ __forceinline__ void next() {
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
 
-// Issue this thread's share of weight tile g (chunk g / 12, tile g % 12)
-// into `slot`; tiles past the end issue nothing. Every thread commits one
-// group per call, so group counts stay uniform.
-__device__ __forceinline__ void load_tile(int g, int n_tiles, bf16* slot,
-                                          const bf16* __restrict__ w1t,
-                                          const bf16* __restrict__ w2t, int F) {
-  if (g < n_tiles) {
-    const int f0 = (g / kTilesPerChunk) * kFC;
-    const int t = g % kTilesPerChunk;
+// x row `gr` as three 16-byte groups per lane (columns 8 (lane + 32 j) ..
+// + 8): LN0 of z in f32, rounded to bf16 (K1), or z itself (K2); zeros past
+// M. One warp per row; the main kernel and the split reduction both take x
+// from here, so they see the same bits.
+template <typename V, bool kInputLN>
+__device__ __forceinline__ void load_x_row(const bf16* __restrict__ z, long long gr, int M,
+                                           const V* __restrict__ g0,
+                                           const V* __restrict__ o0, float eps, int lane,
+                                           uint4 (&out)[kGroupsPerLane]) {
+  if (gr >= M) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      if (t < kW1Tiles) {  // W1^T[f0 + row, k0 + col]
-        const int row = q / (kK1 / 8), col = (q % (kK1 / 8)) * 8;
-        cp_async16(slot + row * kW1S + col,
-                   w1t + static_cast<size_t>(f0 + row) * kH + t * kK1 + col);
-      } else {             // W2^T[h0 + row, f0 + col]
-        const int row = q / (kFC / 8), col = (q % (kFC / 8)) * 8;
-        const int h0 = (t - kW1Tiles) * kN2;
-        cp_async16(slot + row * kW2S + col,
-                   w2t + static_cast<size_t>(h0 + row) * F + f0 + col);
+    for (int j = 0; j < kGroupsPerLane; ++j) out[j] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(z + gr * kH);
+#pragma unroll
+  for (int j = 0; j < kGroupsPerLane; ++j) out[j] = src[lane + 32 * j];
+  if constexpr (kInputLN) {
+    float v[kGroupsPerLane][8];
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kGroupsPerLane; ++j) {
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        v[j][2 * e] = f.x;
+        v[j][2 * e + 1] = f.y;
+        s += f.x + f.y;
+      }
+    }
+    const float mu = warp_sum(s) * (1.0f / kH);
+    float q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kGroupsPerLane; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
+    const float rstd = rsqrtf(warp_sum(q) * (1.0f / kH) + eps);
+#pragma unroll
+    for (int j = 0; j < kGroupsPerLane; ++j) {
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out[j]);
+      const int c = 8 * (lane + 32 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cc = c + 2 * e;
+        p[e] = __floats2bfloat162_rn(
+            (v[j][2 * e] - mu) * rstd * ld_f32(g0 + cc) + ld_f32(o0 + cc),
+            (v[j][2 * e + 1] - mu) * rstd * ld_f32(g0 + cc + 1) + ld_f32(o0 + cc + 1));
       }
     }
   }
-  cp_async_commit();
+}
+
+// `v` as a value the compiler cannot see through: addresses derived from it
+// are computed where they are used, not hoisted out of the loops and kept
+// live across them in registers the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// columns c and c + 1 (c even) of row r of a swizzled tile, as f32
+__device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int c) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      tile + sw128_offset(r, c >> 3, kBlockBytes) + (c & 7) * 2));
+}
+
+// Issue W1 tile g of the slice (chunk c_begin + g / 12, half (g / 6) % 2,
+// k-slice g % 6: W1^T[f .. f + 32, 128 t .. + 128]) into its ring slot.
+__device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, int c_begin,
+                                        int g) {
+  const int t = g % kW1PerHalf;
+  const int f = (c_begin + g / kW1PerChunk) * kFC + kS1N * ((g / kW1PerHalf) % 2);
+  const uint32_t slot = g % kW1Stages;
+  const uint32_t bar = base + kBarW1Full + 8 * slot;
+  const uint32_t dst = base + kOffW1 + slot * kW1Bytes;
+  mbar_arrive_expect_tx(bar, kW1Bytes);
+  tma_load_2d(dst, map, bar, t * kW1K, f);
+  tma_load_2d(dst + kW1Bytes / 2, map, bar, t * kW1K + 64, f);
+}
+
+// Issue W2 tile g of the slice (chunk c_begin + g / 6, tile u = g % 6:
+// W2^T[h0 .. h0 + 128, f0 .. f0 + 64]) into its ring slot.
+__device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, int c_begin,
+                                        int g) {
+  const int u = g % kW2PerChunk;
+  const uint32_t slot = g % kW2Stages;
+  const uint32_t bar = base + kBarW2Full + 8 * slot;
+  mbar_arrive_expect_tx(bar, kW2Bytes);
+  tma_load_2d(base + kOffW2 + slot * kW2Bytes, map, bar, (c_begin + g / kW2PerChunk) * kFC,
+              kHalf * (u % kS2) + kW2N * (u / kS2));
+}
+
+// Stage 2 of chunk k (counted from the slice's first) for warpgroup wg:
+// ACC[:, 384 wg .. +384] += h . W2[chunk, ...], from W2 tiles u = 2 j + wg.
+// Both stage-2 WGs wait on every W2 tile, the other one's included, so each
+// waits on every round of every slot in order and the parity waits are
+// exact. A tile's own WG refills its slot with tile g + 4 (same owner) once
+// its products are done; that cannot run two rounds ahead of the other WG,
+// whose next tile it has to wait for first. kFirst: the slice's first
+// chunk, whose first step writes the accumulators without reading them.
+template <bool kFirst>
+__device__ __forceinline__ void s2_chunk(float (&acc)[kW2PerChunk / kS2][64], Ring& w2,
+                                         const CUtensorMap* w2_map, uint32_t base,
+                                         int c_begin, int n_w2, int k, int wg, bool leader) {
+  const int hs = k % kHStages;
+  mbar_wait(base + kBarHFull + 8 * hs, (k / kHStages) & 1);
+  int prev = 0;  // the W2 tile of the group in flight
+#pragma unroll
+  for (int j = 0; j < kW2PerChunk / kS2; ++j) {
+    uint32_t mine = 0;
+#pragma unroll
+    for (int o = 0; o < kS2; ++o) {
+      mbar_wait(base + kBarW2Full + 8 * w2.slot, w2.phase);
+      if (o == wg) mine = w2.slot;
+      w2.next<kW2Stages>();
+    }
+    const int g = k * kW2PerChunk + kS2 * j + wg;
+    const uint32_t a0 = opaque(base) + kOffH + hs * kBlockBytes;
+    const uint32_t b0 = opaque(base) + kOffW2 + mine * kW2Bytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if (kFirst && kk == 0)
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      else
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (j > 0) {
+      mrd::wgmma_wait<1>();
+      if (leader && prev + kW2Stages < n_w2) load_w2(w2_map, base, c_begin, prev + kW2Stages);
+    }
+    prev = g;
+  }
+  mrd::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kW2PerChunk / kS2; ++j) mrd::fence_operand(acc[j]);
+  if (leader) {
+    if (prev + kW2Stages < n_w2) load_w2(w2_map, base, c_begin, prev + kW2Stages);
+    mbar_arrive(base + kBarHEmpty + 8 * hs);
+  }
 }
 
 // V: the type of the bias and LayerNorm vectors (float or bf16; bf16 only
-// for K2);
-// kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0 unused)
+// for K2); kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0
+// unused). Grid: (row tiles, slices of F); with one slice the block applies
+// LN2 and writes y, with several it writes its f32 partial of h . W2 to
+// `partial` [slices, M, H] and ffn_split_reduce finishes the rows.
 template <typename V, bool kInputLN>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_ln_kernel(const bf16* __restrict__ z,         // [M, H]
-                  const bf16* __restrict__ w1t,   // [F, H]  (W1 transposed)
-                  const V* __restrict__ b1,       // [F]
-                  const bf16* __restrict__ w2t,   // [H, F]  (W2 transposed)
-                  const V* __restrict__ b2,       // [H]
-                  const V* __restrict__ gamma,
-                  const V* __restrict__ beta,
-                  const V* __restrict__ g0,       // LN0 scale [H] (K1)
-                  const V* __restrict__ o0,       // LN0 bias [H] (K1)
-                  bf16* __restrict__ y,           // [M, H]
-                  int M, int F, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* hs = reinterpret_cast<bf16*>(smem + kXBytes);
-  float* ps = reinterpret_cast<float*>(smem + kXBytes + kHBytes);
-  unsigned char* ring = smem + kXBytes + kHBytes + kPBytes;
-  float* accs = ps;  // epilogue only: aliases ps and the ring
-  auto slot = [&](int g) {
-    return reinterpret_cast<bf16*>(ring + (g % kStages) * kSlotBytes);
-  };
+ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
+              const __grid_constant__ CUtensorMap w2_map,  // W2^T [H, F]
+              const bf16* __restrict__ z,                  // [M, H]
+              const V* __restrict__ b1,                    // [F]
+              const V* __restrict__ b2,                    // [H]
+              const V* __restrict__ gamma,
+              const V* __restrict__ beta,
+              const V* __restrict__ g0,                    // LN0 scale [H] (K1)
+              const V* __restrict__ o0,                    // LN0 bias [H] (K1)
+              bf16* __restrict__ y,                        // [M, H]
+              float* __restrict__ partial,                 // [slices, M, H]
+              int M, int chunks_per_slice, float eps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
 
+  const int c_begin = blockIdx.y * chunks_per_slice;
+  const int c_end = c_begin + chunks_per_slice;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTM;
-  const float inv_h = 1.0f / kH;
-  const int n_tiles = (F / kFC) * kTilesPerChunk;
 
-  // start the weight stream, then normalize while it is in flight
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) load_tile(s, n_tiles, slot(s), w1t, w2t, F);
-
-  // ---- prologue: each warp fills kTM / kWarps rows of the bf16 x tile:
-  // LN0(z) for K1, the rows themselves for K2 (zeros past M either way)
-  for (int r = warp; r < kTM; r += kWarps) {
-    const long long gr = row0 + r;
-    if constexpr (!kInputLN) {
-      const bf16 zero = __float2bfloat16(0.0f);
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j)
-        xs[r * kXS + lane + 32 * j] = gr < M ? z[gr * kH + lane + 32 * j] : zero;
-    } else {
-      float v[kPerLane];
-      if (gr < M) {
-        const bf16* src = z + gr * kH;
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) v[j] = __bfloat162float(src[lane + 32 * j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) v[j] = 0.0f;
-      }
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) s += v[j];
-      const float mu = warp_sum(s) * inv_h;
-      float q = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) q += (v[j] - mu) * (v[j] - mu);
-      const float rstd = rsqrtf(warp_sum(q) * inv_h + eps);
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int c = lane + 32 * j;
-        xs[r * kXS + c] =
-            __float2bfloat16((v[j] - mu) * rstd * ld_f32(g0 + c) + ld_f32(o0 + c));
-      }
+  const int n_w1 = chunks_per_slice * kW1PerChunk;  // tiles of this slice
+  const int n_w2 = chunks_per_slice * kW2PerChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kW1Stages; ++s) mbar_init(base + kBarW1Full + 8 * s, 1);
+    for (int s = 0; s < kW2Stages; ++s) mbar_init(base + kBarW2Full + 8 * s, 1);
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(base + kBarHFull + 8 * s, 128);  // every stage-1 thread
+      mbar_init(base + kBarHEmpty + 8 * s, kS2);
     }
+    fence_barrier_init();
+    // fill both rings; from here on, consumers refill the slots they free
+    for (int g = 0; g < kW1Stages && g < n_w1; ++g) load_w1(&w1_map, base, c_begin, g);
+    for (int g = 0; g < kW2Stages && g < n_w2; ++g) load_w2(&w2_map, base, c_begin, g);
   }
-  // (the first tile's barrier below also publishes the x tile)
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowTiles][kW2Tiles];
+  // prologue, all 12 warps: the bf16 x tile, one warp per row
+  for (int r = warp; r < kTM; r += kThreads / 32) {
+    uint4 g[kGroupsPerLane];
+    load_x_row<V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int j = 0; j < kW2Tiles; ++j) wmma::fill_fragment(acc[rt][j], 0.0f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> p;
-
-  // this warp's stage-1 tile within a chunk: rows r1*16.., chunk cols c1*16..
-  const int r1 = warp % kRowTiles;
-  const int c1 = warp / kRowTiles;
-
-  for (int f0 = 0, g = 0; f0 < F; f0 += kFC) {
-#pragma unroll
-    for (int t = 0; t < kTilesPerChunk; ++t, ++g) {
-      // tile g has landed for every thread, and every warp is done with
-      // tile g - 1, whose slot the next load reuses
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      load_tile(g + kStages - 1, n_tiles, slot(g + kStages - 1), w1t, w2t, F);
-      const bf16* w = slot(g);
-      if (t < kW1Tiles) {
-        // ---- stage 1: P[32, 64] += X[:, k-slice] . W1[k-slice, chunk]
-        if (t == 0) wmma::fill_fragment(p, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < kK1; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, xs + r1 * 16 * kXS + t * kK1 + kk, kXS);
-          wmma::load_matrix_sync(b, w + c1 * 16 * kW1S + kk, kW1S);
-          wmma::mma_sync(p, a, b, p);
-        }
-        if (t == kW1Tiles - 1) {
-          wmma::store_matrix_sync(ps + r1 * 16 * kPS + c1 * 16, p, kPS,
-                                  wmma::mem_row_major);
-          __syncthreads();
-          // ---- bias + exact-erf GELU in f32, rounded to the bf16 chunk
-          for (int i = threadIdx.x; i < kTM * kFC; i += kThreads) {
-            const int r = i / kFC;
-            const int c = i % kFC;
-            const float v = ps[r * kPS + c] + ld_f32(b1 + f0 + c);
-            hs[r * kHS + c] =
-                __float2bfloat16(0.5f * v * (1.0f + erff(v * 0.70710678118654752f)));
-          }
-          // the next tile's barrier publishes hs before stage 2 reads it
-        }
-      } else {
-        // ---- stage 2: ACC[:, h-slice] += Hc[32, 64] . W2[chunk, h-slice]
-        const int j = t - kW1Tiles;
-#pragma unroll
-        for (int kk = 0; kk < kFC; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, w + warp * 16 * kW2S + kk, kW2S);
-#pragma unroll
-          for (int rt = 0; rt < kRowTiles; ++rt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, hs + rt * 16 * kHS + kk, kHS);
-            wmma::mma_sync(acc[rt][j], a, b, acc[rt][j]);
-          }
-        }
-      }
-    }
+    for (int j = 0; j < kGroupsPerLane; ++j)
+      *reinterpret_cast<uint4*>(smem + kOffX + sw128_offset(r, lane + 32 * j, kBlockBytes)) =
+          g[j];
   }
-
-  // ---- epilogue: residual + b2 + LN2, bf16 store of the valid rows
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring before it is reused
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int j = 0; j < kW2Tiles; ++j)
-      wmma::store_matrix_sync(accs + rt * 16 * kAS + j * kN2 + warp * 16, acc[rt][j],
-                              kAS, wmma::mem_row_major);
+  fence_proxy_async();
   __syncthreads();
 
-  for (int r = warp; r < kTM; r += kWarps) {
-    const long long gr = row0 + r;
-    if (gr >= M) break;  // rows are visited in increasing order
-    float v[kPerLane];
-    float s = 0.0f;
+  const int role = threadIdx.x / 128;
+  const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
+  const bool leader = threadIdx.x % 128 == 0;
+  if (role == kS1WG) {
+    // ---- stage 1: the GELU chunk h = bf16(GELU(x . W1[:, chunk] + b1)),
+    // in two passes of 32 columns
+    mrd::setmaxnreg_dec<kS1Regs>();
+    Ring w1;
+    int g = 0;  // W1 tiles consumed
+    for (int c = c_begin; c < c_end; ++c) {
+      const int k = c - c_begin;
+      const int hs = k % kHStages;
+      unsigned char* hbuf = smem + kOffH + hs * kBlockBytes;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
+        // flight while the next tile's wait and issue proceed
+        float p[16];
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = accs[r * kAS + c] + ld_f32(b2 + c) + __bfloat162float(xs[r * kXS + c]);
-      s += v[j];
+        for (int t = 0; t < kW1PerHalf; ++t, ++g) {
+          mbar_wait(base + kBarW1Full + 8 * w1.slot, w1.phase);
+          const uint32_t a0 = opaque(base) + kOffX + 2 * t * kBlockBytes;
+          const uint32_t b0 = opaque(base) + kOffW1 + w1.slot * kW1Bytes;
+          if (t > 0) mrd::fence_operand(p);
+          mrd::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kW1K / 16; ++kk) {
+            const uint64_t da = sw128_desc(a0 + (kk / 4) * kBlockBytes + (kk % 4) * 32);
+            const uint64_t db = sw128_desc(b0 + (kk / 4) * (kW1Bytes / 2) + (kk % 4) * 32);
+            if (t == 0 && kk == 0)
+              mrd::wgmma_m64n32k16_first(p, da, db);
+            else
+              mrd::wgmma_m64n32k16(p, da, db, 1);
+          }
+          mrd::wgmma_commit();
+          mrd::fence_operand(p);
+          if (t > 0) {
+            mrd::wgmma_wait<1>();
+            if (leader && g - 1 + kW1Stages < n_w1)
+              load_w1(&w1_map, base, c_begin, g - 1 + kW1Stages);
+          }
+          w1.next<kW1Stages>();
+        }
+        mrd::wgmma_wait<0>();
+        mrd::fence_operand(p);
+        if (leader && g - 1 + kW1Stages < n_w1) load_w1(&w1_map, base, c_begin, g - 1 + kW1Stages);
+        // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
+        // stage 2 has released it
+        if (half == 0) mbar_wait(base + kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+#pragma unroll
+        for (int nb = 0; nb < kS1N / 8; ++nb) {
+          const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b1 + c * kFC + col);
+          const float bb1 = ld_f32(b1 + c * kFC + col + 1);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = wrow + 8 * hr;
+            const float v0 = p[4 * nb + 2 * hr] + bb0;
+            const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
+            *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
+                                               (col & 7) * 2) =
+                __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                      0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+          }
+        }
+      }
+      fence_proxy_async();  // the stores, to stage 2's wgmma
+      mbar_arrive(base + kBarHFull + 8 * hs);
     }
-    const float mu = warp_sum(s) * inv_h;
-    float q = 0.0f;
+  } else {
+    // ---- stage 2, warpgroup wg: ACC[:, 384 wg .. +384] += h . W2[chunk, ...]
+    mrd::setmaxnreg_inc<kS2Regs>();
+    const int wg = role;
+    float acc[kW2PerChunk / kS2][64];  // [64, 384] f32: n128 tiles
+    Ring w2;
+    s2_chunk<true>(acc, w2, &w2_map, base, c_begin, n_w2, 0, wg, leader);
+    for (int k = 1; k < chunks_per_slice; ++k)
+      s2_chunk<false>(acc, w2, &w2_map, base, c_begin, n_w2, k, wg, leader);
+
+    // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
+    // per n8 block nb of tile j the columns 384 wg + 128 j + 8 nb + 2 (lane % 4)
+    // and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half, col + e)
+    const unsigned char* xt = smem + kOffX;
+    float* red = reinterpret_cast<float*>(smem + kOffRed);
+    if (gridDim.y > 1) {  // split-F: the f32 partial of the valid rows
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) q += (v[j] - mu) * (v[j] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * inv_h + eps);
-    bf16* dst = y + gr * kH;
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      dst[c] = __float2bfloat16((v[j] - mu) * rstd * ld_f32(gamma + c) + ld_f32(beta + c));
+          for (int j = 0; j < kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int nb = 0; nb < 16; ++nb) {
+              const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
+            }
+        }
+      }
+      return;
+    }
+    // + b2 + x, and the row sums of this warpgroup's 384 columns
+    float s[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kW2PerChunk / kS2; ++j)
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+        const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 x2 = pair_at(xt, wrow + 8 * half, col);
+          float& a0 = acc[j][4 * nb + 2 * half];
+          float& a1 = acc[j][4 * nb + 2 * half + 1];
+          a0 = a0 + bb0 + x2.x;
+          a1 = a1 + bb1 + x2.y;
+          s[half] += a0 + a1;
+        }
+      }
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+    }
+    named_bar_sync<kS2Threads>(1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wrow + 8 * half;
+      mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
+      s[half] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kW2PerChunk / kS2; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float d = acc[j][i] - mu[(i / 2) % 2];
+        s[(i / 2) % 2] += d * d;
+      }
+    float* red_q = red + kS2 * kTM;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+    }
+    named_bar_sync<kS2Threads>(1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wrow + 8 * half;
+      rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long gr = row0 + wrow + 8 * half;
+      if (gr < M) {
+        bf16* dst = y + gr * kH;
+#pragma unroll
+        for (int j = 0; j < kW2PerChunk / kS2; ++j)
+#pragma unroll
+          for (int nb = 0; nb < 16; ++nb) {
+            const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+            const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+                (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
+                (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
+                    ld_f32(beta + col + 1));
+          }
+      }
     }
   }
+}
+
+// The split-F path's second pass: y = LN2(sum_s partial[s] + b2 + x), the
+// slices summed in order 0 .. S-1. One warp per row, 8 rows per block.
+template <typename V, bool kInputLN>
+__global__ void __launch_bounds__(256)
+ffn_split_reduce(const float* __restrict__ partial, int slices,
+                 const bf16* __restrict__ z, const V* __restrict__ b2,
+                 const V* __restrict__ gamma, const V* __restrict__ beta,
+                 const V* __restrict__ g0, const V* __restrict__ o0,
+                 bf16* __restrict__ y, int M, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long gr = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  if (gr >= M) return;
+  uint4 xg[kGroupsPerLane];
+  load_x_row<V, kInputLN>(z, gr, M, g0, o0, eps, lane, xg);
+  float v[kGroupsPerLane][8];
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kGroupsPerLane; ++j) {
+    const int c = 8 * (lane + 32 * j);
+    const float4* src = reinterpret_cast<const float4*>(partial + gr * kH + c);
+    float4 lo = src[0], hi = src[1];
+    for (int sl = 1; sl < slices; ++sl) {
+      const float4* ps =
+          reinterpret_cast<const float4*>(partial + (sl * static_cast<long long>(M) + gr) * kH + c);
+      const float4 a = ps[0], b = ps[1];
+      lo = make_float4(lo.x + a.x, lo.y + a.y, lo.z + a.z, lo.w + a.w);
+      hi = make_float4(hi.x + b.x, hi.y + b.y, hi.z + b.z, hi.w + b.w);
+    }
+    const float acc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xg[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 xf = __bfloat1622float2(xp[e]);
+      v[j][2 * e] = acc[2 * e] + ld_f32(b2 + c + 2 * e) + xf.x;
+      v[j][2 * e + 1] = acc[2 * e + 1] + ld_f32(b2 + c + 2 * e + 1) + xf.y;
+      s += v[j][2 * e] + v[j][2 * e + 1];
+    }
+  }
+  const float mu = warp_sum(s) * (1.0f / kH);
+  float q = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kGroupsPerLane; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
+  const float rstd = rsqrtf(warp_sum(q) * (1.0f / kH) + eps);
+#pragma unroll
+  for (int j = 0; j < kGroupsPerLane; ++j) {
+    const int c = 8 * (lane + 32 * j);
+    uint4 out;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cc = c + 2 * e;
+      op[e] = __floats2bfloat162_rn(
+          (v[j][2 * e] - mu) * rstd * ld_f32(gamma + cc) + ld_f32(beta + cc),
+          (v[j][2 * e + 1] - mu) * rstd * ld_f32(gamma + cc + 1) + ld_f32(beta + cc + 1));
+    }
+    *reinterpret_cast<uint4*>(y + gr * kH + c) = out;
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a row-major bf16 [rows, cols] matrix, read in boxes of
+// [box_rows, 64] into the 128-byte swizzle layout.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename V, bool kInputLN>
 cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, const void* beta, const void* g0,
-                   const void* o0, void* y, int M, int F, float eps,
-                   cudaStream_t stream) {
+                   const void* o0, void* y, void* scratch, int M, int F, int slices,
+                   float eps, cudaStream_t stream) {
+  CUtensorMap w1_map, w2_map;
+  if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, kW2N))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<V, kInputLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTM - 1) / kTM);
+  const dim3 grid((M + kTM - 1) / kTM, slices);
+  const auto vec = [](const void* p) { return static_cast<const V*>(p); };
+  const auto* zb = static_cast<const bf16*>(z);
   ffn_ln_kernel<V, kInputLN><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const bf16*>(z), static_cast<const bf16*>(w1t),
-      static_cast<const V*>(b1), static_cast<const bf16*>(w2t), static_cast<const V*>(b2),
-      static_cast<const V*>(gamma), static_cast<const V*>(beta), static_cast<const V*>(g0),
-      static_cast<const V*>(o0), static_cast<bf16*>(y), M, F, eps);
+      w1_map, w2_map, zb, vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
+      static_cast<bf16*>(y), static_cast<float*>(scratch), M, F / kFC / slices, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  ffn_split_reduce<V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(scratch), slices, zb, vec(b2), vec(gamma), vec(beta),
+      vec(g0), vec(o0), static_cast<bf16*>(y), M, eps);
   return cudaGetLastError();
+}
+
+cudaError_t check_args(int M, int F, int slices, const void* scratch) {
+  if (F <= 0 || slices < 1 || F % (kFC * slices) != 0) return cudaErrorInvalidValue;
+  if (slices > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -333,21 +683,25 @@ const char* mrd_error_string(int err) {
 }
 
 // K1: y = LN2(x + GELU(x W1 + b1) W2 + b2), x = LN0(z), on `stream`.
-// Pointers are device pointers; w1t is [F, H] and w2t is [H, F], row-major,
-// 16-byte aligned. The six vectors are f32, or bf16 when vec_bf16 is non-zero.
-// Returns the cudaError_t of the launch (0 on success). Allocates nothing.
+// Pointers are device pointers, 16-byte aligned; w1t is [F, H] and w2t is
+// [H, F], row-major. The six vectors are f32, or bf16 when vec_bf16 is
+// non-zero. `slices` > 1 splits F into that many slices (F a multiple of
+// 64 * slices) and needs `scratch`, f32 [slices, M, H]. Returns the
+// cudaError_t of the launches (0 on success). Allocates nothing.
 int mrd_ffn_pre_ln_bf16(const void* z, const void* w1t, const void* b1,
                         const void* w2t, const void* b2, const void* gamma,
                         const void* beta, const void* g0, const void* o0,
-                        void* y, int M, int F, float eps, int vec_bf16,
-                        void* stream) {
+                        void* y, void* scratch, int M, int F, int slices, float eps,
+                        int vec_bf16, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || F % kFC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      vec_bf16
-          ? launch<bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s)
-          : launch<float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, M, F, eps, s));
+      vec_bf16 ? launch<bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M,
+                                    F, slices, eps, s)
+               : launch<float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
+                                     M, F, slices, eps, s));
 }
 
 // K2: y = LN(x + GELU(x W1 + b1) W2 + b2) with x the input rows as they are,
@@ -355,11 +709,12 @@ int mrd_ffn_pre_ln_bf16(const void* z, const void* w1t, const void* b1,
 // four vectors are bf16.
 int mrd_ffn_ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t,
                     const void* b2, const void* gamma, const void* beta, void* y,
-                    int M, int F, float eps, void* stream) {
+                    void* scratch, int M, int F, int slices, float eps, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || F % kFC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
   return static_cast<int>(launch<bf16, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
-                                              nullptr, y, M, F, eps,
+                                              nullptr, y, scratch, M, F, slices, eps,
                                               static_cast<cudaStream_t>(stream)));
 }
 

@@ -139,8 +139,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     f3 = ctypes.POINTER(ctypes.c_float)
     sigs = {
-        "mrd_ffn_pre_ln_bf16": [p] * 10 + [i, i, f, i, p],
-        "mrd_ffn_ln_bf16": [p] * 8 + [i, i, f, p],
+        "mrd_ffn_pre_ln_bf16": [p] * 11 + [i, i, i, f, i, p],
+        "mrd_ffn_ln_bf16": [p] * 9 + [i, i, i, f, p],
         "mrd_attn_out_ln_bf16": [p] * 7 + [i, f, p],
         "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
         "mrd_error_string": [i],

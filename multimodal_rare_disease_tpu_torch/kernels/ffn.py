@@ -5,9 +5,16 @@
     K2: x = the input rows (after K3, `kernels/attn_out.py`)
 
 Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`. One CUDA
-kernel template (`csrc/ffn_ln.cu`) replaces its `_ffn_pre_ln_kernel`
-(K1) and `_ffn_ln_kernel` (K2); `ffn_ln_plain` is the same math in
-PyTorch.
+kernel template (`csrc/ffn_ln.cu`: wgmma fed by TMA, 64 rows per block)
+replaces its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel` (K2);
+`ffn_ln_plain` is the same math in PyTorch.
+
+When the 64-row tiles would fill fewer blocks than the card has SMs, the
+kernel splits F into slices, each block writes an f32 partial of
+h @ w2 for its slice, and a second kernel sums the partials in slice
+order before the residual and LN2. `ffn_plan` chooses the slices; it is
+plain Python, and `ffn_ln_plain(..., slices=S)` emulates the split sum
+in the kernel's order, so the CPU tests reach both.
 
 Device rule: `fused_ffn_ln` runs `ffn_ln_plain` for CPU tensors; for
 CUDA tensors it launches the kernel or raises. The one exception is the
@@ -22,7 +29,8 @@ the plain version to build an on-card reference.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,14 +49,44 @@ PLAIN_ON_CUDA = 0
 # the tiling csrc/ffn_ln.cu was written for (see its header)
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
+KERNEL_ROWS = 64
+
+
+class FfnPlan(NamedTuple):
+    """How one call is launched: `tiles` blocks of 64 rows times
+    `slices` slices of F, each of `chunks` F chunks of 64; `scratch` is
+    the shape of the f32 partials buffer, None without a split."""
+    tiles: int
+    slices: int
+    chunks: int
+    scratch: Optional[Tuple[int, int, int]]
+
+
+def ffn_plan(m: int, f: int, n_sm: int) -> FfnPlan:
+    """The launch of the FFN kernel for m rows and intermediate width f
+    on a card with n_sm SMs. Row tiles that fill the card run whole (one
+    slice). Fewer tiles split F into S slices, S a divisor of the f / 64
+    chunks, chosen to minimise the waves of one-block-per-SM times the
+    chunks per block, ceil(tiles * S / n_sm) * (chunks / S); on a tie
+    the smaller S, which writes and sums fewer partials."""
+    tiles = -(-m // KERNEL_ROWS)
+    n_chunks = f // KERNEL_CHUNK
+    slices = 1
+    if tiles < n_sm:
+        slices = min((s for s in range(1, n_chunks + 1) if n_chunks % s == 0),
+                     key=lambda s: (-(-tiles * s // n_sm) * (n_chunks // s),
+                                    s))
+    scratch = (slices, m, KERNEL_HIDDEN) if slices > 1 else None
+    return FfnPlan(tiles, slices, n_chunks // slices, scratch)
 
 
 def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
                    dtype: torch.dtype) -> bool:
-    """Shape/dtype gate of the CUDA kernel. It tiles rows by 32 and masks
+    """Shape/dtype gate of the CUDA kernel. It tiles rows by 64 and masks
     the ragged tile, so any m >= 1 works (the TPU's m >= 32, m % 16 == 0
     came from its (8, 128) tiling and does not apply); it is compiled
-    for the BERT-base width and walks F in chunks of 64, in bf16."""
+    for the BERT-base width and walks F in chunks of 64 (which also keeps
+    W2's rows a multiple of TMA's 16 bytes), in bf16."""
     return (m >= 1 and hidden == KERNEL_HIDDEN and intermediate > 0
             and intermediate % KERNEL_CHUNK == 0 and dtype == torch.bfloat16)
 
@@ -75,7 +113,8 @@ def ffn_ln_plain(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                  beta: torch.Tensor, eps: float = 1e-12, *,
                  input_ln: bool = True,
                  pre_gamma: Optional[torch.Tensor] = None,
-                 pre_beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 pre_beta: Optional[torch.Tensor] = None,
+                 slices: int = 1) -> torch.Tensor:
     """The kernel's math in PyTorch. x2d [M, H]; w1 [H, F]; b1 [F];
     w2 [F, H]; b2/gamma/beta [H]. With `input_ln`, x2d is the
     unnormalized residual z and x = LN0(z) with pre_gamma/pre_beta (K1);
@@ -84,7 +123,8 @@ def ffn_ln_plain(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     The dots take x2d's dtype and keep their f32 accumulation (as the
     kernel's, and the TPU kernel's preferred_element_type=f32); GELU
     (exact erf) and both LayerNorms run in f32; the output is in x2d's
-    dtype."""
+    dtype. `slices` > 1 emulates the kernel's split-F path: h @ w2 as
+    one f32 partial per slice of F, summed in slice order."""
     dt = x2d.dtype
     f32 = torch.float32
     if input_ln:
@@ -96,7 +136,12 @@ def ffn_ln_plain(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         x = x2d
     h = dot_f32(x, w1.to(dt)) + b1.to(f32)
     h = (0.5 * h * (1.0 + torch.erf(h * _SQRT1_2))).to(dt)
-    y = dot_f32(h, w2.to(dt)) + b2.to(f32) + x.to(f32)
+    w2 = w2.to(dt)
+    n = w2.shape[0] // slices
+    acc = dot_f32(h[:, :n], w2[:n]) if slices > 1 else dot_f32(h, w2)
+    for s in range(1, slices):
+        acc = acc + dot_f32(h[:, s * n:(s + 1) * n], w2[s * n:(s + 1) * n])
+    y = acc + b2.to(f32) + x.to(f32)
     return ln_f32(y, gamma.to(f32), beta.to(f32), eps).to(dt)
 
 
@@ -151,23 +196,28 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     for t in (z, w1t, w2t, *vecs):
         if t.device != dev:
             raise ValueError(f"fused_ffn_ln: tensors on {t.device} and {dev}")
-    if w1t.data_ptr() % 32 or w2t.data_ptr() % 32:
-        raise ValueError("fused_ffn_ln: weights must be 32-byte aligned "
-                         "(WMMA fragment loads)")
+    if w1t.data_ptr() % 16 or w2t.data_ptr() % 16:
+        raise ValueError("fused_ffn_ln: weights must be 16-byte aligned "
+                         "(TMA tensor maps)")
+    if z.data_ptr() % 16:  # the rows are read 16 bytes at a time
+        z = z.clone()
     if vecs[0].numel() != f or any(v.numel() != hidden for v in vecs[1:]):
         raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
     y = torch.empty_like(z)
     lib = build.load_library(dev)
+    plan = ffn_plan(m, f, _sm_count(dev))
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
+    tail = (y.data_ptr(), scratch.data_ptr() if scratch is not None
+            else None, m, f, plan.slices, float(eps))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if input_ln:
-            err = lib.mrd_ffn_pre_ln_bf16(*ptrs, y.data_ptr(), m, f,
-                                          float(eps), int(vec_dtype == bf),
-                                          stream)
+            err = lib.mrd_ffn_pre_ln_bf16(*ptrs, *tail,
+                                          int(vec_dtype == bf), stream)
         else:
-            err = lib.mrd_ffn_ln_bf16(*ptrs, y.data_ptr(), m, f, float(eps),
-                                      stream)
+            err = lib.mrd_ffn_ln_bf16(*ptrs, *tail, stream)
     if input_ln:
         build.check_launch(lib, err, "ffn_pre_ln_bf16")
         LAUNCHES_K1 += 1
@@ -175,3 +225,8 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
         build.check_launch(lib, err, "ffn_ln_bf16")
         LAUNCHES_K2 += 1
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count

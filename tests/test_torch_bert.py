@@ -27,6 +27,13 @@ from multimodal_rare_disease_tpu_torch.models.convert import (
 # polynomial (|err| <= 1.5e-7) against exact erf
 ATOL = 1e-5
 
+# In a process where XLA has run, the first parallel torch.erf, the one
+# that starts torch's OpenMP workers, could give one worker's share of the
+# rows other values (up to 7e-5 downstream) than every later call: 2 of
+# 217 fresh processes. With one parallel op run first, none of 456 did
+# (ROADMAP, Queue 3, F3), so the workers start here, before any forward.
+torch.erf(torch.linspace(-3.0, 3.0, 1 << 16))
+
 
 def _cfg(hidden=64, layers=2, ffn=128, **over):
     return resolve_config("default", {

@@ -1,7 +1,8 @@
 """K1 and K2 of the torch package (kernels/ffn.py): the plain version
 against the JAX package's Pallas kernels run in interpret mode, the
-device rule on the CPU, the kernel build's key, and the kernel modules'
-import on a machine with no nvcc and no triton. The CUDA kernels
+launch plan and the split-F path's plain emulation, the device rule on
+the CPU, the kernel build's key, and the kernel modules' import on a
+machine with no nvcc and no triton. The CUDA kernels
 themselves are checked against the plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py."""
 
@@ -96,12 +97,73 @@ def test_cpu_tensor_takes_the_plain_path_and_launches_nothing(input_ln):
 
 def test_fusible_gate_follows_the_cuda_tiling():
     bf = torch.bfloat16
-    # any row count: the kernel masks its ragged 32-row tile
-    assert all(k1.ffn_ln_fusible(m, 768, 3072, bf) for m in (1, 31, 37, 24576))
+    # any row count: the kernel masks its ragged 64-row tile
+    assert all(k1.ffn_ln_fusible(m, 768, 3072, bf)
+               for m in (1, 31, 37, 63, 64, 65, 24576))
     assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
     assert not k1.ffn_ln_fusible(64, 512, 3072, bf)      # built for H=768
     assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
     assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float32)
+
+
+# (m, tiles, slices, chunks per slice) on a card with 132 SMs at F=3072
+# (48 chunks): the single request (m = 1, then the length bucket 64), a
+# ragged tile, the CLS-only last layer at B=256, a mid size, and the packed
+# batch, whose 256 tiles fill the card without a split
+_PLANS = [(1, 1, 48, 1), (37, 1, 48, 1), (64, 1, 48, 1), (1024, 16, 8, 6),
+          (4096, 64, 2, 24), (16384, 256, 1, 48)]
+
+
+@pytest.mark.parametrize("m,tiles,slices,chunks", _PLANS,
+                         ids=[f"m{p[0]}" for p in _PLANS])
+def test_plan_at_the_main_path_row_counts(m, tiles, slices, chunks):
+    plan = k1.ffn_plan(m, 3072, 132)
+    assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
+    # the f32 partials are kept for the valid rows only, one set per slice
+    assert plan.scratch == (None if slices == 1 else (slices, m, 768))
+
+
+@pytest.mark.parametrize("n_sm", [1, 78, 114, 132])
+def test_plan_splits_f_evenly_and_only_when_tiles_leave_sms_idle(n_sm):
+    for m in range(1, 20000, 97):
+        plan = k1.ffn_plan(m, 3072, n_sm)
+        assert plan.slices * plan.chunks == 48       # every slice equal
+        assert plan.tiles == -(-m // 64)
+        if plan.tiles >= n_sm:
+            assert plan.slices == 1
+        else:  # no fewer waves than without the split
+            waves = -(-plan.tiles * plan.slices // n_sm) * plan.chunks
+            assert waves <= -(-plan.tiles // n_sm) * 48
+
+
+@pytest.mark.parametrize("slices", [2, 4])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_split_emulation_matches_plain_f32(input_ln, slices):
+    z, args, (g0, o0) = _make(48, 128, 256, 7)
+    ln0 = (dict(pre_gamma=torch.from_numpy(g0), pre_beta=torch.from_numpy(o0))
+           if input_ln else {})
+    whole = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args),
+                            input_ln=input_ln, **ln0)
+    split = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args),
+                            input_ln=input_ln, slices=slices, **ln0)
+    # the same sum of 256 products, taken as `slices` partials: f32
+    # rounding of the partial sums only
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_split_emulation_matches_interpreted_jax_f32(input_ln):
+    z, args, (g0, o0) = _make(64, 128, 256, 8)
+    pre = (dict(pre_gamma=jnp.asarray(g0), pre_beta=jnp.asarray(o0))
+           if input_ln else {})
+    ref = np.asarray(jax_ffn(jnp.asarray(z), *map(jnp.asarray, args),
+                             interpret=True, **pre))
+    ln0 = (dict(pre_gamma=torch.from_numpy(g0), pre_beta=torch.from_numpy(o0))
+           if input_ln else {})
+    got = k1.ffn_ln_plain(torch.from_numpy(z), *_t(args), input_ln=input_ln,
+                          slices=4, **ln0).numpy()
+    # the Pallas kernel's erf polynomial against exact erf, as above
+    np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
 def test_kernel_module_imports_without_nvcc_or_triton(tmp_path):
@@ -141,11 +203,14 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
     # a header-only edit must not reuse a library built before it
     from multimodal_rare_disease_tpu_torch.kernels import build
 
-    assert [h.name for h in build.headers()] == ["common.cuh"]
+    assert [h.name for h in build.headers()] == ["common.cuh", "hopper.cuh"]
     for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     before = build.library_path()
-    with open(tmp_path / "common.cuh", "a") as f:
-        f.write("// edited\n")
-    assert build.library_path() != before
+    for name in ("common.cuh", "hopper.cuh"):
+        with open(tmp_path / name, "a") as f:
+            f.write("// edited\n")
+        after = build.library_path()
+        assert after != before
+        before = after

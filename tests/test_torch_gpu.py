@@ -101,8 +101,11 @@ def _ffn_counts():
     return kffn.LAUNCHES_K1, kffn.LAUNCHES_K2, kffn.PLAIN_ON_CUDA
 
 
+# the single request (1, then the length bucket 64), a ragged tile, the
+# CLS-only last layer at B=256 (1,024 CLS rows), a mid size and the packed
+# batch: the split-F path below 132 tiles, the whole-F path at 16,384
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 37, 4096])
+@pytest.mark.parametrize("m", [1, 37, 64, 1024, 4096, 16384])
 @pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
 def test_ffn_kernel_matches_plain(cuda, m, vec_dtype, input_ln):
     z, w, vec = _ffn_inputs(m, cuda, seed=m, vec_dtype=vec_dtype)
@@ -118,6 +121,20 @@ def test_ffn_kernel_matches_plain(cuda, m, vec_dtype, input_ln):
                              before[1] + (not input_ln), before[2])
     worst, mean = _diff(got, want)
     assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("m", [1024, 16384], ids=["split", "tiled"])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_ffn_kernel_is_deterministic(cuda, m, input_ln):
+    # the split path sums its partials in slice order and takes no atomics;
+    # both paths give the same bits on every launch
+    z, w, vec = _ffn_inputs(m, cuda, seed=9, vec_dtype=torch.bfloat16)
+    first = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+    again = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+    plan = kffn.ffn_plan(m, 3072, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (plan.slices > 1) == (m == 1024)
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("name,input_ln", [
