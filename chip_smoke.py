@@ -8,15 +8,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. device and toolchain: the card's name and power limit, torch and CUDA
    versions, compute capability 9.0;
 2. build: the hand-written CUDA kernels, compiled by nvcc from csrc/ into
-   build/kernels/ (seconds taken, registers per thread);
+   build/kernels/ (seconds taken, registers per thread); it fails when
+   ptxas reports spill bytes or a C75xx warning (wgmma serialized,
+   setmaxnreg ignored) for any kernel;
 3. K1 (the fused FFN + LayerNorm kernel) against its plain PyTorch version
    on the card, bf16, at M = 1, 37, 64, 1024, 4096 and the packed B=256
    row count (the split-F path below 132 row tiles, whole F at the packed
    count), with f32 and with bf16 bias/LayerNorm vectors; and that the
    check fails for a kernel that drops any one of the six vectors;
 3b. the same for K2 (the FFN kernel without its input LayerNorm) and K3
-   (the fused attention-output + LayerNorm kernel), which read bf16
-   vectors only (f32 ones go through the counted gate, checked here too),
+   (the fused attention-output + LayerNorm kernel: split-K below 132 row
+   tiles, whole K at the packed count), which read bf16 vectors only (f32
+   ones go through the counted gate, checked here too),
    and K4 (the fused uint8 normalize) on 256 images of 256 px and on a
    ragged batch, in f32 and bf16;
 4. the default path: the full-width model (ResNet-50 224 px, BERT-base
@@ -37,9 +40,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the images K4; held against every kernel forced off and against the
    f32 model; then once more behind the MicroBatcher;
 8. times of that path: p50 of `predict_batch`, and K2, K3 and K4 against
-   their plain versions at its shapes, beside each kernel's bound; K4
-   also against the one PyTorch call that computes it (addcmul into a
-   bf16 tensor).
+   their plain versions at its shapes, beside each kernel's bound; K3
+   also against the classic chain it stands for (bf16 F.linear, the
+   residual add and LayerNorm, as BertLayer runs with fused_attn_out
+   off) and at a single request's 64 rows (the split-K path), with
+   `attn_out_plan`'s tiles x slices per row count; K4 also against the
+   one PyTorch call that computes it (addcmul into a bf16 tensor).
+
+Kernel times are CUDA-event times of 20 calls back to back, queued while
+the card spins (torch.cuda._sleep) so that the events bracket device work
+only; phase 8 prints K3's host time per call beside them.
 
 Then the card's name and power limit, one JSON line describing each
 kernel, and last
@@ -51,6 +61,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +125,23 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_faults(log: str) -> list:
+    """The lines of the compilers' report (-Xptxas=-v) that show spill
+    bytes or a C75xx warning (wgmma serialized, setmaxnreg ignored), each
+    with the function it was reported for: the traps of the wgmma
+    kernels."""
+    faults, fn = [], "?"
+    for ln in log.splitlines():
+        name = re.search(r"(?:entry function|Function properties for) '?([\w$]+)", ln)
+        if name:
+            fn = name.group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if (spill and spill.group(1) + spill.group(2) != "00") \
+                or re.search(r"\bC75\d\d\b", ln):
+            faults.append(f"{fn}: {ln.strip()}")
+    return faults
 
 
 def probs_of(results, class_names):
@@ -234,15 +262,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = build.build()
     lib = build.load_library(dev)
-    regs = [ln.strip() for ln in
-            (lib_path.parent / "ptxas.log").read_text().splitlines()
-            if "registers" in ln]
+    ptxas_log = (lib_path.parent / "ptxas.log").read_text()
+    regs = [ln.strip() for ln in ptxas_log.splitlines() if "registers" in ln]
+    faults = ptxas_faults(ptxas_log)
+    if faults:
+        fail(f"ptxas reports spills or serialized wgmma: {faults}")
     print(f"[2 build] {lib_path.relative_to(HERE)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc, one per source in "
           f"parallel, {build.last_build_seconds:.2f} s) | smem/block FFN "
           f"{lib.mrd_ffn_smem_bytes()} B, attn-out "
           f"{lib.mrd_attn_out_smem_bytes()} B | "
-          f"{'; '.join(regs) or 'no ptxas report'}")
+          f"{'; '.join(regs) or 'no ptxas report'} | no spills, no C75xx "
+          f"warnings")
 
     # the serving batch, prepared first so phase 3 tests the kernels at
     # its row count
@@ -516,11 +547,41 @@ def main() -> int:
             lat.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(lat)), lat
 
-    def per_call_ms(fn, n=20):
-        fn()
-        torch.cuda.synchronize()
+    def sleep_cycles_per_ms():
+        """The rate of torch.cuda._sleep, which spins the card for a
+        number of its clock cycles."""
+        torch.cuda._sleep(1000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        return 20_000_000 / start.elapsed_time(end)
+
+    cycles_per_ms = sleep_cycles_per_ms()
+
+    def host_ms(fn, n=20):
+        """The host's time to issue one call of `fn` (the wrapper's Python
+        and C work and the launch), the card idle before the n calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        return t
+
+    def per_call_ms(fn, n=20):
+        """The card's time per call of `fn` over n calls back to back. The
+        card first spins for longer than the host takes to issue the n
+        calls, so all of them are queued when it reaches the start event
+        and the events bracket device work only, not the host's pace."""
+        wait = int(3 * host_ms(fn, n) * n * cycles_per_ms) + 100_000
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(wait)
         start.record()
         for _ in range(n):
             fn()
@@ -636,13 +697,49 @@ def main() -> int:
     k2_bound, k2_by = ffn_bound(m7, h, f, 2, False)
     k3_bound, k3_by = attn_out_bound(m7, h, 2)
     k4_bound, k4_by = normalize_bound(u8_full.numel(), 2)
+    # K3 against the classic chain it stands for, as BertLayer runs it with
+    # fused_attn_out off: bf16 F.linear (the projection rounded to bf16),
+    # the residual add and LayerNorm. Three calls, so K3's library_ms stays
+    # null; its distance from the plain version is the rounding K3 skips
+    import torch.nn.functional as F
+
+    def k3_classic():
+        return F.layer_norm(F.linear(c7, wo.t(), v3["bo"]) + z7, (h,),
+                            v3["gamma"], v3["beta"], 1e-12)
+
+    classic_err = diff(k3_classic().float(), k3.attn_out_ln_plain(*a3).float())
+    # in turns K3, chain, chain, K3
+    classic_ms, k3_ms_b, classic_runs = in_turns(
+        k3_classic, lambda: k3.fused_attn_out_ln(*a3))
+    # a single request's 64 rows: the split-K path
+    a3_64 = (rnd((64, h), 1.0, dtype=bf), rnd((64, h), 1.0, dtype=bf)) + a3[2:]
+    k3_64_ms, k3_64_plain_ms, k3_64_runs = in_turns(
+        lambda: k3.fused_attn_out_ln(*a3_64),
+        lambda: k3.attn_out_ln_plain(*a3_64))
+    k3_64_bound, k3_64_by = attn_out_bound(64, h, 2)
+    # what the wrapper costs the host per call (Python, tensor maps, launch)
+    k3_host = {m: host_ms(lambda: k3.fused_attn_out_ln(*a)) for m, a in
+               ((m7, a3), (64, a3_64))}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = ", ".join(f"M={m}: {p.tiles}x{p.slices}" for m in
+                      PHASE3_ROWS + (m7,)
+                      for p in [k3.attn_out_plan(m, n_sm)])
     print(f"[8 times] {card} | fused-sublayer predict_batch B={BATCH} p50 "
           f"{p50_7:.2f} ms (of {TIMED_RUNS}: "
           f"{', '.join(f'{x:.1f}' for x in lat7)}) | at M={m7}: K2 "
           f"{k2_ms:.3f} ms/layer vs plain {k2_plain_ms:.3f} ({k2_runs}), "
           f"bound {k2_bound:.4f} ms ({k2_by}), {k2_bound / k2_ms:.1%} of it; "
           f"K3 {k3_ms:.3f} ms/layer vs plain {k3_plain_ms:.3f} ({k3_runs}), "
-          f"bound {k3_bound:.4f} ms ({k3_by}), {k3_bound / k3_ms:.1%} of it "
+          f"bound {k3_bound:.4f} ms ({k3_by}), {k3_bound / k3_ms:.1%} of it; "
+          f"K3 vs the classic bf16 linear + add + LayerNorm chain: "
+          f"{k3_ms_b:.4f} vs {classic_ms:.4f} ms ({classic_runs}; the "
+          f"chain's max|diff| / mean|diff| from plain {classic_err[0]:.3e} / "
+          f"{classic_err[1]:.3e}); K3 at M=64: {k3_64_ms:.4f} ms vs plain "
+          f"{k3_64_plain_ms:.4f} ({k3_64_runs}), bound {k3_64_bound:.4f} ms "
+          f"({k3_64_by}), {k3_64_bound / k3_64_ms:.1%} of it; K3's host time "
+          f"per call {', '.join(f'M={m}: {t:.4f} ms' for m, t in k3_host.items())}"
+          f"; K3 tiles x "
+          f"slices {plans} "
           f"| K4 on {list(u8_full.shape)} uint8 -> bf16: {k4_ms:.4f} ms vs "
           f"plain {k4_plain_ms:.4f} ({k4_runs}), bound {k4_bound:.4f} ms "
           f"({k4_by}), {k4_bound / k4_ms:.1%} of it; addcmul into bf16 "

@@ -15,191 +15,465 @@
 //
 // What bounds it on the H100: at the packed batch of 256 documents (M =
 // 16,384) one call moves 76.7 MB (ctx, x and y, 25.2 MB each, plus Wo) and
-// does 2*M*768*768 = 19.3 GFLOP, so device memory bounds it (0.023 ms at
-// 3.35 TB/s against 0.020 ms at the bf16 tensor-core peak); the two are
-// close, so the product has to run near the tensor-core rate too. The design
-// reads ctx and x once and writes y once (the classic path writes the
-// projection and the residual sum and reads them back for the LayerNorm).
-// With 32 rows per block every block streams all of Wo (1.2 MB, resident in
-// L2), so L2-to-SM traffic and the WMMA rate bound this simple design; a
-// 64-row wgmma tile is the next step.
+// does 2*M*768*768 = 19.3 GFLOP: 0.0229 ms at 3.35 TB/s against 0.0195 ms
+// at the bf16 tensor-core peak. The two are close, so the product has to run
+// near the tensor-core rate, which only wgmma reaches. Every block that owns
+// a tile of rows reads all of Wo (1.18 MB) from L2, so the rows per block
+// set the L2-to-SM traffic: 604 MB per call at 32 rows, 302 MB at 64, 151 MB
+// when a cluster of two blocks shares each Wo tile. LN needs whole 768-wide
+// rows, so a 64-row tile keeps a [64, 768] f32 accumulator in registers.
+// Few rows (a single request's 64) leave all but one SM idle.
 //
-// Design (K1's second half with K = 768, csrc/ffn_ln.cu):
-//   - one block of 8 warps per tile of 32 full rows (LayerNorm needs whole
-//     768-wide rows); ragged rows are masked, so any M >= 1 works;
-//   - the bf16 [32, 768] ctx tile is staged in shared memory;
-//   - Wo streams through a 4-deep ring of 18 KB shared-memory tiles filled
-//     with cp.async, three tiles ahead of the math: per k chunk of 64, six
-//     tiles [128 out x 64 k], read as nn.Linear's [out, in] rows (WMMA's
-//     col_major B, no transpose);
-//   - WMMA bf16 16x16x16 into a [32, 768] f32 accumulator in registers, 12
-//     fragments per warp (warp w owns output columns 128 j + 16 w .. +16 for
-//     j = 0..5, all 32 rows);
-//   - the bo + residual + LN epilogue, then a bf16 store.
+// Design:
+//   - a block owns 64 rows (one wgmma M) and three warpgroups: two consumers
+//     and one producer. setmaxnreg gives each consumer 232 registers (its 192
+//     accumulator registers stay pinned) and the producer 40: 2 x 128 x 232 +
+//     128 x 40 = 384 x 168, the registers the block is launched with;
+//   - the ctx tile [64, 768] (96 KB) is loaded by TMA as 12 column blocks of
+//     [64][64] in the 128-byte swizzle layout, one mbarrier each: wgmma's A
+//     operand, read through sw128_desc. Rows past M read as zeros;
+//   - consumer wg owns output columns 384 wg .. +384: per k chunk of 64 it
+//     takes three Wo tiles [128 out x 64 k] (nn.Linear's [out, in] rows are
+//     the K-major B operand, no transpose) and runs wgmma m64n128k16 into its
+//     [64, 384] f32 accumulator, one wgmma group in flight;
+//   - one producer thread issues every TMA load. Wo streams through a ring of
+//     4 slots of 16 KB per consumer with full (TMA bytes) and empty (one
+//     arrival per consumer warp) mbarriers; the consumers only arrive on
+//     "empty", so neither side waits for the other to refill;
+//   - the residual x goes into the freed ctx blocks: once both consumers are
+//     done with k chunk c, ctx block c is dead and the producer loads x's
+//     column block c into it (two chunks behind the Wo stream), so x arrives
+//     in the same swizzled layout while the product runs, at no extra shared
+//     memory and with no uncoalesced loads;
+//   - the epilogue works from the registers: + bo + x (from shared memory),
+//     then LN with per-row partial sums exchanged between the two consumers
+//     through shared memory (two-pass); y is written as bf16 over x in shared
+//     memory and stored by TMA, which skips the rows past M.
+// Split-K path for few rows: when the row tiles would fill fewer blocks than
+// the card has SMs, the launch adds a grid dimension of S slices of the 12 k
+// chunks (S chosen by kernels/attn_out.py::attn_out_plan). Each block then
+// runs its slice's chunks only and stores its f32 partial of ctx . Wo^T for
+// the valid rows into a scratch buffer [S, M, 768]; split_reduce (rows.cuh,
+// shared with the FFN kernel) sums the S partials in slice order, adds bo and
+// x and applies LN. No atomics: the result is the same bits on every launch.
+// The multicast pair (kPair, tiled path only): a cluster of two blocks on
+// neighbouring row tiles; each producer loads half of every Wo tile with
+// .multicast::cluster into both blocks, and a slot's empty barrier counts
+// the consumer warps of both blocks (remote arrivals through mapa), so each
+// block reads half of Wo from L2. On the H100 it took longer than the kernel
+// without it (PERF.md), so kernels/attn_out.py launches it only when
+// MULTICAST_PAIR is set.
 
-#include <mma.h>
+#include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "rows.cuh"
 
 namespace {
 
 using mrd::bf16;
-using mrd::align128;
-using mrd::cmax;
-using mrd::cp_async16;
-using mrd::cp_async_commit;
-using mrd::cp_async_wait;
-using mrd::ld_f32;
-using mrd::warp_sum;
-namespace wmma = nvcuda::wmma;
+using mrd::fence_barrier_init;
+using mrd::fence_proxy_async;
+using mrd::mbar_arrive;
+using mrd::mbar_arrive_expect_tx;
+using mrd::mbar_init;
+using mrd::mbar_wait;
+using mrd::named_bar_sync;
+using mrd::opaque;
+using mrd::Ring;
+using mrd::smem_addr;
+using mrd::sw128_desc;
+using mrd::tma_load_2d;
 
-constexpr int kH = 768;                 // hidden width (BERT-base)
-constexpr int kTM = 32;                 // rows per block
-constexpr int kKC = 64;                 // k chunk of a Wo tile
-constexpr int kN = 128;                 // output columns of a Wo tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowTiles = kTM / 16;     // 2
-constexpr int kColTiles = kH / kN;      // 6 tiles per k chunk
-constexpr int kTiles = (kH / kKC) * kColTiles;  // 72
-constexpr int kPerLane = kH / 32;       // 24 columns per lane in the epilogue
-constexpr int kStages = 4;              // ring depth (3 tiles in flight)
+constexpr int kH = 768;                   // hidden width (BERT-base)
+constexpr int kTM = 64;                   // rows per block (wgmma M)
+constexpr int kKC = 64;                   // k chunk: one ctx column block
+constexpr int kChunks = kH / kKC;         // 12
+constexpr int kN = 128;                   // output columns of a Wo tile (wgmma N)
+constexpr int kWG = 2;                    // consumer warpgroups (0, 1); the producer is 2
+constexpr int kThreads = 128 * (kWG + 1);
+constexpr int kConsumerThreads = 128 * kWG;
+constexpr int kHalf = kH / kWG;           // 384 output columns per consumer
+constexpr int kTiles = kHalf / kN;        // 3 Wo tiles per consumer and k chunk
+constexpr int kOwnBlocks = kHalf / kKC;   // 6 column blocks of x / y per consumer
+constexpr int kStages = 4;                // Wo ring slots per consumer
+constexpr int kXLag = 2;                  // x block c loads after chunk c + 2's Wo tiles
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
 
-// shared-memory row strides, padded against bank conflicts (multiples of
-// 8 bf16 / 4 f32 elements as WMMA's ldm requires, rows 16-byte aligned)
-constexpr int kXS = kH + 8;             // bf16 ctx tile
-constexpr int kWS = kKC + 8;            // bf16 Wo tile [128 out][64 k]
-constexpr int kAS = kH + 4;             // f32 accumulator staging
+// shared memory, from a 1024-byte aligned base: the row tile (ctx, then x,
+// then y) as 12 column blocks of [64 rows][64 bf16], the two Wo rings, the
+// barriers and the LN exchange
+constexpr uint32_t kBlockBytes = kTM * 128;                    // 8 KB
+constexpr uint32_t kTileBytes = kN * kKC * 2;                  // 16 KB
+constexpr uint32_t kOffA = 0;
+constexpr uint32_t kOffW = kOffA + kChunks * kBlockBytes;      // 96 KB
+// per column block: full (TMA bytes; phase 0 ctx, phase 1 x) and empty
+// (every consumer warp, once it is done with ctx); per Wo slot: full and empty
+constexpr uint32_t kBarAFull = kOffW + kWG * kStages * kTileBytes;
+constexpr uint32_t kBarAEmpty = kBarAFull + 8 * kChunks;
+constexpr uint32_t kBarWFull = kBarAEmpty + 8 * kChunks;
+constexpr uint32_t kBarWEmpty = kBarWFull + 8 * kWG * kStages;
+constexpr uint32_t kOffRed = kBarWEmpty + 8 * kWG * kStages;  // float [2][2][64]
+constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
 
-constexpr size_t kXBytes = align128(sizeof(bf16) * kTM * kXS);
-constexpr size_t kSlotBytes = align128(sizeof(bf16) * kN * kWS);
-constexpr size_t kABytes = sizeof(float) * kTM * kAS;
-// the epilogue staging aliases the ring, which is no longer live by then
-constexpr size_t kSmemBytes = kXBytes + cmax(kStages * kSlotBytes, kABytes);
+static_assert(kH == kRowH, "rows.cuh is written for the same width");
+static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 2048 == 0,
+              "1024-byte swizzle atoms, also for each half of a multicast tile");
+static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs == kThreads * 168,
+              "setmaxnreg must hand over exactly the registers it frees");
+static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
 
-static_assert(kN == 16 * kWarps, "one output column tile per warp per tile");
-static_assert(kN * kKC / 8 == 4 * kThreads, "Wo tile: 4 copies per thread");
-static_assert(kTM * kH / 8 % kThreads == 0, "ctx tile: whole copies per thread");
-static_assert(kSmemBytes <= 227 * 1024, "over the per-block shared memory");
-
-// Issue this thread's share of Wo tile g (k chunk g / 6, columns (g % 6) * 128)
-// into `slot`; tiles past the end issue nothing. Every thread commits one
-// group per call, so group counts stay uniform.
-__device__ __forceinline__ void load_tile(int g, bf16* slot, const bf16* __restrict__ wo) {
-  if (g < kTiles) {
-    const int k0 = (g / kColTiles) * kKC;
-    const int n0 = (g % kColTiles) * kN;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int row = q / (kKC / 8), col = (q % (kKC / 8)) * 8;
-      cp_async16(slot + row * kWS + col,
-                 wo + static_cast<size_t>(n0 + row) * kH + k0 + col);
-    }
-  }
-  cp_async_commit();
+// columns c, c + 1 (c even) of a bf16 row, as f32
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-attn_out_ln_kernel(const bf16* __restrict__ ctx,   // [M, H]
-                   const bf16* __restrict__ x,     // [M, H] residual
-                   const bf16* __restrict__ wo,    // [H, H] nn.Linear [out, in]
-                   const bf16* __restrict__ bo,    // [H]
-                   const bf16* __restrict__ gamma,
-                   const bf16* __restrict__ beta,
-                   bf16* __restrict__ y,           // [M, H]
-                   int M, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* cs = reinterpret_cast<bf16*>(smem);
-  unsigned char* ring = smem + kXBytes;
-  float* accs = reinterpret_cast<float*>(ring);  // epilogue only
-  auto slot = [&](int g) {
-    return reinterpret_cast<bf16*>(ring + (g % kStages) * kSlotBytes);
-  };
+// two bf16 at a shared-memory address, as f32; and two f32 stored there as bf16
+__device__ __forceinline__ float2 lds_pair(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+__device__ __forceinline__ void sts_pair(uint32_t addr, __nv_bfloat162 v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v))
+               : "memory");
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTM;
-  const float inv_h = 1.0f / kH;
+// x's column block c into the row tile, over ctx's, once both consumers are
+// done with it
+__device__ __forceinline__ void load_x(const CUtensorMap* x_map, uint32_t base, int row0,
+                                       int c) {
+  mbar_wait(base + kBarAEmpty + 8 * c, 0);
+  mbar_arrive_expect_tx(base + kBarAFull + 8 * c, kBlockBytes);
+  tma_load_2d(base + kOffA + c * kBlockBytes, x_map, base + kBarAFull + 8 * c, c * kKC, row0);
+}
 
-  // start the weight stream, then stage the ctx tile while it is in flight
+// The producer thread: per chunk of the slice, ctx's column block and the
+// six Wo tiles (consumer 0's and 1's in turn), then x's blocks two chunks
+// behind (tiled path only).
+template <bool kPair>
+__device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtensorMap* x_map,
+                                        const CUtensorMap* wo_map, uint32_t base, int row0,
+                                        int c_begin, int n_chunks, bool split) {
+  const uint32_t rank = kPair ? mrd::cluster_ctarank() : 0;
+  Ring ring[kWG];
+  for (int k = 0; k < n_chunks; ++k) {
+    const int c = c_begin + k;
+    mbar_arrive_expect_tx(base + kBarAFull + 8 * c, kBlockBytes);
+    tma_load_2d(base + kOffA + c * kBlockBytes, ctx_map, base + kBarAFull + 8 * c, c * kKC,
+                row0);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) load_tile(s, slot(s), wo);
-
-  constexpr int kVecPerRow = kH / 8;  // 16-byte vectors of 8 bf16
-  for (int q = threadIdx.x; q < kTM * kVecPerRow; q += kThreads) {
-    const int r = q / kVecPerRow, c = (q % kVecPerRow) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < M) v = *reinterpret_cast<const uint4*>(ctx + (row0 + r) * kH + c);
-    *reinterpret_cast<uint4*>(cs + r * kXS + c) = v;
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int wg = 0; wg < kWG; ++wg) {
+        const uint32_t s = wg * kStages + ring[wg].slot;
+        mbar_wait(base + kBarWEmpty + 8 * s, ring[wg].phase ^ 1);
+        const uint32_t full = base + kBarWFull + 8 * s;
+        const uint32_t dst = base + kOffW + s * kTileBytes;
+        const int n0 = kHalf * wg + kN * j;
+        // the slot receives the whole tile: both halves, with kPair
+        mbar_arrive_expect_tx(full, kTileBytes);
+        if constexpr (kPair)
+          mrd::tma_load_2d_multicast(dst + rank * (kTileBytes / 2), wo_map, full, c * kKC,
+                                     n0 + rank * (kN / 2), 0x3);
+        else
+          tma_load_2d(dst, wo_map, full, c * kKC, n0);
+        ring[wg].next<kStages>();
+      }
+    if (!split && k >= kXLag) load_x(x_map, base, row0, c - kXLag);
   }
-  // (the first tile's barrier below also publishes the ctx tile)
+  if (!split)
+    for (int k = n_chunks - kXLag; k < n_chunks; ++k) load_x(x_map, base, row0, c_begin + k);
+  if constexpr (kPair) {
+    // the peer block's consumers arrive on this block's empty barriers, and
+    // read the halves this block multicast: stay until all of them are done
+#pragma unroll
+    for (int wg = 0; wg < kWG; ++wg)
+      for (int i = 0; i < kStages; ++i) {
+        mbar_wait(base + kBarWEmpty + 8 * (wg * kStages + ring[wg].slot), ring[wg].phase ^ 1);
+        ring[wg].next<kStages>();
+      }
+  }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowTiles][kColTiles];
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j) wmma::fill_fragment(acc[rt][j], 0.0f);
+// A consumer warp is done with Wo slot s (in both blocks' rings, kPair).
+template <bool kPair>
+__device__ __forceinline__ void release(uint32_t base, uint32_t s, uint32_t peer) {
+  const uint32_t bar = base + kBarWEmpty + 8 * s;
+  mbar_arrive(bar);
+  if constexpr (kPair) mrd::mbar_arrive_cluster(bar, peer);
+}
 
-  for (int k0 = 0, g = 0; k0 < kH; k0 += kKC) {
+// Consumer wg's share of k chunk c: ACC[:, 384 wg + 128 j ..] += ctx[:, chunk]
+// . Wo^T[chunk, ...] for j = 0..2. After each group is issued, the previous
+// one is retired and its slot released (and, at j = 0, the previous chunk's
+// ctx block). kFirst: the slice's first chunk, whose first step writes the
+// accumulators without reading them.
+template <bool kFirst, bool kPair>
+__device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ring,
+                                              uint32_t& prev, uint32_t base, int c, int wg,
+                                              bool signal, uint32_t peer) {
+  mbar_wait(base + kBarAFull + 8 * c, 0);
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j, ++g) {
-      // tile g has landed for every thread, and every warp is done with
-      // tile g - 1, whose slot the next load reuses
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      load_tile(g + kStages - 1, slot(g + kStages - 1), wo);
-      const bf16* w = slot(g);
-      // ACC[:, 128 j + 16 w ..] += CTX[:, k-chunk] . Wo^T[k-chunk, ..]
+  for (int j = 0; j < kTiles; ++j) {
+    const uint32_t s = wg * kStages + ring.slot;
+    mbar_wait(base + kBarWFull + 8 * s, ring.phase);
+    const uint32_t a0 = opaque(base) + kOffA + c * kBlockBytes;
+    const uint32_t b0 = opaque(base) + kOffW + s * kTileBytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, w + warp * 16 * kWS + kk, kWS);
-#pragma unroll
-        for (int rt = 0; rt < kRowTiles; ++rt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, cs + rt * 16 * kXS + k0 + kk, kXS);
-          wmma::mma_sync(acc[rt][j], a, b, acc[rt][j]);
-        }
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if (kFirst && kk == 0)
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      else
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (!kFirst || j > 0) {
+      mrd::wgmma_wait<1>();
+      if (signal) {
+        release<kPair>(base, prev, peer);
+        if (j == 0) mbar_arrive(base + kBarAEmpty + 8 * (c - 1));
       }
     }
+    prev = s;
+    ring.next<kStages>();
   }
+}
 
-  // ---- epilogue: bo + residual + LN, bf16 store of the valid rows
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring before it is reused
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
-      wmma::store_matrix_sync(accs + rt * 16 * kAS + j * kN + warp * 16, acc[rt][j],
-                              kAS, wmma::mem_row_major);
-  __syncthreads();
+// Grid: (row tiles, slices of the 12 k chunks), clusters of two along the
+// row tiles with kPair. With one slice the block applies LN and writes y;
+// with several it writes its f32 partial of ctx . Wo^T to `partial`
+// [slices, M, H] and split_reduce finishes the rows.
+template <bool kPair>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
+                   const __grid_constant__ CUtensorMap x_map,    // x [M, H] (tiled path)
+                   const __grid_constant__ CUtensorMap wo_map,   // Wo [H out, H in]
+                   const __grid_constant__ CUtensorMap y_map,    // y [M, H] (tiled path)
+                   const bf16* __restrict__ bo,                  // [H]
+                   const bf16* __restrict__ gamma,
+                   const bf16* __restrict__ beta,
+                   float* __restrict__ partial,                  // [slices, M, H]
+                   int M, int chunks_per_slice, float eps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
 
-  for (int r = warp; r < kTM; r += kWarps) {
-    const long long gr = row0 + r;
-    if (gr >= M) break;  // rows are visited in increasing order
-    const bf16* xr = x + gr * kH;
-    float v[kPerLane];
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = accs[r * kAS + c] + ld_f32(bo + c) + __bfloat162float(xr[c]);
-      s += v[j];
+  const bool split = gridDim.y > 1;
+  const int c_begin = blockIdx.y * chunks_per_slice;
+  const int row0 = blockIdx.x * kTM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < kChunks; ++c) {
+      mbar_init(base + kBarAFull + 8 * c, 1);
+      mbar_init(base + kBarAEmpty + 8 * c, kConsumerThreads / 32);
     }
-    const float mu = warp_sum(s) * inv_h;
-    float q = 0.0f;
+    for (int s = 0; s < kWG * kStages; ++s) {
+      mbar_init(base + kBarWFull + 8 * s, 1);
+      mbar_init(base + kBarWEmpty + 8 * s, (kPair ? 2 : 1) * 4);  // consumer warps
+    }
+    fence_barrier_init();
+  }
+  if constexpr (kPair)
+    mrd::cluster_sync();  // the peer's barriers are initialised too
+  else
+    __syncthreads();
+
+  if (threadIdx.x / 128 == kWG) {
+    // ---- the producer warpgroup: one thread issues every TMA load
+    mrd::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads)
+      produce<kPair>(&ctx_map, &x_map, &wo_map, base, row0, c_begin, chunks_per_slice, split);
+  } else {
+    // ---- consumer wg: ACC[:, 384 wg .. +384] = ctx . Wo^T[:, ...]
+    mrd::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const bool signal = lane == 0;  // one arrival per warp
+    const uint32_t peer = kPair ? mrd::cluster_ctarank() ^ 1 : 0;
+    float acc[kTiles][64];  // [64, 384] f32: n128 tiles
+    Ring ring;
+    uint32_t prev = 0;  // the slot of the group in flight
+    consume_chunk<true, kPair>(acc, ring, prev, base, c_begin, wg, signal, peer);
+    for (int k = 1; k < chunks_per_slice; ++k)
+      consume_chunk<false, kPair>(acc, ring, prev, base, c_begin + k, wg, signal, peer);
+    mrd::wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) q += (v[j] - mu) * (v[j] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * inv_h + eps);
-    bf16* dst = y + gr * kH;
+    for (int j = 0; j < kTiles; ++j) mrd::fence_operand(acc[j]);
+    if (signal) {
+      release<kPair>(base, prev, peer);
+      mbar_arrive(base + kBarAEmpty + 8 * (c_begin + chunks_per_slice - 1));
+    }
+
+    // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
+    // per n8 block nb of tile j the columns 384 wg + 128 j + 8 nb + 2 (lane % 4)
+    // and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half, col + e)
+    const int wrow = 16 * (warp % 4) + lane / 4;
+    if (split) {  // the f32 partial of the valid rows
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      dst[c] = __float2bfloat16((v[j] - mu) * rstd * ld_f32(gamma + c) + ld_f32(beta + c));
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+            for (int nb = 0; nb < 16; ++nb) {
+              const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
+            }
+        }
+      }
+      return;
+    }
+    // x's column blocks of this consumer's columns have replaced ctx's
+    for (int b = 0; b < kOwnBlocks; ++b) mbar_wait(base + kBarAFull + 8 * (kOwnBlocks * wg + b), 1);
+    float* red = reinterpret_cast<float*>(smem + kOffRed);
+    // This thread's x / y elements in the swizzled tile: columns 8 nb + 2
+    // (lane % 4) .. + 1 of this consumer's column block 2 j + nb / 8 lie in
+    // the 16-byte group nb % 8 of their row, which the swizzle moves to
+    // group (nb % 8) ^ (row % 8). Rows wrow and wrow + 8 share row % 8, so
+    // eight bases serve every element, at constant offsets: a block is 8 KB,
+    // a row 128 bytes (ptxas keeps one address per element live from the x
+    // reads to the y writes otherwise, and spills)
+    uint32_t xo[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      xo[k] = base + kOffA + kOwnBlocks * wg * kBlockBytes + wrow * 128 +
+              ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+    // + bo + x, and the row sums of this consumer's 384 columns
+    float s[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+        const float2 b2 = ld_pair(bo + col);
+        const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 x2 = lds_pair(at + half * 8 * 128);
+          float& a0 = acc[j][4 * nb + 2 * half];
+          float& a1 = acc[j][4 * nb + 2 * half + 1];
+          a0 = a0 + b2.x + x2.x;
+          a1 = a1 + b2.y + x2.y;
+          s[half] += a0 + a1;
+        }
+      }
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+    }
+    named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wrow + 8 * half;
+      mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
+      s[half] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float d = acc[j][i] - mu[(i / 2) % 2];
+        s[(i / 2) % 2] += d * d;
+      }
+    float* red_q = red + kWG * kTM;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+    }
+    named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wrow + 8 * half;
+      rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
+    }
+    // y as bf16 over x (each thread rewrites the elements it read), then
+    // this consumer's six column blocks go out by TMA
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+        const float2 g2 = ld_pair(gamma + col);
+        const float2 o2 = ld_pair(beta + col);
+        const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+          sts_pair(at + half * 8 * 128,
+                   __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
+                                         (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+        }
+      }
+    fence_proxy_async();  // the stores, to TMA
+    named_bar_sync<128>(2 + wg);
+    if (threadIdx.x % 128 == 0) {
+      for (int b = kOwnBlocks * wg; b < kOwnBlocks * (wg + 1); ++b)
+        mrd::tma_store_2d(&y_map, base + kOffA + b * kBlockBytes, b * kKC, row0);
+      mrd::tma_store_commit();
+      mrd::tma_store_wait();
     }
   }
+}
+
+template <bool kPair>
+cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* bo,
+                   const bf16* gamma, const bf16* beta, void* y, void* scratch, int M,
+                   int slices, float eps, cudaStream_t stream) {
+  const bool split = slices > 1;
+  CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
+  if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
+      !make_map(&wo_map, wo, kH, kH, kPair ? kN / 2 : kN) ||
+      (!split && (!make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))))
+    return cudaErrorInvalidValue;
+  const auto kernel = attn_out_ln_kernel<kPair>;
+  cudaError_t err = allow_smem<attn_out_ln_kernel<kPair>>(static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kTM - 1) / kTM;
+  auto* part = static_cast<float*>(scratch);
+  if constexpr (kPair) {
+    // an even number of row tiles: a last block past M still feeds its peer
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((tiles + 1) / 2 * 2, 1);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part,
+                             M, kChunks, eps);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+  attn_out_ln_kernel<kPair><<<dim3(tiles, slices), kThreads, kSmemBytes, stream>>>(
+      ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part, M, kChunks / slices, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  split_reduce<bf16, false><<<(M + 7) / 8, 256, 0, stream>>>(
+      part, slices, static_cast<const bf16*>(x), bo, gamma, beta, nullptr, nullptr,
+      static_cast<bf16*>(y), M, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -209,25 +483,26 @@ extern "C" {
 // Dynamic shared memory per block of the attention-output kernel.
 int mrd_attn_out_smem_bytes() { return static_cast<int>(kSmemBytes); }
 
-// y = LN(x + ctx Wo^T + bo) on `stream`. Pointers are device pointers; ctx,
-// x and y are [M, 768] row-major, wo is [768 out, 768 in] row-major, bo,
-// gamma and beta are [768]; all bf16, ctx and wo 16-byte aligned. Returns
-// the cudaError_t of the launch (0 on success). Allocates nothing.
+// y = LN(x + ctx Wo^T + bo) on `stream`. Pointers are device pointers,
+// 16-byte aligned; ctx, x and y are [M, 768] row-major, wo is [768 out,
+// 768 in] row-major, bo, gamma and beta are [768]; all bf16. `slices` > 1
+// splits the 12 k chunks into that many slices (a divisor of 12) and needs
+// `scratch`, f32 [slices, M, 768]; `pair` (one slice only) launches the
+// multicast pair. Returns the cudaError_t of the launches (0 on success).
+// Allocates nothing.
 int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void* bo,
-                         const void* gamma, const void* beta, void* y, int M, float eps,
-                         void* stream) {
+                         const void* gamma, const void* beta, void* y, void* scratch, int M,
+                         int slices, int pair, float eps, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kTM - 1) / kTM);
-  attn_out_ln_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(ctx), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
-      static_cast<bf16*>(y), M, eps);
-  return static_cast<int>(cudaGetLastError());
+  if (slices < 1 || kChunks % slices != 0 || (slices > 1 && scratch == nullptr) ||
+      (pair && slices > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      pair ? launch<true>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, 1, eps, s)
+           : launch<false>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, slices, eps,
+                           s));
 }
 
 }  // extern "C"

@@ -72,6 +72,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -84,6 +85,8 @@ using mrd::mbar_arrive_expect_tx;
 using mrd::mbar_init;
 using mrd::mbar_wait;
 using mrd::named_bar_sync;
+using mrd::opaque;
+using mrd::Ring;
 using mrd::smem_addr;
 using mrd::sw128_desc;
 using mrd::sw128_offset;
@@ -98,8 +101,6 @@ constexpr int kS1WG = kS2;                   // the stage-1 warpgroup (2)
 constexpr int kThreads = 128 * (kS2 + 1);
 constexpr int kS2Threads = 128 * kS2;
 constexpr int kHalf = kH / kS2;              // 384 output columns per stage-2 WG
-constexpr int kGroups = kH / 8;              // 16-byte groups per x row
-constexpr int kGroupsPerLane = kGroups / 32; // 3
 // registers per thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 =
 // 384 x 168, the registers the block is launched with. Stage 2 needs its
 // 192 accumulator registers pinned at R24 .. R215 and a few above; with
@@ -146,79 +147,7 @@ static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0, "1024-byte swizzle atoms
 static_assert(2 * 128 * kS2Regs + 128 * kS1Regs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
 static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
-
-// a ring position: slot and the parity of its current round
-struct Ring {
-  uint32_t slot = 0, phase = 0;
-  template <int kStages>
-  __device__ __forceinline__ void next() {
-    if (++slot == kStages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// x row `gr` as three 16-byte groups per lane (columns 8 (lane + 32 j) ..
-// + 8): LN0 of z in f32, rounded to bf16 (K1), or z itself (K2); zeros past
-// M. One warp per row; the main kernel and the split reduction both take x
-// from here, so they see the same bits.
-template <typename V, bool kInputLN>
-__device__ __forceinline__ void load_x_row(const bf16* __restrict__ z, long long gr, int M,
-                                           const V* __restrict__ g0,
-                                           const V* __restrict__ o0, float eps, int lane,
-                                           uint4 (&out)[kGroupsPerLane]) {
-  if (gr >= M) {
-#pragma unroll
-    for (int j = 0; j < kGroupsPerLane; ++j) out[j] = make_uint4(0, 0, 0, 0);
-    return;
-  }
-  const uint4* src = reinterpret_cast<const uint4*>(z + gr * kH);
-#pragma unroll
-  for (int j = 0; j < kGroupsPerLane; ++j) out[j] = src[lane + 32 * j];
-  if constexpr (kInputLN) {
-    float v[kGroupsPerLane][8];
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kGroupsPerLane; ++j) {
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        v[j][2 * e] = f.x;
-        v[j][2 * e + 1] = f.y;
-        s += f.x + f.y;
-      }
-    }
-    const float mu = warp_sum(s) * (1.0f / kH);
-    float q = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kGroupsPerLane; ++j)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * (1.0f / kH) + eps);
-#pragma unroll
-    for (int j = 0; j < kGroupsPerLane; ++j) {
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out[j]);
-      const int c = 8 * (lane + 32 * j);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cc = c + 2 * e;
-        p[e] = __floats2bfloat162_rn(
-            (v[j][2 * e] - mu) * rstd * ld_f32(g0 + cc) + ld_f32(o0 + cc),
-            (v[j][2 * e + 1] - mu) * rstd * ld_f32(g0 + cc + 1) + ld_f32(o0 + cc + 1));
-      }
-    }
-  }
-}
-
-// `v` as a value the compiler cannot see through: addresses derived from it
-// are computed where they are used, not hoisted out of the loops and kept
-// live across them in registers the accumulators need
-__device__ __forceinline__ uint32_t opaque(uint32_t v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
+static_assert(kH == kRowH, "rows.cuh is written for the same width");
 
 // columns c and c + 1 (c even) of row r of a swizzled tile, as f32
 __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int c) {
@@ -310,7 +239,7 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[kW2PerChunk / kS2][64], Ri
 // for K2); kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0
 // unused). Grid: (row tiles, slices of F); with one slice the block applies
 // LN2 and writes y, with several it writes its f32 partial of h . W2 to
-// `partial` [slices, M, H] and ffn_split_reduce finishes the rows.
+// `partial` [slices, M, H] and split_reduce (rows.cuh) finishes the rows.
 template <typename V, bool kInputLN>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
@@ -352,10 +281,10 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   }
   // prologue, all 12 warps: the bf16 x tile, one warp per row
   for (int r = warp; r < kTM; r += kThreads / 32) {
-    uint4 g[kGroupsPerLane];
+    uint4 g[kRowGroupsPerLane];
     load_x_row<V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
-    for (int j = 0; j < kGroupsPerLane; ++j)
+    for (int j = 0; j < kRowGroupsPerLane; ++j)
       *reinterpret_cast<uint4*>(smem + kOffX + sw128_offset(r, lane + 32 * j, kBlockBytes)) =
           g[j];
   }
@@ -537,108 +466,6 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   }
 }
 
-// The split-F path's second pass: y = LN2(sum_s partial[s] + b2 + x), the
-// slices summed in order 0 .. S-1. One warp per row, 8 rows per block.
-template <typename V, bool kInputLN>
-__global__ void __launch_bounds__(256)
-ffn_split_reduce(const float* __restrict__ partial, int slices,
-                 const bf16* __restrict__ z, const V* __restrict__ b2,
-                 const V* __restrict__ gamma, const V* __restrict__ beta,
-                 const V* __restrict__ g0, const V* __restrict__ o0,
-                 bf16* __restrict__ y, int M, float eps) {
-  const int lane = threadIdx.x % 32;
-  const long long gr = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  if (gr >= M) return;
-  uint4 xg[kGroupsPerLane];
-  load_x_row<V, kInputLN>(z, gr, M, g0, o0, eps, lane, xg);
-  float v[kGroupsPerLane][8];
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kGroupsPerLane; ++j) {
-    const int c = 8 * (lane + 32 * j);
-    const float4* src = reinterpret_cast<const float4*>(partial + gr * kH + c);
-    float4 lo = src[0], hi = src[1];
-    for (int sl = 1; sl < slices; ++sl) {
-      const float4* ps =
-          reinterpret_cast<const float4*>(partial + (sl * static_cast<long long>(M) + gr) * kH + c);
-      const float4 a = ps[0], b = ps[1];
-      lo = make_float4(lo.x + a.x, lo.y + a.y, lo.z + a.z, lo.w + a.w);
-      hi = make_float4(hi.x + b.x, hi.y + b.y, hi.z + b.z, hi.w + b.w);
-    }
-    const float acc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xg[j]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 xf = __bfloat1622float2(xp[e]);
-      v[j][2 * e] = acc[2 * e] + ld_f32(b2 + c + 2 * e) + xf.x;
-      v[j][2 * e + 1] = acc[2 * e + 1] + ld_f32(b2 + c + 2 * e + 1) + xf.y;
-      s += v[j][2 * e] + v[j][2 * e + 1];
-    }
-  }
-  const float mu = warp_sum(s) * (1.0f / kH);
-  float q = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kGroupsPerLane; ++j)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
-  const float rstd = rsqrtf(warp_sum(q) * (1.0f / kH) + eps);
-#pragma unroll
-  for (int j = 0; j < kGroupsPerLane; ++j) {
-    const int c = 8 * (lane + 32 * j);
-    uint4 out;
-    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cc = c + 2 * e;
-      op[e] = __floats2bfloat162_rn(
-          (v[j][2 * e] - mu) * rstd * ld_f32(gamma + cc) + ld_f32(beta + cc),
-          (v[j][2 * e + 1] - mu) * rstd * ld_f32(gamma + cc + 1) + ld_f32(beta + cc + 1));
-    }
-    *reinterpret_cast<uint4*>(y + gr * kH + c) = out;
-  }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major bf16 [rows, cols] matrix, read in boxes of
-// [box_rows, 64] into the 128-byte swizzle layout.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename V, bool kInputLN>
 cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, const void* beta, const void* g0,
@@ -647,9 +474,7 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
   CUtensorMap w1_map, w2_map;
   if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, kW2N))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<V, kInputLN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  cudaError_t err = allow_smem<ffn_ln_kernel<V, kInputLN>>(static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kTM - 1) / kTM, slices);
   const auto vec = [](const void* p) { return static_cast<const V*>(p); };
@@ -659,7 +484,7 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
       static_cast<bf16*>(y), static_cast<float*>(scratch), M, F / kFC / slices, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return err;
-  ffn_split_reduce<V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
+  split_reduce<V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
       static_cast<const float*>(scratch), slices, zb, vec(b2), vec(gamma), vec(beta),
       vec(g0), vec(o0), static_cast<bf16*>(y), M, eps);
   return cudaGetLastError();

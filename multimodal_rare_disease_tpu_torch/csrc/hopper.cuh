@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the FFN kernel (ffn_ln.cu): mbarrier
-// rings fed by TMA tile loads, warpgroup matrix multiplies (wgmma) on
-// operands in 128-byte-swizzled shared memory, named barriers and register
-// rebalancing between warpgroups. Inline PTX only; no library. Every
-// shared-memory address below is a 32-bit address in the shared window
-// (smem_addr), every tile base is 1024-byte aligned.
+// Hopper (sm_90a) building blocks of the FFN and attention-output kernels
+// (ffn_ln.cu, attn_out_ln.cu): mbarrier rings fed by TMA tile loads (also
+// multicast to a cluster of two blocks), TMA tile stores, warpgroup matrix
+// multiplies (wgmma) on operands in 128-byte-swizzled shared memory, named
+// and cluster barriers and register rebalancing between warpgroups. Inline
+// PTX only; no library. Every shared-memory address below is a 32-bit
+// address in the shared window (smem_addr), every tile base is 1024-byte
+// aligned.
 
 #pragma once
 
@@ -16,6 +18,26 @@ namespace mrd {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a ring position: slot and the parity of its current round
+struct Ring {
+  uint32_t slot = 0, phase = 0;
+  template <int kStages>
+  __device__ __forceinline__ void next() {
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// `v` as a value the compiler cannot see through: addresses derived from it
+// are computed where they are used, not hoisted out of the loops and kept
+// live across them in registers the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
 
 // ---- mbarriers
@@ -77,6 +99,39 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// As tma_load_2d, and the same box lands at the same offset, with its bytes
+// counted on the barrier at the same offset, in every block of the cluster
+// that `mask` names (bit r: the block of rank r).
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copy shared memory at `src` to the box at (c0 = column, c1 = row) of the
+// tensor that `map` describes; rows past the tensor's end are not written.
+// Issued by one thread, which commits the copies as a group and waits with
+// tma_store_wait before the shared memory is reused or the block exits.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// every committed store has read its shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // generic-proxy writes to shared memory (st.shared) become visible to the
 // async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -98,6 +153,35 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// ---- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; also publishes each block's
+// initialised mbarriers to the others
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// arrive on the mbarrier at the same offset in the block of rank `rank`
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
 }
 
 // ---- wgmma

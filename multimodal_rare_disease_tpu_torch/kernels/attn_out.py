@@ -4,12 +4,22 @@ Hopper.
     y = LN(x + ctx @ wo + bo)
 
 Counterpart of `multimodal_rare_disease_tpu/ops/pallas/attn_out.py`. The
-CUDA kernel (`csrc/attn_out_ln.cu`) replaces its `_attn_out_ln_kernel`;
+CUDA kernel (`csrc/attn_out_ln.cu`: wgmma on 64-row tiles, Wo streamed by
+TMA from a producer warpgroup) replaces its `_attn_out_ln_kernel`;
 `attn_out_ln_plain` is the same math in PyTorch, under the TPU module's
 numerics contract: the product accumulates in f32 and is not rounded,
 bo and the residual are added in f32, and the two-pass LayerNorm runs in
 f32 (unlike the JAX `attn_out_ln_reference`, which rounds the projection
 and the residual sum to the compute dtype first).
+
+When the 64-row tiles would fill fewer blocks than the card has SMs (a
+single request's 64 rows), the kernel splits the 12 k chunks of the
+product into slices, each block writes an f32 partial of ctx @ wo for
+its slice, and a second kernel (the FFN kernel's split reduction) sums
+the partials in slice order before bo, the residual and LN.
+`attn_out_plan` chooses the slices by `ffn.split_plan`'s rule, and
+`attn_out_ln_plain(..., slices=S)` emulates the split sum in the
+kernel's order, so the CPU tests reach both.
 
 Device rule, as `kernels/ffn.py`: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise, except where the stated gate
@@ -22,35 +32,60 @@ from __future__ import annotations
 import torch
 
 from multimodal_rare_disease_tpu_torch.kernels import build
-from multimodal_rare_disease_tpu_torch.kernels.ffn import dot_f32, ln_f32
+from multimodal_rare_disease_tpu_torch.kernels.ffn import (
+    RowPlan,
+    dot_f32,
+    ln_f32,
+    sm_count,
+    split_plan,
+)
 
 FORCE_PLAIN = False
+# the multicast pair (a cluster of two blocks sharing each Wo tile) on
+# the tiled path. Off: on the H100 it took longer than the kernel without
+# it (PERF.md §6); build/attn_out_old_vs_new.py sets it to time the pair
+MULTICAST_PAIR = False
 # launches of the CUDA kernel (incremented only where it is launched)
 LAUNCHES = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
-# the width csrc/attn_out_ln.cu was written for (see its header)
+# the tiling csrc/attn_out_ln.cu was written for (see its header)
 KERNEL_HIDDEN = 768
+KERNEL_CHUNK = 64
+
+
+def attn_out_plan(m: int, n_sm: int) -> RowPlan:
+    """The launch of the kernel for m rows on a card with n_sm SMs:
+    `split_plan` over the 12 k chunks of the 768-wide product."""
+    return split_plan(m, KERNEL_HIDDEN // KERNEL_CHUNK, n_sm)
 
 
 def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
-    """Shape/dtype gate of the CUDA kernel: it masks its ragged 32-row
-    tile, so any m >= 1 works (the TPU's m >= 32, m % 16 == 0 came from
-    its (8, 128) tiling), and it is compiled for H = 768 in bf16. The
-    wrapper also asks for bf16 bo, gamma and beta (the model passes its
-    own, cast to bf16)."""
+    """Shape/dtype gate of the CUDA kernel: it tiles rows by 64 and lets
+    TMA zero-fill and clip the ragged tile, so any m >= 1 works (the
+    TPU's m >= 32, m % 16 == 0 came from its (8, 128) tiling), and it is
+    compiled for H = 768 in bf16. The wrapper also asks for bf16 bo,
+    gamma and beta (the model passes its own, cast to bf16)."""
     return m >= 1 and hidden == KERNEL_HIDDEN and dtype == torch.bfloat16
 
 
 def attn_out_ln_plain(ctx2d: torch.Tensor, x2d: torch.Tensor,
                       wo: torch.Tensor, bo: torch.Tensor, gamma: torch.Tensor,
-                      beta: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+                      beta: torch.Tensor, eps: float = 1e-12, *,
+                      slices: int = 1) -> torch.Tensor:
     """The kernel's math in PyTorch. ctx2d, x2d [M, H]; wo [H, H] as
-    (in, out); bo, gamma, beta [H]. The output is in ctx2d's dtype."""
+    (in, out); bo, gamma, beta [H]. The output is in ctx2d's dtype.
+    `slices` > 1 emulates the kernel's split-K path: ctx @ wo as one f32
+    partial per slice of the k rows, summed in slice order."""
     dt = ctx2d.dtype
     f32 = torch.float32
-    z = dot_f32(ctx2d, wo.to(dt)) + bo.to(f32) + x2d.to(f32)
+    wo = wo.to(dt)
+    n = wo.shape[0] // slices
+    acc = dot_f32(ctx2d[:, :n], wo[:n]) if slices > 1 else dot_f32(ctx2d, wo)
+    for s in range(1, slices):
+        acc = acc + dot_f32(ctx2d[:, s * n:(s + 1) * n], wo[s * n:(s + 1) * n])
+    z = acc + bo.to(f32) + x2d.to(f32)
     return ln_f32(z, gamma.to(f32), beta.to(f32), eps).to(dt)
 
 
@@ -95,17 +130,25 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
     if any(v.numel() != hidden for v in vecs):
         raise ValueError("fused_attn_out_ln: bias/LayerNorm vectors do not "
                          "match")
-    if ctx.data_ptr() % 16 or wot.data_ptr() % 16:
-        raise ValueError("fused_attn_out_ln: ctx and wo must be 16-byte "
-                         "aligned (vector and cp.async loads)")
+    if wot.data_ptr() % 16:
+        raise ValueError("fused_attn_out_ln: wo must be 16-byte aligned "
+                         "(TMA tensor map)")
+    # the rows are read by TMA and 16 bytes at a time
+    ctx = ctx.clone() if ctx.data_ptr() % 16 else ctx
+    x = x.clone() if x.data_ptr() % 16 else x
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
+    plan = attn_out_plan(m, sm_count(dev))
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mrd_attn_out_ln_bf16(
             ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
-            *(v.data_ptr() for v in vecs), y.data_ptr(), m, float(eps),
-            stream)
+            *(v.data_ptr() for v in vecs), y.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, m,
+            plan.slices, int(MULTICAST_PAIR and plan.slices == 1),
+            float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_bf16")
     LAUNCHES += 1
     return y

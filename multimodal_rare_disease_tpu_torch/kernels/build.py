@@ -40,6 +40,8 @@ REQUIRED_CAPABILITY = (9, 0)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+# devices check_device has passed
+_CHECKED: set = set()
 # seconds this process spent in nvcc (0.0 when it reused a built
 # library); read by chip_smoke.py
 last_build_seconds = 0.0
@@ -141,7 +143,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "mrd_ffn_pre_ln_bf16": [p] * 11 + [i, i, i, f, i, p],
         "mrd_ffn_ln_bf16": [p] * 9 + [i, i, i, f, p],
-        "mrd_attn_out_ln_bf16": [p] * 7 + [i, f, p],
+        "mrd_attn_out_ln_bf16": [p] * 8 + [i, i, i, f, p],
         "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
         "mrd_error_string": [i],
         "mrd_ffn_smem_bytes": [],
@@ -156,13 +158,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load_library(device: torch.device) -> ctypes.CDLL:
-    """Check the device, build on first use, load once per process."""
+    """Check the device (once per device), build on first use, load once
+    per process."""
     global _LIB
-    check_device(device)
-    with _LOCK:
-        if _LIB is None:
-            _LIB = _bind(ctypes.CDLL(str(build())))
-        return _LIB
+    if device not in _CHECKED:
+        check_device(device)
+        _CHECKED.add(device)
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _LIB = _bind(ctypes.CDLL(str(build())))
+    return _LIB
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

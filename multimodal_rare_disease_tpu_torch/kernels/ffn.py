@@ -52,32 +52,41 @@ KERNEL_CHUNK = 64
 KERNEL_ROWS = 64
 
 
-class FfnPlan(NamedTuple):
-    """How one call is launched: `tiles` blocks of 64 rows times
-    `slices` slices of F, each of `chunks` F chunks of 64; `scratch` is
-    the shape of the f32 partials buffer, None without a split."""
+class RowPlan(NamedTuple):
+    """How one call of a 64-row tile kernel is launched: `tiles` blocks
+    of 64 rows times `slices` slices of its k loop, each of `chunks`
+    chunks of 64; `scratch` is the shape of the f32 partials buffer,
+    None without a split."""
     tiles: int
     slices: int
     chunks: int
     scratch: Optional[Tuple[int, int, int]]
 
 
-def ffn_plan(m: int, f: int, n_sm: int) -> FfnPlan:
-    """The launch of the FFN kernel for m rows and intermediate width f
-    on a card with n_sm SMs. Row tiles that fill the card run whole (one
-    slice). Fewer tiles split F into S slices, S a divisor of the f / 64
-    chunks, chosen to minimise the waves of one-block-per-SM times the
-    chunks per block, ceil(tiles * S / n_sm) * (chunks / S); on a tie
-    the smaller S, which writes and sums fewer partials."""
+@functools.lru_cache(maxsize=4096)
+def split_plan(m: int, n_chunks: int, n_sm: int) -> RowPlan:
+    """The launch of a 64-row tile kernel (FFN: the F chunks; K3, the
+    attention-output kernel: the 12 k chunks) for m rows on a card with
+    n_sm SMs. Row tiles that fill the card run whole (one slice). Fewer
+    tiles split the chunks into S slices, S a divisor of n_chunks,
+    chosen to minimise the waves of one-block-per-SM times the chunks
+    per block, ceil(tiles * S / n_sm) * (n_chunks / S); on a tie the
+    smaller S, which writes and sums fewer partials. Cached: a launch
+    asks for it on every call, with few distinct row counts."""
     tiles = -(-m // KERNEL_ROWS)
-    n_chunks = f // KERNEL_CHUNK
     slices = 1
     if tiles < n_sm:
         slices = min((s for s in range(1, n_chunks + 1) if n_chunks % s == 0),
                      key=lambda s: (-(-tiles * s // n_sm) * (n_chunks // s),
                                     s))
     scratch = (slices, m, KERNEL_HIDDEN) if slices > 1 else None
-    return FfnPlan(tiles, slices, n_chunks // slices, scratch)
+    return RowPlan(tiles, slices, n_chunks // slices, scratch)
+
+
+def ffn_plan(m: int, f: int, n_sm: int) -> RowPlan:
+    """The launch of the FFN kernel for m rows and intermediate width f:
+    `split_plan` over the f / 64 chunks of F."""
+    return split_plan(m, f // KERNEL_CHUNK, n_sm)
 
 
 def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
@@ -205,7 +214,7 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
         raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
     y = torch.empty_like(z)
     lib = build.load_library(dev)
-    plan = ffn_plan(m, f, _sm_count(dev))
+    plan = ffn_plan(m, f, sm_count(dev))
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
@@ -228,5 +237,5 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
+def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count

@@ -1,8 +1,9 @@
 """K3 of the torch package (kernels/attn_out.py): the plain version
 against the JAX package's Pallas kernel run in interpret mode, at the
-tolerances of tests/test_attn_out_kernel.py, and the device rule on the
-CPU. The CUDA kernel itself is checked against the plain version on the
-card by tests/test_torch_gpu.py and chip_smoke.py."""
+tolerances of tests/test_attn_out_kernel.py, the launch plan and the
+split-K path's plain emulation, and the device rule on the CPU. The CUDA
+kernel itself is checked against the plain version on the card by
+tests/test_torch_gpu.py and chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,8 +73,46 @@ def test_plain_keeps_the_projection_in_f32():
 
 def test_fusible_gate_follows_the_cuda_tiling():
     bf = torch.bfloat16
-    # any row count: the kernel masks its ragged 32-row tile
+    # any row count: TMA zero-fills and clips the ragged 64-row tile
     assert all(k3.attn_out_ln_fusible(m, 768, bf) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, bf)
     assert not k3.attn_out_ln_fusible(64, 512, bf)     # built for H=768
     assert not k3.attn_out_ln_fusible(64, 768, torch.float32)
+
+
+# (m, tiles, slices, chunks per slice) on a card with 132 SMs (12 k chunks
+# of 64): the single request (m = 1, then the length bucket 64), the
+# CLS-only rows at B=256, and the row counts whose tiles fill the card
+# without a split (132 tiles, and the packed batch's 256)
+_PLANS = [(1, 1, 12, 1), (64, 1, 12, 1), (1024, 16, 6, 2),
+          (8448, 132, 1, 12), (16384, 256, 1, 12)]
+
+
+@pytest.mark.parametrize("m,tiles,slices,chunks", _PLANS,
+                         ids=[f"m{p[0]}" for p in _PLANS])
+def test_plan_at_the_main_path_row_counts(m, tiles, slices, chunks):
+    plan = k3.attn_out_plan(m, 132)
+    assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
+    # the f32 partials are kept for the valid rows only, one set per slice
+    assert plan.scratch == (None if slices == 1 else (slices, m, 768))
+
+
+@pytest.mark.parametrize("slices", [2, 4])
+def test_split_emulation_matches_plain_f32(slices):
+    ctx, x, args = _make(48, 256, 5)
+    t = [torch.from_numpy(a) for a in (ctx, x, *args)]
+    whole = k3.attn_out_ln_plain(*t)
+    split = k3.attn_out_ln_plain(*t, slices=slices)
+    # the same 256-term dot, taken as `slices` partials: f32 rounding of
+    # the partial sums only
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), atol=1e-5)
+
+
+def test_split_emulation_matches_interpreted_k3_f32():
+    ctx, x, args = _make(64, 256, 6)
+    ref = np.asarray(jax_attn_out(jnp.asarray(ctx), jnp.asarray(x),
+                                  *map(jnp.asarray, args), interpret=True))
+    got = k3.attn_out_ln_plain(torch.from_numpy(ctx), torch.from_numpy(x),
+                               *map(torch.from_numpy, args), slices=4)
+    # the bound of test_plain_matches_interpreted_k3 in f32
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)

@@ -203,12 +203,13 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
     # a header-only edit must not reuse a library built before it
     from multimodal_rare_disease_tpu_torch.kernels import build
 
-    assert [h.name for h in build.headers()] == ["common.cuh", "hopper.cuh"]
+    assert [h.name for h in build.headers()] == ["common.cuh", "hopper.cuh",
+                                                 "rows.cuh"]
     for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     before = build.library_path()
-    for name in ("common.cuh", "hopper.cuh"):
+    for name in ("common.cuh", "hopper.cuh", "rows.cuh"):
         with open(tmp_path / name, "a") as f:
             f.write("// edited\n")
         after = build.library_path()

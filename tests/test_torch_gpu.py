@@ -156,8 +156,11 @@ def test_ffn_check_fails_a_kernel_that_drops_a_vector(cuda, name, input_ln):
     assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
 
 
+# the single request (1, then the length bucket 64), a ragged tile, the
+# 1,024 CLS rows, a mid size and the packed batch: the split-K path below
+# 132 tiles, the tiled path at 16,384
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 37, 4096])
+@pytest.mark.parametrize("m", [1, 37, 64, 1024, 4096, 16384])
 def test_attn_out_kernel_matches_plain(cuda, m, vec_dtype):
     ctx, x, wo, vec = _attn_inputs(m, cuda, seed=m, vec_dtype=vec_dtype)
     before = (k3.LAUNCHES, k3.PLAIN_ON_CUDA)
@@ -171,6 +174,33 @@ def test_attn_out_kernel_matches_plain(cuda, m, vec_dtype):
     assert (k3.LAUNCHES, k3.PLAIN_ON_CUDA) == (before[0] + 1, before[1])
     worst, mean = _diff(got, want)
     assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("m", [64, 16384], ids=["split", "tiled"])
+def test_attn_out_kernel_is_deterministic(cuda, m):
+    # the split path sums its partials in slice order and takes no atomics;
+    # both paths give the same bits on every launch
+    ctx, x, wo, vec = _attn_inputs(m, cuda, seed=9, vec_dtype=torch.bfloat16)
+    first = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    again = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    plan = k3.attn_out_plan(m, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (plan.slices > 1) == (m == 64)
+    assert torch.equal(first, again)
+
+
+# the multicast pair (off by default; build/attn_out_old_vs_new.py times
+# it): the packed batch, and an odd tile count whose last pair has a block
+# past the rows
+@pytest.mark.parametrize("m", [16384, 8645])
+def test_attn_out_pair_matches_plain(cuda, m, monkeypatch):
+    ctx, x, wo, vec = _attn_inputs(m, cuda, seed=11, vec_dtype=torch.bfloat16)
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
+    monkeypatch.setattr(k3, "MULTICAST_PAIR", True)
+    got = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    worst, mean = _diff(got, want)
+    assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+    assert torch.equal(got, _attn(k3.fused_attn_out_ln, ctx, x, wo, vec))
 
 
 @pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
