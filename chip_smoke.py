@@ -47,9 +47,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    `attn_out_plan`'s tiles x slices per row count; K4 also against the
    one PyTorch call that computes it (addcmul into a bf16 tensor).
 
-Kernel times are CUDA-event times of 20 calls back to back, queued while
-the card spins (torch.cuda._sleep) so that the events bracket device work
-only; phase 8 prints K3's host time per call beside them.
+Kernel times are CUDA-event times of 20 calls back to back, read two
+ways: queued while the card spins (torch.cuda._sleep), so that the events
+bracket device work only, and issued from an idle card, so that the events
+also show where the host's pace sets the time ("back to back"). Phase 8
+prints K3's host time per call beside them.
 
 Then the card's name and power limit, one JSON line describing each
 kernel, and last
@@ -573,15 +575,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return t
 
-    def per_call_ms(fn, n=20):
-        """The card's time per call of `fn` over n calls back to back. The
-        card first spins for longer than the host takes to issue the n
-        calls, so all of them are queued when it reaches the start event
-        and the events bracket device work only, not the host's pace."""
-        wait = int(3 * host_ms(fn, n) * n * cycles_per_ms) + 100_000
+    def events_ms(fn, n, wait=0):
+        """CUDA-event time per call of `fn` over n calls back to back,
+        after the card has spun for `wait` cycles."""
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(wait)
+        if wait:
+            torch.cuda._sleep(wait)
         start.record()
         for _ in range(n):
             fn()
@@ -589,13 +589,30 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
+    def per_call_ms(fn, n=20):
+        """The time per call of `fn` over n calls back to back, read two
+        ways: (device, back to back). Device: the card first spins for
+        longer than the host takes to issue the n calls, so all of them
+        are queued when it reaches the start event and the events bracket
+        device work only. Back to back: the calls issued from an idle
+        card, so where the host takes longer to issue a call than the card
+        to run it, the events read the host's pace."""
+        b2b = events_ms(fn, n)
+        wait = int(3 * host_ms(fn, n) * n * cycles_per_ms) + 100_000
+        return events_ms(fn, n, wait), b2b
+
     def in_turns(kernel, plain):
-        """(kernel ms, plain ms, the four runs) in turns plain, kernel,
-        kernel, plain."""
-        plain_a, kern_a = per_call_ms(plain), per_call_ms(kernel)
-        kern_b, plain_b = per_call_ms(kernel), per_call_ms(plain)
+        """(kernel ms, plain ms, the four runs, (kernel ms, plain ms) back
+        to back) in turns plain, kernel, kernel, plain; the first two are
+        device times."""
+        (plain_a, pb_a), (kern_a, kb_a) = (per_call_ms(plain),
+                                           per_call_ms(kernel))
+        (kern_b, kb_b), (plain_b, pb_b) = (per_call_ms(kernel),
+                                           per_call_ms(plain))
         return ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2,
-                f"runs {plain_a:.3f} {kern_a:.3f} {kern_b:.3f} {plain_b:.3f}")
+                f"runs {plain_a:.3f} {kern_a:.3f} {kern_b:.3f} {plain_b:.3f}; "
+                f"back to back {pb_a:.3f} {kb_a:.3f} {kb_b:.3f} {pb_b:.3f}",
+                ((kb_a + kb_b) / 2, (pb_a + pb_b) / 2))
 
     p50, lat = p50_ms(pred)
     z = rnd((packed_m, h), 1.0, dtype=bf)
@@ -606,7 +623,7 @@ def main() -> int:
         return (z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"]), ln0
 
     a1, ln0 = ffn_args(vec_bf)
-    k1_ms, k1_plain_ms, k1_runs = in_turns(
+    k1_ms, k1_plain_ms, k1_runs, k1_b2b = in_turns(
         lambda: k1.fused_ffn_ln(*a1, **ln0),
         lambda: k1.ffn_ln_plain(*a1, input_ln=True, **ln0))
     k1_bound, k1_by = ffn_bound(packed_m, h, f, 2, True)
@@ -614,7 +631,7 @@ def main() -> int:
     for m in SMALL_ROWS:
         zm = rnd((m, h), 1.0, dtype=bf)
         am = (zm,) + a1[1:]
-        ms, plain_ms, runs = in_turns(
+        ms, plain_ms, runs, _ = in_turns(
             lambda: k1.fused_ffn_ln(*am, **ln0),
             lambda: k1.ffn_ln_plain(*am, input_ln=True, **ln0))
         bound, by = ffn_bound(m, h, f, 2, True)
@@ -671,12 +688,12 @@ def main() -> int:
     v2, v3 = k2_vec, k3_vec  # bf16, as the model passes them
     a2 = (z7, w1, v2["b1"], w2, v2["b2"], v2["gamma"], v2["beta"])
     a3 = (c7, z7, wo, v3["bo"], v3["gamma"], v3["beta"])
-    k2_ms, k2_plain_ms, k2_runs = in_turns(
+    k2_ms, k2_plain_ms, k2_runs, k2_b2b = in_turns(
         lambda: k1.fused_ffn_ln(*a2),
         lambda: k1.ffn_ln_plain(*a2, input_ln=False))
-    k3_ms, k3_plain_ms, k3_runs = in_turns(
+    k3_ms, k3_plain_ms, k3_runs, k3_b2b = in_turns(
         lambda: k3.fused_attn_out_ln(*a3), lambda: k3.attn_out_ln_plain(*a3))
-    k4_ms, k4_plain_ms, k4_runs = in_turns(
+    k4_ms, k4_plain_ms, k4_runs, k4_b2b = in_turns(
         lambda: k4.fused_normalize_u8(u8_full, bf),
         lambda: k4.normalize_u8_plain(u8_full, bf))
     # the one PyTorch call that computes K4: addcmul promotes the uint8
@@ -692,7 +709,7 @@ def main() -> int:
     if k4_lib_err[0] > K4_ATOL["bfloat16"] or k4_lib_err[1] > K4_MEAN_ATOL:
         fail(f"addcmul does not compute K4's function: {k4_lib_err}")
     # in turns K4, addcmul, addcmul, K4
-    k4_lib_ms, k4_ms_b, k4_lib_runs = in_turns(
+    k4_lib_ms, k4_ms_b, k4_lib_runs, _ = in_turns(
         k4_library, lambda: k4.fused_normalize_u8(u8_full, bf))
     k2_bound, k2_by = ffn_bound(m7, h, f, 2, False)
     k3_bound, k3_by = attn_out_bound(m7, h, 2)
@@ -709,11 +726,11 @@ def main() -> int:
 
     classic_err = diff(k3_classic().float(), k3.attn_out_ln_plain(*a3).float())
     # in turns K3, chain, chain, K3
-    classic_ms, k3_ms_b, classic_runs = in_turns(
+    classic_ms, k3_ms_b, classic_runs, _ = in_turns(
         k3_classic, lambda: k3.fused_attn_out_ln(*a3))
     # a single request's 64 rows: the split-K path
     a3_64 = (rnd((64, h), 1.0, dtype=bf), rnd((64, h), 1.0, dtype=bf)) + a3[2:]
-    k3_64_ms, k3_64_plain_ms, k3_64_runs = in_turns(
+    k3_64_ms, k3_64_plain_ms, k3_64_runs, _ = in_turns(
         lambda: k3.fused_attn_out_ln(*a3_64),
         lambda: k3.attn_out_ln_plain(*a3_64))
     k3_64_bound, k3_64_by = attn_out_bound(64, h, 2)
@@ -760,13 +777,13 @@ def main() -> int:
         # K1-K3 have none: LayerNorm, the products, GELU and the residual
         # are separate calls
         ("ffn_pre_ln_bf16", "ffn_ln.cu", "ffn.py:72", "K1", k1_err, k1_ms,
-         k1_plain_ms, k1_bound, k1_by, None),
+         k1_plain_ms, k1_b2b, k1_bound, k1_by, None),
         ("ffn_ln_bf16", "ffn_ln.cu", "ffn.py:103", "K2", k2_err, k2_ms,
-         k2_plain_ms, k2_bound, k2_by, None),
+         k2_plain_ms, k2_b2b, k2_bound, k2_by, None),
         ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3",
-         k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by, None),
+         k3_err, k3_ms, k3_plain_ms, k3_b2b, k3_bound, k3_by, None),
         ("normalize_u8", "normalize_u8.cu", "image_kernels.py:37", "K4",
-         k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms),
+         k4_err, k4_ms, k4_plain_ms, k4_b2b, k4_bound, k4_by, k4_lib_ms),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -782,8 +799,11 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": lib_ms,
-    } for name, source, replaces, k, err, ms, plain_ms, bound, by, lib_ms
-        in table]}))
+        # the same calls timed from an idle card (per_call_ms)
+        "ms_back_to_back": b2b[0],
+        "plain_ms_back_to_back": b2b[1],
+    } for name, source, replaces, k, err, ms, plain_ms, b2b, bound, by,
+        lib_ms in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

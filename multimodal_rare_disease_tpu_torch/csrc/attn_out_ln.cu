@@ -19,9 +19,9 @@
 // at the bf16 tensor-core peak. The two are close, so the product has to run
 // near the tensor-core rate, which only wgmma reaches. Every block that owns
 // a tile of rows reads all of Wo (1.18 MB) from L2, so the rows per block
-// set the L2-to-SM traffic: 604 MB per call at 32 rows, 302 MB at 64, 151 MB
-// when a cluster of two blocks shares each Wo tile. LN needs whole 768-wide
-// rows, so a 64-row tile keeps a [64, 768] f32 accumulator in registers.
+// set the L2-to-SM traffic: 604 MB per call at 32 rows, 302 MB at 64. LN
+// needs whole 768-wide rows, so a 64-row tile keeps a [64, 768] f32
+// accumulator in registers.
 // Few rows (a single request's 64) leave all but one SM idle.
 //
 // Design:
@@ -56,13 +56,9 @@
 // the valid rows into a scratch buffer [S, M, 768]; split_reduce (rows.cuh,
 // shared with the FFN kernel) sums the S partials in slice order, adds bo and
 // x and applies LN. No atomics: the result is the same bits on every launch.
-// The multicast pair (kPair, tiled path only): a cluster of two blocks on
-// neighbouring row tiles; each producer loads half of every Wo tile with
-// .multicast::cluster into both blocks, and a slot's empty barrier counts
-// the consumer warps of both blocks (remote arrivals through mapa), so each
-// block reads half of Wo from L2. On the H100 it took longer than the kernel
-// without it (PERF.md), so kernels/attn_out.py launches it only when
-// MULTICAST_PAIR is set.
+// A cluster of two blocks that share each Wo tile by TMA multicast halves the
+// L2 reads of Wo; on the H100 it took longer than this design (PERF.md), so
+// it is not built here.
 
 #include <cuda.h>
 
@@ -119,8 +115,8 @@ constexpr uint32_t kOffRed = kBarWEmpty + 8 * kWG * kStages;  // float [2][2][64
 constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
 
 static_assert(kH == kRowH, "rows.cuh is written for the same width");
-static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 2048 == 0,
-              "1024-byte swizzle atoms, also for each half of a multicast tile");
+static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 1024 == 0,
+              "1024-byte swizzle atoms");
 static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
 static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
@@ -153,11 +149,9 @@ __device__ __forceinline__ void load_x(const CUtensorMap* x_map, uint32_t base, 
 // The producer thread: per chunk of the slice, ctx's column block and the
 // six Wo tiles (consumer 0's and 1's in turn), then x's blocks two chunks
 // behind (tiled path only).
-template <bool kPair>
 __device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtensorMap* x_map,
                                         const CUtensorMap* wo_map, uint32_t base, int row0,
                                         int c_begin, int n_chunks, bool split) {
-  const uint32_t rank = kPair ? mrd::cluster_ctarank() : 0;
   Ring ring[kWG];
   for (int k = 0; k < n_chunks; ++k) {
     const int c = c_begin + k;
@@ -173,37 +167,14 @@ __device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtens
         const uint32_t full = base + kBarWFull + 8 * s;
         const uint32_t dst = base + kOffW + s * kTileBytes;
         const int n0 = kHalf * wg + kN * j;
-        // the slot receives the whole tile: both halves, with kPair
         mbar_arrive_expect_tx(full, kTileBytes);
-        if constexpr (kPair)
-          mrd::tma_load_2d_multicast(dst + rank * (kTileBytes / 2), wo_map, full, c * kKC,
-                                     n0 + rank * (kN / 2), 0x3);
-        else
-          tma_load_2d(dst, wo_map, full, c * kKC, n0);
+        tma_load_2d(dst, wo_map, full, c * kKC, n0);
         ring[wg].next<kStages>();
       }
     if (!split && k >= kXLag) load_x(x_map, base, row0, c - kXLag);
   }
   if (!split)
     for (int k = n_chunks - kXLag; k < n_chunks; ++k) load_x(x_map, base, row0, c_begin + k);
-  if constexpr (kPair) {
-    // the peer block's consumers arrive on this block's empty barriers, and
-    // read the halves this block multicast: stay until all of them are done
-#pragma unroll
-    for (int wg = 0; wg < kWG; ++wg)
-      for (int i = 0; i < kStages; ++i) {
-        mbar_wait(base + kBarWEmpty + 8 * (wg * kStages + ring[wg].slot), ring[wg].phase ^ 1);
-        ring[wg].next<kStages>();
-      }
-  }
-}
-
-// A consumer warp is done with Wo slot s (in both blocks' rings, kPair).
-template <bool kPair>
-__device__ __forceinline__ void release(uint32_t base, uint32_t s, uint32_t peer) {
-  const uint32_t bar = base + kBarWEmpty + 8 * s;
-  mbar_arrive(bar);
-  if constexpr (kPair) mrd::mbar_arrive_cluster(bar, peer);
 }
 
 // Consumer wg's share of k chunk c: ACC[:, 384 wg + 128 j ..] += ctx[:, chunk]
@@ -211,10 +182,10 @@ __device__ __forceinline__ void release(uint32_t base, uint32_t s, uint32_t peer
 // one is retired and its slot released (and, at j = 0, the previous chunk's
 // ctx block). kFirst: the slice's first chunk, whose first step writes the
 // accumulators without reading them.
-template <bool kFirst, bool kPair>
+template <bool kFirst>
 __device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ring,
                                               uint32_t& prev, uint32_t base, int c, int wg,
-                                              bool signal, uint32_t peer) {
+                                              bool signal) {
   mbar_wait(base + kBarAFull + 8 * c, 0);
 #pragma unroll
   for (int j = 0; j < kTiles; ++j) {
@@ -237,7 +208,7 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ri
     if (!kFirst || j > 0) {
       mrd::wgmma_wait<1>();
       if (signal) {
-        release<kPair>(base, prev, peer);
+        mbar_arrive(base + kBarWEmpty + 8 * prev);
         if (j == 0) mbar_arrive(base + kBarAEmpty + 8 * (c - 1));
       }
     }
@@ -246,11 +217,9 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ri
   }
 }
 
-// Grid: (row tiles, slices of the 12 k chunks), clusters of two along the
-// row tiles with kPair. With one slice the block applies LN and writes y;
-// with several it writes its f32 partial of ctx . Wo^T to `partial`
-// [slices, M, H] and split_reduce finishes the rows.
-template <bool kPair>
+// Grid: (row tiles, slices of the 12 k chunks). With one slice the block
+// applies LN and writes y; with several it writes its f32 partial of
+// ctx . Wo^T to `partial` [slices, M, H] and split_reduce finishes the rows.
 __global__ void __launch_bounds__(kThreads, 1)
 attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
                    const __grid_constant__ CUtensorMap x_map,    // x [M, H] (tiled path)
@@ -279,37 +248,33 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
     }
     for (int s = 0; s < kWG * kStages; ++s) {
       mbar_init(base + kBarWFull + 8 * s, 1);
-      mbar_init(base + kBarWEmpty + 8 * s, (kPair ? 2 : 1) * 4);  // consumer warps
+      mbar_init(base + kBarWEmpty + 8 * s, 4);  // the consumer's warps
     }
     fence_barrier_init();
   }
-  if constexpr (kPair)
-    mrd::cluster_sync();  // the peer's barriers are initialised too
-  else
-    __syncthreads();
+  __syncthreads();
 
   if (threadIdx.x / 128 == kWG) {
     // ---- the producer warpgroup: one thread issues every TMA load
     mrd::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads)
-      produce<kPair>(&ctx_map, &x_map, &wo_map, base, row0, c_begin, chunks_per_slice, split);
+      produce(&ctx_map, &x_map, &wo_map, base, row0, c_begin, chunks_per_slice, split);
   } else {
     // ---- consumer wg: ACC[:, 384 wg .. +384] = ctx . Wo^T[:, ...]
     mrd::setmaxnreg_inc<kConsumerRegs>();
     const int wg = threadIdx.x / 128;
     const bool signal = lane == 0;  // one arrival per warp
-    const uint32_t peer = kPair ? mrd::cluster_ctarank() ^ 1 : 0;
     float acc[kTiles][64];  // [64, 384] f32: n128 tiles
     Ring ring;
     uint32_t prev = 0;  // the slot of the group in flight
-    consume_chunk<true, kPair>(acc, ring, prev, base, c_begin, wg, signal, peer);
+    consume_chunk<true>(acc, ring, prev, base, c_begin, wg, signal);
     for (int k = 1; k < chunks_per_slice; ++k)
-      consume_chunk<false, kPair>(acc, ring, prev, base, c_begin + k, wg, signal, peer);
+      consume_chunk<false>(acc, ring, prev, base, c_begin + k, wg, signal);
     mrd::wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) mrd::fence_operand(acc[j]);
     if (signal) {
-      release<kPair>(base, prev, peer);
+      mbar_arrive(base + kBarWEmpty + 8 * prev);
       mbar_arrive(base + kBarAEmpty + 8 * (c_begin + chunks_per_slice - 1));
     }
 
@@ -432,41 +397,21 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
   }
 }
 
-template <bool kPair>
 cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* bo,
                    const bf16* gamma, const bf16* beta, void* y, void* scratch, int M,
                    int slices, float eps, cudaStream_t stream) {
   const bool split = slices > 1;
   CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
   if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
-      !make_map(&wo_map, wo, kH, kH, kPair ? kN / 2 : kN) ||
+      !make_map(&wo_map, wo, kH, kH, kN) ||
       (!split && (!make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))))
     return cudaErrorInvalidValue;
-  const auto kernel = attn_out_ln_kernel<kPair>;
-  cudaError_t err = allow_smem<attn_out_ln_kernel<kPair>>(static_cast<int>(kSmemBytes));
+  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const int tiles = (M + kTM - 1) / kTM;
   auto* part = static_cast<float*>(scratch);
-  if constexpr (kPair) {
-    // an even number of row tiles: a last block past M still feeds its peer
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((tiles + 1) / 2 * 2, 1);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmemBytes;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 2;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part,
-                             M, kChunks, eps);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-  }
-  attn_out_ln_kernel<kPair><<<dim3(tiles, slices), kThreads, kSmemBytes, stream>>>(
+  attn_out_ln_kernel<<<dim3((M + kTM - 1) / kTM, slices), kThreads, kSmemBytes, stream>>>(
       ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part, M, kChunks / slices, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
@@ -487,22 +432,17 @@ int mrd_attn_out_smem_bytes() { return static_cast<int>(kSmemBytes); }
 // 16-byte aligned; ctx, x and y are [M, 768] row-major, wo is [768 out,
 // 768 in] row-major, bo, gamma and beta are [768]; all bf16. `slices` > 1
 // splits the 12 k chunks into that many slices (a divisor of 12) and needs
-// `scratch`, f32 [slices, M, 768]; `pair` (one slice only) launches the
-// multicast pair. Returns the cudaError_t of the launches (0 on success).
-// Allocates nothing.
+// `scratch`, f32 [slices, M, 768]. Returns the cudaError_t of the launches
+// (0 on success). Allocates nothing.
 int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void* bo,
                          const void* gamma, const void* beta, void* y, void* scratch, int M,
-                         int slices, int pair, float eps, void* stream) {
+                         int slices, float eps, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (slices < 1 || kChunks % slices != 0 || (slices > 1 && scratch == nullptr) ||
-      (pair && slices > 1))
+  if (slices < 1 || kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      pair ? launch<true>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, 1, eps, s)
-           : launch<false>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, slices, eps,
-                           s));
+  return static_cast<int>(launch(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, slices,
+                                 eps, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -474,7 +474,9 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
   CUtensorMap w1_map, w2_map;
   if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, kW2N))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<ffn_ln_kernel<V, kInputLN>>(static_cast<int>(kSmemBytes));
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<V, kInputLN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kTM - 1) / kTM, slices);
   const auto vec = [](const void* p) { return static_cast<const V*>(p); };

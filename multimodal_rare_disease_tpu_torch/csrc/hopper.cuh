@@ -1,9 +1,8 @@
 // Hopper (sm_90a) building blocks of the FFN and attention-output kernels
-// (ffn_ln.cu, attn_out_ln.cu): mbarrier rings fed by TMA tile loads (also
-// multicast to a cluster of two blocks), TMA tile stores, warpgroup matrix
-// multiplies (wgmma) on operands in 128-byte-swizzled shared memory, named
-// and cluster barriers and register rebalancing between warpgroups. Inline
-// PTX only; no library. Every shared-memory address below is a 32-bit
+// (ffn_ln.cu, attn_out_ln.cu): mbarrier rings fed by TMA tile loads, TMA
+// tile stores, warpgroup matrix multiplies (wgmma) on operands in
+// 128-byte-swizzled shared memory, named barriers and register rebalancing
+// between warpgroups. Inline PTX only; no library. Every shared-memory address below is a 32-bit
 // address in the shared window (smem_addr), every tile base is 1024-byte
 // aligned.
 
@@ -99,19 +98,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// As tma_load_2d, and the same box lands at the same offset, with its bytes
-// counted on the barrier at the same offset, in every block of the cluster
-// that `mask` names (bit r: the block of rank r).
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Copy shared memory at `src` to the box at (c0 = column, c1 = row) of the
 // tensor that `map` describes; rows past the tensor's end are not written.
 // Issued by one thread, which commits the copies as a group and waits with
@@ -153,35 +139,6 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-// ---- clusters
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster; also publishes each block's
-// initialised mbarriers to the others
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// arrive on the mbarrier at the same offset in the block of rank `rank`
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
 }
 
 // ---- wgmma

@@ -2,16 +2,12 @@
 // the residual row as three 16-byte groups per lane (with LN0 for K1), the
 // second pass of the split paths (y = LN(sum of f32 partials + b + x), the
 // partials summed in slice order, so no atomics and the same bits on every
-// launch), the TMA tensor maps of row-major bf16 matrices, and the
-// shared-memory opt-in of the launches. Everything is in an anonymous
-// namespace: each source that includes it gets its own copy.
+// launch) and the TMA tensor maps of row-major bf16 matrices. Everything is
+// in an anonymous namespace: each source that includes it gets its own copy.
 
 #pragma once
 
 #include <cuda.h>
-
-#include <atomic>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -164,60 +160,18 @@ EncodeTiled encode_tiled() {
 
 // Tensor map of a row-major bf16 [rows, cols] matrix, read (or written) in
 // boxes of [box_rows, 64] in the 128-byte swizzle layout. Rows past `rows`
-// read as zeros and are not written. The encoding depends on nothing but
-// these arguments, so the last kMapSlots maps are kept and a repeated
-// request (the same weights every call, activations the caching allocator
-// hands out at the same address) costs a lookup instead of an encode.
+// read as zeros and are not written.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  struct Entry {
-    CUtensorMap map;
-    const void* ptr;
-    int rows, cols, box_rows;
-  };
-  constexpr int kMapSlots = 64;
-  static Entry cache[kMapSlots];
-  static int used = 0, next = 0;
-  static std::mutex mu;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    for (int i = 0; i < used; ++i) {
-      const Entry& e = cache[i];
-      if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
-        *map = e.map;
-        return true;
-      }
-    }
-  }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(mrd::bf16)};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  std::lock_guard<std::mutex> lock(mu);
-  cache[next] = Entry{*map, ptr, rows, cols, box_rows};
-  next = (next + 1) % kMapSlots;
-  used = used < kMapSlots ? used + 1 : kMapSlots;
-  return true;
-}
-
-// cudaFuncSetAttribute(kKernel, MaxDynamicSharedMemorySize, bytes) once
-// per device and kernel (devices 0..63), not on every launch
-template <auto kKernel>
-cudaError_t allow_smem(int bytes) {
-  static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (bit & done.load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

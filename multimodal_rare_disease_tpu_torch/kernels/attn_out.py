@@ -41,10 +41,6 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
 )
 
 FORCE_PLAIN = False
-# the multicast pair (a cluster of two blocks sharing each Wo tile) on
-# the tiled path. Off: on the H100 it took longer than the kernel without
-# it (PERF.md §6); build/attn_out_old_vs_new.py sets it to time the pair
-MULTICAST_PAIR = False
 # launches of the CUDA kernel (incremented only where it is launched)
 LAUNCHES = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
@@ -130,12 +126,10 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
     if any(v.numel() != hidden for v in vecs):
         raise ValueError("fused_attn_out_ln: bias/LayerNorm vectors do not "
                          "match")
-    if wot.data_ptr() % 16:
-        raise ValueError("fused_attn_out_ln: wo must be 16-byte aligned "
-                         "(TMA tensor map)")
-    # the rows are read by TMA and 16 bytes at a time
-    ctx = ctx.clone() if ctx.data_ptr() % 16 else ctx
-    x = x.clone() if x.data_ptr() % 16 else x
+    # the rows are read by TMA (tensor maps) and 16 bytes at a time
+    if any(t.data_ptr() % 16 for t in (ctx, x, wot)):
+        raise ValueError("fused_attn_out_ln: ctx, x and wo must be 16-byte "
+                         "aligned")
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
     plan = attn_out_plan(m, sm_count(dev))
@@ -147,8 +141,7 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
             ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
             *(v.data_ptr() for v in vecs), y.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, m,
-            plan.slices, int(MULTICAST_PAIR and plan.slices == 1),
-            float(eps), stream)
+            plan.slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_bf16")
     LAUNCHES += 1
     return y

@@ -40,7 +40,9 @@ REQUIRED_CAPABILITY = (9, 0)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-# devices check_device has passed
+# devices check_device has passed: the check costs the host 5-17 us per
+# call on the H100's host, about as much as the K3 wrapper's C entry
+# (PERF.md)
 _CHECKED: set = set()
 # seconds this process spent in nvcc (0.0 when it reused a built
 # library); read by chip_smoke.py
@@ -143,7 +145,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "mrd_ffn_pre_ln_bf16": [p] * 11 + [i, i, i, f, i, p],
         "mrd_ffn_ln_bf16": [p] * 9 + [i, i, i, f, p],
-        "mrd_attn_out_ln_bf16": [p] * 8 + [i, i, i, f, p],
+        "mrd_attn_out_ln_bf16": [p] * 8 + [i, i, f, p],
         "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
         "mrd_error_string": [i],
         "mrd_ffn_smem_bytes": [],
@@ -164,11 +166,10 @@ def load_library(device: torch.device) -> ctypes.CDLL:
     if device not in _CHECKED:
         check_device(device)
         _CHECKED.add(device)
-    if _LIB is None:
-        with _LOCK:
-            if _LIB is None:
-                _LIB = _bind(ctypes.CDLL(str(build())))
-    return _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(str(build())))
+        return _LIB
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

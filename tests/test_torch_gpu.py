@@ -189,20 +189,6 @@ def test_attn_out_kernel_is_deterministic(cuda, m):
     assert torch.equal(first, again)
 
 
-# the multicast pair (off by default; build/attn_out_old_vs_new.py times
-# it): the packed batch, and an odd tile count whose last pair has a block
-# past the rows
-@pytest.mark.parametrize("m", [16384, 8645])
-def test_attn_out_pair_matches_plain(cuda, m, monkeypatch):
-    ctx, x, wo, vec = _attn_inputs(m, cuda, seed=11, vec_dtype=torch.bfloat16)
-    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
-    monkeypatch.setattr(k3, "MULTICAST_PAIR", True)
-    got = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
-    worst, mean = _diff(got, want)
-    assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
-    assert torch.equal(got, _attn(k3.fused_attn_out_ln, ctx, x, wo, vec))
-
-
 @pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
 def test_attn_out_check_fails_a_kernel_that_drops_a_term(cuda, name):
     # neutral bo / gamma / beta, or a zero residual x, stand for a kernel
