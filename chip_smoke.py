@@ -45,7 +45,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
    residual add and LayerNorm, as BertLayer runs with fused_attn_out
    off) and at a single request's 64 rows (the split-K path), with
    `attn_out_plan`'s tiles x slices per row count; K4 also against the
-   one PyTorch call that computes it (addcmul into a bf16 tensor).
+   one PyTorch call that computes it (addcmul into a bf16 tensor);
+9. evaluation and explain: seeded multimodal, image_only and text_only
+   models saved as checkpoints and loaded by `load_predictor`; the
+   Evaluator over 160 seeded samples (16 per class) in batches of 16,
+   with K1 in every BERT layer of a multimodal or text_only batch and
+   none for image_only, the multimodal probabilities held against every
+   kernel forced off; the metrics of each mode and the statistics across
+   them; the Evaluator on the fused-sublayer configuration (K3 11, K2 11,
+   K1 1, K4 1 per batch); Grad-CAM of the image_only and multimodal
+   models on one image per class (its f32 CAM held against the same
+   computation on CPU tensors, and the check shown to fail a flipped
+   gradient or a dropped alpha); the BERT attention maps of one clinical
+   text at T = 128 on the fused-sublayer configuration (K3 off, K1 in
+   all 12 layers), held against the f32 model on the CPU; and the time
+   per Evaluator batch, Grad-CAM call and attention-map call.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -217,6 +231,320 @@ def attn_out_bound(m: int, h: int, vec_bytes: int):
 def normalize_bound(n: int, out_bytes: int):
     """K4: n uint8 in, n outputs; a multiply and an add in f32 each."""
     return bound_ms(n * (1 + out_bytes), 2.0 * n, PEAK_F32_FLOPS)
+
+
+# phase 9: the evaluation set (16 per class), the Grad-CAM images (one
+# per class), the images held against the CPU in f32, timed repeats
+EVAL_PER_CLASS = 16
+CAM_F32_IMAGES = 2
+PHASE9_RUNS = 5
+# Grad-CAM in f32 on the card against the same computation on CPU
+# tensors: a [0, 1] map (min-max normalized) from the same f32 model,
+# where cuDNN's and the CPU's convolutions sum in other orders through
+# ResNet-50; a flipped gradient or a dropped alpha moves it by 0.1 or
+# more, which the phase checks too
+CAM_F32_ATOL = 1e-3
+# Grad-CAM's tail against the Evaluator's forward on the same images, in
+# bf16: the same model, reduced in another order and batch (log
+# probabilities)
+GRADCAM_LOGPROB_ATOL = 0.1
+# attention rows: the f32 softmax of the bf16 model's scores
+ATTN_ROW_ATOL = 1e-3
+# the CLS row's token weights (head-averaged, renormalized; about 1/n
+# each) of the bf16 model on the card against the f32 model on the CPU
+TOKEN_WEIGHT_ATOL = 1e-3
+
+
+def evaluation_and_explain(dev, card: str, fused_over: dict):
+    """Phase 9: the Evaluator over the three modes' checkpoints (and the
+    fused-sublayer configuration), the statistics across them, Grad-CAM
+    and the BERT attention maps, each with its launch counts; returns
+    the launches of its counted runs."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import (
+        SYNDROME_NAMES,
+        resolve_config,
+    )
+    from multimodal_rare_disease_tpu_torch.evaluation import (
+        Evaluator,
+        compare_multimodal_vs_unimodal,
+        compute_metrics,
+    )
+    from multimodal_rare_disease_tpu_torch.explain import (
+        GradCAM,
+        cam_from_gradients,
+        text_token_attention,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.train.pipeline import (
+        build_text_pool,
+    )
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    cfg = resolve_config("default")
+    n_layers = cfg.text_encoder.num_layers
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+
+    def counted(fn, want, what):
+        """fn() with the counts set to 0 just before and read just
+        after; fails unless they are `want`."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if got != want:
+            fail(f"{what}: launches {got}, want {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return out
+
+    def per_batch(k1=0, k2=0, k3=0, k4=0, batches=1):
+        return {"K1": k1 * batches, "K2": k2 * batches, "K3": k3 * batches,
+                "K4": k4 * batches, "plain_on_cuda": 0}
+
+    def timed_ms(fn):
+        fn()
+        lat = []
+        for _ in range(PHASE9_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(lat))
+
+    # the evaluation set: 16 seeded uint8 images per class at the 256-px
+    # staging size, each with its class's clinical description from the
+    # text pool (the val texts of the data pipeline)
+    rng = np.random.default_rng(9)
+    n = EVAL_PER_CLASS * len(SYNDROME_NAMES)
+    labels = rng.permutation(np.repeat(np.arange(len(SYNDROME_NAMES)),
+                                       EVAL_PER_CLASS))
+    images = rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+    b = cfg.evaluation.eval_batch_size
+    n_batches = -(-n // b)
+
+    (HERE / "build").mkdir(exist_ok=True)  # git-ignored, in the checkout
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        # seeded weights saved as port checkpoints, loaded back through
+        # the predictor's loader onto the card in bf16
+        predictors = {}
+        for mode in ("multimodal", "image_only", "text_only"):
+            path = Path(tmp) / mode
+            save_checkpoint(path, create_model(cfg, mode=mode, device="cpu",
+                                               seed=0).state_dict(),
+                            meta={"config": cfg.to_dict(), "mode": mode})
+            predictors[mode] = load_predictor(path, dev)
+    tok = predictors["multimodal"].tokenizer
+    pool = build_text_pool(cfg, tok, np.random.default_rng(10))
+    zeros = np.zeros(n, np.int64)
+    ids, mask = pool.gather(labels, zeros, zeros)
+    batches = [{"images": images[i:i + b], "labels": labels[i:i + b],
+                "valid": np.ones(len(labels[i:i + b]), np.float32),
+                "input_ids": ids[i:i + b], "attention_mask": mask[i:i + b]}
+               for i in range(0, n, b)]
+
+    # ---- the Evaluator over the three modes: K1 in every BERT layer of
+    # a multimodal or text_only batch, none for image_only
+    collected, metrics, eval_ms = {}, {}, {}
+    for mode, p in predictors.items():
+        ev = Evaluator(cfg, p.model, mode=mode)
+        want = per_batch(k1=n_layers if mode != "image_only" else 0,
+                         batches=n_batches)
+        collected[mode] = counted(lambda: ev.collect_predictions(batches),
+                                  want, f"Evaluator ({mode})")
+        c = collected[mode]
+        if c["probabilities"].shape != (n, cfg.num_classes) \
+                or not np.isfinite(c["probabilities"]).all() \
+                or np.abs(c["probabilities"].sum(1) - 1).max() > 1e-3 \
+                or not np.array_equal(c["labels"], labels):
+            fail(f"Evaluator ({mode}): bad predictions")
+        metrics[mode] = compute_metrics(c)
+        m = metrics[mode]
+        if abs(m["accuracy"] - float(np.mean(c["predictions"] == labels))) \
+                > 1e-12 or np.sum(m["confusion_matrix"]) != n \
+                or "roc_auc_ovr" not in m:
+            fail(f"compute_metrics ({mode}) is inconsistent: {m}")
+        eval_ms[mode] = timed_ms(
+            lambda: ev.collect_predictions(batches)) / n_batches
+    ev_mm = Evaluator(cfg, predictors["multimodal"].model)
+    with plain_kernels():
+        plain = ev_mm.collect_predictions(batches)["probabilities"]
+    d_plain = float(np.abs(collected["multimodal"]["probabilities"]
+                           - plain).max())
+    if d_plain > PROB_ATOL_PLAIN:
+        fail(f"Evaluator: kernel and plain probabilities differ by "
+             f"{d_plain}")
+    stats = compare_multimodal_vs_unimodal(
+        {m: c["predictions"] for m, c in collected.items()}, labels)
+    if set(stats) != {"pairwise", "confidence_intervals", "summary"} \
+            or len(stats["pairwise"]) != 3:
+        fail(f"compare_multimodal_vs_unimodal: {list(stats)}")
+
+    # ---- the fused-sublayer configuration: K3 -> K2 in layers 0..10, K1
+    # in the CLS-only last layer, K4 for images staged at image_size
+    cfg_f = resolve_config("default", fused_over)
+    model_f = create_model(cfg_f, device="cpu", seed=0).to(dev,
+                                                           torch.bfloat16)
+    ev_f = Evaluator(cfg_f, model_f)
+    fused = counted(lambda: ev_f.collect_predictions(batches),
+                    per_batch(1, n_layers - 1, n_layers - 1, 1, n_batches),
+                    "Evaluator (fused sublayers)")
+    with plain_kernels():
+        plain_f = ev_f.collect_predictions(batches)["probabilities"]
+    d_plain_f = float(np.abs(fused["probabilities"] - plain_f).max())
+    if d_plain_f > PROB_ATOL_PLAIN:
+        fail(f"fused Evaluator: kernel and plain probabilities differ by "
+             f"{d_plain_f}")
+    eval_ms["fused"] = timed_ms(
+        lambda: ev_f.collect_predictions(batches)) / n_batches
+    print(f"[9 evaluation] {n} samples ({EVAL_PER_CLASS} per class) in "
+          f"{n_batches} batches of {b}, T={ids.shape[1]}, from checkpoints "
+          f"loaded by load_predictor | launches per batch: multimodal and "
+          f"text_only K1 {n_layers}, image_only none, fused K3 "
+          f"{n_layers - 1} / K2 {n_layers - 1} / K1 1 / K4 1 | accuracy "
+          + ", ".join(f"{k} {v['accuracy']:.4f} (macro F1 "
+                      f"{v['f1_macro']:.4f}, ROC-AUC {v['roc_auc_ovr']:.4f})"
+                      for k, v in metrics.items())
+          + f" | McNemar p: " + ", ".join(
+              f"{k} {v['mcnemar']['p_value']:.4f}"
+              for k, v in stats["pairwise"].items())
+          + f" | max|dprob| kernels vs plain: multimodal {d_plain:.3e}, "
+          f"fused {d_plain_f:.3e} (tolerance {PROB_ATOL_PLAIN})")
+
+    # ---- Grad-CAM on one image per class
+    first = [int(np.flatnonzero(labels == c)[0])
+             for c in range(len(SYNDROME_NAMES))]
+    cam_imgs, cam_ids, cam_mask = images[first], ids[first], mask[first]
+    cam_ms, cam_lines = {}, []
+    for mode, k1 in (("image_only", 0), ("multimodal", n_layers)):
+        p = predictors[mode]
+        gc = GradCAM(cfg, p.model, mode=mode)
+        cam_text = (cam_ids, cam_mask) if mode == "multimodal" else ()
+        cam, logits = counted(lambda: gc(cam_imgs, *cam_text),
+                              per_batch(k1=k1), f"Grad-CAM ({mode})")
+        if cam.shape != (len(first), 7, 7) or not np.isfinite(cam).all() \
+                or cam.min() < 0 or cam.max() > 1:
+            fail(f"Grad-CAM ({mode}): CAM {cam.shape}, range "
+                 f"[{cam.min()}, {cam.max()}]")
+        # the default target is the class of the logits it returns
+        target = logits.argmax(1)
+        cam_t, _ = gc(cam_imgs, *cam_text, class_idx=target)
+        d_target = float(np.abs(cam - cam_t).max())
+        if d_target > 1e-3:
+            fail(f"Grad-CAM ({mode}): the CAM of argmax(logits) differs by "
+                 f"{d_target} from the default one")
+        # and its tail computes the Evaluator's model: the same log
+        # probabilities up to bf16 noise, the same class wherever the
+        # forward's top-2 margin exceeds twice that noise
+        lp_fwd = np.log(collected[mode]["probabilities"][first])
+        z = logits - logits.max(1, keepdims=True)
+        lp_cam = z - np.log(np.exp(z).sum(1, keepdims=True))
+        d_lp = float(np.abs(lp_fwd - lp_cam).max())
+        top2 = np.sort(lp_fwd, 1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * d_lp
+        if d_lp > GRADCAM_LOGPROB_ATOL or not np.array_equal(
+                target[sure], lp_fwd.argmax(1)[sure]):
+            fail(f"Grad-CAM ({mode}): log-probabilities {d_lp} from the "
+                 f"Evaluator's; classes {target} vs {lp_fwd.argmax(1)}")
+        cam_ms[mode] = timed_ms(lambda: gc(cam_imgs, *cam_text))
+        # f32 on the card against the same computation on CPU tensors
+        cpu32 = create_model(cfg, mode=mode, device="cpu", seed=0)
+        card32 = copy.deepcopy(cpu32).to(dev)
+        cfg32 = resolve_config("default", {"training.compute_dtype":
+                                           "float32"})
+        text32 = tuple(a[:CAM_F32_IMAGES] for a in cam_text)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            cam32, _ = GradCAM(cfg32, card32, mode=mode)(
+                cam_imgs[:CAM_F32_IMAGES], *text32)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        fmap, grad, _ = GradCAM(cfg32, cpu32, mode=mode).gradients(
+            cam_imgs[:CAM_F32_IMAGES], *text32)
+        d32 = float(np.abs(cam32 - cam_from_gradients(fmap, grad)
+                           .numpy()).max())
+        faults = {"flipped gradient": cam_from_gradients(fmap, -grad),
+                  "dropped alpha": cam_from_gradients(
+                      fmap, torch.ones_like(grad))}
+        d_faults = {k: float(np.abs(cam32 - v.numpy()).max())
+                    for k, v in faults.items()}
+        if d32 > CAM_F32_ATOL:
+            fail(f"Grad-CAM ({mode}) in f32: card vs CPU {d32}")
+        if min(d_faults.values()) <= CAM_F32_ATOL:
+            fail(f"the Grad-CAM check passes a fault: {d_faults}")
+        del cpu32, card32
+        cam_lines.append(
+            f"{mode}: CAM {list(cam.shape)} in [{cam.min():.3f}, "
+            f"{cam.max():.3f}]; log-probabilities {d_lp:.3e} from the "
+            f"Evaluator's (tolerance {GRADCAM_LOGPROB_ATOL}), the same "
+            f"class in {int(sure.sum())} of {len(first)} rows with a "
+            f"margin above twice that; f32 card vs CPU "
+            f"max|diff| {d32:.3e} (tolerance {CAM_F32_ATOL}; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in d_faults.items())
+            + ")")
+    print(f"[9 Grad-CAM] {len(first)} images, stage4, launches K1 "
+          f"{n_layers} per multimodal call (the text tower, no grad), "
+          f"none for image_only | " + " | ".join(cam_lines))
+
+    # ---- the BERT attention maps on the fused configuration: K3 off, K1
+    # in all 12 layers, every position computed
+    text = ("Patient presents with synophrys, long eyelashes, a thin upper "
+            "lip and small hands; growth retardation and intellectual "
+            "disability were noted at the genetics clinic.")
+    t_ids, t_mask, _ = tok.encode(text, cfg.data.max_text_length)
+    t_ids = torch.from_numpy(np.asarray(t_ids)).long()[None].to(dev)
+    t_mask = torch.from_numpy(np.asarray(t_mask)).long()[None].to(dev)
+
+    def attentions():
+        with torch.inference_mode():
+            return model_f.text_attentions(t_ids, t_mask)
+
+    attns = counted(attentions, per_batch(k1=n_layers),
+                    "text_attentions (fused sublayers)")
+    t = cfg.data.max_text_length
+    if len(attns) != n_layers or attns[0].shape != (
+            1, cfg.text_encoder.num_heads, t, t):
+        fail(f"text_attentions: {len(attns)} maps of {attns[0].shape}")
+    row_err = float((torch.stack(attns).float().sum(-1) - 1).abs().max())
+    if row_err > ATTN_ROW_ATOL:
+        fail(f"attention rows sum to 1 within {row_err}")
+    got = text_token_attention(cfg_f, model_f, tok, text)
+    want = text_token_attention(
+        cfg, create_model(cfg, device="cpu", seed=0), tok, text)
+    if [w[0] for w in got] != [w[0] for w in want]:
+        fail("text_token_attention: the tokens differ from the CPU's")
+    d_tok = float(np.abs(np.array([w[1] for w in got])
+                         - np.array([w[1] for w in want])).max())
+    if d_tok > TOKEN_WEIGHT_ATOL:
+        fail(f"CLS-row token weights differ from the f32 CPU ones by {d_tok}")
+    attn_ms = timed_ms(attentions)
+    print(f"[9 attention maps] fused sublayers, T={t}: {n_layers} maps of "
+          f"{list(attns[0].shape)}, launches K3 0 / K1 {n_layers}; rows sum "
+          f"to 1 within {row_err:.2e} (tolerance {ATTN_ROW_ATOL}); CLS-row "
+          f"token weights of {len(got)} tokens vs f32 on the CPU max|diff| "
+          f"{d_tok:.3e} (tolerance {TOKEN_WEIGHT_ATOL})")
+    print(f"[9 times] {card} | Evaluator ms per batch of {b}: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in eval_ms.items())
+          + f" | Grad-CAM ms per call of {len(first)} images: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cam_ms.items())
+          + f" | text_attentions ms per call (T={t}, fused sublayers): "
+          f"{attn_ms:.2f} | median of {PHASE9_RUNS}, host clock, "
+          f"synchronized")
+    return totals
 
 
 def main() -> int:
@@ -764,11 +1092,18 @@ def main() -> int:
           f"max|diff| / mean|diff| from plain {k4_lib_err[0]:.3e} / "
           f"{k4_lib_err[1]:.3e})")
 
+    # ---- 9. evaluation and explain
+    del pred7
+    torch.cuda.empty_cache()
+    main9 = evaluation_and_explain(dev, card, over7)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "jaxlib", "flax", "optax", "orbax",
+                    ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+                     "matplotlib", "seaborn", "PIL",
                      "multimodal_rare_disease_tpu"))
     if leaked:
-        fail(f"jax or JAX-package modules were imported: {leaked[:5]}")
+        fail(f"jax, the JAX package or a package the card's machine lacks "
+             f"was imported: {leaked[:5]}")
 
     src = "multimodal_rare_disease_tpu_torch/csrc/"
     tpu = "multimodal_rare_disease_tpu/ops/pallas/"
@@ -791,8 +1126,10 @@ def main() -> int:
         "route": "cuda",
         "source": src + source,
         "replaces": tpu + replaces,
-        # launches on the main paths: phases 4, 5 and 7 (both of its runs)
-        "launches": main4[k] + serve5[k] + main7[k] + serve7[k],
+        # launches on the main paths: phases 4, 5, 7 (both of its runs)
+        # and 9 (its counted runs)
+        "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
+                     + main9[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

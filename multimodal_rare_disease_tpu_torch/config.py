@@ -42,6 +42,31 @@ SYNDROME_NAMES: Tuple[str, ...] = (
     "22q11.2 Deletion Syndrome",
 )
 
+# Flat-layout filename prefixes (SYN_<code>_NNN.png) → syndrome name.
+PREFIX_TO_SYNDROME: Dict[str, str] = {
+    "CdLS": "Cornelia de Lange Syndrome",
+    "WBS": "Williams-Beuren Syndrome",
+    "NS": "Noonan Syndrome",
+    "KS": "Kabuki Syndrome",
+    "KBG": "KBG Syndrome",
+    "AS": "Angelman Syndrome",
+    "RSTS": "Rubinstein-Taybi Syndrome",
+    "SMS": "Smith-Magenis Syndrome",
+    "NBS": "Nicolaides-Baraitser Syndrome",
+    "22Q": "22q11.2 Deletion Syndrome",
+}
+
+# Folder names (underscore, hyphen and human-readable forms, and the
+# flat-layout codes) → syndrome.
+FOLDER_TO_SYNDROME: Dict[str, str] = {}
+for _name in SYNDROME_NAMES:
+    FOLDER_TO_SYNDROME[_name] = _name
+    FOLDER_TO_SYNDROME[_name.replace(" ", "_")] = _name
+    FOLDER_TO_SYNDROME[_name.replace(" ", "-")] = _name
+for _code, _name in PREFIX_TO_SYNDROME.items():
+    FOLDER_TO_SYNDROME[f"SYN_{_code}"] = _name
+    FOLDER_TO_SYNDROME[_code] = _name
+
 
 @dataclass(frozen=True)
 class DataConfig:
@@ -453,3 +478,12 @@ def find_data_file(cfg: Config, relpath: str) -> Optional[Path]:
             return p
     return None
 
+
+def find_image_dir(cfg: Config) -> Optional[Path]:
+    """First existing image directory across roots × preferred subdirs."""
+    for sub in cfg.data.image_subdirs:
+        for root in cfg.data.data_dirs:
+            p = Path(root) / sub
+            if p.is_dir():
+                return p
+    return None

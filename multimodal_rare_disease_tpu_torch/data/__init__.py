@@ -1,2 +1,2 @@
 """Host-side data code of the torch package (tokenizer, clinical text,
-image decode): its own copies of the JAX package's jax-free modules."""
+the image corpus): its own copies of the JAX package's jax-free modules."""

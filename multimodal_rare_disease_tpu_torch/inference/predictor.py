@@ -1,6 +1,7 @@
 """Batch predictor with the JSON contract: the counterpart of
-`multimodal_rare_disease_tpu/inference/predictor.py` for
-`mode="multimodal"` on one device.
+`multimodal_rare_disease_tpu/inference/predictor.py` on one device, for
+the three modes (multimodal, image_only, text_only), with the optional
+embeddings in each result.
 
 A request is padded to a batch bucket (1, 8, 32, 256), its texts are
 tokenized with the port's WordPiece tokenizer (`data/tokenizer.py`, a
@@ -39,7 +40,6 @@ from multimodal_rare_disease_tpu_torch.inference.packing import (
     packing_wins,
 )
 from multimodal_rare_disease_tpu_torch.models.classifier import (
-    MultimodalClassifier,
     create_model,
     resolve_device,
 )
@@ -56,14 +56,13 @@ _LENGTH_BUCKETS = (32, 64, 128, 256)
 class MultimodalPredictor:
     """Serves the prediction JSON contract from a port model."""
 
-    def __init__(self, cfg: Config, model: MultimodalClassifier,
+    def __init__(self, cfg: Config, model: torch.nn.Module,
                  device="cuda", mode: str = "multimodal",
                  tokenizer: Optional[BertWordPieceTokenizer] = None,
                  class_names: Optional[Sequence[str]] = None,
                  length_bucketing: bool = True):
-        if mode != "multimodal":
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported to the torch package")
+        if mode not in ("multimodal", "image_only", "text_only"):
+            raise ValueError(f"Unknown mode: {mode!r}")
         self.cfg = cfg
         self.mode = mode
         self.device = resolve_device(device)
@@ -71,7 +70,8 @@ class MultimodalPredictor:
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.length_bucketing = length_bucketing
         self.class_names = list(class_names or SYNDROME_NAMES)
-        self.tokenizer = tokenizer or get_tokenizer()
+        self.tokenizer = (tokenizer if mode == "image_only"
+                          else tokenizer or get_tokenizer())
         # forwards taken by each path (observability; chip_smoke.py)
         self.packed_calls = 0
         self.classic_calls = 0
@@ -132,10 +132,14 @@ class MultimodalPredictor:
 
     # -- prediction --------------------------------------------------------
 
-    def predict(self, image: ImageLike, text: str, top_k: int = 5
-                ) -> Dict[str, Any]:
+    def predict(self, image: Optional[ImageLike] = None,
+                text: Optional[str] = None, top_k: int = 5,
+                return_embeddings: bool = False) -> Dict[str, Any]:
         """Single-sample prediction returning the JSON contract."""
-        return self.predict_batch([image], [text], top_k=top_k)[0]
+        return self.predict_batch(
+            [image] if image is not None else None,
+            [text] if text is not None else None, top_k=top_k,
+            return_embeddings=return_embeddings)[0]
 
     def _packed_inputs(self, ids: np.ndarray, mask: np.ndarray):
         """The packed forward's text arrays, or None when packing does
@@ -157,30 +161,45 @@ class MultimodalPredictor:
                 pb.doc_row, pb.doc_slot)
 
     @torch.inference_mode()
-    def predict_batch(self, images: Sequence[ImageLike],
-                      texts: Sequence[str], top_k: int = 5,
+    def predict_batch(self, images: Optional[Sequence[ImageLike]] = None,
+                      texts: Optional[Sequence[str]] = None, top_k: int = 5,
                       return_embeddings: bool = False
                       ) -> List[Dict[str, Any]]:
-        if return_embeddings:
-            raise NotImplementedError(
-                "return_embeddings is not ported to the torch package")
-        if images is None or texts is None:
-            raise ValueError("mode multimodal requires images and texts")
-        n = len(images)
+        """The JSON contract per sample; with `return_embeddings` each
+        result also holds `embeddings` ({image, text, fused} as the mode
+        has them, as lists)."""
+        n = len(images) if images is not None else len(texts)
         b = self._bucket(n)
-        imgs = self._prep_images(images, b)
-        ids, mask = self._prep_texts(texts, b)
-        x = eval_preprocess(self._dev(imgs), self.cfg, dtype=self.dtype)
+        x = ids = mask = None
+        if self.mode != "text_only":
+            if images is None:
+                raise ValueError(f"mode {self.mode} requires images")
+            x = eval_preprocess(self._dev(self._prep_images(images, b)),
+                                self.cfg, dtype=self.dtype)
+        if self.mode != "image_only":
+            if texts is None:
+                raise ValueError(f"mode {self.mode} requires texts")
+            ids, mask = self._prep_texts(texts, b)
         packed = (self._packed_inputs(ids, mask)
-                  if self.length_bucketing and b >= 8 else None)
+                  if self.mode == "multimodal" and not return_embeddings
+                  and self.length_bucketing and b >= 8 else None)
         if packed is not None:
             self.packed_calls += 1
             out = self.model.packed_forward(x, *(self._dev(a) for a in packed))
         else:
             self.classic_calls += 1
-            out = self.model(x, self._dev(ids), self._dev(mask))
+            text = () if ids is None else (self._dev(ids), self._dev(mask))
+            args = text if x is None else (x,) + text
+            out = self.model(*args, return_embeddings=return_embeddings)
         probs = out["probs"].float().cpu().numpy()[:n]
-        return [self._format_single(probs[i], top_k) for i in range(n)]
+        results = [self._format_single(probs[i], top_k) for i in range(n)]
+        if return_embeddings:
+            embs = {key: out[f"{key}_embedding"].float().cpu().numpy()
+                    for key in ("image", "text", "fused")
+                    if f"{key}_embedding" in out}
+            for i, r in enumerate(results):
+                r["embeddings"] = {k: e[i].tolist() for k, e in embs.items()}
+        return results
 
     def _format_single(self, probs: np.ndarray, top_k: int) -> Dict[str, Any]:
         def name(i):
@@ -235,9 +254,9 @@ def load_predictor(checkpoint_path: str | Path, device="cuda",
                    tokenizer: Optional[BertWordPieceTokenizer] = None
                    ) -> MultimodalPredictor:
     """Build a predictor from a port checkpoint directory
-    (utils/checkpoint.py); the config comes from its meta. The model is
-    built on the CPU, loaded, and moved to `device` (the card unless the
-    caller asks for the CPU)."""
+    (utils/checkpoint.py); the config and, unless `mode` is given, the
+    mode come from its meta. The model is built on the CPU, loaded, and
+    moved to `device` (the card unless the caller asks for the CPU)."""
     from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
         load_checkpoint,
     )

@@ -24,7 +24,9 @@ kernel's order, so the CPU tests reach both.
 Device rule, as `kernels/ffn.py`: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise, except where the stated gate
 `attn_out_ln_fusible` sends them to the plain version, which counts in
-`PLAIN_ON_CUDA`. `FORCE_PLAIN` is set only by tests and chip_smoke.py.
+`PLAIN_ON_CUDA`. A launch raises when grad mode is on and an input
+requires grad: the kernel has no backward. `FORCE_PLAIN` is set only by
+tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
     RowPlan,
     dot_f32,
     ln_f32,
+    no_autograd,
     sm_count,
     split_plan,
 )
@@ -104,6 +107,7 @@ def fused_attn_out_ln(ctx2d: torch.Tensor, x2d: torch.Tensor,
             and all(v.dtype == torch.bfloat16 for v in (bo, gamma, beta))):
         PLAIN_ON_CUDA += 1
         return attn_out_ln_plain(*args)
+    no_autograd("fused_attn_out_ln", *args[:6])
     return _launch(*args)
 
 

@@ -24,7 +24,9 @@ model passes its own, cast to bf16): a CUDA call outside it runs the
 plain version and is counted in `PLAIN_ON_CUDA`, which the main path
 keeps at 0. `FORCE_PLAIN` (set only by tests and chip_smoke.py, the
 counterpart of the TPU module's `FORCE_INTERPRET`) sends CUDA tensors to
-the plain version to build an on-card reference.
+the plain version to build an on-card reference. The kernel has no
+backward, so a launch raises when grad mode is on and an input requires
+grad (`no_autograd`).
 """
 
 from __future__ import annotations
@@ -179,8 +181,21 @@ def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         PLAIN_ON_CUDA += 1
         return ffn_ln_plain(*args, input_ln=input_ln, pre_gamma=pre_gamma,
                             pre_beta=pre_beta)
+    no_autograd("fused_ffn_ln", *args[:7], pre_gamma, pre_beta)
     return _launch(x2d, w1, b1, w2, b2, gamma, beta, pre_gamma, pre_beta,
                    eps)
+
+
+def no_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """The CUDA kernels have no backward: a launch on inputs that
+    autograd tracks would return an output cut off from the graph, so it
+    raises instead (run the forward under torch.no_grad() or
+    torch.inference_mode(), as the model's inference paths do)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; run it under torch.no_grad()")
 
 
 def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):

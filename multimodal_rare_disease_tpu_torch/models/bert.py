@@ -1,4 +1,4 @@
-"""BERT-base clinical text encoder: the serving path of
+"""BERT-base clinical text encoder: the inference path of
 `multimodal_rare_disease_tpu/models/bert.py`.
 
 Word + position + segment embeddings → post-LN transformer layers
@@ -7,15 +7,18 @@ dtype, softmax in f32) → CLS token or tanh pooler. Classic rows take a
 [B, T] attention mask; sequence-packed rows (inference/packing.py) take
 `segment_ids` (block-diagonal bias), per-document `position_ids` and
 `query_positions`. At inference the last layer computes only the
-consumed positions (CLS, or one per packed document).
+consumed positions (CLS, or one per packed document), unless the caller
+asks for the per-layer hidden states or attention probabilities
+(explainability), which need every position.
 
 The sublayers dispatch to the hand-written kernels exactly where the
 JAX layer dispatches to its Pallas kernels (`bert.py:323-427` there):
 
 - `fused_attn_out` on, in every layer that is not the CLS-only last
-  one: the attention output projection + residual + attention_ln run in
-  K3 (`kernels/attn_out.py`), and the FFN sublayer, whose input is then
-  already normalized, in K2 (`kernels/ffn.py` without the input LN);
+  one, unless the attention maps are returned: the attention output
+  projection + residual + attention_ln run in K3 (`kernels/attn_out.py`),
+  and the FFN sublayer, whose input is then already normalized, in K2
+  (`kernels/ffn.py` without the input LN);
 - otherwise, with `fused_ffn` on (the default): the unnormalized
   residual goes to K1 (`kernels/ffn.py` with attention_ln folded in).
 
@@ -33,7 +36,7 @@ module that compute the same values (K/V lane padding, `flat_residual`,
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,8 +70,12 @@ class BertSelfAttention(nn.Module):
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 cls_query_only: bool = False,
                 query_positions: Optional[torch.Tensor] = None,
-                return_unprojected: bool = False):
-        """hidden [B, T, H]; bias [B, 1, 1 or T, T] additive. With
+                return_unprojected: bool = False,
+                output_attentions: bool = False):
+        """hidden [B, T, H]; bias [B, 1, 1 or T, T] additive. Returns
+        (out, probs): probs, the softmax [B, heads, T, T] in f32 (the
+        product with V takes it rounded to the compute dtype, as the JAX
+        layer does), with `output_attentions`, else None. With
         `cls_query_only`, queries are computed only for position 0 or
         for `query_positions` [B, P] (K/V stay full-sequence) and the
         output is [B, P, H]. With `return_unprojected` it is
@@ -92,12 +99,15 @@ class BertSelfAttention(nn.Module):
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
         scores = scores + bias
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        probs32 = torch.softmax(scores.float(), dim=-1)
+        probs = probs32.to(q.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v)
         ctx = ctx.reshape(b, ctx.shape[1], h * d)
         if return_unprojected:
-            return ctx, self.output.weight.t(), self.output.bias
-        return self.output(ctx)
+            out = (ctx, self.output.weight.t(), self.output.bias)
+        else:
+            out = self.output(ctx)
+        return out, (probs32 if output_attentions else None)
 
 
 class BertLayer(nn.Module):
@@ -121,14 +131,20 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 cls_only: bool = False,
-                query_positions: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        # K3 runs on the full rows; the CLS-only last layer keeps the
-        # classic projection (the JAX layer's `not cls_only` gate)
-        use_k3 = self.fused_attn_out and not cls_only
-        attn_out = self.attention(hidden, bias, cls_query_only=cls_only,
-                                  query_positions=query_positions,
-                                  return_unprojected=use_k3)
+                query_positions: Optional[torch.Tensor] = None,
+                output_attentions: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """→ (hidden, the attention probabilities with
+        `output_attentions`, else None)."""
+        # K3 runs on the full rows; the CLS-only last layer and a forward
+        # that returns the attention maps keep the classic projection (the
+        # JAX layer's `not cls_only` and `not output_attentions` gates)
+        use_k3 = (self.fused_attn_out and not cls_only
+                  and not output_attentions)
+        attn_out, probs = self.attention(
+            hidden, bias, cls_query_only=cls_only,
+            query_positions=query_positions, return_unprojected=use_k3,
+            output_attentions=output_attentions)
         if cls_only:
             # the rest of the layer runs on the consumed positions only
             hidden = (_take_rows(hidden, query_positions)
@@ -142,13 +158,13 @@ class BertLayer(nn.Module):
                 self.attention_ln.weight, self.attention_ln.bias,
                 eps=_BERT_LN_EPS).reshape(hidden.shape)
             if self.fused_ffn:
-                return self._ffn_fused(hidden, input_ln=False)  # K2
-            return self._ffn_classic(hidden)
+                return self._ffn_fused(hidden, input_ln=False), probs  # K2
+            return self._ffn_classic(hidden), probs
         if self.fused_ffn:
             # K1 takes the unnormalized residual and applies attention_ln
             # itself (the JAX layer's pre_gamma dispatch)
-            return self._ffn_fused(hidden + attn_out, input_ln=True)
-        return self._ffn_classic(self.attention_ln(hidden + attn_out))
+            return self._ffn_fused(hidden + attn_out, input_ln=True), probs
+        return self._ffn_classic(self.attention_ln(hidden + attn_out)), probs
 
     def _ffn_fused(self, x: torch.Tensor, input_ln: bool) -> torch.Tensor:
         """The FFN sublayer in K1 (x unnormalized, attention_ln folded
@@ -196,13 +212,21 @@ class BertEncoder(nn.Module):
                 cls_only_final: bool = False,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                query_positions: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                query_positions: Optional[torch.Tensor] = None,
+                output_hidden_states: bool = False,
+                output_attentions: bool = False
+                ) -> Dict[str, Any]:
         """input_ids [B, T]. Classic rows: attention_mask [B, T] {0,1}.
         Packed rows: segment_ids [B, T] (0 = pad, 1.. = document),
         position_ids [B, T], query_positions [B, P]; `cls` is then
         [B, P, H]. With `cls_only_final` the last layer computes only
-        the consumed positions."""
+        the consumed positions, unless hidden states or attentions are
+        asked for: `output_hidden_states` adds `hidden_states`, the
+        embedding output and every layer's output, and
+        `output_attentions` adds `attentions`, every layer's
+        [B, heads, T, T] probabilities."""
+        cls_only_final = (cls_only_final and not output_hidden_states
+                          and not output_attentions)
         b, t = input_ids.shape
         dev = input_ids.device
         packed = segment_ids is not None
@@ -228,11 +252,17 @@ class BertEncoder(nn.Module):
         bias = bias.to(dtype)
 
         qpos = query_positions if packed else None
+        all_hidden = [hidden] if output_hidden_states else None
+        all_attn = [] if output_attentions else None
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer{i}")(
+            hidden, probs = getattr(self, f"layer{i}")(
                 hidden, bias,
                 cls_only=cls_only_final and i == self.num_layers - 1,
-                query_positions=qpos)
+                query_positions=qpos, output_attentions=output_attentions)
+            if output_hidden_states:
+                all_hidden.append(hidden)
+            if output_attentions:
+                all_attn.append(probs)
 
         if packed and query_positions is not None:
             cls = hidden if cls_only_final else _take_rows(hidden,
@@ -240,8 +270,13 @@ class BertEncoder(nn.Module):
         else:
             cls = hidden[:, 0]
         pooled = torch.tanh(self.pooler(cls))
-        return {"last_hidden_state": hidden, "cls": cls,
-                "pooler_output": pooled}
+        out = {"last_hidden_state": hidden, "cls": cls,
+               "pooler_output": pooled}
+        if output_hidden_states:
+            out["hidden_states"] = tuple(all_hidden)
+        if output_attentions:
+            out["attentions"] = tuple(all_attn)
+        return out
 
 
 class TextEncoder(nn.Module):
@@ -271,15 +306,22 @@ class TextEncoder(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                query_positions: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                query_positions: Optional[torch.Tensor] = None,
+                output_hidden_states: bool = False,
+                output_attentions: bool = False):
+        """→ the embedding [B, D] (or [B, P, D] for packed rows); with
+        either output flag, (embedding, the BERT output dict)."""
         out = self.bert(input_ids, attention_mask,
                         token_type_ids=token_type_ids, cls_only_final=True,
                         position_ids=position_ids, segment_ids=segment_ids,
-                        query_positions=query_positions)
+                        query_positions=query_positions,
+                        output_hidden_states=output_hidden_states,
+                        output_attentions=output_attentions)
         emb = out["pooler_output"] if self.use_pooler_output else out["cls"]
         if self.projection is not None:
             emb = torch.relu(self.projection(emb))
+        if output_hidden_states or output_attentions:
+            return emb, out
         return emb
 
 

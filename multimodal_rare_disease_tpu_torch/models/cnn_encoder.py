@@ -30,7 +30,26 @@ class CNNEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] normalized images → [B, embedding_dim]."""
-        return self.proj2(torch.relu(self.proj1(self.backbone(images))))
+        return self.project(self.backbone(images))
+
+    def project(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.proj2(torch.relu(self.proj1(pooled)))
+
+    def backbone_features(self, images: torch.Tensor):
+        """Only the conv backbone: (pooled, {"stage1".."stage4": NHWC
+        map}). Grad-CAM re-runs the tail from a captured map through
+        `embed_from_feature_map`."""
+        return self.backbone(images, return_features=True)
+
+    def embed_from_feature_map(self, feature_map: torch.Tensor
+                               ) -> torch.Tensor:
+        """Last-stage feature map [B, h, w, C] → embedding (mean over h,
+        w, then the projection)."""
+        return self.project(feature_map.mean(dim=(1, 2)))
+
+    @property
+    def gradcam_layer(self) -> str:
+        return "stage4"
 
 
 def create_cnn_encoder(cfg, device) -> CNNEncoder:

@@ -1,16 +1,24 @@
-"""Cross-modal attention fusion: the counterpart of AttentionFusion in
-`multimodal_rare_disease_tpu/models/fusion.py` (the default
-`fusion_type='attention'`, pooled mode: each modality is a length-1
-sequence, as in the reference). Concatenation and gated fusion, and
-`attend_over_tokens`, are not ported yet.
+"""Multimodal fusion: the counterpart of
+`multimodal_rare_disease_tpu/models/fusion.py`.
 
-flax's `nn.LayerNorm` uses eps 1e-6 (torch's default is 1e-5).
+- ConcatenationFusion: concat(image, text) → fuse1 → relu → fuse2;
+- AttentionFusion (the default): both embeddings projected to the
+  hidden width, bidirectional multi-head cross-modal attention, residual
+  + LayerNorm, concat + MLP. In the pooled mode each modality is a
+  length-1 sequence, so every weight is exactly 1, as in the reference;
+  with `attend_over_tokens` the image attends over the BERT tokens
+  (`text_token_proj`, padded tokens masked to -1e9);
+- GatedFusion: a sigmoid gate mixes the projected modalities.
+
+Each returns (fused, info): the attention fusion's two per-head weight
+maps [B, heads, 1, S], the gate, or nothing. flax's `nn.LayerNorm` uses
+eps 1e-6 (torch's default is 1e-5).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,8 +30,8 @@ _FLAX_LN_EPS = 1e-6
 
 class CrossModalAttention(nn.Module):
     """Multi-head attention of a query embedding over key/value states.
-    query [B, Dq]; kv [B, S, Dk] or [B, Dk] → (out [B, hidden],
-    weights [B, heads, 1, S])."""
+    query [B, Dq]; kv [B, S, Dk] or [B, Dk]; kv_mask [B, S] (0 = masked)
+    → (out [B, hidden], weights [B, heads, 1, S])."""
 
     def __init__(self, query_dim: int, kv_dim: int, hidden_dim: int,
                  num_heads: int, device):
@@ -37,7 +45,8 @@ class CrossModalAttention(nn.Module):
         self.value_proj = Linear(kv_dim, hidden_dim, device=device)
         self.output_proj = Linear(hidden_dim, hidden_dim, device=device)
 
-    def forward(self, query: torch.Tensor, kv: torch.Tensor
+    def forward(self, query: torch.Tensor, kv: torch.Tensor,
+                kv_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if kv.ndim == 2:
             kv = kv[:, None, :]
@@ -47,18 +56,42 @@ class CrossModalAttention(nn.Module):
         k = self.key_proj(kv).view(b, s, h, d)
         v = self.value_proj(kv).view(b, s, h, d)
         scores = torch.einsum("bhd,bshd->bhs", q, k) / math.sqrt(d)
+        if kv_mask is not None:
+            scores = torch.where(kv_mask[:, None, :] > 0, scores,
+                                 torch.full_like(scores, -1e9))
         weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         ctx = torch.einsum("bhs,bshd->bhd", weights, v)
         return self.output_proj(ctx.reshape(b, h * d)), weights[:, :, None, :]
 
 
+class ConcatenationFusion(nn.Module):
+    def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
+                 device):
+        super().__init__()
+        self.fuse1 = Linear(image_dim + text_dim, hidden_dim, device=device)
+        self.fuse2 = Linear(hidden_dim, hidden_dim, device=device)
+
+    def forward(self, image_embedding: torch.Tensor,
+                text_embedding: torch.Tensor, **_ignored
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        combined = torch.cat([image_embedding, text_embedding], dim=-1)
+        return self.fuse2(torch.relu(self.fuse1(combined))), {}
+
+
 class AttentionFusion(nn.Module):
     def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
-                 num_heads: int, device, use_residual: bool = True):
+                 num_heads: int, device, use_residual: bool = True,
+                 attend_over_tokens: bool = False):
         super().__init__()
         self.use_residual = use_residual
+        self.attend_over_tokens = attend_over_tokens
         self.image_proj = Linear(image_dim, hidden_dim, device=device)
         self.text_proj = Linear(text_dim, hidden_dim, device=device)
+        if attend_over_tokens:
+            # the BERT tokens are hidden_size wide, as the CLS embedding
+            # (the text tower's projection is off in this model)
+            self.text_token_proj = Linear(text_dim, hidden_dim,
+                                          device=device)
         self.image_to_text_attention = CrossModalAttention(
             hidden_dim, hidden_dim, hidden_dim, num_heads, device)
         self.text_to_image_attention = CrossModalAttention(
@@ -71,11 +104,18 @@ class AttentionFusion(nn.Module):
         self.fusion2 = Linear(hidden_dim, hidden_dim, device=device)
 
     def forward(self, image_embedding: torch.Tensor,
-                text_embedding: torch.Tensor
+                text_embedding: torch.Tensor,
+                text_tokens: Optional[torch.Tensor] = None,
+                text_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         image_proj = self.image_proj(image_embedding)
         text_proj = self.text_proj(text_embedding)
-        image_att, i2t_w = self.image_to_text_attention(image_proj, text_proj)
+        if self.attend_over_tokens and text_tokens is not None:
+            text_kv, kv_mask = self.text_token_proj(text_tokens), text_mask
+        else:
+            text_kv, kv_mask = text_proj, None
+        image_att, i2t_w = self.image_to_text_attention(image_proj, text_kv,
+                                                        kv_mask)
         text_att, t2i_w = self.text_to_image_attention(text_proj, image_proj)
         if self.use_residual:
             image_att = image_proj + image_att
@@ -87,13 +127,37 @@ class AttentionFusion(nn.Module):
                        "text_to_image_attention": t2i_w}
 
 
-def create_fusion_module(cfg, image_dim: int, text_dim: int, device
-                         ) -> AttentionFusion:
-    """cfg: the JAX package's FusionConfig."""
-    if cfg.fusion_type != "attention":
-        raise NotImplementedError(
-            f"fusion_type {cfg.fusion_type!r} is not ported to the torch "
-            f"package (attention only)")
-    return AttentionFusion(image_dim, text_dim, cfg.hidden_dim,
-                           cfg.num_attention_heads, device,
-                           use_residual=cfg.use_residual)
+class GatedFusion(nn.Module):
+    def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
+                 device):
+        super().__init__()
+        self.image_proj = Linear(image_dim, hidden_dim, device=device)
+        self.text_proj = Linear(text_dim, hidden_dim, device=device)
+        self.gate = Linear(2 * hidden_dim, hidden_dim, device=device)
+        self.output = Linear(hidden_dim, hidden_dim, device=device)
+
+    def forward(self, image_embedding: torch.Tensor,
+                text_embedding: torch.Tensor, **_ignored
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        image_proj = self.image_proj(image_embedding)
+        text_proj = self.text_proj(text_embedding)
+        gate = torch.sigmoid(self.gate(torch.cat([image_proj, text_proj],
+                                                 dim=-1)))
+        fused = gate * image_proj + (1.0 - gate) * text_proj
+        return torch.relu(self.output(fused)), {"gate": gate}
+
+
+def create_fusion_module(cfg, image_dim: int, text_dim: int, device,
+                         attend_over_tokens: bool = False) -> nn.Module:
+    """cfg: a FusionConfig (`config.py`)."""
+    if cfg.fusion_type == "concatenation":
+        return ConcatenationFusion(image_dim, text_dim, cfg.hidden_dim,
+                                   device)
+    if cfg.fusion_type == "attention":
+        return AttentionFusion(image_dim, text_dim, cfg.hidden_dim,
+                               cfg.num_attention_heads, device,
+                               use_residual=cfg.use_residual,
+                               attend_over_tokens=attend_over_tokens)
+    if cfg.fusion_type == "gated":
+        return GatedFusion(image_dim, text_dim, cfg.hidden_dim, device)
+    raise ValueError(f"Unknown fusion_type: {cfg.fusion_type!r}")

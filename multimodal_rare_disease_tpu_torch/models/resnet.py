@@ -4,8 +4,9 @@
 Canonical 7×7/s2 stem (the JAX module's space-to-depth stem computes the
 same conv and is not ported), bottleneck blocks with projection
 shortcuts, inference BatchNorm (eps 1e-5), max-pool 3/2/1 and a global
-mean. The public input is NHWC like the JAX module's; inside, the tensor
-is an NCHW view in channels_last memory, which cuDNN convolves natively.
+mean. The public input and the stage feature maps (Grad-CAM's target is
+"stage4") are NHWC like the JAX module's; inside, the tensor is an NCHW
+view in channels_last memory, which cuDNN convolves natively.
 """
 
 from __future__ import annotations
@@ -73,15 +74,23 @@ class ResNet50Encoder(nn.Module):
                                 BottleneckBlock(in_ch, w, strides, device))
                 in_ch = w * 4
 
-    def forward(self, images_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, images_nhwc: torch.Tensor,
+                return_features: bool = False):
+        """[B, H, W, 3] → pooled [B, 2048]; with `return_features`,
+        (pooled, {"stage1".."stage4": the stage's output as an NHWC
+        view}), the JAX module's (pooled, features)."""
         x = images_nhwc.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        features = {}
         for i, n in enumerate(self.stage_sizes):
             for b in range(n):
                 x = getattr(self, f"stage{i + 1}_block{b}")(x)
-        return x.mean(dim=(2, 3))
+            if return_features:
+                features[f"stage{i + 1}"] = x.permute(0, 2, 3, 1)
+        pooled = x.mean(dim=(2, 3))
+        return (pooled, features) if return_features else pooled
 
     @staticmethod
     def feature_dim() -> int:

@@ -1,1 +1,1 @@
-"""Checkpoint helpers."""
+"""Checkpoints and the host RNG streams."""

@@ -239,3 +239,53 @@ def test_unported_options_raise(flag):
     cfg = _cfg(**{f"text_encoder.{flag}": True})
     with pytest.raises(NotImplementedError):
         tbert.create_text_encoder(cfg.text_encoder, "cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    {"output_hidden_states": True}, {"output_attentions": True},
+    {"output_hidden_states": True, "output_attentions": True}],
+    ids=["hidden", "attentions", "both"])
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["classic", "fused-attn-out"])
+def test_hidden_states_and_attentions_match_jax(jax_kernels_interpreted,
+                                                monkeypatch, fused_attn_out,
+                                                flags):
+    # the JAX layer's dispatch under the explainability flags: every layer
+    # runs over all positions; K1 (or K3 -> K2) stays on for hidden
+    # states, and attention maps turn K3 off but keep K1
+    cfg = _k3_cfg() if fused_attn_out else _cfg(hidden=128, ffn=256)
+    jenc, v, tenc = _pair(cfg, seed=17)
+    ids, mask = _batch(np.random.default_rng(18), 4, 16)
+    jemb, jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask), **flags)
+    calls = {"k3": 0, "ffn": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tbert, "fused_attn_out_ln",
+                        counted("k3", tbert.fused_attn_out_ln))
+    monkeypatch.setattr(tbert, "fused_ffn_ln",
+                        counted("ffn", tbert.fused_ffn_ln))
+    with torch.no_grad():
+        emb, out = tenc(_t(ids), _t(mask), **flags)
+    k3_on = fused_attn_out and not flags.get("output_attentions")
+    assert calls == {"k3": 2 if k3_on else 0, "ffn": 2}
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jemb), atol=ATOL)
+    assert out["last_hidden_state"].shape == (4, 16, 128)
+    assert set(out) == set(jout)
+    for key in ("hidden_states", "attentions"):
+        if key not in jout:
+            continue
+        # hidden states: the embedding output and each layer's output;
+        # attentions: each layer's [B, heads, T, T] softmax
+        assert len(out[key]) == len(jout[key]) == 3 - (key == "attentions")
+        for got, want in zip(out[key], jout[key]):
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=ATOL)
+    if "attentions" in out:
+        rows = torch.stack(out["attentions"]).sum(-1)
+        np.testing.assert_allclose(rows.numpy(), 1.0, atol=1e-6)

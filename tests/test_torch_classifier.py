@@ -1,7 +1,10 @@
-"""Assembled multimodal model of the torch package (models/classifier.py,
-fusion.py, convert.py) against the JAX MultimodalClassifier on the same
-weights: `forward` and `packed_forward` probabilities in f32 on the CPU,
-and the strict weight bridge."""
+"""Assembled models of the torch package (models/classifier.py,
+fusion.py, convert.py) against the JAX models on the same weights, in
+f32 on the CPU: the multimodal model's `forward` and `packed_forward`,
+every mode (multimodal, image_only, text_only) and fusion type
+(attention, gated, concatenation, and attention over the text tokens)
+with their embeddings and attention maps, and the strict weight bridge
+of every tree."""
 
 import jax
 import jax.numpy as jnp
@@ -149,11 +152,81 @@ def test_weight_bridge_loads_a_fused_attn_out_tree_strictly(monkeypatch):
                                np.asarray(ref["probs"]), atol=ATOL)
 
 
+def _mode_pair(cfg, mode, seed, attend_over_tokens=False):
+    """The JAX model of `mode` and the port's, on the same randomized
+    weights; the inputs of one forward of `mode`."""
+    kw = ({"attend_over_tokens": attend_over_tokens}
+          if mode == "multimodal" else {})
+    jm = jax_model(cfg, mode=mode, **kw)
+    images, ids, mask = _inputs(seed, 3)
+    args = {"multimodal": (images, ids, mask), "image_only": (images,),
+            "text_only": (ids, mask)}[mode]
+    v = jm.init(jax.random.key(seed), *map(jnp.asarray, args), train=False)
+    v = _randomize(v, seed)
+    tm = create_model(cfg, mode=mode, device="cpu", seed=None, **kw)
+    tm.load_state_dict(state_dict_from_jax(v["params"],
+                                           v.get("batch_stats", {})),
+                       strict=True)
+    return jm, v, tm, args
+
+
+def _check_mode(cfg, mode, seed, attend_over_tokens=False):
+    jm, v, tm, args = _mode_pair(cfg, mode, seed, attend_over_tokens)
+    kw = {"return_embeddings": True}
+    if mode == "multimodal":
+        kw["return_attention"] = True
+    ref = jm.apply(v, *map(jnp.asarray, args), train=False, **kw)
+    with torch.no_grad():
+        got = tm(*(_t(a).long() if a.dtype == np.int32 else _t(a)
+                   for a in args), **kw)
+    assert set(got) == set(ref)
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(ref["probs"]), atol=ATOL)
+    # embeddings and logits are O(1-10): the f32 roundoff of the towers'
+    # sums in another order, as for the logits above
+    for key in ("logits", "image_embedding", "text_embedding",
+                "fused_embedding"):
+        if key in ref:
+            np.testing.assert_allclose(got[key].numpy(),
+                                       np.asarray(ref[key]), atol=1e-4)
+    info = ref.get("attention_info", {})
+    assert set(got.get("attention_info", {})) == set(info)
+    for key, w in info.items():
+        np.testing.assert_allclose(got["attention_info"][key].numpy(),
+                                   np.asarray(w), atol=ATOL)
+    return got
+
+
 @pytest.mark.parametrize("over", [{"fusion.fusion_type": "gated"},
                                   {"fusion.fusion_type": "concatenation"}])
-def test_unported_fusions_raise(over):
-    with pytest.raises(NotImplementedError):
-        create_model(_cfg(**over), device="cpu")
+def test_gated_and_concatenation_fusions_match_jax(over):
+    got = _check_mode(_cfg(**over), "multimodal", 20)
+    assert ("gate" in got["attention_info"]) == (
+        over["fusion.fusion_type"] == "gated")
+
+
+# the unimodal models have no fusion module
+@pytest.mark.parametrize("mode,fusion", [
+    ("multimodal", "attention"), ("multimodal", "gated"),
+    ("multimodal", "concatenation"), ("image_only", "attention"),
+    ("text_only", "attention")])
+def test_every_mode_and_fusion_matches_jax(mode, fusion):
+    _check_mode(_cfg(**{"fusion.fusion_type": fusion}), mode, 21)
+
+
+def test_attend_over_tokens_matches_jax():
+    got = _check_mode(_cfg(), "multimodal", 22, attend_over_tokens=True)
+    # the image attends over the 40 text tokens, padded ones weighted 0
+    w = got["attention_info"]["image_to_text_attention"]
+    assert w.shape == (3, 4, 1, 40)
+    _, ids, mask = _inputs(22, 3)
+    assert torch.all(w[torch.from_numpy(mask == 0)[:, None, None, :]
+                       .expand_as(w)] == 0)
+
+
+def test_create_model_rejects_an_unknown_mode():
+    with pytest.raises(ValueError):
+        create_model(_cfg(), mode="audio_only", device="cpu")
 
 
 def test_seeded_init_is_reproducible():

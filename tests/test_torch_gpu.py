@@ -1,14 +1,17 @@
 """The torch package's CUDA kernels on the card: K1 and K2 (the fused
 FFN sublayer with and without its input LayerNorm), K3 (the fused
 attention-output sublayer) and K4 (the fused uint8 normalize), each
-against its plain version, and the BERT layers' and the predictor's
-launch counts. Every test here is marked `gpu` and skips without a CUDA
-device; the file imports neither jax nor the JAX package, so it runs on
-a machine that has only torch:
+against its plain version; the launch counts of the BERT layers, the
+predictor, the Evaluator, Grad-CAM and the attention maps; and the
+kernels' refusal of inputs that autograd tracks. Every test here is
+marked `gpu` and skips without a CUDA device; the file imports neither
+jax nor the JAX package, so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 (`--noconftest`: tests/conftest.py configures jax for the CPU tier)."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -266,3 +269,153 @@ def test_slice_configuration_launches_k3_k2_k1_k4(cuda):
     pred = _predictor(cuda, **{"text_encoder.fused_attn_out": True,
                                "data.image_size": 256})
     assert _run(pred) == (1, 1, 1, 1, 0, 0, 0)
+
+
+def test_kernels_raise_instead_of_cutting_the_graph(cuda):
+    # no backward: a launch on inputs autograd tracks raises; the same
+    # call without grad mode, or on inputs that need none, launches
+    z, w, vec = _ffn_inputs(64, cuda, vec_dtype=torch.bfloat16)
+    ctx, x, wo, v3 = _attn_inputs(64, cuda, vec_dtype=torch.bfloat16)
+    z.requires_grad_(True)
+    ctx.requires_grad_(True)
+    before = (_ffn_counts(), k3.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kffn.fused_ffn_ln(z, w[0], vec["b1"], w[1], vec["b2"],
+                          vec["gamma"], vec["beta"])
+    with pytest.raises(RuntimeError, match="no backward"):
+        k3.fused_attn_out_ln(ctx, x, wo, v3["bo"], v3["gamma"], v3["beta"])
+    assert (_ffn_counts(), k3.LAUNCHES) == before
+    with torch.no_grad():
+        _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln=False)
+        _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+    assert k3.LAUNCHES == before[1] + 1
+    assert _ffn_counts()[1] == before[0][1] + 1
+
+
+def _small_cfg(**over):
+    """BERT-base width (the kernels' H = 768) at 2 layers, a one-block
+    ResNet, 64-px images, 32-token texts, batches of 4, bf16."""
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+
+    return resolve_config("default", {
+        "text_encoder.num_layers": 2, "cnn_encoder.stage_sizes": (1, 1, 1, 1),
+        "data.image_size": 64, "data.max_text_length": 32,
+        "evaluation.eval_batch_size": 4, **over})
+
+
+def _eval_batches(cfg, n_batches=2, seed=0):
+    from multimodal_rare_disease_tpu_torch.data.tokenizer import (
+        get_tokenizer,
+    )
+    from multimodal_rare_disease_tpu_torch.train.pipeline import (
+        build_text_pool,
+    )
+
+    rng = np.random.default_rng(seed)
+    pool = build_text_pool(cfg, get_tokenizer(), np.random.default_rng(1))
+    b = cfg.evaluation.eval_batch_size
+    out = []
+    for _ in range(n_batches):
+        labels = rng.integers(0, 10, b)
+        ids, mask = pool.gather(labels, np.zeros(b, int), np.zeros(b, int))
+        out.append({"images": rng.integers(0, 256, (b, 256, 256, 3),
+                                           dtype=np.uint8),
+                    "labels": labels, "valid": np.ones(b, np.float32),
+                    "input_ids": ids, "attention_mask": mask})
+    return out
+
+
+@contextlib.contextmanager
+def _all_plain():
+    """Every kernel forced off: the on-card reference."""
+    for mod in (kffn, k3, k4):
+        mod.FORCE_PLAIN = True
+    try:
+        yield
+    finally:
+        for mod in (kffn, k3, k4):
+            mod.FORCE_PLAIN = False
+
+
+def _model(cfg, mode, cuda):
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    return create_model(cfg, mode=mode, device="cpu").to(cuda,
+                                                          torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode,over,want", [
+    ("multimodal", {}, (2, 0, 0, 0)),
+    ("text_only", {}, (2, 0, 0, 0)),
+    ("image_only", {}, (0, 0, 0, 0)),
+    # layer 0: K3 then K2; the CLS-only last layer: K1; the images: K4
+    ("multimodal", {"text_encoder.fused_attn_out": True,
+                    "data.image_size": 256}, (1, 1, 1, 1))],
+    ids=["multimodal", "text_only", "image_only", "fused"])
+def test_evaluator_launches_per_batch(cuda, mode, over, want):
+    from multimodal_rare_disease_tpu_torch.evaluation import (
+        Evaluator,
+        compute_metrics,
+    )
+
+    cfg = _small_cfg(**over)
+    ev = Evaluator(cfg, _model(cfg, mode, cuda), mode=mode)
+    batches = _eval_batches(cfg)
+    before = _counts()
+    got = ev.collect_predictions(batches)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(_counts(), before))
+    assert counts == tuple(2 * w for w in want) + (0, 0, 0)
+    probs = got["probabilities"]
+    assert probs.shape == (8, 10) and np.isfinite(probs).all()
+    np.testing.assert_allclose(probs.sum(1), 1.0, atol=1e-3)
+    with _all_plain():
+        plain = ev.collect_predictions(batches)["probabilities"]
+    # chip_smoke.py's fixed kernel-vs-plain probability limit
+    assert np.abs(probs - plain).max() <= 2.5e-3
+    assert set(compute_metrics(got)) >= {"accuracy", "per_class",
+                                         "confusion_matrix"}
+
+
+@pytest.mark.parametrize("mode", ["image_only", "multimodal"])
+def test_gradcam_on_the_card(cuda, mode):
+    from multimodal_rare_disease_tpu_torch.explain import GradCAM
+
+    cfg = _small_cfg(**{"data.image_size": 224})
+    batch = _eval_batches(cfg, 1)[0]
+    text = ((batch["input_ids"], batch["attention_mask"])
+            if mode == "multimodal" else ())
+    before = _counts()
+    cam, logits = GradCAM(cfg, _model(cfg, mode, cuda), mode=mode)(
+        batch["images"], *text)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(_counts(), before))
+    # the multimodal tail re-runs the text tower (no grad): K1 per layer
+    assert counts == ((2 if mode == "multimodal" else 0), 0, 0, 0, 0, 0, 0)
+    assert cam.shape == (4, 7, 7) and np.isfinite(cam).all()
+    assert cam.min() >= 0.0 and cam.max() <= 1.0
+    assert logits.shape == (4, 10) and np.isfinite(logits).all()
+
+
+def test_text_attentions_turn_k3_off_and_keep_k1(cuda):
+    from multimodal_rare_disease_tpu_torch.data.tokenizer import (
+        get_tokenizer,
+    )
+
+    cfg = _small_cfg(**{"text_encoder.fused_attn_out": True})
+    model = _model(cfg, "multimodal", cuda)
+    ids, mask, _ = get_tokenizer().encode(
+        "Patient presents with hypertelorism and a wide mouth", 128)
+    before = _counts()
+    with torch.inference_mode():
+        attns = model.text_attentions(
+            torch.from_numpy(ids).long()[None].to(cuda),
+            torch.from_numpy(mask).long()[None].to(cuda))
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(_counts(), before))
+    assert counts == (2, 0, 0, 0, 0, 0, 0)
+    assert len(attns) == 2 and attns[0].shape == (1, 12, 128, 128)
+    rows = torch.stack(attns).float().sum(-1)
+    assert (rows - 1).abs().max().item() <= 1e-3

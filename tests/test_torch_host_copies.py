@@ -1,7 +1,8 @@
 """The torch package's own copies of the JAX package's host modules
-(config, tokenizer with its C++ core, clinical text, image decode)
-against the originals, and a scan of the port's imports: no module of
-the port, and not chip_smoke.py, imports jax or the JAX package."""
+(config, tokenizer with its C++ core, clinical text, the image corpus
+code, the host RNG streams, the statistics) against the originals, and
+a scan of the port's imports: no module of the port, and not
+chip_smoke.py, imports jax, the JAX package or sklearn."""
 
 import ast
 from pathlib import Path
@@ -13,15 +14,19 @@ from multimodal_rare_disease_tpu import config as jcfg
 from multimodal_rare_disease_tpu.data import clinical_text as jtext
 from multimodal_rare_disease_tpu.data import images as jimages
 from multimodal_rare_disease_tpu.data import tokenizer as jtok
+from multimodal_rare_disease_tpu.evaluation import stats as jstats
+from multimodal_rare_disease_tpu.utils import rng as jrng
 from multimodal_rare_disease_tpu_torch import config as tcfg
 from multimodal_rare_disease_tpu_torch.data import clinical_text as ttext
 from multimodal_rare_disease_tpu_torch.data import images as timages
 from multimodal_rare_disease_tpu_torch.data import tokenizer as ttok
+from multimodal_rare_disease_tpu_torch.evaluation import stats as tstats
+from multimodal_rare_disease_tpu_torch.utils import rng as trng
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "multimodal_rare_disease_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "multimodal_rare_disease_tpu")
+             "multimodal_rare_disease_tpu", "sklearn")
 
 
 @pytest.mark.parametrize("preset", sorted(jcfg.PRESETS))
@@ -120,7 +125,140 @@ def _imports(path: Path):
 
 def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 30
+    assert {"evaluation/evaluator.py", "evaluation/stats.py",
+            "explain/gradcam.py", "explain/attention.py",
+            "train/pipeline.py", "utils/rng.py", "cli/evaluate.py",
+            "cli/explain.py"} <= {str(f.relative_to(PORT))
+                                  for f in PORT.rglob("*.py")}
     bad = {f"{f.relative_to(REPO)}: {m}" for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN}
     assert not bad, sorted(bad)
+
+
+def test_syndrome_maps_and_find_image_dir_equal_jax(tmp_path):
+    assert tcfg.PREFIX_TO_SYNDROME == jcfg.PREFIX_TO_SYNDROME
+    assert tcfg.FOLDER_TO_SYNDROME == jcfg.FOLDER_TO_SYNDROME
+    over = {"data.data_dirs": (str(tmp_path / "a"), str(tmp_path / "b"))}
+    for made in ([], ["b/images"], ["b/images", "a/images_organized"]):
+        for sub in made:
+            (tmp_path / sub).mkdir(parents=True, exist_ok=True)
+        assert tcfg.find_image_dir(tcfg.resolve_config("default", over)) \
+            == jcfg.find_image_dir(jcfg.resolve_config("default", over))
+
+
+def _write_corpus(root, rng, flat=True):
+    """Synthetic PNGs in the flat layout, or class folders with _orig /
+    _augNN variants of each photo."""
+    from PIL import Image
+
+    codes = list(jcfg.PREFIX_TO_SYNDROME)
+    for c, code in enumerate(codes):
+        for i in range(2 + c % 3):
+            px = rng.integers(0, 256, (20 + c, 24, 3), dtype=np.uint8)
+            if flat:
+                Image.fromarray(px).save(root / f"SYN_{code}_{i:03d}.png")
+                continue
+            d = root / jcfg.SYNDROME_NAMES[c].replace(" ", "_")
+            d.mkdir(exist_ok=True)
+            for suffix in ("orig", "aug00", "aug01"):
+                Image.fromarray(px).save(d / f"p{i}_{suffix}.png")
+    (root / "README.png").write_bytes(b"not a corpus file")
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "folders"])
+def test_image_corpus_code_equals_jax(tmp_path, flat):
+    _write_corpus(tmp_path, np.random.default_rng(3), flat)
+    samples = timages.scan_image_corpus(tmp_path)
+    jsamples = jimages.scan_image_corpus(tmp_path)
+    assert [(s.path, s.label, s.syndrome, s.base_id) for s in samples] == \
+        [(s.path, s.label, s.syndrome, s.base_id) for s in jsamples]
+    np.testing.assert_array_equal(timages.class_counts(samples),
+                                  jimages.class_counts(jsamples))
+    np.testing.assert_array_equal(timages.class_weights(samples),
+                                  jimages.class_weights(jsamples))
+    np.testing.assert_array_equal(timages.sample_weights(samples),
+                                  jimages.sample_weights(jsamples))
+    w = timages.sample_weights(samples)
+    np.testing.assert_array_equal(
+        timages.WeightedSampler(w, 50, np.random.default_rng(4))
+        .sample_epoch(),
+        jimages.WeightedSampler(w, 50, np.random.default_rng(4))
+        .sample_epoch())
+
+    def paths(*splits):
+        return [[s.path for s in split] for split in splits]
+
+    for seed in (0, 42):
+        assert paths(*timages.ratio_split(
+            samples, rng=np.random.default_rng(seed))) == paths(
+            *jimages.ratio_split(jsamples, rng=np.random.default_rng(seed)))
+        for fn in ("stratified_split", "leakage_aware_split"):
+            assert paths(*getattr(timages, fn)(
+                samples, 0.3, rng=np.random.default_rng(seed))) == paths(
+                *getattr(jimages, fn)(jsamples, 0.3,
+                                      rng=np.random.default_rng(seed)))
+    imgs, labels = timages.load_corpus_arrays(samples[:5], 64)
+    jimgs, jlabels = jimages.load_corpus_arrays(jsamples[:5], 64)
+    np.testing.assert_array_equal(imgs, jimgs)
+    np.testing.assert_array_equal(labels, jlabels)
+    assert labels.dtype == jlabels.dtype == np.int32
+
+
+def test_face_detection_is_not_ported():
+    timages.configure_face_detection(tcfg.get_config())  # off: no-op
+    with pytest.raises(NotImplementedError):
+        timages.configure_face_detection(tcfg.resolve_config(
+            "default", {"data.use_face_detection": True}))
+
+
+def test_host_rng_streams_equal_jax():
+    for name in ("split", "sampler", "text_aug", "text_pick", "shuffle",
+                 "naïve"):
+        assert trng._stable_hash(name) == jrng._stable_hash(name)
+    for seed in (0, 42):
+        a, b = trng.RngStreams(seed), jrng.RngStreams(seed)
+        for name in ("split", "sampler", "split"):
+            np.testing.assert_array_equal(a.host(name).integers(0, 1 << 30,
+                                                                 8),
+                                          b.host(name).integers(0, 1 << 30,
+                                                                8))
+        assert a.host("split") is a.host("split")
+
+
+def _demo():
+    preds, labels = jstats.make_demo_predictions(n=300, seed=5)
+    tpreds, tlabels = tstats.make_demo_predictions(n=300, seed=5)
+    assert preds.keys() == tpreds.keys()
+    for k in preds:
+        np.testing.assert_array_equal(preds[k], tpreds[k])
+    np.testing.assert_array_equal(labels, tlabels)
+    return preds, labels
+
+
+def test_stats_equal_jax(tmp_path):
+    preds, labels = _demo()
+    a, b = preds["multimodal"], preds["text_only"]
+    for fn in ("chi_square_test", "mcnemar_test"):
+        assert getattr(tstats, fn)(a, b, labels) == \
+            getattr(jstats, fn)(a, b, labels)
+    # McNemar's exact branch (< 25 discordant pairs) and the degenerate
+    # tables of the chi-square
+    few = a.copy()
+    few[:10] = labels[:10]
+    for x, y in ((a, few), (a, a), (labels, labels)):
+        for fn in ("chi_square_test", "mcnemar_test"):
+            assert getattr(tstats, fn)(x, y, labels) == \
+                getattr(jstats, fn)(x, y, labels)
+    assert tstats.bootstrap_confidence_interval(a, labels, 200) == \
+        jstats.bootstrap_confidence_interval(a, labels, 200)
+    got = tstats.compare_multimodal_vs_unimodal(preds, labels, 100)
+    assert got == jstats.compare_multimodal_vs_unimodal(preds, labels, 100)
+    assert tstats.hypothesis_conclusion(got) == \
+        jstats.hypothesis_conclusion(got)
+    for mode, p in preds.items():
+        np.savez(tmp_path / f"{mode}_predictions.npz", predictions=p,
+                 labels=labels, probabilities=np.zeros((len(p), 10)))
+    assert tstats.run_statistical_validation(tmp_path, 50) == \
+        jstats.run_statistical_validation(tmp_path, 50)
+    assert tstats.load_predictions_npz(tmp_path / "none") == ({}, None)

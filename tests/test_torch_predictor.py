@@ -305,3 +305,48 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("mode", ["multimodal", "image_only", "text_only"])
+def test_every_mode_with_embeddings_matches_jax(tmp_path, mode):
+    # the three modes through a port checkpoint that load_predictor reads
+    # with an explicit mode; embeddings take the classic path
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from tests.test_torch_evaluation import model_pair
+
+    jcfg, _, v, cfg, tm = model_pair(mode, 40)
+    jp = JaxPredictor(jcfg, v["params"], v.get("batch_stats", {}), mode=mode)
+    save_checkpoint(tmp_path, tm.state_dict(), meta={"config": cfg.to_dict()})
+    tp = load_predictor(tmp_path, "cpu", mode=mode)
+    assert tp.mode == mode and (tp.tokenizer is None) == (mode ==
+                                                          "image_only")
+    images, texts = _requests(9, seed=5)
+    kw = {"images": images if mode != "text_only" else None,
+          "texts": texts if mode != "image_only" else None}
+    got = tp.predict_batch(**kw, return_embeddings=True)
+    want = jp.predict_batch(**kw, return_embeddings=True)
+    assert tp.packed_calls == 0
+    for g, w in zip(got, want):
+        ge, we = g.pop("embeddings"), w.pop("embeddings")
+        assert set(ge) == set(we) == {
+            "multimodal": {"image", "text", "fused"},
+            "image_only": {"image"}, "text_only": {"text"}}[mode]
+        for key in we:
+            # O(1-10) values: the towers' f32 roundoff, as the logits
+            np.testing.assert_allclose(ge[key], we[key], atol=1e-4)
+    _assert_same(got, want)
+    single = tp.predict(image=kw["images"] and images[0],
+                        text=kw["texts"] and texts[0],
+                        return_embeddings=True)
+    assert "embeddings" in single
+    # a modality the mode needs is missing (the other one is given)
+    for need, other in (("images", "texts"), ("texts", "images")):
+        if kw[need] is None:
+            continue
+        bad = {need: None, other: images if other == "images" else texts}
+        with pytest.raises(ValueError, match="requires"):
+            jp.predict_batch(**bad)
+        with pytest.raises(ValueError, match="requires"):
+            tp.predict_batch(**bad)
