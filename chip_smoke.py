@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch package's serving paths once on one NVIDIA Hopper card.
+"""Drive the torch package's serving, evaluation and training paths once
+on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -59,7 +60,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
    gradient or a dropped alpha); the BERT attention maps of one clinical
    text at T = 128 on the fused-sublayer configuration (K3 off, K1 in
    all 12 layers), held against the f32 model on the CPU; and the time
-   per Evaluator batch, Grad-CAM call and attention-map call.
+   per Evaluator batch, Grad-CAM call and attention-map call;
+10. training: the Trainer at full width (bf16 over f32 masters, AdamW)
+   on `data/synthetic.py`'s seeded arrays, 4 per class, with their
+   class's clinical texts, in the resident mode: `train()` for
+   TRAIN_EPOCHS epochs of batch 8, whose train steps launch no kernel
+   and whose validation passes launch K1 11 + 1 per batch; the loss on
+   the training images in eval mode, which must fall by LOSS_DROP;
+   a step fed a NaN parameter on a copy, which the guard
+   skips and counts, changing nothing; a bf16 and an f32 step from the
+   same weights, and an f32 step on the card against the same step on
+   the CPU (TF32 off); one validation pass of the default and of the
+   fused-sublayer configuration (K3 11, K2 11, K1 1 per batch); the
+   trained checkpoint scored by `load_predictor` and the Evaluator, with
+   the kernels-off and the f32 probabilities held to phase 4's limits;
+   and ms per train step, ms per validation batch and the peak device
+   memory of a step.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -544,6 +560,380 @@ def evaluation_and_explain(dev, card: str, fused_over: dict):
           + f" | text_attentions ms per call (T={t}, fused sublayers): "
           f"{attn_ms:.2f} | median of {PHASE9_RUNS}, host clock, "
           f"synchronized")
+    return totals
+
+
+# phase 10: the synthetic corpus (per class), the run, its checks
+TRAIN_PER_CLASS = 4
+TRAIN_EPOCHS = 40
+# AdamW at 3e-4 for the image tower, fusion and head, 3e-5 for the text
+# tower (multiplier 0.1): from random weights the post-LN text tower does
+# not learn this corpus (nor does the JAX trainer's), so the image tower
+# carries the fall of the loss; at 1e-3 it fell 3x less (PERF.md, PR 6)
+TRAIN_LR = 3e-4
+TRAIN_LR_MULT_TEXT = 0.1
+TRAIN_STEP_RUNS = 10
+# the class-weighted CE (no smoothing) over the training images in eval
+# mode, before train() against after: it must fall at least this much
+LOSS_DROP = 0.1
+# one step's loss, bf16 over f32 masters against f32, from the same
+# weights and draws: bf16 noise in the logits (O(1e-2)) moves a CE of
+# O(1) by about that much
+BF16_LOSS_ATOL = 0.05
+# one f32 step (SGD, no dropout, the eval preprocess) on the card, TF32
+# off, against the same step on the CPU: the same sums in other orders
+# through ResNet-50 and BERT-base. The loss is O(1); a parameter moves by
+# lr·g with |g| <= 1 after clipping, so lr·(round-off of g); the
+# BatchNorm averages are means of O(1) activations
+CARD_CPU_LOSS_ATOL = 1e-4
+CARD_CPU_PARAM_ATOL = 1e-5
+CARD_CPU_STATS_ATOL = 1e-4
+CARD_CPU_LR = 1e-2
+
+
+def training(dev, card: str, fused_over: dict):
+    """Phase 10: the Trainer at full width on the card; returns the
+    launches of its counted runs."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import (
+        PREFIX_TO_SYNDROME,
+        SYNDROME_NAMES,
+        resolve_config,
+    )
+    from multimodal_rare_disease_tpu_torch.data.images import ImageSample
+    from multimodal_rare_disease_tpu_torch.data.synthetic import (
+        SyntheticImageGenerator,
+    )
+    from multimodal_rare_disease_tpu_torch.evaluation import (
+        Evaluator,
+        compute_metrics,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.ops.preprocess import (
+        eval_preprocess,
+    )
+    from multimodal_rare_disease_tpu_torch.train.pipeline import (
+        STAGING_SIZE,
+        DataPipeline,
+    )
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import role_path
+
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+
+    def counted(fn, want, what):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if got != want:
+            fail(f"{what}: launches {got}, want {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return out
+
+    def counts(k1=0, k2=0, k3=0):
+        return {"K1": k1, "K2": k2, "K3": k3, "K4": 0, "plain_on_cuda": 0}
+
+    # the corpus: seeded procedural images at the staging size, 4 per
+    # class, decoded in memory (the card's machine has no PIL)
+    synth = SyntheticImageGenerator(image_size=STAGING_SIZE, seed=42)
+    prefix = {name: code for code, name in PREFIX_TO_SYNDROME.items()}
+    samples, decoded = [], {}
+    for c, name in enumerate(SYNDROME_NAMES):
+        for i in range(TRAIN_PER_CLASS):
+            path = f"synthetic/SYN_{prefix[name]}_{i + 1:03d}.png"
+            samples.append(ImageSample(path, c, name))
+            decoded[path] = synth.generate(c, i)
+    over = {"training.num_epochs": TRAIN_EPOCHS,
+            "training.warmup_epochs": 0,
+            "training.learning_rate": TRAIN_LR,
+            "training.lr_mult_text": TRAIN_LR_MULT_TEXT,
+            "training.early_stopping": False,
+            # the resumable `last` checkpoint (1.6 GB with the Adam
+            # moments) every 10 epochs, not every epoch
+            "training.checkpoint_every_epochs": 10}
+    cfg = resolve_config("default", over)
+    pipe = DataPipeline(cfg, "multimodal", samples=samples, decoded=decoded)
+    n_layers = cfg.text_encoder.num_layers
+    b_eval = cfg.evaluation.eval_batch_size
+    n_val = len(pipe.val_samples)
+    val_batches = -(-n_val // b_eval)
+    spe = pipe.steps_per_epoch
+
+    def host_batches(images, labels):
+        """Eval batches of whole images with their class's full clinical
+        description (the text pool's level 0)."""
+        zeros = np.zeros(len(labels), np.int64)
+        ids, mask = pipe.text_pool.gather(labels, zeros, zeros)
+        return [{"images": images[i:i + b_eval],
+                 "labels": labels[i:i + b_eval],
+                 "valid": np.ones(len(labels[i:i + b_eval]), np.float32),
+                 "input_ids": ids[i:i + b_eval],
+                 "attention_mask": mask[i:i + b_eval]}
+                for i in range(0, len(labels), b_eval)]
+
+    train_set = host_batches(pipe.train_images, pipe.train_labels)
+
+    (HERE / "build").mkdir(exist_ok=True)  # git-ignored, in the checkout
+    tmp = tempfile.TemporaryDirectory(dir=HERE / "build")
+    workdir = Path(tmp.name)
+    trainer = Trainer(cfg, "multimodal", pipeline=pipe,
+                      workdir=str(workdir / "run"), device=dev)
+    trainer.init_state()
+    if not trainer.resident:
+        fail("the synthetic corpus did not take the resident mode")
+    loss_before = trainer._validate(train_set)["loss"]
+
+    # ---- the main path: train() with its validation every epoch; the
+    # train steps launch nothing, each validation batch K1 11 + 1
+    t0 = time.perf_counter()
+    result = counted(trainer.train,
+                     counts(k1=n_layers * val_batches * TRAIN_EPOCHS),
+                     "train()")
+    train_s = time.perf_counter() - t0
+    hist = result["history"]
+    loss_after = trainer._validate(train_set)["loss"]
+    if not all(np.isfinite(v).all() for v in hist.values()) \
+            or result["skipped_steps"] != 0:
+        fail(f"train(): history {hist}, skipped {result['skipped_steps']}")
+    fall = loss_before - loss_after
+    if fall < LOSS_DROP:
+        fail(f"the training-set loss fell from {loss_before:.4f} to "
+             f"{loss_after:.4f}, less than {LOSS_DROP}; train loss by "
+             f"epoch {hist['train_loss']}")
+    if trainer.state.step != spe * TRAIN_EPOCHS:
+        fail(f"train(): {trainer.state.step} steps, want "
+             f"{spe * TRAIN_EPOCHS}")
+    print(f"[10 training] multimodal, full width, AdamW lr {TRAIN_LR} "
+          f"(text tower x{TRAIN_LR_MULT_TEXT}; cosine, no warmup, no early "
+          f"stopping), bf16 over f32 masters, batch "
+          f"{cfg.training.batch_size}, {len(pipe.train_samples)} train / "
+          f"{n_val} val synthetic images (256 px -> 224) with clinical "
+          f"texts (T={cfg.data.max_text_length}), resident corpus | "
+          f"{TRAIN_EPOCHS} epochs x {spe} steps in {train_s:.1f} s, "
+          f"launches: train steps none, validation K1 {n_layers} per batch "
+          f"x {val_batches} x {TRAIN_EPOCHS} | train loss by epoch "
+          + ", ".join(f"{x:.3f}" for x in hist["train_loss"])
+          + " | val acc by epoch "
+          + ", ".join(f"{x:.2f}" for x in hist["val_acc"])
+          + f" | training-set loss in eval mode (CE, no smoothing) "
+          f"{loss_before:.4f} -> {loss_after:.4f} (must fall >= "
+          f"{LOSS_DROP})")
+
+    trained = {k: v.detach().clone()
+               for k, v in trainer.model.state_dict().items()}
+    idx = next(pipe.train_index_batches())
+
+    def probe(c):
+        """A fresh trainer of config `c` on the trained weights."""
+        t = Trainer(c, "multimodal", pipeline=pipe,
+                    workdir=str(workdir / "probe"), device=dev)
+        t.model.load_state_dict(trained)
+        t.init_state()
+        return t
+
+    # ---- the guard: one good step, then a NaN parameter
+    p16 = probe(cfg)
+    batch = p16._resident_batch(idx, "train")
+    counted(lambda: p16.train_step(batch, TRAIN_LR), counts(), "train step")
+    with torch.no_grad():
+        p16.model.head.logits.bias[0] = float("nan")
+
+    def bits(t):
+        return t.detach().clone().view(torch.int32)
+
+    before = {k: bits(v) for k, v in p16.model.state_dict().items()}
+    moments = [bits(s) for st in p16.state.optimizer.state.values()
+               for s in st.values() if torch.is_tensor(s)]
+    m = counted(lambda: p16.train_step(batch, TRAIN_LR), counts(),
+                "poisoned train step")
+    after = {k: bits(v) for k, v in p16.model.state_dict().items()}
+    moments_after = [bits(s) for st in p16.state.optimizer.state.values()
+                     for s in st.values() if torch.is_tensor(s)]
+    if m["skipped"] != 1 or p16.state.skipped_steps != 1 \
+            or any(not torch.equal(before[k], after[k]) for k in before) \
+            or len(moments) != len(moments_after) \
+            or any(not torch.equal(a, b)
+                   for a, b in zip(moments, moments_after)):
+        fail(f"the non-finite guard: skipped {m['skipped']} / "
+             f"{p16.state.skipped_steps}, or the state changed")
+    del p16
+
+    # ---- bf16 against f32, one step from the same weights and draws
+    cfg32 = resolve_config("default", {**over,
+                                       "training.compute_dtype": "float32"})
+    losses = {}
+    for name, c in (("bf16", cfg), ("f32", cfg32)):
+        t = probe(c)
+        losses[name] = float(t.train_step(t._resident_batch(idx, "train"),
+                                          TRAIN_LR)["loss"])
+        if name == "bf16":
+            # the step's time and peak memory, on this copy
+            step_ms = []
+            for _ in range(TRAIN_STEP_RUNS):
+                b = t._resident_batch(idx, "train")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                t.train_step(b, TRAIN_LR)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t.train_step(t._resident_batch(idx, "train"), TRAIN_LR)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+        del t
+    d_loss = abs(losses["bf16"] - losses["f32"])
+    if d_loss > BF16_LOSS_ATOL:
+        fail(f"bf16 and f32 step losses differ by {d_loss}")
+
+    # ---- f32 on the card against the CPU: SGD, no dropout, no
+    # augmentation (the eval preprocess of one batch)
+    cfg_sgd = resolve_config("default", {
+        **over, "training.compute_dtype": "float32",
+        "training.optimizer": "sgd", "training.learning_rate": CARD_CPU_LR,
+        "text_encoder.dropout": 0.0, "fusion.dropout": 0.0,
+        "classifier.dropout": 0.0, "cnn_encoder.dropout": 0.0})
+    host = train_set[0]
+    step_out = []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for where in (dev, torch.device("cpu")):
+            t = Trainer(cfg_sgd, "multimodal", device=where,
+                        workdir=str(workdir / "probe"))
+            t.model.load_state_dict(trained)
+            b = {k: torch.from_numpy(np.asarray(v)).to(where)
+                 for k, v in host.items() if k != "valid"}
+            b = {k: (v.long() if k != "images" else v) for k, v in b.items()}
+            images = eval_preprocess(b["images"], cfg_sgd, torch.float32,
+                                     use_kernel=False)
+            m = counted(lambda: t.apply_step(images, b, CARD_CPU_LR),
+                        counts(), f"f32 step on {where.type}")
+            step_out.append((float(m["loss"]), {
+                k: v.detach().cpu() for k, v in t.model.state_dict().items()}))
+            del t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (l_card, sd_card), (l_cpu, sd_cpu) = step_out
+    d_step_loss = abs(l_card - l_cpu)
+    d_param = max(float((sd_card[k] - sd_cpu[k]).abs().max())
+                  for k in sd_cpu if ".running_" not in k)
+    d_stats = max(float((sd_card[k] - sd_cpu[k]).abs().max())
+                  for k in sd_cpu if ".running_" in k)
+    moved = max(float((sd_cpu[k] - trained[k].cpu()).abs().max())
+                for k in sd_cpu if ".running_" not in k)
+    if d_step_loss > CARD_CPU_LOSS_ATOL or d_param > CARD_CPU_PARAM_ATOL \
+            or d_stats > CARD_CPU_STATS_ATOL:
+        fail(f"f32 step card vs CPU: loss {d_step_loss}, params {d_param}, "
+             f"BatchNorm statistics {d_stats}")
+    print(f"[10 steps] NaN parameter on a copy: skipped 1, parameters, "
+          f"moments and BatchNorm statistics bit-equal | one step bf16 vs "
+          f"f32 loss {losses['bf16']:.5f} vs {losses['f32']:.5f}, |diff| "
+          f"{d_loss:.2e} (tolerance {BF16_LOSS_ATOL}) | f32 SGD step "
+          f"(lr {CARD_CPU_LR}, batch {len(host['labels'])}) card vs CPU, "
+          f"TF32 off: loss {l_card:.6f} vs {l_cpu:.6f} |diff| "
+          f"{d_step_loss:.2e} (tolerance {CARD_CPU_LOSS_ATOL}), parameters "
+          f"max|diff| {d_param:.2e} (tolerance {CARD_CPU_PARAM_ATOL}; the "
+          f"step moved them up to {moved:.2e}), BatchNorm statistics "
+          f"{d_stats:.2e} (tolerance {CARD_CPU_STATS_ATOL}) | launches in "
+          f"every step: none")
+
+    # ---- one validation pass on each config
+    def val_ms(t, n):
+        lat = []
+        for _ in range(PHASE9_RUNS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            t._validate()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3 / n)
+        return float(np.median(lat))
+
+    val_default = counted(trainer._validate,
+                          counts(k1=n_layers * val_batches),
+                          "validation (default)")
+    cfg_f = resolve_config("default", {**over, **fused_over,
+                                       "data.image_size": cfg.data.image_size})
+    t_f = probe(cfg_f)
+    val_fused = counted(t_f._validate,
+                        counts(k1=val_batches,
+                               k2=(n_layers - 1) * val_batches,
+                               k3=(n_layers - 1) * val_batches),
+                        "validation (fused sublayers)")
+    vms = {"default": val_ms(trainer, val_batches),
+           "fused": val_ms(t_f, val_batches)}
+    del t_f
+
+    # ---- the trained checkpoint through load_predictor and the
+    # Evaluator, over all the images; O1 on trained weights
+    best = role_path(workdir / "run", "multimodal", "best")
+    pred = load_predictor(best, dev)
+    every = host_batches(np.concatenate([pipe.train_images,
+                                         pipe.val_images]),
+                         np.concatenate([pipe.train_labels,
+                                         pipe.val_labels]))
+    ev = Evaluator(cfg, pred.model)
+    collected = counted(lambda: ev.collect_predictions(every),
+                        counts(k1=n_layers * len(every)),
+                        "Evaluator (trained checkpoint)")
+    probs = collected["probabilities"]
+    metrics = compute_metrics(collected)
+    with plain_kernels():
+        plain = ev.collect_predictions(every)["probabilities"]
+        p32 = load_predictor(best, dev, cfg=cfg32)
+        tf32c = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            f32 = Evaluator(cfg32, p32.model).collect_predictions(
+                every)["probabilities"]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32c
+    d_plain = float(np.abs(probs - plain).max())
+    d_f32 = float(np.abs(probs - f32).max())
+    d_pf = float(np.abs(plain - f32).max())
+    best_epoch = json.loads((best / "meta.json").read_text())["epoch"]
+    print(f"[10 trained checkpoint] {best.name} (epoch {best_epoch + 1}, "
+          f"lowest validation loss) via load_predictor: Evaluator over "
+          f"{len(probs)} images in "
+          f"{len(every)} batches, K1 {n_layers} per batch | accuracy "
+          f"{metrics['accuracy']:.4f}, macro F1 {metrics['f1_macro']:.4f} "
+          f"| O1 on trained weights: max|dprob| kernels vs plain "
+          f"{d_plain:.3e} (limit {PROB_ATOL_PLAIN}), kernels vs f32 "
+          f"{d_f32:.3e} (limit {PROB_ATOL_F32}), plain vs f32 {d_pf:.3e} | "
+          f"validation loss / acc default {val_default['loss']:.4f} / "
+          f"{val_default['acc']:.3f}, fused sublayers {val_fused['loss']:.4f}"
+          f" / {val_fused['acc']:.3f}")
+    if probs.shape != (len(samples), cfg.num_classes) \
+            or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-3:
+        fail("Evaluator on the trained checkpoint: bad probabilities")
+    if d_plain > PROB_ATOL_PLAIN:
+        fail(f"trained checkpoint: kernel and plain probabilities differ by "
+             f"{d_plain}")
+    if d_f32 > PROB_ATOL_F32:
+        fail(f"trained checkpoint: the kernels are {d_f32} from f32")
+    print(f"[10 times] {card} | train step (bf16, batch "
+          f"{cfg.training.batch_size}, resident) median "
+          f"{float(np.median(step_ms)):.2f} ms of {TRAIN_STEP_RUNS} ("
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"); peak device memory of a step {peak / 2**30:.2f} GiB "
+          f"(allocated before it {base / 2**30:.2f} GiB) | validation ms per "
+          f"batch of {b_eval}: " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in vms.items())
+          + f" | median of {PHASE9_RUNS}, host clock, synchronized")
+    tmp.cleanup()
     return totals
 
 
@@ -1097,6 +1487,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     main9 = evaluation_and_explain(dev, card, over7)
 
+    # ---- 10. training
+    torch.cuda.empty_cache()
+    main10 = training(dev, card, over7)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL",
@@ -1126,10 +1520,10 @@ def main() -> int:
         "route": "cuda",
         "source": src + source,
         "replaces": tpu + replaces,
-        # launches on the main paths: phases 4, 5, 7 (both of its runs)
-        # and 9 (its counted runs)
+        # launches on the main paths: phases 4, 5, 7 (both of its runs),
+        # 9 and 10 (their counted runs)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
-                     + main9[k]),
+                     + main9[k] + main10[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -1,5 +1,6 @@
 """Command-line entry points of the torch package:
 
+  python -m multimodal_rare_disease_tpu_torch.cli.train
   python -m multimodal_rare_disease_tpu_torch.cli.predict
   python -m multimodal_rare_disease_tpu_torch.cli.evaluate
   python -m multimodal_rare_disease_tpu_torch.cli.stats

@@ -1,2 +1,3 @@
 """Host-side data code of the torch package (tokenizer, clinical text,
-the image corpus): its own copies of the JAX package's jax-free modules."""
+the image corpus, the synthetic corpus): its own copies of the JAX
+package's jax-free modules."""

@@ -1,4 +1,4 @@
-"""BERT-base clinical text encoder: the inference path of
+"""BERT-base clinical text encoder: the counterpart of
 `multimodal_rare_disease_tpu/models/bert.py`.
 
 Word + position + segment embeddings → post-LN transformer layers
@@ -11,8 +11,14 @@ consumed positions (CLS, or one per packed document), unless the caller
 asks for the per-layer hidden states or attention probabilities
 (explainability), which need every position.
 
-The sublayers dispatch to the hand-written kernels exactly where the
-JAX layer dispatches to its Pallas kernels (`bert.py:323-427` there):
+In train mode (`module.train()`) dropout acts at the JAX sites (the
+attention probabilities, the attention output, the FFN output, the
+embeddings and the encoder's output embedding), every position of the
+last layer is computed, and no kernel runs: the JAX layer gates its
+Pallas kernels on `not train` (`bert.py:330`, `:365` there), and the
+CUDA kernels have no backward. In eval mode the sublayers dispatch to
+the hand-written kernels exactly where the JAX layer dispatches to its
+Pallas kernels (`bert.py:323-427` there):
 
 - `fused_attn_out` on, in every layer that is not the CLS-only last
   one, unless the attention maps are returned: the attention output
@@ -46,7 +52,11 @@ from multimodal_rare_disease_tpu_torch.kernels.attn_out import (
     fused_attn_out_ln,
 )
 from multimodal_rare_disease_tpu_torch.kernels.ffn import fused_ffn_ln
-from multimodal_rare_disease_tpu_torch.models.layers import Embedding, Linear
+from multimodal_rare_disease_tpu_torch.models.layers import (
+    Dropout,
+    Embedding,
+    Linear,
+)
 
 _BERT_LN_EPS = 1e-12
 
@@ -58,9 +68,11 @@ def _take_rows(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int, device):
+    def __init__(self, hidden_size: int, num_heads: int, device,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = Dropout(dropout)  # on the probabilities
         self.head_dim = hidden_size // num_heads
         # fused QKV; output features ordered (3, heads, head_dim) like the
         # flax [H, 3, h, d] kernel
@@ -101,7 +113,7 @@ class BertSelfAttention(nn.Module):
         scores = scores + bias
         probs32 = torch.softmax(scores.float(), dim=-1)
         probs = probs32.to(q.dtype)
-        ctx = torch.einsum("bhts,bshd->bthd", probs, v)
+        ctx = torch.einsum("bhts,bshd->bthd", self.dropout(probs), v)
         ctx = ctx.reshape(b, ctx.shape[1], h * d)
         if return_unprojected:
             out = (ctx, self.output.weight.t(), self.output.bias)
@@ -111,16 +123,18 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Post-LN transformer layer (inference)."""
+    """Post-LN transformer layer."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, device, fused_ffn: bool = True,
-                 fused_attn_out: bool = False):
+                 fused_attn_out: bool = False, dropout: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.fused_ffn = fused_ffn
         self.fused_attn_out = fused_attn_out
-        self.attention = BertSelfAttention(hidden_size, num_heads, device)
+        self.dropout = Dropout(dropout)  # attention output, FFN output
+        self.attention = BertSelfAttention(hidden_size, num_heads, device,
+                                           dropout=dropout)
         self.attention_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                          device=device)
         self.intermediate = Linear(hidden_size, intermediate_size,
@@ -138,9 +152,10 @@ class BertLayer(nn.Module):
         `output_attentions`, else None)."""
         # K3 runs on the full rows; the CLS-only last layer and a forward
         # that returns the attention maps keep the classic projection (the
-        # JAX layer's `not cls_only` and `not output_attentions` gates)
-        use_k3 = (self.fused_attn_out and not cls_only
-                  and not output_attentions)
+        # JAX layer's `not cls_only` and `not output_attentions` gates);
+        # no kernel runs in train mode (its `not train` gates)
+        use_k3 = (self.fused_attn_out and not self.training
+                  and not cls_only and not output_attentions)
         attn_out, probs = self.attention(
             hidden, bias, cls_query_only=cls_only,
             query_positions=query_positions, return_unprojected=use_k3,
@@ -157,14 +172,15 @@ class BertLayer(nn.Module):
                 ctx.reshape(-1, hid), hidden.reshape(-1, hid), wo, bo,
                 self.attention_ln.weight, self.attention_ln.bias,
                 eps=_BERT_LN_EPS).reshape(hidden.shape)
-            if self.fused_ffn:
+            if self.fused_ffn:  # eval mode here: K3 is on
                 return self._ffn_fused(hidden, input_ln=False), probs  # K2
             return self._ffn_classic(hidden), probs
-        if self.fused_ffn:
+        if self.fused_ffn and not self.training:
             # K1 takes the unnormalized residual and applies attention_ln
             # itself (the JAX layer's pre_gamma dispatch)
             return self._ffn_fused(hidden + attn_out, input_ln=True), probs
-        return self._ffn_classic(self.attention_ln(hidden + attn_out)), probs
+        hidden = self.attention_ln(hidden + self.dropout(attn_out))
+        return self._ffn_classic(hidden), probs
 
     def _ffn_fused(self, x: torch.Tensor, input_ln: bool) -> torch.Tensor:
         """The FFN sublayer in K1 (x unnormalized, attention_ln folded
@@ -182,16 +198,18 @@ class BertLayer(nn.Module):
     def _ffn_classic(self, hidden: torch.Tensor) -> torch.Tensor:
         """The FFN sublayer without a kernel, on normalized rows."""
         inter = F.gelu(self.intermediate(hidden).float()).to(hidden.dtype)
-        return self.output_ln(hidden + self.output(inter))
+        return self.output_ln(hidden + self.dropout(self.output(inter)))
 
 
 class BertEncoder(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_heads: int, intermediate_size: int,
                  max_position_embeddings: int, type_vocab_size: int, device,
-                 fused_ffn: bool = True, fused_attn_out: bool = False):
+                 fused_ffn: bool = True, fused_attn_out: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = Dropout(dropout)  # on the embeddings
         self.word_embeddings = Embedding(vocab_size, hidden_size,
                                          device=device)
         self.position_embeddings = Embedding(max_position_embeddings,
@@ -203,7 +221,8 @@ class BertEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", BertLayer(
                 hidden_size, num_heads, intermediate_size, device,
-                fused_ffn=fused_ffn, fused_attn_out=fused_attn_out))
+                fused_ffn=fused_ffn, fused_attn_out=fused_attn_out,
+                dropout=dropout))
         self.pooler = Linear(hidden_size, hidden_size, device=device)
 
     def forward(self, input_ids: torch.Tensor,
@@ -239,7 +258,7 @@ class BertEncoder(nn.Module):
             hidden = hidden + self.token_type_embeddings.weight[0]
         else:
             hidden = hidden + self.token_type_embeddings(token_type_ids)
-        hidden = self.embeddings_ln(hidden)
+        hidden = self.dropout(self.embeddings_ln(hidden))
         dtype = hidden.dtype
 
         if packed:
@@ -281,7 +300,10 @@ class BertEncoder(nn.Module):
 
 class TextEncoder(nn.Module):
     """BERT → embedding (CLS token, or tanh pooler with
-    use_pooler_output), with the optional projection + relu."""
+    use_pooler_output) → dropout, with the optional projection + relu.
+    At inference the last BERT layer computes only the consumed
+    positions; in train mode every position (the JAX
+    `cls_only_final=not train`)."""
 
     def __init__(self, cfg, device, projection_dim: int = 0):
         super().__init__()
@@ -296,7 +318,8 @@ class TextEncoder(nn.Module):
             cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.intermediate_size, cfg.max_position_embeddings,
             cfg.type_vocab_size, device, fused_ffn=cfg.fused_ffn,
-            fused_attn_out=cfg.fused_attn_out)
+            fused_attn_out=cfg.fused_attn_out, dropout=cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
         self.projection = (Linear(cfg.hidden_size, projection_dim,
                                   device=device)
                            if projection_dim else None)
@@ -312,12 +335,14 @@ class TextEncoder(nn.Module):
         """→ the embedding [B, D] (or [B, P, D] for packed rows); with
         either output flag, (embedding, the BERT output dict)."""
         out = self.bert(input_ids, attention_mask,
-                        token_type_ids=token_type_ids, cls_only_final=True,
+                        token_type_ids=token_type_ids,
+                        cls_only_final=not self.training,
                         position_ids=position_ids, segment_ids=segment_ids,
                         query_positions=query_positions,
                         output_hidden_states=output_hidden_states,
                         output_attentions=output_attentions)
         emb = out["pooler_output"] if self.use_pooler_output else out["cls"]
+        emb = self.drop(emb)
         if self.projection is not None:
             emb = torch.relu(self.projection(emb))
         if output_hidden_states or output_attentions:

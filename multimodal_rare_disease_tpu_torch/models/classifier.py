@@ -2,7 +2,10 @@
 `multimodal_rare_disease_tpu/models/classifier.py` — the multimodal
 model (`forward`, `packed_forward`, and the Grad-CAM / attention-map
 entry points), the image-only and text-only baselines, and
-`create_model` over the three modes.
+`create_model` over the three modes, for inference or for training.
+`module.train()` is the JAX `train=True`: dropout (from the generator
+`layers.set_dropout_generator` gives), batch-statistics BatchNorm, and
+no kernel in the text tower.
 
 flax's `nn.gelu` is the tanh approximation, so the head's 'gelu' is too.
 """
@@ -23,6 +26,7 @@ from multimodal_rare_disease_tpu_torch.models.fusion import (
     create_fusion_module,
 )
 from multimodal_rare_disease_tpu_torch.models.layers import (
+    Dropout,
     Linear,
     init_weights,
 )
@@ -38,9 +42,11 @@ _BERT_INIT_STD = 0.02
 
 class ClassificationHead(nn.Module):
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
-                 num_classes: int, device, activation: str = "relu"):
+                 num_classes: int, device, activation: str = "relu",
+                 dropout: float = 0.0):
         super().__init__()
         self.act = _ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout)
         self.num_hidden = len(hidden_dims)
         for i, h in enumerate(hidden_dims):
             self.add_module(f"hidden{i}", Linear(in_dim, h, device=device))
@@ -49,7 +55,7 @@ class ClassificationHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_hidden):
-            x = self.act(getattr(self, f"hidden{i}")(x))
+            x = self.dropout(self.act(getattr(self, f"hidden{i}")(x)))
         return self.logits(x).float()
 
 
@@ -190,7 +196,8 @@ class TextOnlyClassifier(nn.Module):
 def _head(cfg, in_dim: int, device) -> ClassificationHead:
     c = cfg.classifier
     return ClassificationHead(in_dim, tuple(c.hidden_dims), c.num_classes,
-                              device, activation=c.activation)
+                              device, activation=c.activation,
+                              dropout=c.dropout)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -208,13 +215,16 @@ def resolve_device(device="cuda") -> torch.device:
 def create_model(cfg, mode: str = "multimodal", device="cuda",
                  dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0,
-                 attend_over_tokens: bool = False) -> nn.Module:
+                 attend_over_tokens: bool = False,
+                 trainable: bool = False) -> nn.Module:
     """Build the model of `mode` ('multimodal', 'image_only' or
     'text_only') on `device` (the card unless the caller asks for the
     CPU) in `dtype`, in inference mode. `seed` fills the weights from
     torch.Generator().manual_seed(seed) (the same weights on every
     device); `seed=None` leaves them uninitialized, for a state dict to
-    be loaded on top."""
+    be loaded on top. `trainable=True` builds it for training instead:
+    parameters in `cfg.training.param_dtype` (f32 masters), train mode,
+    and `requires_grad` set by the freeze rules (`train/freeze.py`)."""
     device = resolve_device(device)
     if mode == "multimodal":
         model = MultimodalClassifier(cfg, device,
@@ -234,4 +244,12 @@ def create_model(cfg, mode: str = "multimodal", device="cuda",
                     init_weights(part.projection, gen)
             else:
                 init_weights(part, gen)
+    if trainable:
+        from multimodal_rare_disease_tpu_torch.train.freeze import (
+            apply_freeze,
+        )
+
+        model.to(dtype=getattr(torch, cfg.training.param_dtype)).train()
+        apply_freeze(cfg, model)
+        return model
     return model.to(dtype=dtype).eval().requires_grad_(False)

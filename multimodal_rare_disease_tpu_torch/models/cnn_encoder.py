@@ -1,5 +1,5 @@
-"""CNN image encoder: ResNet-50 backbone + proj1 → relu → proj2, the
-counterpart of `multimodal_rare_disease_tpu/models/cnn_encoder.py`
+"""CNN image encoder: ResNet-50 backbone + proj1 → relu → dropout →
+proj2, the counterpart of `multimodal_rare_disease_tpu/models/cnn_encoder.py`
 (resnet50 only; EfficientNet is not ported yet)."""
 
 from __future__ import annotations
@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multimodal_rare_disease_tpu_torch.models.layers import Linear
+from multimodal_rare_disease_tpu_torch.models.layers import Dropout, Linear
 from multimodal_rare_disease_tpu_torch.models.resnet import ResNet50Encoder
 
 
@@ -27,13 +27,14 @@ class CNNEncoder(nn.Module):
         self.proj1 = Linear(feat, cfg.embedding_dim, device=device)
         self.proj2 = Linear(cfg.embedding_dim, cfg.embedding_dim,
                             device=device)
+        self.drop = Dropout(cfg.dropout)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] normalized images → [B, embedding_dim]."""
         return self.project(self.backbone(images))
 
     def project(self, pooled: torch.Tensor) -> torch.Tensor:
-        return self.proj2(torch.relu(self.proj1(pooled)))
+        return self.proj2(self.drop(torch.relu(self.proj1(pooled))))
 
     def backbone_features(self, images: torch.Tensor):
         """Only the conv backbone: (pooled, {"stage1".."stage4": NHWC

@@ -11,7 +11,9 @@
 - GatedFusion: a sigmoid gate mixes the projected modalities.
 
 Each returns (fused, info): the attention fusion's two per-head weight
-maps [B, heads, 1, S], the gate, or nothing. flax's `nn.LayerNorm` uses
+maps [B, heads, 1, S] (before dropout), the gate, or nothing. In train
+mode dropout acts at the JAX sites: the attention weights, and after the
+relu of each MLP. flax's `nn.LayerNorm` uses
 eps 1e-6 (torch's default is 1e-5).
 """
 
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from multimodal_rare_disease_tpu_torch.models.layers import Linear
+from multimodal_rare_disease_tpu_torch.models.layers import Dropout, Linear
 
 _FLAX_LN_EPS = 1e-6
 
@@ -34,11 +36,12 @@ class CrossModalAttention(nn.Module):
     → (out [B, hidden], weights [B, heads, 1, S])."""
 
     def __init__(self, query_dim: int, kv_dim: int, hidden_dim: int,
-                 num_heads: int, device):
+                 num_heads: int, device, dropout: float = 0.0):
         super().__init__()
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide by num_heads")
         self.num_heads = num_heads
+        self.dropout = Dropout(dropout)  # on the attention weights
         self.head_dim = hidden_dim // num_heads
         self.query_proj = Linear(query_dim, hidden_dim, device=device)
         self.key_proj = Linear(kv_dim, hidden_dim, device=device)
@@ -60,14 +63,15 @@ class CrossModalAttention(nn.Module):
             scores = torch.where(kv_mask[:, None, :] > 0, scores,
                                  torch.full_like(scores, -1e9))
         weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        ctx = torch.einsum("bhs,bshd->bhd", weights, v)
+        ctx = torch.einsum("bhs,bshd->bhd", self.dropout(weights), v)
         return self.output_proj(ctx.reshape(b, h * d)), weights[:, :, None, :]
 
 
 class ConcatenationFusion(nn.Module):
     def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
-                 device):
+                 device, dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.fuse1 = Linear(image_dim + text_dim, hidden_dim, device=device)
         self.fuse2 = Linear(hidden_dim, hidden_dim, device=device)
 
@@ -75,15 +79,16 @@ class ConcatenationFusion(nn.Module):
                 text_embedding: torch.Tensor, **_ignored
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         combined = torch.cat([image_embedding, text_embedding], dim=-1)
-        return self.fuse2(torch.relu(self.fuse1(combined))), {}
+        return self.fuse2(self.dropout(torch.relu(self.fuse1(combined)))), {}
 
 
 class AttentionFusion(nn.Module):
     def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
                  num_heads: int, device, use_residual: bool = True,
-                 attend_over_tokens: bool = False):
+                 attend_over_tokens: bool = False, dropout: float = 0.0):
         super().__init__()
         self.use_residual = use_residual
+        self.dropout = Dropout(dropout)
         self.attend_over_tokens = attend_over_tokens
         self.image_proj = Linear(image_dim, hidden_dim, device=device)
         self.text_proj = Linear(text_dim, hidden_dim, device=device)
@@ -93,9 +98,9 @@ class AttentionFusion(nn.Module):
             self.text_token_proj = Linear(text_dim, hidden_dim,
                                           device=device)
         self.image_to_text_attention = CrossModalAttention(
-            hidden_dim, hidden_dim, hidden_dim, num_heads, device)
+            hidden_dim, hidden_dim, hidden_dim, num_heads, device, dropout)
         self.text_to_image_attention = CrossModalAttention(
-            hidden_dim, hidden_dim, hidden_dim, num_heads, device)
+            hidden_dim, hidden_dim, hidden_dim, num_heads, device, dropout)
         self.layer_norm_image = nn.LayerNorm(hidden_dim, eps=_FLAX_LN_EPS,
                                              device=device)
         self.layer_norm_text = nn.LayerNorm(hidden_dim, eps=_FLAX_LN_EPS,
@@ -122,15 +127,16 @@ class AttentionFusion(nn.Module):
             text_att = text_proj + text_att
         combined = torch.cat([self.layer_norm_image(image_att),
                               self.layer_norm_text(text_att)], dim=-1)
-        fused = self.fusion2(torch.relu(self.fusion1(combined)))
+        fused = self.fusion2(self.dropout(torch.relu(self.fusion1(combined))))
         return fused, {"image_to_text_attention": i2t_w,
                        "text_to_image_attention": t2i_w}
 
 
 class GatedFusion(nn.Module):
     def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
-                 device):
+                 device, dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.image_proj = Linear(image_dim, hidden_dim, device=device)
         self.text_proj = Linear(text_dim, hidden_dim, device=device)
         self.gate = Linear(2 * hidden_dim, hidden_dim, device=device)
@@ -144,7 +150,7 @@ class GatedFusion(nn.Module):
         gate = torch.sigmoid(self.gate(torch.cat([image_proj, text_proj],
                                                  dim=-1)))
         fused = gate * image_proj + (1.0 - gate) * text_proj
-        return torch.relu(self.output(fused)), {"gate": gate}
+        return self.dropout(torch.relu(self.output(fused))), {"gate": gate}
 
 
 def create_fusion_module(cfg, image_dim: int, text_dim: int, device,
@@ -152,12 +158,14 @@ def create_fusion_module(cfg, image_dim: int, text_dim: int, device,
     """cfg: a FusionConfig (`config.py`)."""
     if cfg.fusion_type == "concatenation":
         return ConcatenationFusion(image_dim, text_dim, cfg.hidden_dim,
-                                   device)
+                                   device, cfg.dropout)
     if cfg.fusion_type == "attention":
         return AttentionFusion(image_dim, text_dim, cfg.hidden_dim,
                                cfg.num_attention_heads, device,
                                use_residual=cfg.use_residual,
-                               attend_over_tokens=attend_over_tokens)
+                               attend_over_tokens=attend_over_tokens,
+                               dropout=cfg.dropout)
     if cfg.fusion_type == "gated":
-        return GatedFusion(image_dim, text_dim, cfg.hidden_dim, device)
+        return GatedFusion(image_dim, text_dim, cfg.hidden_dim, device,
+                           cfg.dropout)
     raise ValueError(f"Unknown fusion_type: {cfg.fusion_type!r}")

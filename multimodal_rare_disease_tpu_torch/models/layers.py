@@ -3,7 +3,12 @@
 The layers allocate their parameters without initializing them (their
 `reset_parameters` does nothing), so building a model never draws from
 the global RNG; `init_weights` then fills them from an explicit
-`torch.Generator`, or a state dict is loaded on top. Initializers follow
+`torch.Generator`, or a state dict is loaded on top. `Dropout` draws its
+masks from an explicit generator too (`set_dropout_generator`), and
+`BatchNorm` switches to batch statistics in train mode, both as flax's
+layers do under `train=True`. Both start in eval mode, so a module built
+from them computes the inference path until `.train()` is called on it
+(as the trainer and `create_model(trainable=True)` do). Initializers follow
 the JAX package's: flax's `lecun_normal` for Dense and Conv kernels,
 N(0, 0.02) for the BERT tower (HF's init), zero biases, unit
 LayerNorm/BatchNorm scales, BatchNorm statistics 0 / 1.
@@ -36,9 +41,21 @@ class Embedding(nn.Embedding):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over channel dim 1 (flax's
-    `use_running_average=True`), with the flax tree's four leaves:
-    weight (scale), bias, running_mean, running_var."""
+    """BatchNorm over channel dim 1 with the flax tree's four leaves:
+    weight (scale), bias, running_mean, running_var.
+
+    Eval mode is flax's `use_running_average=True`. Train mode is flax's
+    `use_running_average=False, momentum=0.9`, computed as flax computes
+    it: the batch mean and the biased variance E[x²] − E[x]² in f32
+    (flax's fast variance, clamped at 0; `F.batch_norm` takes a two-pass
+    variance, which differs where few values share a channel, and would
+    fold the unbiased one into `running_var`), the output
+    (x − mean)·rsqrt(var + eps)·weight + bias with gradients through the
+    statistics, returned in x's dtype, and the running averages
+    0.9·ra + 0.1·batch. They move in train mode whether or not the
+    weight and bias are frozen, as in the JAX trainer."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int, eps: float, device):
         super().__init__()
@@ -49,11 +66,62 @@ class BatchNorm(nn.Module):
                              torch.empty(channels, device=device))
         self.register_buffer("running_var",
                              torch.empty(channels, device=device))
+        self.train(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        dims = [d for d in range(x.ndim) if d != 1]
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) \
+            + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's `nn.Dropout`: in train mode each element is zeroed with
+    probability `rate` and the survivors are scaled by 1/(1 − rate); in
+    eval mode it is the identity. The mask is drawn (in f32, so that it
+    does not depend on the compute dtype) from `self.generator`, which
+    `set_dropout_generator` sets, never from the global RNG: train mode
+    with a nonzero rate and no generator raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+        self.train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in train mode needs a generator: call "
+                "set_dropout_generator(model, torch.Generator(...)) first")
+        keep = 1.0 - self.rate
+        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        mask.bernoulli_(keep, generator=self.generator)
+        return x * (mask / keep).to(x.dtype)
+
+
+def set_dropout_generator(module: nn.Module,
+                          gen: Optional[torch.Generator]) -> None:
+    """Give every Dropout under `module` the generator its masks come
+    from (a generator on the device the model runs on)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
 
 
 def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:

@@ -1,10 +1,11 @@
-"""ResNet-50 image backbone (inference): the counterpart of
+"""ResNet-50 image backbone: the counterpart of
 `multimodal_rare_disease_tpu/models/resnet.py`.
 
 Canonical 7×7/s2 stem (the JAX module's space-to-depth stem computes the
-same conv and is not ported), bottleneck blocks with projection
-shortcuts, inference BatchNorm (eps 1e-5), max-pool 3/2/1 and a global
-mean. The public input and the stage feature maps (Grad-CAM's target is
+same conv at inference and is not ported; its train mode uses the
+canonical conv too), bottleneck blocks with projection shortcuts,
+BatchNorm (eps 1e-5; running statistics in eval mode, batch statistics
+in train mode), max-pool 3/2/1 and a global mean. The public input and the stage feature maps (Grad-CAM's target is
 "stage4") are NHWC like the JAX module's; inside, the tensor is an NCHW
 view in channels_last memory, which cuDNN convolves natively.
 """

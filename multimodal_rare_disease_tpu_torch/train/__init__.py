@@ -1,2 +1,2 @@
-"""Host data pipeline of the torch package (the training loop itself is
-not ported yet)."""
+"""Training of the torch package: the host data pipeline, the LR
+schedules, the freeze rules, the optimizer state and the Trainer."""

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -98,7 +98,11 @@ class DataPipeline:
         image_dir: Optional[str] = None,
         tokenizer: Optional[BertWordPieceTokenizer] = None,
         samples: Optional[Sequence[ImageSample]] = None,
+        decoded: Optional[Mapping[str, np.ndarray]] = None,
     ):
+        """`decoded`: each sample's uint8 [STAGING_SIZE, STAGING_SIZE, 3]
+        image by its path, used in place of reading the files (an
+        in-memory corpus, e.g. `data/synthetic.py`'s arrays)."""
         self.cfg = cfg
         self.mode = mode
         self.rngs = rngs or RngStreams(cfg.seed)
@@ -125,6 +129,13 @@ class DataPipeline:
                 [s.label for s in self.train_samples], np.int32)
             self.val_labels = np.asarray(
                 [s.label for s in self.val_samples], np.int32)
+        elif decoded is not None:
+            def arrays(split):
+                return (np.stack([decoded[s.path] for s in split]),
+                        np.asarray([s.label for s in split], np.int32))
+
+            self.train_images, self.train_labels = arrays(self.train_samples)
+            self.val_images, self.val_labels = arrays(self.val_samples)
         else:
             configure_face_detection(cfg)
             self.train_images, self.train_labels = load_corpus_arrays(

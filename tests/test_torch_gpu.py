@@ -419,3 +419,75 @@ def test_text_attentions_turn_k3_off_and_keep_k1(cuda):
     assert len(attns) == 2 and attns[0].shape == (1, 12, 128, 128)
     rows = torch.stack(attns).float().sum(-1)
     assert (rows - 1).abs().max().item() <= 1e-3
+
+
+def test_full_width_train_step_launches_no_kernel(cuda):
+    """One train step of the full-width model (ResNet-50, BERT-base,
+    bf16 over f32 masters) on the card: no kernel launch and nothing sent
+    to a plain version, a finite loss, every trainable parameter moved;
+    then the model's validation pass launches K1 per layer."""
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    cfg = resolve_config("default")
+    tr = Trainer(cfg, "multimodal", device=cuda)
+    rng = np.random.default_rng(0)
+    b, t = cfg.training.batch_size, cfg.data.max_text_length
+    batch = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (b, 256, 256, 3), dtype=np.uint8)).to(cuda),
+             "labels": torch.arange(b, device=cuda) % 10,
+             "input_ids": torch.from_numpy(rng.integers(
+                 1, 900, (b, t))).to(cuda),
+             "attention_mask": torch.ones(b, t, dtype=torch.long,
+                                          device=cuda)}
+    before_w = {n: p.detach().clone()
+                for n, p in tr.model.named_parameters()}
+    before = _counts()
+    m = tr.train_step(batch, 1e-4)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0,) * 7
+    assert m["skipped"] == 0 and torch.isfinite(m["loss"])
+    # every parameter moves but five biases that start at 0 and whose
+    # gradient is exactly 0, so that neither the update nor the decay
+    # moves them: the pooled cross-attentions' query and key biases (over
+    # one key the softmax is 1 whatever the scores) and the pooler's (its
+    # output is not used with use_pooler_output off)
+    still = {n for n, p in tr.model.named_parameters()
+             if torch.equal(p, before_w[n])}
+    assert still == {f"fusion.{a}_attention.{k}_proj.bias"
+                     for a in ("image_to_text", "text_to_image")
+                     for k in ("query", "key")} | {
+        "text_encoder.bert.pooler.bias"}
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+               for p in tr.model.parameters())
+    tr.sync_eval_model()
+    before = _counts()
+    tr.eval_step({**batch, "valid": torch.ones(b, device=cuda)})
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (
+        cfg.text_encoder.num_layers, 0, 0, 0, 0, 0, 0)
+
+
+def test_batch_norm_running_variance_is_the_biased_one_on_the_card(cuda):
+    from multimodal_rare_disease_tpu_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(64, 1e-5, cuda)
+    for t, v in ((bn.weight, 1.0), (bn.bias, 0.0), (bn.running_mean, 0.0),
+                 (bn.running_var, 1.0)):
+        torch.nn.init.constant_(t, v)
+    bn.train()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    # 2 x 3 x 3 = 18 values per channel: unbiased = 18/17 x biased
+    x = (torch.randn(2, 64, 3, 3, generator=g, device=cuda) * 2.0 + 0.5) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    y = bn(x)
+    assert y.dtype == torch.bfloat16
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    biased = (xf * xf).mean((0, 2, 3)) - mean * mean
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, atol=1e-6,
+                               rtol=1e-5)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * biased,
+                               atol=1e-5, rtol=1e-5)
+    unbiased = xf.var((0, 2, 3), unbiased=True)
+    assert (0.9 + 0.1 * unbiased - bn.running_var).abs().min() > 1e-3

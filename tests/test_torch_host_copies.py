@@ -1,8 +1,9 @@
 """The torch package's own copies of the JAX package's host modules
 (config, tokenizer with its C++ core, clinical text, the image corpus
-code, the host RNG streams, the statistics) against the originals, and
-a scan of the port's imports: no module of the port, and not
-chip_smoke.py, imports jax, the JAX package or sklearn."""
+code, the host RNG streams, the statistics, the LR schedules and early
+stopping, the freeze rules, the synthetic corpus) against the
+originals, and a scan of the port's imports: no module of the port, and
+not chip_smoke.py, imports jax, the JAX package or sklearn."""
 
 import ast
 from pathlib import Path
@@ -13,14 +14,20 @@ import pytest
 from multimodal_rare_disease_tpu import config as jcfg
 from multimodal_rare_disease_tpu.data import clinical_text as jtext
 from multimodal_rare_disease_tpu.data import images as jimages
+from multimodal_rare_disease_tpu.data import synthetic as jsynth
 from multimodal_rare_disease_tpu.data import tokenizer as jtok
 from multimodal_rare_disease_tpu.evaluation import stats as jstats
+from multimodal_rare_disease_tpu.train import freeze as jfreeze
+from multimodal_rare_disease_tpu.train import schedules as jsched
 from multimodal_rare_disease_tpu.utils import rng as jrng
 from multimodal_rare_disease_tpu_torch import config as tcfg
 from multimodal_rare_disease_tpu_torch.data import clinical_text as ttext
 from multimodal_rare_disease_tpu_torch.data import images as timages
+from multimodal_rare_disease_tpu_torch.data import synthetic as tsynth
 from multimodal_rare_disease_tpu_torch.data import tokenizer as ttok
 from multimodal_rare_disease_tpu_torch.evaluation import stats as tstats
+from multimodal_rare_disease_tpu_torch.train import freeze as tfreeze
+from multimodal_rare_disease_tpu_torch.train import schedules as tsched
 from multimodal_rare_disease_tpu_torch.utils import rng as trng
 
 REPO = Path(__file__).resolve().parent.parent
@@ -129,8 +136,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
     assert {"evaluation/evaluator.py", "evaluation/stats.py",
             "explain/gradcam.py", "explain/attention.py",
             "train/pipeline.py", "utils/rng.py", "cli/evaluate.py",
-            "cli/explain.py"} <= {str(f.relative_to(PORT))
-                                  for f in PORT.rglob("*.py")}
+            "cli/explain.py", "train/trainer.py", "train/state.py",
+            "train/freeze.py", "train/schedules.py", "ops/rotate.py",
+            "data/synthetic.py", "cli/train.py"} <= {
+        str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     bad = {f"{f.relative_to(REPO)}: {m}" for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -262,3 +271,102 @@ def test_stats_equal_jax(tmp_path):
     assert tstats.run_statistical_validation(tmp_path, 50) == \
         jstats.run_statistical_validation(tmp_path, 50)
     assert tstats.load_predictions_npz(tmp_path / "none") == ({}, None)
+
+
+@pytest.mark.parametrize("scheduler", ["constant", "cosine", "warm_restarts",
+                                       "step", "plateau"])
+def test_schedules_and_early_stopping_equal_jax(scheduler):
+    over = {"training.scheduler": scheduler, "training.warmup_epochs": 2,
+            "training.num_epochs": 12, "training.lr_decay_epochs": (3, 7),
+            "training.restart_period_epochs": 2,
+            "training.plateau_patience": 1}
+    spe = 5
+    a = tsched.make_schedule(tcfg.resolve_config("default", over).training,
+                             spe)
+    b = jsched.make_schedule(jcfg.resolve_config("default", over).training,
+                             spe)
+    val = [1.0, 0.9, 0.95, 0.97, 0.99, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 1.1]
+    for epoch, v in enumerate(val):
+        for s in range(epoch * spe, (epoch + 1) * spe):
+            assert a(s) == b(s), (scheduler, s)
+        a.on_validation(v)
+        b.on_validation(v)
+    for mode in ("min", "max"):
+        ea = tsched.EarlyStopping(patience=2, min_delta=0.05, mode=mode)
+        eb = jsched.EarlyStopping(patience=2, min_delta=0.05, mode=mode)
+        for v in val:
+            assert ea.update(v) == eb.update(v)
+            assert (ea.should_stop, ea.best, ea.counter) == \
+                (eb.should_stop, eb.best, eb.counter)
+
+
+# the freeze rules' reach at small widths: 8 BERT layers, so that
+# freeze_layers 6 leaves some trained
+_FREEZE_WIDTHS = {"text_encoder.num_layers": 8, "text_encoder.num_heads": 2,
+                  "text_encoder.hidden_size": 32,
+                  "text_encoder.intermediate_size": 64,
+                  "text_encoder.vocab_size": 64,
+                  "cnn_encoder.stage_sizes": (1, 1, 1, 1),
+                  "cnn_encoder.embedding_dim": 16, "fusion.hidden_dim": 16,
+                  "fusion.num_attention_heads": 2,
+                  "classifier.hidden_dims": (16,), "data.image_size": 32}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "bias": "bias"}
+
+
+@pytest.mark.parametrize("preset", sorted(jcfg.PRESETS))
+def test_freeze_rules_and_multipliers_equal_jax_for_every_preset(preset):
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_rare_disease_tpu.models import create_model as jmodel
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    over = dict(_FREEZE_WIDTHS)
+    jc = jcfg.resolve_config(preset, over)
+    tc = tcfg.resolve_config(preset, over)
+    args = (jnp.zeros((1, 32, 32, 3)), jnp.ones((1, 8), jnp.int32),
+            jnp.ones((1, 8), jnp.int32))
+    params = jax.eval_shape(lambda: jmodel(jc).init(
+        jax.random.key(0), *args, train=False))["params"]
+    mask = jax.tree_util.tree_leaves_with_path(
+        jfreeze.trainable_mask(jc, params))
+    mults = dict(jax.tree_util.tree_leaves_with_path(
+        jfreeze.lr_multipliers(jc, params)))
+    want = {}
+    for path, trainable in mask:
+        names = [p.key for p in path]
+        name = ".".join(names[:-1] + [_LEAF[names[-1]]])
+        want[name] = (trainable, float(mults[path]))
+    assert any(not t for t, _ in want.values()) == bool(
+        jc.cnn_encoder.freeze_stages or jc.text_encoder.freeze_layers)
+    # the JAX tree holds each multiplier as an f32 scalar
+    got = {n: (tfreeze.is_trainable(tc, n),
+               float(np.float32(tfreeze.lr_multiplier(tc, n))))
+           for n in want}
+    assert got == want
+    if tc.cnn_encoder.backbone != "resnet50":
+        return  # EfficientNet is not ported: the rules on the JAX names
+    model = create_model(tc, device="meta", seed=None, trainable=True)
+    assert {n: p.requires_grad for n, p in model.named_parameters()} == \
+        {n: t for n, (t, _) in want.items()}
+    assert tfreeze.count_params(model) == (
+        sum(p.numel() for p in model.parameters()),
+        sum(p.numel() for p in model.parameters() if p.requires_grad))
+
+
+def test_synthetic_generator_equals_jax(tmp_path):
+    a = tsynth.SyntheticImageGenerator(image_size=48, seed=3)
+    b = jsynth.SyntheticImageGenerator(image_size=48, seed=3)
+    for c in range(10):
+        for i in range(2):
+            np.testing.assert_array_equal(a.generate(c, i), b.generate(c, i))
+    got = tsynth.generate_synthetic_for_training(tmp_path / "t", 2, 32)
+    want = jsynth.generate_synthetic_for_training(tmp_path / "j", 2, 32)
+    assert {k: [Path(p).name for p in v] for k, v in got.items()} == \
+        {k: [Path(p).name for p in v] for k, v in want.items()}
+    for k in got:
+        for p, q in zip(got[k], want[k]):
+            assert Path(p).read_bytes() == Path(q).read_bytes()
