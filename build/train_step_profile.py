@@ -63,12 +63,16 @@ dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def annotation(e):
-    return getattr(e, "is_user_annotation", False) or "#" in e.name
+    # kernel names hold '#' too ("{lambda(int)#1}"): match the ranges
+    return (getattr(e, "is_user_annotation", False)
+            or e.name.startswith("Optimizer."))
 
 
 kern = [e for e in dev if not annotation(e)]
 busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / N
 annot = sum(e.time_range.elapsed_us() for e in dev if annotation(e)) / 1e3 / N
+print("annotation ranges left out:",
+      sorted({e.name for e in dev if annotation(e)}), flush=True)
 step = float(np.median(lat))
 print(f"profiled: {len(kern) / N:.0f} device events per step, device busy "
       f"{busy:.2f} ms/step (annotation ranges left out: {annot:.2f} "
