@@ -569,7 +569,7 @@ TRAIN_EPOCHS = 40
 # AdamW at 3e-4 for the image tower, fusion and head, 3e-5 for the text
 # tower (multiplier 0.1): from random weights the post-LN text tower does
 # not learn this corpus (nor does the JAX trainer's), so the image tower
-# carries the fall of the loss; at 1e-3 it fell 3x less (PERF.md, PR 6)
+# carries the fall of the loss; at 1e-3 it fell 3x less (PERF.md §6)
 TRAIN_LR = 3e-4
 TRAIN_LR_MULT_TEXT = 0.1
 TRAIN_STEP_RUNS = 10
