@@ -75,7 +75,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    trained checkpoint scored by `load_predictor` and the Evaluator, with
    the kernels-off and the f32 probabilities held to phase 4's limits;
    and ms per train step, ms per validation batch and the peak device
-   memory of a step.
+   memory of a step;
+11. the efficientnet_clinicalbert preset (EfficientNet-B0 at 224 px,
+   BERT-base at max_length 256) from seeded weights in bf16:
+   `predict_batch` on phase 4's 256 pairs with K1 in every BERT layer,
+   held against every kernel forced off and against the f32 model at
+   phase 4's limits, and its p50; its Trainer on phase 10's corpus for
+   PRESET_EPOCHS epochs with random erasing and Gaussian blur on (train
+   steps launch nothing, a validation batch K1 11 times at 16 x 256 rows
+   and once at the 16 CLS rows; the frozen stem, stages 1-3 and BERT
+   layers 0-5 bit-equal, every other parameter moved; the blur and
+   erasing selections fired on their probabilities' share of the
+   images; an f32 SGD step on the card against the CPU), ms per train
+   step, per validation batch and the peak memory of a step; every
+   augmentation extra (blur, noise, erasing, coarse dropout,
+   perspective, tiled and global CLAHE, elastic, the gather geometry)
+   applied at one set of draws to the 256 images on the card and on the
+   CPU in f32, with its time; the preset under pre-LN, which launches no
+   kernel, held against its f32 model; and `cli/train.py --mode
+   text_only --data fgdd` on a seeded FGDD table for FGDD_EPOCHS epochs
+   at full width, K1 12 per validation batch.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -99,6 +118,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from functools import partial
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -249,6 +269,22 @@ def normalize_bound(n: int, out_bytes: int):
     return bound_ms(n * (1 + out_bytes), 2.0 * n, PEAK_F32_FLOPS)
 
 
+def count_launches(fn, want, what, totals):
+    """fn() with the counts set to 0 just before and read just after;
+    fails unless they are `want`, and adds them to `totals`."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if got != want:
+        fail(f"{what}: launches {got}, want {want}")
+    for k, v in got.items():
+        totals[k] += v
+    return out
+
+
 # phase 9: the evaluation set (16 per class), the Grad-CAM images (one
 # per class), the images held against the CPU in f32, timed repeats
 EVAL_PER_CLASS = 16
@@ -313,18 +349,7 @@ def evaluation_and_explain(dev, card: str, fused_over: dict):
     n_layers = cfg.text_encoder.num_layers
     totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
 
-    def counted(fn, want, what):
-        """fn() with the counts set to 0 just before and read just
-        after; fails unless they are `want`."""
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = launch_counts()
-        if got != want:
-            fail(f"{what}: launches {got}, want {want}")
-        for k, v in got.items():
-            totals[k] += v
-        return out
+    counted = partial(count_launches, totals=totals)
 
     def per_batch(k1=0, k2=0, k3=0, k4=0, batches=1):
         return {"K1": k1 * batches, "K2": k2 * batches, "K3": k3 * batches,
@@ -591,59 +616,20 @@ CARD_CPU_STATS_ATOL = 1e-4
 CARD_CPU_LR = 1e-2
 
 
-def training(dev, card: str, fused_over: dict):
-    """Phase 10: the Trainer at full width on the card; returns the
-    launches of its counted runs."""
-    import copy
-    import tempfile
-
-    import numpy as np
-    import torch
-
+def synthetic_corpus():
+    """The training corpus: TRAIN_PER_CLASS seeded procedural images per
+    class at the staging size, decoded in memory (the card's machine has
+    no PIL): (samples, {path: uint8 image})."""
     from multimodal_rare_disease_tpu_torch.config import (
         PREFIX_TO_SYNDROME,
         SYNDROME_NAMES,
-        resolve_config,
     )
     from multimodal_rare_disease_tpu_torch.data.images import ImageSample
     from multimodal_rare_disease_tpu_torch.data.synthetic import (
         SyntheticImageGenerator,
     )
-    from multimodal_rare_disease_tpu_torch.evaluation import (
-        Evaluator,
-        compute_metrics,
-    )
-    from multimodal_rare_disease_tpu_torch.inference.predictor import (
-        load_predictor,
-    )
-    from multimodal_rare_disease_tpu_torch.ops.preprocess import (
-        eval_preprocess,
-    )
-    from multimodal_rare_disease_tpu_torch.train.pipeline import (
-        STAGING_SIZE,
-        DataPipeline,
-    )
-    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
-    from multimodal_rare_disease_tpu_torch.utils.checkpoint import role_path
+    from multimodal_rare_disease_tpu_torch.train.pipeline import STAGING_SIZE
 
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
-
-    def counted(fn, want, what):
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = launch_counts()
-        if got != want:
-            fail(f"{what}: launches {got}, want {want}")
-        for k, v in got.items():
-            totals[k] += v
-        return out
-
-    def counts(k1=0, k2=0, k3=0):
-        return {"K1": k1, "K2": k2, "K3": k3, "K4": 0, "plain_on_cuda": 0}
-
-    # the corpus: seeded procedural images at the staging size, 4 per
-    # class, decoded in memory (the card's machine has no PIL)
     synth = SyntheticImageGenerator(image_size=STAGING_SIZE, seed=42)
     prefix = {name: code for code, name in PREFIX_TO_SYNDROME.items()}
     samples, decoded = [], {}
@@ -652,6 +638,91 @@ def training(dev, card: str, fused_over: dict):
             path = f"synthetic/SYN_{prefix[name]}_{i + 1:03d}.png"
             samples.append(ImageSample(path, c, name))
             decoded[path] = synth.generate(c, i)
+    return samples, decoded
+
+
+def card_cpu_step(cfg_sgd, trained, host, dev, workdir, counted):
+    """One f32 step of `cfg_sgd` (SGD at CARD_CPU_LR, no dropout) from
+    the `trained` state on the host batch `host`, through the eval
+    preprocess, on the card and on the CPU with TF32 off. Fails past the
+    CARD_CPU tolerances; returns (loss |diff|, the two losses, parameters
+    max|diff|, BatchNorm statistics max|diff|, the most the CPU step
+    moved a parameter)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.ops.preprocess import (
+        eval_preprocess,
+    )
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    step_out = []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for where in (dev, torch.device("cpu")):
+            t = Trainer(cfg_sgd, "multimodal", device=where,
+                        workdir=str(workdir / "probe"))
+            t.model.load_state_dict(trained)
+            b = {k: torch.from_numpy(np.asarray(v)).to(where)
+                 for k, v in host.items() if k != "valid"}
+            b = {k: (v.long() if k != "images" else v) for k, v in b.items()}
+            images = eval_preprocess(b["images"], cfg_sgd, torch.float32,
+                                     use_kernel=False)
+            m = counted(lambda: t.apply_step(images, b, CARD_CPU_LR),
+                        {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                         "plain_on_cuda": 0}, f"f32 step on {where.type}")
+            step_out.append((float(m["loss"]), {
+                k: v.detach().cpu() for k, v in t.model.state_dict().items()}))
+            del t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (l_card, sd_card), (l_cpu, sd_cpu) = step_out
+    d_loss = abs(l_card - l_cpu)
+    d_param = max(float((sd_card[k] - sd_cpu[k]).abs().max())
+                  for k in sd_cpu if ".running_" not in k)
+    d_stats = max(float((sd_card[k] - sd_cpu[k]).abs().max())
+                  for k in sd_cpu if ".running_" in k)
+    moved = max(float((sd_cpu[k] - trained[k].cpu()).abs().max())
+                for k in sd_cpu if ".running_" not in k)
+    if d_loss > CARD_CPU_LOSS_ATOL or d_param > CARD_CPU_PARAM_ATOL \
+            or d_stats > CARD_CPU_STATS_ATOL:
+        fail(f"f32 step card vs CPU: loss {d_loss}, params {d_param}, "
+             f"BatchNorm statistics {d_stats}")
+    return d_loss, (l_card, l_cpu), d_param, d_stats, moved
+
+
+def training(dev, card: str, fused_over: dict):
+    """Phase 10: the Trainer at full width on the card; returns the
+    launches of its counted runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.evaluation import (
+        Evaluator,
+        compute_metrics,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import role_path
+
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+
+    counted = partial(count_launches, totals=totals)
+
+    def counts(k1=0, k2=0, k3=0):
+        return {"K1": k1, "K2": k2, "K3": k3, "K4": 0, "plain_on_cuda": 0}
+
+    samples, decoded = synthetic_corpus()
     over = {"training.num_epochs": TRAIN_EPOCHS,
             "training.warmup_epochs": 0,
             "training.learning_rate": TRAIN_LR,
@@ -803,41 +874,8 @@ def training(dev, card: str, fused_over: dict):
         "text_encoder.dropout": 0.0, "fusion.dropout": 0.0,
         "classifier.dropout": 0.0, "cnn_encoder.dropout": 0.0})
     host = train_set[0]
-    step_out = []
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        for where in (dev, torch.device("cpu")):
-            t = Trainer(cfg_sgd, "multimodal", device=where,
-                        workdir=str(workdir / "probe"))
-            t.model.load_state_dict(trained)
-            b = {k: torch.from_numpy(np.asarray(v)).to(where)
-                 for k, v in host.items() if k != "valid"}
-            b = {k: (v.long() if k != "images" else v) for k, v in b.items()}
-            images = eval_preprocess(b["images"], cfg_sgd, torch.float32,
-                                     use_kernel=False)
-            m = counted(lambda: t.apply_step(images, b, CARD_CPU_LR),
-                        counts(), f"f32 step on {where.type}")
-            step_out.append((float(m["loss"]), {
-                k: v.detach().cpu() for k, v in t.model.state_dict().items()}))
-            del t
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
-    (l_card, sd_card), (l_cpu, sd_cpu) = step_out
-    d_step_loss = abs(l_card - l_cpu)
-    d_param = max(float((sd_card[k] - sd_cpu[k]).abs().max())
-                  for k in sd_cpu if ".running_" not in k)
-    d_stats = max(float((sd_card[k] - sd_cpu[k]).abs().max())
-                  for k in sd_cpu if ".running_" in k)
-    moved = max(float((sd_cpu[k] - trained[k].cpu()).abs().max())
-                for k in sd_cpu if ".running_" not in k)
-    if d_step_loss > CARD_CPU_LOSS_ATOL or d_param > CARD_CPU_PARAM_ATOL \
-            or d_stats > CARD_CPU_STATS_ATOL:
-        fail(f"f32 step card vs CPU: loss {d_step_loss}, params {d_param}, "
-             f"BatchNorm statistics {d_stats}")
+    d_step_loss, (l_card, l_cpu), d_param, d_stats, moved = card_cpu_step(
+        cfg_sgd, trained, host, dev, workdir, counted)
     print(f"[10 steps] NaN parameter on a copy: skipped 1, parameters, "
           f"moments and BatchNorm statistics bit-equal | one step bf16 vs "
           f"f32 loss {losses['bf16']:.5f} vs {losses['f32']:.5f}, |diff| "
@@ -933,6 +971,463 @@ def training(dev, card: str, fused_over: dict):
           f"batch of {b_eval}: " + ", ".join(f"{k} {v:.2f}"
                                              for k, v in vms.items())
           + f" | median of {PHASE9_RUNS}, host clock, synchronized")
+    tmp.cleanup()
+    return totals
+
+
+# phase 11: the efficientnet_clinicalbert preset (EfficientNet-B0 at
+# 224 px, BERT-base at max_length 256, attention fusion, head), its
+# training with random erasing and Gaussian blur on, every augmentation
+# extra on the card against the CPU, pre-LN BERT, and the FGDD text
+# pipeline through cli/train.py
+PRESET = "efficientnet_clinicalbert"
+# the preset's train run on phase 10's corpus (4 synthetic images per
+# class) at its own batch 8 and augmentation factor 10, for this many
+# epochs. Its lr 2e-5 with the stem, stages 1-3 and BERT layers 0-5
+# frozen does not train random weights (the JAX config.py:558-562), so
+# the loss is not checked, only that it is finite
+PRESET_EPOCHS = 2
+# the share of the train images whose blur (erasing) selection fired
+# lies within this many binomial standard deviations of its probability
+FIRED_SIGMAS = 4.0
+# the parameters that the preset's steps leave unmoved though trainable:
+# zero at the start and zero gradient, so neither the update nor the
+# decay moves them (tests/test_torch_gpu.py's full-width step): the
+# pooled cross-attentions' query and key biases (one key: the softmax
+# is 1) and the pooler's (unused without use_pooler_output)
+STILL_TRAINABLE = {f"fusion.{a}_attention.{k}_proj.bias"
+                   for a in ("image_to_text", "text_to_image")
+                   for k in ("query", "key")} | {
+    "text_encoder.bert.pooler.bias"}
+# each extra, applied at the same draws to the same f32 batch on the card
+# and on CPU tensors. Elementwise ops, the blur's sum of shifted copies
+# and the masks: the same IEEE operations in the same order, held at
+# 1e-6. CLAHE: the bins come from the same elementwise luminance on both
+# (their flips are counted and must be 0), the CDF's cumulative sum and
+# the tile blend sum in another order: 1e-5 on [0, 1]. The perspective:
+# the 8 x 8 solve by another LU moves the homography by round-off
+# (~1e-6 relative) and the sampled coordinates by ~2e-4 px at 224 px;
+# a bilinear sample of [0, 1] pixels moves by that times the largest
+# neighbour step (1): 1e-3, mean 1e-5 (as the CPU tests hold it against
+# JAX); its coordinates stay inside the image. The elastic warp and the
+# gather geometry sample at the same coordinates on both: 1e-5. The
+# gather's affine maps are computed on each side and held apart
+# (AFFINE_ATOL), and the CPU's maps are the ones both sides sample with:
+# outside the image the JAX sampling is discontinuous at whole pixels
+# (the clamped y0 = 0 and y1 = y0 + 1 = 1 mix rows 0 and 1 by the
+# fraction), so an ulp of sin or cos can move a sample by a whole pixel
+# step (a first run read 0.45 at one of 38.5M values, mean 2.1e-6)
+EXTRA_ATOL = {"blur": 1e-6, "noise": 1e-6, "erasing": 1e-6,
+              "coarse dropout": 1e-6, "perspective": 1e-3,
+              "CLAHE tiled": 1e-5, "CLAHE global": 1e-5, "elastic": 1e-5,
+              "gather geometry": 1e-5}
+# the gather's [B, 2, 3] maps, card against CPU: rotation and scale O(1),
+# translations up to ~300 px, where an f32 ulp is 3e-5
+AFFINE_ATOL = 1e-4
+EXTRA_MEAN_ATOL = 1e-5
+EXTRA_RUNS = 5
+# the FGDD corpus the phase writes: patients, diseases (two more than
+# the top-10 cut), HP:* columns, and the share of phenotypes present
+FGDD_PATIENTS = 300
+FGDD_DISEASES = 12
+FGDD_HP = 64
+FGDD_PRESENT = 0.15
+FGDD_EPOCHS = 2
+
+
+def write_fgdd(root: Path, seed: int = 0) -> None:
+    """A seeded FGDD corpus: root/FGDD/FGDD.csv (patient_id,
+    Disease_name and FGDD_HP one-hot HP:* columns, the diseases drawn
+    with skewed frequencies) and root/FGDD/Raw data/phenotype.csv."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hp = [f"HP:{1000 + 7 * j:07d}" for j in range(FGDD_HP)]
+    diseases = [f"Synthetic disorder {i}" for i in range(FGDD_DISEASES)]
+    w = np.linspace(2.0, 0.5, FGDD_DISEASES)
+    lines = [",".join(["patient_id", "Disease_name"] + hp)]
+    for i in range(FGDD_PATIENTS):
+        d = int(rng.choice(FGDD_DISEASES, p=w / w.sum()))
+        onehot = (rng.uniform(size=FGDD_HP) < FGDD_PRESENT).astype(int)
+        lines.append(",".join([str(i + 1), diseases[d]]
+                              + [str(v) for v in onehot]))
+    (root / "FGDD" / "Raw data").mkdir(parents=True)
+    (root / "FGDD" / "FGDD.csv").write_text("\n".join(lines) + "\n")
+    (root / "FGDD" / "Raw data" / "phenotype.csv").write_text(
+        "\n".join(["phenotype_id,phenotype_name"]
+                  + [f"{h},phenotype term {j}" for j, h in enumerate(hp)])
+        + "\n")
+
+
+def preset_and_extras(dev, card: str, images, texts, agreement, p50_ms):
+    """Phase 11; returns the launches of its counted runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.cli import train as train_cli
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.models import bert
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.models.efficientnet import (
+        EfficientNetB0Encoder,
+    )
+    from multimodal_rare_disease_tpu_torch.ops import preprocess as pre
+    from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
+    from multimodal_rare_disease_tpu_torch.train.text_pipeline import (
+        fgdd_text_pipeline,
+    )
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+
+    counted = partial(count_launches, totals=totals)
+
+    def counts(k1=0):
+        return {"K1": k1, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+
+    def check_probs(what, probs, n_classes):
+        if probs.shape != (BATCH, n_classes) or not np.isfinite(probs).all() \
+                or np.abs(probs.sum(1) - 1.0).max() > 1e-3:
+            fail(f"{what}: bad probabilities, shape {probs.shape}")
+
+    # ---- serving: predict_batch on phase 4's 256 seeded pairs, K1 in
+    # every BERT layer
+    cfg = resolve_config(PRESET)
+    n_layers = cfg.text_encoder.num_layers
+    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                               dev)
+    if not isinstance(pred.model.cnn_encoder.backbone,
+                      EfficientNetB0Encoder):
+        fail("the preset did not build EfficientNet-B0")
+    res = counted(lambda: pred.predict_batch(images, texts),
+                  counts(n_layers), f"{PRESET} predict_batch")
+    probs = probs_of(res, pred.class_names)
+    check_probs(PRESET, probs, cfg.num_classes)
+    line = agreement(PRESET, pred, probs, {}, preset=PRESET)
+    p50, lat = p50_ms(pred)
+    print(f"[11 preset] {PRESET}: EfficientNet-B0 224 px, BERT-base "
+          f"{n_layers}x{cfg.text_encoder.hidden_size} at max_length "
+          f"{cfg.data.max_text_length}, {cfg.fusion.fusion_type} fusion, "
+          f"bf16, seeded weights | B={BATCH} launches K1 {n_layers}, "
+          f"plain-on-CUDA 0 | {line} | {card} | p50 {p50:.2f} ms "
+          f"({', '.join(f'{x:.1f}' for x in lat)})")
+    del pred
+    torch.cuda.empty_cache()
+
+    # ---- training: the preset's Trainer on phase 10's synthetic corpus,
+    # resident; erasing and blur on, frozen stem / stages 1-3 / BERT
+    # layers 0-5
+    samples, decoded = synthetic_corpus()
+    over = {"training.num_epochs": PRESET_EPOCHS,
+            "training.warmup_epochs": 0, "training.early_stopping": False,
+            "training.checkpoint_every_epochs": PRESET_EPOCHS}
+    tcfg = resolve_config(PRESET, over)
+    d = tcfg.data
+    pipe = DataPipeline(tcfg, "multimodal", samples=samples, decoded=decoded)
+    b_eval = tcfg.evaluation.eval_batch_size
+    val_batches = -(-len(pipe.val_samples) // b_eval)
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=HERE / "build")
+    workdir = Path(tmp.name)
+    trainer = Trainer(tcfg, "multimodal", pipeline=pipe,
+                      workdir=str(workdir / "run"), device=dev)
+    trainer.init_state()
+    if not trainer.resident:
+        fail("the preset's corpus did not take the resident mode")
+    start = {n: p.detach().clone()
+             for n, p in trainer.model.named_parameters()}
+    frozen = {n for n, p in trainer.model.named_parameters()
+              if not p.requires_grad}
+    want_frozen = {n for n in start
+                   if n.startswith(("cnn_encoder.backbone.stem_",
+                                    "cnn_encoder.backbone.stage1_",
+                                    "cnn_encoder.backbone.stage2_",
+                                    "cnn_encoder.backbone.stage3_"))
+                   or any(f"text_encoder.bert.layer{i}." in n
+                          for i in range(6))}
+    if frozen != want_frozen:
+        fail(f"the preset froze {len(frozen)} parameters, want "
+             f"{len(want_frozen)}")
+    fired = {"images": 0, "blur": 0, "erase": 0}
+    draw = pre.draw_train_params
+
+    def counting_draw(batch, c, gen, device=None):
+        p = draw(batch, c, gen, device)
+        fired["images"] += batch
+        fired["blur"] += int(p["blur"].sum())
+        fired["erase"] += int(p["erase"].sum())
+        return p
+
+    pre.draw_train_params = counting_draw
+    try:
+        t0 = time.perf_counter()
+        result = counted(trainer.train,
+                         counts(n_layers * val_batches * PRESET_EPOCHS),
+                         f"{PRESET} train()")
+        train_s = time.perf_counter() - t0
+    finally:
+        pre.draw_train_params = draw
+    hist = result["history"]
+    if not all(np.isfinite(v).all() for v in hist.values()) \
+            or result["skipped_steps"] != 0:
+        fail(f"{PRESET} train(): history {hist}, skipped "
+             f"{result['skipped_steps']}")
+    after = dict(trainer.model.named_parameters())
+    changed = {n for n in start if not torch.equal(
+        start[n].view(torch.int32), after[n].detach().view(torch.int32))}
+    if changed & frozen:
+        fail(f"frozen parameters moved: {sorted(changed & frozen)[:5]}")
+    still = set(start) - frozen - changed
+    if still != STILL_TRAINABLE:
+        fail(f"trainable parameters left unmoved: {sorted(still)[:8]}")
+    shares = {}
+    for k, prob in (("blur", d.gaussian_blur_prob),
+                    ("erase", d.random_erasing_prob)):
+        n = fired["images"]
+        shares[k] = fired[k] / n
+        sigma = (prob * (1 - prob) / n) ** 0.5
+        if abs(shares[k] - prob) > FIRED_SIGMAS * sigma:
+            fail(f"{k} fired on {fired[k]} of {n} images, probability "
+                 f"{prob}")
+    # one validation pass: K1 at 16 x 256 = 4,096 rows in layers 0-10,
+    # at the 16 CLS rows in the CLS-only last one
+    rows = []
+    k1_wrapper = bert.fused_ffn_ln
+
+    def rows_of(x, *a, **kw):
+        rows.append(x.shape[0])
+        return k1_wrapper(x, *a, **kw)
+
+    bert.fused_ffn_ln = rows_of
+    try:
+        counted(trainer._validate, counts(n_layers * val_batches),
+                f"{PRESET} validation")
+    finally:
+        bert.fused_ffn_ln = k1_wrapper
+    t_max = d.max_text_length
+    want_rows = ([b_eval * t_max] * (n_layers - 1) + [b_eval]) * val_batches
+    if rows != want_rows:
+        fail(f"validation K1 rows {rows}, want {want_rows}")
+    # a train step launches nothing; its time and peak memory
+    idx = next(pipe.train_index_batches())
+    step_ms = []
+    for _ in range(TRAIN_STEP_RUNS):
+        b = trainer._resident_batch(idx, "train")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counted(lambda: trainer.train_step(b, 1e-5), counts(),
+                f"{PRESET} train step")
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    trainer.train_step(trainer._resident_batch(idx, "train"), 1e-5)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    val_lat = []
+    for _ in range(PHASE9_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer._validate()
+        torch.cuda.synchronize()
+        val_lat.append((time.perf_counter() - t1) * 1e3 / val_batches)
+    trained = {k: v.detach().clone()
+               for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one f32 SGD step from the trained weights, card against CPU (TF32
+    # off), as phase 10 holds its step: no dropout, the eval preprocess
+    cfg_sgd = resolve_config(PRESET, {
+        **over, "training.compute_dtype": "float32",
+        "training.optimizer": "sgd", "training.learning_rate": CARD_CPU_LR,
+        "text_encoder.dropout": 0.0, "fusion.dropout": 0.0,
+        "classifier.dropout": 0.0, "cnn_encoder.dropout": 0.0})
+    b_step = tcfg.training.batch_size
+    zeros = np.zeros(b_step, np.int64)
+    labels = pipe.train_labels[:b_step]
+    ids, mask = pipe.text_pool.gather(labels, zeros, zeros)
+    host = {"images": pipe.train_images[:b_step], "labels": labels,
+            "input_ids": ids, "attention_mask": mask}
+    d_loss, _, d_param, d_stats, _ = card_cpu_step(
+        cfg_sgd, trained, host, dev, workdir, counted)
+    print(f"[11 preset training] {PRESET}, bf16 over f32 masters, AdamW "
+          f"lr {tcfg.training.learning_rate} ({tcfg.training.scheduler}), "
+          f"batch {tcfg.training.batch_size}, augmentation x"
+          f"{d.augmentation_factor}, {len(pipe.train_samples)} train / "
+          f"{len(pipe.val_samples)} val synthetic images, resident | "
+          f"{PRESET_EPOCHS} epochs x {pipe.steps_per_epoch} steps in "
+          f"{train_s:.1f} s; train loss by epoch "
+          + ", ".join(f"{x:.4f}" for x in hist["train_loss"])
+          + f" (not required to fall) | launches: train steps none, "
+          f"validation K1 {n_layers - 1} at {b_eval * t_max} rows + 1 at "
+          f"{b_eval} per batch | blur fired on {fired['blur']} of "
+          f"{fired['images']} images ({shares['blur']:.3f}, p "
+          f"{d.gaussian_blur_prob}), erasing on {fired['erase']} "
+          f"({shares['erase']:.3f}, p {d.random_erasing_prob}) | "
+          f"{len(frozen)} frozen parameters bit-equal, "
+          f"{len(changed)} of {len(start) - len(frozen)} trainable moved "
+          f"(unmoved: the {len(STILL_TRAINABLE)} zero-gradient biases) | "
+          f"f32 SGD step card vs CPU, TF32 off: loss |diff| {d_loss:.2e} "
+          f"(tolerance {CARD_CPU_LOSS_ATOL}), parameters {d_param:.2e} "
+          f"({CARD_CPU_PARAM_ATOL}), BatchNorm statistics {d_stats:.2e} "
+          f"({CARD_CPU_STATS_ATOL})")
+    print(f"[11 preset times] {card} | train step median "
+          f"{float(np.median(step_ms)):.2f} ms of {TRAIN_STEP_RUNS} ("
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"); peak device memory of a step {peak / 2**30:.2f} GiB "
+          f"(allocated before it {base / 2**30:.2f} GiB) | validation "
+          f"{float(np.median(val_lat)):.2f} ms per batch of {b_eval} "
+          f"(median of {PHASE9_RUNS}, with the weight copy)")
+    del trained
+    torch.cuda.empty_cache()
+
+    # ---- every extra on the card against the CPU, f32, at one set of
+    # draws, on the 256 staged images resampled to 224 px
+    ecfg = resolve_config(PRESET, {
+        "data.gaussian_noise_std": 0.05, "data.perspective_prob": 0.5,
+        "data.clahe_prob": 0.5, "data.elastic_prob": 0.5,
+        "data.coarse_dropout_prob": 0.5, "data.random_erasing_prob": 0.5,
+        "data.geometry_mode": "gather"})
+    staged = torch.from_numpy(np.stack(images))
+    draws = pre.draw_train_params(BATCH, ecfg, torch.Generator().manual_seed(
+        11))
+    s_in, s_out = float(staged.shape[1]), ecfg.data.image_size
+    scale, shift, fw = pre.eval_resample_params(int(s_in), s_out,
+                                                "resize_crop")
+    full = torch.full((BATCH,), scale), torch.full((BATCH,), shift)
+    x01 = pre.separable_resample(staged, *full, *full, s_out,
+                                 filter_width=fw) / 255.0
+
+    def mats(p):
+        return pre._compose_affine(s_in, float(s_out), p["crop_scale"],
+                                   p["angle"], p["flip"], p["shift_y"],
+                                   p["shift_x"])
+
+    affine = mats(draws)
+    d_affine = float((mats({k: v.to(dev) for k, v in draws.items()}).cpu()
+                      - affine).abs().max())
+    if d_affine > AFFINE_ATOL:
+        fail(f"the gather's affine maps on the card vs CPU: {d_affine}")
+
+    extras = {
+        "blur": lambda x, p: pre.gaussian_blur(x),
+        "noise": lambda x, p: pre.gaussian_noise(x, p["noise"], 0.05),
+        "erasing": lambda x, p: pre.random_erasing(
+            x, p["erase"], p["erase_area"], p["erase_y"], p["erase_x"]),
+        "coarse dropout": lambda x, p: pre.coarse_dropout(
+            x, p["dropout"], p["dropout_holes"], p["dropout_area"],
+            p["dropout_y"], p["dropout_x"]),
+        "perspective": lambda x, p: pre.random_perspective(
+            x, p["perspective_shift"], p["perspective"]),
+        "CLAHE tiled": lambda x, p: pre.clahe_batch_tiled(x),
+        "CLAHE global": lambda x, p: pre.clahe_batch(x),
+        "elastic": lambda x, p: pre.elastic_transform(
+            x, p["elastic_field"], p["elastic"]),
+        "gather geometry": lambda x, p: pre.affine_resample(
+            p["staged"], p["affine"], s_out) / 255.0,
+    }
+    cpu_in = (x01, {**draws, "staged": staged, "affine": affine})
+    card_in = (x01.to(dev), {k: v.to(dev) for k, v in cpu_in[1].items()})
+    _, cpu_bins = pre._luminance_bins(x01, 64)
+    _, card_bins = pre._luminance_bins(card_in[0], 64)
+    flips = int((cpu_bins != card_bins.cpu()).sum())
+    if flips:
+        fail(f"CLAHE: {flips} pixels in another luminance bin on the card")
+    readings = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, fn in extras.items():
+            want = fn(*cpu_in)
+            got = fn(*card_in)
+            err = (got.cpu() - want).abs()
+            e_max, e_mean = float(err.max()), float(err.mean())
+            if e_max > EXTRA_ATOL[name] or e_mean > EXTRA_MEAN_ATOL:
+                fail(f"{name} on the card vs CPU: max|diff| {e_max}, mean "
+                     f"{e_mean}")
+            start_ev = torch.cuda.Event(enable_timing=True)
+            end_ev = torch.cuda.Event(enable_timing=True)
+            fn(*card_in)
+            start_ev.record()
+            for _ in range(EXTRA_RUNS):
+                fn(*card_in)
+            end_ev.record()
+            torch.cuda.synchronize()
+            ms = start_ev.elapsed_time(end_ev) / EXTRA_RUNS
+            readings.append(f"{name} {ms:.3f} ms ({e_max:.1e} / "
+                            f"{e_mean:.1e})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[11 extras] {card} | {BATCH} staged images -> {s_out} px, f32, "
+          f"one set of draws, card vs CPU max / mean |diff| and the card's "
+          f"time per batch (CUDA events, {EXTRA_RUNS} back to back): "
+          + "; ".join(readings) + f" | CLAHE bin flips {flips} | the "
+          f"gather's affine maps card vs CPU max|diff| {d_affine:.1e} "
+          f"(tolerance {AFFINE_ATOL})")
+    del cpu_in, card_in, x01, staged
+    torch.cuda.empty_cache()
+
+    # ---- pre-LN: no kernel, by the JAX dispatch
+    pcfg = resolve_config(PRESET, {"text_encoder.pre_layernorm": True})
+    ppred = MultimodalPredictor(pcfg, create_model(pcfg, device="cpu",
+                                                   seed=0), dev)
+    res = counted(lambda: ppred.predict_batch(images, texts), counts(),
+                  "pre-LN predict_batch")
+    pprobs = probs_of(res, ppred.class_names)
+    check_probs("pre-LN", pprobs, pcfg.num_classes)
+    line = agreement("pre-LN", ppred, pprobs,
+                     {"text_encoder.pre_layernorm": True}, preset=PRESET)
+    print(f"[11 pre-LN] {PRESET} with text_encoder.pre_layernorm: "
+          f"B={BATCH} launches none (K1 and K3 off under pre-LN), "
+          f"plain-on-CUDA 0 | {line}")
+    del ppred
+    torch.cuda.empty_cache()
+
+    # ---- FGDD: cli/train.py --mode text_only --data fgdd at full width
+    root = workdir / "corpus"
+    write_fgdd(root)
+    fcfg = resolve_config("default", {"data.data_dirs": (str(root),)})
+    fpipe = fgdd_text_pipeline(fcfg)
+    f_val = -(-len(fpipe.val_idx) // fcfg.evaluation.eval_batch_size)
+    args = ["--data", "fgdd", "--mode", "text_only", "--device", "cuda",
+            "--epochs", str(FGDD_EPOCHS),
+            "--checkpoint-dir", str(workdir / "fgdd"),
+            "--set", f"data.data_dirs=[{str(root)!r}]",
+            "--set", f"training.checkpoint_every_epochs={FGDD_EPOCHS}"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = counted(lambda: train_cli.main(args),
+                     counts(fcfg.text_encoder.num_layers * f_val
+                            * FGDD_EPOCHS), "FGDD text_only cli/train.py")
+    fgdd_s = time.perf_counter() - t0
+    text = out.getvalue()
+    summary = json.loads(text[text.index("{"):])
+    if rc != 0 or summary["epochs_run"] != FGDD_EPOCHS \
+            or not np.isfinite(summary["final_train_loss"]):
+        fail(f"FGDD text_only: rc {rc}, summary {summary}")
+    print(f"[11 FGDD] cli/train.py --mode text_only --data fgdd on a "
+          f"seeded table ({FGDD_PATIENTS} patients, {FGDD_DISEASES} "
+          f"diseases -> top {len(fpipe.class_names)}, {FGDD_HP} HP "
+          f"columns): {len(fpipe.train_idx)} train / {len(fpipe.val_idx)} "
+          f"val texts, BERT-base {fcfg.text_encoder.num_layers}x"
+          f"{fcfg.text_encoder.hidden_size}, T={fcfg.data.max_text_length}"
+          f" | {FGDD_EPOCHS} epochs in {fgdd_s:.1f} s, final train loss "
+          f"{summary['final_train_loss']:.4f}, val acc "
+          f"{summary['final_val_acc']:.3f} | launches K1 "
+          f"{fcfg.text_encoder.num_layers} per validation batch x {f_val} "
+          f"x {FGDD_EPOCHS}, nothing in the train steps | phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
     tmp.cleanup()
     return totals
 
@@ -1177,13 +1672,13 @@ def main() -> int:
     if np.abs(probs.sum(1) - 1.0).max() > 1e-3:
         fail("probabilities do not sum to 1")
 
-    def reference_probs(p, over):
+    def reference_probs(p, over, preset="default"):
         """The kernel-off run of `p`, and the same seeded weights under
         the f32 compute dtype on the card (FFN in plain f32: the kernels
         are bf16-only; cuDNN convolutions without TF32)."""
         with plain_kernels():
             plain = probs_of(p.predict_batch(images, texts), p.class_names)
-            cfg32 = resolve_config("default", {
+            cfg32 = resolve_config(preset, {
                 **over, "training.compute_dtype": "float32"})
             ref = MultimodalPredictor(
                 cfg32, create_model(cfg32, device="cpu", seed=0), dev)
@@ -1196,8 +1691,8 @@ def main() -> int:
                 torch.backends.cudnn.allow_tf32 = tf32
         return plain, f32
 
-    def agreement(tag, p, probs, over):
-        probs_plain, probs_ref = reference_probs(p, over)
+    def agreement(tag, p, probs, over, preset="default"):
+        probs_plain, probs_ref = reference_probs(p, over, preset)
         d_kp = float(np.abs(probs - probs_plain).max())
         d_kr = float(np.abs(probs - probs_ref).max())
         d_pr = float(np.abs(probs_plain - probs_ref).max())
@@ -1491,9 +1986,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     main10 = training(dev, card, over7)
 
+    # ---- 11. the efficientnet_clinicalbert preset, the augmentation
+    # extras, pre-LN and FGDD
+    torch.cuda.empty_cache()
+    main11 = preset_and_extras(dev, card, images, texts, agreement, p50_ms)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
-                     "matplotlib", "seaborn", "PIL",
+                     "matplotlib", "seaborn", "PIL", "pandas",
                      "multimodal_rare_disease_tpu"))
     if leaked:
         fail(f"jax, the JAX package or a package the card's machine lacks "
@@ -1521,9 +2021,9 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9 and 10 (their counted runs)
+        # 9, 10 and 11 (their counted runs)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
-                     + main9[k] + main10[k]),
+                     + main9[k] + main10[k] + main11[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

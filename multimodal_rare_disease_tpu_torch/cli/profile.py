@@ -1,6 +1,7 @@
 """Where the time of `predict_batch` goes on the card, by torch.profiler.
 
     python -m multimodal_rare_disease_tpu_torch.cli.profile \\
+        [--preset efficientnet_clinicalbert] \\
         [--set text_encoder.fused_attn_out=true --set data.image_size=256]
 
 Builds the full-width model of the resolved config from seeded weights
@@ -31,6 +32,8 @@ MIN_OP_MS = 0.05  # operator rows below this are not printed
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--preset", default="default",
+                        help="config preset (default: default)")
     parser.add_argument("--set", action="append", default=[],
                         metavar="KEY=JSON", help="config override")
     args = parser.parse_args(argv)
@@ -54,7 +57,7 @@ def main(argv=None) -> int:
     for item in args.set:
         key, _, value = item.partition("=")
         over[key] = json.loads(value)
-    cfg = resolve_config("default", over)
+    cfg = resolve_config(args.preset, over)
     pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0))
     images, texts = seeded_requests(BATCH, seed=0)
     card = subprocess.run(

@@ -10,8 +10,12 @@
     python -m multimodal_rare_disease_tpu_torch.cli.train --smoke-test \\
         --device cpu
 
-Prints the same JSON summary as the JAX command. `--data fgdd` (the FGDD
-text pipelines) is not ported yet (ROADMAP P10b).
+Prints the same JSON summary as the JAX command. `--data fgdd` trains on
+the FGDD patient phenotype texts (`<data root>/FGDD/FGDD.csv` or
+`<data root>/FGDD/FGDD/FGDD.csv`, names from `FGDD/Raw data/phenotype.csv`):
+`--mode text_only` on the texts and their diseases, `--mode multimodal`
+on the image corpus with the texts cycled onto its images (labels from
+the images), as the JAX command does.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ def main(argv=None) -> int:
     parser.add_argument("--data", default="images",
                         choices=["images", "fgdd"],
                         help="images: facial-image corpus; fgdd: FGDD "
-                             "patient phenotype texts (not ported yet)")
+                             "patient phenotype texts (text_only mode)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the last checkpoint for this mode")
     add_config_args(parser)
@@ -57,10 +61,6 @@ def main(argv=None) -> int:
     )
 
     device = resolve_device(args.device)
-    if args.data == "fgdd":
-        raise NotImplementedError(
-            "--data fgdd (train/text_pipeline.py, data/parsers.py) is not "
-            "ported to the torch package yet (ROADMAP P10b)")
 
     extra = {}
     if args.epochs is not None:
@@ -109,7 +109,29 @@ def main(argv=None) -> int:
     from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
     from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
 
-    pipeline = DataPipeline(cfg, mode=args.mode, image_dir=image_dir)
+    if args.data == "fgdd":
+        if args.mode == "text_only":
+            from multimodal_rare_disease_tpu_torch.train.text_pipeline import (
+                fgdd_text_pipeline,
+            )
+
+            pipeline = fgdd_text_pipeline(cfg)
+        elif args.mode == "multimodal":
+            # the reference's cycle-pairing of FGDD texts onto corpus
+            # images, labels from the images (`src/train.py:797-811`)
+            from multimodal_rare_disease_tpu_torch.train.text_pipeline import (
+                fgdd_multimodal_pipeline,
+            )
+
+            print("note: FGDD multimodal pairing cycles unrelated texts "
+                  "onto corpus images (labels from images) — reference-"
+                  "parity behavior, see PARITY.md")
+            pipeline = fgdd_multimodal_pipeline(cfg, image_dir=image_dir)
+        else:
+            parser.error("--data fgdd supports --mode text_only or "
+                         "multimodal (see PARITY.md)")
+    else:
+        pipeline = DataPipeline(cfg, mode=args.mode, image_dir=image_dir)
     trainer = Trainer(cfg, mode=args.mode, pipeline=pipeline,
                       workdir=cfg.training.checkpoint_dir, device=device)
     if args.resume:

@@ -11,8 +11,9 @@ names an absolute fallback corpus directory outside the repository).
 The text-encoder knobs keep the JAX names. In the port `fused_ffn`
 selects the hand-written FFN kernel (K1/K2, `kernels/ffn.py`) and
 `fused_attn_out` the attention-output kernel (K3, `kernels/attn_out.py`);
-`quantized_inference`, `pre_layernorm` and `flat_residual` are not
-ported (`models/bert.py` raises for them).
+`pre_layernorm` takes the pre-LN layers, which run no kernel, as in the
+JAX dispatch; `quantized_inference` and `flat_residual` are not ported
+(`models/bert.py` raises for them).
 """
 
 from __future__ import annotations

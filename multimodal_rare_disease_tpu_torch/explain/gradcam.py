@@ -1,9 +1,12 @@
 """Grad-CAM over the last conv stage of the image encoder: the
 counterpart of `multimodal_rare_disease_tpu/explain/gradcam.py`.
 
-The backbone runs once, without autograd, to capture the last-stage
-feature map A ("stage4"). A is then made a leaf that requires grad, the
-model's tail (pool → projection → [fusion] → head) runs from it, and
+The backbone runs once, without autograd, to capture the feature map A
+named by `explainability.gradcam_layer` ("stage4" by default: the
+ResNet's last stage; EfficientNet-B0 needs "head", and a map the tail
+cannot take raises ValueError, where the JAX package fails in its
+tail). A is then made a leaf that requires grad, the model's tail
+(pool → projection → [fusion] → head) runs from it, and
 `torch.autograd.grad` of the one-hot class score gives dscore/dA (the
 JAX package's `jax.vjp`). α = GAP(dscore/dA); CAM = ReLU(Σ_c α_c · A_c),
 min-max normalized per image. In the multimodal tail the text tower
@@ -67,7 +70,18 @@ class GradCAM:
         with torch.no_grad():
             feats = self.model.image_feature_maps(x)
         layer = self.cfg.explainability.gradcam_layer
-        fmap = feats[layer if layer in feats else sorted(feats)[-1]]
+        layer = layer if layer in feats else sorted(feats)[-1]
+        fmap = feats[layer]
+        tail_in = self.model.cnn_encoder.proj1.in_features
+        if fmap.shape[-1] != tail_in:
+            # the JAX layer choice, which fails here too (its tail raises
+            # a parameter shape error): EfficientNet's "stage4" is an
+            # 80-channel map, and the tail pools the 1,280-channel "head"
+            raise ValueError(
+                f"Grad-CAM layer {layer!r} is a {fmap.shape[-1]}-channel "
+                f"map, but the model's tail takes {tail_in} channels; set "
+                f"explainability.gradcam_layer="
+                f"\"{self.model.cnn_encoder.gradcam_layer}\"")
         fmap = fmap.detach().requires_grad_(True)
         with torch.enable_grad():
             if self.mode == "multimodal":

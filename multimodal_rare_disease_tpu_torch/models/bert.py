@@ -1,9 +1,12 @@
 """BERT-base clinical text encoder: the counterpart of
 `multimodal_rare_disease_tpu/models/bert.py`.
 
-Word + position + segment embeddings → post-LN transformer layers
-(fused QKV, additive −1e9 mask bias added to the scores in the compute
-dtype, softmax in f32) → CLS token or tanh pooler. Classic rows take a
+Word + position + segment embeddings → transformer layers (fused QKV,
+additive −1e9 mask bias added to the scores in the compute dtype,
+softmax in f32), post-LN by default or pre-LN with
+`text_encoder.pre_layernorm` (the same two LayerNorms before their
+sublayers, and a `final_ln` after the last layer) → CLS token or tanh
+pooler. Classic rows take a
 [B, T] attention mask; sequence-packed rows (inference/packing.py) take
 `segment_ids` (block-diagonal bias), per-document `position_ids` and
 `query_positions`. At inference the last layer computes only the
@@ -28,15 +31,18 @@ Pallas kernels (`bert.py:323-427` there):
 - otherwise, with `fused_ffn` on (the default): the unnormalized
   residual goes to K1 (`kernels/ffn.py` with attention_ln folded in).
 
-Attention has no kernel (the JAX package deleted its Pallas one), so it
-is plain PyTorch in the JAX formulation.
+Under pre-LN no kernel runs: the JAX layer gates K1 and K3 on
+`not self.pre_ln` (`bert.py:330`, `:365` there), since neither kernel
+computes the pre-LN sublayer. Attention has no kernel (the JAX package
+deleted its Pallas one), so it is plain PyTorch in the JAX formulation.
 
 Module and parameter names follow the flax tree (`layer{i}`, `qkv`,
 `attention_ln`, ...), so `models/convert.py` maps checkpoints leaf by
 leaf, whichever kernels a layer takes. Inference-only knobs of the JAX
 module that compute the same values (K/V lane padding, `flat_residual`,
-`ln_barrier`) are not ported, nor are `quantized_inference` and
-`pre_layernorm`: a config that turns one on raises NotImplementedError.
+`ln_barrier`) are not ported, nor is `quantized_inference`: a config
+that turns `quantized_inference` or `flat_residual` on raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -123,15 +129,19 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Post-LN transformer layer."""
+    """Transformer layer: post-LN, or pre-LN with `pre_ln` (attention_ln
+    before the attention, output_ln before the FFN, each sublayer added
+    to the unnormalized residual)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, device, fused_ffn: bool = True,
-                 fused_attn_out: bool = False, dropout: float = 0.0):
+                 fused_attn_out: bool = False, dropout: float = 0.0,
+                 pre_ln: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.fused_ffn = fused_ffn
         self.fused_attn_out = fused_attn_out
+        self.pre_ln = pre_ln
         self.dropout = Dropout(dropout)  # attention output, FFN output
         self.attention = BertSelfAttention(hidden_size, num_heads, device,
                                            dropout=dropout)
@@ -153,11 +163,14 @@ class BertLayer(nn.Module):
         # K3 runs on the full rows; the CLS-only last layer and a forward
         # that returns the attention maps keep the classic projection (the
         # JAX layer's `not cls_only` and `not output_attentions` gates);
-        # no kernel runs in train mode (its `not train` gates)
+        # no kernel runs in train mode or under pre-LN (its `not train`
+        # and `not self.pre_ln` gates)
         use_k3 = (self.fused_attn_out and not self.training
-                  and not cls_only and not output_attentions)
+                  and not self.pre_ln and not cls_only
+                  and not output_attentions)
+        attn_in = self.attention_ln(hidden) if self.pre_ln else hidden
         attn_out, probs = self.attention(
-            hidden, bias, cls_query_only=cls_only,
+            attn_in, bias, cls_query_only=cls_only,
             query_positions=query_positions, return_unprojected=use_k3,
             output_attentions=output_attentions)
         if cls_only:
@@ -175,6 +188,9 @@ class BertLayer(nn.Module):
             if self.fused_ffn:  # eval mode here: K3 is on
                 return self._ffn_fused(hidden, input_ln=False), probs  # K2
             return self._ffn_classic(hidden), probs
+        if self.pre_ln:
+            hidden = hidden + self.dropout(attn_out)
+            return hidden + self._ffn_out(self.output_ln(hidden)), probs
         if self.fused_ffn and not self.training:
             # K1 takes the unnormalized residual and applies attention_ln
             # itself (the JAX layer's pre_gamma dispatch)
@@ -195,10 +211,14 @@ class BertLayer(nn.Module):
             **ln0)
         return y.reshape(x.shape)
 
+    def _ffn_out(self, x: torch.Tensor) -> torch.Tensor:
+        """W2 · GELU(x · W1 + b1) + b2, then dropout: no kernel."""
+        inter = F.gelu(self.intermediate(x).float()).to(x.dtype)
+        return self.dropout(self.output(inter))
+
     def _ffn_classic(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The FFN sublayer without a kernel, on normalized rows."""
-        inter = F.gelu(self.intermediate(hidden).float()).to(hidden.dtype)
-        return self.output_ln(hidden + self.dropout(self.output(inter)))
+        """The post-LN FFN sublayer without a kernel, on normalized rows."""
+        return self.output_ln(hidden + self._ffn_out(hidden))
 
 
 class BertEncoder(nn.Module):
@@ -206,7 +226,7 @@ class BertEncoder(nn.Module):
                  num_heads: int, intermediate_size: int,
                  max_position_embeddings: int, type_vocab_size: int, device,
                  fused_ffn: bool = True, fused_attn_out: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, pre_ln: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.dropout = Dropout(dropout)  # on the embeddings
@@ -222,7 +242,10 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer{i}", BertLayer(
                 hidden_size, num_heads, intermediate_size, device,
                 fused_ffn=fused_ffn, fused_attn_out=fused_attn_out,
-                dropout=dropout))
+                dropout=dropout, pre_ln=pre_ln))
+        # pre-LN stacks normalize once more before the readout
+        self.final_ln = (nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
+                                      device=device) if pre_ln else None)
         self.pooler = Linear(hidden_size, hidden_size, device=device)
 
     def forward(self, input_ids: torch.Tensor,
@@ -283,6 +306,8 @@ class BertEncoder(nn.Module):
             if output_attentions:
                 all_attn.append(probs)
 
+        if self.final_ln is not None:
+            hidden = self.final_ln(hidden)
         if packed and query_positions is not None:
             cls = hidden if cls_only_final else _take_rows(hidden,
                                                            query_positions)
@@ -307,8 +332,7 @@ class TextEncoder(nn.Module):
 
     def __init__(self, cfg, device, projection_dim: int = 0):
         super().__init__()
-        for flag in ("quantized_inference", "pre_layernorm",
-                     "flat_residual"):
+        for flag in ("quantized_inference", "flat_residual"):
             if getattr(cfg, flag, False):
                 raise NotImplementedError(
                     f"text_encoder.{flag} is not ported to the torch "
@@ -318,7 +342,8 @@ class TextEncoder(nn.Module):
             cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.intermediate_size, cfg.max_position_embeddings,
             cfg.type_vocab_size, device, fused_ffn=cfg.fused_ffn,
-            fused_attn_out=cfg.fused_attn_out, dropout=cfg.dropout)
+            fused_attn_out=cfg.fused_attn_out, dropout=cfg.dropout,
+            pre_ln=cfg.pre_layernorm)
         self.drop = Dropout(cfg.dropout)
         self.projection = (Linear(cfg.hidden_size, projection_dim,
                                   device=device)

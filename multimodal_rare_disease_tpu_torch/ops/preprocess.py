@@ -9,17 +9,19 @@ only normalized, by K4 (`kernels/image.py`, a hand-written CUDA kernel
 on the card), unless the caller turns it off as the trainer's
 validation does.
 
-Train (`train_preprocess`, the JAX `geometry_mode='separable'` stack):
-horizontal flip, random resized crop as the same separable resample,
-Paeth rotation (`ops/rotate.py`) through bf16, brightness / contrast /
-saturation jitter and hue jitter, then normalization. Each random op is
-split into a draw (`draw_train_params`, from an explicit
-`torch.Generator`, in the JAX order of subkeys) and an apply at given
-parameters (`train_preprocess_apply`): torch cannot reproduce a JAX key,
-so the apply half is what is held against the JAX package. The
-default-off extras of the JAX stack (blur, noise, erasing, perspective,
-CLAHE, elastic, coarse dropout, the `gather` geometry) are not ported: a
-config that turns one on raises NotImplementedError.
+Train (`train_preprocess`): with the default `geometry_mode='separable'`,
+horizontal flip, random resized crop as the same separable resample and
+Paeth rotation (`ops/rotate.py`) through bf16; with `'gather'`, crop,
+rotation and flip composed into one affine map per image and sampled
+bilinearly by index (`_compose_affine`, `affine_resample`). Then
+brightness / contrast / saturation and hue jitter, and the default-off
+extras in the JAX order: Gaussian blur, Gaussian noise, random erasing,
+perspective, CLAHE (tiled when both sides divide by 8, else global),
+elastic and coarse dropout; then normalization. Each random op is split
+into a draw (`draw_train_params`, from an explicit `torch.Generator`, in
+the JAX order of subkeys) and an apply at given parameters
+(`train_preprocess_apply`): torch cannot reproduce a JAX key, so the
+apply half is what is held against the JAX package.
 
 Layout is NHWC throughout, as in the JAX package.
 """
@@ -29,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -133,26 +136,6 @@ def eval_preprocess(images_uint8: torch.Tensor, cfg,
 # train augmentation
 # ---------------------------------------------------------------------------
 
-# the JAX stack's default-off extras, not ported: (flag, value that is off)
-_UNPORTED_EXTRAS = (
-    ("gaussian_blur_prob", 0.0), ("gaussian_noise_std", 0.0),
-    ("random_erasing_prob", 0.0), ("perspective_prob", 0.0),
-    ("clahe_prob", 0.0), ("elastic_prob", 0.0),
-    ("coarse_dropout_prob", 0.0), ("geometry_mode", "separable"),
-)
-
-
-def check_train_augmentation(data_cfg) -> None:
-    """Raise NotImplementedError, naming the flag, for a config that
-    turns on an augmentation the port does not have."""
-    for flag, off in _UNPORTED_EXTRAS:
-        value = getattr(data_cfg, flag, off)
-        if value != off:
-            raise NotImplementedError(
-                f"data.{flag}={value!r} is not ported to the torch package "
-                f"(ROADMAP P10b)")
-
-
 def _crop_params(in_size: float, out_size: float, crop_scale: torch.Tensor,
                  shift_frac: torch.Tensor):
     """(area fraction, [-1, 1] center offset) → (scale, shift) for one
@@ -212,26 +195,356 @@ def hue_rotate(images: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
                         select(p, p, t, v, v, q)], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# geometry by index: the `gather` mode, perspective and elastic warps
+# ---------------------------------------------------------------------------
+
+def _bilinear_sample(images: torch.Tensor, ys: torch.Tensor,
+                     xs: torch.Tensor) -> torch.Tensor:
+    """Sample images [B, H, W, C] at float coordinates ys / xs [B, h, w]
+    with edge clamping: the JAX `_bilinear_sample`'s index math (floor,
+    the fractions, the four neighbours clamped to the image), batched."""
+    b, h, w, c = images.shape
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = (ys - y0)[..., None]
+    wx = (xs - x0)[..., None]
+    y0i = y0.to(torch.int64).clamp(0, h - 1)
+    y1i = (y0i + 1).clamp(0, h - 1)
+    x0i = x0.to(torch.int64).clamp(0, w - 1)
+    x1i = (x0i + 1).clamp(0, w - 1)
+    flat = images.reshape(b * h * w, c)
+    base = (torch.arange(b, device=images.device) * (h * w)).view(b, 1, 1)
+
+    def at(yi, xi):
+        return flat[(base + yi * w + xi).reshape(-1)].reshape(
+            *yi.shape, c)
+
+    top = at(y0i, x0i) * (1 - wx) + at(y0i, x1i) * wx
+    bot = at(y1i, x0i) * (1 - wx) + at(y1i, x1i) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _out_grid(out_size: int, device):
+    ii = torch.arange(out_size, dtype=torch.float32, device=device)
+    return torch.meshgrid(ii, ii, indexing="ij")
+
+
+def affine_resample(images: torch.Tensor, matrices: torch.Tensor,
+                    out_size: int) -> torch.Tensor:
+    """Affine warp [B, H, W, C] × [B, 2, 3] → [B, out, out, C] f32; the
+    matrices map OUTPUT pixel coordinates (y, x) to INPUT ones."""
+    gy, gx = _out_grid(out_size, images.device)
+    m = matrices[:, :, :, None, None]
+    ys = m[:, 0, 0] * gy + m[:, 0, 1] * gx + m[:, 0, 2]
+    xs = m[:, 1, 0] * gy + m[:, 1, 1] * gx + m[:, 1, 2]
+    return _bilinear_sample(images.to(torch.float32), ys, xs)
+
+
+def _compose_affine(in_size: float, out_size: float,
+                    crop_scale: torch.Tensor, angle_rad: torch.Tensor,
+                    flip: torch.Tensor, shift_y: torch.Tensor,
+                    shift_x: torch.Tensor) -> torch.Tensor:
+    """The [B, 2, 3] output→input maps: rotate about the crop centre,
+    scale crop → out, translate to the crop window, optional horizontal
+    flip (the JAX `_compose_affine`, over a batch of [B] parameters)."""
+    crop_size = in_size * torch.sqrt(crop_scale)
+    scale = crop_size / out_size
+    cos = torch.cos(angle_rad) * scale
+    sin = torch.sin(angle_rad) * scale
+    fx = torch.where(flip > 0, -1.0, 1.0)
+    oc = (out_size - 1) / 2.0
+    slack = (in_size - crop_size) / 2.0
+    cy = (in_size - 1) / 2.0 + shift_y * slack
+    cx = (in_size - 1) / 2.0 + shift_x * slack
+    a00, a01, a10, a11 = cos, -sin * fx, sin, cos * fx
+    t0 = cy - a00 * oc - a01 * oc
+    t1 = cx - a10 * oc - a11 * oc
+    return torch.stack([torch.stack([a00, a01, t0], -1),
+                        torch.stack([a10, a11, t1], -1)], 1)
+
+
+def perspective_resample(images: torch.Tensor, homographies: torch.Tensor,
+                         out_size: int) -> torch.Tensor:
+    """Projective warp [B, H, W, C] × [B, 3, 3] → [B, out, out, C] f32;
+    the homographies map OUTPUT (y, x, 1) to INPUT homogeneous
+    coordinates."""
+    gy, gx = _out_grid(out_size, images.device)
+    m = homographies[:, :, :, None, None]
+    d = m[:, 2, 0] * gy + m[:, 2, 1] * gx + m[:, 2, 2]
+    d = torch.where(d.abs() < 1e-8, 1e-8, d)
+    ys = (m[:, 0, 0] * gy + m[:, 0, 1] * gx + m[:, 0, 2]) / d
+    xs = (m[:, 1, 0] * gy + m[:, 1, 1] * gx + m[:, 1, 2]) / d
+    return _bilinear_sample(images.to(torch.float32), ys, xs)
+
+
+def _solve_homography(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """DLT: four point pairs (y, x) [B, 4, 2] src → dst → [B, 3, 3] H with
+    H · (src_y, src_x, 1) ∝ (dst_y, dst_x, 1); the 8 × 8 system solved in
+    f32."""
+    rows = []
+    for i in range(4):
+        sy, sx = src[:, i, 0], src[:, i, 1]
+        dy, dx = dst[:, i, 0], dst[:, i, 1]
+        one, zero = torch.ones_like(sy), torch.zeros_like(sy)
+        rows.append(torch.stack([sy, sx, one, zero, zero, zero,
+                                 -dy * sy, -dy * sx], -1))
+        rows.append(torch.stack([zero, zero, zero, sy, sx, one,
+                                 -dx * sy, -dx * sx], -1))
+    a = torch.stack(rows, 1)                                  # [B, 8, 8]
+    rhs = dst.reshape(dst.shape[0], 8, 1)
+    h = torch.linalg.solve(a, rhs)[..., 0]                    # [B, 8]
+    return torch.cat([h, torch.ones_like(h[:, :1])], -1).reshape(-1, 3, 3)
+
+
+def random_perspective(images: torch.Tensor, displacement: torch.Tensor,
+                       apply: torch.Tensor) -> torch.Tensor:
+    """torchvision RandomPerspective at drawn parameters: each corner is
+    moved inward by `displacement` [B, 4, 2] (U(0, distortion_scale),
+    in units of half the side); the image is warped so that the whole
+    frame maps onto the moved quad, where `apply` [B] is set."""
+    b, h, w, _ = images.shape
+    dev = images.device
+    corners = torch.tensor([[0.0, 0.0], [0.0, w - 1.0], [h - 1.0, 0.0],
+                            [h - 1.0, w - 1.0]], device=dev)
+    sign = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, 1.0],
+                         [-1.0, -1.0]], device=dev)
+    half = torch.tensor([(h - 1) / 2.0, (w - 1) / 2.0], device=dev)
+    endpoints = corners[None] + sign[None] * displacement * half[None, None]
+    hm = _solve_homography(corners[None].expand_as(endpoints), endpoints)
+    warped = perspective_resample(images, hm, h)
+    return torch.where(apply.view(-1, 1, 1, 1), warped,
+                       images.to(torch.float32))
+
+
+def elastic_transform(images: torch.Tensor, displacement: torch.Tensor,
+                      apply: torch.Tensor, alpha: float = 30.0,
+                      sigma: float = 6.0) -> torch.Tensor:
+    """albumentations ElasticTransform at a drawn field: `displacement`
+    [B, H, W, 2] ~ U(-1, 1), blurred at `sigma` (2·ceil(2σ) + 1 taps)
+    and scaled by `alpha`, bends the sampling grid where `apply` [B]."""
+    _, h, w, _ = images.shape
+    disp = gaussian_blur(displacement, sigma=sigma,
+                         kernel_size=int(2 * math.ceil(2 * sigma) + 1)) \
+        * alpha
+    ii = torch.arange(h, dtype=torch.float32, device=images.device)
+    jj = torch.arange(w, dtype=torch.float32, device=images.device)
+    gy, gx = torch.meshgrid(ii, jj, indexing="ij")
+    warped = _bilinear_sample(images.to(torch.float32),
+                              gy + disp[..., 0], gx + disp[..., 1])
+    return torch.where(apply.view(-1, 1, 1, 1), warped,
+                       images.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# filters, noise and masks
+# ---------------------------------------------------------------------------
+
+def _conv1d(images: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
+    """Same-size 1-D convolution of [B, H, W, C] along H (dim 1) or W
+    (dim 2), edge-padded: a sum of clamped shifts, in the JAX order."""
+    n = images.shape[dim]
+    half = (k.shape[0] - 1) // 2
+    out = torch.zeros_like(images)
+    for i in range(k.shape[0]):
+        idx = (torch.arange(n, device=images.device) + (i - half)).clamp(
+            0, n - 1)
+        out = out + k[i] * images.index_select(dim, idx)
+    return out
+
+
+def gaussian_blur(images: torch.Tensor, sigma: float = 1.0,
+                  kernel_size: int = 5) -> torch.Tensor:
+    """Separable Gaussian blur of [B, H, W, C]: along W, then along H,
+    each edge-padded."""
+    half = kernel_size // 2
+    xs = np.arange(-half, half + 1, dtype=np.float32)
+    k = np.exp(-(xs ** 2) / (2 * sigma ** 2))
+    k = torch.from_numpy(k / k.sum()).to(images.device, images.dtype)
+    return _conv1d(_conv1d(images, k, 2), k, 1)
+
+
+def gaussian_noise(images: torch.Tensor, noise: torch.Tensor,
+                   std: float) -> torch.Tensor:
+    """Additive Gaussian noise: `noise` ~ N(0, 1) of the images' shape,
+    scaled by `std`, the sum clipped to [0, 1]."""
+    return (images + std * noise).clamp(0.0, 1.0)
+
+
+def _boxes(h: int, w: int, frac, uy, ux, device):
+    """(y inside, x inside) masks of boxes of `frac` of the area, placed
+    at uy / ux ∈ [0, 1) of the slack: [..., H, 1] and [..., 1, W]."""
+    side_h = torch.sqrt(frac) * h
+    side_w = torch.sqrt(frac) * w
+    y0 = uy * (h - side_h)
+    x0 = ux * (w - side_w)
+    yy = torch.arange(h, dtype=torch.float32, device=device)
+    xx = torch.arange(w, dtype=torch.float32, device=device)
+    iy = (yy >= y0[..., None]) & (yy < (y0 + side_h)[..., None])
+    ix = (xx >= x0[..., None]) & (xx < (x0 + side_w)[..., None])
+    return iy[..., :, None], ix[..., None, :]
+
+
+def random_erasing(images: torch.Tensor, apply: torch.Tensor,
+                   frac: torch.Tensor, uy: torch.Tensor, ux: torch.Tensor
+                   ) -> torch.Tensor:
+    """torchvision RandomErasing at drawn parameters: where `apply` [B],
+    a rectangle of `frac` [B] of the area at uy, ux [B] ∈ [0, 1) of the
+    slack is zeroed."""
+    _, h, w, _ = images.shape
+    iy, ix = _boxes(h, w, frac, uy, ux, images.device)      # [B, H|1, 1|W]
+    erase = apply.view(-1, 1, 1) & iy & ix
+    return torch.where(erase[..., None], 0.0, images)
+
+
+def coarse_dropout(images: torch.Tensor, apply: torch.Tensor,
+                   n_active: torch.Tensor, frac: torch.Tensor,
+                   uy: torch.Tensor, ux: torch.Tensor) -> torch.Tensor:
+    """albumentations CoarseDropout at drawn parameters: where `apply`
+    [B], the first `n_active` [B] of the holes (frac, uy, ux [B, holes],
+    as random_erasing's) are zeroed."""
+    _, h, w, _ = images.shape
+    iy, ix = _boxes(h, w, frac, uy, ux, images.device)  # [B, n, H|1, 1|W]
+    active = (torch.arange(frac.shape[1], device=images.device)[None]
+              < n_active[:, None])
+    hole = (iy & ix & active[:, :, None, None]).any(dim=1)
+    erase = apply.view(-1, 1, 1) & hole
+    return torch.where(erase[..., None], 0.0, images)
+
+
+# ---------------------------------------------------------------------------
+# CLAHE
+# ---------------------------------------------------------------------------
+
+def _clahe_interp_weights(size: int, grid: int) -> np.ndarray:
+    """[size, grid] bilinear weights of each tile's CDF for each pixel
+    coordinate (≤ 2 nonzeros per row; border pixels clamp to the edge
+    tile)."""
+    tile = size / grid
+    pos = (np.arange(size) + 0.5) / tile - 0.5
+    pos = np.clip(pos, 0.0, grid - 1.0)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, grid - 1)
+    w_hi = pos - lo
+    weights = np.zeros((size, grid), np.float32)
+    weights[np.arange(size), lo] += 1.0 - w_hi
+    weights[np.arange(size), hi] += w_hi
+    return weights
+
+
+def _luminance_bins(x: torch.Tensor, num_bins: int):
+    """(luminance [B, H, W], its bin index int(lum · bins) clamped)."""
+    lum = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    idx = (lum * num_bins).to(torch.int64).clamp(0, num_bins - 1)
+    return lum, idx
+
+
+def _clip_and_cdf(hist: torch.Tensor, clip_limit: float, n: int,
+                  num_bins: int) -> torch.Tensor:
+    """Contrast-limited histogram (excess spread over every bin) → CDF."""
+    limit = clip_limit * n / num_bins
+    clipped = torch.minimum(hist, torch.tensor(limit, device=hist.device))
+    excess = (hist - clipped).sum(-1, keepdim=True) / num_bins
+    return torch.cumsum(clipped + excess, -1) / n
+
+
+def _rescale_by_luminance(x, lum, mapped):
+    ratio = mapped / lum.clamp_min(1e-6)
+    return (x * ratio[..., None]).clamp(0.0, 1.0)
+
+
+def clahe_batch_tiled(images: torch.Tensor, clip_limit: float = 4.0,
+                      num_bins: int = 64, grid: int = 8) -> torch.Tensor:
+    """CLAHE: 8 × 8-tiled contrast-limited histogram equalization of the
+    luminance of [B, H, W, 3] in [0, 1], each pixel's mapping a bilinear
+    blend of the four surrounding tiles' CDFs (H and W divisible by
+    `grid`). The JAX function's one-hot sums, taken by index: the tile
+    histograms by counting (exact), and each pixel's blend at its own
+    bin (the one-hot product keeps that term alone)."""
+    x = images.to(torch.float32)
+    lum, idx = _luminance_bins(x, num_bins)
+    b, h, w = lum.shape
+    g = grid
+    th, tw = h // g, w // g
+    dev = x.device
+    tile = ((torch.arange(h, device=dev) // th)[:, None] * g
+            + (torch.arange(w, device=dev) // tw)[None, :])    # [H, W]
+    flat = ((torch.arange(b, device=dev)[:, None, None] * (g * g) + tile)
+            * num_bins + idx).reshape(-1)
+    hist = torch.bincount(flat, minlength=b * g * g * num_bins).to(
+        torch.float32).reshape(b, g, g, num_bins)
+    cdf = _clip_and_cdf(hist, clip_limit, th * tw, num_bins)   # [B,G,G,K]
+    wy = torch.from_numpy(_clahe_interp_weights(h, g)).to(dev)  # [H, G]
+    wx = torch.from_numpy(_clahe_interp_weights(w, g)).to(dev)  # [W, G]
+    cdf_y = torch.einsum("yr,brck->byck", wy, cdf)             # [B,H,G,K]
+    # cdf_y at each pixel's bin, for every tile column: [B, H, W, G]
+    at_bin = torch.gather(
+        cdf_y.permute(0, 1, 3, 2), 2,
+        idx[..., None].expand(b, h, w, g))
+    mapped = (at_bin * wx[None, None]).sum(-1)                 # [B, H, W]
+    return _rescale_by_luminance(x, lum, mapped)
+
+
+def clahe_batch(images: torch.Tensor, clip_limit: float = 4.0,
+                num_bins: int = 64) -> torch.Tensor:
+    """Contrast-limited GLOBAL histogram equalization of the luminance of
+    [B, H, W, 3] in [0, 1]: one CDF per image (the fallback for sizes
+    the tile grid does not divide)."""
+    x = images.to(torch.float32)
+    lum, idx = _luminance_bins(x, num_bins)
+    b, h, w = lum.shape
+    flat = (torch.arange(b, device=x.device)[:, None, None] * num_bins
+            + idx).reshape(-1)
+    hist = torch.bincount(flat, minlength=b * num_bins).to(
+        torch.float32).reshape(b, num_bins)
+    cdf = _clip_and_cdf(hist, clip_limit, h * w, num_bins)     # [B, K]
+    mapped = torch.gather(cdf, 1, idx.reshape(b, -1)).reshape(b, h, w)
+    return _rescale_by_luminance(x, lum, mapped)
+
+
+def clahe(images: torch.Tensor) -> torch.Tensor:
+    """Tiled CLAHE where both sides divide by the 8 × 8 grid, else the
+    global equalization (the JAX train stack's choice)."""
+    if images.shape[1] % 8 == 0 and images.shape[2] % 8 == 0:
+        return clahe_batch_tiled(images)
+    return clahe_batch(images)
+
+
+# ---------------------------------------------------------------------------
+# the train stack: draws, then the apply at the drawn parameters
+# ---------------------------------------------------------------------------
+
+ERASING_AREA = (0.02, 0.2)
+DROPOUT_HOLE_AREA = (0.02, 0.035)
+
+
 def draw_train_params(batch: int, cfg, gen: torch.Generator,
                       device=None) -> Dict[str, torch.Tensor]:
-    """The random parameters of one batch's train augmentation, [B]
-    each, drawn from `gen` in the order of the JAX subkeys
-    (`preprocess.py:553-556` there): crop scale, angle (radians), flip,
-    the crop centre's y and x offsets, the brightness, contrast and
-    saturation factors, and the hue shift."""
+    """The random parameters of one batch's train augmentation, drawn
+    from `gen` in the order of the JAX subkeys (`preprocess.py:554-556`
+    there): crop scale, angle (radians), flip, the crop centre's y and x
+    offsets, the brightness, contrast and saturation factors, the hue
+    shift [B] each; then, only for the extras the config turns on, the
+    blur selection, the noise [B, S, S, 3] (S = image_size), the
+    erasing's (apply, area, y, x), the perspective's corner shifts
+    [B, 4, 2] and apply, the CLAHE selection, the elastic field
+    [B, S, S, 2] and apply, and coarse dropout's (apply, holes,
+    areas / y / x [B, holes])."""
     d = cfg.data
-    check_train_augmentation(d)
     device = device if device is not None else gen.device
 
-    def uniform(lo, hi):
-        u = torch.rand(batch, generator=gen, device=device)
+    def uniform(lo, hi, shape=(batch,)):
+        u = torch.rand(shape, generator=gen, device=device)
         return lo + (hi - lo) * u
+
+    def chance(p):
+        return uniform(0.0, 1.0) < p
 
     max_rad = math.radians(d.rotation_degrees)
     out = {
         "crop_scale": uniform(d.crop_scale_min, 1.0),
         "angle": uniform(-max_rad, max_rad),
-        "flip": (uniform(0.0, 1.0) < d.horizontal_flip_prob).float(),
+        "flip": chance(d.horizontal_flip_prob).float(),
         "shift_y": uniform(-1.0, 1.0),
         "shift_x": uniform(-1.0, 1.0),
     }
@@ -240,7 +553,40 @@ def draw_train_params(batch: int, cfg, gen: torch.Generator,
                     ("saturation", d.saturation_factor)):
         out[name] = 1.0 + uniform(-f, f)
     out["hue"] = uniform(-d.hue_factor, d.hue_factor)
+    s = d.image_size
+    if d.gaussian_blur_prob > 0:
+        out["blur"] = chance(d.gaussian_blur_prob)
+    if d.gaussian_noise_std > 0:
+        out["noise"] = torch.randn((batch, s, s, 3), generator=gen,
+                                   device=device)
+    if d.random_erasing_prob > 0:
+        out["erase"] = chance(d.random_erasing_prob)
+        out["erase_area"] = uniform(*ERASING_AREA)
+        out["erase_y"] = uniform(0.0, 1.0)
+        out["erase_x"] = uniform(0.0, 1.0)
+    if d.perspective_prob > 0:
+        out["perspective_shift"] = uniform(
+            0.0, 1.0, (batch, 4, 2)) * d.perspective_distortion
+        out["perspective"] = chance(d.perspective_prob)
+    if d.clahe_prob > 0:
+        out["clahe"] = chance(d.clahe_prob)
+    if d.elastic_prob > 0:
+        out["elastic_field"] = uniform(-1.0, 1.0, (batch, s, s, 2))
+        out["elastic"] = chance(d.elastic_prob)
+    if d.coarse_dropout_prob > 0:
+        n = d.coarse_dropout_holes
+        out["dropout"] = chance(d.coarse_dropout_prob)
+        out["dropout_holes"] = torch.randint(1, n + 1, (batch,),
+                                             generator=gen, device=device)
+        out["dropout_area"] = uniform(*DROPOUT_HOLE_AREA, (batch, n))
+        out["dropout_y"] = uniform(0.0, 1.0, (batch, n))
+        out["dropout_x"] = uniform(0.0, 1.0, (batch, n))
     return out
+
+
+def _select(sel: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+    return torch.where(sel.view(-1, 1, 1, 1), a, b)
 
 
 def train_preprocess_apply(images_uint8: torch.Tensor,
@@ -248,30 +594,61 @@ def train_preprocess_apply(images_uint8: torch.Tensor,
                            dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
     """[B, S, S, 3] uint8 → [B, image_size, image_size, 3] normalized, at
-    the given parameters (`draw_train_params`): flip, random resized crop
-    (separable resample), rotation after the crop at image_size (the
-    reference's order) with the input rounded to bf16 as in the JAX
-    stack, colour and hue jitter."""
+    the given parameters (`draw_train_params`), in the JAX order:
+    geometry (flip, random resized crop as the separable resample, then
+    the rotation at image_size through bf16; or all three as one affine
+    gather), colour and hue jitter, blur, noise, erasing, perspective,
+    CLAHE, elastic, coarse dropout."""
     d = cfg.data
-    check_train_augmentation(d)
     in_size = float(images_uint8.shape[1])
-    x = images_uint8.to(torch.float32)
-    x = torch.where(params["flip"].reshape(-1, 1, 1, 1) > 0, x.flip(2), x)
-    scale_y, shift_y = _crop_params(in_size, float(d.image_size),
-                                    params["crop_scale"], params["shift_y"])
-    scale_x, shift_x = _crop_params(in_size, float(d.image_size),
-                                    params["crop_scale"], params["shift_x"])
-    x = separable_resample(x, scale_y, shift_y, scale_x, shift_x,
-                           d.image_size) / 255.0
-    if d.rotation_degrees > 0 and d.online_rotation:
-        from multimodal_rare_disease_tpu_torch.ops.rotate import rotate_batch
+    if d.geometry_mode == "gather":
+        mats = _compose_affine(in_size, float(d.image_size),
+                               params["crop_scale"], params["angle"],
+                               params["flip"], params["shift_y"],
+                               params["shift_x"])
+        x = affine_resample(images_uint8, mats, d.image_size) / 255.0
+    else:
+        x = images_uint8.to(torch.float32)
+        x = torch.where(params["flip"].reshape(-1, 1, 1, 1) > 0, x.flip(2),
+                        x)
+        scale_y, shift_y = _crop_params(in_size, float(d.image_size),
+                                        params["crop_scale"],
+                                        params["shift_y"])
+        scale_x, shift_x = _crop_params(in_size, float(d.image_size),
+                                        params["crop_scale"],
+                                        params["shift_x"])
+        x = separable_resample(x, scale_y, shift_y, scale_x, shift_x,
+                               d.image_size) / 255.0
+        if d.rotation_degrees > 0 and d.online_rotation:
+            from multimodal_rare_disease_tpu_torch.ops.rotate import (
+                rotate_batch,
+            )
 
-        x = rotate_batch(x.to(torch.bfloat16), params["angle"],
-                         max_degrees=d.rotation_degrees).to(torch.float32)
+            x = rotate_batch(x.to(torch.bfloat16), params["angle"],
+                             max_degrees=d.rotation_degrees).to(
+                                 torch.float32)
     x = color_jitter(x, params["brightness"], params["contrast"],
                      params["saturation"])
     if d.hue_factor > 0:
         x = hue_rotate(x, params["hue"].reshape(-1, 1, 1))
+    if d.gaussian_blur_prob > 0:
+        x = _select(params["blur"], gaussian_blur(x), x)
+    if d.gaussian_noise_std > 0:
+        x = gaussian_noise(x, params["noise"], d.gaussian_noise_std)
+    if d.random_erasing_prob > 0:
+        x = random_erasing(x, params["erase"], params["erase_area"],
+                           params["erase_y"], params["erase_x"])
+    if d.perspective_prob > 0:
+        x = random_perspective(x, params["perspective_shift"],
+                               params["perspective"])
+    if d.clahe_prob > 0:
+        x = _select(params["clahe"], clahe(x), x)
+    if d.elastic_prob > 0:
+        x = elastic_transform(x, params["elastic_field"], params["elastic"])
+    if d.coarse_dropout_prob > 0:
+        x = coarse_dropout(x, params["dropout"], params["dropout_holes"],
+                           params["dropout_area"], params["dropout_y"],
+                           params["dropout_x"])
     return _normalize01(x, dtype)
 
 
@@ -282,3 +659,12 @@ def train_preprocess(images_uint8: torch.Tensor, gen: torch.Generator, cfg,
     params = draw_train_params(images_uint8.shape[0], cfg, gen,
                                images_uint8.device)
     return train_preprocess_apply(images_uint8, params, cfg, dtype)
+
+
+def augment_batch(images_uint8: torch.Tensor, gen: torch.Generator, cfg,
+                  train: bool, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """The train augmentation drawn from `gen`, or the eval preprocess."""
+    if train:
+        return train_preprocess(images_uint8, gen, cfg, dtype)
+    return eval_preprocess(images_uint8, cfg, dtype)

@@ -49,7 +49,6 @@ from multimodal_rare_disease_tpu_torch.models.layers import (
     set_dropout_generator,
 )
 from multimodal_rare_disease_tpu_torch.ops.preprocess import (
-    check_train_augmentation,
     eval_preprocess,
     train_preprocess,
 )
@@ -165,8 +164,6 @@ class Trainer:
             raise NotImplementedError(
                 f"mesh.model_axis={cfg.mesh.model_axis}: tensor parallelism "
                 f"is not ported to the torch package (ROADMAP P11)")
-        if mode != "text_only":
-            check_train_augmentation(cfg.data)
         self.cfg = cfg
         self.mode = mode
         self.pipeline = pipeline

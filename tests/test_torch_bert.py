@@ -2,7 +2,9 @@
 module on the same weights: classic rows, sequence-packed rows and the
 CLS-only last layer, in f32 on the CPU, with the default FFN dispatch
 (K1) and with `fused_attn_out` (K3 then K2 in every layer but the
-CLS-only last one). The JAX side runs its classic XLA path, and its
+CLS-only last one), and the pre-LN layers of
+`text_encoder.pre_layernorm` (no kernel, as in the JAX dispatch). The
+JAX side runs its classic XLA path, and its
 Pallas kernels in interpret mode where the JAX package's own tests run
 them that way (FORCE_INTERPRET)."""
 
@@ -233,8 +235,7 @@ def test_fused_attn_out_keeps_the_parameter_tree():
         {k: v.shape for k, v in b.state_dict().items()}
 
 
-@pytest.mark.parametrize("flag", ["quantized_inference", "pre_layernorm",
-                                  "flat_residual"])
+@pytest.mark.parametrize("flag", ["quantized_inference", "flat_residual"])
 def test_unported_options_raise(flag):
     cfg = _cfg(**{f"text_encoder.{flag}": True})
     with pytest.raises(NotImplementedError):
@@ -289,3 +290,102 @@ def test_hidden_states_and_attentions_match_jax(jax_kernels_interpreted,
     if "attentions" in out:
         rows = torch.stack(out["attentions"]).sum(-1)
         np.testing.assert_allclose(rows.numpy(), 1.0, atol=1e-6)
+
+
+def _counting(monkeypatch):
+    """Count the calls of the port's kernel wrappers from the BERT layer."""
+    calls = {"k3": 0, "ffn": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tbert, "fused_attn_out_ln",
+                        counted("k3", tbert.fused_attn_out_ln))
+    monkeypatch.setattr(tbert, "fused_ffn_ln",
+                        counted("ffn", tbert.fused_ffn_ln))
+    return calls
+
+
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["default", "fused-attn-out"])
+def test_pre_ln_classic_and_cls_only_match_jax(jax_kernels_interpreted,
+                                               monkeypatch, fused_attn_out):
+    # pre-LN: the JAX layer turns K1 and K3 off (`not self.pre_ln`), so
+    # neither wrapper is called whatever fused_ffn / fused_attn_out say
+    cfg = _cfg(hidden=128, ffn=256, **{
+        "text_encoder.pre_layernorm": True,
+        "text_encoder.fused_attn_out": fused_attn_out})
+    jenc, v, tenc = _pair(cfg, seed=31)
+    assert "final_ln" in v["params"]["bert"]
+    assert tenc.bert.final_ln is not None
+    calls = _counting(monkeypatch)
+    ids, mask = _batch(np.random.default_rng(32), 4, 16)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask)))
+    _, jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask),
+                         output_hidden_states=True)   # full forward
+    with torch.no_grad():
+        got = tenc(_t(ids), _t(mask)).numpy()
+        full = tenc.bert(_t(ids), _t(mask), cls_only_final=False)
+        cls_only = tenc.bert(_t(ids), _t(mask), cls_only_final=True)
+    assert calls == {"k3": 0, "ffn": 0}
+    assert got.shape == ref.shape == (4, 128)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    np.testing.assert_allclose(full["last_hidden_state"].numpy(),
+                               np.asarray(jout["last_hidden_state"]),
+                               atol=ATOL)
+    assert cls_only["last_hidden_state"].shape == (4, 1, 128)
+    np.testing.assert_allclose(cls_only["cls"].numpy(),
+                               np.asarray(jout["cls"]), atol=ATOL)
+
+
+def test_pre_ln_packed_rows_match_jax_and_unpacked(monkeypatch):
+    cfg = _cfg(**{"text_encoder.pre_layernorm": True})
+    jenc, v, tenc = _pair(cfg, seed=33)
+    calls = _counting(monkeypatch)
+    ids, mask = _batch(np.random.default_rng(34), 7, 40, lo=10)
+    pb = pack_texts(ids, mask, capacity=128)
+    kw = dict(position_ids=pb.position_ids, segment_ids=pb.segment_ids,
+              query_positions=pb.query_positions)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(pb.input_ids), None,
+                                **{k: jnp.asarray(a) for k, a in kw.items()}))
+    with torch.no_grad():
+        got = tenc(_t(pb.input_ids), None,
+                   **{k: _t(a) for k, a in kw.items()}).numpy()
+        unpacked = tenc(_t(ids), _t(mask)).numpy()
+    assert calls == {"k3": 0, "ffn": 0}
+    docs = (pb.doc_row, pb.doc_slot)
+    np.testing.assert_allclose(got[docs], ref[docs], atol=ATOL)
+    np.testing.assert_allclose(got[docs], unpacked, atol=ATOL)
+
+
+def test_pre_ln_hidden_states_and_attentions_match_jax(monkeypatch):
+    cfg = _cfg(**{"text_encoder.pre_layernorm": True})
+    jenc, v, tenc = _pair(cfg, seed=35)
+    calls = _counting(monkeypatch)
+    ids, mask = _batch(np.random.default_rng(36), 3, 16)
+    flags = {"output_hidden_states": True, "output_attentions": True}
+    jemb, jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask), **flags)
+    with torch.no_grad():
+        emb, out = tenc(_t(ids), _t(mask), **flags)
+    assert calls == {"k3": 0, "ffn": 0}
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jemb), atol=ATOL)
+    np.testing.assert_allclose(out["last_hidden_state"].numpy(),
+                               np.asarray(jout["last_hidden_state"]),
+                               atol=ATOL)
+    for key in ("hidden_states", "attentions"):
+        assert len(out[key]) == len(jout[key])
+        for got, want in zip(out[key], jout[key]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=ATOL)
+
+
+def test_pre_ln_adds_only_the_final_layer_norm_to_the_tree():
+    pre = tbert.create_text_encoder(
+        _cfg(**{"text_encoder.pre_layernorm": True}).text_encoder, "cpu")
+    post = tbert.create_text_encoder(_cfg().text_encoder, "cpu")
+    extra = set(pre.state_dict()) - set(post.state_dict())
+    assert extra == {"bert.final_ln.weight", "bert.final_ln.bias"}
+    assert set(post.state_dict()) <= set(pre.state_dict())

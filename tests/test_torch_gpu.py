@@ -2,10 +2,14 @@
 FFN sublayer with and without its input LayerNorm), K3 (the fused
 attention-output sublayer) and K4 (the fused uint8 normalize), each
 against its plain version; the launch counts of the BERT layers, the
-predictor, the Evaluator, Grad-CAM and the attention maps; and the
-kernels' refusal of inputs that autograd tracks. Every test here is
-marked `gpu` and skips without a CUDA device; the file imports neither
-jax nor the JAX package, so it runs on a machine that has only torch:
+predictor, the Evaluator, Grad-CAM and the attention maps (also on
+EfficientNet-B0, and under pre-LN, which launches none); the kernels'
+refusal of inputs that autograd tracks; and the train side of the
+efficientnet_clinicalbert preset on the card (EfficientNet in f32, the
+augmentation extras, a step that keeps the frozen parameters). Every
+test here is marked `gpu` and skips without a CUDA device; the file
+imports neither jax nor the JAX package, so it runs on a machine that
+has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -491,3 +495,121 @@ def test_batch_norm_running_variance_is_the_biased_one_on_the_card(cuda):
                                atol=1e-5, rtol=1e-5)
     unbiased = xf.var((0, 2, 3), unbiased=True)
     assert (0.9 + 0.1 * unbiased - bn.running_var).abs().min() > 1e-3
+
+
+def test_efficientnet_preset_launches_k1_in_every_layer(cuda):
+    # the efficientnet_clinicalbert backbone under the default dispatch
+    pred = _predictor(cuda, **{"cnn_encoder.backbone": "efficientnet_b0"})
+    assert _run(pred) == (2, 0, 0, 0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("fused_attn_out", [False, True])
+def test_pre_ln_launches_no_kernel(cuda, fused_attn_out):
+    # the JAX dispatch turns K1 and K3 off under pre-LN; K4 stays off too
+    # at 64 px (the resample runs)
+    pred = _predictor(cuda, **{"text_encoder.pre_layernorm": True,
+                               "text_encoder.fused_attn_out":
+                                   fused_attn_out})
+    assert _run(pred) == (0,) * 7
+
+
+def test_efficientnet_f32_on_the_card_matches_the_cpu(cuda):
+    from multimodal_rare_disease_tpu_torch.models.efficientnet import (
+        EfficientNetB0Encoder,
+    )
+    from multimodal_rare_disease_tpu_torch.models.layers import init_weights
+
+    net = EfficientNetB0Encoder("cpu")
+    init_weights(net, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 224, 224, 3)).astype(np.float32))
+    with torch.no_grad():
+        want, wf = net(x, return_features=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got, gf = net.to(cuda)(x.to(cuda), return_features=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # f32 through ~50 convolutions: cuDNN may take Winograd or FFT
+    # algorithms, whose round-off is above a direct sum's
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+    assert gf["head"].shape == (4, 7, 7, 1280)
+    assert (gf["stage4"].cpu() - wf["stage4"]).abs().max().item() <= 1e-3
+
+
+def test_augmentation_extras_on_the_card_match_the_cpu(cuda):
+    """Each extra at one set of draws, f32, card against CPU tensors, at
+    chip_smoke.py's tolerances (its phase 11 runs them at 256 images)."""
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.ops import preprocess as pre
+
+    cfg = resolve_config("default", {
+        "data.image_size": 64, "data.gaussian_blur_prob": 0.5,
+        "data.gaussian_noise_std": 0.05, "data.random_erasing_prob": 0.5,
+        "data.perspective_prob": 0.5, "data.clahe_prob": 0.5,
+        "data.elastic_prob": 0.5, "data.coarse_dropout_prob": 0.5,
+        "data.geometry_mode": "gather"})
+    rng = np.random.default_rng(3)
+    u8 = torch.from_numpy(rng.integers(0, 256, (8, 80, 80, 3),
+                                       dtype=np.uint8))
+    p = pre.draw_train_params(8, cfg, torch.Generator().manual_seed(4))
+    p_card = {k: v.to(cuda) for k, v in p.items()}
+    cpu = pre.train_preprocess_apply(u8, p, cfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = pre.train_preprocess_apply(u8.to(cuda), p_card, cfg)
+        x = torch.from_numpy(rng.uniform(0, 1, (8, 64, 64, 3)).astype(
+            np.float32))
+        for fn, atol in ((pre.clahe_batch_tiled, 1e-5),
+                         (pre.clahe_batch, 1e-5),
+                         (pre.gaussian_blur, 1e-6)):
+            err = (fn(x.to(cuda)).cpu() - fn(x)).abs().max().item()
+            assert err <= atol, (fn.__name__, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # the whole stack: the perspective's solve bounds it (1e-3 on [0, 1],
+    # / the smallest ImageNet std after normalization)
+    err = (card.cpu() - cpu).abs()
+    assert err.max().item() <= 1e-3 / 0.224 and err.mean().item() <= 1e-4
+
+
+def test_preset_train_step_keeps_the_frozen_parameters(cuda):
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    cfg = resolve_config("efficientnet_clinicalbert", {
+        "text_encoder.num_layers": 8, "data.max_text_length": 32})
+    tr = Trainer(cfg, "multimodal", device=cuda)
+    rng = np.random.default_rng(5)
+    b, t = cfg.training.batch_size, cfg.data.max_text_length
+    batch = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (b, 256, 256, 3), dtype=np.uint8)).to(cuda),
+             "labels": torch.arange(b, device=cuda) % 10,
+             "input_ids": torch.from_numpy(rng.integers(
+                 1, 900, (b, t))).to(cuda),
+             "attention_mask": torch.ones(b, t, dtype=torch.long,
+                                          device=cuda)}
+    start = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    before = _counts()
+    m = tr.train_step(batch, 1e-4)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0,) * 7
+    assert m["skipped"] == 0 and torch.isfinite(m["loss"])
+    frozen = {n for n, p in tr.model.named_parameters()
+              if not p.requires_grad}
+    assert any(n.startswith("cnn_encoder.backbone.stage3_") for n in frozen)
+    assert any(".layer5." in n for n in frozen)
+    assert not any(".layer6." in n or "stage4_" in n for n in frozen)
+    params = dict(tr.model.named_parameters())
+    assert all(torch.equal(params[n], start[n]) for n in frozen)
+    # every trainable parameter moves but the five zero-gradient biases
+    # of test_full_width_train_step_launches_no_kernel
+    still = {n for n in params
+             if n not in frozen and torch.equal(params[n], start[n])}
+    assert still == {f"fusion.{a}_attention.{k}_proj.bias"
+                     for a in ("image_to_text", "text_to_image")
+                     for k in ("query", "key")} | {
+        "text_encoder.bert.pooler.bias"}

@@ -2,8 +2,10 @@
 (config, tokenizer with its C++ core, clinical text, the image corpus
 code, the host RNG streams, the statistics, the LR schedules and early
 stopping, the freeze rules, the synthetic corpus) against the
-originals, and a scan of the port's imports: no module of the port, and
-not chip_smoke.py, imports jax, the JAX package or sklearn."""
+originals, the corpus parsers (`load_fgdd` read without pandas, case by
+case where pandas' semantics matter) and the text pipeline's module,
+and a scan of the port's imports: no module of the port, and not
+chip_smoke.py, imports jax, the JAX package, sklearn or pandas."""
 
 import ast
 from pathlib import Path
@@ -33,7 +35,7 @@ from multimodal_rare_disease_tpu_torch.utils import rng as trng
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "multimodal_rare_disease_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "multimodal_rare_disease_tpu", "sklearn")
+             "multimodal_rare_disease_tpu", "sklearn", "pandas")
 
 
 @pytest.mark.parametrize("preset", sorted(jcfg.PRESETS))
@@ -138,7 +140,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
             "train/pipeline.py", "utils/rng.py", "cli/evaluate.py",
             "cli/explain.py", "train/trainer.py", "train/state.py",
             "train/freeze.py", "train/schedules.py", "ops/rotate.py",
-            "data/synthetic.py", "cli/train.py"} <= {
+            "data/synthetic.py", "cli/train.py", "data/parsers.py",
+            "train/text_pipeline.py", "models/efficientnet.py"} <= {
         str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     bad = {f"{f.relative_to(REPO)}: {m}" for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN}
@@ -347,8 +350,6 @@ def test_freeze_rules_and_multipliers_equal_jax_for_every_preset(preset):
                float(np.float32(tfreeze.lr_multiplier(tc, n))))
            for n in want}
     assert got == want
-    if tc.cnn_encoder.backbone != "resnet50":
-        return  # EfficientNet is not ported: the rules on the JAX names
     model = create_model(tc, device="meta", seed=None, trainable=True)
     assert {n: p.requires_grad for n, p in model.named_parameters()} == \
         {n: t for n, (t, _) in want.items()}
@@ -370,3 +371,105 @@ def test_synthetic_generator_equals_jax(tmp_path):
     for k in got:
         for p, q in zip(got[k], want[k]):
             assert Path(p).read_bytes() == Path(q).read_bytes()
+
+
+def _fgdd(tmp_path, fgdd_rows, phenotype_rows=None):
+    """An FGDD corpus of the given CSV lines under tmp_path."""
+    root = tmp_path / "FGDD"
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "FGDD.csv").write_text("\n".join(fgdd_rows) + "\n")
+    if phenotype_rows is not None:
+        (root / "Raw data").mkdir(exist_ok=True)
+        (root / "Raw data" / "phenotype.csv").write_text(
+            "\n".join(phenotype_rows) + "\n")
+    return str(root)
+
+
+# each case: FGDD.csv lines (and phenotype.csv lines) where the csv
+# reading must reproduce a pandas semantics the result depends on
+_FGDD_CASES = {
+    # empty and "NA" disease cells are missing: out of the counts, and
+    # their rows stringify as "nan", matching no disease
+    "missing-disease": (
+        ["patient_id,Disease_name,HP:1,HP:2,note",
+         "1,Alpha,1,0,a", "2,,1,1,b", "3,NA,0,1,c", "4,Beta,1,1,d",
+         "5,Alpha,0,0,e", "6,nan,1,0,f"], None),
+    # one-hot cells: 1 and 1.0 in numeric columns are present; in a text
+    # column only the text "1" is
+    "one-hot": (
+        ["patient_id,Disease_name,HP:1,HP:2,HP:3,HP:4",
+         "1,Alpha,1,1.0,1,yes", "2,Beta,0,0.0,1.0,1", "3,Alpha,1,,1,no",
+         "4,Beta,01,1.00,x,1"],
+        ["id,name", "HP:1,Face", "HP:2,Eyes", "HP:4,Ears"]),
+    # patient_id with a gap is a float column: "12.0", and "nan"
+    "patient-id-gap": (
+        ["patient_id,Disease_name,HP:1", "12,Alpha,1", ",Beta,1",
+         "14,Alpha,0"], None),
+    # no patient_id column: the row index
+    "no-patient-id": (
+        ["Disease_name,HP:1,HP:2", "Alpha,1,0", "Beta,0,1", "Gamma,1,1",
+         "Alpha,1,1"], None),
+    # a numeric Disease_id beside a text column: "5"
+    "numeric-disease-id": (
+        ["patient_id,Disease_id,HP:1,note", "1,5,1,a", "2,5,0,b",
+         "3,6,1,c"], None),
+    # an all-numeric table with a float column: iterrows gives float
+    # rows, so a row's "5.0" never matches the counts' "5" (no patients)
+    "all-numeric-float-row": (
+        ["patient_id,Disease_id,HP:1", "1,5,1", "2,5,", "3,6,1"], None),
+    # quoted fields with commas, a short row, a blank line
+    "csv-quoting": (
+        ['patient_id,Disease_name,HP:1,HP:2', '1,"Alpha, type 1",1,0',
+         '2,"Alpha, type 1",0', '', '3,Beta,1,1'],
+        ['id,name', 'HP:1,"Face, long"', 'HP:2,Eyes']),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FGDD_CASES))
+def test_load_fgdd_reads_like_pandas(tmp_path, case):
+    from multimodal_rare_disease_tpu.data import parsers as jparsers
+    from multimodal_rare_disease_tpu_torch.data import parsers as tparsers
+
+    rows, phen = _FGDD_CASES[case]
+    fgdd = _fgdd(tmp_path, rows, phen)
+    got = tparsers.load_fgdd(tcfg.get_config(), fgdd_dir=fgdd)
+    want = jparsers.load_fgdd(jcfg.get_config(), fgdd_dir=fgdd)
+    assert got == want
+    if case == "all-numeric-float-row":
+        assert got["texts"] == [] and got["disease_names"] == ["5", "6"]
+    if case == "patient-id-gap":
+        assert got["patient_ids"] == ["12.0", "nan", "14.0"]
+
+
+def test_load_fgdd_maps_a_missing_phenotype_name_to_nan(tmp_path):
+    # pandas before 3.0 stringified a missing name as "nan"; pandas 3
+    # keeps it missing and the JAX function then fails joining the names,
+    # so the port keeps the earlier "nan" (ROADMAP D11)
+    from multimodal_rare_disease_tpu_torch.data import parsers as tparsers
+
+    fgdd = _fgdd(tmp_path, ["patient_id,Disease_name,HP:1,HP:2",
+                            "1,Alpha,1,1"], ["id,name", "HP:1,", "HP:2,NA"])
+    got = tparsers.load_fgdd(tcfg.get_config(), fgdd_dir=fgdd)
+    assert got["texts"] == ["Patient presents with: nan, nan."]
+
+
+def test_parsers_and_text_pipeline_keep_the_jax_code():
+    # the copies differ from the originals only in their imports, their
+    # module docstrings and the csv reading of load_fgdd
+    import inspect
+
+    from multimodal_rare_disease_tpu.data import parsers as jparsers
+    from multimodal_rare_disease_tpu.train import text_pipeline as jtp
+    from multimodal_rare_disease_tpu_torch.data import parsers as tparsers
+    from multimodal_rare_disease_tpu_torch.train import text_pipeline as ttp
+
+    for name in ("OrphadataParser", "HPOTerm", "HPOParser", "_text"):
+        assert inspect.getsource(getattr(tparsers, name)) == \
+            inspect.getsource(getattr(jparsers, name)), name
+    assert inspect.getsource(tparsers.create_syndrome_text_mapping).replace(
+        "_torch", "") == inspect.getsource(
+        jparsers.create_syndrome_text_mapping)
+    for name in ("TextDataPipeline", "fgdd_text_pipeline",
+                 "FgddPairedPipeline", "fgdd_multimodal_pipeline"):
+        assert inspect.getsource(getattr(ttp, name)).replace(
+            "_torch", "") == inspect.getsource(getattr(jtp, name)), name

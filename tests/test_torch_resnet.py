@@ -81,9 +81,3 @@ def test_cnn_encoder_embedding_matches_jax():
     assert got.shape == (2, 32)
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
-
-def test_other_backbones_are_not_ported():
-    cfg = resolve_config("default",
-                         {"cnn_encoder.backbone": "efficientnet_b0"})
-    with pytest.raises(NotImplementedError):
-        create_cnn_encoder(cfg.cnn_encoder, "cpu")

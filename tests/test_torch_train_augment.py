@@ -3,7 +3,8 @@ ops/rotate.py) against the JAX package's at given parameters, in f32 on
 the CPU: the Paeth rotation, the flip and the separable random resized
 crop, colour jitter and hue rotation, and the whole `train_preprocess`
 fed the parameters re-derived from the JAX key with `jax.random`; plus
-the port's own draws and the extras it does not port."""
+the port's own draws (the default-off extras are in
+test_torch_augment_extras.py)."""
 
 import math
 
@@ -200,18 +201,6 @@ def test_train_preprocess_draws_are_seeded_and_in_range():
     bf = tpre.train_preprocess(u8, torch.Generator().manual_seed(3), cfg,
                                dtype=torch.bfloat16)
     assert bf.dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("flag,value", [
-    ("gaussian_blur_prob", 0.2), ("gaussian_noise_std", 0.05),
-    ("random_erasing_prob", 0.25), ("perspective_prob", 0.3),
-    ("clahe_prob", 0.3), ("elastic_prob", 0.2),
-    ("coarse_dropout_prob", 0.3), ("geometry_mode", "gather")])
-def test_unported_augmentation_extras_raise_naming_the_flag(flag, value):
-    cfg = resolve_config("default", {f"data.{flag}": value})
-    with pytest.raises(NotImplementedError, match=flag):
-        tpre.train_preprocess(_t(_images(0, b=1, s=32)),
-                              torch.Generator().manual_seed(0), cfg)
 
 
 def test_eval_preprocess_without_the_kernel_normalizes_plainly():

@@ -155,10 +155,8 @@ def test_train_cli_smoke_test_prints_its_summary(tmp_path, capsys):
     assert role_path(tmp_path, "multimodal", "last").is_dir()
 
 
-def test_train_cli_needs_a_card_or_cpu_and_has_no_fgdd(tmp_path):
+def test_train_cli_needs_a_card_or_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--smoke-test", "--checkpoint-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="P10b"):
-        train_cli.main(["--data", "fgdd", "--device", "cpu"])
