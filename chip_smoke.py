@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the torch package's serving, evaluation and training paths once
-on one NVIDIA Hopper card.
+"""Drive the torch package's serving, evaluation, training and data-tool
+paths once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints one line or a few; any failure raises and exits
+non-zero):
 
 1. device and toolchain: the card's name and power limit, torch and CUDA
    versions, compute capability 9.0;
@@ -94,7 +95,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    CPU in f32, with its time; the preset under pre-LN, which launches no
    kernel, held against its f32 model; and `cli/train.py --mode
    text_only --data fgdd` on a seeded FGDD table for FGDD_EPOCHS epochs
-   at full width, K1 12 per validation batch.
+   at full width, K1 12 per validation batch;
+12. face detection and the setup tools: MTCNN from an npz of seeded
+   weights on the card over 256 seeded 256-px images (data/synthetic.py),
+   its nets held against the CPU's on the inputs the card gave them, its
+   boxes against the same detector on the CPU over FACE_CPU_IMAGES (flips
+   counted), no detector failure, and the heuristic detector on the same
+   images; the face crops (staged by the numpy copy of PIL's bilinear)
+   through `predict_batch` at B=256 on the full-width default model, K1
+   11 times at the packed rows and once at the CLS rows, held against
+   every kernel forced off and the f32 model at phase 4's limits, and its
+   p50; one validation pass of a `DataPipeline` with use_face_detection
+   on phase 10's decoded corpus; torchvision ResNet-50 and HF BERT-base
+   files of seeded tensors (built from their key lists) through
+   `cli/convert_weights.py --device cuda` and `load_predictor`, a B=256
+   predict with K1 12 held against the same checkpoint in f32 on the
+   CPU; `cli/verify_setup.py --full --device cuda` in-process (all seven
+   steps, K1 12); the conv VAE trained for 400 epochs on 50 seeded 64-px
+   images (the loss falls; ms per epoch), one f32 step on the card
+   against the CPU, generation at 256 px; and `utils/profiling.py`'s
+   trace around one predict call and its peak memory.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -1432,6 +1452,519 @@ def preset_and_extras(dev, card: str, images, texts, agreement, p50_ms):
     return totals
 
 
+# phase 12: face detection (MTCNN on the card), the face-cropped predict,
+# a converted checkpoint, verify_setup --full, the VAE, the profiler.
+# Seeded MTCNN weights (init_mtcnn_params): random nets give nearly equal
+# face scores everywhere (P-Net's spread 0.49-0.50), which would make every
+# NMS a run of near-ties; each stage's score layer is scaled by
+# MTCNN_SCORE_SCALE and its face logit raised by MTCNN_SCORE_BIAS, so
+# that every stage keeps candidates with well-separated scores
+MTCNN_SCORE_SCALE = 30.0
+MTCNN_SCORE_BIAS = {"pnet.conv4_1": 0.5, "rnet.dense5_1": 0.9,
+                    "onet.dense6_1": 0.9}
+# the detector on the CPU beside the card's, over the first images; the
+# nets' inputs recorded on the card over the first NET_TRACE_IMAGES
+FACE_CPU_IMAGES = 64
+NET_TRACE_IMAGES = 4
+# the nets on the card against the CPU on the same inputs, f32 with TF32
+# off: probabilities and regressions of O(1) through at most five
+# convolutions and three dense layers, summed in another order (cuDNN may
+# take Winograd or FFT algorithms, whose round-off is above a direct
+# sum's), the face logits scaled by MTCNN_SCORE_SCALE; a wrong layout or
+# a dropped term moves them by 0.1 or more
+MTCNN_NET_ATOL = 1e-4
+# the detector's box, card against CPU: whole pixels (round() of the
+# regressed corners). The cascade is discontinuous (thresholds, NMS
+# order, floor() of the crop corners): a decision that round-off moves
+# changes the box by more than a pixel or whether a face is found. Such
+# images are counted as flips and printed; more than FACE_FLIP_LIMIT of
+# the FACE_CPU_IMAGES fail the phase
+BOX_ATOL = 1
+FACE_FLIP_LIMIT = 4
+# the converted checkpoint's B=256 bf16 probabilities against the same
+# checkpoint in f32 on the CPU, over the first pairs (phase 4's limit)
+CONVERT_CPU_PAIRS = 32
+# the VAE: the JAX default run (400 epochs) over 5 seeded 64-px images
+# per class; its loss must fall to VAE_LOSS_RATIO of the first epoch's.
+# One f32 step at VAE_STEP_LR on the card against the CPU (TF32 off):
+# Adam's first step moves a parameter by lr·g/(|g| + eps), so round-off
+# in g moves it by at most 2·lr (ROADMAP D7); the loss (O(1e3)) within
+# VAE_LOSS_RTOL
+VAE_PER_CLASS = 5
+VAE_EPOCHS = 400
+VAE_LOSS_RATIO = 0.5
+VAE_STEP_LR = 4e-6
+VAE_PARAM_ATOL = 1e-5
+VAE_LOSS_RTOL = 1e-5
+
+
+def mtcnn_weights():
+    """The seeded MTCNN state dict with the score layers spread and
+    raised (see MTCNN_SCORE_SCALE)."""
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.models.mtcnn import (
+        init_mtcnn_params,
+    )
+
+    sd = init_mtcnn_params(seed=0)
+    for layer, bias in MTCNN_SCORE_BIAS.items():
+        sd[f"{layer}.weight"] = sd[f"{layer}.weight"] * MTCNN_SCORE_SCALE
+        sd[f"{layer}.bias"] = torch.tensor([0.0, bias])
+    return sd
+
+
+def torchvision_resnet50_shapes():
+    """torchvision resnet50's state dict schema: {key: shape} (its fc
+    included, which the converter ignores)."""
+    shapes = {"conv1.weight": (64, 3, 7, 7)}
+
+    def bn(name, c):
+        shapes.update({f"{name}.{k}": (c,) for k in
+                       ("weight", "bias", "running_mean", "running_var")})
+        shapes[f"{name}.num_batches_tracked"] = ()
+
+    bn("bn1", 64)
+    cin = 64
+    for i, (w, n) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3)), 1):
+        for b in range(n):
+            p = f"layer{i}.{b}"
+            for j, (o, ci, k) in enumerate(((w, cin, 1), (w, w, 3),
+                                            (4 * w, w, 1)), 1):
+                shapes[f"{p}.conv{j}.weight"] = (o, ci, k, k)
+                bn(f"{p}.bn{j}", o)
+            if b == 0:
+                shapes[f"{p}.downsample.0.weight"] = (4 * w, cin, 1, 1)
+                bn(f"{p}.downsample.1", 4 * w)
+            cin = 4 * w
+    shapes.update({"fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    return shapes
+
+
+def hf_bert_shapes(vocab, hidden, layers, inter, positions, types):
+    """An HF BertModel's state dict schema: {key: shape}."""
+    shapes = {"embeddings.word_embeddings.weight": (vocab, hidden),
+              "embeddings.position_embeddings.weight": (positions, hidden),
+              "embeddings.token_type_embeddings.weight": (types, hidden),
+              "embeddings.LayerNorm.weight": (hidden,),
+              "embeddings.LayerNorm.bias": (hidden,),
+              "pooler.dense.weight": (hidden, hidden),
+              "pooler.dense.bias": (hidden,)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}"
+        for name, (o, ci) in (("attention.self.query", (hidden, hidden)),
+                              ("attention.self.key", (hidden, hidden)),
+                              ("attention.self.value", (hidden, hidden)),
+                              ("attention.output.dense", (hidden, hidden)),
+                              ("intermediate.dense", (inter, hidden)),
+                              ("output.dense", (hidden, inter))):
+            shapes[f"{p}.{name}.weight"] = (o, ci)
+            shapes[f"{p}.{name}.bias"] = (o,)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{p}.{ln}.weight"] = (hidden,)
+            shapes[f"{p}.{ln}.bias"] = (hidden,)
+    return shapes
+
+
+def seeded_state_dict(shapes, seed):
+    """Seeded tensors for a schema: weights N(0, 1/fan_in) (so that
+    ResNet-50's 16 residual blocks and BERT's 12 layers stay finite in
+    bf16), norm scales and BatchNorm variances near 1, shifts, biases and
+    means near 0, the batch counter 0."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        norm = "LayerNorm" in k or "bn" in k or "downsample.1" in k
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.long)
+        elif len(shape) > 1:
+            fan_in = int(torch.tensor(shape[1:]).prod())
+            sd[k] = torch.randn(shape, generator=gen) / fan_in ** 0.5
+        elif k.endswith("running_var") or (norm and k.endswith(".weight")):
+            sd[k] = 1.0 + 0.1 * torch.rand(shape, generator=gen)
+        else:
+            sd[k] = 0.1 * torch.randn(shape, generator=gen)
+    return sd
+
+
+def faces_and_tools(dev, card: str, images, texts, agreement, p50_ms):
+    """Phase 12; returns the launches of its counted runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.cli import convert_weights
+    from multimodal_rare_disease_tpu_torch.cli import verify_setup
+    from multimodal_rare_disease_tpu_torch.config import (
+        Config,
+        resolve_config,
+    )
+    from multimodal_rare_disease_tpu_torch.data import images as dimages
+    from multimodal_rare_disease_tpu_torch.data import generative
+    from multimodal_rare_disease_tpu_torch.data.synthetic import (
+        SyntheticImageGenerator,
+    )
+    from multimodal_rare_disease_tpu_torch.evaluation import Evaluator
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.models import bert
+    from multimodal_rare_disease_tpu_torch.models import mtcnn
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
+    from multimodal_rare_disease_tpu_torch.utils import profiling
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    counted = partial(count_launches, totals=totals)
+    cfg = resolve_config("default")
+    n_layers = cfg.text_encoder.num_layers
+
+    def counts(k1=0):
+        return {"K1": k1, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+
+    def k1_rows(fn):
+        """fn() with the rows of every K1 call recorded."""
+        rows, wrapper = [], bert.fused_ffn_ln
+
+        def rec(x, *a, **kw):
+            rows.append(x.shape[0])
+            return wrapper(x, *a, **kw)
+
+        bert.fused_ffn_ln = rec
+        try:
+            return fn(), rows
+        finally:
+            bert.fused_ffn_ln = wrapper
+
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=HERE / "build")
+    workdir = Path(tmp.name)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+    # ---- (a) MTCNN on the card against the same detector on the CPU
+    npz = str(workdir / "mtcnn.npz")
+    mtcnn.save_mtcnn_npz(mtcnn_weights(), npz)
+    card_det = mtcnn.build_face_detector("mtcnn", npz, device=dev)
+    cpu_det = mtcnn.build_face_detector("mtcnn", npz, device="cpu")
+    synth = SyntheticImageGenerator(image_size=256, seed=12)
+    faces = [synth.generate(i % 10, i // 10) for i in range(BATCH)]
+    traced = []
+
+    def trace_hook(name):
+        def hook(module, inputs, outputs):
+            if len(card_boxes) < NET_TRACE_IMAGES:
+                traced.append((name, inputs[0].cpu(),
+                               [o.cpu() for o in outputs]))
+        return hook
+
+    card_boxes = []
+
+    def recording(arr):
+        box = card_det(arr)
+        card_boxes.append(box)
+        return box
+
+    hooks = [getattr(card_det.nets, n).register_forward_hook(trace_hook(n))
+             for n in ("pnet", "rnet", "onet")]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures0 = dimages.FACE_DETECTOR_FAILURES
+    dimages.set_face_detector(recording)
+    try:
+        t0 = time.perf_counter()
+        staged = [dimages.stage_uint8(f, 256) for f in faces]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_boxes = [cpu_det(f) for f in faces[:FACE_CPU_IMAGES]]
+        cpu_s = time.perf_counter() - t0
+        net_err = {}
+        for name, x, outs in traced:
+            with torch.inference_mode():
+                want = getattr(cpu_det.nets, name)(x)
+            for i, (g, w) in enumerate(zip(outs, want)):
+                key = f"{name}[{i}]"
+                net_err[key] = max(net_err.get(key, 0.0),
+                                   float((g - w).abs().max()))
+    finally:
+        dimages.set_face_detector(None)
+        for h in hooks:
+            h.remove()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    failures = dimages.FACE_DETECTOR_FAILURES - failures0
+    if failures:
+        fail(f"the face detector failed {failures} times on the card")
+    if len(card_boxes) != BATCH or max(net_err.values()) > MTCNN_NET_ATOL:
+        fail(f"MTCNN nets on the card vs CPU: {net_err}")
+    flips, box_err = [], 0
+    for i, (a, b) in enumerate(zip(card_boxes, cpu_boxes)):
+        if a is None or b is None:
+            if a != b:
+                flips.append(i)
+            continue
+        d = max(abs(u - v) for u, v in zip(a, b))
+        if d > BOX_ATOL:
+            flips.append(i)
+        else:
+            box_err = max(box_err, d)
+    if len(flips) > FACE_FLIP_LIMIT:
+        fail(f"MTCNN boxes card vs CPU: {len(flips)} flips "
+             f"{[(i, card_boxes[i], cpu_boxes[i]) for i in flips]}")
+    found = sum(b is not None for b in card_boxes)
+    if found < BATCH // 2:
+        fail(f"MTCNN found a face in only {found} of {BATCH} images")
+    heur_s = time.perf_counter()
+    heur = [mtcnn.heuristic_face_box(f) for f in faces]
+    heur_s = time.perf_counter() - heur_s
+    calls = {n: sum(1 for t in traced if t[0] == n)
+             for n in ("pnet", "rnet", "onet")}
+    print(f"[12 MTCNN] {card} | {BATCH} seeded 256-px images "
+          f"(data/synthetic.py), seeded nets (score layers x"
+          f"{MTCNN_SCORE_SCALE:g}, face logits raised "
+          f"{list(MTCNN_SCORE_BIAS.values())}), TF32 off | faces found on "
+          f"the card {found}/{BATCH} in {card_s:.1f} s "
+          f"({1e3 * card_s / BATCH:.1f} ms per image, crop and stage "
+          f"included); detector failures {failures} | nets card vs CPU on "
+          f"the card's inputs of {NET_TRACE_IMAGES} images ({calls} calls): "
+          + ", ".join(f"{k} {v:.1e}" for k, v in net_err.items())
+          + f" (tolerance {MTCNN_NET_ATOL}) | boxes card vs CPU over "
+          f"{FACE_CPU_IMAGES} images: max |diff| {box_err} px (tolerance "
+          f"{BOX_ATOL}), flips {len(flips)} {flips} (limit "
+          f"{FACE_FLIP_LIMIT}); the CPU detector took {cpu_s:.1f} s | "
+          f"heuristic_face_box: a box in "
+          f"{sum(b is not None for b in heur)}/{BATCH} in {heur_s:.1f} s")
+
+    # ---- (b) the face-cropped predict at full width, K1 11 + 1
+    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                               dev)
+    def want_rows(p):
+        """K1's rows in a B=256 predict of `p`: the packed rows in every
+        layer but the CLS-only last one, which takes the rows' query
+        slots (the classic rows and the CLS rows where packing does not
+        win)."""
+        ids, mask = p._prep_texts(texts, BATCH)
+        packed = p._packed_inputs(ids, mask)
+        if packed is None:
+            return [ids.size] * (n_layers - 1) + [len(ids)], ids.size
+        return ([packed[0].size] * (n_layers - 1) + [packed[3].size],
+                packed[0].size)
+
+    res, rows = k1_rows(lambda: counted(
+        lambda: pred.predict_batch(staged, texts), counts(n_layers),
+        "face-cropped predict_batch"))
+    rows_want, packed_m = want_rows(pred)
+    if rows != rows_want:
+        fail(f"face-cropped predict K1 rows {rows}, want {rows_want}")
+    probs = probs_of(res, pred.class_names)
+    if probs.shape != (BATCH, cfg.num_classes) or not np.isfinite(probs).all():
+        fail(f"face-cropped predict: bad probabilities {probs.shape}")
+    line = agreement("face-cropped", pred, probs, {}, batch_images=staged)
+    # in turns crops, phase 4's images, phase 4's images, crops: the same
+    # predictor on both batches (phase 6 times phase 4's images earlier in
+    # the run)
+    p50_a, p50_b = p50_ms(pred, staged)[0], p50_ms(pred)[0]
+    p50_c, p50_d = p50_ms(pred)[0], p50_ms(pred, staged)[0]
+    p50, p50_phase4 = (p50_a + p50_d) / 2, (p50_b + p50_c) / 2
+    changed = float(np.mean([not np.array_equal(a, b)
+                             for a, b in zip(staged, faces)]))
+    print(f"[12 face-cropped predict] {card} | {BATCH} MTCNN crops (20% "
+          f"margin, staged to 256 px by the numpy PIL bilinear; "
+          f"{changed:.0%} differ from the full frame) with phase 4's texts "
+          f"| launches K1 {n_layers - 1} at {packed_m} rows + 1 at "
+          f"{rows_want[-1]} query rows, plain-on-CUDA 0 | {line} | p50 "
+          f"{p50:.2f} ms on the crops vs {p50_phase4:.2f} ms on phase 4's "
+          f"images (in turns {p50_a:.2f} {p50_b:.2f} {p50_c:.2f} "
+          f"{p50_d:.2f})")
+
+    # one validation pass of a DataPipeline with face detection on the
+    # decoded corpus (phase 10's synthetic images)
+    samples, decoded = synthetic_corpus()
+    fcfg = resolve_config("default", {
+        "data.use_face_detection": True, "data.face_detector": "mtcnn",
+        "data.mtcnn_weights": npz})
+    t0 = time.perf_counter()
+    failures0 = dimages.FACE_DETECTOR_FAILURES
+    try:
+        pipe = DataPipeline(fcfg, "multimodal", samples=samples,
+                            decoded=decoded, device=dev)
+    finally:
+        dimages.set_face_detector(None)
+    pipe_s = time.perf_counter() - t0
+    if dimages.FACE_DETECTOR_FAILURES != failures0:
+        fail("the face detector failed in the pipeline")
+    plain_pipe = DataPipeline(cfg, "multimodal", samples=samples,
+                              decoded=decoded, device=dev)
+    cropped = sum(not np.array_equal(a, b) for a, b in
+                  zip(pipe.val_images, plain_pipe.val_images))
+    n_val = -(-len(pipe.val_samples) // fcfg.evaluation.eval_batch_size)
+    collected = counted(
+        lambda: Evaluator(fcfg, pred.model).collect_predictions(
+            pipe.val_batches()), counts(n_layers * n_val),
+        "face-detection pipeline validation")
+    if not np.isfinite(collected["probabilities"]).all():
+        fail("face-detection pipeline: probabilities not finite")
+    print(f"[12 face pipeline] {card} | DataPipeline(use_face_detection="
+          f"True, mtcnn, decoded) over {len(samples)} images in "
+          f"{pipe_s:.1f} s, "
+          f"{cropped}/{len(pipe.val_samples)} validation images cropped, "
+          f"detector failures 0 | validation K1 {n_layers} x {n_val} batch")
+    del pred
+    torch.cuda.empty_cache()
+
+    # ---- (c) torchvision ResNet-50 and HF BERT-base files through
+    # cli/convert_weights.py, load_predictor and a B=256 predict
+    te = cfg.text_encoder
+    rn_path, bert_path = workdir / "resnet50.pth", workdir / "bert.bin"
+    torch.save(seeded_state_dict(torchvision_resnet50_shapes(), 3), rn_path)
+    torch.save(seeded_state_dict(hf_bert_shapes(
+        te.vocab_size, te.hidden_size, te.num_layers, te.intermediate_size,
+        te.max_position_embeddings, te.type_vocab_size), 4), bert_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = convert_weights.main([
+            "--backbone", str(rn_path), "--hf-bert", str(bert_path),
+            "--num-layers", str(te.num_layers), "--num-heads",
+            str(te.num_heads), "--out", str(workdir / "converted"),
+            "--device", "cuda"])
+    if rc != 0:
+        fail(f"cli/convert_weights.py: rc {rc}: {out.getvalue()}")
+    cpred = load_predictor(workdir / "converted", dev)
+    res, rows = k1_rows(lambda: counted(
+        lambda: cpred.predict_batch(images, texts), counts(n_layers),
+        "converted checkpoint predict_batch"))
+    cprobs = probs_of(res, cpred.class_names)
+    meta = load_checkpoint(workdir / "converted")[1]
+    meta["config"]["training"]["compute_dtype"] = "float32"
+    ref = load_predictor(workdir / "converted", "cpu",
+                         cfg=Config.from_dict(meta["config"]))
+    ref_probs = probs_of(ref.predict_batch(images[:CONVERT_CPU_PAIRS],
+                                           texts[:CONVERT_CPU_PAIRS]),
+                         cpred.class_names)
+    d_conv = float(np.abs(cprobs[:CONVERT_CPU_PAIRS] - ref_probs).max())
+    if not np.isfinite(cprobs).all() or d_conv > PROB_ATOL_F32:
+        fail(f"converted checkpoint: card bf16 vs CPU f32 {d_conv}")
+    rows_want, conv_m = want_rows(cpred)
+    if rows != rows_want:
+        fail(f"converted checkpoint K1 rows {rows}, want {rows_want}")
+    print(f"[12 converted] {card} | torchvision ResNet-50 "
+          f"({len(torchvision_resnet50_shapes())} keys) and HF BERT-base "
+          f"files of seeded tensors through cli/convert_weights.py --device "
+          f"cuda, load_predictor | B={BATCH} launches K1 {n_layers - 1} at "
+          f"{conv_m} rows + 1 at {rows_want[-1]} query rows | "
+          f"max|dprob| card bf16 vs the same checkpoint in f32 on the CPU "
+          f"over {CONVERT_CPU_PAIRS} pairs {d_conv:.3e} (tolerance "
+          f"{PROB_ATOL_F32})")
+    del cpred, ref
+    torch.cuda.empty_cache()
+
+    # ---- (d) verify_setup --full --device cuda, in-process
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = counted(lambda: verify_setup.main(["--full", "--device",
+                                                "cuda"]),
+                     counts(n_layers), "verify_setup --full")
+    text = out.getvalue()
+    if rc != 0 or text.count("[OK]") != 7:
+        fail(f"verify_setup --full --device cuda: rc {rc}\n{text}")
+    forward = [ln.strip() for ln in text.splitlines() if "7. forward" in ln]
+    print(f"[12 verify_setup] {card} | --full --device cuda: all 7 steps "
+          f"passed in "
+          f"{time.perf_counter() - t0:.1f} s, K1 {n_layers} | {forward[0]}")
+    torch.cuda.empty_cache()
+
+    # ---- (e) the VAE: 400 epochs on the card, one f32 step card vs CPU,
+    # generation at 256 px
+    vsynth = SyntheticImageGenerator(image_size=generative.TRAIN_SIZE,
+                                     seed=13)
+    vimgs = np.stack([vsynth.generate(c, i) for c in range(10)
+                      for i in range(VAE_PER_CLASS)])
+    vlabels = np.repeat(np.arange(10), VAE_PER_CLASS)
+    _, loss0 = counted(lambda: generative.train_vae(
+        vimgs, vlabels, num_epochs=1, seed=0, device=dev), counts(),
+        "VAE epoch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vae, loss = counted(lambda: generative.train_vae(
+        vimgs, vlabels, num_epochs=VAE_EPOCHS, seed=0, device=dev),
+        counts(), "VAE training")
+    torch.cuda.synchronize()
+    ms_epoch = (time.perf_counter() - t0) * 1e3 / VAE_EPOCHS
+    if not np.isfinite(loss) or loss > VAE_LOSS_RATIO * loss0:
+        fail(f"VAE loss {loss0} -> {loss}")
+    step = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        eps = torch.randn((len(vlabels), 64),
+                          generator=torch.Generator().manual_seed(5))
+        for where in (dev, torch.device("cpu")):
+            m = generative.init_vae(generative.ConvVAE(device="cpu"),
+                                    torch.Generator().manual_seed(1)).to(where)
+            opt = torch.optim.Adam(m.parameters(), lr=VAE_STEP_LR)
+            loss_w = generative.vae_step(
+                m, opt, generative.corpus_tensor(vimgs, where),
+                torch.from_numpy(vlabels).to(where), eps.to(where),
+                VAE_STEP_LR)
+            step.append((float(loss_w), {k: v.detach().cpu() for k, v in
+                                         m.state_dict().items()}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    d_vloss = abs(step[0][0] - step[1][0]) / step[1][0]
+    d_vparam = max(float((step[0][1][k] - step[1][1][k]).abs().max())
+                   for k in step[1][1])
+    if d_vloss > VAE_LOSS_RTOL or d_vparam > VAE_PARAM_ATOL:
+        fail(f"VAE f32 step card vs CPU: loss {d_vloss}, params {d_vparam}")
+    vgen = generative.VAEImageGenerator(vae, image_size=256, seed=3)
+    gen_imgs = [vgen.generate(c, 0) for c in range(10)]
+    if any(g.shape != (256, 256, 3) or g.dtype != np.uint8
+           for g in gen_imgs):
+        fail("VAE generation: bad images")
+    print(f"[12 VAE] {card} | {len(vlabels)} seeded 64-px images, "
+          f"{VAE_EPOCHS} epochs on the card: loss {loss0:.1f} -> {loss:.1f}, "
+          f"{ms_epoch:.2f} ms per epoch | f32 step (lr {VAE_STEP_LR}) card vs "
+          f"CPU, TF32 off: loss rel |diff| {d_vloss:.1e} (tolerance "
+          f"{VAE_LOSS_RTOL}), parameters {d_vparam:.1e} ({VAE_PARAM_ATOL}) "
+          f"| generated 10 classes at 256 px")
+
+    # ---- (f) utils/profiling.py around one face-cropped predict call
+    ppred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                                dev)
+    ppred.predict_batch(staged, texts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profiling.trace(str(workdir / "trace")):
+        ppred.predict_batch(staged, texts)
+    trace = json.loads((workdir / "trace" / profiling.TRACE_FILE).read_text())
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    mem = profiling.device_memory_stats()
+    peak = mem[f"cuda:{dev.index or 0}"]["peak_bytes_in_use_mb"]
+    if not kernels or peak <= 0:
+        fail(f"profiling: {len(kernels)} kernel events, peak {peak} MB")
+    print(f"[12 profiling] {card} | trace() around one predict_batch: "
+          f"{len(trace['traceEvents'])} events, {len(kernels)} kernels | "
+          f"device_memory_stats peak {peak:.0f} MB | phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del ppred
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1672,12 +2205,14 @@ def main() -> int:
     if np.abs(probs.sum(1) - 1.0).max() > 1e-3:
         fail("probabilities do not sum to 1")
 
-    def reference_probs(p, over, preset="default"):
+    def reference_probs(p, over, preset="default", batch_images=None):
         """The kernel-off run of `p`, and the same seeded weights under
         the f32 compute dtype on the card (FFN in plain f32: the kernels
-        are bf16-only; cuDNN convolutions without TF32)."""
+        are bf16-only; cuDNN convolutions without TF32), on phase 4's
+        images or `batch_images`."""
+        imgs = images if batch_images is None else batch_images
         with plain_kernels():
-            plain = probs_of(p.predict_batch(images, texts), p.class_names)
+            plain = probs_of(p.predict_batch(imgs, texts), p.class_names)
             cfg32 = resolve_config(preset, {
                 **over, "training.compute_dtype": "float32"})
             ref = MultimodalPredictor(
@@ -1685,14 +2220,15 @@ def main() -> int:
             tf32 = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
             try:
-                f32 = probs_of(ref.predict_batch(images, texts),
+                f32 = probs_of(ref.predict_batch(imgs, texts),
                                p.class_names)
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
         return plain, f32
 
-    def agreement(tag, p, probs, over, preset="default"):
-        probs_plain, probs_ref = reference_probs(p, over, preset)
+    def agreement(tag, p, probs, over, preset="default", batch_images=None):
+        probs_plain, probs_ref = reference_probs(p, over, preset,
+                                                 batch_images)
         d_kp = float(np.abs(probs - probs_plain).max())
         d_kr = float(np.abs(probs - probs_ref).max())
         d_pr = float(np.abs(probs_plain - probs_ref).max())
@@ -1750,14 +2286,15 @@ def main() -> int:
           f"{serve5}, classic calls {n_classic}")
 
     # ---- 6. times
-    def p50_ms(p):
+    def p50_ms(p, batch_images=None):
+        imgs = images if batch_images is None else batch_images
         for _ in range(2):
-            p.predict_batch(images, texts)
+            p.predict_batch(imgs, texts)
         lat = []
         for _ in range(TIMED_RUNS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p.predict_batch(images, texts)  # ends in a device→host copy
+            p.predict_batch(imgs, texts)  # ends in a device→host copy
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(lat)), lat
@@ -1991,6 +2528,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     main11 = preset_and_extras(dev, card, images, texts, agreement, p50_ms)
 
+    # ---- 12. face detection, the face-cropped predict, a converted
+    # checkpoint, verify_setup --full, the VAE and the profiler
+    torch.cuda.empty_cache()
+    main12 = faces_and_tools(dev, card, images, texts, agreement, p50_ms)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -2021,9 +2563,9 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10 and 11 (their counted runs)
+        # 9, 10, 11 and 12 (their counted runs)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
-                     + main9[k] + main10[k] + main11[k]),
+                     + main9[k] + main10[k] + main11[k] + main12[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

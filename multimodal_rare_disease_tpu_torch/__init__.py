@@ -9,12 +9,13 @@ covers the inference side: the batch predictor (`inference/predictor.py`)
 and its HTTP daemon (`cli/serve.py`) over the multimodal, image-only and
 text-only models (ResNet-50, BERT-base, attention / gated /
 concatenation fusion), evaluation and statistics (`evaluation/`),
-Grad-CAM and attention maps (`explain/`), and their CLIs (`cli/`).
-Training is not ported yet. Every TPU kernel of the JAX package has a
-hand-written CUDA counterpart for Hopper under `csrc/`, bound in
-`kernels/`: the fused FFN sublayer with and without its input LayerNorm
-(K1, K2), the fused attention-output sublayer (K3) and the fused uint8
-normalize (K4). Its entry points run on the card unless the caller asks
+Grad-CAM and attention maps (`explain/`), training (`train/`), face
+detection (`models/mtcnn.py`), the weight converters, the conv VAE, the
+offline corpus and setup tools, and their CLIs (`cli/`). Every TPU
+kernel of the JAX package has a hand-written CUDA counterpart for Hopper
+under `csrc/`, bound in `kernels/`: the fused FFN sublayer with and
+without its input LayerNorm (K1, K2), the fused attention-output
+sublayer (K3) and the fused uint8 normalize (K4). Its entry points run on the card unless the caller asks
 for the CPU.
 """
 

@@ -54,7 +54,8 @@ def main(argv=None) -> int:
             results_dir = cfg.evaluation.results_dir
         pipeline = DataPipeline(cfg, mode=predictor.mode,
                                 image_dir=args.image_dir,
-                                tokenizer=predictor.tokenizer)
+                                tokenizer=predictor.tokenizer,
+                                device=predictor.device)
         if args.split == "val":
             batches = pipeline.val_batches()
         elif args.split == "train":

@@ -131,7 +131,8 @@ def main(argv=None) -> int:
             parser.error("--data fgdd supports --mode text_only or "
                          "multimodal (see PARITY.md)")
     else:
-        pipeline = DataPipeline(cfg, mode=args.mode, image_dir=image_dir)
+        pipeline = DataPipeline(cfg, mode=args.mode, image_dir=image_dir,
+                                device=device)
     trainer = Trainer(cfg, mode=args.mode, pipeline=pipeline,
                       workdir=cfg.training.checkpoint_dir, device=device)
     if args.resume:

@@ -8,12 +8,16 @@ torch package: its own copy of the JAX package's `data/images.py`.
 - the seeded 70/15/15 ratio split, the per-class stratified split with
   at least one validation sample, and the leakage-aware split that keeps
   a photo's `_augNN` / `_orig` variants on one side;
-- decode to fixed-size RGB uint8, a gray placeholder for a corrupt file.
+- decode to fixed-size RGB uint8, a gray placeholder for a corrupt file;
+- the optional face crop (`data.use_face_detection`): a registered
+  detector (MTCNN from an npz, on the caller's device, or the heuristic
+  blob detector) gives a box, which is cut out with a 20% margin before
+  the image is staged.
 
 PIL is imported only where a file is decoded, so a host that is given
-arrays need not have it. The JAX package's optional face crop (MTCNN or a
-heuristic detector) is not ported: `configure_face_detection` raises for
-`data.use_face_detection=True`.
+arrays need not have it: the resize to the staging size is
+`resize_bilinear_u8`, a numpy copy of PIL's `Image.BILINEAR` for uint8
+RGB that gives PIL's bytes.
 """
 
 from __future__ import annotations
@@ -207,33 +211,145 @@ def leakage_aware_split(
     return train, val
 
 
+# -- PIL's bilinear resize in numpy -------------------------------------
+
+_PRECISION_BITS = 22  # PIL's fixed point for 8-bit images (Resample.c)
+
+
+def _pil_bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's `precompute_coeffs` + `normalize_coeffs_8bpc` for the
+    bilinear filter: the [out, in] taps in 22-bit fixed point (as
+    float64, exact). Support max(in/out, 1) per output pixel, triangle
+    weights normalized in double by their running sum."""
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    kk = np.zeros((out_size, in_size), np.float64)
+    for o in range(out_size):
+        center = (o + 0.5) * scale
+        xmin = max(int(center - fscale + 0.5), 0)
+        xmax = min(int(center + fscale + 0.5), in_size)
+        x = np.arange(xmin, xmax)
+        k = np.maximum(0.0, 1.0 - np.abs((x - center + 0.5)
+                                         * (1.0 / fscale)))
+        total = np.cumsum(k)[-1] if len(k) else 0.0  # C's sequential sum
+        kk[o, xmin:xmax] = k / total if total != 0.0 else k
+    return np.trunc(kk * (1 << _PRECISION_BITS) + 0.5)
+
+
+def _pil_pass(x: np.ndarray, kk: np.ndarray) -> np.ndarray:
+    """One pass over the last axis: the products (< 2^31, exact in
+    float64) summed from 1 << 21, shifted right by 22, clipped."""
+    acc = x.astype(np.float64) @ kk.T + (1 << (_PRECISION_BITS - 1))
+    return np.clip(np.floor(acc / (1 << _PRECISION_BITS)), 0,
+                   255).astype(np.uint8)
+
+
+def resize_bilinear_u8(arr: np.ndarray, height: int,
+                       width: int) -> np.ndarray:
+    """uint8 [H, W, C] → [height, width, C], byte for byte what
+    `Image.fromarray(arr).resize((width, height), Image.BILINEAR)` gives:
+    the horizontal pass, then the vertical one, with a uint8 image in
+    between."""
+    h, w = arr.shape[:2]
+    out = arr
+    if width != w:
+        out = np.moveaxis(_pil_pass(np.moveaxis(out, 1, -1),
+                                    _pil_bilinear_weights(w, width)), -1, 1)
+    if height != h:
+        out = np.moveaxis(_pil_pass(np.moveaxis(out, 0, -1),
+                                    _pil_bilinear_weights(h, height)), -1, 0)
+    return np.ascontiguousarray(out)
+
+
+# -- face-detection hook -------------------------------------------------
+#
+# A detector is any callable mapping an RGB uint8 array to a (top, left,
+# height, width) crop box or None (the JAX package's hook, after the
+# reference's optional MTCNN FaceDetector). A detector that raises leaves
+# the full frame, as in the JAX package, and is counted in
+# FACE_DETECTOR_FAILURES, so that a device error cannot pass as "no
+# face" unnoticed.
+
+_FACE_DETECTOR = None
+FACE_DETECTOR_FAILURES = 0
+
+
+def set_face_detector(detector) -> None:
+    """Install a face detector: callable(np.uint8 [H,W,3]) ->
+    (top, left, height, width) or None. Pass None to disable."""
+    global _FACE_DETECTOR
+    _FACE_DETECTOR = detector
+
+
+def configure_face_detection(cfg, device="cuda") -> None:
+    """Install (or clear) the face-detection hook from config
+    (`data.use_face_detection` / `data.face_detector` /
+    `data.mtcnn_weights`); an MTCNN detector's nets run on `device`, the
+    card unless the caller asks for the CPU. Called by the data pipeline
+    at corpus load."""
+    d = cfg.data if hasattr(cfg, "data") else cfg
+    if not getattr(d, "use_face_detection", False):
+        set_face_detector(None)
+        return
+    from multimodal_rare_disease_tpu_torch.models.mtcnn import (
+        build_face_detector,
+    )
+
+    set_face_detector(build_face_detector(
+        getattr(d, "face_detector", "auto"),
+        getattr(d, "mtcnn_weights", ""), device=device))
+
+
+def _face_crop(arr: np.ndarray) -> np.ndarray:
+    """Apply the registered detector with a 20% margin, like the
+    reference's FaceDetector.detect_and_crop (fallback: the full
+    frame)."""
+    global FACE_DETECTOR_FAILURES
+    if _FACE_DETECTOR is None:
+        return arr
+    try:
+        box = _FACE_DETECTOR(arr)
+    except Exception as e:  # noqa: BLE001 — detector failure = resize path
+        FACE_DETECTOR_FAILURES += 1
+        log.warning("face detector failed (%s); using full frame", e)
+        return arr
+    if box is None:
+        return arr
+    top, left, h, w = (int(v) for v in box)
+    m_h, m_w = int(h * 0.2), int(w * 0.2)
+    y0 = max(0, top - m_h)
+    x0 = max(0, left - m_w)
+    y1 = min(arr.shape[0], top + h + m_h)
+    x1 = min(arr.shape[1], left + w + m_w)
+    if y1 <= y0 or x1 <= x0:
+        return arr
+    return arr[y0:y1, x0:x1]
+
+
+def stage_uint8(arr: np.ndarray, size: int = 256) -> np.ndarray:
+    """A decoded RGB uint8 image → [size, size, 3]: the face crop when a
+    detector is installed, then PIL's bilinear resize."""
+    if _FACE_DETECTOR is not None:
+        arr = _face_crop(arr)
+    if arr.shape[:2] != (size, size):
+        arr = resize_bilinear_u8(arr, size, size)
+    if arr.shape != (size, size, 3):
+        raise ValueError(f"bad shape {arr.shape}")
+    return arr
+
+
 # -- host decode ----------------------------------------------------------
 
-def configure_face_detection(cfg) -> None:
-    """The JAX package installs a face detector here when
-    `data.use_face_detection` is on; the port has none yet."""
-    d = cfg.data if hasattr(cfg, "data") else cfg
-    if getattr(d, "use_face_detection", False):
-        raise NotImplementedError(
-            "data.use_face_detection (the MTCNN / heuristic face crop) is "
-            "not ported to the torch package")
-
-
 def load_image_uint8(path: str, size: int = 256) -> np.ndarray:
-    """Decode to RGB uint8 [size, size, 3] (bilinear resize when the file
-    has another size); a gray placeholder when decoding fails."""
+    """Decode to RGB uint8 [size, size, 3]; the face crop when a detector
+    is installed (see set_face_detector), PIL's bilinear resize; a gray
+    placeholder when decoding fails."""
     from PIL import Image
 
     try:
         with Image.open(path) as im:
             arr = np.asarray(im.convert("RGB"), np.uint8)
-        if arr.shape[:2] != (size, size):
-            arr = np.asarray(
-                Image.fromarray(arr).resize((size, size), Image.BILINEAR),
-                np.uint8)
-        if arr.shape != (size, size, 3):
-            raise ValueError(f"bad shape {arr.shape}")
-        return arr
+        return stage_uint8(arr, size)
     except Exception as e:  # noqa: BLE001
         log.warning("failed to load %s (%s); using gray placeholder", path, e)
         return np.full((size, size, 3), 128, np.uint8)

@@ -40,6 +40,7 @@ from multimodal_rare_disease_tpu_torch.data.images import (
     load_corpus_arrays,
     sample_weights,
     scan_image_corpus,
+    stage_uint8,
     stratified_split,
 )
 from multimodal_rare_disease_tpu_torch.data.tokenizer import (
@@ -99,10 +100,13 @@ class DataPipeline:
         tokenizer: Optional[BertWordPieceTokenizer] = None,
         samples: Optional[Sequence[ImageSample]] = None,
         decoded: Optional[Mapping[str, np.ndarray]] = None,
+        device="cuda",
     ):
-        """`decoded`: each sample's uint8 [STAGING_SIZE, STAGING_SIZE, 3]
-        image by its path, used in place of reading the files (an
-        in-memory corpus, e.g. `data/synthetic.py`'s arrays)."""
+        """`decoded`: each sample's decoded RGB uint8 image by its path,
+        used in place of reading the files (an in-memory corpus, e.g.
+        `data/synthetic.py`'s arrays); it takes the face crop and the
+        resize to STAGING_SIZE as a decoded file does. `device`: where
+        an MTCNN face detector's nets run (`data.use_face_detection`)."""
         self.cfg = cfg
         self.mode = mode
         self.rngs = rngs or RngStreams(cfg.seed)
@@ -130,14 +134,17 @@ class DataPipeline:
             self.val_labels = np.asarray(
                 [s.label for s in self.val_samples], np.int32)
         elif decoded is not None:
+            configure_face_detection(cfg, device)
+
             def arrays(split):
-                return (np.stack([decoded[s.path] for s in split]),
+                return (np.stack([stage_uint8(decoded[s.path], STAGING_SIZE)
+                                  for s in split]),
                         np.asarray([s.label for s in split], np.int32))
 
             self.train_images, self.train_labels = arrays(self.train_samples)
             self.val_images, self.val_labels = arrays(self.val_samples)
         else:
-            configure_face_detection(cfg)
+            configure_face_detection(cfg, device)
             self.train_images, self.train_labels = load_corpus_arrays(
                 self.train_samples, STAGING_SIZE)
             self.val_images, self.val_labels = load_corpus_arrays(

@@ -560,7 +560,8 @@ def train_model(cfg: Config, mode: str = "multimodal",
                 workdir: Optional[str] = None, device="cuda") -> Trainer:
     """End-to-end convenience entry (`train_model` parity,
     `src/train.py:525-570`): build pipeline + trainer, run, reload best."""
-    pipeline = DataPipeline(cfg, mode=mode, image_dir=image_dir)
+    pipeline = DataPipeline(cfg, mode=mode, image_dir=image_dir,
+                            device=device)
     trainer = Trainer(cfg, mode=mode, pipeline=pipeline, workdir=workdir,
                       device=device)
     trainer.train(num_epochs)

@@ -6,7 +6,9 @@ predictor, the Evaluator, Grad-CAM and the attention maps (also on
 EfficientNet-B0, and under pre-LN, which launches none); the kernels'
 refusal of inputs that autograd tracks; and the train side of the
 efficientnet_clinicalbert preset on the card (EfficientNet in f32, the
-augmentation extras, a step that keeps the frozen parameters). Every
+augmentation extras, a step that keeps the frozen parameters); the
+MTCNN nets on the card against the CPU, a face-cropped B=256 predict
+with its K1 launches, and a VAE step on the card against the CPU. Every
 test here is marked `gpu` and skips without a CUDA device; the file
 imports neither jax nor the JAX package, so it runs on a machine that
 has only torch:
@@ -613,3 +615,126 @@ def test_preset_train_step_keeps_the_frozen_parameters(cuda):
                      for a in ("image_to_text", "text_to_image")
                      for k in ("query", "key")} | {
         "text_encoder.bert.pooler.bias"}
+
+
+# -- face detection, the face-cropped predict and the VAE (chip_smoke.py
+# phase 12 runs them at 256 images) ----------------------------------------
+
+@contextlib.contextmanager
+def _no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.parametrize("net,shape", [
+    ("pnet", (1, 154, 154, 3)), ("pnet", (2, 13, 17, 3)),
+    ("rnet", (64, 24, 24, 3)), ("onet", (64, 48, 48, 3))])
+def test_mtcnn_nets_on_the_card_match_the_cpu(cuda, net, shape):
+    """f32, TF32 off, at chip_smoke.py's MTCNN_NET_ATOL."""
+    from chip_smoke import MTCNN_NET_ATOL, mtcnn_weights
+    from multimodal_rare_disease_tpu_torch.models.mtcnn import MTCNN
+
+    nets = MTCNN(device="cpu")
+    nets.load_state_dict(mtcnn_weights(), strict=True)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=shape).astype(np.float32))
+    with torch.no_grad():
+        want = getattr(nets.eval(), net)(x)
+        with _no_tf32():
+            got = getattr(nets.to(cuda), net)(x.to(cuda))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g.cpu() - w).abs().max().item() <= MTCNN_NET_ATOL
+
+
+def test_face_cropped_predict_launches_k1_per_layer(cuda):
+    """MTCNN crops on the card, staged by the numpy bilinear, through
+    the full-width default model at B=256: K1 at the packed rows in
+    layers 0-10 and at the rows' query slots in the CLS-only last one."""
+    from chip_smoke import mtcnn_weights
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.data import images as dimages
+    from multimodal_rare_disease_tpu_torch.data.synthetic import (
+        SyntheticImageGenerator,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models import bert
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.models.mtcnn import MTCNNDetector
+
+    synth = SyntheticImageGenerator(256, seed=12)
+    faces = [synth.generate(c, 0) for c in range(10)]
+    failures = dimages.FACE_DETECTOR_FAILURES
+    dimages.set_face_detector(MTCNNDetector(mtcnn_weights(), device=cuda))
+    try:
+        crops = [dimages.stage_uint8(f, 256) for f in faces]
+    finally:
+        dimages.set_face_detector(None)
+    assert dimages.FACE_DETECTOR_FAILURES == failures
+    assert sum(not np.array_equal(a, b) for a, b in zip(crops, faces)) >= 5
+    _, texts = seeded_requests(256, seed=0)
+    images = [crops[i % len(crops)] for i in range(256)]
+    cfg = resolve_config("default")
+    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                               cuda)
+    rows, wrapper = [], bert.fused_ffn_ln
+
+    def rec(x, *a, **kw):
+        rows.append(x.shape[0])
+        return wrapper(x, *a, **kw)
+
+    bert.fused_ffn_ln = rec
+    try:
+        before = _counts()
+        out = pred.predict_batch(images, texts)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(_counts(), before))
+    finally:
+        bert.fused_ffn_ln = wrapper
+    assert got == (12, 0, 0, 0, 0, 0, 0)
+    ids, mask = pred._prep_texts(texts, 256)
+    packed = pred._packed_inputs(ids, mask)
+    assert rows == [packed[0].size] * 11 + [packed[3].size]
+    assert all(np.isfinite(list(r["all_probabilities"].values())).all()
+               for r in out)
+
+
+def test_vae_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 Adam step with explicit noise, TF32 off, at chip_smoke.py's
+    tolerances (phase 12)."""
+    from chip_smoke import VAE_LOSS_RTOL, VAE_PARAM_ATOL, VAE_STEP_LR
+    from multimodal_rare_disease_tpu_torch.data import generative as g
+
+    imgs = np.random.default_rng(0).integers(0, 256, (20, 64, 64, 3),
+                                             dtype=np.uint8)
+    labels = np.repeat(np.arange(10), 2)
+    eps = torch.randn((20, 64), generator=torch.Generator().manual_seed(1))
+    out = []
+    with _no_tf32():
+        for where in (cuda, torch.device("cpu")):
+            m = g.init_vae(g.ConvVAE(device="cpu"),
+                           torch.Generator().manual_seed(2)).to(where)
+            opt = torch.optim.Adam(m.parameters(), lr=VAE_STEP_LR)
+            loss = g.vae_step(m, opt, g.corpus_tensor(imgs, where),
+                              torch.from_numpy(labels).to(where),
+                              eps.to(where), VAE_STEP_LR)
+            out.append((float(loss), {k: v.detach().cpu()
+                                      for k, v in m.state_dict().items()}))
+    (l_card, sd_card), (l_cpu, sd_cpu) = out
+    assert abs(l_card - l_cpu) <= VAE_LOSS_RTOL * l_cpu
+    for k in sd_cpu:
+        assert (sd_card[k] - sd_cpu[k]).abs().max().item() <= VAE_PARAM_ATOL
