@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch package's serving, evaluation, training and data-tool
-paths once on one NVIDIA Hopper card.
+"""Drive the torch package's serving, evaluation, training, data-tool and
+rank-mesh paths once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -115,6 +115,20 @@ non-zero):
    images (the loss falls; ms per epoch), one f32 step on the card
    against the CPU, generation at 256 px; and `utils/profiling.py`'s
    trace around one predict call and its peak memory.
+
+13. the rank mesh (parallel/): the B=256 predict on a 1x1 mesh over a
+   NCCL process group of one, equal to phase 4's; two ranks on this card
+   over gloo (NCCL refuses two ranks on one device), each running its
+   rows through the kernels: the predict on a 2x1 and a 1x2 mesh (K1 12
+   per rank, on gathered W1/W2 under 1x2) and the fused-sublayer one on
+   1x2 (K3 11, K2 11, K1 1, K4 1 per rank), held to phase 4's limits;
+   two f32 SGD steps at full width (TF32 off) on 1x1, 2x1 and 1x2 from
+   the same weights and batches, which launch nothing, held to the CPU
+   tests' limits, and a bf16 validation batch per rank (K1 12);
+   `cli/serve.py --mesh 2x1 --backend gloo` answering 8 concurrent and 3
+   single text requests as the single-device predictor does; and
+   `dryrun_multichip(2)`. Its times are those of ranks sharing one card,
+   their collectives staged through host memory: no scaling figure.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -1965,6 +1979,476 @@ def faces_and_tools(dev, card: str, images, texts, agreement, p50_ms):
     return totals
 
 
+# phase 13: the rank mesh (parallel/). The ranks share this one card over
+# gloo (NCCL refuses two ranks on one device), so their collectives are
+# staged through host memory and their times are no scaling figure.
+MESH_SHAPES = ((2, 1), (1, 2))
+# the mesh train steps: full width in f32 (TF32 off), SGD, this global
+# batch of seeded pairs, these rates. Limits per mesh: (loss rtol,
+# parameters, BatchNorm statistics). 1x2 at the CPU tests' limits
+# (tests/test_torch_parallel_train.py): the same batch on each rank, and
+# an H100 read it at the card's own run-to-run spread (1x1 against 1x1:
+# parameters 2.1e-6 to 2.9e-6, statistics 2.5e-6 to 3.5e-6). 2x1 splits
+# the batch, so BatchNorm's E[x²] and E[x] are sums in another order, and
+# flax's fast variance E[x²] − E[x]² cancels that round-off up (D6): an
+# H100 read losses 1.05e-4 relative at the second step, parameters
+# 2.1e-5, statistics 3.0e-4 of running variances up to ~2
+# (build/mesh_train_diag.py; PERF.md §6); its limits are those
+# readings with margin
+MESH_TRAIN_BATCH = 8
+MESH_TRAIN_LRS = (1e-2, 5e-3)
+MESH_TRAIN_LIMITS = {(1, 2): (2e-5, 1e-5, 1e-5), (2, 1): (5e-4, 1e-4, 1e-3)}
+# the 1x1 mesh over NCCL against phase 4's predictor: the same kernels on
+# the same rows, so the same probabilities
+MESH_1X1_ATOL = 1e-6
+MESH_TIMED_RUNS = 3
+MESH_RANK_TIMEOUT_S = 600.0
+
+
+def mesh_train_config():
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+
+    return resolve_config("default", {
+        "training.compute_dtype": "float32", "training.optimizer": "sgd",
+        "training.weight_decay": 0.0,
+        "training.batch_size": MESH_TRAIN_BATCH,
+        "evaluation.eval_batch_size": MESH_TRAIN_BATCH})
+
+
+def mesh_train_batches(cfg):
+    """The global host batches of the mesh train steps, and a
+    validation batch: seeded pairs, tokenized at the config's length."""
+    import numpy as np
+
+    from multimodal_rare_disease_tpu_torch.data.tokenizer import (
+        get_tokenizer,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+
+    n = MESH_TRAIN_BATCH
+    images, texts = seeded_requests(n * (len(MESH_TRAIN_LRS) + 1), seed=5)
+    ids, mask, _ = get_tokenizer().encode_batch(texts,
+                                                cfg.data.max_text_length)
+    labels = np.random.default_rng(5).integers(0, cfg.num_classes,
+                                               len(texts))
+    out = []
+    for i in range(len(MESH_TRAIN_LRS) + 1):
+        rows = slice(i * n, (i + 1) * n)
+        out.append({"labels": labels[rows], "images": np.stack(images[rows]),
+                    "input_ids": ids[rows].astype(np.int64),
+                    "attention_mask": mask[rows].astype(np.int64),
+                    "valid": np.ones(n, np.float32)})
+    return out[:-1], out[-1]
+
+
+def mesh_steps(trainer, batches, dev):
+    """The train steps on the device batches: (losses, ms per step,
+    launches during the steps)."""
+    import torch
+
+    losses, ms = [], []
+    reset_counts()
+    for lr, host in zip(MESH_TRAIN_LRS, batches):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(b, lr)["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, launch_counts()
+
+
+def mesh_rank(rank, world, device, ref_path, ref_losses, fused_over):
+    """One of two ranks on `device` (phase 13 b and d): the B=256 predict
+    on a 2x1 and a 1x2 mesh and the fused-sublayer one on 1x2, each with
+    its launches and p50; then two f32 train steps on each mesh against
+    the 1x1 run's losses and state, and a bf16 validation batch."""
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.kernels import build
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel.mesh import create_mesh
+    from multimodal_rare_disease_tpu_torch.parallel.tp import (
+        gather_state_dict,
+    )
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    ref_state = torch.load(ref_path, weights_only=True)
+    build.build()  # the parent built it: found, not rebuilt
+    build.load_library(dev)
+    images, texts = seeded_requests(BATCH, seed=0)
+    out = {"predict": {}, "train": {}}
+    for over, shapes in (({}, MESH_SHAPES), (fused_over, ((1, 2),))):
+        cfg = resolve_config("default", over)
+        whole = create_model(cfg, device="cpu", seed=0).state_dict()
+        for d, m in shapes:
+            mesh = create_mesh(cfg, data_axis=d, model_axis=m,
+                               devices=[dev] * world)
+            model = create_model(cfg, device="cpu", seed=None)
+            model.load_state_dict(whole)
+            pred = MultimodalPredictor(cfg, model, mesh=mesh)
+            reset_counts()
+            res = pred.predict_batch(images, texts)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            mine = mesh.rows(BATCH)
+            ids, mask = pred._prep_texts(texts[mine], mine.stop - mine.start)
+            packed = pred._packed_inputs(ids, mask)
+            lat = []
+            for _ in range(MESH_TIMED_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.predict_batch(images, texts)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            out["predict"][("fused" if over else "default", d, m)] = {
+                "probs": probs_of(res, pred.class_names) if rank == 0
+                else None,
+                "counts": counts, "packed_calls": pred.packed_calls,
+                "packed_m": None if packed is None else packed[0].size,
+                "p50_ms": float(np.median(lat))}
+            del pred, model
+            torch.cuda.empty_cache()
+    cfg = mesh_train_config()
+    # the validation copy in the default compute dtype, bf16
+    cfg16 = resolve_config("default", {
+        "training.batch_size": MESH_TRAIN_BATCH,
+        "evaluation.eval_batch_size": MESH_TRAIN_BATCH})
+    batches, val = mesh_train_batches(cfg)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for d, m in MESH_SHAPES:
+        mesh = create_mesh(cfg, data_axis=d, model_axis=m,
+                           devices=[dev] * world)
+        tr = Trainer(cfg, "multimodal", device=dev, mesh=mesh)
+        losses, ms, counts = mesh_steps(tr, batches, dev)
+        state = gather_state_dict(tr.model, mesh)
+        d_param = max(float((state[k] - ref_state[k]).abs().max())
+                      for k in ref_state if ".running_" not in k)
+        d_stats = max(float((state[k] - ref_state[k]).abs().max())
+                      for k in ref_state if ".running_" in k)
+        # a bf16 validation batch on the trained weights: the kernels run
+        ev = Trainer(cfg16, "multimodal", device=dev, mesh=mesh)
+        ev.init_state()
+        ev.model.load_state_dict(tr.model.state_dict())
+        ev.sync_eval_model()
+        vb = {k: torch.from_numpy(v).to(dev) for k, v in val.items()}
+        reset_counts()
+        sums = ev.eval_step(vb)
+        torch.cuda.synchronize()
+        out["train"][(d, m)] = {
+            "losses": losses, "ms": ms, "step_counts": counts,
+            "d_param": d_param, "d_stats": d_stats,
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, ref_losses)),
+            "val_counts": launch_counts(), "val_count": float(sums["count"]),
+            "qkv_rows": tr.model.text_encoder.bert.layer0.attention.qkv
+            .weight.shape[0]}
+        del tr, ev, state
+        torch.cuda.empty_cache()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
+def serve_mesh(dev, workdir: Path):
+    """Phase 13 c: `cli/serve.py --mesh 2x1 --backend gloo` on a seeded
+    full-width text_only checkpoint (the card's machine has no image
+    decoder, so requests carry text only): 8 concurrent requests and 3
+    single ones over HTTP, against the single-device predictor."""
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    import numpy as np
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    cfg = resolve_config("default")
+    ckpt = workdir / "text_only_ckpt"
+    save_checkpoint(ckpt, create_model(cfg, "text_only", "cpu",
+                                       seed=0).state_dict(),
+                    meta={"config": cfg.to_dict(), "mode": "text_only"})
+    _, texts = seeded_requests(11, seed=2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    log = open(workdir / "serve_mesh.log", "w")
+    # the server imports the package this script drives
+    import multimodal_rare_disease_tpu_torch as pkg
+
+    root = str(Path(pkg.__file__).resolve().parent.parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multimodal_rare_disease_tpu_torch.cli.serve",
+         "--checkpoint", str(ckpt), "--mesh", "2x1", "--backend", "gloo",
+         "--device", dev.type, "--port", str(port), "--window-ms", "50"],
+        cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+
+    def get(path, body=None):
+        req = urllib.request.Request(
+            url + path, data=None if body is None else json.dumps(
+                body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                fail(f"serve --mesh exited with {proc.returncode}: "
+                     f"{(workdir / 'serve_mesh.log').read_text()[-2000:]}")
+            try:
+                health = get("/healthz")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    fail("serve --mesh did not come up in 300 s")
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t0
+        if health.get("mesh") != {"data": 2, "model": 1}:
+            fail(f"serve --mesh /healthz: {health}")
+        with ThreadPoolExecutor(8) as ex:
+            answers = list(ex.map(lambda t: get("/predict", {
+                "text": t, "top_k": 3}), texts[:8]))
+        answers += [get("/predict", {"text": t, "top_k": 3})
+                    for t in texts[8:]]
+        calls = get("/healthz")["batch_calls"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = proc.wait()
+        log.close()
+    if rc != 0:
+        fail(f"serve --mesh ended with {rc}")
+    for a in answers:
+        if set(a) != {"predictions", "top_prediction", "all_probabilities"} \
+                or len(a["predictions"]) != 3:
+            fail(f"serve --mesh answer breaks the JSON contract: {a}")
+    single = load_predictor(ckpt, dev)
+    want = probs_of(single.predict_batch(texts=texts), single.class_names)
+    got = probs_of(answers, single.class_names)
+    d = float(np.abs(got - want).max())
+    top1 = int((got.argmax(1) == want.argmax(1)).sum())
+    if d > PROB_ATOL_PLAIN or top1 != len(texts):
+        fail(f"serve --mesh answers differ from one device: max|dprob| "
+             f"{d}, top-1 equal in {top1}/{len(texts)}")
+    return (f"{len(answers)} answers in {calls} forwards, up in "
+            f"{up_s:.1f} s; max|dprob| from the single-device predictor "
+            f"{d:.3e} (tolerance {PROB_ATOL_PLAIN}), top-1 equal "
+            f"{top1}/{len(texts)}")
+
+
+def mesh_phase(dev, card: str, probs4, refs, fused_over):
+    """Phase 13; returns the launches of its counted runs (the 1x1 NCCL
+    predict and every rank's predicts and validation batches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel import distributed
+    from multimodal_rare_disease_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel.mesh import create_mesh
+    from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+    n_layers = resolve_config("default").text_encoder.num_layers
+    label = "2 ranks sharing one card over gloo, collectives through host"
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=HERE / "build"))
+
+    # ---- a: a 1x1 mesh over NCCL (a real process group of one)
+    distributed.maybe_initialize(distributed.file_init_method(str(work)),
+                                 1, 0, "nccl")
+    try:
+        cfg = resolve_config("default")
+        mesh = create_mesh(cfg, devices=[dev])
+        pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu",
+                                                     seed=0), mesh=mesh)
+        images, texts = seeded_requests(BATCH, seed=0)
+        res = count_launches(lambda: pred.predict_batch(images, texts),
+                             {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
+                              "plain_on_cuda": 0}, "1x1 NCCL mesh", totals)
+        d11 = float(np.abs(probs_of(res, pred.class_names) - probs4).max())
+        if d11 > MESH_1X1_ATOL:
+            fail(f"1x1 NCCL mesh: max|dprob| {d11} from phase 4")
+        del pred
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    print(f"[13 mesh 1x1] {card} | NCCL process group of one: B={BATCH} "
+          f"launches K1 {n_layers}, max|dprob| from phase 4 {d11:.3e} "
+          f"(tolerance {MESH_1X1_ATOL})")
+
+    # ---- d (reference): two f32 steps on one rank, TF32 off
+    cfg_t = mesh_train_config()
+    batches, _ = mesh_train_batches(cfg_t)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for _ in range(2):  # twice: the card's own run-to-run spread
+            tr = Trainer(cfg_t, "multimodal", device=dev)
+            runs.append(mesh_steps(tr, batches, dev) + ({
+                k: v.detach().cpu() for k, v in tr.model.state_dict().items()},))
+            del tr
+            torch.cuda.empty_cache()
+        (ref_losses, ref_ms, ref_counts, ref_state), again = runs
+        spread = (max(abs(a - b) / b for a, b in zip(again[0], ref_losses)),
+                  max(float((again[3][k] - v).abs().max())
+                      for k, v in ref_state.items() if ".running_" not in k),
+                  max(float((again[3][k] - v).abs().max())
+                      for k, v in ref_state.items() if ".running_" in k))
+        # to the ranks by file: a spawned rank's tensor arguments would
+        # travel through shared memory, which a container may keep small
+        ref_path = work / "mesh_ref_state.pt"
+        torch.save(ref_state, ref_path)
+        again_counts = again[2]
+        del runs, again
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    if ref_counts != {k: 0 for k in totals} \
+            or again_counts != {k: 0 for k in totals}:
+        fail(f"1x1 train steps launched {ref_counts}, {again_counts}")
+
+    # ---- b and d: two ranks on this card over gloo
+    t0 = time.perf_counter()
+    outs = distributed.run_ranks(
+        mesh_rank, 2, backend="gloo",
+        args=(str(dev), str(ref_path), ref_losses, fused_over),
+        timeout_s=MESH_RANK_TIMEOUT_S, init_dir=str(work))
+    ranks_s = time.perf_counter() - t0
+    plain, f32 = refs["default path"]
+    plain7, f32_7 = refs["fused-sublayer path"]
+    lines = []
+    for (kind, d, m), r0 in outs[0]["predict"].items():
+        want = ({"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1, "K4": 1,
+                 "plain_on_cuda": 0} if kind == "fused" else
+                {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
+                 "plain_on_cuda": 0})
+        for rank, o in enumerate(outs):
+            r = o["predict"][(kind, d, m)]
+            if r["counts"] != want or r["packed_calls"] < 1:
+                fail(f"{kind} {d}x{m} rank {rank}: launches {r['counts']} "
+                     f"(packed {r['packed_calls']}), want {want}")
+            for k, v in r["counts"].items():
+                totals[k] += v
+        probs = r0["probs"]
+        p_ref, f_ref = (plain7, f32_7) if kind == "fused" else (plain, f32)
+        d_kp = float(np.abs(probs - p_ref).max())
+        d_kr = float(np.abs(probs - f_ref).max())
+        top1 = int((probs.argmax(1) == p_ref.argmax(1)).sum())
+        if d_kp > PROB_ATOL_PLAIN or d_kr > PROB_ATOL_F32:
+            fail(f"{kind} {d}x{m}: max|dprob| {d_kp} from kernels off, "
+                 f"{d_kr} from f32")
+        rows = [o["predict"][(kind, d, m)]["packed_m"] for o in outs]
+        lines.append(
+            f"{kind} {d}x{m}: launches per rank {r0['counts']} (K1/K2 rows "
+            f"per rank {rows}); max|dprob| vs kernels off {d_kp:.3e} "
+            f"(tolerance {PROB_ATOL_PLAIN}), vs f32 {d_kr:.3e} (tolerance "
+            f"{PROB_ATOL_F32}), top-1 = kernels off {top1}/{BATCH}; "
+            f"predict_batch p50 {r0['p50_ms']:.1f} ms")
+    print(f"[13 mesh predict] {card} | {label} | " + " || ".join(lines))
+
+    train_lines = []
+    for (d, m), r0 in outs[0]["train"].items():
+        for rank, o in enumerate(outs):
+            r = o["train"][(d, m)]
+            if r["step_counts"] != {k: 0 for k in totals}:
+                fail(f"{d}x{m} train steps launched {r['step_counts']}")
+            want = {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
+                    "plain_on_cuda": 0}
+            if r["val_counts"] != want or r["val_count"] != MESH_TRAIN_BATCH:
+                fail(f"{d}x{m} rank {rank} validation: launches "
+                     f"{r['val_counts']}, count {r['val_count']}")
+            for k, v in r["val_counts"].items():
+                totals[k] += v
+        loss_tol, param_tol, stats_tol = MESH_TRAIN_LIMITS[(d, m)]
+        if r0["loss_rel"] > loss_tol or r0["d_param"] > param_tol \
+                or r0["d_stats"] > stats_tol:
+            fail(f"{d}x{m} train steps vs 1x1: loss rel {r0['loss_rel']}, "
+                 f"params {r0['d_param']}, BatchNorm statistics "
+                 f"{r0['d_stats']}")
+        train_lines.append(
+            f"{d}x{m}: losses {r0['losses']} (rel diff {r0['loss_rel']:.2e}"
+            f", limit {loss_tol}), max|dparam| {r0['d_param']:.2e} "
+            f"({param_tol}), BatchNorm statistics {r0['d_stats']:.2e} "
+            f"({stats_tol}), ms per step "
+            f"{[round(t, 1) for t in r0['ms']]}, bf16 validation K1 "
+            f"{r0['val_counts']['K1']} per rank")
+    print(f"[13 mesh train] {card} | {label} | f32, SGD, TF32 off, global "
+          f"batch {MESH_TRAIN_BATCH}: 1x1 losses {ref_losses}, ms per step "
+          f"{[round(t, 1) for t in ref_ms]}; 1x1 run again: loss rel "
+          f"{spread[0]:.2e}, max|dparam| {spread[1]:.2e}, BatchNorm "
+          f"statistics {spread[2]:.2e} || " + " || ".join(train_lines)
+          + f" | the two-rank world took {ranks_s:.1f} s")
+
+    # ---- c: serve --mesh 2x1 over gloo
+    print(f"[13 serve --mesh] {card} | 2x1 over gloo, text_only: "
+          f"{serve_mesh(dev, work)}")
+
+    # ---- e: the dry run on two ranks of this card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=dev.type, backend="gloo")
+    print(f"[13 dryrun] {card} | dryrun_multichip(2): losses "
+          f"{dry['losses']}, predict {dry['predict']['rows']} rows on "
+          f"{dry['predict']['mesh']} in {time.perf_counter() - t0:.1f} s | "
+          f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2226,9 +2710,12 @@ def main() -> int:
                 torch.backends.cudnn.allow_tf32 = tf32
         return plain, f32
 
+    refs = {}  # tag -> (kernels-off, f32) probabilities, for phase 13
+
     def agreement(tag, p, probs, over, preset="default", batch_images=None):
         probs_plain, probs_ref = reference_probs(p, over, preset,
                                                  batch_images)
+        refs[tag] = (probs_plain, probs_ref)
         d_kp = float(np.abs(probs - probs_plain).max())
         d_kr = float(np.abs(probs - probs_ref).max())
         d_pr = float(np.abs(probs_plain - probs_ref).max())
@@ -2533,6 +3020,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     main12 = faces_and_tools(dev, card, images, texts, agreement, p50_ms)
 
+    # ---- 13. the rank mesh: 1x1 over NCCL, 2 ranks on this card over
+    # gloo (predict, train, serve --mesh, the dry run)
+    torch.cuda.empty_cache()
+    main13 = mesh_phase(dev, card, probs, refs, over7)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -2563,9 +3055,10 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11 and 12 (their counted runs)
+        # 9, 10, 11, 12 and 13 (their counted runs; 13's on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
-                     + main9[k] + main10[k] + main11[k] + main12[k]),
+                     + main9[k] + main10[k] + main11[k] + main12[k]
+                     + main13[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -1,12 +1,13 @@
-"""Shared CLI plumbing: logging, `--preset` / `--set` config resolution
-and the `--device` flag (the JAX package's `--platform`)."""
+"""Shared CLI plumbing: logging, `--preset` / `--set` config resolution,
+the `--device` flag (the JAX package's `--platform`) and the rank mesh's
+`--mesh DPxTP` / `--backend` flags."""
 
 from __future__ import annotations
 
 import argparse
 import ast
 import logging
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from multimodal_rare_disease_tpu_torch.config import (
     PRESETS,
@@ -56,3 +57,28 @@ def build_config(args: argparse.Namespace, mode: str,
         except (ValueError, SyntaxError):
             overrides[key] = value
     return resolve_config(preset, overrides)
+
+
+def add_mesh_args(parser: argparse.ArgumentParser, what: str) -> None:
+    parser.add_argument("--mesh", default=None, metavar="DPxTP",
+                        help=f"{what} over a rank mesh, e.g. '4x1' = the "
+                        f"batch split over 4 ranks, '4x2' adds Megatron TP "
+                        f"of the text tower over 2 (parallel/tp.py); the "
+                        f"command starts the ranks itself; default one "
+                        f"process")
+    parser.add_argument("--backend", default="nccl",
+                        choices=["nccl", "gloo"],
+                        help="process-group backend of --mesh: nccl for "
+                        "ranks on cards of their own, gloo for ranks that "
+                        "share a card or run on the CPU")
+
+
+def parse_mesh(parser: argparse.ArgumentParser, spec: str
+               ) -> Tuple[int, int]:
+    """'DPxTP' → (data, model), with the JAX `--mesh` parsing and text."""
+    dp, _, tp = spec.lower().partition("x")
+    try:
+        return int(dp), int(tp or 1)
+    except ValueError:
+        parser.error(f"--mesh {spec!r}: expected DPxTP, e.g. "
+                     "'4x1' or '4x2'")

@@ -1,9 +1,11 @@
 """Micro-batched HTTP serving of the torch predictor.
 
     python -m multimodal_rare_disease_tpu_torch.cli.serve --checkpoint D
+        [--mesh DPxTP [--backend nccl|gloo]]
 
   GET  /healthz   → {"status": "ok", "mode": ..., "device": <torch device>,
-                     "batch_calls": ...}
+                     "batch_calls": ..., "mesh": {"data": .., "model": ..}
+                     or null}
   POST /predict   → the predictor's JSON contract
        body: {"image": <base64 PNG/JPEG, or a path with --allow-paths>,
               "text": "...", "top_k": 5}
@@ -15,6 +17,12 @@ concurrent clients see about one batch latency. `MicroBatcher`,
 package's `cli/serve.py`. Request bodies are untrusted: filesystem paths
 in "image" are rejected unless the operator passes --allow-paths
 (optionally confined to --paths-root).
+
+With `--mesh DPxTP` the command starts DP x TP ranks itself
+(torch.multiprocessing): this process is rank 0, which holds the HTTP
+server and the MicroBatcher and broadcasts each micro-batch to the other
+ranks (`MeshLeader`); they run it with it (`follow`) and leave when it
+shuts down. `--backend gloo` lets ranks share one card.
 """
 
 from __future__ import annotations
@@ -187,9 +195,11 @@ def make_handler(batcher: MicroBatcher, allow_paths: bool = False,
 
         def do_GET(self):
             if self.path == "/healthz":
+                mesh = getattr(predictor, "mesh", None)
                 self._send(200, {"status": "ok", "mode": predictor.mode,
                                  "device": str(predictor.device),
-                                 "batch_calls": batcher.batch_calls})
+                                 "batch_calls": batcher.batch_calls,
+                                 "mesh": mesh.shape if mesh else None})
             else:
                 self._send(404, {"error": "unknown path"})
 
@@ -219,7 +229,113 @@ def make_handler(batcher: MicroBatcher, allow_paths: bool = False,
     return Handler
 
 
+class MeshLeader:
+    """Rank 0's face of a predictor on a rank mesh, for the MicroBatcher:
+    each `predict_batch` is broadcast to every rank, which runs it too
+    (`follow`). While idle it broadcasts a ping every `ping_s` seconds,
+    so the other ranks' wait stays inside the process group's timeout."""
+
+    def __init__(self, predictor, ping_s: float = 60.0):
+        from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+            object_device,
+        )
+
+        self.predictor = predictor
+        self.mode = predictor.mode
+        self.device = predictor.device
+        self.mesh = predictor.mesh
+        self._axis = self.mesh.axis("world")
+        self._where = object_device(self._axis, self.mesh.device)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._ping = threading.Thread(target=self._pinger, args=(ping_s,),
+                                      daemon=True, name="mesh-ping")
+        self._ping.start()
+
+    def _send(self, msg: dict) -> None:
+        from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+            broadcast_object,
+        )
+
+        broadcast_object(msg, self._axis, self._where)
+
+    def _pinger(self, ping_s: float) -> None:
+        while not self._stop.wait(ping_s):
+            with self._lock:
+                if not self._stop.is_set():
+                    self._send({"op": "ping"})
+
+    def predict_batch(self, images=None, texts=None, top_k: int = 5):
+        with self._lock:
+            self._send({"op": "predict", "images": images, "texts": texts,
+                        "top_k": top_k})
+            return self.predictor.predict_batch(images=images, texts=texts,
+                                                top_k=top_k)
+
+    def close(self) -> None:
+        with self._lock:
+            self._stop.set()
+            self._send({"op": "stop"})
+
+
+def follow(predictor) -> int:
+    """A rank other than 0: run each micro-batch rank 0 broadcasts, until
+    it stops; → the number of batches run."""
+    from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+        broadcast_object,
+        object_device,
+    )
+
+    axis = predictor.mesh.axis("world")
+    where = object_device(axis, predictor.mesh.device)
+    n = 0
+    while True:
+        msg = broadcast_object(None, axis, where)
+        if msg["op"] == "stop":
+            return n
+        if msg["op"] == "predict":
+            n += 1
+            try:
+                predictor.predict_batch(images=msg["images"],
+                                        texts=msg["texts"],
+                                        top_k=msg["top_k"])
+            except Exception:  # noqa: BLE001 — rank 0 reports it
+                pass
+
+
+def _mesh_predictor(args, data_axis: int, model_axis: int):
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel.mesh import (
+        create_mesh,
+        rank_devices,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel.distributed import (
+        world_size,
+    )
+
+    mesh = create_mesh(data_axis=data_axis, model_axis=model_axis,
+                       devices=rank_devices(world_size(), args.device))
+    return load_predictor(args.checkpoint, args.device, mode=args.mode,
+                          mesh=mesh)
+
+
+def _follower(rank: int, world: int, args, data_axis: int,
+              model_axis: int) -> int:
+    import signal
+
+    # the leader's shutdown stops this rank, not the terminal's ^C
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    return follow(_mesh_predictor(args, data_axis, model_axis))
+
+
 def main(argv=None) -> int:
+    from multimodal_rare_disease_tpu_torch.cli._common import (
+        add_mesh_args,
+        parse_mesh,
+    )
+
     parser = argparse.ArgumentParser(
         description="Serve the torch predictor over HTTP")
     parser.add_argument("--checkpoint", required=True,
@@ -237,22 +353,46 @@ def main(argv=None) -> int:
                         help="let requests reference local image paths")
     parser.add_argument("--paths-root", default=None,
                         help="confine --allow-paths to this directory")
+    add_mesh_args(parser, "serve")
     args = parser.parse_args(argv)
 
     from multimodal_rare_disease_tpu_torch.inference.predictor import (
         load_predictor,
     )
 
-    predictor = load_predictor(args.checkpoint, args.device, mode=args.mode)
+    procs = []
+    if args.mesh:
+        import signal
+
+        from multimodal_rare_disease_tpu_torch.parallel import distributed
+
+        data_axis, model_axis = parse_mesh(parser, args.mesh)
+        world = data_axis * model_axis
+        init = distributed.file_init_method()
+        procs = [distributed.spawn_rank(
+            _follower, r, world, init, args.backend,
+            args=(args, data_axis, model_axis)) for r in range(1, world)]
+
+        def _terminate(*_):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _terminate)
+        distributed.maybe_initialize(init, world, 0, args.backend)
+        predictor = MeshLeader(_mesh_predictor(args, data_axis, model_axis))
+    else:
+        predictor = load_predictor(args.checkpoint, args.device,
+                                   mode=args.mode)
     batcher = MicroBatcher(predictor, window_ms=args.window_ms,
                            max_batch=args.max_batch)
     server = ThreadingHTTPServer(
         (args.host, args.port),
         make_handler(batcher, allow_paths=args.allow_paths,
                      paths_root=args.paths_root))
-    print(f"serving {predictor.mode} predictor on {predictor.device} at "
+    where = (f"{predictor.mesh.describe()} of {len(procs) + 1} ranks"
+             if args.mesh else str(predictor.device))
+    print(f"serving {predictor.mode} predictor on {where} at "
           f"http://{args.host}:{args.port} (POST /predict, GET /healthz; "
-          f"micro-batch window {args.window_ms} ms)")
+          f"micro-batch window {args.window_ms} ms)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -260,6 +400,14 @@ def main(argv=None) -> int:
     finally:
         server.server_close()
         batcher.close()
+        if args.mesh:
+            from multimodal_rare_disease_tpu_torch.parallel import (
+                distributed,
+            )
+
+            predictor.close()
+            distributed.stop(procs, grace_s=30.0)
+            distributed.shutdown()
     return 0
 
 

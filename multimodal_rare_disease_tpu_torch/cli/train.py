@@ -16,6 +16,13 @@ the FGDD patient phenotype texts (`<data root>/FGDD/FGDD.csv` or
 `--mode text_only` on the texts and their diseases, `--mode multimodal`
 on the image corpus with the texts cycled onto its images (labels from
 the images), as the JAX command does.
+
+`--mesh DPxTP` trains over a rank mesh (parallel/mesh.py): the command
+starts DP x TP ranks itself (torch.multiprocessing), each builds the same
+pipeline from the seed and the Trainer steps on the global batch split
+over the data axis, the BERT tower Megatron-sharded over the model axis;
+rank 0 writes the checkpoints and prints the summary. `--backend gloo`
+lets the ranks share one card, or run on the CPU with `--device cpu`.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import tempfile
 
 from multimodal_rare_disease_tpu_torch.cli._common import (
     add_config_args,
+    add_mesh_args,
     build_config,
+    parse_mesh,
     setup_logging,
 )
 
@@ -53,8 +62,12 @@ def main(argv=None) -> int:
     parser.add_argument("--resume", action="store_true",
                         help="continue from the last checkpoint for this mode")
     add_config_args(parser)
+    add_mesh_args(parser, "train")
     args = parser.parse_args(argv)
     setup_logging()
+    if args.data == "fgdd" and args.mode == "image_only":
+        parser.error("--data fgdd supports --mode text_only or "
+                     "multimodal (see PARITY.md)")
 
     from multimodal_rare_disease_tpu_torch.models.classifier import (
         resolve_device,
@@ -105,7 +118,41 @@ def main(argv=None) -> int:
                                             image_size=64)
 
     cfg = build_config(args, args.mode, extra)
+    if not args.mesh:
+        summary = _train(args, cfg, image_dir, epochs, device)
+    else:
+        from multimodal_rare_disease_tpu_torch.parallel import distributed
 
+        data_axis, model_axis = parse_mesh(parser, args.mesh)
+        world = data_axis * model_axis
+        init = distributed.file_init_method()
+        run = (args, cfg, image_dir, epochs, data_axis, model_axis)
+        procs = [distributed.spawn_rank(_rank, r, world, init, args.backend,
+                                        args=run) for r in range(1, world)]
+        try:
+            distributed.maybe_initialize(init, world, 0, args.backend)
+            summary = _rank(0, world, *run)
+        finally:
+            distributed.shutdown()
+            distributed.stop(procs, grace_s=60.0)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _rank(rank: int, world: int, args, cfg, image_dir, epochs,
+          data_axis: int, model_axis: int) -> dict:
+    """One rank of `--mesh`: its place in the mesh, then the run."""
+    from multimodal_rare_disease_tpu_torch.parallel.mesh import (
+        create_mesh,
+        rank_devices,
+    )
+
+    mesh = create_mesh(cfg, data_axis=data_axis, model_axis=model_axis,
+                       devices=rank_devices(world, args.device))
+    return _train(args, cfg, image_dir, epochs, mesh.device, mesh=mesh)
+
+
+def _train(args, cfg, image_dir, epochs, device, mesh=None) -> dict:
     from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
     from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
 
@@ -116,7 +163,7 @@ def main(argv=None) -> int:
             )
 
             pipeline = fgdd_text_pipeline(cfg)
-        elif args.mode == "multimodal":
+        else:
             # the reference's cycle-pairing of FGDD texts onto corpus
             # images, labels from the images (`src/train.py:797-811`)
             from multimodal_rare_disease_tpu_torch.train.text_pipeline import (
@@ -127,14 +174,12 @@ def main(argv=None) -> int:
                   "onto corpus images (labels from images) — reference-"
                   "parity behavior, see PARITY.md")
             pipeline = fgdd_multimodal_pipeline(cfg, image_dir=image_dir)
-        else:
-            parser.error("--data fgdd supports --mode text_only or "
-                         "multimodal (see PARITY.md)")
     else:
         pipeline = DataPipeline(cfg, mode=args.mode, image_dir=image_dir,
                                 device=device)
     trainer = Trainer(cfg, mode=args.mode, pipeline=pipeline,
-                      workdir=cfg.training.checkpoint_dir, device=device)
+                      workdir=cfg.training.checkpoint_dir, device=device,
+                      mesh=mesh)
     if args.resume:
         from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
             checkpoint_exists,
@@ -147,7 +192,7 @@ def main(argv=None) -> int:
             print(f"resuming from {last} "
                   f"(epoch {len(trainer.history['train_loss'])})")
     result = trainer.train(num_epochs=epochs)
-    print(json.dumps({
+    summary = {
         "mode": args.mode,
         "epochs_run": len(result["history"]["train_loss"]),
         "best_metric": result["best_metric"],
@@ -156,8 +201,10 @@ def main(argv=None) -> int:
         "total_time_sec": round(result["total_time"], 2),
         "skipped_steps": result["skipped_steps"],
         "checkpoint_dir": str(trainer.workdir),
-    }, indent=2))
-    return 0
+    }
+    if mesh is not None:
+        summary["mesh"] = mesh.shape
+    return summary
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ the torch package.
     python -m multimodal_rare_disease_tpu_torch.cli.verify_setup \
         [--full] [--device cuda|cpu]
 
-1. imports (torch, numpy, scipy, the package); 2. the device and, on a
-card, the kernels' build at first use (nvcc, into build/kernels/) and
+1. imports (torch, numpy, scipy, the package); 2. the device, the rank
+mesh of the default config over this process's world (as the JAX step
+"devices & mesh") and, on a card, the kernels' build at first use (nvcc, into build/kernels/) and
 their load; 3. config presets; 4. the image corpus; 5. clinical text and
 the tokenizer; 6. the multimodal model's build and parameter counts;
 7. a forward pass: the small image_only model on the train augmentation
@@ -58,15 +59,28 @@ def main(argv=None) -> int:
 
         import torch
 
+        from multimodal_rare_disease_tpu_torch.config import get_config
         from multimodal_rare_disease_tpu_torch.kernels import build
         from multimodal_rare_disease_tpu_torch.models.classifier import (
             resolve_device,
         )
+        from multimodal_rare_disease_tpu_torch.parallel.distributed import (
+            world_size,
+        )
+        from multimodal_rare_disease_tpu_torch.parallel.mesh import (
+            create_mesh,
+            describe_devices,
+            rank_devices,
+        )
 
         dev = resolve_device(args.device)
         state["device"] = dev
+        # the run mesh of the default config over this process's world
+        mesh = create_mesh(get_config(),
+                           devices=rank_devices(world_size(), dev))
+        where = f"{describe_devices(dev)}, mesh {mesh.shape}"
         if dev.type != "cuda":
-            return f"{dev}: the kernels' plain versions"
+            return f"{dev}: the kernels' plain versions; {where}"
         t0 = time.perf_counter()
         lib = build.build()
         build.load_library(dev)
@@ -74,7 +88,7 @@ def main(argv=None) -> int:
                 f"{torch.cuda.get_device_capability(dev)}, "
                 f"{torch.cuda.device_count()} device(s)); kernels "
                 f"{lib.parent.name} built and loaded in "
-                f"{time.perf_counter() - t0:.1f} s")
+                f"{time.perf_counter() - t0:.1f} s; {where}")
 
     @step("3. config")
     def _config():

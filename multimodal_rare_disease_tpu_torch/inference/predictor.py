@@ -16,10 +16,21 @@ model computes in `cfg.training.compute_dtype` (bf16 by default), as the
 JAX `create_model` builds it: the weights are cast to it once, at
 construction. It runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
+
+Over a rank mesh (`mesh=`, parallel/mesh.py; every rank builds the
+predictor and calls `predict_batch` with the same requests) the BERT
+tower is Megatron-sharded over the model axis (`parallel/tp.py`) and the
+batch is split over the data axis, as the JAX predictor's `mesh=`: the
+bucket rounds to the data axis (1 is skipped on 8-way data), each rank
+prepares, packs and runs its contiguous slice of the padded batch (the
+packed documents are independent under the block-diagonal mask, so
+this computes the JAX global pack's values), and the probabilities come
+back to every rank in order.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -44,6 +55,7 @@ from multimodal_rare_disease_tpu_torch.models.classifier import (
     resolve_device,
 )
 from multimodal_rare_disease_tpu_torch.ops.preprocess import eval_preprocess
+from multimodal_rare_disease_tpu_torch.parallel.collectives import all_gather
 
 ImageLike = Union[str, Path, np.ndarray]
 
@@ -60,11 +72,23 @@ class MultimodalPredictor:
                  device="cuda", mode: str = "multimodal",
                  tokenizer: Optional[BertWordPieceTokenizer] = None,
                  class_names: Optional[Sequence[str]] = None,
-                 length_bucketing: bool = True):
+                 length_bucketing: bool = True, mesh=None):
+        """`model`: whole; on a `mesh` it is sharded here, and the
+        device is the mesh rank's."""
         if mode not in ("multimodal", "image_only", "text_only"):
             raise ValueError(f"Unknown mode: {mode!r}")
         self.cfg = cfg
         self.mode = mode
+        self.mesh = mesh
+        self._data_size = 1
+        if mesh is not None:
+            from multimodal_rare_disease_tpu_torch.parallel.tp import (
+                shard_model,
+            )
+
+            shard_model(model, mesh)
+            device = mesh.device
+            self._data_size = mesh.axis("data").size
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.training.compute_dtype)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
@@ -116,12 +140,15 @@ class MultimodalPredictor:
             mask = np.concatenate([mask, np.tile(mask[-1:], (pad, 1))])
         return ids, mask
 
-    @staticmethod
-    def _bucket(n: int) -> int:
+    def _bucket(self, n: int) -> int:
+        # a batch split over the data axis needs a bucket it divides
+        d = self._data_size
         for b in _BATCH_BUCKETS:
-            if n <= b:
+            if n <= b and b % d == 0:
                 return b
-        step = _BATCH_BUCKETS[-1]
+        # no listed bucket fits n and divides the axis: a multiple of
+        # lcm(8, d), equal 8-aligned slices; one rank keeps 256's steps
+        step = _BATCH_BUCKETS[-1] if d == 1 else math.lcm(8, d)
         return -(-max(n, 1) // step) * step
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
@@ -160,6 +187,30 @@ class MultimodalPredictor:
                 np.pad(pb.query_positions, ((0, pad_r), (0, p2 - p))),
                 pb.doc_row, pb.doc_slot)
 
+    def _forward(self, images, texts, rows: int, bucket: int,
+                 return_embeddings: bool) -> Dict[str, torch.Tensor]:
+        """The model's outputs for `rows` rows: the requests, padded;
+        packed when the whole batch's `bucket` is 8 or more and packing
+        wins on these rows."""
+        x = ids = mask = None
+        if self.mode != "text_only":
+            arrs = (self._prep_images(images, rows) if len(images) else
+                    np.zeros((rows, STAGING_SIZE, STAGING_SIZE, 3), np.uint8))
+            x = eval_preprocess(self._dev(arrs), self.cfg, dtype=self.dtype)
+        if self.mode != "image_only":
+            ids, mask = self._prep_texts(texts, rows)
+        packed = (self._packed_inputs(ids, mask)
+                  if self.mode == "multimodal" and not return_embeddings
+                  and self.length_bucketing and bucket >= 8 else None)
+        if packed is not None:
+            self.packed_calls += 1
+            return self.model.packed_forward(
+                x, *(self._dev(a) for a in packed))
+        self.classic_calls += 1
+        text = () if ids is None else (self._dev(ids), self._dev(mask))
+        args = text if x is None else (x,) + text
+        return self.model(*args, return_embeddings=return_embeddings)
+
     @torch.inference_mode()
     def predict_batch(self, images: Optional[Sequence[ImageLike]] = None,
                       texts: Optional[Sequence[str]] = None, top_k: int = 5,
@@ -170,31 +221,33 @@ class MultimodalPredictor:
         has them, as lists)."""
         n = len(images) if images is not None else len(texts)
         b = self._bucket(n)
-        x = ids = mask = None
-        if self.mode != "text_only":
-            if images is None:
-                raise ValueError(f"mode {self.mode} requires images")
-            x = eval_preprocess(self._dev(self._prep_images(images, b)),
-                                self.cfg, dtype=self.dtype)
-        if self.mode != "image_only":
-            if texts is None:
-                raise ValueError(f"mode {self.mode} requires texts")
-            ids, mask = self._prep_texts(texts, b)
-        packed = (self._packed_inputs(ids, mask)
-                  if self.mode == "multimodal" and not return_embeddings
-                  and self.length_bucketing and b >= 8 else None)
-        if packed is not None:
-            self.packed_calls += 1
-            out = self.model.packed_forward(x, *(self._dev(a) for a in packed))
-        else:
-            self.classic_calls += 1
-            text = () if ids is None else (self._dev(ids), self._dev(mask))
-            args = text if x is None else (x,) + text
-            out = self.model(*args, return_embeddings=return_embeddings)
-        probs = out["probs"].float().cpu().numpy()[:n]
+        if self.mode != "text_only" and images is None:
+            raise ValueError(f"mode {self.mode} requires images")
+        if self.mode != "image_only" and texts is None:
+            raise ValueError(f"mode {self.mode} requires texts")
+        rows = b
+        if self._data_size > 1:
+            # this rank's slice of the padded batch: pad images are
+            # zeros, pad texts copies of the last, as the whole batch's
+            mine = self.mesh.rows(b)
+            rows = mine.stop - mine.start
+            real = slice(min(mine.start, n), min(mine.stop, n))
+            if images is not None:
+                images = list(images[real])
+            if texts is not None:
+                texts = list(texts[real]) or [texts[-1]]
+        out = self._forward(images, texts, rows, b, return_embeddings)
+        keys = ["probs"] + [f"{key}_embedding" for key in
+                            ("image", "text", "fused")
+                            if return_embeddings and f"{key}_embedding" in out]
+        # every rank's rows, in order
+        out = {k: all_gather(out[k].float(), self.mesh.axis("data")
+                             if self._data_size > 1 else None).cpu().numpy()
+               for k in keys}
+        probs = out["probs"][:n]
         results = [self._format_single(probs[i], top_k) for i in range(n)]
         if return_embeddings:
-            embs = {key: out[f"{key}_embedding"].float().cpu().numpy()
+            embs = {key: out[f"{key}_embedding"]
                     for key in ("image", "text", "fused")
                     if f"{key}_embedding" in out}
             for i, r in enumerate(results):
@@ -251,12 +304,13 @@ class MultimodalPredictor:
 def load_predictor(checkpoint_path: str | Path, device="cuda",
                    mode: Optional[str] = None,
                    cfg: Optional[Config] = None,
-                   tokenizer: Optional[BertWordPieceTokenizer] = None
-                   ) -> MultimodalPredictor:
+                   tokenizer: Optional[BertWordPieceTokenizer] = None,
+                   mesh=None) -> MultimodalPredictor:
     """Build a predictor from a port checkpoint directory
     (utils/checkpoint.py); the config and, unless `mode` is given, the
     mode come from its meta. The model is built on the CPU, loaded, and
-    moved to `device` (the card unless the caller asks for the CPU)."""
+    moved to `device` (the card unless the caller asks for the CPU), or
+    sharded onto `mesh` and moved to the rank's device."""
     from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
         load_checkpoint,
     )
@@ -273,4 +327,5 @@ def load_predictor(checkpoint_path: str | Path, device="cuda",
     model.load_state_dict(state, strict=True)
     return MultimodalPredictor(cfg, model, device, mode=mode,
                                tokenizer=tokenizer,
-                               class_names=meta.get("class_names"))
+                               class_names=meta.get("class_names"),
+                               mesh=mesh)

@@ -36,6 +36,18 @@ Under pre-LN no kernel runs: the JAX layer gates K1 and K3 on
 computes the pre-LN sublayer. Attention has no kernel (the JAX package
 deleted its Pallas one), so it is plain PyTorch in the JAX formulation.
 
+Over a rank mesh's model axis (`parallel/tp.py::shard_model`) a layer
+holds its Megatron shards: its share of the heads (q, k and v of each)
+and of the attention output's input columns, and its share of the FFN's
+inner dimension. In the classic sublayers each rank computes its heads
+and its share of F, and a sum over the model axis joins the two
+row-parallel products before their bias and the residual, the two sums
+per layer that XLA inserts for the JAX layer. The kernels take whole
+weights, as the Pallas calls do (XLA hands a custom call its operands
+unsharded): K1 and K2 get W1 and W2 gathered over the model axis, K3 the
+context and Wo, one layer's at a time, and each rank runs the kernel on
+its own rows.
+
 Module and parameter names follow the flax tree (`layer{i}`, `qkv`,
 `attention_ln`, ...), so `models/convert.py` maps checkpoints leaf by
 leaf, whichever kernels a layer takes. Inference-only knobs of the JAX
@@ -63,6 +75,11 @@ from multimodal_rare_disease_tpu_torch.models.layers import (
     Embedding,
     Linear,
 )
+from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+    all_gather,
+    copy_to_model,
+    reduce_from_model,
+)
 
 _BERT_LN_EPS = 1e-12
 
@@ -84,6 +101,9 @@ class BertSelfAttention(nn.Module):
         # flax [H, 3, h, d] kernel
         self.qkv = Linear(hidden_size, 3 * hidden_size, device=device)
         self.output = Linear(hidden_size, hidden_size, device=device)
+        # the mesh's model axis when this module holds a share of the
+        # heads (parallel/tp.py); num_heads is then the local count
+        self.tp = None
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 cls_query_only: bool = False,
@@ -98,15 +118,18 @@ class BertSelfAttention(nn.Module):
         for `query_positions` [B, P] (K/V stay full-sequence) and the
         output is [B, P, H]. With `return_unprojected` it is
         (ctx [B, P or T, H], Wo [H_in, H_out], bo): the output projection
-        left for K3 to apply (the JAX `return_unprojected`)."""
-        b, t, hid = hidden.shape
+        left for K3 to apply (the JAX `return_unprojected`); over a model
+        axis the context and Wo are gathered whole for it."""
+        b, t, _ = hidden.shape
         h, d = self.num_heads, self.head_dim
+        hidden = copy_to_model(hidden, self.tp)
         if cls_query_only:
             w, bb = self.qkv.weight, self.qkv.bias
+            hq = h * d  # this rank's q rows, then its k and v rows
             q_rows = (_take_rows(hidden, query_positions)
                       if query_positions is not None else hidden[:, :1])
-            q = F.linear(q_rows, w[:hid], bb[:hid]).view(b, -1, h, d)
-            kv = F.linear(hidden, w[hid:], bb[hid:]).view(b, t, 2, h, d)
+            q = F.linear(q_rows, w[:hq], bb[:hq]).view(b, -1, h, d)
+            kv = F.linear(hidden, w[hq:], bb[hq:]).view(b, t, 2, h, d)
             k, v = kv[:, :, 0], kv[:, :, 1]
             if bias.shape[2] > 1:
                 # packed [B,1,T,T]: keep the restricted queries' rows
@@ -122,9 +145,14 @@ class BertSelfAttention(nn.Module):
         ctx = torch.einsum("bhts,bshd->bthd", self.dropout(probs), v)
         ctx = ctx.reshape(b, ctx.shape[1], h * d)
         if return_unprojected:
-            out = (ctx, self.output.weight.t(), self.output.bias)
-        else:
+            out = (all_gather(ctx, self.tp, dim=-1),
+                   all_gather(self.output.weight, self.tp, dim=1).t(),
+                   self.output.bias)
+        elif self.tp is None:
             out = self.output(ctx)
+        else:  # row-parallel: the heads' partial products summed
+            out = reduce_from_model(F.linear(ctx, self.output.weight),
+                                    self.tp) + self.output.bias
         return out, (probs32 if output_attentions else None)
 
 
@@ -152,6 +180,9 @@ class BertLayer(nn.Module):
         self.output = Linear(intermediate_size, hidden_size, device=device)
         self.output_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                       device=device)
+        # the mesh's model axis when this layer holds a share of the FFN's
+        # inner dimension (parallel/tp.py)
+        self.tp = None
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 cls_only: bool = False,
@@ -203,18 +234,27 @@ class BertLayer(nn.Module):
         in) or K2 (x already normalized)."""
         ln0 = (dict(pre_gamma=self.attention_ln.weight,
                     pre_beta=self.attention_ln.bias) if input_ln else {})
+        # over a model axis: this layer's W1, b1 and W2 gathered whole
         y = fused_ffn_ln(
             x.reshape(-1, self.hidden_size),
-            self.intermediate.weight.t(), self.intermediate.bias,
-            self.output.weight.t(), self.output.bias,
+            all_gather(self.intermediate.weight, self.tp, dim=0).t(),
+            all_gather(self.intermediate.bias, self.tp, dim=0),
+            all_gather(self.output.weight, self.tp, dim=1).t(),
+            self.output.bias,
             self.output_ln.weight, self.output_ln.bias, eps=_BERT_LN_EPS,
             **ln0)
         return y.reshape(x.shape)
 
     def _ffn_out(self, x: torch.Tensor) -> torch.Tensor:
-        """W2 · GELU(x · W1 + b1) + b2, then dropout: no kernel."""
+        """W2 · GELU(x · W1 + b1) + b2, then dropout: no kernel. Over a
+        model axis, column-parallel W1 and row-parallel W2, whose partial
+        products are summed before b2."""
+        x = copy_to_model(x, self.tp)
         inter = F.gelu(self.intermediate(x).float()).to(x.dtype)
-        return self.dropout(self.output(inter))
+        if self.tp is None:
+            return self.dropout(self.output(inter))
+        out = reduce_from_model(F.linear(inter, self.output.weight), self.tp)
+        return self.dropout(out + self.output.bias)
 
     def _ffn_classic(self, hidden: torch.Tensor) -> torch.Tensor:
         """The post-LN FFN sublayer without a kernel, on normalized rows."""

@@ -12,16 +12,27 @@ from them computes the inference path until `.train()` is called on it
 the JAX package's: flax's `lecun_normal` for Dense and Conv kernels,
 N(0, 0.02) for the BERT tower (HF's init), zero biases, unit
 LayerNorm/BatchNorm scales, BatchNorm statistics 0 / 1.
+
+On a rank mesh (`parallel/tp.py::shard_model`) the batch is split over
+the data axis: `BatchNorm` then takes its train statistics over the
+global batch (one sum over the data axis of Σx, Σx² and the count), and
+`Dropout` draws the global batch's mask and keeps this rank's slice (of
+the heads too, where the model axis splits them), so a step on the mesh
+draws what the step on one device draws.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+    sum_with_grad,
+)
 
 
 class Linear(nn.Linear):
@@ -53,9 +64,13 @@ class BatchNorm(nn.Module):
     (x − mean)·rsqrt(var + eps)·weight + bias with gradients through the
     statistics, returned in x's dtype, and the running averages
     0.9·ra + 0.1·batch. They move in train mode whether or not the
-    weight and bias are frozen, as in the JAX trainer."""
+    weight and bias are frozen, as in the JAX trainer. With `data_axis`
+    set (a batch split over a rank mesh), the mean and E[x²] are those of
+    the global batch: Σx, Σx² and the count are summed over the axis,
+    and their gradient flows back to every rank."""
 
     MOMENTUM = 0.9
+    data_axis = None
 
     def __init__(self, channels: int, eps: float, device):
         super().__init__()
@@ -76,8 +91,16 @@ class BatchNorm(nn.Module):
         dims = [d for d in range(x.ndim) if d != 1]
         shape = [1, -1] + [1] * (x.ndim - 2)
         xf = x.float()
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        if self.data_axis is None or self.data_axis.size == 1:
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        else:
+            c = xf.shape[1]
+            n = torch.full((1,), float(xf.numel() // c), device=x.device)
+            sums = sum_with_grad(torch.cat(
+                [xf.sum(dims), (xf * xf).sum(dims), n]), self.data_axis)
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -94,12 +117,15 @@ class Dropout(nn.Module):
     eval mode it is the identity. The mask is drawn (in f32, so that it
     does not depend on the compute dtype) from `self.generator`, which
     `set_dropout_generator` sets, never from the global RNG: train mode
-    with a nonzero rate and no generator raises."""
+    with a nonzero rate and no generator raises. `split` holds (dim,
+    mesh axis) pairs: x is this rank's slice of a tensor split along
+    each dim over the axis, so the mask is drawn whole and sliced."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        self.split: Tuple = ()
         self.train(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +136,13 @@ class Dropout(nn.Module):
                 "Dropout in train mode needs a generator: call "
                 "set_dropout_generator(model, torch.Generator(...)) first")
         keep = 1.0 - self.rate
-        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        shape = list(x.shape)
+        for dim, axis in self.split:
+            shape[dim] *= axis.size
+        mask = torch.empty(shape, dtype=torch.float32, device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
+        for dim, axis in self.split:
+            mask = mask.narrow(dim, axis.rank * x.shape[dim], x.shape[dim])
         return x * (mask / keep).to(x.dtype)
 
 

@@ -653,12 +653,17 @@ def train_preprocess_apply(images_uint8: torch.Tensor,
 
 
 def train_preprocess(images_uint8: torch.Tensor, gen: torch.Generator, cfg,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32,
+                     rows: slice = slice(None)) -> torch.Tensor:
     """The random train augmentation of one batch, drawn from `gen` (a
-    generator on the images' device)."""
+    generator on the images' device). With `rows`, the whole batch's
+    draws are applied to those rows alone (a rank's share of a batch
+    split over a mesh draws what one device draws)."""
     params = draw_train_params(images_uint8.shape[0], cfg, gen,
                                images_uint8.device)
-    return train_preprocess_apply(images_uint8, params, cfg, dtype)
+    return train_preprocess_apply(
+        images_uint8[rows], {k: v[rows] for k, v in params.items()}, cfg,
+        dtype)
 
 
 def augment_batch(images_uint8: torch.Tensor, gen: torch.Generator, cfg,

@@ -22,6 +22,12 @@ running statistic) and counts one in `skipped_steps`. The BatchNorm
 running statistics move during the forward, before the loss is known, so
 `save_batch_stats` copies them before each forward and a skipped step
 copies them back. Deciding costs one host read of a flag per step.
+
+On a rank mesh (`set_mesh`) the gradients arrive summed over the data
+axis (the trainer sums them). The global norm then adds the squares of
+the parameters split over the model axis (`parallel/tp.py`) across that
+axis and counts the replicated ones once, and the verdict on a non-finite
+step is one sum over every rank of the mesh, so that no rank steps alone.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch import nn
 
 from multimodal_rare_disease_tpu_torch.config import Config
 from multimodal_rare_disease_tpu_torch.models.layers import BatchNorm
+from multimodal_rare_disease_tpu_torch.parallel.collectives import all_sum
 from multimodal_rare_disease_tpu_torch.train.freeze import lr_multiplier
 
 _ADAM_BETAS = (0.9, 0.999)
@@ -84,6 +91,25 @@ class TrainState:
         self._stats = [b for m in model.modules() if isinstance(m, BatchNorm)
                        for b in (m.running_mean, m.running_var)]
         self._saved = [torch.empty_like(b) for b in self._stats]
+        self._sharded: List[bool] = [False] * len(self.params)
+        self._model_axis = self._world_axis = None
+
+    def set_mesh(self, mesh, sharded) -> None:
+        """Norm and verdict over `mesh`; `sharded`: the parameters that
+        hold a share over its model axis."""
+        ids = {id(p) for p in sharded}
+        self._sharded = [id(p) in ids for p in self.params]
+        self._model_axis = mesh.axis("model")
+        self._world_axis = mesh.axis("world")
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        norms = torch._foreach_norm(grads)
+        if self._model_axis is None or self._model_axis.size == 1:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        sq = torch.stack(norms).square()
+        split = torch.tensor(self._sharded, device=sq.device)
+        shared = all_sum(sq[split].sum(), self._model_axis)
+        return torch.sqrt(shared + sq[~split].sum())
 
     def save_batch_stats(self) -> None:
         """Copy the BatchNorm running statistics aside (before a train
@@ -99,11 +125,13 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        total = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        total = self._global_norm(grads)
         finite = torch.isfinite(loss.detach())
         if self.nan_guard:
             finite = finite & torch.isfinite(total)
+        if self._world_axis is not None and self._world_axis.size > 1:
+            bad = all_sum((~finite).float(), self._world_axis)
+            finite = bad == 0
         if self.gradient_clip_val > 0:
             coef = (self.gradient_clip_val / (total + 1e-6)).clamp(max=1.0)
             torch._foreach_mul_(grads, coef)

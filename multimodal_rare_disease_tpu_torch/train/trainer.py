@@ -23,7 +23,22 @@ image_only / text_only): the counterpart of
 - the epoch loop: history, best metric, early stopping, best/last
   checkpoints, resume, and a torch.profiler trace of one epoch.
 
-Tensor parallelism over a mesh `model` axis is not ported (ROADMAP P11).
+Over a rank mesh (`mesh=`, parallel/mesh.py; every rank builds the
+Trainer and feeds it the same global batches) a step is the JAX
+trainer's one jitted step over the sharded global batch, not DDP's
+average of per-rank steps: each rank takes its contiguous rows over the
+data axis; the augmentation, the dropout masks and mixup's (λ,
+permutation) are drawn for the global batch from the same seeded
+generators and sliced (a mixup partner on another rank arrives by a
+gather); train-mode BatchNorm takes the global batch's statistics; the
+loss is normalized by the global batch's class weights and the
+gradients, the loss and the hits are summed over the data axis. The BERT
+tower is Megatron-sharded over the model axis (parallel/tp.py): the
+global norm adds the split parameters' squares over it, and the guard's
+verdict is agreed by every rank. Validation runs each rank's rows on
+the eval copy (the kernels on every rank) and sums over the data axis.
+Checkpoints are written by the primary rank from gathered shards and
+load onto any mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +67,27 @@ from multimodal_rare_disease_tpu_torch.ops.preprocess import (
     eval_preprocess,
     train_preprocess,
 )
+from multimodal_rare_disease_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_sum,
+)
+from multimodal_rare_disease_tpu_torch.parallel.distributed import (
+    is_primary,
+    world_size,
+)
+from multimodal_rare_disease_tpu_torch.parallel.mesh import (
+    create_mesh,
+    rank_devices,
+)
+from multimodal_rare_disease_tpu_torch.parallel.tp import (
+    describe_tp,
+    gather_optimizer_state,
+    gather_state_dict,
+    shard_model,
+    shard_optimizer_state,
+    shard_state_dict,
+    sharded_parameters,
+)
 from multimodal_rare_disease_tpu_torch.train.freeze import count_params
 from multimodal_rare_disease_tpu_torch.train.pipeline import DataPipeline
 from multimodal_rare_disease_tpu_torch.train.schedules import (
@@ -77,12 +113,15 @@ _MEMORY_SAFETY = 0.75
 
 def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                      class_w: torch.Tensor, label_smoothing: float,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     total_weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """The JAX trainer's loss in f32: per-sample NLL over smoothed
     targets, weighted by the label's class weight (and `valid`),
-    normalized by the sum of sample weights. It is torch's
-    CrossEntropyLoss(weight, label_smoothing) with either alone; with
-    both, torch weights the smoothing term by each class's weight
+    normalized by the sum of sample weights, or by `total_weight` (a
+    rank's share of a loss over a batch split across ranks). It is
+    torch's CrossEntropyLoss(weight, label_smoothing) with either alone;
+    with both, torch weights the smoothing term by each class's weight
     instead (ROADMAP F4)."""
     num_classes = logits.shape[-1]
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -92,7 +131,8 @@ def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     w = class_w[labels.long()]
     if valid is not None:
         w = w * valid
-    return (nll * w).sum() / w.sum().clamp_min(1e-8)
+    total = w.sum() if total_weight is None else total_weight
+    return (nll * w).sum() / total.clamp_min(1e-8)
 
 
 def mixup_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -155,19 +195,30 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class Trainer:
     """Mode-switched trainer (`train_model` parity, `src/train.py:525-570`).
-    Runs on `device`, the card unless the caller asks for the CPU."""
+    Runs on `device`, the card unless the caller asks for the CPU, or on
+    the rank's device of `mesh`; without one the mesh is `cfg.mesh` over
+    the process group (one rank, and a 1x1 mesh, without one)."""
 
     def __init__(self, cfg: Config, mode: str = "multimodal",
                  pipeline: Optional[DataPipeline] = None,
-                 workdir: Optional[str] = None, device="cuda"):
-        if cfg.mesh.model_axis > 1:
-            raise NotImplementedError(
-                f"mesh.model_axis={cfg.mesh.model_axis}: tensor parallelism "
-                f"is not ported to the torch package (ROADMAP P11)")
+                 workdir: Optional[str] = None, device="cuda", mesh=None):
         self.cfg = cfg
         self.mode = mode
         self.pipeline = pipeline
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = create_mesh(cfg, devices=rank_devices(world_size(),
+                                                         device))
+        self.mesh = mesh
+        n_data = mesh.axis("data").size
+        for name, b in (("training.batch_size", cfg.training.batch_size),
+                        ("evaluation.eval_batch_size",
+                         cfg.evaluation.eval_batch_size)):
+            if b % n_data != 0:
+                raise ValueError(
+                    f"{name}={b} must be divisible by the mesh data axis "
+                    f"({n_data} devices) so batches shard evenly")
+        self._dp = n_data > 1
+        self.device = resolve_device(mesh.device)
         self.rngs = RngStreams(cfg.seed)
         self.workdir = workdir or cfg.training.checkpoint_dir
         if cfg.training.debug_nans:
@@ -175,6 +226,9 @@ class Trainer:
         self.compute_dtype = getattr(torch, cfg.training.compute_dtype)
         self.model = create_model(cfg, mode=mode, device=self.device,
                                   seed=cfg.seed, trainable=True)
+        shard_model(self.model, mesh)
+        if mesh.model > 1:
+            log.info("%s", describe_tp(self.model, mesh))
         # augmentation and dropout draw from one generator on the device
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         set_dropout_generator(self.model, self.gen)
@@ -203,10 +257,13 @@ class Trainer:
         if self.state is not None:
             return self.state
         self.state = TrainState(self.cfg, self.model)
+        if self.mesh.axis("world").size > 1:
+            self.state.set_mesh(self.mesh, sharded_parameters(self.model))
         # validation runs this copy: eval mode, the compute dtype
         self.eval_model = create_model(self.cfg, mode=self.mode,
                                        device=self.device,
                                        dtype=self.compute_dtype, seed=None)
+        shard_model(self.eval_model, self.mesh)
         total, trainable = count_params(self.model)
         log.info("%s model: %.1fM params (%.1fM trainable)", self.mode,
                  total / 1e6, trainable / 1e6)
@@ -252,74 +309,149 @@ class Trainer:
 
     # -- steps -------------------------------------------------------------
 
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of an n-row global batch."""
+        return self.mesh.rows(n) if self._dp else slice(None)
+
     def train_step(self, batch: Dict[str, torch.Tensor], lr: float
                    ) -> Dict[str, Any]:
-        """One step on a device batch: 'labels', uint8 'images' [B, S, S,
-        3] (unless text_only), 'input_ids' / 'attention_mask' (unless
-        image_only). Augments, mixes (with `data.mixup_alpha`) and steps."""
+        """One step on a device batch (the global batch, on a mesh):
+        'labels', uint8 'images' [B, S, S, 3] (unless text_only),
+        'input_ids' / 'attention_mask' (unless image_only). Augments,
+        mixes (with `data.mixup_alpha`) and steps."""
         images = None
         mix = None
+        rows = self._rows(batch["labels"].shape[0])
         if self.mode != "text_only":
-            images = train_preprocess(batch["images"], self.gen, self.cfg,
-                                      self.compute_dtype)
+            raw = batch["images"]
+            # the global batch's draws, applied to this rank's rows
+            images = train_preprocess(raw, self.gen, self.cfg,
+                                      self.compute_dtype, rows=rows)
             if self._use_mixup:
                 # image mixup (ref MixupDataset): lam ~ Beta(a, a), each
                 # sample paired with a permuted partner, pixels and CE mixed
                 a = self.cfg.data.mixup_alpha
                 rng = self.rngs.host("mixup")
                 lam = float(rng.beta(a, a))
-                perm = torch.from_numpy(rng.permutation(images.shape[0])).to(
+                perm = torch.from_numpy(rng.permutation(raw.shape[0])).to(
                     self.device)
-                images = lam * images + (1.0 - lam) * images[perm]
+                partners = all_gather(images, self._data_axis())
+                images = lam * images + (1.0 - lam) * partners[perm[rows]]
                 mix = (lam, perm)
-        return self.apply_step(images, batch, lr, mix)
+        return self._step(images, batch, rows, lr, mix)
 
     def apply_step(self, images: Optional[torch.Tensor],
                    batch: Dict[str, torch.Tensor], lr: float,
                    mix=None) -> Dict[str, Any]:
         """Forward, loss, backward and the optimizer step on model-ready
-        `images` (normalized NHWC, or None for text_only); `mix` is
-        mixup's (λ, permutation). → {'loss', 'acc' (device scalars),
-        'skipped' (0 or 1)}."""
+        `images` (normalized NHWC, or None for text_only) of the global
+        batch; `mix` is mixup's (λ, permutation). → {'loss', 'acc'
+        (device scalars, of the global batch), 'skipped' (0 or 1)}."""
+        rows = self._rows(batch["labels"].shape[0])
+        return self._step(None if images is None else images[rows], batch,
+                          rows, lr, mix)
+
+    def _data_axis(self):
+        return self.mesh.axis("data") if self._dp else None
+
+    def _step(self, images, batch, rows: slice, lr: float, mix
+              ) -> Dict[str, Any]:
         state = self.init_state()
         self.model.train()
         labels = batch["labels"]
         ls = self.cfg.training.label_smoothing
         state.save_batch_stats()
+        local = {k: batch[k][rows] for k in ("input_ids", "attention_mask")
+                 if k in batch}
         with self._autocast():
-            out = self.model(*_model_inputs(self.mode, batch, images))
+            out = self.model(*_model_inputs(self.mode, local, images))
         logits = out["logits"].float()
-        if mix is None:
-            loss = weighted_ce_loss(logits, labels, self.class_weights, ls)
+        if not self._dp:
+            if mix is None:
+                loss = weighted_ce_loss(logits, labels, self.class_weights,
+                                        ls)
+            else:
+                loss = mixup_loss(logits, labels, mix[1], mix[0],
+                                  self.class_weights, ls)
+            loss.backward()
+            acc = (logits.detach().argmax(-1) == labels).float().mean()
         else:
-            loss = mixup_loss(logits, labels, mix[1], mix[0],
-                              self.class_weights, ls)
-        loss.backward()
+            loss = self._loss_share(logits, labels, rows, mix)
+            loss.backward()
+            hits = (logits.detach().argmax(-1) == labels[rows]).float().sum()
+            loss, hits = self._sum_gradients(loss.detach(), hits)
+            acc = hits / labels.shape[0]
         applied = state.apply_gradients(loss, lr)
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
         return {"loss": loss.detach(), "acc": acc,
                 "skipped": int(not applied)}
+
+    def _loss_share(self, logits, labels, rows: slice, mix) -> torch.Tensor:
+        """This rank's share of the global batch's loss: its rows' terms
+        over the global batch's sum of class weights."""
+        cw, ls = self.class_weights, self.cfg.training.label_smoothing
+
+        def share(lbl):
+            return weighted_ce_loss(logits, lbl[rows], cw, ls,
+                                    total_weight=cw[lbl.long()].sum())
+
+        if mix is None:
+            return share(labels)
+        lam, perm = mix
+        return lam * share(labels) + (1.0 - lam) * share(labels[perm])
+
+    def _sum_gradients(self, loss: torch.Tensor, hits: torch.Tensor):
+        """Sum every trainable gradient, the loss and the hits over the
+        data axis in one collective; → (loss, hits) of the global batch."""
+        params = self.state.params
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = all_sum(torch.cat([p.grad.reshape(-1).float() for p in params]
+                                 + [loss.reshape(1), hits.reshape(1)]),
+                       self._data_axis())
+        off = 0
+        for p in params:
+            n = p.numel()
+            p.grad.copy_(flat[off:off + n].view_as(p))
+            off += n
+        return flat[-2], flat[-1]
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
         """The validation sums of one device batch ('valid' masks padded
-        rows), on the eval copy of the model."""
+        rows), on the eval copy of the model; on a mesh, of the global
+        batch."""
+        rows = self._rows(batch["labels"].shape[0])
         images = None
         if self.mode != "text_only":
-            images = eval_preprocess(batch["images"], self.cfg,
+            images = eval_preprocess(batch["images"][rows], self.cfg,
                                      self.compute_dtype, use_kernel=False)
-        out = self.eval_model(*_model_inputs(self.mode, batch, images))
+        local = {k: batch[k][rows] for k in ("input_ids", "attention_mask")
+                 if k in batch}
+        out = self.eval_model(*_model_inputs(self.mode, local, images))
         logits = out["logits"].float()
-        labels, valid = batch["labels"], batch["valid"]
+        labels, valid = batch["labels"][rows], batch["valid"][rows]
+        correct = ((logits.argmax(-1) == labels).float() * valid).sum()
+        if self._dp:
+            # the global batch's class-weighted mean: its two sums first
+            w = self.class_weights[labels.long()] * valid
+            nll = weighted_ce_loss(logits, labels, self.class_weights, 0.0,
+                                   valid=valid, total_weight=torch.ones(
+                                       (), device=logits.device))
+            num, den, correct, count = all_sum(torch.stack(
+                [nll, w.sum(), correct, valid.sum()]), self._data_axis())
+            loss = num / den.clamp_min(1e-8)
+            return {"loss_sum": loss * count, "correct": correct,
+                    "count": count}
         loss = weighted_ce_loss(logits, labels, self.class_weights, 0.0,
                                 valid=valid)
-        correct = ((logits.argmax(-1) == labels).float() * valid).sum()
         return {"loss_sum": loss * valid.sum(), "correct": correct,
                 "count": valid.sum()}
 
     def sync_eval_model(self) -> None:
-        """Copy the trained weights and statistics into the eval copy."""
+        """Copy the trained weights and statistics (this rank's shards)
+        into the eval copy."""
         self.init_state()
         self.eval_model.load_state_dict(self.model.state_dict())
 
@@ -532,22 +664,31 @@ class Trainer:
                                                   key=lambda kv: kv[1])]
         train_state = None
         if role == "last":
-            train_state = {"optimizer": state.optimizer.state_dict(),
+            train_state = {"optimizer": gather_optimizer_state(
+                               state.optimizer, self.model, self.mesh),
                            "step": state.step,
                            "skipped_steps": state.skipped_steps}
-        return save_checkpoint(role_path(self.workdir, self.mode, role),
-                               self.model.state_dict(), meta=meta,
-                               train_state=train_state)
+        path = role_path(self.workdir, self.mode, role)
+        weights = gather_state_dict(self.model, self.mesh)
+        if is_primary():
+            save_checkpoint(path, weights, meta=meta,
+                            train_state=train_state)
+        # no rank reads the checkpoint before the primary has written it
+        all_sum(torch.zeros(1, device=self.device), self.mesh.axis("world"))
+        return path
 
     def load(self, path) -> None:
         """Restore the weights (and, from a 'last' checkpoint, the
-        optimizer state, step and skip counter) and the history."""
+        optimizer state, step and skip counter) and the history; a
+        checkpoint of whole tensors loads onto any mesh."""
         state_dict, meta = load_checkpoint(path)
         state = self.init_state()
-        self.model.load_state_dict(state_dict, strict=True)
+        self.model.load_state_dict(
+            shard_state_dict(state_dict, self.model, self.mesh), strict=True)
         ts = load_train_state(path)
         if ts is not None:
-            state.optimizer.load_state_dict(ts["optimizer"])
+            state.optimizer.load_state_dict(shard_optimizer_state(
+                ts["optimizer"], state.optimizer, self.model, self.mesh))
             state.step = int(ts["step"])
             state.skipped_steps = int(ts["skipped_steps"])
         if meta.get("history"):
@@ -557,13 +698,14 @@ class Trainer:
 def train_model(cfg: Config, mode: str = "multimodal",
                 image_dir: Optional[str] = None,
                 num_epochs: Optional[int] = None,
-                workdir: Optional[str] = None, device="cuda") -> Trainer:
+                workdir: Optional[str] = None, device="cuda",
+                mesh=None) -> Trainer:
     """End-to-end convenience entry (`train_model` parity,
     `src/train.py:525-570`): build pipeline + trainer, run, reload best."""
     pipeline = DataPipeline(cfg, mode=mode, image_dir=image_dir,
                             device=device)
     trainer = Trainer(cfg, mode=mode, pipeline=pipeline, workdir=workdir,
-                      device=device)
+                      device=device, mesh=mesh)
     trainer.train(num_epochs)
     best = role_path(trainer.workdir, mode, "best")
     if best.exists():

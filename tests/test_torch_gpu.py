@@ -8,7 +8,8 @@ refusal of inputs that autograd tracks; and the train side of the
 efficientnet_clinicalbert preset on the card (EfficientNet in f32, the
 augmentation extras, a step that keeps the frozen parameters); the
 MTCNN nets on the card against the CPU, a face-cropped B=256 predict
-with its K1 launches, and a VAE step on the card against the CPU. Every
+with its K1 launches, a VAE step on the card against the CPU, and the
+sharded predict of two gloo ranks sharing the card. Every
 test here is marked `gpu` and skips without a CUDA device; the file
 imports neither jax nor the JAX package, so it runs on a machine that
 has only torch:
@@ -738,3 +739,54 @@ def test_vae_step_on_the_card_matches_the_cpu(cuda):
     assert abs(l_card - l_cpu) <= VAE_LOSS_RTOL * l_cpu
     for k in sd_cpu:
         assert (sd_card[k] - sd_cpu[k]).abs().max().item() <= VAE_PARAM_ATOL
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_two_ranks_sharing_the_card_predict_as_one_device(cuda, shape,
+                                                         tmp_path):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), with a one-layer BERT tower at the kernel's width: each rank
+    runs K1 once per forward on its rows (under 1x2 on W1 and W2
+    gathered over the model axis), and the probabilities every rank
+    gathers equal the single-device predictor's within chip_smoke.py's
+    kernels-off limit (the ranks pack their own rows)."""
+    from chip_smoke import PROB_ATOL_PLAIN
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.data.tokenizer import (
+        get_tokenizer,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.parallel.distributed import (
+        run_ranks,
+    )
+    import _torch_parallel_workers as workers
+
+    over = {"text_encoder.num_layers": 1, "data.image_size": 64,
+            "cnn_encoder.stage_sizes": (1, 1, 1, 1)}
+    cfg = resolve_config("default", over)
+    tok = get_tokenizer()
+    images, texts = seeded_requests(16, seed=0)
+    single = MultimodalPredictor(cfg, create_model(cfg, device="cpu",
+                                                   seed=0), cuda,
+                                 tokenizer=tok)
+    res = single.predict_batch(images, texts)
+    want = np.array([[r["all_probabilities"][k]
+                      for k in sorted(r["all_probabilities"])] for r in res])
+    outs = run_ranks(workers.predict_rank, 2, backend="gloo",
+                     args=(over, None, dict(tok.vocab), images, texts,
+                           (shape,), "cuda:0"),
+                     timeout_s=300, init_dir=str(tmp_path))
+    key = f"{shape[0]}x{shape[1]}"
+    for o in outs:
+        probs, _, packed, classic, qkv, k1 = o[key]
+        np.testing.assert_allclose(probs, want, atol=PROB_ATOL_PLAIN)
+        assert qkv == (3 * 768 // shape[1], 768)
+        assert k1 == 1 and packed + classic == 1

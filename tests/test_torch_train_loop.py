@@ -137,12 +137,6 @@ def test_checkpoints_resume_and_evaluate(corpus, trained):
         best_meta["history"]["val_acc"][best_meta["epoch"]], abs=1e-6)
 
 
-def test_tensor_parallel_mesh_raises_naming_p11():
-    cfg = resolve_config("default", {**SMALL, "mesh.model_axis": 2})
-    with pytest.raises(NotImplementedError, match="P11"):
-        Trainer(cfg, "text_only", device="cpu")
-
-
 def test_train_cli_smoke_test_prints_its_summary(tmp_path, capsys):
     assert train_cli.main(["--smoke-test", "--device", "cpu",
                            "--checkpoint-dir", str(tmp_path)]) == 0
