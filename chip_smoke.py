@@ -1228,6 +1228,9 @@ def preset_and_extras(dev, card: str, images, texts, agreement, p50_ms):
     for k, prob in (("blur", d.gaussian_blur_prob),
                     ("erase", d.random_erasing_prob)):
         n = fired["images"]
+        if n == 0:
+            fail(f"{PRESET} train() drew no augmentation through "
+                 f"draw_train_params")
         shares[k] = fired[k] / n
         sigma = (prob * (1 - prob) / n) ** 0.5
         if abs(shares[k] - prob) > FIRED_SIGMAS * sigma:
@@ -1989,11 +1992,13 @@ MESH_SHAPES = ((2, 1), (1, 2))
 # (tests/test_torch_parallel_train.py): the same batch on each rank, and
 # an H100 read it at the card's own run-to-run spread (1x1 against 1x1:
 # parameters 2.1e-6 to 2.9e-6, statistics 2.5e-6 to 3.5e-6). 2x1 splits
-# the batch, so BatchNorm's E[x²] and E[x] are sums in another order, and
-# flax's fast variance E[x²] − E[x]² cancels that round-off up (D6): an
+# the batch, so BatchNorm's Σx and Σx² are sums in another order: an
 # H100 read losses 1.05e-4 relative at the second step, parameters
-# 2.1e-5, statistics 3.0e-4 of running variances up to ~2
-# (build/mesh_train_diag.py; PERF.md §6); its limits are those
+# 2.1e-5, statistics 3.0e-4 of running variances up to ~2. On one rank,
+# with no process group, changing only the rounding of BatchNorm's
+# statistics moves the two steps as far, and running every conv, linear
+# and embedding at 2x1's half-batch shapes does not
+# (build/mesh_train_witness.py; PERF.md §6): its limits are those
 # readings with margin
 MESH_TRAIN_BATCH = 8
 MESH_TRAIN_LRS = (1e-2, 5e-3)

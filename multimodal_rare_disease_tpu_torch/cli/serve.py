@@ -22,7 +22,10 @@ With `--mesh DPxTP` the command starts DP x TP ranks itself
 (torch.multiprocessing): this process is rank 0, which holds the HTTP
 server and the MicroBatcher and broadcasts each micro-batch to the other
 ranks (`MeshLeader`); they run it with it (`follow`) and leave when it
-shuts down. `--backend gloo` lets ranks share one card.
+shuts down. Rank 0 refuses malformed input before it broadcasts; a
+batch that fails on any rank after that leaves the ranks out of step,
+so the server stops and exits with 1. `--backend gloo` lets ranks share
+one card.
 """
 
 from __future__ import annotations
@@ -231,9 +234,12 @@ def make_handler(batcher: MicroBatcher, allow_paths: bool = False,
 
 class MeshLeader:
     """Rank 0's face of a predictor on a rank mesh, for the MicroBatcher:
-    each `predict_batch` is broadcast to every rank, which runs it too
-    (`follow`). While idle it broadcasts a ping every `ping_s` seconds,
-    so the other ranks' wait stays inside the process group's timeout."""
+    each `predict_batch` is checked here, then broadcast to every rank,
+    which runs it too (`follow`). While idle it broadcasts a ping every
+    `ping_s` seconds, so the other ranks' wait stays inside the process
+    group's timeout. A batch that fails after its broadcast leaves the
+    ranks out of step: `failed` is set and the leader sends nothing
+    more."""
 
     def __init__(self, predictor, ping_s: float = 60.0):
         from multimodal_rare_disease_tpu_torch.parallel.collectives import (
@@ -244,6 +250,7 @@ class MeshLeader:
         self.mode = predictor.mode
         self.device = predictor.device
         self.mesh = predictor.mesh
+        self.failed = threading.Event()
         self._axis = self.mesh.axis("world")
         self._where = object_device(self._axis, self.mesh.device)
         self._lock = threading.Lock()
@@ -262,25 +269,55 @@ class MeshLeader:
     def _pinger(self, ping_s: float) -> None:
         while not self._stop.wait(ping_s):
             with self._lock:
-                if not self._stop.is_set():
+                if self._stop.is_set():
+                    return
+                try:
                     self._send({"op": "ping"})
+                except BaseException:
+                    self.failed.set()
+                    raise
 
     def predict_batch(self, images=None, texts=None, top_k: int = 5):
+        import numpy as np
+
+        # what every rank would refuse is refused here, before a rank
+        # sees it: a rank's own slice is checked on that rank alone
+        for img in images or ():
+            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
+                    and img.ndim == 3 and img.shape[-1] == 3):
+                raise ValueError("an image must be a decoded uint8 "
+                                 "[H, W, 3] array")
+        for text in texts or ():
+            if not isinstance(text, str):
+                raise ValueError(f"text must be a string, not "
+                                 f"{type(text).__name__}")
         with self._lock:
+            if self.failed.is_set():
+                raise RuntimeError("the rank mesh is out of step")
             self._send({"op": "predict", "images": images, "texts": texts,
-                        "top_k": top_k})
-            return self.predictor.predict_batch(images=images, texts=texts,
-                                                top_k=top_k)
+                        "top_k": int(top_k)})
+            try:
+                return self.predictor.predict_batch(
+                    images=images, texts=texts, top_k=top_k)
+            except BaseException:
+                self.failed.set()
+                self._stop.set()
+                raise
 
     def close(self) -> None:
+        """Stop every follower (not after a failure: they are not
+        listening)."""
         with self._lock:
             self._stop.set()
-            self._send({"op": "stop"})
+            if not self.failed.is_set():
+                self._send({"op": "stop"})
 
 
 def follow(predictor) -> int:
     """A rank other than 0: run each micro-batch rank 0 broadcasts, until
-    it stops; → the number of batches run."""
+    it stops; → the number of batches run. A batch that fails here is a
+    fault of this rank (rank 0 refuses bad input before it broadcasts):
+    it raises, the rank exits non-zero, and rank 0 stops serving."""
     from multimodal_rare_disease_tpu_torch.parallel.collectives import (
         broadcast_object,
         object_device,
@@ -295,12 +332,27 @@ def follow(predictor) -> int:
             return n
         if msg["op"] == "predict":
             n += 1
-            try:
-                predictor.predict_batch(images=msg["images"],
-                                        texts=msg["texts"],
-                                        top_k=msg["top_k"])
-            except Exception:  # noqa: BLE001 — rank 0 reports it
-                pass
+            predictor.predict_batch(images=msg["images"], texts=msg["texts"],
+                                    top_k=msg["top_k"])
+
+
+def _watch_ranks(procs, leader: MeshLeader, server,
+                 poll_s: float = 0.5) -> None:
+    """Stop serving when a follower exits on a failure or the leader's
+    batch failed after its broadcast: the mesh cannot answer again."""
+    import sys
+
+    while True:
+        dead = [(r, p.exitcode) for r, p in enumerate(procs, 1)
+                if p.exitcode not in (None, 0)]
+        if dead or leader.failed.wait(poll_s):
+            why = (f"rank {dead[0][0]} exited with code {dead[0][1]}"
+                   if dead else "a batch failed on rank 0")
+            print(f"serve: {why}; the rank mesh is out of step, stopping",
+                  file=sys.stderr, flush=True)
+            leader.failed.set()
+            server.shutdown()
+            return
 
 
 def _mesh_predictor(args, data_axis: int, model_axis: int):
@@ -388,6 +440,10 @@ def main(argv=None) -> int:
         (args.host, args.port),
         make_handler(batcher, allow_paths=args.allow_paths,
                      paths_root=args.paths_root))
+    if args.mesh:
+        threading.Thread(target=_watch_ranks,
+                         args=(procs, predictor, server), daemon=True,
+                         name="mesh-watch").start()
     where = (f"{predictor.mesh.describe()} of {len(procs) + 1} ranks"
              if args.mesh else str(predictor.device))
     print(f"serving {predictor.mode} predictor on {where} at "
@@ -405,6 +461,10 @@ def main(argv=None) -> int:
                 distributed,
             )
 
+            if predictor.failed.is_set():
+                # a rank may be stuck in a collective: no more of them
+                distributed.stop(procs, grace_s=0.0)
+                return 1
             predictor.close()
             distributed.stop(procs, grace_s=30.0)
             distributed.shutdown()

@@ -64,10 +64,10 @@ class BatchNorm(nn.Module):
     (x − mean)·rsqrt(var + eps)·weight + bias with gradients through the
     statistics, returned in x's dtype, and the running averages
     0.9·ra + 0.1·batch. They move in train mode whether or not the
-    weight and bias are frozen, as in the JAX trainer. With `data_axis`
-    set (a batch split over a rank mesh), the mean and E[x²] are those of
-    the global batch: Σx, Σx² and the count are summed over the axis,
-    and their gradient flows back to every rank."""
+    weight and bias are frozen, as in the JAX trainer. The mean and E[x²]
+    are Σx/n and Σx²/n; with `data_axis` set (a batch split over a rank
+    mesh), those of the global batch: Σx, Σx² and n are summed over the
+    axis, and their gradient flows back to every rank."""
 
     MOMENTUM = 0.9
     data_axis = None
@@ -91,16 +91,12 @@ class BatchNorm(nn.Module):
         dims = [d for d in range(x.ndim) if d != 1]
         shape = [1, -1] + [1] * (x.ndim - 2)
         xf = x.float()
-        if self.data_axis is None or self.data_axis.size == 1:
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
-        else:
-            c = xf.shape[1]
-            n = torch.full((1,), float(xf.numel() // c), device=x.device)
-            sums = sum_with_grad(torch.cat(
-                [xf.sum(dims), (xf * xf).sum(dims), n]), self.data_axis)
-            mean = sums[:c] / sums[-1]
-            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        c = xf.shape[1]
+        n = torch.full((1,), float(xf.numel() // c), device=x.device)
+        sums = sum_with_grad(torch.cat(
+            [xf.sum(dims), (xf * xf).sum(dims), n]), self.data_axis)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

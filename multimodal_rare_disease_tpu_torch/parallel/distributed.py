@@ -35,6 +35,8 @@ log = logging.getLogger(__name__)
 
 BACKENDS = ("nccl", "gloo")
 DEFAULT_TIMEOUT_S = 600.0
+# how long a failed world waits for the other ranks' reports
+REPORT_GRACE_S = 5.0
 
 
 def maybe_initialize(init_method: Optional[str] = None,
@@ -154,7 +156,7 @@ def run_ranks(fn: Callable, world: int, *, backend: str,
     rank's return value, by rank. `fn` must be importable (a module-level
     function). A rank that raises, or a world that has not finished
     after `timeout_s` seconds, kills every rank and raises RuntimeError
-    with the tracebacks."""
+    with the tracebacks of every rank that reported a failure."""
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init = file_init_method(init_dir)
@@ -186,6 +188,18 @@ def run_ranks(fn: Callable, world: int, *, backend: str,
             if ok:
                 out[r] = val
             else:
+                errors.append(f"rank {r}:\n{val}")
+        # one rank's failure fails its peers ("connection closed by
+        # peer"), whose reports may come first: collect the rest briefly,
+        # so the cause is among them
+        grace = time.monotonic() + REPORT_GRACE_S
+        while errors and pending and time.monotonic() < grace:
+            try:
+                r, ok, val = pickle.loads(results.get(timeout=0.5))
+            except queue_mod.Empty:
+                continue
+            pending.discard(r)
+            if not ok:
                 errors.append(f"rank {r}:\n{val}")
     finally:
         stop(procs, grace_s=30.0 if not errors else 0.0)

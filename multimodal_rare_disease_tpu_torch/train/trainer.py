@@ -137,12 +137,26 @@ def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def mixup_loss(logits: torch.Tensor, labels: torch.Tensor,
                perm: torch.Tensor, lam: float, class_w: torch.Tensor,
-               label_smoothing: float) -> torch.Tensor:
+               label_smoothing: float, rows: slice = slice(None)
+               ) -> torch.Tensor:
     """λ·CE(y) + (1 − λ)·CE(y[perm]): the loss of images mixed as
-    λ·x + (1 − λ)·x[perm]."""
-    return (lam * weighted_ce_loss(logits, labels, class_w, label_smoothing)
-            + (1.0 - lam) * weighted_ce_loss(logits, labels[perm], class_w,
-                                             label_smoothing))
+    λ·x + (1 − λ)·x[perm]. `labels` and `perm` are the global batch's;
+    `logits` are its `rows`, whose share of the loss this is."""
+    return (lam * batch_share_loss(logits, labels, rows, class_w,
+                                   label_smoothing)
+            + (1.0 - lam) * batch_share_loss(logits, labels[perm], rows,
+                                             class_w, label_smoothing))
+
+
+def batch_share_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     rows: slice, class_w: torch.Tensor,
+                     label_smoothing: float) -> torch.Tensor:
+    """The `rows`' share of the global batch's loss (`labels` are the
+    global batch's, `logits` its rows'): their terms over the global
+    batch's sum of class weights. The shares of all rows sum to the
+    loss of the whole batch."""
+    return weighted_ce_loss(logits, labels[rows], class_w, label_smoothing,
+                            total_weight=class_w[labels.long()].sum())
 
 
 def device_memory_limit_bytes(device: torch.device) -> float:
@@ -366,38 +380,18 @@ class Trainer:
         with self._autocast():
             out = self.model(*_model_inputs(self.mode, local, images))
         logits = out["logits"].float()
-        if not self._dp:
-            if mix is None:
-                loss = weighted_ce_loss(logits, labels, self.class_weights,
-                                        ls)
-            else:
-                loss = mixup_loss(logits, labels, mix[1], mix[0],
-                                  self.class_weights, ls)
-            loss.backward()
-            acc = (logits.detach().argmax(-1) == labels).float().mean()
-        else:
-            loss = self._loss_share(logits, labels, rows, mix)
-            loss.backward()
-            hits = (logits.detach().argmax(-1) == labels[rows]).float().sum()
-            loss, hits = self._sum_gradients(loss.detach(), hits)
-            acc = hits / labels.shape[0]
-        applied = state.apply_gradients(loss, lr)
-        return {"loss": loss.detach(), "acc": acc,
-                "skipped": int(not applied)}
-
-    def _loss_share(self, logits, labels, rows: slice, mix) -> torch.Tensor:
-        """This rank's share of the global batch's loss: its rows' terms
-        over the global batch's sum of class weights."""
-        cw, ls = self.class_weights, self.cfg.training.label_smoothing
-
-        def share(lbl):
-            return weighted_ce_loss(logits, lbl[rows], cw, ls,
-                                    total_weight=cw[lbl.long()].sum())
-
+        cw = self.class_weights
         if mix is None:
-            return share(labels)
-        lam, perm = mix
-        return lam * share(labels) + (1.0 - lam) * share(labels[perm])
+            loss = batch_share_loss(logits, labels, rows, cw, ls)
+        else:
+            loss = mixup_loss(logits, labels, mix[1], mix[0], cw, ls, rows)
+        loss.backward()
+        hits = (logits.detach().argmax(-1) == labels[rows]).float().sum()
+        if self._dp:
+            loss, hits = self._sum_gradients(loss.detach(), hits)
+        applied = state.apply_gradients(loss, lr)
+        return {"loss": loss.detach(), "acc": hits / labels.shape[0],
+                "skipped": int(not applied)}
 
     def _sum_gradients(self, loss: torch.Tensor, hits: torch.Tensor):
         """Sum every trainable gradient, the loss and the hits over the
@@ -433,21 +427,16 @@ class Trainer:
         logits = out["logits"].float()
         labels, valid = batch["labels"][rows], batch["valid"][rows]
         correct = ((logits.argmax(-1) == labels).float() * valid).sum()
-        if self._dp:
-            # the global batch's class-weighted mean: its two sums first
-            w = self.class_weights[labels.long()] * valid
-            nll = weighted_ce_loss(logits, labels, self.class_weights, 0.0,
-                                   valid=valid, total_weight=torch.ones(
-                                       (), device=logits.device))
-            num, den, correct, count = all_sum(torch.stack(
-                [nll, w.sum(), correct, valid.sum()]), self._data_axis())
-            loss = num / den.clamp_min(1e-8)
-            return {"loss_sum": loss * count, "correct": correct,
-                    "count": count}
-        loss = weighted_ce_loss(logits, labels, self.class_weights, 0.0,
-                                valid=valid)
-        return {"loss_sum": loss * valid.sum(), "correct": correct,
-                "count": valid.sum()}
+        # the global batch's class-weighted mean: its two sums first
+        w = self.class_weights[labels.long()] * valid
+        nll = weighted_ce_loss(logits, labels, self.class_weights, 0.0,
+                               valid=valid, total_weight=torch.ones(
+                                   (), device=logits.device))
+        num, den, correct, count = all_sum(torch.stack(
+            [nll, w.sum(), correct, valid.sum()]), self._data_axis())
+        loss = num / den.clamp_min(1e-8)
+        return {"loss_sum": loss * count, "correct": correct,
+                "count": count}
 
     def sync_eval_model(self) -> None:
         """Copy the trained weights and statistics (this rank's shards)

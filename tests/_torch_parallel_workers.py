@@ -63,6 +63,36 @@ def collectives_rank(rank, world):
     return out
 
 
+class _FaultyPredictor:
+    """A predictor whose batch fails on rank 1 before its collective;
+    rank 0 waits in that collective, as the sharded predictor's gather."""
+
+    mode = "text_only"
+
+    def __init__(self, mesh, rank):
+        self.mesh, self.device, self.rank = mesh, mesh.device, rank
+
+    def predict_batch(self, images=None, texts=None, top_k=5):
+        if self.rank == 1:
+            raise RuntimeError("follower fault on rank 1")
+        col.all_sum(torch.ones(1), self.mesh.axis("world"))
+        return [{} for _ in texts]
+
+
+def serve_fault_rank(rank, world):
+    """`cli/serve.py`'s leader and follower over a predictor that fails
+    on rank 1 only."""
+    from multimodal_rare_disease_tpu_torch.cli import serve
+
+    predictor = _FaultyPredictor(_mesh(world, world, 1), rank)
+    if rank != 0:
+        return serve.follow(predictor)
+    leader = serve.MeshLeader(predictor, ping_s=3600.0)
+    leader.predict_batch(texts=["a", "b"])
+    leader.close()
+    return "served"
+
+
 def predict_rank(rank, world, over, state, vocab, images, texts, shapes,
                  device="cpu"):
     """The sharded predictor over each (data, model) mesh of `shapes` on

@@ -299,6 +299,64 @@ def test_dryrun_multichip_on_two_cpu_ranks():
     assert res["predict"]["mesh"] == {"data": 1, "model": 2}
 
 
+def test_a_follower_fault_fails_the_serving_world(tmp_path):
+    """A batch that fails on a follower alone ends that rank with its
+    error, and the world fails, instead of leaving rank 0 waiting in a
+    collective the follower never joins."""
+    with pytest.raises(RuntimeError, match="follower fault on rank 1"):
+        run_ranks(workers.serve_fault_rank, 2, backend="gloo",
+                  timeout_s=60, init_dir=str(tmp_path))
+
+
+def test_mesh_leader_refuses_bad_input_and_stops_after_a_fault():
+    """Rank 0 refuses what the followers would, before it broadcasts; a
+    batch that fails after its broadcast marks the mesh out of step, and
+    the watcher stops the server when that happens or a follower dies."""
+    import threading
+
+    calls = []
+
+    class Predictor:
+        mode, device = "text_only", torch.device("cpu")
+        mesh = create_mesh(devices=[torch.device("cpu")])
+
+        def predict_batch(self, images=None, texts=None, top_k=5):
+            calls.append(texts)
+            raise MemoryError("rank 0 out of memory")
+
+    class Server:
+        def __init__(self):
+            self.down = threading.Event()
+
+        def shutdown(self):
+            self.down.set()
+
+    leader = serve.MeshLeader(Predictor(), ping_s=3600.0)
+    with pytest.raises(ValueError, match="text must be a string"):
+        leader.predict_batch(texts=["fine", 5])
+    with pytest.raises(ValueError, match="decoded uint8"):
+        leader.predict_batch(images=[np.zeros((4, 4), np.uint8)])
+    assert calls == [] and not leader.failed.is_set()
+    with pytest.raises(MemoryError):
+        leader.predict_batch(texts=["fine"])
+    assert leader.failed.is_set()
+    with pytest.raises(RuntimeError, match="out of step"):
+        leader.predict_batch(texts=["again"])
+    assert calls == [["fine"]]
+    server = Server()
+    serve._watch_ranks([], leader, server, poll_s=0.01)
+    assert server.down.is_set()
+
+    class Proc:
+        exitcode = 1
+
+    leader = serve.MeshLeader(Predictor(), ping_s=3600.0)
+    server = Server()
+    serve._watch_ranks([Proc()], leader, server, poll_s=0.01)
+    assert server.down.is_set() and leader.failed.is_set()
+    leader.close()  # sends nothing to ranks that are not listening
+
+
 def _post(url, body=None):
     import json
     import urllib.request
