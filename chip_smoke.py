@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch package's serving, evaluation, training, data-tool and
-rank-mesh paths once on one NVIDIA Hopper card.
+"""Drive the torch package's serving, evaluation, training, data-tool,
+rank-mesh and int8 paths once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -121,7 +121,9 @@ non-zero):
    over gloo (NCCL refuses two ranks on one device), each running its
    rows through the kernels: the predict on a 2x1 and a 1x2 mesh (K1 12
    per rank, on gathered W1/W2 under 1x2) and the fused-sublayer one on
-   1x2 (K3 11, K2 11, K1 1, K4 1 per rank), held to phase 4's limits;
+   1x2 (K3 11, K2 11, K1 1, K4 1 per rank), held to phase 4's limits,
+   and the int8 one (text_encoder.quantized_inference) on 1x2, which
+   launches nothing, held to the int8 predict on the 1x1 mesh;
    two f32 SGD steps at full width (TF32 off) on 1x1, 2x1 and 1x2 from
    the same weights and batches, which launch nothing, held to the CPU
    tests' limits, and a bf16 validation batch per rank (K1 12);
@@ -129,6 +131,20 @@ non-zero):
    single text requests as the single-device predictor does; and
    `dryrun_multichip(2)`. Its times are those of ranks sharing one card,
    their collectives staged through host memory: no scaling figure.
+14. int8 serving and the flat residual stream: every quantized product
+   of the B=256 forward (M = 1, 16, 1,024 and 16,384 rows x qkv, the
+   attention output, the FFN intermediate and output) on bf16
+   activations, the card bit-equal to the CPU (int8 codes, scales, f32
+   and bf16 outputs; rows below 17 padded for torch._int_mm); the
+   quantized B=256 predict on phase 4's batch (K1-K3 off, as the JAX
+   `not q8` gates) held against phase 4's kernels-off and f32
+   probabilities and against the f32 quantized model, and its p50 in
+   turns with the bf16 default path; the quantized fused-sublayer one at
+   256 px (K4 1); single requests on a quantized checkpoint through
+   `load_predictor` and the MicroBatcher (the padded rows counted); and
+   the text tower with text_encoder.flat_residual on against off on the
+   same weights and unpacked rows, bit-equal, K1 12 (fused: K3 11, K2 11,
+   K1 1).
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -2006,6 +2022,10 @@ MESH_TRAIN_LIMITS = {(1, 2): (2e-5, 1e-5, 1e-5), (2, 1): (5e-4, 1e-4, 1e-3)}
 # the 1x1 mesh over NCCL against phase 4's predictor: the same kernels on
 # the same rows, so the same probabilities
 MESH_1X1_ATOL = 1e-6
+# the int8 predict on 1x2 against the 1x1 mesh: the same int8 codes and
+# int32 sums (maxima and integer sums over the model axis), and attention
+# per head; the first H100 run read 0 (PERF.md §6, int8 serving)
+MESH_Q8_ATOL = 1e-6
 MESH_TIMED_RUNS = 3
 MESH_RANK_TIMEOUT_S = 600.0
 
@@ -2067,9 +2087,10 @@ def mesh_steps(trainer, batches, dev):
 
 def mesh_rank(rank, world, device, ref_path, ref_losses, fused_over):
     """One of two ranks on `device` (phase 13 b and d): the B=256 predict
-    on a 2x1 and a 1x2 mesh and the fused-sublayer one on 1x2, each with
-    its launches and p50; then two f32 train steps on each mesh against
-    the 1x1 run's losses and state, and a bf16 validation batch."""
+    on a 2x1 and a 1x2 mesh and the fused-sublayer and int8 ones on 1x2,
+    each with its launches and p50; then two f32 train steps on each mesh
+    against the 1x1 run's losses and state, and a bf16 validation
+    batch."""
     import numpy as np
     import torch
 
@@ -2097,7 +2118,9 @@ def mesh_rank(rank, world, device, ref_path, ref_losses, fused_over):
     build.load_library(dev)
     images, texts = seeded_requests(BATCH, seed=0)
     out = {"predict": {}, "train": {}}
-    for over, shapes in (({}, MESH_SHAPES), (fused_over, ((1, 2),))):
+    for kind, over, shapes in (("default", {}, MESH_SHAPES),
+                               ("fused", fused_over, ((1, 2),)),
+                               ("q8", Q8, ((1, 2),))):
         cfg = resolve_config("default", over)
         whole = create_model(cfg, device="cpu", seed=0).state_dict()
         for d, m in shapes:
@@ -2120,7 +2143,7 @@ def mesh_rank(rank, world, device, ref_path, ref_losses, fused_over):
                 pred.predict_batch(images, texts)
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) * 1e3)
-            out["predict"][("fused" if over else "default", d, m)] = {
+            out["predict"][(kind, d, m)] = {
                 "probs": probs_of(res, pred.class_names) if rank == 0
                 else None,
                 "counts": counts, "packed_calls": pred.packed_calls,
@@ -2327,12 +2350,21 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
         if d11 > MESH_1X1_ATOL:
             fail(f"1x1 NCCL mesh: max|dprob| {d11} from phase 4")
         del pred
+        # the int8 predict on the 1x1 mesh: the reference of 1x2's
+        cfg_q = resolve_config("default", Q8)
+        pred = MultimodalPredictor(cfg_q, create_model(cfg_q, device="cpu",
+                                                       seed=0), mesh=mesh)
+        probs_q11 = probs_of(count_launches(
+            lambda: pred.predict_batch(images, texts),
+            {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0},
+            "1x1 NCCL mesh, int8", totals), pred.class_names)
+        del pred
         torch.cuda.empty_cache()
     finally:
         distributed.shutdown()
     print(f"[13 mesh 1x1] {card} | NCCL process group of one: B={BATCH} "
           f"launches K1 {n_layers}, max|dprob| from phase 4 {d11:.3e} "
-          f"(tolerance {MESH_1X1_ATOL})")
+          f"(tolerance {MESH_1X1_ATOL}); the int8 predict launches nothing")
 
     # ---- d (reference): two f32 steps on one rank, TF32 off
     cfg_t = mesh_train_config()
@@ -2379,10 +2411,12 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
     plain7, f32_7 = refs["fused-sublayer path"]
     lines = []
     for (kind, d, m), r0 in outs[0]["predict"].items():
-        want = ({"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1, "K4": 1,
-                 "plain_on_cuda": 0} if kind == "fused" else
-                {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
-                 "plain_on_cuda": 0})
+        want = {"fused": {"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1,
+                          "K4": 1, "plain_on_cuda": 0},
+                "q8": {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                       "plain_on_cuda": 0}}.get(
+            kind, {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
+                   "plain_on_cuda": 0})
         for rank, o in enumerate(outs):
             r = o["predict"][(kind, d, m)]
             if r["counts"] != want or r["packed_calls"] < 1:
@@ -2391,6 +2425,17 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
             for k, v in r["counts"].items():
                 totals[k] += v
         probs = r0["probs"]
+        if kind == "q8":
+            d_q = np.abs(probs - probs_q11)
+            top1 = int((probs.argmax(1) == probs_q11.argmax(1)).sum())
+            if d_q.max() > MESH_Q8_ATOL:
+                fail(f"int8 1x2: max|dprob| {d_q.max()} from the 1x1 mesh")
+            lines.append(
+                f"int8 1x2: launches per rank {r0['counts']}; max|dprob| vs "
+                f"the int8 1x1 NCCL mesh {d_q.max():.3e} mean "
+                f"{d_q.mean():.3e} (tolerance {MESH_Q8_ATOL}), top-1 "
+                f"{top1}/{BATCH}; predict_batch p50 {r0['p50_ms']:.1f} ms")
+            continue
         p_ref, f_ref = (plain7, f32_7) if kind == "fused" else (plain, f32)
         d_kp = float(np.abs(probs - p_ref).max())
         d_kr = float(np.abs(probs - f_ref).max())
@@ -2451,6 +2496,285 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
           f"{dry['losses']}, predict {dry['predict']['rows']} rows on "
           f"{dry['predict']['mesh']} in {time.perf_counter() - t0:.1f} s | "
           f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# phase 14: int8 serving (text_encoder.quantized_inference, models/quant.py)
+# and the flat residual stream (text_encoder.flat_residual)
+Q8 = {"text_encoder.quantized_inference": True}
+# the quantized products of the B=256 forward: rows (one request's CLS
+# row, a validation batch of 16, the 1,024 CLS rows, phase 4's packed
+# rows) x (K, N) of qkv, the attention output, the FFN intermediate and
+# the FFN output
+Q8_ROWS = (1, 16, 1024, 16384)
+Q8_DENSE = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+# the quantized B=256 predict against the bf16 kernels-off path and the
+# f32 model (phase 4's references) and against the f32 quantized model:
+# int8 rounding on top of bf16's own noise (ROADMAP O1; the TPU read
+# 3.0e-3 / 6.0e-4 against bf16). The first H100 run read at most 4.543e-3
+# max and 8.04e-4 mean over the six comparisons of the default and fused
+# configurations, and 253/256 top-1 at the least (PERF.md §6, int8):
+# the limits are those readings with half again of margin, and twice the
+# top-1 misses
+Q8_PROB_ATOL = 7e-3
+Q8_PROB_MEAN_ATOL = 1.2e-3
+Q8_TOP1_MIN = 250
+# single requests through the MicroBatcher on a quantized checkpoint, at
+# the serve CLI's default window
+Q8_SERVE_REQUESTS = 10
+Q8_SERVE_WINDOW_MS = 5.0
+
+
+def quantized_and_flat(dev, card: str, images, texts, refs, p50_ms):
+    """Phase 14; returns the launches of its counted runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.cli.serve import MicroBatcher
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+        load_predictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models import quant
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+    from multimodal_rare_disease_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+    none = dict(totals)
+    n_layers = resolve_config("default").text_encoder.num_layers
+
+    # ---- a: every quantized product of the B=256 forward, card vs CPU
+    gen = torch.Generator().manual_seed(14)
+    cpu = torch.device("cpu")
+    padded_dense = 0  # on the card
+    for k, n in Q8_DENSE:
+        w = torch.randn((n, k), generator=gen) * 0.02
+        b = torch.randn((n,), generator=gen) * 0.02
+        layers = []  # on the CPU, on the card
+        for d in (cpu, dev):
+            lin = quant.QuantLinear(k, n, d, quantized=True)
+            with torch.no_grad():
+                lin.weight.copy_(w)
+                lin.bias.copy_(b)
+            lin.prepare()
+            layers.append(lin)
+        if not (torch.equal(layers[0].codes, layers[1].codes.cpu())
+                and torch.equal(layers[0].master_bits,
+                                layers[1].master_bits.cpu())):
+            fail(f"int8 weight codes or scales of {k}->{n} differ between "
+                 f"the card and the CPU")
+        for m in Q8_ROWS:
+            x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+            outs = []
+            for lin in layers:
+                xd = x.to(lin.weight.device)
+                codes, scale, bias = lin.int8_state()
+                before = quant.PADDED_CALLS
+                outs.append((quant.quant_linear(
+                    xd, codes, scale, bias, torch.float32).cpu(),
+                    lin.q8(xd).cpu()))
+                if lin is layers[1]:
+                    padded_dense += quant.PADDED_CALLS - before
+            for want, got in zip(*outs):
+                if got.shape != (m, n) or not torch.equal(got, want):
+                    d = (got.float() - want.float()).abs().max().item()
+                    fail(f"quantized {k}->{n} at M={m}: the card is not "
+                         f"bit-equal to the CPU (max|diff| {d})")
+    # M=1 and M=16, two calls each (f32 and bf16 out), per shape
+    if padded_dense != 2 * 2 * len(Q8_DENSE):
+        fail(f"{padded_dense} padded _int_mm calls in the dense check, want "
+             f"{2 * 2 * len(Q8_DENSE)}")
+    print(f"[14 int8 products] {card} | torch._int_mm on bf16 activations, "
+          f"f32 weights N(0, 0.02) quantized on each side: M "
+          f"{list(Q8_ROWS)} x (K->N) {[f'{k}->{n}' for k, n in Q8_DENSE]}: "
+          f"codes, scales and the f32 and bf16 outputs bit-equal card vs CPU "
+          f"(rows below {quant.CUDA_MIN_ROWS} padded on the card: "
+          f"{padded_dense} calls)")
+
+    # ---- b: the quantized B=256 predict, default and fused at 256 px
+    def probs_line(tag, probs, plain, f32):
+        d_p = np.abs(probs - plain)
+        d_f = np.abs(probs - f32)
+        top_p = int((probs.argmax(1) == plain.argmax(1)).sum())
+        top_f = int((probs.argmax(1) == f32.argmax(1)).sum())
+        if d_p.max() > Q8_PROB_ATOL or d_f.max() > Q8_PROB_ATOL \
+                or d_p.mean() > Q8_PROB_MEAN_ATOL \
+                or d_f.mean() > Q8_PROB_MEAN_ATOL \
+                or min(top_p, top_f) < Q8_TOP1_MIN:
+            fail(f"{tag}: max|dprob| {d_p.max()} / {d_f.max()}, mean "
+                 f"{d_p.mean()} / {d_f.mean()}, top-1 {top_p} / {top_f}")
+        return (f"vs bf16 kernels off max {d_p.max():.3e} mean "
+                f"{d_p.mean():.3e} top-1 {top_p}/{BATCH}; vs f32 max "
+                f"{d_f.max():.3e} mean {d_f.mean():.3e} top-1 "
+                f"{top_f}/{BATCH}")
+
+    cfg_q = resolve_config("default", Q8)
+    pred_q = MultimodalPredictor(cfg_q, create_model(cfg_q, device="cpu",
+                                                     seed=0), dev)
+    if not all(m.codes is not None
+               for _, m in quant.quant_layers(pred_q.model)):
+        fail("the quantized predictor holds no int8 codes")
+    res = count_launches(lambda: pred_q.predict_batch(images, texts), none,
+                         "quantized default path", totals)
+    probs_q = probs_of(res, pred_q.class_names)
+    if probs_q.shape != (BATCH, cfg_q.num_classes) \
+            or not np.isfinite(probs_q).all():
+        fail(f"bad quantized probabilities: shape {probs_q.shape}")
+    line_q = probs_line("quantized default path", probs_q,
+                        *refs["default path"])
+    # the f32 quantized model on the card (TF32 off, as the f32 reference)
+    cfg_q32 = resolve_config("default", {**Q8,
+                                         "training.compute_dtype": "float32"})
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pred_q32 = MultimodalPredictor(
+            cfg_q32, create_model(cfg_q32, device="cpu", seed=0), dev)
+        probs_q32 = probs_of(pred_q32.predict_batch(images, texts),
+                             pred_q.class_names)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del pred_q32
+    d_q32 = np.abs(probs_q - probs_q32)
+    top_q32 = int((probs_q.argmax(1) == probs_q32.argmax(1)).sum())
+    if d_q32.max() > Q8_PROB_ATOL or d_q32.mean() > Q8_PROB_MEAN_ATOL \
+            or top_q32 < Q8_TOP1_MIN:
+        fail(f"quantized bf16 vs quantized f32: max {d_q32.max()}, mean "
+             f"{d_q32.mean()}, top-1 {top_q32}")
+    # p50 in turns quantized, bf16, bf16, quantized (phase 4's weights)
+    cfg = resolve_config("default")
+    pred_d = MultimodalPredictor(cfg, create_model(cfg, device="cpu",
+                                                   seed=0), dev)
+    q_a, _ = p50_ms(pred_q)
+    d_a, _ = p50_ms(pred_d)
+    d_b, _ = p50_ms(pred_d)
+    q_b, _ = p50_ms(pred_q)
+    print(f"[14 quantized predict] {card} | B={BATCH} on phase 4's batch, "
+          f"packed {pred_q.packed_calls > 0}: launches {none} (K1-K3 off "
+          f"under int8, the JAX `not q8` gates); {line_q} (limits max "
+          f"{Q8_PROB_ATOL}, mean {Q8_PROB_MEAN_ATOL}, top-1 >= "
+          f"{Q8_TOP1_MIN}); vs the f32 quantized model max "
+          f"{d_q32.max():.3e} mean {d_q32.mean():.3e} top-1 "
+          f"{top_q32}/{BATCH} | predict_batch p50 quantized "
+          f"{(q_a + q_b) / 2:.2f} ms (runs {q_a:.2f}, {q_b:.2f}) vs bf16 "
+          f"default {(d_a + d_b) / 2:.2f} ms (runs {d_a:.2f}, {d_b:.2f})")
+
+    over7 = {"text_encoder.fused_attn_out": True, "data.image_size": 256}
+    cfg_qf = resolve_config("default", {**over7, **Q8})
+    pred_qf = MultimodalPredictor(cfg_qf, create_model(cfg_qf, device="cpu",
+                                                       seed=0), dev)
+    res = count_launches(lambda: pred_qf.predict_batch(images, texts),
+                         {**none, "K4": 1}, "quantized fused path", totals)
+    line_qf = probs_line("quantized fused path",
+                         probs_of(res, pred_qf.class_names),
+                         *refs["fused-sublayer path"])
+    print(f"[14 quantized fused] {card} | B={BATCH}, image_size 256, "
+          f"fused_attn_out: launches {{K4: 1, K1-K3: 0}}; {line_qf}")
+    del pred_qf
+
+    # ---- c: single requests through the MicroBatcher on a quantized
+    # checkpoint (load_predictor, as cli/serve.py): the CLS-only last
+    # layer's products take one row, padded for _int_mm
+    work = Path(tempfile.mkdtemp(prefix="q8_", dir=HERE / "build"))
+    save_checkpoint(work / "ckpt", create_model(
+        cfg_q, device="cpu", seed=0).state_dict(),
+        meta={"config": cfg_q.to_dict(), "mode": "multimodal"})
+    served = load_predictor(work / "ckpt", dev)
+    for (_, a), (_, b) in zip(quant.quant_layers(served.model),
+                              quant.quant_layers(pred_q.model)):
+        if not (torch.equal(a.codes, b.codes)
+                and torch.equal(a.master_bits, b.master_bits)):
+            fail("the checkpoint's int8 codes differ from the seeded "
+                 "model's")
+    s_images, s_texts = seeded_requests(Q8_SERVE_REQUESTS, seed=14)
+    batcher = MicroBatcher(served, window_ms=Q8_SERVE_WINDOW_MS)
+    lat, answers = [], []
+    try:
+        batcher.submit(s_images[0], s_texts[0], 3)  # warm-up
+        reset_counts()
+        padded0, rows0 = quant.PADDED_CALLS, quant.PADDED_ROWS
+        calls0 = batcher.batch_calls
+        for i in range(Q8_SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            answers.append(batcher.submit(s_images[i], s_texts[i], 3))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        forwards = batcher.batch_calls - calls0
+        padded = quant.PADDED_CALLS - padded0
+        padded_rows = quant.PADDED_ROWS - rows0
+    finally:
+        batcher.close()
+    if counts != none:
+        fail(f"quantized serving: launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    # the last layer's attention output, FFN intermediate and FFN output
+    # take the one CLS row of each single request
+    if forwards != Q8_SERVE_REQUESTS or padded != 3 * forwards:
+        fail(f"quantized serving: {forwards} forwards, {padded} padded "
+             f"_int_mm calls (want 3 per forward)")
+    # each answer is the predictor's own answer to that one request
+    direct = [served.predict(s_images[i], s_texts[i], top_k=3)
+              for i in range(Q8_SERVE_REQUESTS)]
+    if answers != direct:
+        fail("quantized serving: an answer differs from the predictor's "
+             "answer to the same single request")
+    del served
+    print(f"[14 quantized serve] {card} | {Q8_SERVE_REQUESTS} single "
+          f"requests on a quantized checkpoint through the MicroBatcher "
+          f"(window {Q8_SERVE_WINDOW_MS} ms): {forwards} forwards, launches "
+          f"{counts}, padded _int_mm calls {padded} ({padded_rows} zero rows "
+          f"added, {padded_rows // max(padded, 1)} per call); p50 per request "
+          f"{float(np.median(lat)):.2f} ms (of {len(lat)}: "
+          f"{', '.join(f'{x:.1f}' for x in lat)}); each answer equal to "
+          f"the predictor's own for that request")
+
+    # ---- d: the flat residual stream against the classic one, on the
+    # same weights and unpacked rows: the same kernels, the same values
+    ids, mask = pred_d._prep_texts(texts, BATCH)
+    ids, mask = pred_d._dev(ids), pred_d._dev(mask)
+    flat_lines = []
+    pred_f = MultimodalPredictor(resolve_config("default", over7),
+                                 create_model(resolve_config(
+                                     "default", over7), device="cpu",
+                                     seed=0), dev)
+    for tag, p, want in (
+            ("default", pred_d, {**none, "K1": n_layers}),
+            ("fused", pred_f, {**none, "K1": 1, "K2": n_layers - 1,
+                               "K3": n_layers - 1})):
+        enc = p.model.text_encoder
+        outs = []
+        for flat in (False, True):
+            enc.bert.flat_residual = flat
+            with torch.inference_mode():
+                outs.append(count_launches(lambda: enc(ids, mask), want,
+                                           f"{tag} flat={flat}", totals))
+        enc.bert.flat_residual = False
+        if not torch.equal(outs[0], outs[1]):
+            d = (outs[0].float() - outs[1].float()).abs().max().item()
+            fail(f"{tag}: the flat stream differs from the classic one by "
+                 f"{d}")
+        flat_lines.append(f"{tag}: launches per forward {want}, text "
+                          f"embeddings [{', '.join(map(str, outs[1].shape))}]"
+                          f" bit-equal")
+    del pred_f, pred_d, pred_q
+    torch.cuda.empty_cache()
+    print(f"[14 flat residual] {card} | unpacked B={BATCH} x "
+          f"{ids.shape[1]} tokens (M={ids.numel()}), flat_residual on vs "
+          f"off on the same model: " + "; ".join(flat_lines)
+          + f" | phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
 
@@ -3030,6 +3354,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     main13 = mesh_phase(dev, card, probs, refs, over7)
 
+    # ---- 14. int8 serving and the flat residual stream
+    torch.cuda.empty_cache()
+    main14 = quantized_and_flat(dev, card, images, texts, refs, p50_ms)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -3060,10 +3388,10 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12 and 13 (their counted runs; 13's on every rank)
+        # 9, 10, 11, 12, 13 and 14 (their counted runs; 13's on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
-                     + main13[k]),
+                     + main13[k] + main14[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

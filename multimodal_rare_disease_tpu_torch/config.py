@@ -12,8 +12,12 @@ The text-encoder knobs keep the JAX names. In the port `fused_ffn`
 selects the hand-written FFN kernel (K1/K2, `kernels/ffn.py`) and
 `fused_attn_out` the attention-output kernel (K3, `kernels/attn_out.py`);
 `pre_layernorm` takes the pre-LN layers, which run no kernel, as in the
-JAX dispatch; `quantized_inference` and `flat_residual` are not ported
-(`models/bert.py` raises for them).
+JAX dispatch; `quantized_inference` runs the BERT tower's four big
+products in int8 at inference (`models/quant.py`; K1-K3 then stay off,
+as the JAX gates `not q8`), and `flat_residual` keeps its residual
+stream [B·T, H] between the layers (the same values). As with the JAX
+CLIs' `--set`, a value is read with `ast.literal_eval`: write `True` /
+`False` (the word `false` stays a non-empty string, which is true).
 """
 
 from __future__ import annotations
@@ -166,8 +170,10 @@ class TextEncoderConfig:
     fused_ffn: bool = True
     # fused attention-output sublayer LN(x + ctx@wo + bo) at inference
     fused_attn_out: bool = False
+    # W8A8 int8 BERT products at inference (models/quant.py)
     quantized_inference: bool = False
     pre_layernorm: bool = False
+    # the residual stream [B*T, H] between the BERT layers (same values)
     flat_residual: bool = False
 
 

@@ -166,7 +166,8 @@ def classification_report(y: np.ndarray, yhat: np.ndarray, num_classes: int,
 class Evaluator:
     """Collect predictions from the model's forward and compute the full
     metric / artifact suite. `model` is a port model of `mode` on its
-    device in its compute dtype (a predictor's `.model`)."""
+    device in its compute dtype (a predictor's `.model`, which under
+    `quantized_inference` holds the int8 codes of its f32 weights)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
                  mode: str = "multimodal",

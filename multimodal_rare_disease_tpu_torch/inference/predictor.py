@@ -14,7 +14,8 @@ several to a row (inference/packing.py). Images are staged as uint8 at
 from 256, the fused uint8 normalize kernel (K4) when it is 256. The
 model computes in `cfg.training.compute_dtype` (bf16 by default), as the
 JAX `create_model` builds it: the weights are cast to it once, at
-construction. It runs on the card unless the caller passes
+construction; under `text_encoder.quantized_inference` the BERT products'
+int8 codes are made from the f32 weights first (models/quant.py). It runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
 
 Over a rank mesh (`mesh=`, parallel/mesh.py; every rank builds the
@@ -54,6 +55,7 @@ from multimodal_rare_disease_tpu_torch.models.classifier import (
     create_model,
     resolve_device,
 )
+from multimodal_rare_disease_tpu_torch.models.quant import prepare_quantized
 from multimodal_rare_disease_tpu_torch.ops.preprocess import eval_preprocess
 from multimodal_rare_disease_tpu_torch.parallel.collectives import all_gather
 
@@ -91,7 +93,9 @@ class MultimodalPredictor:
             self._data_size = mesh.axis("data").size
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.training.compute_dtype)
-        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        # int8 codes from the f32 weights, before the cast rounds them
+        prepare_quantized(model.to(device=self.device))
+        self.model = model.to(dtype=self.dtype).eval()
         self.length_bucketing = length_bucketing
         self.class_names = list(class_names or SYNDROME_NAMES)
         self.tokenizer = (tokenizer if mode == "image_only"

@@ -48,13 +48,24 @@ unsharded): K1 and K2 get W1 and W2 gathered over the model axis, K3 the
 context and Wo, one layer's at a time, and each rank runs the kernel on
 its own rows.
 
+`quantized_inference` runs the four big products of each layer (qkv,
+the attention output, the FFN's intermediate and output) in int8 in eval
+mode (`models/quant.py`, the JAX `MaybeQuantDenseGeneral`), and, as the
+JAX gates `not q8` do, turns K1, K2 and K3 off: the FFN is the classic
+sublayer, and the CLS-only last layer takes its query rows from the
+full-row qkv (the JAX quantized fallback). Train mode runs the float
+path whatever the flag says. `flat_residual` keeps the residual stream
+[B·T, H] between the layers of an unpacked forward that returns no
+hidden states or attention maps (the JAX flat branches: attention
+reshapes around its core, the CLS-only last layer takes rows [::T]); it
+changes no value, and K1, or K3 then K2, run on the same rows.
+
 Module and parameter names follow the flax tree (`layer{i}`, `qkv`,
 `attention_ln`, ...), so `models/convert.py` maps checkpoints leaf by
-leaf, whichever kernels a layer takes. Inference-only knobs of the JAX
-module that compute the same values (K/V lane padding, `flat_residual`,
-`ln_barrier`) are not ported, nor is `quantized_inference`: a config
-that turns `quantized_inference` or `flat_residual` on raises
-NotImplementedError.
+leaf, whichever kernels a layer takes, with the int8 flag on or off.
+Two inference-only knobs of the JAX module that compute the same values
+and are not config fields (K/V lane padding, `ln_barrier`) are not
+ported.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ from multimodal_rare_disease_tpu_torch.models.layers import (
     Embedding,
     Linear,
 )
+from multimodal_rare_disease_tpu_torch.models.quant import QuantLinear
 from multimodal_rare_disease_tpu_torch.parallel.collectives import (
     all_gather,
     copy_to_model,
@@ -92,15 +104,18 @@ def _take_rows(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 class BertSelfAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, device,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quantized: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.quantized = quantized
         self.dropout = Dropout(dropout)  # on the probabilities
         self.head_dim = hidden_size // num_heads
         # fused QKV; output features ordered (3, heads, head_dim) like the
         # flax [H, 3, h, d] kernel
-        self.qkv = Linear(hidden_size, 3 * hidden_size, device=device)
-        self.output = Linear(hidden_size, hidden_size, device=device)
+        self.qkv = QuantLinear(hidden_size, 3 * hidden_size, device,
+                               quantized=quantized)
+        self.output = QuantLinear(hidden_size, hidden_size, device,
+                                  quantized=quantized)
         # the mesh's model axis when this module holds a share of the
         # heads (parallel/tp.py); num_heads is then the local count
         self.tp = None
@@ -110,20 +125,28 @@ class BertSelfAttention(nn.Module):
                 query_positions: Optional[torch.Tensor] = None,
                 return_unprojected: bool = False,
                 output_attentions: bool = False):
-        """hidden [B, T, H]; bias [B, 1, 1 or T, T] additive. Returns
-        (out, probs): probs, the softmax [B, heads, T, T] in f32 (the
+        """hidden [B, T, H], or the flat stream [B·T, H] (B from bias);
+        bias [B, 1, 1 or T, T] additive. Returns (out, probs): out in
+        hidden's rank; probs, the softmax [B, heads, T, T] in f32 (the
         product with V takes it rounded to the compute dtype, as the JAX
         layer does), with `output_attentions`, else None. With
         `cls_query_only`, queries are computed only for position 0 or
         for `query_positions` [B, P] (K/V stay full-sequence) and the
-        output is [B, P, H]. With `return_unprojected` it is
-        (ctx [B, P or T, H], Wo [H_in, H_out], bo): the output projection
-        left for K3 to apply (the JAX `return_unprojected`); over a model
-        axis the context and Wo are gathered whole for it."""
+        output is [B, P, H] ([B, H] from the flat stream). With
+        `return_unprojected` it is (ctx [B, P or T, H], Wo [H_in, H_out],
+        bo): the output projection left for K3 to apply (the JAX
+        `return_unprojected`); over a model axis the context and Wo are
+        gathered whole for it. Under `quantized` in eval mode the four
+        products run in int8 (models/quant.py), and the CLS-only query
+        comes from the full-row qkv (the JAX quantized fallback)."""
+        flat = hidden.dim() == 2
+        if flat:  # attention is the one sublayer that needs [B, T, ...]
+            hidden = hidden.reshape(bias.shape[0], -1, hidden.shape[-1])
         b, t, _ = hidden.shape
         h, d = self.num_heads, self.head_dim
+        q8 = self.quantized and not self.training
         hidden = copy_to_model(hidden, self.tp)
-        if cls_query_only:
+        if cls_query_only and not q8:
             w, bb = self.qkv.weight, self.qkv.bias
             hq = h * d  # this rank's q rows, then its k and v rows
             q_rows = (_take_rows(hidden, query_positions)
@@ -131,13 +154,17 @@ class BertSelfAttention(nn.Module):
             q = F.linear(q_rows, w[:hq], bb[:hq]).view(b, -1, h, d)
             kv = F.linear(hidden, w[hq:], bb[hq:]).view(b, t, 2, h, d)
             k, v = kv[:, :, 0], kv[:, :, 1]
-            if bias.shape[2] > 1:
-                # packed [B,1,T,T]: keep the restricted queries' rows
-                bias = (_take_rows(bias[:, 0], query_positions)[:, None]
-                        if query_positions is not None else bias[:, :, :1])
         else:
-            qkv = self.qkv(hidden).view(b, t, 3, h, d)
+            qkv = (self.qkv.q8(hidden) if q8 else self.qkv(hidden)
+                   ).view(b, t, 3, h, d)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            if cls_query_only:
+                q = (_take_rows(q, query_positions)
+                     if query_positions is not None else q[:, :1])
+        if cls_query_only and bias.shape[2] > 1:
+            # packed [B,1,T,T]: keep the restricted queries' rows
+            bias = (_take_rows(bias[:, 0], query_positions)[:, None]
+                    if query_positions is not None else bias[:, :, :1])
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
         scores = scores + bias
         probs32 = torch.softmax(scores.float(), dim=-1)
@@ -148,36 +175,44 @@ class BertSelfAttention(nn.Module):
             out = (all_gather(ctx, self.tp, dim=-1),
                    all_gather(self.output.weight, self.tp, dim=1).t(),
                    self.output.bias)
+        elif q8:  # row-parallel under a model axis: int32 partials summed
+            out = self.output.q8(ctx)
         elif self.tp is None:
             out = self.output(ctx)
         else:  # row-parallel: the heads' partial products summed
             out = reduce_from_model(F.linear(ctx, self.output.weight),
                                     self.tp) + self.output.bias
+        if flat and not return_unprojected:
+            out = out.reshape(-1, out.shape[-1])
         return out, (probs32 if output_attentions else None)
 
 
 class BertLayer(nn.Module):
     """Transformer layer: post-LN, or pre-LN with `pre_ln` (attention_ln
     before the attention, output_ln before the FFN, each sublayer added
-    to the unnormalized residual)."""
+    to the unnormalized residual). The residual stream is [B, T, H] or,
+    flat, [B·T, H]."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, device, fused_ffn: bool = True,
                  fused_attn_out: bool = False, dropout: float = 0.0,
-                 pre_ln: bool = False):
+                 pre_ln: bool = False, quantized: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.fused_ffn = fused_ffn
         self.fused_attn_out = fused_attn_out
         self.pre_ln = pre_ln
+        self.quantized = quantized
         self.dropout = Dropout(dropout)  # attention output, FFN output
         self.attention = BertSelfAttention(hidden_size, num_heads, device,
-                                           dropout=dropout)
+                                           dropout=dropout,
+                                           quantized=quantized)
         self.attention_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                          device=device)
-        self.intermediate = Linear(hidden_size, intermediate_size,
-                                   device=device)
-        self.output = Linear(intermediate_size, hidden_size, device=device)
+        self.intermediate = QuantLinear(hidden_size, intermediate_size,
+                                        device, quantized=quantized)
+        self.output = QuantLinear(intermediate_size, hidden_size, device,
+                                  quantized=quantized)
         self.output_ln = nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                       device=device)
         # the mesh's model axis when this layer holds a share of the FFN's
@@ -194,10 +229,11 @@ class BertLayer(nn.Module):
         # K3 runs on the full rows; the CLS-only last layer and a forward
         # that returns the attention maps keep the classic projection (the
         # JAX layer's `not cls_only` and `not output_attentions` gates);
-        # no kernel runs in train mode or under pre-LN (its `not train`
-        # and `not self.pre_ln` gates)
+        # no kernel runs in train mode, under pre-LN or quantized (its
+        # `not train`, `not self.pre_ln` and `not q8` gates)
+        q8 = self.quantized and not self.training
         use_k3 = (self.fused_attn_out and not self.training
-                  and not self.pre_ln and not cls_only
+                  and not self.pre_ln and not q8 and not cls_only
                   and not output_attentions)
         attn_in = self.attention_ln(hidden) if self.pre_ln else hidden
         attn_out, probs = self.attention(
@@ -205,9 +241,14 @@ class BertLayer(nn.Module):
             query_positions=query_positions, return_unprojected=use_k3,
             output_attentions=output_attentions)
         if cls_only:
-            # the rest of the layer runs on the consumed positions only
-            hidden = (_take_rows(hidden, query_positions)
-                      if query_positions is not None else hidden[:, :1])
+            # the rest of the layer runs on the consumed positions only;
+            # the flat stream [B·T, H] becomes [B, H] (rows [::T])
+            if hidden.dim() == 2:
+                hidden = hidden[::hidden.shape[0] // bias.shape[0]]
+            else:
+                hidden = (_take_rows(hidden, query_positions)
+                          if query_positions is not None
+                          else hidden[:, :1])
         if use_k3:
             # K3: attention_ln(x + ctx @ Wo + bo) in one pass
             ctx, wo, bo = attn_out
@@ -222,7 +263,7 @@ class BertLayer(nn.Module):
         if self.pre_ln:
             hidden = hidden + self.dropout(attn_out)
             return hidden + self._ffn_out(self.output_ln(hidden)), probs
-        if self.fused_ffn and not self.training:
+        if self.fused_ffn and not self.training and not q8:
             # K1 takes the unnormalized residual and applies attention_ln
             # itself (the JAX layer's pre_gamma dispatch)
             return self._ffn_fused(hidden + attn_out, input_ln=True), probs
@@ -246,10 +287,14 @@ class BertLayer(nn.Module):
         return y.reshape(x.shape)
 
     def _ffn_out(self, x: torch.Tensor) -> torch.Tensor:
-        """W2 · GELU(x · W1 + b1) + b2, then dropout: no kernel. Over a
-        model axis, column-parallel W1 and row-parallel W2, whose partial
+        """W2 · GELU(x · W1 + b1) + b2, then dropout: no kernel (both
+        products in int8 under `quantized` in eval mode). Over a model
+        axis, column-parallel W1 and row-parallel W2, whose partial
         products are summed before b2."""
         x = copy_to_model(x, self.tp)
+        if self.quantized and not self.training:
+            inter = F.gelu(self.intermediate.q8(x).float()).to(x.dtype)
+            return self.output.q8(inter)
         inter = F.gelu(self.intermediate(x).float()).to(x.dtype)
         if self.tp is None:
             return self.dropout(self.output(inter))
@@ -266,9 +311,11 @@ class BertEncoder(nn.Module):
                  num_heads: int, intermediate_size: int,
                  max_position_embeddings: int, type_vocab_size: int, device,
                  fused_ffn: bool = True, fused_attn_out: bool = False,
-                 dropout: float = 0.0, pre_ln: bool = False):
+                 dropout: float = 0.0, pre_ln: bool = False,
+                 quantized: bool = False, flat_residual: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.flat_residual = flat_residual
         self.dropout = Dropout(dropout)  # on the embeddings
         self.word_embeddings = Embedding(vocab_size, hidden_size,
                                          device=device)
@@ -282,7 +329,7 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer{i}", BertLayer(
                 hidden_size, num_heads, intermediate_size, device,
                 fused_ffn=fused_ffn, fused_attn_out=fused_attn_out,
-                dropout=dropout, pre_ln=pre_ln))
+                dropout=dropout, pre_ln=pre_ln, quantized=quantized))
         # pre-LN stacks normalize once more before the readout
         self.final_ln = (nn.LayerNorm(hidden_size, eps=_BERT_LN_EPS,
                                       device=device) if pre_ln else None)
@@ -306,7 +353,10 @@ class BertEncoder(nn.Module):
         asked for: `output_hidden_states` adds `hidden_states`, the
         embedding output and every layer's output, and
         `output_attentions` adds `attentions`, every layer's
-        [B, heads, T, T] probabilities."""
+        [B, heads, T, T] probabilities. With `flat_residual` the
+        residual stream is [B·T, H] between the layers of an unpacked
+        forward that returns neither (the same values), and comes back as
+        [B, T', H]."""
         cls_only_final = (cls_only_final and not output_hidden_states
                           and not output_attentions)
         b, t = input_ids.shape
@@ -334,6 +384,10 @@ class BertEncoder(nn.Module):
         bias = bias.to(dtype)
 
         qpos = query_positions if packed else None
+        flat = (self.flat_residual and not output_hidden_states
+                and not output_attentions and not packed)
+        if flat:
+            hidden = hidden.reshape(b * t, hidden.shape[-1])
         all_hidden = [hidden] if output_hidden_states else None
         all_attn = [] if output_attentions else None
         for i in range(self.num_layers):
@@ -348,6 +402,8 @@ class BertEncoder(nn.Module):
 
         if self.final_ln is not None:
             hidden = self.final_ln(hidden)
+        if flat:  # T' = 1 after the CLS-only last layer
+            hidden = hidden.reshape(b, -1, hidden.shape[-1])
         if packed and query_positions is not None:
             cls = hidden if cls_only_final else _take_rows(hidden,
                                                            query_positions)
@@ -372,18 +428,14 @@ class TextEncoder(nn.Module):
 
     def __init__(self, cfg, device, projection_dim: int = 0):
         super().__init__()
-        for flag in ("quantized_inference", "flat_residual"):
-            if getattr(cfg, flag, False):
-                raise NotImplementedError(
-                    f"text_encoder.{flag} is not ported to the torch "
-                    f"package")
         self.use_pooler_output = cfg.use_pooler_output
         self.bert = BertEncoder(
             cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.intermediate_size, cfg.max_position_embeddings,
             cfg.type_vocab_size, device, fused_ffn=cfg.fused_ffn,
             fused_attn_out=cfg.fused_attn_out, dropout=cfg.dropout,
-            pre_ln=cfg.pre_layernorm)
+            pre_ln=cfg.pre_layernorm, quantized=cfg.quantized_inference,
+            flat_residual=cfg.flat_residual)
         self.drop = Dropout(cfg.dropout)
         self.projection = (Linear(cfg.hidden_size, projection_dim,
                                   device=device)

@@ -30,6 +30,7 @@ from multimodal_rare_disease_tpu_torch.models.layers import (
     Linear,
     init_weights,
 )
+from multimodal_rare_disease_tpu_torch.models.quant import prepare_quantized
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -224,7 +225,10 @@ def create_model(cfg, mode: str = "multimodal", device="cuda",
     device); `seed=None` leaves them uninitialized, for a state dict to
     be loaded on top. `trainable=True` builds it for training instead:
     parameters in `cfg.training.param_dtype` (f32 masters), train mode,
-    and `requires_grad` set by the freeze rules (`train/freeze.py`)."""
+    and `requires_grad` set by the freeze rules (`train/freeze.py`).
+    Under `text_encoder.quantized_inference` a seeded inference model cast
+    to a lower precision quantizes its BERT products from the f32 weights
+    first (`models/quant.py::prepare_quantized`)."""
     device = resolve_device(device)
     if mode == "multimodal":
         model = MultimodalClassifier(cfg, device,
@@ -252,4 +256,6 @@ def create_model(cfg, mode: str = "multimodal", device="cuda",
         model.to(dtype=getattr(torch, cfg.training.param_dtype)).train()
         apply_freeze(cfg, model)
         return model
+    if seed is not None and dtype != torch.float32:
+        prepare_quantized(model)
     return model.to(dtype=dtype).eval().requires_grad_(False)

@@ -4,7 +4,9 @@ same code runs over NCCL on cards of their own, over gloo on ranks that
 share one card, and over gloo on the CPU:
 
 - `all_sum`: the sum over an axis. Reduced in f32: a bf16 or f16 input
-  is widened first and rounded back once, on every backend;
+  is widened first and rounded back once, on every backend; an integer
+  input stays in its dtype (exact);
+- `all_max`: the maximum over an axis (exact in any dtype);
 - `all_gather`: each rank writes its tensor into its slot of a
   zero-filled [size, ...] buffer, and the buffer's sum over the axis is
   every rank's tensor (0 + x is x, so the gather is exact);
@@ -45,6 +47,15 @@ def all_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     buf = x.detach().to(torch.float32 if x.dtype in _WIDEN else x.dtype,
                         copy=True).contiguous()
     return _reduce_(buf, axis).to(x.dtype)
+
+
+def all_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """max over the axis of each rank's x (a new tensor, x's dtype)."""
+    if axis is None or axis.size == 1:
+        return x
+    buf = x.detach().clone().contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=axis.group)
+    return buf
 
 
 def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int = 0

@@ -22,7 +22,9 @@ CNN, fusion, head, BatchNorm statistics) is replicated. The optimizer's
 moments follow their parameters, so its update stays local.
 
 `shard_model` also gives every Dropout and BatchNorm its place on the
-data axis (models/layers.py). Checkpoints hold whole tensors:
+data axis (models/layers.py), the row-parallel projections their
+`row_axis`, and cuts an int8 cache made before it (models/quant.py) as
+it cuts the weights. Checkpoints hold whole tensors:
 `gather_state_dict` / `gather_optimizer_state` join the shards and
 `shard_state_dict` / `shard_optimizer_state` cut a whole checkpoint for
 any mesh.
@@ -138,6 +140,7 @@ def shard_model(model: nn.Module, mesh: Mesh) -> Dict[str, TPSplit]:
         BatchNorm,
         Dropout,
     )
+    from multimodal_rare_disease_tpu_torch.models.quant import QuantLinear
 
     if getattr(model, "tp_specs", None) is not None:
         raise ValueError("the model is already sharded")
@@ -156,14 +159,32 @@ def shard_model(model: nn.Module, mesh: Mesh) -> Dict[str, TPSplit]:
     for mod_name, m in model.named_modules():
         if isinstance(m, BertSelfAttention) \
                 and f"{mod_name}.qkv.weight" in specs:
-            m.tp = mdl
+            m.tp = m.output.row_axis = mdl
             m.num_heads //= mdl.size
             m.dropout.split = m.dropout.split + ((1, mdl),)
         elif isinstance(m, BertLayer) \
                 and f"{mod_name}.intermediate.weight" in specs:
-            m.tp = mdl
+            m.tp = m.output.row_axis = mdl
+        elif isinstance(m, QuantLinear) and m.codes is not None \
+                and f"{mod_name}.weight" in specs:
+            _shard_int8_cache(m, specs, mod_name, mdl)
     model.tp_specs = specs
     return specs
+
+
+def _shard_int8_cache(m, specs, name: str, axis: Axis) -> None:
+    """Cut a QuantLinear's int8 cache (models/quant.py) as its weight was
+    cut: the codes [out, in] by the weight's split; the scales and the
+    bias [2, out] by the bias's, or whole when the layer is row-parallel
+    (its column scales are those of the whole weight)."""
+    with torch.no_grad():
+        m.codes = shard_tensor(m.codes, specs[f"{name}.weight"], axis.rank,
+                               axis.size)
+        bias = specs.get(f"{name}.bias")
+        if bias is not None:
+            m.master_bits = shard_tensor(m.master_bits,
+                                         TPSplit(1, bias.blocks), axis.rank,
+                                         axis.size)
 
 
 def _specs(model: nn.Module) -> Dict[str, TPSplit]:

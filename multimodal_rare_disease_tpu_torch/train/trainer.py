@@ -13,7 +13,9 @@ image_only / text_only): the counterpart of
 - no kernel runs in a train step (the models' train mode, as the JAX
   layers' `not train` gates); validation runs a copy of the model in
   eval mode and in the compute dtype, where the kernels launch, on the
-  eval preprocess without K4 (the JAX `use_pallas=False`);
+  eval preprocess without K4 (the JAX `use_pallas=False`); under
+  `quantized_inference` its BERT products run in int8, quantized from
+  the f32 masters;
 - two data modes: the resident mode, where the corpus and the text pool
   sit on the device and each step gathers its batch by index (a Python
   loop in place of the JAX `lax.scan`), and the streaming mode, where
@@ -63,6 +65,7 @@ from multimodal_rare_disease_tpu_torch.models.classifier import (
 from multimodal_rare_disease_tpu_torch.models.layers import (
     set_dropout_generator,
 )
+from multimodal_rare_disease_tpu_torch.models.quant import prepare_quantized
 from multimodal_rare_disease_tpu_torch.ops.preprocess import (
     eval_preprocess,
     train_preprocess,
@@ -440,9 +443,13 @@ class Trainer:
 
     def sync_eval_model(self) -> None:
         """Copy the trained weights and statistics (this rank's shards)
-        into the eval copy."""
+        into the eval copy; under `quantized_inference` its BERT
+        products' int8 codes come from the f32 masters, not from the
+        copy's rounded weights."""
         self.init_state()
-        self.eval_model.load_state_dict(self.model.state_dict())
+        state = self.model.state_dict()
+        self.eval_model.load_state_dict(state)
+        prepare_quantized(self.eval_model, state)
 
     # -- batches -------------------------------------------------------------
 

@@ -182,3 +182,27 @@ def train_rank(rank, world, over, state, class_w, batches, steps,
                                               back.model, back.mesh),
                        back.state.step)
     return out if rank == 0 else None
+
+
+def int8_cache_rank(rank, world, over):
+    """On a 1 x world mesh: the int8 cache (models/quant.py) of a bf16
+    model, made from the whole f32 weights and cut by `shard_model`,
+    against the one `prepare_quantized` makes on the f32 shards (maxima
+    over the model axis) → {layer name: (codes equal, scales and bias
+    equal, row-parallel)}."""
+    from multimodal_rare_disease_tpu_torch.models import quant
+    from multimodal_rare_disease_tpu_torch.parallel.tp import shard_model
+
+    cfg = resolve_config("default", over)
+    mesh = _mesh(world, 1, world, cfg)
+    cut = create_model(cfg, device="cpu", seed=0, dtype=torch.bfloat16)
+    assert all(m.codes is not None for _, m in quant.quant_layers(cut))
+    shard_model(cut, mesh)
+    made = create_model(cfg, device="cpu", seed=0)
+    shard_model(made, mesh)
+    assert quant.prepare_quantized(made) == len(quant.quant_layers(made))
+    return {name: (torch.equal(a.codes, b.codes),
+                   torch.equal(a.master_bits, b.master_bits),
+                   a.row_axis is not None)
+            for (name, a), (_, b) in zip(quant.quant_layers(cut),
+                                         quant.quant_layers(made))}

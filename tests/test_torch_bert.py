@@ -235,11 +235,97 @@ def test_fused_attn_out_keeps_the_parameter_tree():
         {k: v.shape for k, v in b.state_dict().items()}
 
 
-@pytest.mark.parametrize("flag", ["quantized_inference", "flat_residual"])
-def test_unported_options_raise(flag):
-    cfg = _cfg(**{f"text_encoder.{flag}": True})
-    with pytest.raises(NotImplementedError):
-        tbert.create_text_encoder(cfg.text_encoder, "cpu")
+def _flat_pair(seed, **over):
+    """(JAX flat encoder and variables, the port's flat encoder, the
+    port's classic encoder) on the same weights."""
+    cfg = _k3_cfg(**{"text_encoder.flat_residual": True, **over})
+    jenc, v, flat = _pair(cfg, seed=seed)
+    from dataclasses import replace
+
+    classic = tbert.create_text_encoder(
+        replace(cfg.text_encoder, flat_residual=False), "cpu").eval()
+    classic.load_state_dict(flat.state_dict())
+    return jenc, v, flat, classic
+
+
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["k1", "k3-k2"])
+@pytest.mark.parametrize("cls_only_final", [True, False],
+                         ids=["cls-only", "full"])
+def test_flat_residual_is_bit_equal_to_the_classic_stream(
+        monkeypatch, cls_only_final, fused_attn_out):
+    # the JAX flat branches change no value (tests/test_models.py holds
+    # them bit-exact there); the kernels take the same rows either way
+    _, _, flat, classic = _flat_pair(
+        51, **{"text_encoder.fused_attn_out": fused_attn_out})
+    assert flat.bert.flat_residual and not classic.bert.flat_residual
+    ids, mask = _batch(np.random.default_rng(52), 4, 16)
+    outs, counts = [], []
+    for enc in (flat, classic):
+        calls = _counting(monkeypatch)
+        with torch.no_grad():
+            outs.append(enc.bert(_t(ids), _t(mask),
+                                 cls_only_final=cls_only_final))
+        counts.append(dict(calls))
+    # K3 then K2 in the full layers, K1 in a CLS-only last one
+    k3 = (1 if cls_only_final else 2) if fused_attn_out else 0
+    assert counts[0] == counts[1] == {"k3": k3, "ffn": 2}
+    t_out = 1 if cls_only_final else 16
+    for key in ("last_hidden_state", "cls", "pooler_output"):
+        assert outs[0][key].shape == outs[1][key].shape
+        assert torch.equal(outs[0][key], outs[1][key]), key
+    assert outs[0]["last_hidden_state"].shape == (4, t_out, 128)
+
+
+@pytest.mark.parametrize("cls_only_final", [True, False],
+                         ids=["cls-only", "full"])
+def test_flat_residual_matches_the_jax_flat_encoder(jax_kernels_interpreted,
+                                                    cls_only_final):
+    jenc, v, flat, _ = _flat_pair(53)
+    ids, mask = _batch(np.random.default_rng(54), 4, 16)
+    jout = jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask),
+                      method=lambda m, *a: m.bert(
+                          *a, cls_only_final=cls_only_final))
+    with torch.no_grad():
+        out = flat.bert(_t(ids), _t(mask), cls_only_final=cls_only_final)
+    for key in ("last_hidden_state", "cls", "pooler_output"):
+        assert out[key].shape == jout[key].shape
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(jout[key]),
+                                   atol=ATOL, err_msg=key)
+
+
+def test_flat_residual_keeps_3d_states_on_the_viz_path():
+    _, _, flat, classic = _flat_pair(55)
+    ids, mask = _batch(np.random.default_rng(56), 3, 16)
+    flags = {"output_hidden_states": True, "output_attentions": True}
+    with torch.no_grad():
+        (ef, of), (ec, oc) = (enc(_t(ids), _t(mask), **flags)
+                              for enc in (flat, classic))
+    assert torch.equal(ef, ec)
+    for key in ("hidden_states", "attentions"):
+        for a, b in zip(of[key], oc[key]):
+            assert a.dim() == (3 if key == "hidden_states" else 4)
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["classic", "flat"])
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["default", "fused-attn-out"])
+def test_quantized_layers_run_no_kernel_and_match_jax(
+        jax_kernels_interpreted, monkeypatch, fused_attn_out, flat):
+    # the JAX gates `not q8` turn K1, K2 and K3 off; the quantized
+    # stream is held to the JAX quantized (and flat) encoder
+    cfg = _k3_cfg(**{"text_encoder.fused_attn_out": fused_attn_out,
+                     "text_encoder.quantized_inference": True,
+                     "text_encoder.flat_residual": flat})
+    jenc, v, tenc = _pair(cfg, seed=57)
+    calls = _counting(monkeypatch)
+    ids, mask = _batch(np.random.default_rng(58), 4, 16)
+    ref = np.asarray(jenc.apply(v, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = tenc(_t(ids), _t(mask)).numpy()
+    assert calls == {"k3": 0, "ffn": 0}
+    np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
 @pytest.mark.parametrize("flags", [

@@ -8,8 +8,10 @@ refusal of inputs that autograd tracks; and the train side of the
 efficientnet_clinicalbert preset on the card (EfficientNet in f32, the
 augmentation extras, a step that keeps the frozen parameters); the
 MTCNN nets on the card against the CPU, a face-cropped B=256 predict
-with its K1 launches, a VAE step on the card against the CPU, and the
-sharded predict of two gloo ranks sharing the card. Every
+with its K1 launches, a VAE step on the card against the CPU, the
+sharded predict of two gloo ranks sharing the card, and the int8
+products (`models/quant.py`) on the card bit-equal to the CPU, with a
+quantized BERT layer that launches no kernel. Every
 test here is marked `gpu` and skips without a CUDA device; the file
 imports neither jax nor the JAX package, so it runs on a machine that
 has only torch:
@@ -790,3 +792,49 @@ def test_two_ranks_sharing_the_card_predict_as_one_device(cuda, shape,
         np.testing.assert_allclose(probs, want, atol=PROB_ATOL_PLAIN)
         assert qkv == (3 * 768 // shape[1], 768)
         assert k1 == 1 and packed + classic == 1
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 300])
+@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768)])
+def test_int8_products_on_the_card_equal_the_cpu(cuda, k, n, m):
+    from multimodal_rare_disease_tpu_torch.models import quant
+
+    gen = torch.Generator().manual_seed(k + m)
+    w = torch.randn((n, k), generator=gen) * 0.02
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        codes, scale = quant.quantize_weight(w.to(dev).t())
+        outs.append((codes.cpu(), scale.cpu(), quant.quant_linear(
+            x.to(dev), codes, scale, None, torch.float32).cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_quantized_bert_layer_launches_no_kernel(cuda):
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.models import quant
+    from multimodal_rare_disease_tpu_torch.models.bert import (
+        create_text_encoder,
+    )
+    from multimodal_rare_disease_tpu_torch.models.layers import init_weights
+
+    cfg = resolve_config("default", {
+        "text_encoder.num_layers": 2,
+        "text_encoder.quantized_inference": True,
+        "text_encoder.flat_residual": True}).text_encoder
+    enc = create_text_encoder(cfg, cuda)
+    init_weights(enc, torch.Generator().manual_seed(0), std=0.02)
+    quant.prepare_quantized(enc)
+    enc = enc.to(torch.bfloat16).eval()
+    ids = torch.randint(1, 1000, (4, 32), device=cuda)
+    mask = torch.ones_like(ids)
+    kffn.LAUNCHES_K1 = kffn.LAUNCHES_K2 = k3.LAUNCHES = 0
+    padded = quant.PADDED_CALLS
+    with torch.inference_mode():
+        out = enc(ids, mask)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 768) and torch.isfinite(out.float()).all()
+    assert (kffn.LAUNCHES_K1, kffn.LAUNCHES_K2, k3.LAUNCHES) == (0, 0, 0)
+    # the CLS-only last layer's attention output and FFN: 4 rows, padded
+    assert quant.PADDED_CALLS - padded == 3

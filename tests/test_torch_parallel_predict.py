@@ -68,7 +68,7 @@ def _probs(results):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def jax_init():
     jcfg = jax_config("default", SMALL)
     tok = jax_tokenizer()
     ids, mask, _ = tok.encode_batch(TEXTS[:1], jcfg.data.max_text_length)
@@ -77,11 +77,21 @@ def setup():
         jnp.asarray(mask), train=False)
     rng = np.random.default_rng(1)
     images = [rng.integers(0, 256, (64, 64, 3), np.uint8) for _ in TEXTS]
-    ref = _probs(JaxPredictor(jcfg, v["params"], v["batch_stats"],
-                              tokenizer=tok).predict_batch(
-        images=images, texts=TEXTS))
+    return v, tok, images
+
+
+def _jax_probs(jax_init, over):
+    v, tok, images = jax_init
+    return _probs(JaxPredictor(jax_config("default", over), v["params"],
+                               v["batch_stats"], tokenizer=tok)
+                  .predict_batch(images=images, texts=TEXTS))
+
+
+@pytest.fixture(scope="module")
+def setup(jax_init):
+    v, tok, images = jax_init
     state = state_dict_from_jax(v["params"], v["batch_stats"])
-    return state, dict(tok.vocab), images, ref
+    return state, dict(tok.vocab), images, _jax_probs(jax_init, SMALL)
 
 
 def test_sharded_predict_matches_the_jax_single_device_predict(setup,
@@ -132,3 +142,49 @@ def test_fused_sublayers_on_a_1x2_mesh_match_one_device(setup, tmp_path):
                      timeout_s=120, init_dir=str(tmp_path))
     for o in outs:
         np.testing.assert_allclose(o["1x2"][0], one, atol=ATOL, rtol=RTOL)
+
+
+QUANT = {**SMALL, "text_encoder.quantized_inference": True}
+# the sharded int8 layers compute the single-device codes and int32
+# accumulators (maxima and integer sums over the model axis are exact);
+# what is left is float work in another order (on these ranks: none)
+MESH_Q8_ATOL = 1e-6
+
+
+def test_quantized_predict_on_2x1_and_1x2_matches_one_device_and_jax(
+        jax_init, setup, tmp_path):
+    state, vocab, images, _ = setup
+    cfg = resolve_config("default", QUANT)
+    model = create_model(cfg, device="cpu", seed=None)
+    model.load_state_dict(state, strict=True)
+    one = _probs(MultimodalPredictor(
+        cfg, model, "cpu", tokenizer=BertWordPieceTokenizer(vocab))
+        .predict_batch(images=images, texts=TEXTS))
+    ref = _jax_probs(jax_init, QUANT)
+    np.testing.assert_allclose(one, ref, atol=ATOL, rtol=RTOL)
+    outs = run_ranks(workers.predict_rank, 2, backend="gloo",
+                     args=(QUANT, state, vocab, images, TEXTS,
+                           ((2, 1), (1, 2))),
+                     timeout_s=240, init_dir=str(tmp_path))
+    for key in ("2x1", "1x2"):
+        for o in outs:
+            probs = o[key][0]
+            np.testing.assert_allclose(probs, one, atol=MESH_Q8_ATOL, rtol=0,
+                                       err_msg=key)
+            np.testing.assert_allclose(probs, ref, atol=ATOL, rtol=RTOL,
+                                       err_msg=key)
+            assert o[key][5] == 0  # no K1 under int8
+    # the 1x2 layers hold half of each product's columns or rows
+    assert outs[0]["1x2"][4] == (3 * 32 // 2, 32)
+
+
+def test_sharded_int8_cache_equals_the_cache_made_on_the_shards(tmp_path):
+    # a cache made from the whole f32 weights and cut by shard_model (a
+    # model cast before it is sharded keeps it) equals the one made on
+    # the shards, whose row-parallel scales are maxima over the axis
+    outs = run_ranks(workers.int8_cache_rank, 2, backend="gloo",
+                     args=(QUANT,), timeout_s=120, init_dir=str(tmp_path))
+    for o in outs:
+        assert len(o) == 8
+        assert all(codes and scales for codes, scales, _ in o.values())
+        assert sum(row for _, _, row in o.values()) == 4
