@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh and int8 paths once on one NVIDIA Hopper card.
+rank-mesh and int8 paths and its `entry()` forward once on one NVIDIA
+Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -145,6 +146,12 @@ non-zero):
    the text tower with text_encoder.flat_residual on against off on the
    same weights and unpacked rows, bit-equal, K1 12 (fused: K3 11, K2 11,
    K1 1).
+15. `entry()` (entry.py, the counterpart of
+   `__graft_entry__.entry()`) on the card, its forward at B=8, T=128 on
+   256-px uint8 images launching K1 12 times (11 at the 1,024 token
+   rows, once at the 8 CLS rows) and K2-K4 never, held against every
+   kernel forced off and against an f32 copy at phase 4's limits, and
+   its p50 over 20 calls after 3 warm-ups.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -2778,6 +2785,102 @@ def quantized_and_flat(dev, card: str, images, texts, refs, p50_ms):
     return totals
 
 
+# phase 15: `entry()` (entry.py, the counterpart of
+# __graft_entry__.entry()): B=8 uint8 images at 256 px, T=128 ids
+ENTRY_WARMUP = 3
+ENTRY_TIMED_RUNS = 20
+
+
+def entry_forward(dev, card: str):
+    """Phase 15; returns the launches of its counted run."""
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.entry import entry
+    from multimodal_rare_disease_tpu_torch.models import bert
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    cfg = resolve_config("default")
+    n_layers = cfg.text_encoder.num_layers
+    forward, (model, images, ids, mask) = entry(dev)
+    b, t = ids.shape
+
+    def run(m=model):
+        return forward(m, images, ids, mask).float().cpu().numpy()
+
+    # the main path: K1 in every layer, 11 times at the B*T token rows and
+    # once at the B CLS rows of the CLS-only last layer; the 256-px images
+    # against the 224-px image_size take the resample, not K4
+    rows, wrapper = [], bert.fused_ffn_ln
+
+    def rec(x, *a, **kw):
+        rows.append(x.shape[0])
+        return wrapper(x, *a, **kw)
+
+    bert.fused_ffn_ln = rec
+    try:
+        probs = count_launches(run, {"K1": n_layers, "K2": 0, "K3": 0,
+                                     "K4": 0, "plain_on_cuda": 0},
+                               "entry()", totals)
+    finally:
+        bert.fused_ffn_ln = wrapper
+    if rows != [b * t] * (n_layers - 1) + [b]:
+        fail(f"entry(): K1 row counts {rows}, want {b * t} x "
+             f"{n_layers - 1} then {b}")
+    if probs.shape != (b, cfg.num_classes) or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1.0).max() > 1e-3:
+        fail(f"entry(): bad probabilities, shape {probs.shape}")
+    # the references: every kernel forced off, and an f32 copy of the
+    # same seeded weights (its FFN in plain f32; cuDNN without TF32)
+    with plain_kernels():
+        plain = run()
+        model32 = create_model(cfg, "multimodal", dev, seed=0)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            ref = run(model32)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    del model32
+    d_plain = float(np.abs(probs - plain).max())
+    d_f32 = float(np.abs(probs - ref).max())
+    d_pr = float(np.abs(plain - ref).max())
+    top1 = int((probs.argmax(1) == plain.argmax(1)).sum())
+    top1_ref = int((probs.argmax(1) == ref.argmax(1)).sum())
+    if d_plain > PROB_ATOL_PLAIN:
+        fail(f"entry(): kernel and plain probabilities differ by "
+             f"{d_plain}")
+    if d_f32 > PROB_ATOL_F32:
+        fail(f"entry(): kernel path is {d_f32} from the f32 copy")
+    # p50 of forward, host clock, synchronized (it ends in a device->host
+    # copy of the probabilities)
+    for _ in range(ENTRY_WARMUP):
+        run()
+    lat = []
+    for _ in range(ENTRY_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"[15 entry] {card} | entry() forward B={b}, T={t}, "
+          f"{images.shape[1]}-px uint8 -> {cfg.data.image_size}: launches "
+          f"{totals} (K1 at rows {rows[0]} x {n_layers - 1}, {rows[-1]}); "
+          f"max|dprob| kernels vs plain {d_plain:.3e} (tolerance "
+          f"{PROB_ATOL_PLAIN}), kernels vs f32 {d_f32:.3e} (tolerance "
+          f"{PROB_ATOL_F32}), plain vs f32 {d_pr:.3e}; top-1 kernels = "
+          f"plain in {top1}/{b}, = f32 in {top1_ref}/{b} | p50 "
+          f"{float(np.median(lat)):.3f} ms (of {ENTRY_TIMED_RUNS} after "
+          f"{ENTRY_WARMUP} warm-ups: {', '.join(f'{x:.2f}' for x in lat)})"
+          f" | phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3358,6 +3461,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     main14 = quantized_and_flat(dev, card, images, texts, refs, p50_ms)
 
+    # ---- 15. entry(), the counterpart of __graft_entry__.entry()
+    torch.cuda.empty_cache()
+    main15 = entry_forward(dev, card)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -3388,10 +3495,11 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13 and 14 (their counted runs; 13's on every rank)
+        # 9, 10, 11, 12, 13, 14 and 15 (their counted runs; 13's on every
+        # rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
-                     + main13[k] + main14[k]),
+                     + main13[k] + main14[k] + main15[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

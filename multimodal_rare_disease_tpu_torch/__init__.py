@@ -15,8 +15,9 @@ offline corpus and setup tools, and their CLIs (`cli/`). Every TPU
 kernel of the JAX package has a hand-written CUDA counterpart for Hopper
 under `csrc/`, bound in `kernels/`: the fused FFN sublayer with and
 without its input LayerNorm (K1, K2), the fused attention-output
-sublayer (K3) and the fused uint8 normalize (K4). Its entry points run on the card unless the caller asks
-for the CPU.
+sublayer (K3) and the fused uint8 normalize (K4). Its entry points run
+on the card unless the caller asks for the CPU; `entry.py` is the
+counterpart of `__graft_entry__.py`.
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,7 @@
     python -m multimodal_rare_disease_tpu_torch.cli.profile \\
         [--preset efficientnet_clinicalbert] \\
         [--set text_encoder.fused_attn_out=true --set data.image_size=256]
+    python -m multimodal_rare_disease_tpu_torch.cli.profile --entry
 
 Builds the full-width model of the resolved config from seeded weights
 in its compute dtype on the card, and the seeded batch of
@@ -14,7 +15,10 @@ device's busy time (the kernels' self time) and idle share, the device
 time of every kernel, and the device time by operator and input shape
 down to 0.05 ms (which separates, say, the copy that reshapes the
 attention context from the other copies). The first line names the card
-and its power limit. It runs on the card only.
+and its power limit. With `--entry` it profiles the forward of
+`entry.py`'s `entry()` (B = 8 at the default config) instead, each
+call ending in a copy of the probabilities to the host. It runs on the
+card only.
 """
 
 from __future__ import annotations
@@ -36,7 +40,11 @@ def main(argv=None) -> int:
                         help="config preset (default: default)")
     parser.add_argument("--set", action="append", default=[],
                         metavar="KEY=JSON", help="config override")
+    parser.add_argument("--entry", action="store_true",
+                        help="profile the forward of entry.py's entry()")
     args = parser.parse_args(argv)
+    if args.entry and (args.set or args.preset != "default"):
+        parser.error("--entry runs the default config")
 
     import torch
     from torch.autograd import DeviceType
@@ -57,22 +65,36 @@ def main(argv=None) -> int:
     for item in args.set:
         key, _, value = item.partition("=")
         over[key] = json.loads(value)
-    cfg = resolve_config(args.preset, over)
-    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0))
-    images, texts = seeded_requests(BATCH, seed=0)
+    if args.entry:
+        from multimodal_rare_disease_tpu_torch.entry import entry
+
+        forward, inputs = entry()
+        batch = inputs[1].shape[0]
+
+        def call():
+            return forward(*inputs).cpu()
+    else:
+        cfg = resolve_config(args.preset, over)
+        pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu",
+                                                     seed=0))
+        images, texts = seeded_requests(BATCH, seed=0)
+        batch = BATCH
+
+        def call():
+            return pred.predict_batch(images, texts)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     for _ in range(2):
-        pred.predict_batch(images, texts)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(CALLS):
-            pred.predict_batch(images, texts)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
 
@@ -82,7 +104,8 @@ def main(argv=None) -> int:
         if evt.device_type == DeviceType.CUDA:  # kernels and copies only
             kernels[evt.key] += evt.self_device_time_total / 1e3 / n
     busy = sum(kernels.values())
-    print(f"{card} | config overrides {over} | B={BATCH}, {n} calls: "
+    what = "entry() forward" if args.entry else f"config overrides {over}"
+    print(f"{card} | {what} | B={batch}, {n} calls: "
           f"wall {wall_ms:.2f} ms/call, device busy {busy:.2f} ms/call, "
           f"idle {1 - busy / wall_ms:.1%}")
     print("device ms/call by kernel:")

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field, fields, replace
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -71,6 +72,10 @@ for _name in SYNDROME_NAMES:
 for _code, _name in PREFIX_TO_SYNDROME.items():
     FOLDER_TO_SYNDROME[f"SYN_{_code}"] = _name
     FOLDER_TO_SYNDROME[_code] = _name
+
+
+def syndrome_index(name: str) -> int:
+    return SYNDROME_NAMES.index(name)
 
 
 @dataclass(frozen=True)
@@ -494,3 +499,8 @@ def find_image_dir(cfg: Config) -> Optional[Path]:
             if p.is_dir():
                 return p
     return None
+
+
+def ensure_dirs(cfg: Config) -> None:
+    os.makedirs(cfg.training.checkpoint_dir, exist_ok=True)
+    os.makedirs(cfg.evaluation.results_dir, exist_ok=True)

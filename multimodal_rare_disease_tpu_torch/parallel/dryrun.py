@@ -1,16 +1,17 @@
 """The multi-rank dry run: the counterpart of `__graft_entry__.py`'s
 `dryrun_multichip`.
 
-    python -m multimodal_rare_disease_tpu_torch.parallel.dryrun N \
+    python -m multimodal_rare_disease_tpu_torch.parallel.dryrun [N] \
         [--device cuda|cpu] [--backend gloo|nccl]
 
-Spawns N ranks (parallel/distributed.py) and, at the JAX dry run's small
-multimodal config (2 BERT layers of 64, ResNet stages (1, 1, 1, 1),
-batch 2N), runs one train step and one eval step on an N x 1 mesh and, N
-even, on an (N/2) x 2 mesh (the BERT tower Megatron-sharded), whose
-losses must agree within 1e-3, then the sharded predict of the last
-mesh's weights over the same batch. The ranks share the cards there are
-(gloo) unless `--backend nccl` gives each its own.
+Spawns N ranks (8 by default; parallel/distributed.py) and, at the JAX
+dry run's small multimodal config (2 BERT layers of 64, ResNet stages
+(1, 1, 1, 1), batch 2N), runs one train step and one eval step on an
+N x 1 mesh and, N even, on an (N/2) x 2 mesh (the BERT tower
+Megatron-sharded), whose losses must agree within 1e-3, then the
+sharded predict of the last mesh's weights over the same batch. The
+ranks share the cards there are (gloo) unless `--backend nccl` gives
+each its own.
 """
 
 from __future__ import annotations
@@ -151,7 +152,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("n", type=int)
+    parser.add_argument("n", type=int, nargs="?", default=8)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     args = parser.parse_args(argv)

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multimodal_rare_disease_tpu_torch.config import Config
+from multimodal_rare_disease_tpu_torch.config import Config, ensure_dirs
 from multimodal_rare_disease_tpu_torch.models.classifier import (
     create_model,
     resolve_device,
@@ -238,6 +238,7 @@ class Trainer:
         self.device = resolve_device(mesh.device)
         self.rngs = RngStreams(cfg.seed)
         self.workdir = workdir or cfg.training.checkpoint_dir
+        ensure_dirs(cfg)
         if cfg.training.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         self.compute_dtype = getattr(torch, cfg.training.compute_dtype)

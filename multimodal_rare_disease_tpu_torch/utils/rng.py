@@ -1,6 +1,7 @@
 """Host-side seeded RNG streams of the torch package: its own copy of the
 numpy half of `multimodal_rare_disease_tpu/utils/rng.py` (which imports
-jax, so the port copies the code, not the module).
+jax, so the port copies the code, not the module), with its
+`seed_everything`.
 
 Host randomness (sampling, splits, text augmentation) uses one
 `numpy.random.Generator` per named stream, derived from one seed, so the
@@ -14,6 +15,14 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+
+def seed_everything(seed: int) -> None:
+    """Seed global host RNGs (python hash seed is left alone)."""
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 class RngStreams:

@@ -11,10 +11,10 @@ MTCNN nets on the card against the CPU, a face-cropped B=256 predict
 with its K1 launches, a VAE step on the card against the CPU, the
 sharded predict of two gloo ranks sharing the card, and the int8
 products (`models/quant.py`) on the card bit-equal to the CPU, with a
-quantized BERT layer that launches no kernel. Every
-test here is marked `gpu` and skips without a CUDA device; the file
-imports neither jax nor the JAX package, so it runs on a machine that
-has only torch:
+quantized BERT layer that launches no kernel, and `entry.py`'s
+`entry()` with its K1 launches. Every test here is marked `gpu` and
+skips without a CUDA device; the file imports neither jax nor the JAX
+package, so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -838,3 +838,36 @@ def test_quantized_bert_layer_launches_no_kernel(cuda):
     assert (kffn.LAUNCHES_K1, kffn.LAUNCHES_K2, k3.LAUNCHES) == (0, 0, 0)
     # the CLS-only last layer's attention output and FFN: 4 rows, padded
     assert quant.PADDED_CALLS - padded == 3
+
+
+def test_entry_launches_k1_per_layer(cuda):
+    """`entry()` on the card: the default config's forward at B=8, T=128
+    takes the resample (no K4) and K1 in every BERT layer, 11 times at
+    the 1,024 token rows and once at the 8 CLS rows of the CLS-only last
+    layer; its probabilities within chip_smoke.py's kernel-vs-plain
+    limit of every kernel forced off."""
+    from multimodal_rare_disease_tpu_torch.entry import entry
+    from multimodal_rare_disease_tpu_torch.models import bert
+
+    forward, (model, images, ids, mask) = entry()
+    assert images.is_cuda and next(model.parameters()).is_cuda
+    rows, wrapper = [], bert.fused_ffn_ln
+
+    def rec(x, *a, **kw):
+        rows.append(x.shape[0])
+        return wrapper(x, *a, **kw)
+
+    bert.fused_ffn_ln = rec
+    try:
+        before = _counts()
+        probs = forward(model, images, ids, mask)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(_counts(), before))
+    finally:
+        bert.fused_ffn_ln = wrapper
+    assert got == (12, 0, 0, 0, 0, 0, 0)
+    assert rows == [1024] * 11 + [8]
+    assert probs.shape == (8, 10) and torch.isfinite(probs).all()
+    with _all_plain():
+        plain = forward(model, images, ids, mask)
+    assert (probs - plain).abs().max().item() <= 2.5e-3

@@ -1,11 +1,12 @@
 """The torch package's own copies of the JAX package's host modules
 (config, tokenizer with its C++ core, clinical text, the image corpus
-code, the host RNG streams, the statistics, the LR schedules and early
-stopping, the freeze rules, the synthetic corpus) against the
-originals, the corpus parsers (`load_fgdd` read without pandas, case by
-case where pandas' semantics matter) and the text pipeline's module,
-and a scan of the port's imports: no module of the port, and not
-chip_smoke.py, imports jax, the JAX package, sklearn or pandas."""
+code, the host RNG streams and seeding, the statistics, the LR
+schedules and early stopping, the freeze rules, the synthetic corpus)
+against the originals, the corpus parsers (`load_fgdd` read without
+pandas, case by case where pandas' semantics matter) and the text
+pipeline's module, and a scan of the port's imports: no module of the
+port, and not chip_smoke.py, imports jax, the JAX package, sklearn or
+pandas."""
 
 import ast
 from pathlib import Path
@@ -148,7 +149,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
             "cli/generate_synthetic.py", "cli/augment_data.py",
             "cli/reorganize.py", "parallel/distributed.py",
             "parallel/mesh.py", "parallel/collectives.py", "parallel/tp.py",
-            "parallel/dryrun.py", "models/quant.py"} <= {
+            "parallel/dryrun.py", "models/quant.py", "entry.py"} <= {
         str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     bad = {f"{f.relative_to(REPO)}: {m}" for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN}
@@ -181,6 +182,35 @@ def test_syndrome_maps_and_find_image_dir_equal_jax(tmp_path):
             (tmp_path / sub).mkdir(parents=True, exist_ok=True)
         assert tcfg.find_image_dir(tcfg.resolve_config("default", over)) \
             == jcfg.find_image_dir(jcfg.resolve_config("default", over))
+
+
+def test_syndrome_index_and_ensure_dirs_equal_jax(tmp_path):
+    for i, name in enumerate(jcfg.SYNDROME_NAMES):
+        assert tcfg.syndrome_index(name) == jcfg.syndrome_index(name) == i
+    for fn in (tcfg.syndrome_index, jcfg.syndrome_index):
+        with pytest.raises(ValueError):
+            fn("Not A Syndrome")
+    made = {}
+    for name, mod in (("jax", jcfg), ("torch", tcfg)):
+        root = tmp_path / name
+        cfg = mod.resolve_config("default", {
+            "training.checkpoint_dir": str(root / "a" / "ckpt"),
+            "evaluation.results_dir": str(root / "res")})
+        for _ in range(2):  # a second call finds them made
+            mod.ensure_dirs(cfg)
+        made[name] = sorted(str(p.relative_to(root))
+                            for p in root.rglob("*"))
+    assert made["torch"] == made["jax"] == ["a", "a/ckpt", "res"]
+
+
+def test_seed_everything_equals_jax():
+    import random
+
+    draws = {}
+    for name, mod in (("jax", jrng), ("torch", trng)):
+        mod.seed_everything(7)
+        draws[name] = (random.random(), np.random.rand(3).tolist())
+    assert draws["torch"] == draws["jax"]
 
 
 def _write_corpus(root, rng, flat=True):

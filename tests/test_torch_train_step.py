@@ -337,6 +337,28 @@ def test_non_finite_step_changes_nothing(tmp_path):
     assert all(p.grad is None for p in tr.model.parameters())
 
 
+def test_trainer_creates_its_directories_as_jax_does(tmp_path):
+    """Building a Trainer creates training.checkpoint_dir and
+    evaluation.results_dir, in both packages, and nothing else."""
+    from multimodal_rare_disease_tpu.train.trainer import (
+        Trainer as JaxTrainer,
+    )
+
+    made = {}
+    for name in ("jax", "torch"):
+        root = tmp_path / name
+        cfg, jcfg = _step_cfg("sgd", False, **{
+            "training.checkpoint_dir": str(root / "runs" / "ckpt"),
+            "evaluation.results_dir": str(root / "results")})
+        if name == "jax":
+            JaxTrainer(jcfg, "multimodal")
+        else:
+            Trainer(cfg, "multimodal", device="cpu")
+        made[name] = sorted(str(p.relative_to(root))
+                            for p in root.rglob("*"))
+    assert made["torch"] == made["jax"] == ["results", "runs", "runs/ckpt"]
+
+
 def test_weighted_ce_loss_matches_jax():
     rng = np.random.default_rng(5)
     logits = (3 * rng.normal(size=(12, 10))).astype(np.float32)
