@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh and int8 paths and its `entry()` forward once on one NVIDIA
-Hopper card.
+rank-mesh, int8 and f32 paths and its `entry()` forward once on one
+NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -18,13 +18,18 @@ non-zero):
    on the card, bf16, at M = 1, 37, 64, 1024, 4096 and the packed B=256
    row count (the split-F path below 132 row tiles, whole F at the packed
    count), with f32 and with bf16 bias/LayerNorm vectors; and that the
-   check fails for a kernel that drops any one of the six vectors;
+   check fails for a kernel that drops any one of the six vectors; the
+   same for K1's f32 form (f32 rows, weights and vectors, the f32
+   limits), whose check also fails the plain version run with its
+   operands rounded to TF32 in the kernel's place;
 3b. the same for K2 (the FFN kernel without its input LayerNorm) and K3
    (the fused attention-output + LayerNorm kernel: split-K below 132 row
    tiles, whole K at the packed count), which read bf16 vectors only (f32
    ones go through the counted gate, checked here too),
-   and K4 (the fused uint8 normalize) on 256 images of 256 px and on a
-   ragged batch, in f32 and bf16;
+   the f32 forms of K2 and K3 as K1's above, and f32 rows with bf16
+   vectors on the gates' counted plain version; and K4 (the fused uint8
+   normalize) on 256 images of 256 px and on a ragged batch, in f32 and
+   bf16;
 4. the default path: the full-width model (ResNet-50 224 px, BERT-base
    12x768, attention fusion, head) from seeded weights in bf16:
    `predict_batch` on 256 (image, clinical text) pairs through the packed
@@ -152,6 +157,16 @@ non-zero):
    rows, once at the 8 CLS rows) and K2-K4 never, held against every
    kernel forced off and against an f32 copy at phase 4's limits, and
    its p50 over 20 calls after 3 warm-ups.
+16. f32 serving: the full-width default and fused-sublayer models under
+   training.compute_dtype=float32 (TF32 off) at B=256, launching K1-f32
+   12 times (default), or K3-f32 11, K2-f32 11, K1-f32 1 and K4 1
+   (fused), no bf16 kernel and nothing on the gates' plain version; the
+   probabilities held against the same model with every kernel forced
+   off (max and mean |dprob|, top-1 256/256); a few requests through the
+   MicroBatcher; the p50 of each path with the kernels and forced off, in
+   turns; and each f32 kernel against its plain version at the f32
+   paths' shapes beside its bound, K3-f32 also against the classic f32
+   linear + add + LayerNorm chain.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -191,6 +206,14 @@ HERE = Path(__file__).resolve().parent
 # on average, which phases 3 and 3b check on the card.
 ROW_ATOL = 5e-2
 ROW_MEAN_ATOL = 1e-4
+# K1-K3 in f32 against their plain versions (TF32 off): the same f32
+# products summed in another order, then LayerNorm. An H100 read up to
+# 1.4e-5 max and 7.0e-7 mean; the plain version with its operands rounded
+# to TF32 (10-bit mantissa) read 1.7e-3-3.2e-3 max and 1.8e-4-3.0e-4
+# mean (PERF.md), so these limits tell f32 from TF32, which phases 3 and
+# 3b check on the card.
+ROW_F32_ATOL = 1e-4
+ROW_F32_MEAN_ATOL = 1e-5
 # K4: the kernel rounds the product and the sum to f32 as the plain
 # version does. f32: equal up to one rounding (the JAX package's compiled
 # vs XLA bound, tests/test_tpu_kernels.py); bf16: one ulp at |y| < 4
@@ -208,6 +231,12 @@ K4_MEAN_ATOL = 1e-4
 # holds the fused-sublayer path to the same limits.
 PROB_ATOL_PLAIN = 2.5e-3
 PROB_ATOL_F32 = 3e-3
+# phase 16: the f32 model with the f32 kernels against the same model with
+# every kernel off, both f32 with TF32 off: the same f32 sums in another
+# order through 12 layers. An H100 read 2.2e-7 (default) and 2.1e-7
+# (fused) (PERF.md); the limit gives them 9x of margin and sits 500x
+# inside the top-k contract's 1e-3
+PROB_ATOL_F32_KERNELS = 2e-6
 BATCH = 256
 TIMED_RUNS = 10
 # phase 3's row counts besides the packed one: the single request (1, then
@@ -280,19 +309,36 @@ def plain_kernels():
             mod.FORCE_PLAIN = False
 
 
+# the launch counts: K1-K4 (the bf16 kernels, and K4 in either output
+# dtype), their f32 forms, and the calls the gates sent to plain on CUDA
+COUNT_KEYS = ("K1", "K2", "K3", "K4", "K1_f32", "K2_f32", "K3_f32",
+              "plain_on_cuda")
+
+
+def count_dict(**counts):
+    """A launch-count dict: `counts`, every other key 0."""
+    if set(counts) - set(COUNT_KEYS):
+        raise KeyError(f"unknown launch counts {sorted(counts)}")
+    return {k: counts.get(k, 0) for k in COUNT_KEYS}
+
+
 def launch_counts():
-    """(K1, K2, K3, K4 launches, calls the gates sent to plain on CUDA)."""
+    """The launches of each kernel and the calls the gates sent to plain
+    on CUDA, as a count_dict."""
     ffn, attn_out, image = kernel_modules()
-    return {"K1": ffn.LAUNCHES_K1, "K2": ffn.LAUNCHES_K2,
-            "K3": attn_out.LAUNCHES, "K4": image.LAUNCHES,
-            "plain_on_cuda": (ffn.PLAIN_ON_CUDA + attn_out.PLAIN_ON_CUDA
-                              + image.PLAIN_ON_CUDA)}
+    return count_dict(
+        K1=ffn.LAUNCHES_K1, K2=ffn.LAUNCHES_K2, K3=attn_out.LAUNCHES,
+        K4=image.LAUNCHES, K1_f32=ffn.LAUNCHES_K1_F32,
+        K2_f32=ffn.LAUNCHES_K2_F32, K3_f32=attn_out.LAUNCHES_F32,
+        plain_on_cuda=(ffn.PLAIN_ON_CUDA + attn_out.PLAIN_ON_CUDA
+                       + image.PLAIN_ON_CUDA))
 
 
 def reset_counts():
     ffn, attn_out, image = kernel_modules()
     ffn.LAUNCHES_K1 = ffn.LAUNCHES_K2 = ffn.PLAIN_ON_CUDA = 0
-    attn_out.LAUNCHES = attn_out.PLAIN_ON_CUDA = 0
+    ffn.LAUNCHES_K1_F32 = ffn.LAUNCHES_K2_F32 = 0
+    attn_out.LAUNCHES = attn_out.LAUNCHES_F32 = attn_out.PLAIN_ON_CUDA = 0
     image.LAUNCHES = image.PLAIN_ON_CUDA = 0
 
 
@@ -305,20 +351,25 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
                                  else "operations")
 
 
-def ffn_bound(m: int, h: int, f: int, vec_bytes: int, input_ln: bool):
-    """K1/K2: x in and y out [m, h] bf16, W1 and W2 bf16, the vectors;
-    the two products in bf16 on the tensor cores (the f32 GELU and
-    LayerNorm work, under 5% of it, is left out)."""
+def ffn_bound(m: int, h: int, f: int, vec_bytes: int, input_ln: bool,
+              elem: int = 2):
+    """K1/K2: x in and y out [m, h], W1 and W2, in `elem`-byte values
+    (bf16 2, f32 4), the vectors; the two products in bf16 on the tensor
+    cores, or in f32 at the f32 rate (the f32 GELU and LayerNorm work,
+    under 5% of it, is left out)."""
     n_vec = f + (5 if input_ln else 3) * h
-    return bound_ms(2 * 2 * m * h + 2 * 2 * h * f + vec_bytes * n_vec,
-                    4.0 * m * h * f, PEAK_BF16_FLOPS)
+    return bound_ms(elem * 2 * m * h + elem * 2 * h * f + vec_bytes * n_vec,
+                    4.0 * m * h * f,
+                    PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS)
 
 
-def attn_out_bound(m: int, h: int, vec_bytes: int):
-    """K3: ctx and x in, y out [m, h] bf16, Wo bf16, three vectors; the
-    product in bf16 on the tensor cores."""
-    return bound_ms(3 * 2 * m * h + 2 * h * h + vec_bytes * 3 * h,
-                    2.0 * m * h * h, PEAK_BF16_FLOPS)
+def attn_out_bound(m: int, h: int, vec_bytes: int, elem: int = 2):
+    """K3: ctx and x in, y out [m, h], Wo, in `elem`-byte values, three
+    vectors; the product in bf16 on the tensor cores, or at the f32
+    rate."""
+    return bound_ms(3 * elem * m * h + elem * h * h + vec_bytes * 3 * h,
+                    2.0 * m * h * h,
+                    PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS)
 
 
 def normalize_bound(n: int, out_bytes: int):
@@ -404,13 +455,13 @@ def evaluation_and_explain(dev, card: str, fused_over: dict):
 
     cfg = resolve_config("default")
     n_layers = cfg.text_encoder.num_layers
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    totals = count_dict()
 
     counted = partial(count_launches, totals=totals)
 
     def per_batch(k1=0, k2=0, k3=0, k4=0, batches=1):
-        return {"K1": k1 * batches, "K2": k2 * batches, "K3": k3 * batches,
-                "K4": k4 * batches, "plain_on_cuda": 0}
+        return count_dict(K1=k1 * batches, K2=k2 * batches,
+                          K3=k3 * batches, K4=k4 * batches)
 
     def timed_ms(fn):
         fn()
@@ -729,8 +780,7 @@ def card_cpu_step(cfg_sgd, trained, host, dev, workdir, counted):
             images = eval_preprocess(b["images"], cfg_sgd, torch.float32,
                                      use_kernel=False)
             m = counted(lambda: t.apply_step(images, b, CARD_CPU_LR),
-                        {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                         "plain_on_cuda": 0}, f"f32 step on {where.type}")
+                        count_dict(), f"f32 step on {where.type}")
             step_out.append((float(m["loss"]), {
                 k: v.detach().cpu() for k, v in t.model.state_dict().items()}))
             del t
@@ -772,12 +822,12 @@ def training(dev, card: str, fused_over: dict):
     from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
     from multimodal_rare_disease_tpu_torch.utils.checkpoint import role_path
 
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    totals = count_dict()
 
     counted = partial(count_launches, totals=totals)
 
     def counts(k1=0, k2=0, k3=0):
-        return {"K1": k1, "K2": k2, "K3": k3, "K4": 0, "plain_on_cuda": 0}
+        return count_dict(K1=k1, K2=k2, K3=k3)
 
     samples, decoded = synthetic_corpus()
     over = {"training.num_epochs": TRAIN_EPOCHS,
@@ -1145,12 +1195,12 @@ def preset_and_extras(dev, card: str, images, texts, agreement, p50_ms):
     from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    totals = count_dict()
 
     counted = partial(count_launches, totals=totals)
 
     def counts(k1=0):
-        return {"K1": k1, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+        return count_dict(K1=k1)
 
     def check_probs(what, probs, n_classes):
         if probs.shape != (BATCH, n_classes) or not np.isfinite(probs).all() \
@@ -1666,13 +1716,13 @@ def faces_and_tools(dev, card: str, images, texts, agreement, p50_ms):
     )
 
     t_phase = time.perf_counter()
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    totals = count_dict()
     counted = partial(count_launches, totals=totals)
     cfg = resolve_config("default")
     n_layers = cfg.text_encoder.num_layers
 
     def counts(k1=0):
-        return {"K1": k1, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+        return count_dict(K1=k1)
 
     def k1_rows(fn):
         """fn() with the rows of every K1 call recorded."""
@@ -2336,7 +2386,7 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
     from multimodal_rare_disease_tpu_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+    totals = count_dict()
     n_layers = resolve_config("default").text_encoder.num_layers
     label = "2 ranks sharing one card over gloo, collectives through host"
     work = Path(tempfile.mkdtemp(prefix="mesh_", dir=HERE / "build"))
@@ -2351,8 +2401,7 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
                                                      seed=0), mesh=mesh)
         images, texts = seeded_requests(BATCH, seed=0)
         res = count_launches(lambda: pred.predict_batch(images, texts),
-                             {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
-                              "plain_on_cuda": 0}, "1x1 NCCL mesh", totals)
+                             count_dict(K1=n_layers), "1x1 NCCL mesh", totals)
         d11 = float(np.abs(probs_of(res, pred.class_names) - probs4).max())
         if d11 > MESH_1X1_ATOL:
             fail(f"1x1 NCCL mesh: max|dprob| {d11} from phase 4")
@@ -2363,7 +2412,7 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
                                                        seed=0), mesh=mesh)
         probs_q11 = probs_of(count_launches(
             lambda: pred.predict_batch(images, texts),
-            {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0},
+            count_dict(),
             "1x1 NCCL mesh, int8", totals), pred.class_names)
         del pred
         torch.cuda.empty_cache()
@@ -2418,12 +2467,9 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
     plain7, f32_7 = refs["fused-sublayer path"]
     lines = []
     for (kind, d, m), r0 in outs[0]["predict"].items():
-        want = {"fused": {"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1,
-                          "K4": 1, "plain_on_cuda": 0},
-                "q8": {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                       "plain_on_cuda": 0}}.get(
-            kind, {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
-                   "plain_on_cuda": 0})
+        want = {"fused": count_dict(K1=1, K2=n_layers - 1,
+                                    K3=n_layers - 1, K4=1),
+                "q8": count_dict()}.get(kind, count_dict(K1=n_layers))
         for rank, o in enumerate(outs):
             r = o["predict"][(kind, d, m)]
             if r["counts"] != want or r["packed_calls"] < 1:
@@ -2465,8 +2511,7 @@ def mesh_phase(dev, card: str, probs4, refs, fused_over):
             r = o["train"][(d, m)]
             if r["step_counts"] != {k: 0 for k in totals}:
                 fail(f"{d}x{m} train steps launched {r['step_counts']}")
-            want = {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
-                    "plain_on_cuda": 0}
+            want = count_dict(K1=n_layers)
             if r["val_counts"] != want or r["val_count"] != MESH_TRAIN_BATCH:
                 fail(f"{d}x{m} rank {rank} validation: launches "
                      f"{r['val_counts']}, count {r['val_count']}")
@@ -2557,7 +2602,7 @@ def quantized_and_flat(dev, card: str, images, texts, refs, p50_ms):
     )
 
     t_phase = time.perf_counter()
-    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 0}
+    totals = count_dict()
     none = dict(totals)
     n_layers = resolve_config("default").text_encoder.num_layers
 
@@ -2804,7 +2849,7 @@ def entry_forward(dev, card: str):
     )
 
     t_phase = time.perf_counter()
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "plain_on_cuda"), 0)
+    totals = count_dict()
     cfg = resolve_config("default")
     n_layers = cfg.text_encoder.num_layers
     forward, (model, images, ids, mask) = entry(dev)
@@ -2824,8 +2869,7 @@ def entry_forward(dev, card: str):
 
     bert.fused_ffn_ln = rec
     try:
-        probs = count_launches(run, {"K1": n_layers, "K2": 0, "K3": 0,
-                                     "K4": 0, "plain_on_cuda": 0},
+        probs = count_launches(run, count_dict(K1=n_layers),
                                "entry()", totals)
     finally:
         bert.fused_ffn_ln = wrapper
@@ -2935,7 +2979,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc, one per source in "
           f"parallel, {build.last_build_seconds:.2f} s) | smem/block FFN "
           f"{lib.mrd_ffn_smem_bytes()} B, attn-out "
-          f"{lib.mrd_attn_out_smem_bytes()} B | "
+          f"{lib.mrd_attn_out_smem_bytes()} B, f32 FFN "
+          f"{lib.mrd_ffn_f32_smem_bytes()} B, f32 attn-out "
+          f"{lib.mrd_attn_out_f32_smem_bytes()} B | "
           f"{'; '.join(regs) or 'no ptxas report'} | no spills, no C75xx "
           f"warnings")
 
@@ -2964,8 +3010,8 @@ def main() -> int:
         d = (got - want).abs()
         return d.max().item(), d.mean().item()
 
-    def within(err):
-        return err[0] <= ROW_ATOL and err[1] <= ROW_MEAN_ATOL
+    def within(err, tol=(ROW_ATOL, ROW_MEAN_ATOL)):
+        return err[0] <= tol[0] and err[1] <= tol[1]
 
     def neutral(name, v):
         return torch.ones_like(v) if "gamma" in name else torch.zeros_like(v)
@@ -2988,49 +3034,80 @@ def main() -> int:
     # K2 and K3 read bf16 vectors only, as the model passes them
     k2_vec = {k: vec[k].to(bf) for k in ("b1", "b2", "gamma", "beta")}
 
-    def call(fn, z, v):
-        """K1 (v has pre_gamma) or K2 through `fn`, synchronized, f32."""
+    def call(fn, z, v, w=None):
+        """K1 (v has pre_gamma) or K2 through `fn` with the weights `w`
+        (phase 3's bf16 pair by default), synchronized, f32."""
         ln0 = {k: v[k] for k in ("pre_gamma", "pre_beta") if k in v}
         if fn is k1.ffn_ln_plain:
             ln0["input_ln"] = bool(ln0)
-        out = fn(z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"], **ln0)
+        wa, wb = w or (w1, w2)
+        out = fn(z, wa, v["b1"], wb, v["b2"], v["gamma"], v["beta"], **ln0)
         torch.cuda.synchronize()
         return out.float()
 
-    def check_rows(name, kern, plain, make, vecs, dropped_of):
+    def check_rows(name, kern, plain, make, vecs, dropped_of, count=None):
         """A row kernel against its plain version at the phase-3 row
-        counts with `vecs` (and bf16 ones, where `vecs` are f32), and the
-        check's failure for a kernel that drops a term; returns (worst
-        max|diff|, line)."""
-        errs = {}
+        counts with `vecs` (and bf16 ones, where `vecs` are f32 and the
+        rows bf16), and the check's failure for a kernel that drops a
+        term; returns (worst max|diff|, line). `count`: the f32 kernels'
+        launch-count key. Their check holds ROW_F32_ATOL /
+        ROW_F32_MEAN_ATOL, counts every launch (plain-on-CUDA 0) and must
+        fail the plain version run with its operands rounded to TF32
+        (allow_tf32) in the kernel's place."""
+        f32 = count is not None
+        tol = ((ROW_F32_ATOL, ROW_F32_MEAN_ATOL) if f32
+               else (ROW_ATOL, ROW_MEAN_ATOL))
+        errs, calls = {}, [0]
+
+        def kernel(*a):
+            calls[0] += 1
+            return kern(*a)
+
+        reset_counts()
         for m in PHASE3_ROWS + (packed_m,):
             args = make(m)
-            got = kern(*args, vecs)
+            got = kernel(*args, vecs)
             if not torch.isfinite(got).all():
                 fail(f"{name} output not finite at M={m}")
             errs[f"M={m}"] = diff(got, plain(*args, vecs))
             if m == 4096:
                 args_4k, want_4k = args, plain(*args, vecs)
-        if any(v.dtype != bf for v in vecs.values()):
+        if not f32 and any(v.dtype != bf for v in vecs.values()):
             vecs_bf = {k: v.to(bf) for k, v in vecs.items()}
             errs[f"M={packed_m}, bf16 vectors"] = diff(
-                kern(*args, vecs_bf), plain(*args, vecs_bf))
-        dropped = {term: diff(kern(*dropped_args, dropped_vecs), want_4k)
+                kernel(*args, vecs_bf), plain(*args, vecs_bf))
+        dropped = {term: diff(kernel(*dropped_args, dropped_vecs), want_4k)
                    for term, (dropped_args, dropped_vecs)
                    in dropped_of(args_4k, vecs).items()}
         for k, e in errs.items():
-            if not within(e):
+            if not within(e, tol):
                 fail(f"{name} disagrees with its plain version at {k}: {e}")
         for k, e in dropped.items():
-            if within(e):
+            if within(e, tol):
                 fail(f"the {name} check passes a kernel that drops {k}: {e}")
+        tf32_line = ""
+        if f32:
+            if launch_counts() != count_dict(**{count: calls[0]}):
+                fail(f"{name}: launches {launch_counts()}, want {count} "
+                     f"{calls[0]} and nothing else")
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = diff(plain(*args_4k, vecs), want_4k)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+            if within(tf32, tol):
+                fail(f"the {name} check passes the plain version with TF32 "
+                     f"operands: {tf32}")
+            tf32_line = (f" | the plain version with TF32 operands reads, at "
+                         f"M=4096: {tf32[0]:.3e} / {tf32[1]:.3e}")
         vec_types = sorted({str(v.dtype).split(".")[1]
                             for v in vecs.values()})
         return max(e[0] for e in errs.values()), (
-            f"{name} max|diff| / mean|diff| {fmt(errs)} (bf16, "
-            f"{'/'.join(vec_types)} vectors, tolerance "
-            f"{ROW_ATOL} / {ROW_MEAN_ATOL}) | a kernel that drops a term "
-            f"reads, at M=4096: {fmt(dropped)}")
+            f"{name} max|diff| / mean|diff| {fmt(errs)} "
+            f"({'f32' if f32 else 'bf16'}, {'/'.join(vec_types)} vectors, "
+            f"tolerance {tol[0]} / {tol[1]}) | a kernel that drops a term "
+            f"reads, at M=4096: {fmt(dropped)}{tf32_line}")
 
     def drop_vectors(args, vecs):
         # a kernel that dropped a term: the kernel given the term's
@@ -3044,7 +3121,27 @@ def main() -> int:
     k1_err, line = check_rows("K1", lambda z, v: call(k1.fused_ffn_ln, z, v),
                               lambda z, v: call(k1.ffn_ln_plain, z, v),
                               make_z, vec, drop_vectors)
-    print(f"[3 K1 vs plain] {line}")
+    # the f32 kernel (an f32 model's K1) on inputs of their own generator,
+    # so that the bf16 checks keep their inputs
+    gen32 = torch.Generator().manual_seed(3)
+
+    def rnd32(shape, scale, offset=0.0):
+        return (torch.randn(shape, generator=gen32) * scale + offset).to(dev)
+
+    w32 = (rnd32((f, h), 0.05).t(), rnd32((h, f), 0.05).t())
+    vec32 = dict(b1=rnd32((f,), 0.5), b2=rnd32((h,), 0.5),
+                 gamma=rnd32((h,), 0.25, 1.0), beta=rnd32((h,), 0.5),
+                 pre_gamma=rnd32((h,), 0.25, 1.0), pre_beta=rnd32((h,), 0.5))
+    k2_vec32 = {k: vec32[k] for k in ("b1", "b2", "gamma", "beta")}
+
+    def make_z32(m):
+        return (rnd32((m, h), 1.0),)
+
+    k1_32_err, line32 = check_rows(
+        "K1-f32", lambda z, v: call(k1.fused_ffn_ln, z, v, w32),
+        lambda z, v: call(k1.ffn_ln_plain, z, v, w32), make_z32, vec32,
+        drop_vectors, count="K1_f32")
+    print(f"[3 K1 vs plain] {line} || {line32}")
 
     # ---- 3b. K2, K3 and K4 against their plain versions on the card
     k2_err, line2 = check_rows(
@@ -3056,8 +3153,9 @@ def main() -> int:
                   gamma=rnd((h,), 0.25, 1.0, dtype=bf),
                   beta=rnd((h,), 0.5, dtype=bf))
 
-    def attn(fn, ctx, x, v):
-        out = fn(ctx, x, wo, v["bo"], v["gamma"], v["beta"])
+    def attn(fn, ctx, x, v, w=None):
+        out = fn(ctx, x, wo if w is None else w, v["bo"], v["gamma"],
+                 v["beta"])
         torch.cuda.synchronize()
         return out.float()
 
@@ -3079,9 +3177,32 @@ def main() -> int:
     attn(k3.fused_attn_out_ln, *make_z(37), *make_z(37),
          {k: v.float() for k, v in k3_vec.items()})
     gate = launch_counts()
-    if gate != {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "plain_on_cuda": 2}:
+    if gate != count_dict(plain_on_cuda=2):
         fail(f"K2 and K3 with f32 vectors: counts {gate}, want the gate's "
              f"two plain calls and no launch")
+    # the f32 forms of K2 and K3 (an f32 model's fused-sublayer path)
+    k2_32_err, line2_32 = check_rows(
+        "K2-f32", lambda z, v: call(k1.fused_ffn_ln, z, v, w32),
+        lambda z, v: call(k1.ffn_ln_plain, z, v, w32), make_z32, k2_vec32,
+        drop_vectors, count="K2_f32")
+    wo32 = rnd32((h, h), 0.05).t()
+    k3_vec32 = dict(bo=rnd32((h,), 0.5), gamma=rnd32((h,), 0.25, 1.0),
+                    beta=rnd32((h,), 0.5))
+    k3_32_err, line3_32 = check_rows(
+        "K3-f32", lambda c, x, v: attn(k3.fused_attn_out_ln, c, x, v, wo32),
+        lambda c, x, v: attn(k3.attn_out_ln_plain, c, x, v, wo32),
+        lambda m: (rnd32((m, h), 1.0), rnd32((m, h), 1.0)), k3_vec32,
+        drop_k3, count="K3_f32")
+    # mixed dtypes stay on the counted gate: f32 rows with bf16 vectors
+    reset_counts()
+    call(k1.fused_ffn_ln, make_z32(37)[0],
+         {k: v.to(bf) for k, v in vec32.items()}, w32)
+    attn(k3.fused_attn_out_ln, *make_z32(37), *make_z32(37),
+         {k: v.to(bf) for k, v in k3_vec32.items()}, wo32)
+    gate32 = launch_counts()
+    if gate32 != count_dict(plain_on_cuda=2):
+        fail(f"f32 K1 and K3 with bf16 vectors: counts {gate32}, want the "
+             f"gate's two plain calls and no launch")
     k4_errs = {}
     u8_full = None
     for shape in ((BATCH, 256, 256, 3), (3, 37, 41, 3)):
@@ -3100,7 +3221,9 @@ def main() -> int:
                 fail(f"K4 disagrees with its plain version at {shape} "
                      f"{name}: {e}")
     k4_err = max(e[0] for e in k4_errs.values())
-    print(f"[3b K2, K3, K4 vs plain] {line2} || {line3} || K4 max|diff| / "
+    print(f"[3b K2, K3, K4 vs plain] {line2} || {line3} || {line2_32} || "
+          f"{line3_32} || f32 rows with bf16 vectors: the gate's plain "
+          f"version, {gate32['plain_on_cuda']} calls || K4 max|diff| / "
           f"mean|diff| {fmt(k4_errs)} (tolerance f32 {K4_ATOL['float32']}, "
           f"bf16 {K4_ATOL['bfloat16']}; mean {K4_MEAN_ATOL})")
 
@@ -3111,8 +3234,7 @@ def main() -> int:
     main4 = launch_counts()
     if pred.packed_calls < 1:
         fail("the batch did not take the packed path")
-    if main4 != {"K1": n_layers, "K2": 0, "K3": 0, "K4": 0,
-                 "plain_on_cuda": 0}:
+    if main4 != count_dict(K1=n_layers):
         fail(f"default path launches {main4} (want K1 {n_layers} and "
              f"nothing else)")
     probs = probs_of(res, pred.class_names)
@@ -3123,8 +3245,8 @@ def main() -> int:
 
     def reference_probs(p, over, preset="default", batch_images=None):
         """The kernel-off run of `p`, and the same seeded weights under
-        the f32 compute dtype on the card (FFN in plain f32: the kernels
-        are bf16-only; cuDNN convolutions without TF32), on phase 4's
+        the f32 compute dtype on the card with every kernel off too (the
+        plain f32 model; cuDNN convolutions without TF32), on phase 4's
         images or `batch_images`."""
         imgs = images if batch_images is None else batch_images
         with plain_kernels():
@@ -3198,8 +3320,7 @@ def main() -> int:
             launch_counts()
 
     n_ans, calls, n_classic, serve5 = serve(pred)
-    if serve5 != {"K1": n_layers * calls, "K2": 0, "K3": 0, "K4": 0,
-                  "plain_on_cuda": 0}:
+    if serve5 != count_dict(K1=n_layers * calls):
         fail(f"serving: launches {serve5} for {calls} forwards")
     print(f"[5 serving] {n_ans} requests in {calls} forwards, launches "
           f"{serve5}, classic calls {n_classic}")
@@ -3324,8 +3445,7 @@ def main() -> int:
     cfg7 = resolve_config("default", over7)
     pred7 = MultimodalPredictor(cfg7, create_model(cfg7, device="cpu",
                                                    seed=0), dev)
-    want7 = {"K1": 1, "K2": n_layers - 1, "K3": n_layers - 1, "K4": 1,
-             "plain_on_cuda": 0}
+    want7 = count_dict(K1=1, K2=n_layers - 1, K3=n_layers - 1, K4=1)
     reset_counts()
     res7 = pred7.predict_batch(images, texts)
     main7 = launch_counts()
@@ -3465,6 +3585,135 @@ def main() -> int:
     torch.cuda.empty_cache()
     main15 = entry_forward(dev, card)
 
+    # ---- 16. f32 serving: the full-width models under
+    # training.compute_dtype=float32, K1-K3 in their f32 kernels
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main16 = count_dict()
+    lines16 = []
+    try:
+        for tag, over, want in (
+                ("default", {}, count_dict(K1_f32=n_layers)),
+                ("fused", over7, count_dict(K1_f32=1, K2_f32=n_layers - 1,
+                                            K3_f32=n_layers - 1, K4=1))):
+            cfg32 = resolve_config("default", {
+                **over, "training.compute_dtype": "float32"})
+            p32 = MultimodalPredictor(
+                cfg32, create_model(cfg32, device="cpu", seed=0), dev)
+            reset_counts()
+            res32 = p32.predict_batch(images, texts)
+            got = launch_counts()
+            if got != want or p32.packed_calls != 1:
+                fail(f"f32 {tag} path launches {got} (packed "
+                     f"{p32.packed_calls}), want {want}")
+            probs32 = probs_of(res32, p32.class_names)
+            if probs32.shape != (BATCH, cfg32.num_classes) \
+                    or not np.isfinite(probs32).all() \
+                    or np.abs(probs32.sum(1) - 1.0).max() > 1e-3:
+                fail(f"bad f32 {tag} probabilities: {probs32.shape}")
+            with plain_kernels():
+                off32 = probs_of(p32.predict_batch(images, texts),
+                                 p32.class_names)
+            d32 = np.abs(probs32 - off32)
+            top1 = int((probs32.argmax(1) == off32.argmax(1)).sum())
+            if d32.max() > PROB_ATOL_F32_KERNELS or top1 != BATCH:
+                fail(f"f32 {tag}: max|dprob| {d32.max()} from the "
+                     f"kernels-off f32 run, top-1 {top1}/{BATCH}")
+            n_ans, calls, n_classic, served = serve(p32, n_concurrent=4,
+                                                    n_single=1)
+            if served != {k: v * calls for k, v in want.items()}:
+                fail(f"f32 {tag} serving: launches {served} for {calls} "
+                     f"forwards")
+            for k in main16:
+                main16[k] += got[k] + served[k]
+
+            # p50 in turns: kernels off (the path before the f32 kernels),
+            # on, on, off
+            def p50_off():
+                with plain_kernels():
+                    return p50_ms(p32)[0]
+
+            off_a, on_a, on_b, off_b = (p50_off(), p50_ms(p32)[0],
+                                        p50_ms(p32)[0], p50_off())
+            lines16.append(
+                f"{tag}: launches {got}; max|dprob| / mean|dprob| from the "
+                f"kernels-off f32 run {d32.max():.3e} / {d32.mean():.3e} "
+                f"(tolerance {PROB_ATOL_F32_KERNELS}), top-1 {top1}/{BATCH} "
+                f"| MicroBatcher: {n_ans} requests in {calls} forwards "
+                f"({n_classic} classic), launches {served} | p50 of "
+                f"predict_batch B={BATCH}: kernels {(on_a + on_b) / 2:.2f} "
+                f"ms vs kernels off {(off_a + off_b) / 2:.2f} ms (runs "
+                f"{off_a:.2f} {on_a:.2f} {on_b:.2f} {off_b:.2f})")
+            if tag == "fused":
+                ids16, mask16 = p32._prep_texts(texts, BATCH)
+                m16 = int(np.prod(p32._packed_inputs(ids16, mask16)[0].shape))
+            del p32
+            torch.cuda.empty_cache()
+
+        # each f32 kernel against its plain version (TF32 off) at the
+        # shapes of the f32 paths, beside its bound
+        z32 = rnd32((packed_m, h), 1.0)
+        zc32 = rnd32((SMALL_ROWS[0], h), 1.0)
+        x16, c16 = rnd32((m16, h), 1.0), rnd32((m16, h), 1.0)
+        a1_32 = (w32[0], vec32["b1"], w32[1], vec32["b2"], vec32["gamma"],
+                 vec32["beta"])
+        ln0_32 = dict(pre_gamma=vec32["pre_gamma"],
+                      pre_beta=vec32["pre_beta"])
+        a3_32 = (c16, x16, wo32, k3_vec32["bo"], k3_vec32["gamma"],
+                 k3_vec32["beta"])
+        times32 = {}
+        for key, kern_fn, plain_fn, bound in (
+                ("K1_f32", lambda: k1.fused_ffn_ln(z32, *a1_32, **ln0_32),
+                 lambda: k1.ffn_ln_plain(z32, *a1_32, input_ln=True,
+                                         **ln0_32),
+                 ffn_bound(packed_m, h, f, 4, True, 4)),
+                ("K1_f32 CLS", lambda: k1.fused_ffn_ln(zc32, *a1_32,
+                                                       **ln0_32),
+                 lambda: k1.ffn_ln_plain(zc32, *a1_32, input_ln=True,
+                                         **ln0_32),
+                 ffn_bound(SMALL_ROWS[0], h, f, 4, True, 4)),
+                ("K2_f32", lambda: k1.fused_ffn_ln(x16, *a1_32),
+                 lambda: k1.ffn_ln_plain(x16, *a1_32, input_ln=False),
+                 ffn_bound(m16, h, f, 4, False, 4)),
+                ("K3_f32", lambda: k3.fused_attn_out_ln(*a3_32),
+                 lambda: k3.attn_out_ln_plain(*a3_32),
+                 attn_out_bound(m16, h, 4, 4))):
+            ms, plain_ms, runs, b2b = in_turns(kern_fn, plain_fn)
+            times32[key] = (ms, plain_ms, b2b, *bound, runs)
+
+        # K3-f32 against the classic f32 chain it stands for (F.linear,
+        # the residual add, F.layer_norm: three calls), in turns K3, chain,
+        # chain, K3
+        def k3_chain32():
+            return F.layer_norm(F.linear(c16, wo32.t(), k3_vec32["bo"]) + x16,
+                                (h,), k3_vec32["gamma"], k3_vec32["beta"],
+                                1e-12)
+
+        chain_err = diff(k3_chain32(), k3.attn_out_ln_plain(*a3_32))
+        chain_ms, k3_32_ms_b, chain_runs, _ = in_turns(
+            k3_chain32, lambda: k3.fused_attn_out_ln(*a3_32))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_cls = k1.ffn_plan_f32(SMALL_ROWS[0], f, n_sm)
+    print(f"[16 f32 serving] {card} | training.compute_dtype=float32, "
+          f"TF32 off | " + " || ".join(lines16) + " | kernels, TF32-off "
+          f"plain beside each: " + "; ".join(
+              f"{k} at M={m}: {t[0]:.4f} ms vs plain {t[1]:.4f} ({t[5]}), "
+              f"bound {t[3]:.4f} ms ({t[4]}), {t[3] / t[0]:.1%} of it"
+              for (k, t), m in zip(times32.items(),
+                                   (packed_m, SMALL_ROWS[0], m16, m16)))
+          + f" (K1-f32 at M={SMALL_ROWS[0]}: {plan_cls.tiles} tiles x "
+          f"{plan_cls.slices} slices); K3-f32 vs the classic f32 linear + "
+          f"add + LayerNorm chain {k3_32_ms_b:.4f} vs {chain_ms:.4f} ms "
+          f"({chain_runs}; the chain's max|diff| from plain "
+          f"{chain_err[0]:.3e}) | {time.perf_counter() - t16:.1f} s")
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -3487,6 +3736,14 @@ def main() -> int:
          k3_err, k3_ms, k3_plain_ms, k3_b2b, k3_bound, k3_by, None),
         ("normalize_u8", "normalize_u8.cu", "image_kernels.py:37", "K4",
          k4_err, k4_ms, k4_plain_ms, k4_b2b, k4_bound, k4_by, k4_lib_ms),
+        # the f32 forms, timed in phase 16 at the f32 paths' shapes; none
+        # has one PyTorch call either (K3-f32's classic chain is three)
+        ("ffn_pre_ln_f32", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32",
+         k1_32_err, *times32["K1_f32"][:5], None),
+        ("ffn_ln_f32", "ffn_ln_f32.cu", "ffn.py:103", "K2_f32", k2_32_err,
+         *times32["K2_f32"][:5], None),
+        ("attn_out_ln_f32", "attn_out_ln_f32.cu", "attn_out.py:38", "K3_f32",
+         k3_32_err, *times32["K3_f32"][:5], None),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -3495,11 +3752,11 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13, 14 and 15 (their counted runs; 13's on every
-        # rank)
+        # 9, 10, 11, 12, 13, 14, 15 and 16 (their counted runs; 13's on
+        # every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
-                     + main13[k] + main14[k] + main15[k]),
+                     + main13[k] + main14[k] + main15[k] + main16[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -242,9 +242,9 @@ def _full_forward(cfg, dev) -> str:
     pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
                                dev)
     images, texts = seeded_requests(2, seed=0)
-    k1 = ffn.LAUNCHES_K1
+    k1 = ffn.LAUNCHES_K1 + ffn.LAUNCHES_K1_F32  # bf16 or f32 models
     results = pred.predict_batch(images, texts)
-    k1 = ffn.LAUNCHES_K1 - k1
+    k1 = ffn.LAUNCHES_K1 + ffn.LAUNCHES_K1_F32 - k1
     probs = np.array([list(r["all_probabilities"].values())
                       for r in results])
     assert probs.shape == (2, cfg.num_classes) and np.isfinite(probs).all()

@@ -3,17 +3,19 @@ Hopper.
 
     y = LN(x + ctx @ wo + bo)
 
-Counterpart of `multimodal_rare_disease_tpu/ops/pallas/attn_out.py`. The
-CUDA kernel (`csrc/attn_out_ln.cu`: wgmma on 64-row tiles, Wo streamed by
-TMA from a producer warpgroup) replaces its `_attn_out_ln_kernel`;
-`attn_out_ln_plain` is the same math in PyTorch, under the TPU module's
-numerics contract: the product accumulates in f32 and is not rounded,
-bo and the residual are added in f32, and the two-pass LayerNorm runs in
-f32 (unlike the JAX `attn_out_ln_reference`, which rounds the projection
-and the residual sum to the compute dtype first).
+Counterpart of `multimodal_rare_disease_tpu/ops/pallas/attn_out.py`, whose
+Pallas kernel runs in the model's compute dtype. Two CUDA kernels replace
+its `_attn_out_ln_kernel`: `csrc/attn_out_ln.cu` for bf16 (wgmma on 64-row
+tiles, Wo streamed by TMA from a producer warpgroup) and
+`csrc/attn_out_ln_f32.cu` for f32 (FFMA on the CUDA cores, never TF32, 32
+rows per block); `attn_out_ln_plain` is the same math in PyTorch, under
+the TPU module's numerics contract: the product accumulates in f32 and
+is not rounded, bo and the residual are added in f32, and the two-pass
+LayerNorm runs in f32 (unlike the JAX `attn_out_ln_reference`, which
+rounds the projection and the residual sum to the compute dtype first).
 
 When the 64-row tiles would fill fewer blocks than the card has SMs (a
-single request's 64 rows), the kernel splits the 12 k chunks of the
+single request's 64 rows), the bf16 kernel splits the 12 k chunks of the
 product into slices, each block writes an f32 partial of ctx @ wo for
 its slice, and a second kernel (the FFN kernel's split reduction) sums
 the partials in slice order before bo, the residual and LN.
@@ -22,11 +24,12 @@ the partials in slice order before bo, the residual and LN.
 kernel's order, so the CPU tests reach both.
 
 Device rule, as `kernels/ffn.py`: CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise, except where the stated gate
-`attn_out_ln_fusible` sends them to the plain version, which counts in
-`PLAIN_ON_CUDA`. A launch raises when grad mode is on and an input
-requires grad: the kernel has no backward. `FORCE_PLAIN` is set only by
-tests and chip_smoke.py.
+CUDA tensors launch the kernel of their dtype or raise, except where
+`attn_out_route` (the stated gate `attn_out_ln_fusible`, x in ctx's
+dtype and the vectors in it too) sends them to the plain version, which
+counts in `PLAIN_ON_CUDA`. A launch raises when grad mode is on and an
+input requires grad: the kernels have no backward. `FORCE_PLAIN` is set
+only by tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ import torch
 
 from multimodal_rare_disease_tpu_torch.kernels import build
 from multimodal_rare_disease_tpu_torch.kernels.ffn import (
+    ROUTE_BF16,
+    ROUTE_F32,
+    ROUTE_PLAIN,
     RowPlan,
     dot_f32,
     ln_f32,
@@ -44,12 +50,15 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
 )
 
 FORCE_PLAIN = False
-# launches of the CUDA kernel (incremented only where it is launched)
+# launches of the bf16 and of the f32 CUDA kernel (incremented only where
+# it is launched)
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
-# the tiling csrc/attn_out_ln.cu was written for (see its header)
+# the tiling csrc/attn_out_ln.cu was written for (see its header); the f32
+# kernel has no split path
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 
@@ -61,12 +70,25 @@ def attn_out_plan(m: int, n_sm: int) -> RowPlan:
 
 
 def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
-    """Shape/dtype gate of the CUDA kernel: it tiles rows by 64 and lets
-    TMA zero-fill and clip the ragged tile, so any m >= 1 works (the
-    TPU's m >= 32, m % 16 == 0 came from its (8, 128) tiling), and it is
-    compiled for H = 768 in bf16. The wrapper also asks for bf16 bo,
-    gamma and beta (the model passes its own, cast to bf16)."""
-    return m >= 1 and hidden == KERNEL_HIDDEN and dtype == torch.bfloat16
+    """Shape/dtype gate of the CUDA kernels: they tile rows (64 in bf16,
+    32 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
+    m >= 32, m % 16 == 0 came from its (8, 128) tiling), and they are
+    compiled for H = 768, in bf16 and in f32."""
+    return (m >= 1 and hidden == KERNEL_HIDDEN
+            and dtype in (torch.bfloat16, torch.float32))
+
+
+def attn_out_route(ctx_dtype: torch.dtype, x_dtype: torch.dtype,
+                   vec_dtypes, m: int, hidden: int) -> str:
+    """Which CUDA path a call takes: the kernel of ctx's dtype (ROUTE_BF16
+    or ROUTE_F32) inside `attn_out_ln_fusible` when x and bo, gamma and
+    beta (`vec_dtypes`) are in that dtype too (a model passes its own
+    vectors, cast to its dtype), else ROUTE_PLAIN, the counted plain
+    version."""
+    if not attn_out_ln_fusible(m, hidden, ctx_dtype) \
+            or x_dtype != ctx_dtype or set(vec_dtypes) != {ctx_dtype}:
+        return ROUTE_PLAIN
+    return ROUTE_F32 if ctx_dtype == torch.float32 else ROUTE_BF16
 
 
 def attn_out_ln_plain(ctx2d: torch.Tensor, x2d: torch.Tensor,
@@ -102,13 +124,13 @@ def fused_attn_out_ln(ctx2d: torch.Tensor, x2d: torch.Tensor,
         raise RuntimeError(
             f"fused_attn_out_ln: unsupported device {ctx2d.device}")
     m, hidden = ctx2d.shape
-    if not (attn_out_ln_fusible(m, hidden, ctx2d.dtype)
-            and x2d.dtype == ctx2d.dtype
-            and all(v.dtype == torch.bfloat16 for v in (bo, gamma, beta))):
+    route = attn_out_route(ctx2d.dtype, x2d.dtype,
+                           (v.dtype for v in (bo, gamma, beta)), m, hidden)
+    if route == ROUTE_PLAIN:
         PLAIN_ON_CUDA += 1
         return attn_out_ln_plain(*args)
     no_autograd("fused_attn_out_ln", *args[:6])
-    return _launch(*args)
+    return (_launch_f32 if route == ROUTE_F32 else _launch)(*args)
 
 
 def _launch(ctx, x, wo, bo, gamma, beta, eps):
@@ -148,4 +170,40 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
             plan.slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_bf16")
     LAUNCHES += 1
+    return y
+
+
+def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
+    global LAUNCHES_F32
+    dev = ctx.device
+    m, hidden = ctx.shape
+    if x.shape != ctx.shape or wo.shape != (hidden, hidden):
+        raise ValueError(f"fused_attn_out_ln: x {tuple(x.shape)} / wo "
+                         f"{tuple(wo.shape)} do not match ctx [{m}, {hidden}]")
+    ctx, x = ctx.contiguous(), x.contiguous()
+    # f32 as it is, never rounded: the kernel reads nn.Linear's [out, in]
+    # layout, Wo^T
+    wot = wo.to(torch.float32).t().contiguous()
+    vecs = [v.contiguous() for v in (bo, gamma, beta)]  # f32 (the route)
+    for t in (x, wot, *vecs):
+        if t.device != dev:
+            raise ValueError(
+                f"fused_attn_out_ln: tensors on {t.device} and {dev}")
+    if any(v.numel() != hidden for v in vecs):
+        raise ValueError("fused_attn_out_ln: bias/LayerNorm vectors do not "
+                         "match")
+    # the rows and Wo are read 16 bytes at a time
+    ctx, x = [t.clone() if t.data_ptr() % 16 else t for t in (ctx, x)]
+    if wot.data_ptr() % 16:
+        raise ValueError("fused_attn_out_ln: wo must be 16-byte aligned")
+    y = torch.empty_like(ctx)
+    lib = build.load_library(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mrd_attn_out_ln_f32(
+            ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
+            *(v.data_ptr() for v in vecs), y.data_ptr(), m, float(eps),
+            stream)
+    build.check_launch(lib, err, "attn_out_ln_f32")
+    LAUNCHES_F32 += 1
     return y

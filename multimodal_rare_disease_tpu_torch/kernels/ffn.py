@@ -4,29 +4,33 @@
     K1: x = LN0(z), with pre_gamma / pre_beta (the default layer)
     K2: x = the input rows (after K3, `kernels/attn_out.py`)
 
-Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`. One CUDA
-kernel template (`csrc/ffn_ln.cu`: wgmma fed by TMA, 64 rows per block)
-replaces its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel` (K2);
-`ffn_ln_plain` is the same math in PyTorch.
+Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`, whose
+Pallas kernels run in the model's compute dtype. Two CUDA kernel
+templates replace its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel`
+(K2): `csrc/ffn_ln.cu` for bf16 (wgmma fed by TMA, 64 rows per block)
+and `csrc/ffn_ln_f32.cu` for f32 (FFMA on the CUDA cores, never TF32,
+32 rows per block); `ffn_ln_plain` is the same math in PyTorch.
 
-When the 64-row tiles would fill fewer blocks than the card has SMs, the
-kernel splits F into slices, each block writes an f32 partial of
-h @ w2 for its slice, and a second kernel sums the partials in slice
-order before the residual and LN2. `ffn_plan` chooses the slices; it is
-plain Python, and `ffn_ln_plain(..., slices=S)` emulates the split sum
-in the kernel's order, so the CPU tests reach both.
+When the row tiles would fill fewer blocks than the card has SMs, either
+kernel splits F into slices, each block writes an f32 partial of h @ w2
+for its slice, and a second kernel sums the partials in slice order
+before the residual and LN2. `ffn_plan` and `ffn_plan_f32` choose the
+slices; they are plain Python, and `ffn_ln_plain(..., slices=S)`
+emulates the split sum in the kernel's order, so the CPU tests reach
+both.
 
 Device rule: `fused_ffn_ln` runs `ffn_ln_plain` for CPU tensors; for
-CUDA tensors it launches the kernel or raises. The one exception is the
-stated shape/dtype gate `ffn_ln_fusible` (the counterpart of the TPU
-module's gate of the same name), to which K2 adds bf16 vectors (the
-model passes its own, cast to bf16): a CUDA call outside it runs the
-plain version and is counted in `PLAIN_ON_CUDA`, which the main path
-keeps at 0. `FORCE_PLAIN` (set only by tests and chip_smoke.py, the
-counterpart of the TPU module's `FORCE_INTERPRET`) sends CUDA tensors to
-the plain version to build an on-card reference. The kernel has no
-backward, so a launch raises when grad mode is on and an input requires
-grad (`no_autograd`).
+CUDA tensors it launches a kernel or raises. `ffn_route` picks the
+kernel from the dtypes and the shape: bf16 or f32 x inside the stated
+shape gate `ffn_ln_fusible` (the counterpart of the TPU module's gate of
+the same name), with vectors the kernel reads (K1 bf16: f32 or bf16; K2
+bf16: bf16, as the model passes its own cast to bf16; f32: f32). Any
+other CUDA call runs the plain version and is counted in
+`PLAIN_ON_CUDA`, which the main path keeps at 0. `FORCE_PLAIN` (set
+only by tests and chip_smoke.py, the counterpart of the TPU module's
+`FORCE_INTERPRET`) sends CUDA tensors to the plain version to build an
+on-card reference. The kernels have no backward, so a launch raises
+when grad mode is on and an input requires grad (`no_autograd`).
 """
 
 from __future__ import annotations
@@ -41,17 +45,25 @@ from multimodal_rare_disease_tpu_torch.kernels import build
 _SQRT1_2 = 0.7071067811865476
 
 FORCE_PLAIN = False
-# launches of the CUDA kernel with (K1) and without (K2) the input
-# LayerNorm, incremented only where it is launched
+# launches of the bf16 CUDA kernel with (K1) and without (K2) the input
+# LayerNorm, and of the f32 one, incremented only where it is launched
 LAUNCHES_K1 = 0
 LAUNCHES_K2 = 0
+LAUNCHES_K1_F32 = 0
+LAUNCHES_K2_F32 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
-# the tiling csrc/ffn_ln.cu was written for (see its header)
+# the tiling csrc/ffn_ln.cu (bf16) and csrc/ffn_ln_f32.cu (f32) were
+# written for (see their headers)
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 KERNEL_ROWS = 64
+KERNEL_F32_CHUNK = 256
+KERNEL_F32_ROWS = 32
+
+# what `ffn_route` (and `attn_out.attn_out_route`) return
+ROUTE_BF16, ROUTE_F32, ROUTE_PLAIN = "bf16", "f32", "plain"
 
 
 class RowPlan(NamedTuple):
@@ -66,16 +78,18 @@ class RowPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def split_plan(m: int, n_chunks: int, n_sm: int) -> RowPlan:
-    """The launch of a 64-row tile kernel (FFN: the F chunks; K3, the
-    attention-output kernel: the 12 k chunks) for m rows on a card with
-    n_sm SMs. Row tiles that fill the card run whole (one slice). Fewer
-    tiles split the chunks into S slices, S a divisor of n_chunks,
-    chosen to minimise the waves of one-block-per-SM times the chunks
-    per block, ceil(tiles * S / n_sm) * (n_chunks / S); on a tie the
-    smaller S, which writes and sums fewer partials. Cached: a launch
-    asks for it on every call, with few distinct row counts."""
-    tiles = -(-m // KERNEL_ROWS)
+def split_plan(m: int, n_chunks: int, n_sm: int,
+               rows: int = KERNEL_ROWS) -> RowPlan:
+    """The launch of a row tile kernel (FFN: the F chunks; K3, the
+    attention-output kernel: the 12 k chunks) for m rows in tiles of
+    `rows` on a card with n_sm SMs. Row tiles that fill the card run
+    whole (one slice). Fewer tiles split the chunks into S slices, S a
+    divisor of n_chunks, chosen to minimise the waves of
+    one-block-per-SM times the chunks per block,
+    ceil(tiles * S / n_sm) * (n_chunks / S); on a tie the smaller S,
+    which writes and sums fewer partials. Cached: a launch asks for it on
+    every call, with few distinct row counts."""
+    tiles = -(-m // rows)
     slices = 1
     if tiles < n_sm:
         slices = min((s for s in range(1, n_chunks + 1) if n_chunks % s == 0),
@@ -86,20 +100,45 @@ def split_plan(m: int, n_chunks: int, n_sm: int) -> RowPlan:
 
 
 def ffn_plan(m: int, f: int, n_sm: int) -> RowPlan:
-    """The launch of the FFN kernel for m rows and intermediate width f:
-    `split_plan` over the f / 64 chunks of F."""
+    """The launch of the bf16 FFN kernel for m rows and intermediate
+    width f: `split_plan` over the f / 64 chunks of F."""
     return split_plan(m, f // KERNEL_CHUNK, n_sm)
+
+
+def ffn_plan_f32(m: int, f: int, n_sm: int) -> RowPlan:
+    """The launch of the f32 FFN kernel: `split_plan` over the f / 256
+    chunks of F in tiles of 32 rows."""
+    return split_plan(m, f // KERNEL_F32_CHUNK, n_sm, KERNEL_F32_ROWS)
 
 
 def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
                    dtype: torch.dtype) -> bool:
-    """Shape/dtype gate of the CUDA kernel. It tiles rows by 64 and masks
-    the ragged tile, so any m >= 1 works (the TPU's m >= 32, m % 16 == 0
-    came from its (8, 128) tiling and does not apply); it is compiled
-    for the BERT-base width and walks F in chunks of 64 (which also keeps
-    W2's rows a multiple of TMA's 16 bytes), in bf16."""
-    return (m >= 1 and hidden == KERNEL_HIDDEN and intermediate > 0
-            and intermediate % KERNEL_CHUNK == 0 and dtype == torch.bfloat16)
+    """Shape/dtype gate of the CUDA kernels. They tile rows (64 in bf16,
+    32 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
+    m >= 32, m % 16 == 0 came from its (8, 128) tiling and does not
+    apply); they are compiled for the BERT-base width and walk F in
+    chunks (64 in bf16, which also keeps W2's rows a multiple of TMA's
+    16 bytes; 256 in f32)."""
+    chunk = {torch.bfloat16: KERNEL_CHUNK,
+             torch.float32: KERNEL_F32_CHUNK}.get(dtype)
+    return (chunk is not None and m >= 1 and hidden == KERNEL_HIDDEN
+            and intermediate > 0 and intermediate % chunk == 0)
+
+
+def ffn_route(x_dtype: torch.dtype, vec_dtypes, m: int, hidden: int,
+              intermediate: int, input_ln: bool) -> str:
+    """Which CUDA path a call takes: ROUTE_BF16 or ROUTE_F32 (the kernel
+    of x's dtype) inside `ffn_ln_fusible` when the kernel reads the
+    vectors' dtypes (K1 in bf16: f32 or bf16; K2 in bf16: bf16; f32: f32),
+    else ROUTE_PLAIN, the counted plain version. `vec_dtypes`: the dtypes
+    of b1, b2, gamma, beta and, for K1 (`input_ln`), the LN0 vectors."""
+    if not ffn_ln_fusible(m, hidden, intermediate, x_dtype):
+        return ROUTE_PLAIN
+    vec_dtypes = set(vec_dtypes)
+    if x_dtype == torch.float32:
+        return ROUTE_F32 if vec_dtypes == {torch.float32} else ROUTE_PLAIN
+    return (ROUTE_BF16 if input_ln or vec_dtypes == {torch.bfloat16}
+            else ROUTE_PLAIN)
 
 
 def ln_f32(z: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
@@ -174,16 +213,18 @@ def fused_ffn_ln(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x2d.device.type != "cuda":
         raise RuntimeError(f"fused_ffn_ln: unsupported device {x2d.device}")
     m, hidden = x2d.shape
-    f = w1.shape[1]
-    vectors_ok = input_ln or all(v.dtype == torch.bfloat16
-                                 for v in (b1, b2, gamma, beta))
-    if not (ffn_ln_fusible(m, hidden, f, x2d.dtype) and vectors_ok):
+    vecs = (b1, b2, gamma, beta) + ((pre_gamma, pre_beta) if input_ln
+                                    else ())
+    route = ffn_route(x2d.dtype, (v.dtype for v in vecs), m, hidden,
+                      w1.shape[1], input_ln)
+    if route == ROUTE_PLAIN:
         PLAIN_ON_CUDA += 1
         return ffn_ln_plain(*args, input_ln=input_ln, pre_gamma=pre_gamma,
                             pre_beta=pre_beta)
     no_autograd("fused_ffn_ln", *args[:7], pre_gamma, pre_beta)
-    return _launch(x2d, w1, b1, w2, b2, gamma, beta, pre_gamma, pre_beta,
-                   eps)
+    launch = _launch_f32 if route == ROUTE_F32 else _launch
+    return launch(x2d, w1, b1, w2, b2, gamma, beta, pre_gamma, pre_beta,
+                  eps)
 
 
 def no_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -248,6 +289,56 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     else:
         build.check_launch(lib, err, "ffn_ln_bf16")
         LAUNCHES_K2 += 1
+    return y
+
+
+def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
+    global LAUNCHES_K1_F32, LAUNCHES_K2_F32
+    input_ln = g0 is not None
+    dev = z.device
+    m, hidden = z.shape
+    f = w1.shape[1]
+    if w1.shape != (hidden, f) or w2.shape != (f, hidden):
+        raise ValueError(f"fused_ffn_ln: w1 {tuple(w1.shape)} / w2 "
+                         f"{tuple(w2.shape)} do not match x [{m}, {hidden}]")
+    f32 = torch.float32
+    # f32 as they are, never rounded: the kernel reads nn.Linear's
+    # [out, in] layout, W1^T [F, H] and W2^T [H, F] (a transposed view of
+    # an nn.Linear weight costs no copy)
+    w1t = w1.to(f32).t().contiguous()
+    w2t = w2.to(f32).t().contiguous()
+    vecs = [v.contiguous() for v in (b1, b2, gamma, beta)
+            + ((g0, o0) if input_ln else ())]  # f32 (the route)
+    z = z.contiguous()
+    for t in (w1t, w2t, *vecs):
+        if t.device != dev:
+            raise ValueError(f"fused_ffn_ln: tensors on {t.device} and {dev}")
+    if vecs[0].numel() != f or any(v.numel() != hidden for v in vecs[1:]):
+        raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
+    # rows, weights and vectors are read 16 bytes at a time
+    z, *vecs = [t.clone() if t.data_ptr() % 16 else t for t in (z, *vecs)]
+    if w1t.data_ptr() % 16 or w2t.data_ptr() % 16:
+        raise ValueError("fused_ffn_ln: weights must be 16-byte aligned")
+    y = torch.empty_like(z)
+    lib = build.load_library(dev)
+    plan = ffn_plan_f32(m, f, sm_count(dev))
+    scratch = (torch.empty(plan.scratch, dtype=f32, device=dev)
+               if plan.scratch else None)
+    ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
+    tail = (y.data_ptr(), scratch.data_ptr() if scratch is not None
+            else None, m, f, plan.slices, float(eps))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if input_ln:
+            err = lib.mrd_ffn_pre_ln_f32(*ptrs, *tail, stream)
+        else:
+            err = lib.mrd_ffn_ln_f32(*ptrs, *tail, stream)
+    if input_ln:
+        build.check_launch(lib, err, "ffn_pre_ln_f32")
+        LAUNCHES_K1_F32 += 1
+    else:
+        build.check_launch(lib, err, "ffn_ln_f32")
+        LAUNCHES_K2_F32 += 1
     return y
 
 

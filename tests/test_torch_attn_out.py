@@ -77,7 +77,16 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k3.attn_out_ln_fusible(m, 768, bf) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, bf)
     assert not k3.attn_out_ln_fusible(64, 512, bf)     # built for H=768
-    assert not k3.attn_out_ln_fusible(64, 768, torch.float32)
+    # f32 at H = 768: the f32 kernel (32-row tiles)
+    f32 = torch.float32
+    assert all(k3.attn_out_ln_fusible(m, 768, f32) for m in (1, 8, 37, 16384))
+    assert not k3.attn_out_ln_fusible(0, 768, f32)
+    assert not k3.attn_out_ln_fusible(64, 512, f32)    # built for H=768
+    assert not k3.attn_out_ln_fusible(64, 768, torch.float16)
+    # mixed dtypes stay outside the kernels
+    assert k3.attn_out_route(f32, f32, [bf] * 3, 64, 768) == k3.ROUTE_PLAIN
+    assert k3.attn_out_route(bf, bf, [f32] * 3, 64, 768) == k3.ROUTE_PLAIN
+    assert k3.attn_out_route(f32, bf, [f32] * 3, 64, 768) == k3.ROUTE_PLAIN
 
 
 # (m, tiles, slices, chunks per slice) on a card with 132 SMs (12 k chunks

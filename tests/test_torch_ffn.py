@@ -103,7 +103,19 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
     assert not k1.ffn_ln_fusible(64, 512, 3072, bf)      # built for H=768
     assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
-    assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float32)
+    # f32 at H = 768: the f32 kernel (32-row tiles, F in chunks of 256)
+    f32 = torch.float32
+    assert all(k1.ffn_ln_fusible(m, 768, 3072, f32)
+               for m in (1, 31, 32, 33, 37, 1024, 16384))
+    assert not k1.ffn_ln_fusible(0, 768, 3072, f32)
+    assert not k1.ffn_ln_fusible(64, 512, 3072, f32)     # built for H=768
+    assert not k1.ffn_ln_fusible(64, 128, 256, f32)
+    assert not k1.ffn_ln_fusible(64, 768, 3072 - 64, f32)  # chunks of 256
+    assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float16)
+    # mixed dtypes stay outside the kernels: f32 rows with bf16 vectors,
+    # and K2's bf16 rows with f32 vectors
+    assert k1.ffn_route(f32, [bf] * 6, 64, 768, 3072, True) == k1.ROUTE_PLAIN
+    assert k1.ffn_route(bf, [f32] * 4, 64, 768, 3072, False) == k1.ROUTE_PLAIN
 
 
 # (m, tiles, slices, chunks per slice) on a card with 132 SMs at F=3072
@@ -196,20 +208,21 @@ def test_build_is_keyed_by_the_sources():
     assert p.name == build.LIB_NAME
     assert p.parent.parent == build.BUILD_DIR
     assert {s.name for s in build.sources()} >= {
-        "ffn_ln.cu", "attn_out_ln.cu", "normalize_u8.cu"}
+        "ffn_ln.cu", "attn_out_ln.cu", "normalize_u8.cu", "ffn_ln_f32.cu",
+        "attn_out_ln_f32.cu"}
 
 
 def test_build_key_covers_the_headers(tmp_path, monkeypatch):
     # a header-only edit must not reuse a library built before it
     from multimodal_rare_disease_tpu_torch.kernels import build
 
-    assert [h.name for h in build.headers()] == ["common.cuh", "hopper.cuh",
-                                                 "rows.cuh"]
+    headers = ["common.cuh", "hopper.cuh", "rows.cuh", "rows_f32.cuh"]
+    assert [h.name for h in build.headers()] == headers
     for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     before = build.library_path()
-    for name in ("common.cuh", "hopper.cuh", "rows.cuh"):
+    for name in headers:
         with open(tmp_path / name, "a") as f:
             f.write("// edited\n")
         after = build.library_path()

@@ -11,8 +11,10 @@ MTCNN nets on the card against the CPU, a face-cropped B=256 predict
 with its K1 launches, a VAE step on the card against the CPU, the
 sharded predict of two gloo ranks sharing the card, and the int8
 products (`models/quant.py`) on the card bit-equal to the CPU, with a
-quantized BERT layer that launches no kernel, and `entry.py`'s
-`entry()` with its K1 launches. Every test here is marked `gpu` and
+quantized BERT layer that launches no kernel, `entry.py`'s
+`entry()` with its K1 launches, and the f32 forms of K1-K3 (an f32
+model's kernels) against their plain versions with TF32 off, with an
+f32 model's predict launching them. Every test here is marked `gpu` and
 skips without a CUDA device; the file imports neither jax nor the JAX
 package, so it runs on a machine that has only torch:
 
@@ -871,3 +873,120 @@ def test_entry_launches_k1_per_layer(cuda):
     with _all_plain():
         plain = forward(model, images, ids, mask)
     assert (probs - plain).abs().max().item() <= 2.5e-3
+
+
+# the f32 kernels against their plain versions, TF32 off: the same f32
+# products summed in another order, then LayerNorm (an H100 read up to
+# 1.4e-5 max, 7.0e-7 mean); the plain version with TF32 operands read
+# 1.7e-3-3.2e-3 max and 1.8e-4-3.0e-4 mean, which these limits refuse
+# (chip_smoke.py's ROW_F32_ATOL / ROW_F32_MEAN_ATOL)
+_F32_MAX_ATOL, _F32_MEAN_ATOL = 1e-4, 1e-5
+
+
+@contextlib.contextmanager
+def _tf32(on):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _f32_counts():
+    return (kffn.LAUNCHES_K1_F32, kffn.LAUNCHES_K2_F32, k3.LAUNCHES_F32,
+            kffn.PLAIN_ON_CUDA, k3.PLAIN_ON_CUDA)
+
+
+def _f32_ffn_inputs(m, dev, seed):
+    t = _rng_tensor(np.random.default_rng(seed), dev)
+    z, w = t((m, 768), 1.0), (t((768, 3072), 0.05), t((3072, 768), 0.05))
+    vec = dict(b1=t((3072,), 0.5), b2=t((768,), 0.5),
+               gamma=t((768,), 0.25, 1.0), beta=t((768,), 0.5),
+               pre_gamma=t((768,), 0.25, 1.0), pre_beta=t((768,), 0.5))
+    return z, w, vec
+
+
+# the single request (1, then its length bucket 64), a ragged tile, the
+# 1,024 CLS rows (split F) and the packed batch (whole F)
+@pytest.mark.parametrize("m", [1, 37, 64, 1024, 16384])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_f32_ffn_kernel_matches_plain(cuda, m, input_ln):
+    z, w, vec = _f32_ffn_inputs(m, cuda, seed=m)
+    before = _f32_counts()
+    with _tf32(False):
+        got = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+        want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+    assert _f32_counts() == (before[0] + input_ln, before[1] + (not input_ln),
+                             *before[2:])
+    worst, mean = _diff(got, want)
+    assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("m", [1, 37, 64, 1024, 16384])
+def test_f32_attn_out_kernel_matches_plain(cuda, m):
+    t = _rng_tensor(np.random.default_rng(m), cuda)
+    ctx, x, wo = t((m, 768), 1.0), t((m, 768), 1.0), t((768, 768), 0.05)
+    vec = dict(bo=t((768,), 0.5), gamma=t((768,), 0.25, 1.0),
+               beta=t((768,), 0.5))
+    before = _f32_counts()
+    with _tf32(False):
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+        want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
+    assert _f32_counts() == (*before[:2], before[2] + 1, *before[3:])
+    worst, mean = _diff(got, want)
+    assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
+
+
+def test_f32_limits_refuse_tf32_operands(cuda):
+    # the plain version with its operands rounded to TF32 in the kernel's
+    # place: the f32 limits must tell it from the f32 kernel
+    z, w, vec = _f32_ffn_inputs(4096, cuda, seed=5)
+    with _tf32(False):
+        want = _ffn(kffn.ffn_ln_plain, z, w, vec)
+    with _tf32(True):
+        worst, mean = _diff(_ffn(kffn.ffn_ln_plain, z, w, vec), want)
+    assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["default", "fused_attn_out"])
+def test_f32_predict_launches_the_f32_kernels(cuda, fused_attn_out):
+    """An f32 model (training.compute_dtype=float32) at full width,
+    predict_batch at B=8: K1-f32 in all 12 layers, or K3-f32 and K2-f32 in
+    layers 0-10 and K1-f32 in the CLS-only last one (K4 for the images at
+    image_size), no bf16 kernel and nothing on the plain gate; within
+    1e-4 of every kernel forced off."""
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    over = ({"text_encoder.fused_attn_out": True, "data.image_size": 256}
+            if fused_attn_out else {})
+    cfg = resolve_config("default", {**over,
+                                     "training.compute_dtype": "float32"})
+    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                               cuda)
+    images, texts = seeded_requests(8, seed=0)
+    before = (_counts(), _f32_counts())
+    with _tf32(False):
+        res = pred.predict_batch(images, texts)
+        torch.cuda.synchronize()
+        got = (tuple(a - b for a, b in zip(_counts(), before[0])),
+               tuple(a - b for a, b in zip(_f32_counts(), before[1])))
+        with _all_plain():
+            ref = pred.predict_batch(images, texts)
+    if fused_attn_out:
+        assert got == ((0, 0, 0, 1, 0, 0, 0), (1, 11, 11, 0, 0))
+    else:
+        assert got == ((0, 0, 0, 0, 0, 0, 0), (12, 0, 0, 0, 0))
+    probs = np.array([list(r["all_probabilities"].values()) for r in res])
+    plain = np.array([list(r["all_probabilities"].values()) for r in ref])
+    assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 1e-4
