@@ -20,8 +20,9 @@ non-zero):
    count), with f32 and with bf16 bias/LayerNorm vectors; and that the
    check fails for a kernel that drops any one of the six vectors; the
    same for K1's f32 form (f32 rows, weights and vectors, the f32
-   limits), whose check also fails the plain version run with its
-   operands rounded to TF32 in the kernel's place;
+   limits; also at M = 16,385, a ragged tile of its 128-row GEMMs), whose
+   check also fails the plain version run with its operands rounded to
+   TF32 in the kernel's place;
 3b. the same for K2 (the FFN kernel without its input LayerNorm) and K3
    (the fused attention-output + LayerNorm kernel: split-K below 132 row
    tiles, whole K at the packed count), which read bf16 vectors only (f32
@@ -206,12 +207,15 @@ HERE = Path(__file__).resolve().parent
 # on average, which phases 3 and 3b check on the card.
 ROW_ATOL = 5e-2
 ROW_MEAN_ATOL = 1e-4
-# K1-K3 in f32 against their plain versions (TF32 off): the same f32
-# products summed in another order, then LayerNorm. An H100 read up to
-# 1.4e-5 max and 7.0e-7 mean; the plain version with its operands rounded
-# to TF32 (10-bit mantissa) read 1.7e-3-3.2e-3 max and 1.8e-4-3.0e-4
-# mean (PERF.md), so these limits tell f32 from TF32, which phases 3 and
-# 3b check on the card.
+# K1-K3 in f32 against their plain versions (TF32 off): f32 products
+# (K1-f32 and K2-f32 as three TF32 products, csrc/ffn_ln_f32.cu) summed in
+# another order, then LayerNorm. An H100 read up to 1.4e-5 max and 7.0e-7
+# mean for K3-f32 (FFMA), and 1.9e-5 / 9.3e-7 for K1-f32 and K2-f32
+# (3xTF32, the tensor cores' sums rounded into an f32 total every 256 of
+# k); the plain version with its operands rounded to TF32 (10-bit
+# mantissa) read 1.7e-3-3.2e-3 max and 1.8e-4-3.1e-4 mean (PERF.md), so
+# these limits tell f32 from TF32, which phases 3 and 3b check on the
+# card.
 ROW_F32_ATOL = 1e-4
 ROW_F32_MEAN_ATOL = 1e-5
 # K4: the kernel rounds the product and the sum to f32 as the plain
@@ -243,13 +247,21 @@ TIMED_RUNS = 10
 # its length bucket 64), a ragged tile, the CLS-only last layer at B=256
 # and a mid size
 PHASE3_ROWS = (1, 37, 64, 1024, 4096)
+# and for the f32 forms, a ragged tile of the 128-row GEMMs of K1-f32 and
+# K2-f32 past the packed count
+PHASE3_F32_ROWS = (16385,)
 # phase 6's extra K1 row counts: the CLS-only last layer, the single request
 SMALL_ROWS = (1024, 64, 1)
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet): dense bf16
-# tensor-core rate, f32 rate outside the tensor cores, HBM3 rate
+# and TF32 tensor-core rates, f32 rate outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# f32-accurate products on the tensor cores take three TF32 products
+# (a_hi b_hi + a_hi b_lo + a_lo b_hi), so the f32 forms of K1-K3 are
+# bounded by 3x their operations at the TF32 rate
+TF32_PASSES = 3
 
 
 def fail(msg: str) -> None:
@@ -351,25 +363,31 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
                                  else "operations")
 
 
+def product_bound(ops: float, elem: int):
+    """The operations' part of a product's bound: bf16 products (elem
+    2) at the bf16 tensor-core rate; f32-accurate ones (elem 4) as
+    TF32_PASSES TF32 products at the TF32 rate, the least the card needs
+    for them (FFMA on the CUDA cores, at the f32 rate, takes 2.5x as
+    long)."""
+    return ((ops, PEAK_BF16_FLOPS) if elem == 2
+            else (TF32_PASSES * ops, PEAK_TF32_FLOPS))
+
+
 def ffn_bound(m: int, h: int, f: int, vec_bytes: int, input_ln: bool,
               elem: int = 2):
     """K1/K2: x in and y out [m, h], W1 and W2, in `elem`-byte values
-    (bf16 2, f32 4), the vectors; the two products in bf16 on the tensor
-    cores, or in f32 at the f32 rate (the f32 GELU and LayerNorm work,
-    under 5% of it, is left out)."""
+    (bf16 2, f32 4), the vectors; the two products by `product_bound`
+    (the f32 GELU and LayerNorm work, under 5% of it, is left out)."""
     n_vec = f + (5 if input_ln else 3) * h
     return bound_ms(elem * 2 * m * h + elem * 2 * h * f + vec_bytes * n_vec,
-                    4.0 * m * h * f,
-                    PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS)
+                    *product_bound(4.0 * m * h * f, elem))
 
 
 def attn_out_bound(m: int, h: int, vec_bytes: int, elem: int = 2):
     """K3: ctx and x in, y out [m, h], Wo, in `elem`-byte values, three
-    vectors; the product in bf16 on the tensor cores, or at the f32
-    rate."""
+    vectors; the product by `product_bound`."""
     return bound_ms(3 * elem * m * h + elem * h * h + vec_bytes * 3 * h,
-                    2.0 * m * h * h,
-                    PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS)
+                    *product_bound(2.0 * m * h * h, elem))
 
 
 def normalize_bound(n: int, out_bytes: int):
@@ -3064,7 +3082,7 @@ def main() -> int:
             return kern(*a)
 
         reset_counts()
-        for m in PHASE3_ROWS + (packed_m,):
+        for m in PHASE3_ROWS + (packed_m,) + (PHASE3_F32_ROWS if f32 else ()):
             args = make(m)
             got = kernel(*args, vecs)
             if not torch.isfinite(got).all():

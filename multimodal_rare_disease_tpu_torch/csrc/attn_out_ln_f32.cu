@@ -60,7 +60,7 @@ attn_out_ln_f32_kernel(const float* __restrict__ ctx,    // [M, 768]
     load_out_tile(slot, wot, kF32H, kOutTileK * g);
   };
   ring_start(ring, kOutTileFloats, kTiles, issue);
-  stage_rows_f32<false>(cs, ctx, row0, M, nullptr, nullptr, eps);
+  stage_rows_f32(cs, ctx, row0, M);
 
   float acc[kF32RowsPerWarp][kF32Cols];
 #pragma unroll
@@ -71,7 +71,7 @@ attn_out_ln_f32_kernel(const float* __restrict__ ctx,    // [M, 768]
   for (int g = 0; g < kTiles; ++g)
     out_tile_step(acc, cs, kF32H, kOutTileK * g,
                   ring_advance(ring, kOutTileFloats, g, kTiles, issue));
-  ln_epilogue_f32(acc, nullptr, x, bo, gamma, beta, smem_f32 + kOffRed, y, row0, M, eps);
+  ln_epilogue_f32(acc, x, bo, gamma, beta, smem_f32 + kOffRed, y, row0, M, eps);
 }
 
 }  // namespace

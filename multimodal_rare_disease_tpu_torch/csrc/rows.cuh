@@ -2,8 +2,9 @@
 // the residual row as three 16-byte groups per lane (with LN0 for K1), the
 // second pass of the split paths (y = LN(sum of f32 partials + b + x), the
 // partials summed in slice order, so no atomics and the same bits on every
-// launch) and the TMA tensor maps of row-major bf16 matrices. Everything is
-// in an anonymous namespace: each source that includes it gets its own copy.
+// launch) and the TMA tensor maps of row-major bf16 and f32 matrices (the
+// f32 ones for ffn_ln_f32.cu). Everything is in an anonymous namespace: each
+// source that includes it gets its own copy.
 
 #pragma once
 
@@ -158,20 +159,33 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major bf16 [rows, cols] matrix, read (or written) in
-// boxes of [box_rows, 64] in the 128-byte swizzle layout. Rows past `rows`
-// read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// Tensor map of a row-major [rows, cols] matrix of `elem`-byte values,
+// read (or written) in boxes of [box_rows, box_cols] in the 128-byte
+// swizzle layout (box_cols * elem = 128). Rows past `rows` read as zeros and
+// are not written.
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
+                 int rows, int cols, int box_cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(mrd::bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major bf16 [rows, cols] matrix in boxes of [box_rows, 64].
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, 64, box_rows);
+}
+
+// A row-major f32 [rows, cols] matrix in boxes of [box_rows, 32].
+bool make_map_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, 32, box_rows);
 }
 
 }  // namespace

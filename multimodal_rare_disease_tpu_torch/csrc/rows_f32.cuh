@@ -1,10 +1,10 @@
-// Pieces shared by the port's f32 row kernels (ffn_ln_f32.cu, attn_out_ln_f32.cu):
-// the SIMT product of a block's 32 resident rows with a streamed weight
-// matrix, the ring of weight tiles that feeds it, the residual row (with LN0
-// for K1) and the LayerNorm epilogue. Everything is in f32: operands,
-// products and sums are IEEE single precision (FFMA), never rounded to TF32.
-// Everything is in an anonymous namespace: each source that includes it gets
-// its own copy.
+// Pieces of the port's f32 row kernels: the residual row (with LN0 for K1),
+// which ffn_ln_f32.cu's passes read, and the SIMT product of attn_out_ln_f32.cu
+// (K3-f32): a block's 32 resident rows times a streamed weight matrix, the
+// ring of weight tiles that feeds it and the LayerNorm epilogue. Everything
+// is in f32: operands, products and sums are IEEE single precision (FFMA),
+// never rounded to TF32. Everything is in an anonymous namespace: each
+// source that includes it gets its own copy.
 //
 // The block: 32 rows and 256 threads (8 warps). Warp w owns rows
 // 8 (w % 4) .. + 8 and, in the [32, 768] output product, the columns
@@ -33,7 +33,7 @@ static_assert(kF32Threads / 32 == (kF32TM / kF32RowsPerWarp) * kF32ColGroups,
               "one warp per (row group, column group)");
 
 // Output product tiles: 8 k of all 768 output rows of a [768, K] row-major
-// matrix (W2^T or Wo^T), [768][8] f32 = 24 KB; float4 j of row n stored at
+// matrix (Wo^T), [768][8] f32 = 24 KB; float4 j of row n stored at
 // position j ^ ((n >> 2) & 1).
 constexpr int kOutTileK = 8;
 constexpr int kOutTileFloats = kF32H * kOutTileK;
@@ -115,8 +115,8 @@ __device__ __forceinline__ void ring_start(float* ring, int slot_floats, int n_t
 
 // Row `gr` of z as 6 float4s per lane (columns 4 (lane + 32 j) .. + 4): LN0
 // of z (two-pass statistics, K1) or z itself (K2, K3); zeros past M. One
-// warp per row; the main kernel and the split reduction both take x from
-// here, so they see the same bits.
+// warp per row; the FFN's split pass and its LayerNorm pass both take x
+// from here, so they see the same bits.
 template <bool kInputLN>
 __device__ __forceinline__ void load_row_f32(const float* __restrict__ z, long long gr, int M,
                                              const float* __restrict__ g0,
@@ -153,30 +153,26 @@ __device__ __forceinline__ void load_row_f32(const float* __restrict__ z, long l
   }
 }
 
-// The block's rows row0 .. row0 + 32 of z (LN0 applied for K1) into `xs`
-// [32][768] f32, one warp per row.
-template <bool kInputLN>
+// The block's rows row0 .. row0 + 32 of z into `xs` [32][768] f32, one
+// warp per row.
 __device__ __forceinline__ void stage_rows_f32(float* xs, const float* __restrict__ z,
-                                               long long row0, int M,
-                                               const float* __restrict__ g0,
-                                               const float* __restrict__ o0, float eps) {
+                                               long long row0, int M) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kF32TM; r += kF32Threads / 32) {
     float4 v[kF32RowVecs];
-    load_row_f32<kInputLN>(z, row0 + r, M, g0, o0, eps, lane, v);
+    load_row_f32<false>(z, row0 + r, M, nullptr, nullptr, 0.0f, lane, v);
 #pragma unroll
     for (int j = 0; j < kF32RowVecs; ++j)
       *reinterpret_cast<float4*>(xs + r * kF32H + 4 * (lane + 32 * j)) = v[j];
   }
 }
 
-// y = LN(acc + b + x) for the block's valid rows, with x from `xs` [32][768]
-// in shared memory (K1, K2) or from the rows of `xg` [M, 768] (K3; xs
-// null). Two-pass statistics: each row's sums are taken per thread over its
-// 12 columns, across the warp, then across the two warps of the row group
-// through `red` (2 x 2 x 32 floats of shared memory).
+// y = LN(acc + b + x) for the block's valid rows, with x from the rows of
+// `xg` [M, 768]. Two-pass statistics: each row's sums are taken per thread
+// over its 12 columns, across the warp, then across the two warps of the row
+// group through `red` (2 x 2 x 32 floats of shared memory).
 __device__ __forceinline__ void ln_epilogue_f32(float (&acc)[kF32RowsPerWarp][kF32Cols],
-                                                const float* xs, const float* __restrict__ xg,
+                                                const float* __restrict__ xg,
                                                 const float* __restrict__ b,
                                                 const float* __restrict__ gamma,
                                                 const float* __restrict__ beta, float* red,
@@ -193,7 +189,7 @@ __device__ __forceinline__ void ln_epilogue_f32(float (&acc)[kF32RowsPerWarp][kF
 #pragma unroll
     for (int i = 0; i < kF32Cols; ++i) {
       const int c = c0 + 32 * i;
-      const float x = xs != nullptr ? xs[(rg + r) * kF32H + c] : (gr < M ? xg[gr * kF32H + c] : 0.0f);
+      const float x = gr < M ? xg[gr * kF32H + c] : 0.0f;
       acc[r][i] = acc[r][i] + b[c] + x;
       s[r] += acc[r][i];
     }

@@ -5,19 +5,21 @@
     K2: x = the input rows (after K3, `kernels/attn_out.py`)
 
 Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`, whose
-Pallas kernels run in the model's compute dtype. Two CUDA kernel
-templates replace its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel`
-(K2): `csrc/ffn_ln.cu` for bf16 (wgmma fed by TMA, 64 rows per block)
-and `csrc/ffn_ln_f32.cu` for f32 (FFMA on the CUDA cores, never TF32,
-32 rows per block); `ffn_ln_plain` is the same math in PyTorch.
+Pallas kernels run in the model's compute dtype. Two CUDA sources
+replace its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel` (K2):
+`csrc/ffn_ln.cu` for bf16 (one fused kernel, wgmma fed by TMA, 64 rows
+per block) and `csrc/ffn_ln_f32.cu` for f32 (a sequence of launches:
+the operands split into TF32 planes, the two products as 3xTF32 wgmma
+GEMMs fed by TMA, with h through device memory, and a LayerNorm pass);
+`ffn_ln_plain` is the same math in PyTorch.
 
-When the row tiles would fill fewer blocks than the card has SMs, either
-kernel splits F into slices, each block writes an f32 partial of h @ w2
-for its slice, and a second kernel sums the partials in slice order
-before the residual and LN2. `ffn_plan` and `ffn_plan_f32` choose the
-slices; they are plain Python, and `ffn_ln_plain(..., slices=S)`
-emulates the split sum in the kernel's order, so the CPU tests reach
-both.
+When the output tiles would fill fewer blocks than the card has SMs,
+the bf16 kernel splits F into slices and the f32 one the k loop of
+h @ w2; each block writes an f32 partial of h @ w2 for its slice, and a
+second kernel sums the partials in slice order before the residual and
+LN2. `ffn_plan` and `ffn_plan_f32` choose the slices; they are plain
+Python, and `ffn_ln_plain(..., slices=S)` emulates the split sum in the
+kernel's order, so the CPU tests reach both.
 
 Device rule: `fused_ffn_ln` runs `ffn_ln_plain` for CPU tensors; for
 CUDA tensors it launches a kernel or raises. `ffn_route` picks the
@@ -55,12 +57,16 @@ LAUNCHES_K2_F32 = 0
 PLAIN_ON_CUDA = 0
 
 # the tiling csrc/ffn_ln.cu (bf16) and csrc/ffn_ln_f32.cu (f32) were
-# written for (see their headers)
+# written for (see their headers): bf16 F chunks and row tiles; the f32
+# GEMMs' output tiles (rows x columns) and k-tiles, and the fewest k-tiles
+# a slice of the second product keeps
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 KERNEL_ROWS = 64
-KERNEL_F32_CHUNK = 256
-KERNEL_F32_ROWS = 32
+KERNEL_F32_ROWS = 128
+KERNEL_F32_COLS = 128
+KERNEL_F32_K = 32
+KERNEL_F32_MIN_K_TILES = 8
 
 # what `ffn_route` (and `attn_out.attn_out_route`) return
 ROUTE_BF16, ROUTE_F32, ROUTE_PLAIN = "bf16", "f32", "plain"
@@ -77,24 +83,31 @@ class RowPlan(NamedTuple):
     scratch: Optional[Tuple[int, int, int]]
 
 
+def split_slices(tiles: int, n_chunks: int, n_sm: int,
+                 max_slices: Optional[int] = None) -> int:
+    """How many slices to cut a k loop of n_chunks into, for `tiles`
+    output tiles on a card with n_sm SMs: one when the tiles fill the
+    card; else S, a divisor of n_chunks (at most max_slices), that
+    minimises the waves of one-block-per-SM times the chunks per block,
+    ceil(tiles * S / n_sm) * (n_chunks / S); on a tie the smaller S,
+    which writes and sums fewer partials."""
+    if tiles >= n_sm:
+        return 1
+    return min((s for s in range(1, (max_slices or n_chunks) + 1)
+                if n_chunks % s == 0),
+               key=lambda s: (-(-tiles * s // n_sm) * (n_chunks // s), s))
+
+
 @functools.lru_cache(maxsize=4096)
 def split_plan(m: int, n_chunks: int, n_sm: int,
                rows: int = KERNEL_ROWS) -> RowPlan:
     """The launch of a row tile kernel (FFN: the F chunks; K3, the
     attention-output kernel: the 12 k chunks) for m rows in tiles of
-    `rows` on a card with n_sm SMs. Row tiles that fill the card run
-    whole (one slice). Fewer tiles split the chunks into S slices, S a
-    divisor of n_chunks, chosen to minimise the waves of
-    one-block-per-SM times the chunks per block,
-    ceil(tiles * S / n_sm) * (n_chunks / S); on a tie the smaller S,
-    which writes and sums fewer partials. Cached: a launch asks for it on
-    every call, with few distinct row counts."""
+    `rows` on a card with n_sm SMs: `split_slices` over the row tiles.
+    Cached: a launch asks for it on every call, with few distinct row
+    counts."""
     tiles = -(-m // rows)
-    slices = 1
-    if tiles < n_sm:
-        slices = min((s for s in range(1, n_chunks + 1) if n_chunks % s == 0),
-                     key=lambda s: (-(-tiles * s // n_sm) * (n_chunks // s),
-                                    s))
+    slices = split_slices(tiles, n_chunks, n_sm)
     scratch = (slices, m, KERNEL_HIDDEN) if slices > 1 else None
     return RowPlan(tiles, slices, n_chunks // slices, scratch)
 
@@ -105,22 +118,45 @@ def ffn_plan(m: int, f: int, n_sm: int) -> RowPlan:
     return split_plan(m, f // KERNEL_CHUNK, n_sm)
 
 
-def ffn_plan_f32(m: int, f: int, n_sm: int) -> RowPlan:
-    """The launch of the f32 FFN kernel: `split_plan` over the f / 256
-    chunks of F in tiles of 32 rows."""
-    return split_plan(m, f // KERNEL_F32_CHUNK, n_sm, KERNEL_F32_ROWS)
+class F32Plan(NamedTuple):
+    """How one call of the f32 FFN kernels is launched: `tiles` row
+    tiles of 128 in both products; the second (h @ w2, 6 column tiles of
+    128) in `slices` slices of its f / 32 k-tiles, `k_tiles` each;
+    `scratch` f32 elements of the call's scratch buffer: the TF32 planes
+    (hi, lo) of x [m, 768], of W1^T and W2^T (f * 768 each) and of h
+    [m, f], and the partials [slices, m, 768]."""
+    tiles: int
+    slices: int
+    k_tiles: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=4096)
+def ffn_plan_f32(m: int, f: int, n_sm: int) -> F32Plan:
+    """The launch of the f32 FFN kernels for m rows and intermediate
+    width f: `split_slices` over the second product's output tiles and
+    k-tiles, with at least KERNEL_F32_MIN_K_TILES k-tiles per slice (a
+    block's fixed cost, the prologue of its 3-stage ring and its
+    epilogue, is a few k-tiles' time). Cached, as `split_plan`."""
+    tiles = -(-m // KERNEL_F32_ROWS)
+    n_k = f // KERNEL_F32_K
+    slices = split_slices(tiles * (KERNEL_HIDDEN // KERNEL_F32_COLS), n_k,
+                          n_sm, max(1, n_k // KERNEL_F32_MIN_K_TILES))
+    h = KERNEL_HIDDEN
+    return F32Plan(tiles, slices, n_k // slices,
+                   2 * m * h + 4 * f * h + 2 * m * f + slices * m * h)
 
 
 def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
                    dtype: torch.dtype) -> bool:
     """Shape/dtype gate of the CUDA kernels. They tile rows (64 in bf16,
-    32 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
+    128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling and does not
     apply); they are compiled for the BERT-base width and walk F in
-    chunks (64 in bf16, which also keeps W2's rows a multiple of TMA's
-    16 bytes; 256 in f32)."""
+    chunks of 64 in bf16 (which also keeps W2's rows a multiple of TMA's
+    16 bytes) and in output tiles of 128 in f32."""
     chunk = {torch.bfloat16: KERNEL_CHUNK,
-             torch.float32: KERNEL_F32_CHUNK}.get(dtype)
+             torch.float32: KERNEL_F32_COLS}.get(dtype)
     return (chunk is not None and m >= 1 and hidden == KERNEL_HIDDEN
             and intermediate > 0 and intermediate % chunk == 0)
 
@@ -302,9 +338,9 @@ def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
         raise ValueError(f"fused_ffn_ln: w1 {tuple(w1.shape)} / w2 "
                          f"{tuple(w2.shape)} do not match x [{m}, {hidden}]")
     f32 = torch.float32
-    # f32 as they are, never rounded: the kernel reads nn.Linear's
-    # [out, in] layout, W1^T [F, H] and W2^T [H, F] (a transposed view of
-    # an nn.Linear weight costs no copy)
+    # f32 as they are: the kernels read nn.Linear's [out, in] layout,
+    # W1^T [F, H] and W2^T [H, F] (a transposed view of an nn.Linear
+    # weight costs no copy), and split them into TF32 planes themselves
     w1t = w1.to(f32).t().contiguous()
     w2t = w2.to(f32).t().contiguous()
     vecs = [v.contiguous() for v in (b1, b2, gamma, beta)
@@ -322,11 +358,9 @@ def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     y = torch.empty_like(z)
     lib = build.load_library(dev)
     plan = ffn_plan_f32(m, f, sm_count(dev))
-    scratch = (torch.empty(plan.scratch, dtype=f32, device=dev)
-               if plan.scratch else None)
+    scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
-    tail = (y.data_ptr(), scratch.data_ptr() if scratch is not None
-            else None, m, f, plan.slices, float(eps))
+    tail = (y.data_ptr(), scratch.data_ptr(), m, f, plan.slices, float(eps))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if input_ln:

@@ -50,7 +50,7 @@ _FFN_ROUTES = [
     (F32, [F32] * 4, 64, 128, 256, False, PLAIN),
     (BF16, [BF16] * 6, 64, 1024, 4096, True, PLAIN),
     (F32, [F32] * 6, 64, 768, 3000, True, PLAIN),
-    (F32, [F32] * 6, 64, 768, 3072 - 64, True, PLAIN),  # f32: chunks of 256
+    (F32, [F32] * 6, 64, 768, 3072 - 64, True, PLAIN),  # f32: tiles of 128
     (BF16, [BF16] * 6, 64, 768, 3072 - 64, True, BF),   # bf16: chunks of 64
     (F16, [F16] * 6, 64, 768, 3072, True, PLAIN),
     (F32, [F32] * 6, 0, 768, 3072, True, PLAIN),
@@ -63,7 +63,7 @@ def test_ffn_route(x, vecs, m, h, f, input_ln, want):
     assert k1.ffn_route(x, vecs, m, h, f, input_ln) == want
     assert k1.ffn_ln_fusible(m, h, f, x) == (
         want != PLAIN or x in (BF16, F32) and m >= 1 and h == 768
-        and f % (64 if x == BF16 else 256) == 0)
+        and f % (64 if x == BF16 else 128) == 0)
 
 
 # (ctx dtype, x dtype, vector dtypes, m, H) -> route
@@ -90,27 +90,30 @@ def test_attn_out_route(ctx, x, vecs, m, h, want):
     assert k3.attn_out_route(ctx, x, vecs, m, h) == want
 
 
-# (m, tiles, slices, chunks per slice) of the f32 FFN kernel on a card
-# with 132 SMs at F = 3072 (12 chunks of 256, tiles of 32 rows): the
+# (m, row tiles, slices, k-tiles per slice) of the f32 FFN kernels on a
+# card with 132 SMs at F = 3072 (row tiles of 128; the second product's 6
+# column tiles of 128 and 96 k-tiles of 32, at least 8 per slice): the
 # single request (1, then its length bucket 64), a ragged tile, the
-# CLS-only last layer at B=256, a mid size and the packed batch, whose
-# 512 tiles fill the card without a split
-_F32_PLANS = [(1, 1, 12, 1), (37, 2, 12, 1), (64, 2, 12, 1),
-              (1024, 32, 4, 3), (4096, 128, 1, 12), (16384, 512, 1, 12)]
+# CLS-only last layer at B=256 (48 output tiles x 8 slices), a mid size
+# and the packed batch, whose output tiles fill the card without a split
+_F32_PLANS = [(1, 1, 12, 8), (37, 1, 12, 8), (64, 1, 12, 8),
+              (1024, 8, 8, 12), (4096, 32, 1, 96), (16384, 128, 1, 96)]
 
 
-@pytest.mark.parametrize("m,tiles,slices,chunks", _F32_PLANS,
+@pytest.mark.parametrize("m,tiles,slices,k_tiles", _F32_PLANS,
                          ids=[f"m{p[0]}" for p in _F32_PLANS])
-def test_f32_plan_at_the_main_path_row_counts(m, tiles, slices, chunks):
+def test_f32_plan_at_the_main_path_row_counts(m, tiles, slices, k_tiles):
     plan = k1.ffn_plan_f32(m, 3072, 132)
-    assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
-    assert plan.scratch == (None if slices == 1 else (slices, m, 768))
+    assert (plan.tiles, plan.slices, plan.k_tiles) == (tiles, slices, k_tiles)
+    # the TF32 planes of x, the weights and h, and one partial per slice
+    assert plan.scratch == (2 * m * 768 + 4 * 3072 * 768 + 2 * m * 3072
+                            + slices * m * 768)
 
 
 @pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
 def test_f32_split_emulation_matches_interpreted_jax(input_ln):
-    # the f32 kernel's tiling: H = 768, F = 768 in 3 chunks of 256, one
-    # slice per chunk, as ffn_plan_f32 gives a single request
+    # the f32 kernels' split: H = 768, F = 768 in 24 k-tiles of 32, three
+    # slices of 8, as ffn_plan_f32 gives a single request
     rng = np.random.default_rng(21)
     m, h, f = 32, 768, 768
 

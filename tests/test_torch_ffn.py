@@ -103,14 +103,15 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
     assert not k1.ffn_ln_fusible(64, 512, 3072, bf)      # built for H=768
     assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
-    # f32 at H = 768: the f32 kernel (32-row tiles, F in chunks of 256)
+    # f32 at H = 768: the f32 kernels (128-row tiles, F in output tiles
+    # of 128)
     f32 = torch.float32
     assert all(k1.ffn_ln_fusible(m, 768, 3072, f32)
-               for m in (1, 31, 32, 33, 37, 1024, 16384))
+               for m in (1, 31, 127, 128, 129, 1024, 16385))
     assert not k1.ffn_ln_fusible(0, 768, 3072, f32)
     assert not k1.ffn_ln_fusible(64, 512, 3072, f32)     # built for H=768
     assert not k1.ffn_ln_fusible(64, 128, 256, f32)
-    assert not k1.ffn_ln_fusible(64, 768, 3072 - 64, f32)  # chunks of 256
+    assert not k1.ffn_ln_fusible(64, 768, 3072 - 64, f32)  # tiles of 128
     assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float16)
     # mixed dtypes stay outside the kernels: f32 rows with bf16 vectors,
     # and K2's bf16 rows with f32 vectors
