@@ -167,7 +167,8 @@ non-zero):
    MicroBatcher; the p50 of each path with the kernels and forced off, in
    turns; and each f32 kernel against its plain version at the f32
    paths' shapes beside its bound, K3-f32 also against the classic f32
-   linear + add + LayerNorm chain.
+   linear + add + LayerNorm chain, with its GEMM's plan (row tiles x
+   slices) at 64 rows and at the packed count.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -207,12 +208,13 @@ HERE = Path(__file__).resolve().parent
 # on average, which phases 3 and 3b check on the card.
 ROW_ATOL = 5e-2
 ROW_MEAN_ATOL = 1e-4
-# K1-K3 in f32 against their plain versions (TF32 off): f32 products
-# (K1-f32 and K2-f32 as three TF32 products, csrc/ffn_ln_f32.cu) summed in
-# another order, then LayerNorm. An H100 read up to 1.4e-5 max and 7.0e-7
-# mean for K3-f32 (FFMA), and 1.9e-5 / 9.3e-7 for K1-f32 and K2-f32
-# (3xTF32, the tensor cores' sums rounded into an f32 total every 256 of
-# k); the plain version with its operands rounded to TF32 (10-bit
+# K1-K3 in f32 against their plain versions (TF32 off): f32-accurate
+# products (three TF32 products on the tensor cores, the GEMM of
+# csrc/gemm_tf32x3.cuh) summed in another order, then LayerNorm. An H100
+# read up to 1.9e-5 max and 9.3e-7 mean for K1-f32 and K2-f32 (the tensor
+# cores' sums rounded into an f32 total every 256 of k), and up to 1.4e-5
+# / 7.0e-7 for the FFMA K3-f32 that the same GEMM replaced; the plain
+# version with its operands rounded to TF32 (10-bit
 # mantissa) read 1.7e-3-3.2e-3 max and 1.8e-4-3.1e-4 mean (PERF.md), so
 # these limits tell f32 from TF32, which phases 3 and 3b check on the
 # card.
@@ -3719,6 +3721,7 @@ def main() -> int:
          torch.backends.cudnn.allow_tf32) = tf32
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     plan_cls = k1.ffn_plan_f32(SMALL_ROWS[0], f, n_sm)
+    plans_k3 = {m: k3.attn_out_plan_f32(m, n_sm) for m in (64, m16)}
     print(f"[16 f32 serving] {card} | training.compute_dtype=float32, "
           f"TF32 off | " + " || ".join(lines16) + " | kernels, TF32-off "
           f"plain beside each: " + "; ".join(
@@ -3727,7 +3730,12 @@ def main() -> int:
               for (k, t), m in zip(times32.items(),
                                    (packed_m, SMALL_ROWS[0], m16, m16)))
           + f" (K1-f32 at M={SMALL_ROWS[0]}: {plan_cls.tiles} tiles x "
-          f"{plan_cls.slices} slices); K3-f32 vs the classic f32 linear + "
+          f"{plan_cls.slices} slices; K3-f32's GEMM "
+          + ", ".join(f"at M={m}: {p.tiles} row tiles x 6 column tiles x "
+                      f"{p.slices} slices of {p.k_tiles} k-tiles"
+                      for m, p in plans_k3.items())
+          + f", scratch {plans_k3[m16].scratch * 4 / 1e6:.1f} MB per call); "
+          f"K3-f32 vs the classic f32 linear + "
           f"add + LayerNorm chain {k3_32_ms_b:.4f} vs {chain_ms:.4f} ms "
           f"({chain_runs}; the chain's max|diff| from plain "
           f"{chain_err[0]:.3e}) | {time.perf_counter() - t16:.1f} s")

@@ -4,11 +4,10 @@
 //   y = LN(x + ctx . Wo^T + bo)   ctx, x: [M, 768] f32; Wo: [768, 768] f32 in
 //                                 torch.nn.Linear's [out, in]
 //
-// Everything is f32 as in the Pallas body run in f32
-// (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): operands,
-// products and sums are IEEE single precision (FFMA on the CUDA cores, never
-// TF32); bo and the residual are added in f32 before the two-pass LayerNorm
-// (eps given, 1e-12 for BERT). bo, gamma and beta are f32.
+// The function is the Pallas body run in f32
+// (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): an
+// f32-accurate product, bo and the residual added in f32, then the two-pass
+// LayerNorm (eps given, 1e-12 for BERT). bo, gamma and beta are f32.
 //
 // Replaces multimodal_rare_disease_tpu/ops/pallas/attn_out.py::
 // _attn_out_ln_kernel (reached through _fused_attn_out_ln_impl) where the
@@ -16,87 +15,102 @@
 // is its bf16 form.
 //
 // What bounds it on the H100: the operations. At the packed batch of 256
-// documents (M = 16,384) one call does 2*M*768*768 = 19.3 GFLOP, 0.29 ms at
-// the 67 TFLOP/s f32 rate, against 153 MB of device memory (ctx, x and y,
-// 50 MB each, and Wo, 2.4 MB): 0.046 ms at 3.35 TB/s.
+// documents (M = 16,384) one call does 2*M*768*768 = 19.3 GFLOP against
+// 153 MB of device memory (ctx, x and y, 50 MB each, and Wo, 2.4 MB): 0.046
+// ms at 3.35 TB/s. On the CUDA cores the product alone takes 0.29 ms at the
+// 67 TFLOP/s f32 rate; as three TF32 products on the tensor cores (the
+// f32-accurate split of gemm_tf32x3.cuh) it is bounded at 0.117 ms by the
+// 495 TFLOP/s TF32 rate.
 //
-// Design: the product of rows_f32.cuh. A block owns 32 rows and 256 threads;
-// the ctx tile [32, 768] f32 (96 KB) is staged in shared memory once (zeros
-// past M), and Wo^T streams through a ring of 3 tiles [768 out][8 k] (24 KB)
-// filled by cp.async, every block reading the same tiles from L2. Each
-// thread keeps an [8, 12] slice of the [32, 768] f32 accumulator; the
-// epilogue adds bo and x (read from device memory once, by the rows' owners)
-// and applies LN from the registers. One call of the packed batch is 512
-// blocks, about four waves of 132 SMs; a single request's 64 rows take two
-// blocks (0.1 ms of f32 work each), so the kernel has no split path.
+// Design: gemm_tf32x3.cuh's GEMM, which K1-f32 and K2-f32 run, with A split
+// on the chip. One call is three launches on the caller's stream:
+//   1. split_weight: Wo^T [768 out, 768 in] into its exact TF32 planes
+//      (2.4 MB read, 4.7 MB written). Every call splits it anew: nothing is
+//      cached, so nothing goes stale after a train step;
+//   2. gemm_tf32x3<kPartial, kSplitA>: ctx . Wo^T into f32 partials
+//      [S, M, 768], 6 column tiles x ceil(M / 128) row tiles, the k loop of
+//      24 k-tiles in S slices of at least 8 when the output tiles would
+//      leave SMs idle (kernels/attn_out.py::attn_out_plan_f32; S = 1 at the
+//      packed batch, 3 at a single request's 64 rows). ctx is read from
+//      device memory once, as f32, by TMA, and each consumer warpgroup
+//      splits its 64 rows into the TF32 planes in shared memory (kSplitA).
+//      A pass that wrote ctx's planes to device memory and read them back
+//      would move 250 MB at M = 16,384 (0.075 ms at 3.35 TB/s against the
+//      0.117-ms bound). wgmma could instead take A from registers, split
+//      there, but the operand fragments (two planes of 4 k8 steps) would
+//      stay live beside the 192 accumulator floats of the consumers' 232
+//      registers; the split in shared memory keeps no register across the
+//      product;
+//   3. split_reduce_f32<false>: y = LN(sum of the S partials in slice order
+//      + bo + x). No atomics: the same bits on every launch.
+// Rows past M read as zeros (TMA) and are not stored. Numerics: the 3xTF32
+// products of K1-f32 (on the H100, within 2.4e-6-2.0e-5 max and 5.2e-7-
+// 9.0e-7 mean of the plain f32 version for K1-f32); the sums of each window
+// of 8 k-tiles go into a register total on the CUDA cores.
+
+#include <cuda.h>
 
 #include "common.cuh"
-#include "rows_f32.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
-constexpr int kTiles = kF32H / kOutTileK;  // 96 Wo^T tiles
-constexpr int kOffCtx = 0;
-constexpr int kOffRing = kOffCtx + kF32TM * kF32H;
-constexpr int kOffRed = kOffRing + kF32Stages * kOutTileFloats;
-constexpr int kSmemBytes = (kOffRed + 2 * kF32ColGroups * kF32TM) * 4;
+constexpr int kK = kF32H;                                   // Wo^T's k: 768
+constexpr long long kWoVecs = static_cast<long long>(kF32H) * kK / 4;
+constexpr int kWoBlocks = static_cast<int>(
+    (kWoVecs + kSplitThreads * kSplitVecs - 1) / (kSplitThreads * kSplitVecs));
 
-static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
-
-__global__ void __launch_bounds__(kF32Threads, 1)
-attn_out_ln_f32_kernel(const float* __restrict__ ctx,    // [M, 768]
-                       const float* __restrict__ x,      // [M, 768]
-                       const float* __restrict__ wot,    // Wo^T [768 out, 768 in]
-                       const float* __restrict__ bo,     // [768]
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta,
-                       float* __restrict__ y,            // [M, 768]
-                       int M, float eps) {
-  extern __shared__ __align__(16) float smem_f32[];
-  float* cs = smem_f32 + kOffCtx;
-  float* ring = smem_f32 + kOffRing;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kF32TM;
-  const auto issue = [&](int g, float* slot) {
-    load_out_tile(slot, wot, kF32H, kOutTileK * g);
-  };
-  ring_start(ring, kOutTileFloats, kTiles, issue);
-  stage_rows_f32(cs, ctx, row0, M);
-
-  float acc[kF32RowsPerWarp][kF32Cols];
+// Stage 1: Wo^T [768, 768] into its planes w_hi, w_lo, float4 by float4
+__global__ void __launch_bounds__(kSplitThreads)
+split_weight(const float* __restrict__ wot, float* __restrict__ w_hi,
+             float* __restrict__ w_lo) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kSplitThreads * kSplitVecs + threadIdx.x;
 #pragma unroll
-  for (int r = 0; r < kF32RowsPerWarp; ++r)
-#pragma unroll
-    for (int i = 0; i < kF32Cols; ++i) acc[r][i] = 0.0f;
-#pragma unroll 1
-  for (int g = 0; g < kTiles; ++g)
-    out_tile_step(acc, cs, kF32H, kOutTileK * g,
-                  ring_advance(ring, kOutTileFloats, g, kTiles, issue));
-  ln_epilogue_f32(acc, x, bo, gamma, beta, smem_f32 + kOffRed, y, row0, M, eps);
+  for (int i = 0; i < kSplitVecs; ++i) {
+    const long long q = first + i * kSplitThreads;
+    if (q >= kWoVecs) return;
+    float4 hi, lo;
+    split4(reinterpret_cast<const float4*>(wot)[q], hi, lo);
+    reinterpret_cast<float4*>(w_hi)[q] = hi;
+    reinterpret_cast<float4*>(w_lo)[q] = lo;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory per block of the f32 attention-output kernel.
-int mrd_attn_out_f32_smem_bytes() { return kSmemBytes; }
+// Dynamic shared memory per block of the f32 attention-output GEMM.
+int mrd_attn_out_f32_smem_bytes() { return static_cast<int>(kSmemBytes); }
 
 // y = LN(x + ctx Wo^T + bo) in f32 on `stream`. Pointers are device pointers
 // to f32, 16-byte aligned; ctx, x and y are [M, 768] row-major, wo is
-// [768 out, 768 in] row-major, bo, gamma and beta are [768]. Returns the
-// cudaError_t of the launch (0 on success). Allocates nothing.
+// [768 out, 768 in] row-major, bo, gamma and beta are [768]. `slices` (1, 2
+// or 3: a divisor of the 24 k-tiles) splits the product's k loop. `scratch`
+// holds f32 2 768 768 + slices M 768 elements
+// (kernels/attn_out.py::attn_out_plan_f32): Wo's planes, then the partials.
+// Returns the cudaError_t of the launches (0 on success). Allocates nothing.
 int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const void* bo,
-                        const void* gamma, const void* beta, void* y, int M, float eps,
-                        void* stream) {
+                        const void* gamma, const void* beta, void* y, void* scratch, int M,
+                        int slices, float eps, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
+  if (slices < 1 || (kK / kBK) % slices != 0 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w_hi = static_cast<float*>(scratch);
+  float* w_lo = w_hi + kF32H * kK;
+  float* partial = w_lo + kF32H * kK;
+  split_weight<<<kWoBlocks, kSplitThreads, 0, s>>>(f(wo), w_hi, w_lo);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_out_ln_f32_kernel<<<(M + kF32TM - 1) / kF32TM, kF32Threads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      f(ctx), f(x), f(wo), f(bo), f(gamma), f(beta), static_cast<float*>(y), M, eps);
+  err = launch_gemm<kPartial, true>(f(ctx), nullptr, w_hi, w_lo, nullptr, partial, nullptr, M,
+                                    kF32H, kK, slices, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_reduce_f32<false><<<(M + 7) / 8, kSplitThreads, 0, s>>>(
+      partial, slices, f(x), f(bo), f(gamma), f(beta), nullptr, nullptr,
+      static_cast<float*>(y), M, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

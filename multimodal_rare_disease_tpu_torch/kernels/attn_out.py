@@ -4,22 +4,27 @@ Hopper.
     y = LN(x + ctx @ wo + bo)
 
 Counterpart of `multimodal_rare_disease_tpu/ops/pallas/attn_out.py`, whose
-Pallas kernel runs in the model's compute dtype. Two CUDA kernels replace
+Pallas kernel runs in the model's compute dtype. Two CUDA sources replace
 its `_attn_out_ln_kernel`: `csrc/attn_out_ln.cu` for bf16 (wgmma on 64-row
 tiles, Wo streamed by TMA from a producer warpgroup) and
-`csrc/attn_out_ln_f32.cu` for f32 (FFMA on the CUDA cores, never TF32, 32
-rows per block); `attn_out_ln_plain` is the same math in PyTorch, under
+`csrc/attn_out_ln_f32.cu` for f32 (three launches: Wo split into TF32
+planes, the f32 FFN's 3xTF32 wgmma GEMM fed by TMA with ctx split into its
+planes in shared memory, and a LayerNorm pass over its f32 partials);
+`attn_out_ln_plain` is the same math in PyTorch, under
 the TPU module's numerics contract: the product accumulates in f32 and
 is not rounded, bo and the residual are added in f32, and the two-pass
 LayerNorm runs in f32 (unlike the JAX `attn_out_ln_reference`, which
 rounds the projection and the residual sum to the compute dtype first).
 
-When the 64-row tiles would fill fewer blocks than the card has SMs (a
+When the output tiles would fill fewer blocks than the card has SMs (a
 single request's 64 rows), the bf16 kernel splits the 12 k chunks of the
 product into slices, each block writes an f32 partial of ctx @ wo for
 its slice, and a second kernel (the FFN kernel's split reduction) sums
-the partials in slice order before bo, the residual and LN.
-`attn_out_plan` chooses the slices by `ffn.split_plan`'s rule, and
+the partials in slice order before bo, the residual and LN. The f32
+GEMM always writes f32 partials (one slice at the packed batch) and
+splits its 24 k-tiles the same way below 132 output tiles.
+`attn_out_plan` and `attn_out_plan_f32` choose the slices by
+`ffn.split_plan`'s and `ffn.gemm_plan_f32`'s rules, and
 `attn_out_ln_plain(..., slices=S)` emulates the split sum in the
 kernel's order, so the CPU tests reach both.
 
@@ -34,6 +39,8 @@ only by tests and chip_smoke.py.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multimodal_rare_disease_tpu_torch.kernels import build
@@ -41,8 +48,10 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
     ROUTE_BF16,
     ROUTE_F32,
     ROUTE_PLAIN,
+    F32Plan,
     RowPlan,
     dot_f32,
+    gemm_plan_f32,
     ln_f32,
     no_autograd,
     sm_count,
@@ -58,7 +67,7 @@ LAUNCHES_F32 = 0
 PLAIN_ON_CUDA = 0
 
 # the tiling csrc/attn_out_ln.cu was written for (see its header); the f32
-# kernel has no split path
+# kernel's GEMM tiles as `ffn.gemm_plan_f32` says
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 
@@ -69,9 +78,21 @@ def attn_out_plan(m: int, n_sm: int) -> RowPlan:
     return split_plan(m, KERNEL_HIDDEN // KERNEL_CHUNK, n_sm)
 
 
+@functools.lru_cache(maxsize=4096)
+def attn_out_plan_f32(m: int, n_sm: int) -> F32Plan:
+    """The launch of the f32 kernel for m rows on a card with n_sm SMs:
+    `gemm_plan_f32` over the 24 k-tiles of the 768-wide product (at most
+    3 slices of 8), and the scratch of one call: Wo^T's TF32 planes
+    (2 * 768 * 768) and the f32 partials [slices, m, 768]. Cached, as
+    `split_plan`."""
+    tiles, slices, k_tiles = gemm_plan_f32(m, KERNEL_HIDDEN, n_sm)
+    h = KERNEL_HIDDEN
+    return F32Plan(tiles, slices, k_tiles, 2 * h * h + slices * m * h)
+
+
 def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
     """Shape/dtype gate of the CUDA kernels: they tile rows (64 in bf16,
-    32 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
+    128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling), and they are
     compiled for H = 768, in bf16 and in f32."""
     return (m >= 1 and hidden == KERNEL_HIDDEN
@@ -181,9 +202,11 @@ def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
         raise ValueError(f"fused_attn_out_ln: x {tuple(x.shape)} / wo "
                          f"{tuple(wo.shape)} do not match ctx [{m}, {hidden}]")
     ctx, x = ctx.contiguous(), x.contiguous()
-    # f32 as it is, never rounded: the kernel reads nn.Linear's [out, in]
-    # layout, Wo^T
-    wot = wo.to(torch.float32).t().contiguous()
+    f32 = torch.float32
+    # f32 as it is: the kernel reads nn.Linear's [out, in] layout, Wo^T (a
+    # transposed view of an nn.Linear weight costs no copy), and splits it
+    # into TF32 planes itself
+    wot = wo.to(f32).t().contiguous()
     vecs = [v.contiguous() for v in (bo, gamma, beta)]  # f32 (the route)
     for t in (x, wot, *vecs):
         if t.device != dev:
@@ -192,18 +215,21 @@ def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
     if any(v.numel() != hidden for v in vecs):
         raise ValueError("fused_attn_out_ln: bias/LayerNorm vectors do not "
                          "match")
-    # the rows and Wo are read 16 bytes at a time
-    ctx, x = [t.clone() if t.data_ptr() % 16 else t for t in (ctx, x)]
+    # ctx is read by TMA (a tensor map), the rest 16 bytes at a time
+    ctx, x, *vecs = [t.clone() if t.data_ptr() % 16 else t
+                     for t in (ctx, x, *vecs)]
     if wot.data_ptr() % 16:
         raise ValueError("fused_attn_out_ln: wo must be 16-byte aligned")
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
+    plan = attn_out_plan_f32(m, sm_count(dev))
+    scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mrd_attn_out_ln_f32(
             ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
-            *(v.data_ptr() for v in vecs), y.data_ptr(), m, float(eps),
-            stream)
+            *(v.data_ptr() for v in vecs), y.data_ptr(), scratch.data_ptr(),
+            m, plan.slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_f32")
     LAUNCHES_F32 += 1
     return y

@@ -148,7 +148,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "mrd_attn_out_ln_bf16": [p] * 8 + [i, i, f, p],
         "mrd_ffn_pre_ln_f32": [p] * 11 + [i, i, i, f, p],
         "mrd_ffn_ln_f32": [p] * 9 + [i, i, i, f, p],
-        "mrd_attn_out_ln_f32": [p] * 7 + [i, f, p],
+        "mrd_attn_out_ln_f32": [p] * 8 + [i, i, f, p],
         "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
         "mrd_error_string": [i],
         "mrd_ffn_smem_bytes": [],

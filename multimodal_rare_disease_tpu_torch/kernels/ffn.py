@@ -56,10 +56,11 @@ LAUNCHES_K2_F32 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
-# the tiling csrc/ffn_ln.cu (bf16) and csrc/ffn_ln_f32.cu (f32) were
-# written for (see their headers): bf16 F chunks and row tiles; the f32
-# GEMMs' output tiles (rows x columns) and k-tiles, and the fewest k-tiles
-# a slice of the second product keeps
+# the tiling csrc/ffn_ln.cu (bf16) and the f32 GEMM of csrc/ffn_ln_f32.cu
+# and csrc/attn_out_ln_f32.cu (csrc/gemm_tf32x3.cuh) were written for (see
+# their headers): bf16 F chunks and row tiles; the f32 GEMM's output tiles
+# (rows x columns) and k-tiles, and the fewest k-tiles a slice of a split
+# k loop keeps
 KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 KERNEL_ROWS = 64
@@ -119,31 +120,43 @@ def ffn_plan(m: int, f: int, n_sm: int) -> RowPlan:
 
 
 class F32Plan(NamedTuple):
-    """How one call of the f32 FFN kernels is launched: `tiles` row
-    tiles of 128 in both products; the second (h @ w2, 6 column tiles of
-    128) in `slices` slices of its f / 32 k-tiles, `k_tiles` each;
-    `scratch` f32 elements of the call's scratch buffer: the TF32 planes
-    (hi, lo) of x [m, 768], of W1^T and W2^T (f * 768 each) and of h
-    [m, f], and the partials [slices, m, 768]."""
+    """How one call of an f32 kernel's 3xTF32 GEMM (csrc/gemm_tf32x3.cuh)
+    with 768 output columns is launched: `tiles` row tiles of 128 (times 6
+    column tiles of 128), the k loop in `slices` slices of `k_tiles`
+    k-tiles of 32 each; `scratch` f32 elements of the call's scratch
+    buffer. The FFN (`ffn_plan_f32`): the TF32 planes (hi, lo) of x
+    [m, 768], of W1^T and W2^T (f * 768 each) and of h [m, f], and the
+    partials [slices, m, 768] of h @ w2, the product that is split. K3
+    (`attn_out.attn_out_plan_f32`): the planes of Wo^T [768, 768] and
+    the partials of ctx @ wo."""
     tiles: int
     slices: int
     k_tiles: int
     scratch: int
 
 
+def gemm_plan_f32(m: int, k: int, n_sm: int) -> Tuple[int, int, int]:
+    """(row tiles, slices, k-tiles per slice) of the 3xTF32 GEMM with 768
+    output columns and a k loop of k / 32 k-tiles, for m rows on a card
+    with n_sm SMs: `split_slices` over its output tiles, with at least
+    KERNEL_F32_MIN_K_TILES k-tiles per slice (a block's fixed cost, the
+    prologue of its 3-stage ring and its epilogue, is a few k-tiles'
+    time)."""
+    tiles = -(-m // KERNEL_F32_ROWS)
+    n_k = k // KERNEL_F32_K
+    slices = split_slices(tiles * (KERNEL_HIDDEN // KERNEL_F32_COLS), n_k,
+                          n_sm, max(1, n_k // KERNEL_F32_MIN_K_TILES))
+    return tiles, slices, n_k // slices
+
+
 @functools.lru_cache(maxsize=4096)
 def ffn_plan_f32(m: int, f: int, n_sm: int) -> F32Plan:
     """The launch of the f32 FFN kernels for m rows and intermediate
-    width f: `split_slices` over the second product's output tiles and
-    k-tiles, with at least KERNEL_F32_MIN_K_TILES k-tiles per slice (a
-    block's fixed cost, the prologue of its 3-stage ring and its
-    epilogue, is a few k-tiles' time). Cached, as `split_plan`."""
-    tiles = -(-m // KERNEL_F32_ROWS)
-    n_k = f // KERNEL_F32_K
-    slices = split_slices(tiles * (KERNEL_HIDDEN // KERNEL_F32_COLS), n_k,
-                          n_sm, max(1, n_k // KERNEL_F32_MIN_K_TILES))
+    width f: `gemm_plan_f32` of the second product (k = f). Cached, as
+    `split_plan`."""
+    tiles, slices, k_tiles = gemm_plan_f32(m, f, n_sm)
     h = KERNEL_HIDDEN
-    return F32Plan(tiles, slices, n_k // slices,
+    return F32Plan(tiles, slices, k_tiles,
                    2 * m * h + 4 * f * h + 2 * m * f + slices * m * h)
 
 

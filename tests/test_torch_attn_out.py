@@ -1,7 +1,8 @@
 """K3 of the torch package (kernels/attn_out.py): the plain version
 against the JAX package's Pallas kernel run in interpret mode, at the
-tolerances of tests/test_attn_out_kernel.py, the launch plan and the
-split-K path's plain emulation, and the device rule on the CPU. The CUDA
+tolerances of tests/test_attn_out_kernel.py, the launch plans of the bf16
+and f32 kernels and the split-K path's plain emulation (also at the f32
+kernel's slice counts), and the device rule on the CPU. The CUDA
 kernel itself is checked against the plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py."""
 
@@ -77,7 +78,8 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k3.attn_out_ln_fusible(m, 768, bf) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, bf)
     assert not k3.attn_out_ln_fusible(64, 512, bf)     # built for H=768
-    # f32 at H = 768: the f32 kernel (32-row tiles)
+    # f32 at H = 768: the f32 kernel (128-row tiles, TMA zero-fills and
+    # the epilogue clips the ragged one)
     f32 = torch.float32
     assert all(k3.attn_out_ln_fusible(m, 768, f32) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, f32)
@@ -123,5 +125,48 @@ def test_split_emulation_matches_interpreted_k3_f32():
                                   *map(jnp.asarray, args), interpret=True))
     got = k3.attn_out_ln_plain(torch.from_numpy(ctx), torch.from_numpy(x),
                                *map(torch.from_numpy, args), slices=4)
+    # the bound of test_plain_matches_interpreted_k3 in f32
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)
+
+
+# (m, row tiles, slices, k-tiles per slice) of the f32 kernel's GEMM on a
+# card with 132 SMs (6 column tiles of 128, 24 k-tiles of 32, at least 8
+# per slice): the single request (1, a ragged tile, its length bucket 64)
+# and the 1,024 CLS rows split the k loop; the packed batch and a ragged
+# tile past it fill the card without a split
+_PLANS_F32 = [(1, 1, 3, 8), (37, 1, 3, 8), (64, 1, 3, 8), (1024, 8, 2, 12),
+              (16384, 128, 1, 24), (16385, 129, 1, 24)]
+
+
+@pytest.mark.parametrize("m,tiles,slices,k_tiles", _PLANS_F32,
+                         ids=[f"m{p[0]}" for p in _PLANS_F32])
+def test_f32_plan_at_the_main_path_row_counts(m, tiles, slices, k_tiles):
+    plan = k3.attn_out_plan_f32(m, 132)
+    assert (plan.tiles, plan.slices, plan.k_tiles) == (tiles, slices,
+                                                        k_tiles)
+    assert plan.slices <= 3 and plan.slices * plan.k_tiles == 24
+    # Wo^T's two TF32 planes, then one f32 partial per slice of the rows
+    assert plan.scratch == 2 * 768 * 768 + slices * m * 768
+
+
+@pytest.mark.parametrize("slices", [2, 3])
+def test_f32_split_emulation_at_the_kernel_width(slices):
+    # the f32 kernel's slice counts at H = 768: k slices of 384 and 256
+    ctx, x, args = _make(64, 768, 7)
+    t = [torch.from_numpy(a) for a in (ctx, x, *args)]
+    whole = k3.attn_out_ln_plain(*t)
+    split = k3.attn_out_ln_plain(*t, slices=slices)
+    # the same 768-term dot, taken as `slices` partials: f32 rounding of
+    # the partial sums only (the bound of test_split_emulation_matches_plain_f32)
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("slices", [2, 3])
+def test_f32_split_emulation_matches_interpreted_k3(slices):
+    ctx, x, args = _make(64, 768, 8)
+    ref = np.asarray(jax_attn_out(jnp.asarray(ctx), jnp.asarray(x),
+                                  *map(jnp.asarray, args), interpret=True))
+    got = k3.attn_out_ln_plain(torch.from_numpy(ctx), torch.from_numpy(x),
+                               *map(torch.from_numpy, args), slices=slices)
     # the bound of test_plain_matches_interpreted_k3 in f32
     np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)

@@ -1,20 +1,24 @@
-"""The numerics of the f32 FFN kernels (csrc/ffn_ln_f32.cu), emulated on
-the CPU: each f32 operand a is split into TF32 planes, a_hi = tf32(a)
-(round to nearest, ties away from zero, as cvt.rna.tf32.f32) and
-a_lo = a - a_hi, and a product is taken on the tensor cores as
+"""The numerics of the f32 kernels' 3xTF32 GEMM (csrc/gemm_tf32x3.cuh, in
+the f32 FFN kernels of csrc/ffn_ln_f32.cu and the f32 attention-output
+kernel of csrc/attn_out_ln_f32.cu), emulated on the CPU: each f32
+operand a is split into TF32 planes, a_hi = tf32(a) (round to nearest,
+ties away from zero, as cvt.rna.tf32.f32) and a_lo = a - a_hi, and a
+product is taken on the tensor cores as
 a_hi . b_hi + (a_hi . b_lo + a_lo . b_hi), the last two summed in an
 accumulator of their own. The emulation sums in f32 on the CPU; it does
 not model the tensor cores' own rounding of their sums, which the kernels
 bound by moving them into a register total every 256 of k. It holds the
 kernels' 3xTF32 split to the f32 limits that tests/test_torch_gpu.py and
-chip_smoke.py hold the kernels to against `ffn_ln_plain` (TF32 off), and
-shows that the limits refuse one TF32 pass and a split that drops a
-cross term. The kernels themselves are checked on the card."""
+chip_smoke.py hold the kernels to against `ffn_ln_plain` and
+`attn_out_ln_plain` (TF32 off), and shows that the limits refuse one
+TF32 pass and a split that drops a cross term. The kernels themselves
+are checked on the card."""
 
 import numpy as np
 import pytest
 import torch
 
+from multimodal_rare_disease_tpu_torch.kernels import attn_out as k3
 from multimodal_rare_disease_tpu_torch.kernels import ffn as k1
 
 # chip_smoke.py's ROW_F32_ATOL / ROW_F32_MEAN_ATOL, tests/test_torch_gpu.py's
@@ -69,6 +73,12 @@ def ffn_ln_tf32(z, w1, b1, w2, b2, gamma, beta, eps=1e-12, *, input_ln,
     return k1.ln_f32(dot(h, w2, terms) + b2 + x, gamma, beta, eps)
 
 
+def attn_out_ln_tf32(ctx, x, wo, bo, gamma, beta, eps=1e-12, *,
+                     terms=("hh", "hl", "lh")):
+    """`attn_out_ln_plain` in f32 with the product taken as `dot`."""
+    return k1.ln_f32(dot(ctx, wo, terms) + bo + x, gamma, beta, eps)
+
+
 def _inputs(m=64, h=768, f=512, seed=13):
     # the scales of the card's checks (tests/test_torch_gpu.py): rows at
     # 1.0, weights at 0.05, biases and shifts at 0.5, scales at 1 +- 0.25
@@ -85,11 +95,30 @@ def _inputs(m=64, h=768, f=512, seed=13):
     return z, args, ln0
 
 
-def _err(input_ln, terms):
-    z, args, ln0 = _inputs()
-    ln0 = ln0 if input_ln else {}
-    want = k1.ffn_ln_plain(z, *args, input_ln=input_ln, **ln0)
-    got = ffn_ln_tf32(z, *args, input_ln=input_ln, terms=terms, **ln0)
+def _attn_inputs(m=64, h=768, seed=14):
+    # the scales of the card's f32 K3 checks: ctx and x at 1.0, Wo at
+    # 0.05, bo and beta at 0.5, gamma at 1 +- 0.25
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale, offset=0.0):
+        return torch.from_numpy(
+            (offset + rng.normal(size=shape) * scale).astype(np.float32))
+
+    return (t((m, h), 1.0), t((m, h), 1.0), t((h, h), 0.05), t((h,), 0.5),
+            t((h,), 0.25, 1.0), t((h,), 0.5))
+
+
+def _err(kernel, terms):
+    if kernel == "k3":
+        args = _attn_inputs()
+        want = k3.attn_out_ln_plain(*args)
+        got = attn_out_ln_tf32(*args, terms=terms)
+    else:
+        input_ln = kernel == "k1"
+        z, args, ln0 = _inputs()
+        ln0 = ln0 if input_ln else {}
+        want = k1.ffn_ln_plain(z, *args, input_ln=input_ln, **ln0)
+        got = ffn_ln_tf32(z, *args, input_ln=input_ln, terms=terms, **ln0)
     d = (got - want).abs()
     return d.max().item(), d.mean().item()
 
@@ -113,21 +142,25 @@ def test_tf32_split_is_exact_and_rounds_to_nearest():
                        torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]))
 
 
-@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
-def test_three_tf32_passes_meet_the_f32_limits(input_ln):
-    worst, mean = _err(input_ln, ("hh", "hl", "lh"))
+# K1 and K2 (the FFN), K3 (the attention output)
+_KERNELS = ["k1", "k2", "k3"]
+
+
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_three_tf32_passes_meet_the_f32_limits(kernel):
+    worst, mean = _err(kernel, ("hh", "hl", "lh"))
     assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
 
 
-@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
-def test_one_tf32_pass_fails_the_f32_limits(input_ln):
-    worst, mean = _err(input_ln, ("1",))
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_one_tf32_pass_fails_the_f32_limits(kernel):
+    worst, mean = _err(kernel, ("1",))
     assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
 
 
 @pytest.mark.parametrize("terms", [("hh", "lh"), ("hh", "hl")],
                          ids=["no_hi_lo", "no_lo_hi"])
-@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
-def test_dropping_a_cross_term_fails_the_f32_limits(input_ln, terms):
-    worst, mean = _err(input_ln, terms)
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_dropping_a_cross_term_fails_the_f32_limits(kernel, terms):
+    worst, mean = _err(kernel, terms)
     assert worst > _F32_MAX_ATOL or mean > _F32_MEAN_ATOL, (worst, mean)

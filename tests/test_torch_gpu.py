@@ -925,12 +925,20 @@ def test_f32_ffn_kernel_matches_plain(cuda, m, input_ln):
     assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
 
 
-@pytest.mark.parametrize("m", [1, 37, 64, 1024, 16384])
-def test_f32_attn_out_kernel_matches_plain(cuda, m):
-    t = _rng_tensor(np.random.default_rng(m), cuda)
+def _f32_attn_inputs(m, dev, seed):
+    t = _rng_tensor(np.random.default_rng(seed), dev)
     ctx, x, wo = t((m, 768), 1.0), t((m, 768), 1.0), t((768, 768), 0.05)
     vec = dict(bo=t((768,), 0.5), gamma=t((768,), 0.25, 1.0),
                beta=t((768,), 0.5))
+    return ctx, x, wo, vec
+
+
+# the single request (1, then its length bucket 64: the k loop in 3
+# slices), a ragged tile, the 1,024 CLS rows (2 slices), the packed batch
+# (one slice) and a ragged 128-row tile past it
+@pytest.mark.parametrize("m", [1, 37, 64, 1024, 16384, 16385])
+def test_f32_attn_out_kernel_matches_plain(cuda, m):
+    ctx, x, wo, vec = _f32_attn_inputs(m, cuda, seed=m)
     before = _f32_counts()
     with _tf32(False):
         got = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
@@ -938,6 +946,38 @@ def test_f32_attn_out_kernel_matches_plain(cuda, m):
     assert _f32_counts() == (*before[:2], before[2] + 1, *before[3:])
     worst, mean = _diff(got, want)
     assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("m", [64, 16384], ids=["split", "tiled"])
+def test_f32_attn_out_kernel_is_deterministic(cuda, m):
+    # the split path sums its partials in slice order and takes no atomics;
+    # both paths give the same bits on every launch
+    ctx, x, wo, vec = _f32_attn_inputs(m, cuda, seed=9)
+    first = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    again = _attn(k3.fused_attn_out_ln, ctx, x, wo, vec)
+    plan = k3.attn_out_plan_f32(m, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (plan.slices > 1) == (m == 64)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
+def test_f32_attn_out_check_fails_a_kernel_that_drops_a_term(cuda, name):
+    # neutral bo / gamma / beta, or a zero residual x, stand for an f32
+    # kernel that leaves the term out: the f32 limits must refuse it
+    ctx, x, wo, vec = _f32_attn_inputs(256, cuda, seed=8)
+    with _tf32(False):
+        want = _attn(k3.attn_out_ln_plain, ctx, x, wo, vec)
+        before = _f32_counts()
+        if name == "x":
+            got = _attn(k3.fused_attn_out_ln, ctx, torch.zeros_like(x), wo,
+                        vec)
+        else:
+            got = _attn(k3.fused_attn_out_ln, ctx, x, wo,
+                        {**vec, name: _neutral(name, vec[name])})
+    assert _f32_counts() == (*before[:2], before[2] + 1, *before[3:])
+    worst, mean = _diff(got, want)
+    assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
 
 
 def test_f32_limits_refuse_tf32_operands(cuda):
