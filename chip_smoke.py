@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh, int8 and f32 paths and its `entry()` forward once on one
-NVIDIA Hopper card.
+rank-mesh, int8, f32 and BERT-large-width paths and its `entry()`
+forward once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -170,6 +170,20 @@ non-zero):
    linear + add + LayerNorm chain, with its GEMM's plan (row tiles x
    slices) at 64 rows and at the packed count.
 
+17. BERT-large width (H = 1,024, F = 4,096, 16 heads, 24 layers;
+   `LARGE_OVER`, the default config's `text_encoder.*` overridden, as
+   `--set` does on the CLIs): each H = 1,024 form of K1, K2 and K3, in
+   bf16 and f32, against its plain version at M = 1, 64, 1,024, 16,384
+   and 16,385, and timed at the packed count beside its bound; the
+   24-layer tower from seeded weights through `predict_batch` at B=256 on
+   phase 4's pairs, on the default path (K1 24 per forward: 23 at the
+   packed rows, 1 at the 1,024 CLS rows) and the fused-sublayer one (K3
+   23, K2 23, K1 1, K4 1), in bf16 (held against every kernel forced
+   off and against the f32 model at phase 4's limits; one MicroBatcher
+   round on the default path) and in f32 (the f32 forms; within
+   PROB_ATOL_F32_KERNELS of every kernel forced off, top-1 256/256), and
+   the p50 of each.
+
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
 bracket device work only, and issued from an idle card, so that the events
@@ -324,9 +338,11 @@ def plain_kernels():
 
 
 # the launch counts: K1-K4 (the bf16 kernels, and K4 in either output
-# dtype), their f32 forms, and the calls the gates sent to plain on CUDA
+# dtype), their f32 forms, the H = 1,024 forms of K1-K3 in bf16 and f32,
+# and the calls the gates sent to plain on CUDA
 COUNT_KEYS = ("K1", "K2", "K3", "K4", "K1_f32", "K2_f32", "K3_f32",
-              "plain_on_cuda")
+              "K1_1024", "K2_1024", "K3_1024", "K1_f32_1024", "K2_f32_1024",
+              "K3_f32_1024", "plain_on_cuda")
 
 
 def count_dict(**counts):
@@ -344,6 +360,11 @@ def launch_counts():
         K1=ffn.LAUNCHES_K1, K2=ffn.LAUNCHES_K2, K3=attn_out.LAUNCHES,
         K4=image.LAUNCHES, K1_f32=ffn.LAUNCHES_K1_F32,
         K2_f32=ffn.LAUNCHES_K2_F32, K3_f32=attn_out.LAUNCHES_F32,
+        K1_1024=ffn.LAUNCHES_K1_1024, K2_1024=ffn.LAUNCHES_K2_1024,
+        K3_1024=attn_out.LAUNCHES_1024,
+        K1_f32_1024=ffn.LAUNCHES_K1_F32_1024,
+        K2_f32_1024=ffn.LAUNCHES_K2_F32_1024,
+        K3_f32_1024=attn_out.LAUNCHES_F32_1024,
         plain_on_cuda=(ffn.PLAIN_ON_CUDA + attn_out.PLAIN_ON_CUDA
                        + image.PLAIN_ON_CUDA))
 
@@ -352,7 +373,10 @@ def reset_counts():
     ffn, attn_out, image = kernel_modules()
     ffn.LAUNCHES_K1 = ffn.LAUNCHES_K2 = ffn.PLAIN_ON_CUDA = 0
     ffn.LAUNCHES_K1_F32 = ffn.LAUNCHES_K2_F32 = 0
+    ffn.LAUNCHES_K1_1024 = ffn.LAUNCHES_K2_1024 = 0
+    ffn.LAUNCHES_K1_F32_1024 = ffn.LAUNCHES_K2_F32_1024 = 0
     attn_out.LAUNCHES = attn_out.LAUNCHES_F32 = attn_out.PLAIN_ON_CUDA = 0
+    attn_out.LAUNCHES_1024 = attn_out.LAUNCHES_F32_1024 = 0
     image.LAUNCHES = image.PLAIN_ON_CUDA = 0
 
 
@@ -2945,6 +2969,376 @@ def entry_forward(dev, card: str):
     return totals
 
 
+# phase 17: BERT-large width (google-research/bert's cased_L-24_H-1024_A-16:
+# H = 1,024, F = 4,096, 16 heads of 64, 24 layers; the vocabulary stays
+# at BERT-large-cased's 28,996), served through the normal entry points
+# with these overrides of the default config, from seeded weights
+LARGE_OVER = {"text_encoder.hidden_size": 1024, "text_encoder.num_layers": 24,
+              "text_encoder.num_heads": 16,
+              "text_encoder.intermediate_size": 4096,
+              "text_encoder.max_position_embeddings": 512}
+# the row counts each H = 1,024 kernel is held to its plain version at:
+# the single request (1, then its length bucket 64), the 1,024 CLS rows,
+# the packed batch and a ragged 128-row tile past it
+LARGE_ROWS = (1, 64, 1024, 16384, 16385)
+
+
+def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 17: the H = 1,024 forms of K1-K3 in bf16 and f32 against
+    their plain versions, timed beside their bounds; the 24-layer,
+    1,024-wide text tower through `predict_batch` at B=256 on the default
+    and the fused-sublayer paths, in bf16 and in f32, each against the
+    same weights with every kernel forced off (the bf16 paths also
+    against the f32 model); one MicroBatcher round on the bf16 default
+    path. Returns the launches of its counted runs and, per new kernel
+    key, (max|diff|, dev ms, plain ms, (b2b ms, plain b2b ms), bound ms,
+    bound by)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    k1, k3, _ = kernel_modules()
+    t_phase = time.perf_counter()
+    totals = count_dict()
+    cfg = resolve_config("default", LARGE_OVER)
+    te = cfg.text_encoder
+    h, f, n_layers = te.hidden_size, te.intermediate_size, te.num_layers
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator().manual_seed(17)
+
+    def rnd(shape, scale, offset=0.0, dtype=f32):
+        return (torch.randn(shape, generator=gen) * scale + offset).to(
+            dev, dtype)
+
+    def diff(got, want):
+        d = (got.float() - want.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    # ---- a: each kernel against its plain version (TF32 off for f32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    forms = {}  # key -> (kernel call, plain call, bound) at the packed M
+    errs = {}
+    try:
+        for dt, tol in ((bf, (ROW_ATOL, ROW_MEAN_ATOL)),
+                        (f32, (ROW_F32_ATOL, ROW_F32_MEAN_ATOL))):
+            sfx = "_1024" if dt == bf else "_f32_1024"
+            # drawn in nn.Linear's [out, in] and passed as [in, out] views,
+            # as BertLayer passes them; the vectors in the model's dtype
+            w1, w2 = rnd((f, h), 0.05, dtype=dt).t(), rnd((h, f), 0.05,
+                                                          dtype=dt).t()
+            wo = rnd((h, h), 0.05, dtype=dt).t()
+            v = dict(b1=rnd((f,), 0.5, dtype=dt), b2=rnd((h,), 0.5, dtype=dt),
+                     gamma=rnd((h,), 0.25, 1.0, dtype=dt),
+                     beta=rnd((h,), 0.5, dtype=dt),
+                     pre_gamma=rnd((h,), 0.25, 1.0, dtype=dt),
+                     pre_beta=rnd((h,), 0.5, dtype=dt))
+            ln0 = dict(pre_gamma=v["pre_gamma"], pre_beta=v["pre_beta"])
+            for m in LARGE_ROWS:
+                z, c = rnd((m, h), 1.0, dtype=dt), rnd((m, h), 1.0, dtype=dt)
+                a = (z, w1, v["b1"], w2, v["b2"], v["gamma"], v["beta"])
+                a3 = (c, z, wo, v["b2"], v["gamma"], v["beta"])
+                # the arguments bound now: the f32 round rebinds the names
+                calls = {
+                    "K1" + sfx: (lambda a=a, ln0=ln0: k1.fused_ffn_ln(
+                                     *a, **ln0),
+                                 lambda a=a, ln0=ln0: k1.ffn_ln_plain(
+                                     *a, input_ln=True, **ln0),
+                                 ffn_bound(m, h, f, dt.itemsize, True,
+                                           dt.itemsize)),
+                    "K2" + sfx: (lambda a=a: k1.fused_ffn_ln(*a),
+                                 lambda a=a: k1.ffn_ln_plain(
+                                     *a, input_ln=False),
+                                 ffn_bound(m, h, f, dt.itemsize, False,
+                                           dt.itemsize)),
+                    "K3" + sfx: (lambda a3=a3: k3.fused_attn_out_ln(*a3),
+                                 lambda a3=a3: k3.attn_out_ln_plain(*a3),
+                                 attn_out_bound(m, h, dt.itemsize,
+                                                dt.itemsize))}
+                for key, (kern, plain, bound) in calls.items():
+                    reset_counts()
+                    got = kern()
+                    torch.cuda.synchronize()
+                    if launch_counts() != count_dict(**{key: 1}):
+                        fail(f"{key} at M={m}: launches {launch_counts()}, "
+                             f"want {key} 1 and nothing else")
+                    if not torch.isfinite(got).all() or got.shape != (m, h):
+                        fail(f"{key} at M={m}: bad output")
+                    e = diff(got, plain())
+                    errs.setdefault(key, {})[m] = e
+                    if e[0] > tol[0] or e[1] > tol[1]:
+                        fail(f"{key} disagrees with its plain version at "
+                             f"M={m}: {e} (tolerance {tol})")
+                    if m == 16384:
+                        forms[key] = (kern, plain, bound)
+        times = {key: in_turns(kern, plain)
+                 for key, (kern, plain, _) in forms.items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    t_a = time.perf_counter() - t_phase
+
+    # ---- b: the 24-layer tower through predict_batch at B=256
+    over_fused = {"text_encoder.fused_attn_out": True, "data.image_size": 256}
+    lines, p50s = [], {}
+    for tag, over, want in (
+            ("default", {}, dict(K1_1024=n_layers)),
+            ("fused", over_fused, dict(K1_1024=1, K2_1024=n_layers - 1,
+                                       K3_1024=n_layers - 1, K4=1))):
+        cfg_b = resolve_config("default", {**LARGE_OVER, **over})
+        cfg_32 = resolve_config("default", {
+            **LARGE_OVER, **over, "training.compute_dtype": "float32"})
+        pb = MultimodalPredictor(cfg_b, create_model(cfg_b, device="cpu",
+                                                     seed=0), dev)
+        probs = {}
+        reset_counts()
+        probs["bf16"] = probs_of(pb.predict_batch(images, texts),
+                                 pb.class_names)
+        got = launch_counts()
+        if got != count_dict(**want) or pb.packed_calls != 1:
+            fail(f"BERT-large {tag} bf16 path launches {got} (packed "
+                 f"{pb.packed_calls}), want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        with plain_kernels():
+            probs["bf16 off"] = probs_of(pb.predict_batch(images, texts),
+                                         pb.class_names)
+        if tag == "default":
+            n_ans, calls, n_classic, served = serve(pb, n_concurrent=4,
+                                                    n_single=1)
+            if served != count_dict(**{k: v * calls for k, v in
+                                       want.items()}):
+                fail(f"BERT-large serving: launches {served} for {calls} "
+                     f"forwards")
+            for k in totals:
+                totals[k] += served[k]
+            serve_line = (f"MicroBatcher: {n_ans} requests in {calls} "
+                          f"forwards ({n_classic} classic), launches "
+                          f"{served}")
+        p50s[f"{tag} bf16"] = p50_ms(pb)[0]
+        del pb
+        torch.cuda.empty_cache()
+        # the f32 model: its kernels (K1-K3 in f32), and the same model with
+        # every kernel forced off, which is also the bf16 path's f32
+        # reference; TF32 off for both
+        want32 = {(k.replace("_1024", "_f32_1024") if k != "K4" else k): v
+                  for k, v in want.items()}
+        p32 = MultimodalPredictor(cfg_32, create_model(cfg_32, device="cpu",
+                                                       seed=0), dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            reset_counts()
+            probs["f32"] = probs_of(p32.predict_batch(images, texts),
+                                    p32.class_names)
+            got = launch_counts()
+            if got != count_dict(**want32) or p32.packed_calls != 1:
+                fail(f"BERT-large {tag} f32 path launches {got}, want "
+                     f"{want32}")
+            for k in totals:
+                totals[k] += got[k]
+            with plain_kernels():
+                probs["f32 off"] = probs_of(p32.predict_batch(images, texts),
+                                            p32.class_names)
+            p50s[f"{tag} f32"] = p50_ms(p32)[0]
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        del p32
+        torch.cuda.empty_cache()
+        for k, p in probs.items():
+            if p.shape != (BATCH, cfg_b.num_classes) \
+                    or not np.isfinite(p).all() \
+                    or np.abs(p.sum(1) - 1.0).max() > 1e-3:
+                fail(f"BERT-large {tag} {k}: bad probabilities {p.shape}")
+        d = {name: float(np.abs(probs[a] - probs[b]).max())
+             for name, a, b in (("bf16 vs off", "bf16", "bf16 off"),
+                                ("bf16 vs f32", "bf16", "f32 off"),
+                                ("f32 vs off", "f32", "f32 off"))}
+        top1 = {name: int((probs[a].argmax(1) == probs[b].argmax(1)).sum())
+                for name, a, b in (("bf16", "bf16", "bf16 off"),
+                                   ("f32", "f32", "f32 off"))}
+        if d["bf16 vs off"] > PROB_ATOL_PLAIN:
+            fail(f"BERT-large {tag}: kernel and plain probabilities differ "
+                 f"by {d['bf16 vs off']}")
+        if d["bf16 vs f32"] > PROB_ATOL_F32:
+            fail(f"BERT-large {tag}: kernel path is {d['bf16 vs f32']} from "
+                 f"the f32 reference")
+        if d["f32 vs off"] > PROB_ATOL_F32_KERNELS or top1["f32"] != BATCH:
+            fail(f"BERT-large {tag} f32: max|dprob| {d['f32 vs off']} from "
+                 f"the kernels-off f32 run, top-1 {top1['f32']}/{BATCH}")
+        lines.append((
+            f"{tag}: launches bf16 {want}, f32 {want32}; max|dprob| bf16 "
+            f"kernels vs off {d['bf16 vs off']:.3e} (tolerance "
+            f"{PROB_ATOL_PLAIN}), vs f32 {d['bf16 vs f32']:.3e} (tolerance "
+            f"{PROB_ATOL_F32}), f32 kernels vs off {d['f32 vs off']:.3e} "
+            f"(tolerance {PROB_ATOL_F32_KERNELS}); top-1 bf16 = off "
+            f"{top1['bf16']}/{BATCH}, f32 = off {top1['f32']}/{BATCH}; p50 "
+            f"bf16 {p50s[tag + ' bf16']:.2f} ms, f32 "
+            f"{p50s[tag + ' f32']:.2f} ms"))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = (f"bf16 FFN {k1.ffn_plan(16384, f, n_sm, h).slices} / "
+             f"{k1.ffn_plan(1024, f, n_sm, h).slices} slices at M=16384 / "
+             f"1024, K3 {k3.attn_out_plan(16384, n_sm, h).slices} / "
+             f"{k3.attn_out_plan(64, n_sm, h).slices} at 16384 / 64; f32 "
+             f"scratch per call at M=16384: FFN "
+             f"{k1.ffn_plan_f32(16384, f, n_sm, h).scratch * 4 / 1e6:.1f} "
+             f"MB, K3 "
+             f"{k3.attn_out_plan_f32(16384, n_sm, h).scratch * 4 / 1e6:.1f}"
+             f" MB")
+    print(f"[17 BERT-large] {card} | H={h}, F={f}, {te.num_heads} heads, "
+          f"{n_layers} layers, vocab {te.vocab_size} | kernels vs plain "
+          f"(max|diff| / mean|diff|): " + "; ".join(
+              f"{k}: " + ", ".join(f"M={m} {e[0]:.3e} / {e[1]:.3e}"
+                                   for m, e in v.items())
+              for k, v in errs.items())
+          + " | at M=16384, dev ms vs plain (bound, share): " + "; ".join(
+              f"{k} {t[0]:.4f} vs {t[1]:.4f} ({t[2]}; bound "
+              f"{forms[k][2][0]:.4f} ms, {forms[k][2][1]}, "
+              f"{forms[k][2][0] / t[0]:.1%})" for k, t in times.items())
+          + f" | {plans} | " + " || ".join(lines + [serve_line])
+          + f" | kernel checks {t_a:.1f} s, phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals, {k: (max(e[0] for e in errs[k].values()), t[0], t[1],
+                        t[3], *forms[k][2]) for k, t in times.items()}
+
+
+def timing_helpers(images, texts):
+    """The serving round and the clocks of the phases, on phase 4's
+    batch (`images`, `texts`): serve(p, n_concurrent, n_single), the
+    p50 of `predict_batch`, and the device (`events_ms`, `per_call_ms`,
+    `in_turns`) and host (`host_ms`) times of a call. Returns them as a
+    namespace."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.cli.serve import MicroBatcher
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests as requests,
+    )
+
+    def serve(p, n_concurrent=8, n_single=3):
+        reset_counts()
+        classic0 = p.classic_calls
+        batcher = MicroBatcher(p, window_ms=20.0)
+        try:
+            s_images, s_texts = requests(n_concurrent + n_single, seed=2)
+            with ThreadPoolExecutor(n_concurrent) as ex:
+                futs = [ex.submit(batcher.submit, s_images[i], s_texts[i], 3)
+                        for i in range(n_concurrent)]
+                answers = [fu.result(timeout=300) for fu in futs]
+            for i in range(n_concurrent, n_concurrent + n_single):
+                answers.append(batcher.submit(s_images[i], s_texts[i], 3))
+            calls = batcher.batch_calls
+        finally:
+            batcher.close()
+        for a in answers:
+            if set(a) != {"predictions", "top_prediction",
+                          "all_probabilities"} \
+                    or len(a["predictions"]) != 3 \
+                    or a["top_prediction"] != a["predictions"][0]:
+                fail(f"answer breaks the JSON contract: {a}")
+        if p.classic_calls <= classic0:
+            fail("single requests did not take the classic path")
+        if calls >= len(answers):
+            fail(f"{calls} forwards for {len(answers)} requests: no batching")
+        return len(answers), calls, p.classic_calls - classic0, \
+            launch_counts()
+
+    def p50_ms(p, batch_images=None):
+        imgs = images if batch_images is None else batch_images
+        for _ in range(2):
+            p.predict_batch(imgs, texts)
+        lat = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.predict_batch(imgs, texts)  # ends in a device→host copy
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(lat)), lat
+
+    def sleep_cycles_per_ms():
+        """The rate of torch.cuda._sleep, which spins the card for a
+        number of its clock cycles."""
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        return 20_000_000 / start.elapsed_time(end)
+
+    cycles_per_ms = sleep_cycles_per_ms()
+
+    def host_ms(fn, n=20):
+        """The host's time to issue one call of `fn` (the wrapper's Python
+        and C work and the launch), the card idle before the n calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        return t
+
+    def events_ms(fn, n, wait=0):
+        """CUDA-event time per call of `fn` over n calls back to back,
+        after the card has spun for `wait` cycles."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if wait:
+            torch.cuda._sleep(wait)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def per_call_ms(fn, n=20):
+        """The time per call of `fn` over n calls back to back, read two
+        ways: (device, back to back). Device: the card first spins for
+        longer than the host takes to issue the n calls, so all of them
+        are queued when it reaches the start event and the events bracket
+        device work only. Back to back: the calls issued from an idle
+        card, so where the host takes longer to issue a call than the card
+        to run it, the events read the host's pace."""
+        b2b = events_ms(fn, n)
+        wait = int(3 * host_ms(fn, n) * n * cycles_per_ms) + 100_000
+        return events_ms(fn, n, wait), b2b
+
+    def in_turns(kernel, plain):
+        """(kernel ms, plain ms, the four runs, (kernel ms, plain ms) back
+        to back) in turns plain, kernel, kernel, plain; the first two are
+        device times."""
+        (plain_a, pb_a), (kern_a, kb_a) = (per_call_ms(plain),
+                                           per_call_ms(kernel))
+        (kern_b, kb_b), (plain_b, pb_b) = (per_call_ms(kernel),
+                                           per_call_ms(plain))
+        return ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2,
+                f"runs {plain_a:.3f} {kern_a:.3f} {kern_b:.3f} {plain_b:.3f}; "
+                f"back to back {pb_a:.3f} {kb_a:.3f} {kb_b:.3f} {pb_b:.3f}",
+                ((kb_a + kb_b) / 2, (pb_a + pb_b) / 2))
+
+    return SimpleNamespace(serve=serve, p50_ms=p50_ms, host_ms=host_ms,
+                           events_ms=events_ms, per_call_ms=per_call_ms,
+                           in_turns=in_turns)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2960,7 +3354,6 @@ def main() -> int:
         fail(f"the torch package was imported from {port.__file__}, not "
              f"from this checkout")
 
-    from multimodal_rare_disease_tpu_torch.cli.serve import MicroBatcher
     from multimodal_rare_disease_tpu_torch.config import resolve_config
     from multimodal_rare_disease_tpu_torch.inference.predictor import (
         MultimodalPredictor,
@@ -2998,8 +3391,10 @@ def main() -> int:
     print(f"[2 build] {lib_path.relative_to(HERE)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc, one per source in "
           f"parallel, {build.last_build_seconds:.2f} s) | smem/block FFN "
-          f"{lib.mrd_ffn_smem_bytes()} B, attn-out "
-          f"{lib.mrd_attn_out_smem_bytes()} B, f32 FFN "
+          f"{lib.mrd_ffn_smem_bytes()} B (H=1024: "
+          f"{lib.mrd_ffn_smem_bytes_h1024()} B), attn-out "
+          f"{lib.mrd_attn_out_smem_bytes()} B (H=1024: "
+          f"{lib.mrd_attn_out_smem_bytes_h1024()} B), f32 FFN "
           f"{lib.mrd_ffn_f32_smem_bytes()} B, f32 attn-out "
           f"{lib.mrd_attn_out_f32_smem_bytes()} B | "
           f"{'; '.join(regs) or 'no ptxas report'} | no spills, no C75xx "
@@ -3009,6 +3404,9 @@ def main() -> int:
     # its row count
     cfg = resolve_config("default")
     images, texts = requests(BATCH, seed=0)
+    clock = timing_helpers(images, texts)
+    serve, p50_ms, host_ms = clock.serve, clock.p50_ms, clock.host_ms
+    per_call_ms, in_turns = clock.per_call_ms, clock.in_turns
     t0 = time.perf_counter()
     model = create_model(cfg, device="cpu", seed=0)
     pred = MultimodalPredictor(cfg, model, dev)
@@ -3311,34 +3709,6 @@ def main() -> int:
           f"launches {main4}; {line4}")
 
     # ---- 5. serving through the MicroBatcher
-    def serve(p, n_concurrent=8, n_single=3):
-        reset_counts()
-        classic0 = p.classic_calls
-        batcher = MicroBatcher(p, window_ms=20.0)
-        try:
-            s_images, s_texts = requests(n_concurrent + n_single, seed=2)
-            with ThreadPoolExecutor(n_concurrent) as ex:
-                futs = [ex.submit(batcher.submit, s_images[i], s_texts[i], 3)
-                        for i in range(n_concurrent)]
-                answers = [fu.result(timeout=300) for fu in futs]
-            for i in range(n_concurrent, n_concurrent + n_single):
-                answers.append(batcher.submit(s_images[i], s_texts[i], 3))
-            calls = batcher.batch_calls
-        finally:
-            batcher.close()
-        for a in answers:
-            if set(a) != {"predictions", "top_prediction",
-                          "all_probabilities"} \
-                    or len(a["predictions"]) != 3 \
-                    or a["top_prediction"] != a["predictions"][0]:
-                fail(f"answer breaks the JSON contract: {a}")
-        if p.classic_calls <= classic0:
-            fail("single requests did not take the classic path")
-        if calls >= len(answers):
-            fail(f"{calls} forwards for {len(answers)} requests: no batching")
-        return len(answers), calls, p.classic_calls - classic0, \
-            launch_counts()
-
     n_ans, calls, n_classic, serve5 = serve(pred)
     if serve5 != count_dict(K1=n_layers * calls):
         fail(f"serving: launches {serve5} for {calls} forwards")
@@ -3346,84 +3716,6 @@ def main() -> int:
           f"{serve5}, classic calls {n_classic}")
 
     # ---- 6. times
-    def p50_ms(p, batch_images=None):
-        imgs = images if batch_images is None else batch_images
-        for _ in range(2):
-            p.predict_batch(imgs, texts)
-        lat = []
-        for _ in range(TIMED_RUNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p.predict_batch(imgs, texts)  # ends in a device→host copy
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(lat)), lat
-
-    def sleep_cycles_per_ms():
-        """The rate of torch.cuda._sleep, which spins the card for a
-        number of its clock cycles."""
-        torch.cuda._sleep(1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(20_000_000)
-        end.record()
-        torch.cuda.synchronize()
-        return 20_000_000 / start.elapsed_time(end)
-
-    cycles_per_ms = sleep_cycles_per_ms()
-
-    def host_ms(fn, n=20):
-        """The host's time to issue one call of `fn` (the wrapper's Python
-        and C work and the launch), the card idle before the n calls."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t = (time.perf_counter() - t0) * 1e3 / n
-        torch.cuda.synchronize()
-        return t
-
-    def events_ms(fn, n, wait=0):
-        """CUDA-event time per call of `fn` over n calls back to back,
-        after the card has spun for `wait` cycles."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if wait:
-            torch.cuda._sleep(wait)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    def per_call_ms(fn, n=20):
-        """The time per call of `fn` over n calls back to back, read two
-        ways: (device, back to back). Device: the card first spins for
-        longer than the host takes to issue the n calls, so all of them
-        are queued when it reaches the start event and the events bracket
-        device work only. Back to back: the calls issued from an idle
-        card, so where the host takes longer to issue a call than the card
-        to run it, the events read the host's pace."""
-        b2b = events_ms(fn, n)
-        wait = int(3 * host_ms(fn, n) * n * cycles_per_ms) + 100_000
-        return events_ms(fn, n, wait), b2b
-
-    def in_turns(kernel, plain):
-        """(kernel ms, plain ms, the four runs, (kernel ms, plain ms) back
-        to back) in turns plain, kernel, kernel, plain; the first two are
-        device times."""
-        (plain_a, pb_a), (kern_a, kb_a) = (per_call_ms(plain),
-                                           per_call_ms(kernel))
-        (kern_b, kb_b), (plain_b, pb_b) = (per_call_ms(kernel),
-                                           per_call_ms(plain))
-        return ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2,
-                f"runs {plain_a:.3f} {kern_a:.3f} {kern_b:.3f} {plain_b:.3f}; "
-                f"back to back {pb_a:.3f} {kb_a:.3f} {kb_b:.3f} {pb_b:.3f}",
-                ((kb_a + kb_b) / 2, (pb_a + pb_b) / 2))
-
     p50, lat = p50_ms(pred)
     z = rnd((packed_m, h), 1.0, dtype=bf)
     vec_bf = {k: v.to(bf) for k, v in vec.items()}  # as the model passes them
@@ -3740,6 +4032,12 @@ def main() -> int:
           f"({chain_runs}; the chain's max|diff| from plain "
           f"{chain_err[0]:.3e}) | {time.perf_counter() - t16:.1f} s")
 
+    # ---- 17. BERT-large width: K1-K3 at H = 1,024 in bf16 and f32, the
+    # 24-layer tower through predict_batch
+    torch.cuda.empty_cache()
+    main17, times17 = bert_large(dev, card, images, texts, in_turns, p50_ms,
+                                 serve)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -3770,6 +4068,20 @@ def main() -> int:
          *times32["K2_f32"][:5], None),
         ("attn_out_ln_f32", "attn_out_ln_f32.cu", "attn_out.py:38", "K3_f32",
          k3_32_err, *times32["K3_f32"][:5], None),
+        # the H = 1,024 instantiations (BERT-large), checked and timed in
+        # phase 17; none has one PyTorch call either
+        ("ffn_pre_ln_bf16_h1024", "ffn_ln.cu", "ffn.py:72", "K1_1024",
+         *times17["K1_1024"], None),
+        ("ffn_ln_bf16_h1024", "ffn_ln.cu", "ffn.py:103", "K2_1024",
+         *times17["K2_1024"], None),
+        ("attn_out_ln_bf16_h1024", "attn_out_ln.cu", "attn_out.py:38",
+         "K3_1024", *times17["K3_1024"], None),
+        ("ffn_pre_ln_f32_h1024", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32_1024",
+         *times17["K1_f32_1024"], None),
+        ("ffn_ln_f32_h1024", "ffn_ln_f32.cu", "ffn.py:103", "K2_f32_1024",
+         *times17["K2_f32_1024"], None),
+        ("attn_out_ln_f32_h1024", "attn_out_ln_f32.cu", "attn_out.py:38",
+         "K3_f32_1024", *times17["K3_f32_1024"], None),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -3778,11 +4090,12 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13, 14, 15 and 16 (their counted runs; 13's on
-        # every rank)
+        # 9, 10, 11, 12, 13, 14, 15, 16 and 17 (their counted runs; 13's
+        # on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
-                     + main13[k] + main14[k] + main15[k] + main16[k]),
+                     + main13[k] + main14[k] + main15[k] + main16[k]
+                     + main17[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -1,8 +1,11 @@
 // K3: the post-LN BERT attention-output sublayer, written by hand for Hopper
 // (sm_90a):
 //
-//   y = bf16(LN(f32(x) + ctx . Wo^T + bo))   ctx, x: [M, 768] bf16; Wo: [768, 768]
+//   y = bf16(LN(f32(x) + ctx . Wo^T + bo))   ctx, x: [M, H] bf16; Wo: [H, H]
 //                                             bf16 in torch.nn.Linear's [out, in]
+//
+// H is a template parameter, built for 768 (BERT-base; the design below) and
+// 1,024 (BERT-large; its changes at the end of this header).
 //
 // The product accumulates in f32 and is not rounded; bo and the residual x
 // are added in f32 before the two-pass f32 LayerNorm (eps given, 1e-12 for
@@ -59,6 +62,28 @@
 // A cluster of two blocks that share each Wo tile by TMA multicast halves the
 // L2 reads of Wo; on the H100 it took longer than this design (PERF.md), so
 // it is not built here.
+//
+// H = 1,024: consumers of [64, 512] would need 256 accumulator floats a
+// thread, and the 128-KB ctx tile beside the two 64-KB Wo rings is 256 KB
+// against 227 KB. So a row tile is cut into two column groups of 512 output
+// columns, one block each (grid z), run as a cluster of two:
+//   - both blocks need the whole ctx tile (16 column blocks, the product's
+//     k): block r's producer loads the column blocks c with c % 2 == r by
+//     TMA multicast into both blocks, and each block's producer expects
+//     the bytes of every block on its own barrier;
+//   - the consumers run [64, 256] each (128 accumulator floats), with Wo
+//     rings of 3 slots (224 KB in all), and x's column blocks of the
+//     block's own columns replace ctx's as above;
+//   - LN over the pair: the row sums of each consumer's 256 columns go into
+//     the block's own exchange, an arrival on the peer's barrier says they
+//     are there, and each block reads the peer's over distributed shared
+//     memory (ld.shared::cluster) and adds the four partials of a row in
+//     one order, so both get the same mean; the centred squares the same
+//     way; each block then writes y for its 512 columns by TMA;
+//   - a cluster barrier after the barriers' initialization (before any
+//     multicast or remote access) and before exit.
+// With the k chunks split (small M), each block stores its f32 partial and
+// split_reduce finishes the rows, as above.
 
 #include <cuda.h>
 
@@ -82,44 +107,56 @@ using mrd::smem_addr;
 using mrd::sw128_desc;
 using mrd::tma_load_2d;
 
-constexpr int kH = 768;                   // hidden width (BERT-base)
 constexpr int kTM = 64;                   // rows per block (wgmma M)
 constexpr int kKC = 64;                   // k chunk: one ctx column block
-constexpr int kChunks = kH / kKC;         // 12
 constexpr int kN = 128;                   // output columns of a Wo tile (wgmma N)
 constexpr int kWG = 2;                    // consumer warpgroups (0, 1); the producer is 2
 constexpr int kThreads = 128 * (kWG + 1);
 constexpr int kConsumerThreads = 128 * kWG;
-constexpr int kHalf = kH / kWG;           // 384 output columns per consumer
-constexpr int kTiles = kHalf / kN;        // 3 Wo tiles per consumer and k chunk
-constexpr int kOwnBlocks = kHalf / kKC;   // 6 column blocks of x / y per consumer
-constexpr int kStages = 4;                // Wo ring slots per consumer
 constexpr int kXLag = 2;                  // x block c loads after chunk c + 2's Wo tiles
 constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
-
-// shared memory, from a 1024-byte aligned base: the row tile (ctx, then x,
-// then y) as 12 column blocks of [64 rows][64 bf16], the two Wo rings, the
-// barriers and the LN exchange
 constexpr uint32_t kBlockBytes = kTM * 128;                    // 8 KB
 constexpr uint32_t kTileBytes = kN * kKC * 2;                  // 16 KB
-constexpr uint32_t kOffA = 0;
-constexpr uint32_t kOffW = kOffA + kChunks * kBlockBytes;      // 96 KB
-// per column block: full (TMA bytes; phase 0 ctx, phase 1 x) and empty
-// (every consumer warp, once it is done with ctx); per Wo slot: full and empty
-constexpr uint32_t kBarAFull = kOffW + kWG * kStages * kTileBytes;
-constexpr uint32_t kBarAEmpty = kBarAFull + 8 * kChunks;
-constexpr uint32_t kBarWFull = kBarAEmpty + 8 * kChunks;
-constexpr uint32_t kBarWEmpty = kBarWFull + 8 * kWG * kStages;
-constexpr uint32_t kOffRed = kBarWEmpty + 8 * kWG * kStages;  // float [2][2][64]
-constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
 
-static_assert(kH == kRowH, "rows.cuh is written for the same width");
-static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 1024 == 0,
-              "1024-byte swizzle atoms");
+// The shape of the kernel at hidden width kH: 768 as the header sets out,
+// 1,024 in two column groups of 512 (one block each).
+template <int kH>
+struct AttnOut {
+  static constexpr int kGroups = kH == 768 ? 1 : 2;  // blocks per row tile
+  static constexpr bool kPair = kGroups == 2;        // a cluster sharing ctx and LN
+  static constexpr int kCols = kH / kGroups;         // output columns per block
+  static constexpr int kChunks = kH / kKC;           // 12 / 16
+  static constexpr int kHalf = kCols / kWG;          // 384 / 256 output columns per consumer
+  static constexpr int kTiles = kHalf / kN;          // 3 / 2 Wo tiles per consumer and chunk
+  static constexpr int kStages = kH == 768 ? 4 : 3;  // Wo ring slots per consumer
+
+  // shared memory, from a 1024-byte aligned base: the row tile (ctx, then
+  // x, then y) as kChunks column blocks of [64 rows][64 bf16], the two Wo
+  // rings, the barriers and the LN exchange
+  static constexpr uint32_t kOffA = 0;
+  static constexpr uint32_t kOffW = kOffA + kChunks * kBlockBytes;
+  // per column block: full (TMA bytes; phase 0 ctx, phase 1 x) and empty
+  // (every consumer warp, once it is done with ctx); per Wo slot: full and
+  // empty
+  static constexpr uint32_t kBarAFull = kOffW + kWG * kStages * kTileBytes;
+  static constexpr uint32_t kBarAEmpty = kBarAFull + 8 * kChunks;
+  static constexpr uint32_t kBarWFull = kBarAEmpty + 8 * kChunks;
+  static constexpr uint32_t kBarWEmpty = kBarWFull + 8 * kWG * kStages;
+  // the pair's LN exchange: the barriers that the peer's row sums and
+  // centred squares are in its `red`
+  static constexpr uint32_t kBarStats = kBarWEmpty + 8 * kWG * kStages;
+  static constexpr uint32_t kOffRed = kBarStats + (kPair ? 16 : 0);  // float [2][2][64]
+  static constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
+
+  static_assert(kH % kKC == 0 && kHalf % kN == 0, "whole Wo tiles per consumer");
+  static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 1024 == 0,
+                "1024-byte swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
+};
+
 static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
-static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
 
 // columns c, c + 1 (c even) of a bf16 row, as f32
 __device__ __forceinline__ float2 ld_pair(const bf16* p) {
@@ -138,61 +175,76 @@ __device__ __forceinline__ void sts_pair(uint32_t addr, __nv_bfloat162 v) {
 }
 
 // x's column block c into the row tile, over ctx's, once both consumers are
-// done with it
+// done with it (fused LN only; the pair: the block's own columns only)
+template <int kH>
 __device__ __forceinline__ void load_x(const CUtensorMap* x_map, uint32_t base, int row0,
-                                       int c) {
-  mbar_wait(base + kBarAEmpty + 8 * c, 0);
-  mbar_arrive_expect_tx(base + kBarAFull + 8 * c, kBlockBytes);
-  tma_load_2d(base + kOffA + c * kBlockBytes, x_map, base + kBarAFull + 8 * c, c * kKC, row0);
+                                       int c, int col0) {
+  using P = AttnOut<kH>;
+  if constexpr (P::kPair)
+    if (c * kKC < col0 || c * kKC >= col0 + P::kCols) return;
+  mbar_wait(base + P::kBarAEmpty + 8 * c, 0);
+  mbar_arrive_expect_tx(base + P::kBarAFull + 8 * c, kBlockBytes);
+  tma_load_2d(base + P::kOffA + c * kBlockBytes, x_map, base + P::kBarAFull + 8 * c, c * kKC,
+              row0);
 }
 
 // The producer thread: per chunk of the slice, ctx's column block and the
-// six Wo tiles (consumer 0's and 1's in turn), then x's blocks two chunks
-// behind (tiled path only).
+// Wo tiles of the block's columns (from col0; consumer 0's and 1's in turn),
+// then x's blocks two chunks behind (tiled path only).
+template <int kH>
 __device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtensorMap* x_map,
                                         const CUtensorMap* wo_map, uint32_t base, int row0,
-                                        int c_begin, int n_chunks, bool split) {
+                                        int col0, int c_begin, int n_chunks, bool split) {
+  using P = AttnOut<kH>;
   Ring ring[kWG];
   for (int k = 0; k < n_chunks; ++k) {
     const int c = c_begin + k;
-    mbar_arrive_expect_tx(base + kBarAFull + 8 * c, kBlockBytes);
-    tma_load_2d(base + kOffA + c * kBlockBytes, ctx_map, base + kBarAFull + 8 * c, c * kKC,
-                row0);
+    mbar_arrive_expect_tx(base + P::kBarAFull + 8 * c, kBlockBytes);
+    if constexpr (P::kPair) {  // every other ctx block, into both blocks
+      if (c % 2 == col0 / P::kCols)
+        mrd::tma_load_2d_multicast(base + P::kOffA + c * kBlockBytes, ctx_map,
+                                   base + P::kBarAFull + 8 * c, c * kKC, row0, 0x3);
+    } else {
+      tma_load_2d(base + P::kOffA + c * kBlockBytes, ctx_map, base + P::kBarAFull + 8 * c,
+                  c * kKC, row0);
+    }
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j)
+    for (int j = 0; j < P::kTiles; ++j)
 #pragma unroll
       for (int wg = 0; wg < kWG; ++wg) {
-        const uint32_t s = wg * kStages + ring[wg].slot;
-        mbar_wait(base + kBarWEmpty + 8 * s, ring[wg].phase ^ 1);
-        const uint32_t full = base + kBarWFull + 8 * s;
-        const uint32_t dst = base + kOffW + s * kTileBytes;
-        const int n0 = kHalf * wg + kN * j;
+        const uint32_t s = wg * P::kStages + ring[wg].slot;
+        mbar_wait(base + P::kBarWEmpty + 8 * s, ring[wg].phase ^ 1);
+        const uint32_t full = base + P::kBarWFull + 8 * s;
+        const uint32_t dst = base + P::kOffW + s * kTileBytes;
+        const int n0 = col0 + P::kHalf * wg + kN * j;
         mbar_arrive_expect_tx(full, kTileBytes);
         tma_load_2d(dst, wo_map, full, c * kKC, n0);
-        ring[wg].next<kStages>();
+        ring[wg].next<P::kStages>();
       }
-    if (!split && k >= kXLag) load_x(x_map, base, row0, c - kXLag);
+    if (!split && k >= kXLag) load_x<kH>(x_map, base, row0, c - kXLag, col0);
   }
   if (!split)
-    for (int k = n_chunks - kXLag; k < n_chunks; ++k) load_x(x_map, base, row0, c_begin + k);
+    for (int k = n_chunks - kXLag; k < n_chunks; ++k)
+      load_x<kH>(x_map, base, row0, c_begin + k, col0);
 }
 
-// Consumer wg's share of k chunk c: ACC[:, 384 wg + 128 j ..] += ctx[:, chunk]
-// . Wo^T[chunk, ...] for j = 0..2. After each group is issued, the previous
-// one is retired and its slot released (and, at j = 0, the previous chunk's
-// ctx block). kFirst: the slice's first chunk, whose first step writes the
-// accumulators without reading them.
-template <bool kFirst>
-__device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ring,
+// Consumer wg's share of k chunk c: ACC[:, kHalf wg + 128 j ..] += ctx[:, chunk]
+// . Wo^T[chunk, ...] for j < kTiles. After each group is issued, the
+// previous one is retired and its slot released (and, at j = 0, the
+// previous chunk's ctx block). kFirst: the slice's first chunk, whose first
+// step writes the accumulators without reading them.
+template <int kH, bool kFirst>
+__device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][64], Ring& ring,
                                               uint32_t& prev, uint32_t base, int c, int wg,
                                               bool signal) {
-  mbar_wait(base + kBarAFull + 8 * c, 0);
+  using P = AttnOut<kH>;
+  mbar_wait(base + P::kBarAFull + 8 * c, 0);
 #pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-    const uint32_t s = wg * kStages + ring.slot;
-    mbar_wait(base + kBarWFull + 8 * s, ring.phase);
-    const uint32_t a0 = opaque(base) + kOffA + c * kBlockBytes;
-    const uint32_t b0 = opaque(base) + kOffW + s * kTileBytes;
+  for (int j = 0; j < P::kTiles; ++j) {
+    const uint32_t s = wg * P::kStages + ring.slot;
+    mbar_wait(base + P::kBarWFull + 8 * s, ring.phase);
+    const uint32_t a0 = opaque(base) + P::kOffA + c * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW + s * kTileBytes;
     mrd::fence_operand(acc[j]);
     mrd::wgmma_fence();
 #pragma unroll
@@ -208,18 +260,40 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[kTiles][64], Ring& ri
     if (!kFirst || j > 0) {
       mrd::wgmma_wait<1>();
       if (signal) {
-        mbar_arrive(base + kBarWEmpty + 8 * prev);
-        if (j == 0) mbar_arrive(base + kBarAEmpty + 8 * (c - 1));
+        mbar_arrive(base + P::kBarWEmpty + 8 * prev);
+        if (j == 0) mbar_arrive(base + P::kBarAEmpty + 8 * (c - 1));
       }
     }
     prev = s;
-    ring.next<kStages>();
+    ring.next<P::kStages>();
   }
 }
 
-// Grid: (row tiles, slices of the 12 k chunks). With one slice the block
-// applies LN and writes y; with several it writes its f32 partial of
-// ctx . Wo^T to `partial` [slices, M, H] and split_reduce finishes the rows.
+// The pair's total of one row's four partials (this block's two consumers'
+// in `red`, the peer's in its red at `peer_red`): on the first of a
+// thread's two rows, it first says that this block's values are in place
+// (an arrival on the peer's barrier `peer_bar`, after the consumers' named
+// barrier) and waits for the peer's (`bar`). Both blocks add rank 0's two
+// values, then rank 1's, so they share the total bit for bit.
+__device__ __forceinline__ float pair_total(const float* red, uint32_t peer_red,
+                                            uint32_t peer_bar, uint32_t bar, int rank, int r,
+                                            bool first) {
+  if (first) {
+    mrd::mbar_arrive_remote(peer_bar);
+    mrd::mbar_wait_cluster(bar, 0);
+  }
+  const float own = red[r] + red[kTM + r];
+  const float peer = mrd::ld_cluster_f32(peer_red + 4 * r) +
+                     mrd::ld_cluster_f32(peer_red + 4 * (kTM + r));
+  return rank == 0 ? own + peer : peer + own;
+}
+
+// Grid: (row tiles, slices of the kChunks k chunks, column groups; the
+// pair: clusters of the two groups). With one slice the block applies LN
+// (the pair: over both blocks) and writes y; otherwise it writes its f32
+// partial of ctx . Wo^T to `partial` [slices, M, H] and split_reduce
+// finishes the rows.
+template <int kH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
                    const __grid_constant__ CUtensorMap x_map,    // x [M, H] (tiled path)
@@ -230,6 +304,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
                    const bf16* __restrict__ beta,
                    float* __restrict__ partial,                  // [slices, M, H]
                    int M, int chunks_per_slice, float eps) {
+  using P = AttnOut<kH>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -238,49 +313,61 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
   const bool split = gridDim.y > 1;
   const int c_begin = blockIdx.y * chunks_per_slice;
   const int row0 = blockIdx.x * kTM;
+  // the pair's rank (its column group: grid z, the cluster's z) and the
+  // block's first output column
+  const int rank = P::kPair ? static_cast<int>(mrd::cluster_ctarank()) : 0;
+  const int col0 = rank * P::kCols;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int c = 0; c < kChunks; ++c) {
-      mbar_init(base + kBarAFull + 8 * c, 1);
-      mbar_init(base + kBarAEmpty + 8 * c, kConsumerThreads / 32);
+    for (int c = 0; c < P::kChunks; ++c) {
+      mbar_init(base + P::kBarAFull + 8 * c, 1);
+      mbar_init(base + P::kBarAEmpty + 8 * c, kConsumerThreads / 32);
     }
-    for (int s = 0; s < kWG * kStages; ++s) {
-      mbar_init(base + kBarWFull + 8 * s, 1);
-      mbar_init(base + kBarWEmpty + 8 * s, 4);  // the consumer's warps
+    for (int s = 0; s < kWG * P::kStages; ++s) {
+      mbar_init(base + P::kBarWFull + 8 * s, 1);
+      mbar_init(base + P::kBarWEmpty + 8 * s, 4);  // the consumer's warps
     }
+    if constexpr (P::kPair)  // every consumer thread of the peer, per exchange
+      for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kConsumerThreads);
     fence_barrier_init();
   }
-  __syncthreads();
+  if constexpr (P::kPair)
+    mrd::cluster_sync();  // both blocks' barriers are initialized
+  else
+    __syncthreads();
 
   if (threadIdx.x / 128 == kWG) {
     // ---- the producer warpgroup: one thread issues every TMA load
     mrd::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads)
-      produce(&ctx_map, &x_map, &wo_map, base, row0, c_begin, chunks_per_slice, split);
+      produce<kH>(&ctx_map, &x_map, &wo_map, base, row0, col0, c_begin, chunks_per_slice,
+                  split);
+    if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
   } else {
-    // ---- consumer wg: ACC[:, 384 wg .. +384] = ctx . Wo^T[:, ...]
+    // ---- consumer wg: ACC[:, col0 + kHalf wg .. + kHalf] = ctx . Wo^T[:, ...]
     mrd::setmaxnreg_inc<kConsumerRegs>();
     const int wg = threadIdx.x / 128;
     const bool signal = lane == 0;  // one arrival per warp
-    float acc[kTiles][64];  // [64, 384] f32: n128 tiles
+    float acc[P::kTiles][64];  // [64, kHalf] f32: n128 tiles
     Ring ring;
     uint32_t prev = 0;  // the slot of the group in flight
-    consume_chunk<true>(acc, ring, prev, base, c_begin, wg, signal);
+    consume_chunk<kH, true>(acc, ring, prev, base, c_begin, wg, signal);
     for (int k = 1; k < chunks_per_slice; ++k)
-      consume_chunk<false>(acc, ring, prev, base, c_begin + k, wg, signal);
+      consume_chunk<kH, false>(acc, ring, prev, base, c_begin + k, wg, signal);
     mrd::wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) mrd::fence_operand(acc[j]);
+    for (int j = 0; j < P::kTiles; ++j) mrd::fence_operand(acc[j]);
     if (signal) {
-      mbar_arrive(base + kBarWEmpty + 8 * prev);
-      mbar_arrive(base + kBarAEmpty + 8 * (c_begin + chunks_per_slice - 1));
+      mbar_arrive(base + P::kBarWEmpty + 8 * prev);
+      mbar_arrive(base + P::kBarAEmpty + 8 * (c_begin + chunks_per_slice - 1));
     }
 
     // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
-    // per n8 block nb of tile j the columns 384 wg + 128 j + 8 nb + 2 (lane % 4)
-    // and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half, col + e)
+    // per n8 block nb of tile j the columns col0 + kHalf wg + 128 j + 8 nb +
+    // 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
+    // col + e)
     const int wrow = 16 * (warp % 4) + lane / 4;
     if (split) {  // the f32 partial of the valid rows
 #pragma unroll
@@ -289,144 +376,202 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
         if (gr < M) {
           float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
 #pragma unroll
-          for (int j = 0; j < kTiles; ++j)
+          for (int j = 0; j < P::kTiles; ++j)
 #pragma unroll
             for (int nb = 0; nb < 16; ++nb) {
-              const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+              const int col = col0 + P::kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
               *reinterpret_cast<float2*>(dst + col) =
                   make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
             }
         }
       }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
       return;
     }
-    // x's column blocks of this consumer's columns have replaced ctx's
-    for (int b = 0; b < kOwnBlocks; ++b) mbar_wait(base + kBarAFull + 8 * (kOwnBlocks * wg + b), 1);
-    float* red = reinterpret_cast<float*>(smem + kOffRed);
-    // This thread's x / y elements in the swizzled tile: columns 8 nb + 2
-    // (lane % 4) .. + 1 of this consumer's column block 2 j + nb / 8 lie in
-    // the 16-byte group nb % 8 of their row, which the swizzle moves to
-    // group (nb % 8) ^ (row % 8). Rows wrow and wrow + 8 share row % 8, so
-    // eight bases serve every element, at constant offsets: a block is 8 KB,
-    // a row 128 bytes (ptxas keeps one address per element live from the x
-    // reads to the y writes otherwise, and spills)
-    uint32_t xo[8];
+    {
+      constexpr int kHalf = P::kHalf, kTiles = P::kTiles;
+      constexpr int kOwnBlocks = kHalf / kKC;  // 6 / 4 column blocks of x / y per consumer
+      // this consumer's first column block
+      const int own0 = P::kPair ? col0 / kKC + kOwnBlocks * wg : kOwnBlocks * wg;
+      // x's column blocks of this consumer's columns have replaced ctx's
+      for (int b = 0; b < kOwnBlocks; ++b)
+        mbar_wait(base + P::kBarAFull + 8 * (own0 + b), 1);
+      float* red = reinterpret_cast<float*>(smem + P::kOffRed);
+      // the pair: the peer's red and the barriers of its two exchanges
+      const uint32_t peer_red =
+          P::kPair ? mrd::map_to_rank(base + P::kOffRed, rank ^ 1) : 0;
+      const uint32_t peer_bar =
+          P::kPair ? mrd::map_to_rank(base + P::kBarStats, rank ^ 1) : 0;
+      // This thread's x / y elements in the swizzled tile: columns 8 nb + 2
+      // (lane % 4) .. + 1 of this consumer's column block 2 j + nb / 8 lie
+      // in the 16-byte group nb % 8 of their row, which the swizzle moves to
+      // group (nb % 8) ^ (row % 8). Rows wrow and wrow + 8 share row % 8, so
+      // eight bases serve every element, at constant offsets: a block is 8
+      // KB, a row 128 bytes (ptxas keeps one address per element live from
+      // the x reads to the y writes otherwise, and spills)
+      uint32_t xo[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      xo[k] = base + kOffA + kOwnBlocks * wg * kBlockBytes + wrow * 128 +
-              ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
-    // + bo + x, and the row sums of this consumer's 384 columns
-    float s[2] = {0.0f, 0.0f};
+      for (int k = 0; k < 8; ++k)
+        xo[k] = base + P::kOffA + own0 * kBlockBytes + wrow * 128 +
+                ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+      // + bo + x, and the row sums of this consumer's kHalf columns
+      float s[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j)
+      for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
-        const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
-        const float2 b2 = ld_pair(bo + col);
-        const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+        for (int nb = 0; nb < 16; ++nb) {
+          const int col = col0 + kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 b2 = ld_pair(bo + col);
+          const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float2 x2 = lds_pair(at + half * 8 * 128);
-          float& a0 = acc[j][4 * nb + 2 * half];
-          float& a1 = acc[j][4 * nb + 2 * half + 1];
-          a0 = a0 + b2.x + x2.x;
-          a1 = a1 + b2.y + x2.y;
-          s[half] += a0 + a1;
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = lds_pair(at + half * 8 * 128);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + b2.x + x2.x;
+            a1 = a1 + b2.y + x2.y;
+            s[half] += a0 + a1;
+          }
         }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
       }
-    float mu[2], rstd[2];
+      named_bar_sync<kConsumerThreads>(1);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
-      if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
-    }
-    named_bar_sync<kConsumerThreads>(1);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wrow + 8 * half;
-      mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
-      s[half] = 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const float d = acc[j][i] - mu[(i / 2) % 2];
-        s[(i / 2) % 2] += d * d;
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        mu[half] = (P::kPair ? pair_total(red, peer_red, peer_bar, base + P::kBarStats, rank,
+                                          r, half == 0)
+                             : red[r] + red[kTM + r]) *
+                   (1.0f / kH);
+        s[half] = 0.0f;
       }
-    float* red_q = red + kWG * kTM;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
-      if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
-    }
-    named_bar_sync<kConsumerThreads>(1);
+      for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wrow + 8 * half;
-      rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
-    }
-    // y as bf16 over x (each thread rewrites the elements it read), then
-    // this consumer's six column blocks go out by TMA
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
-        const int col = kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
-        const float2 g2 = ld_pair(gamma + col);
-        const float2 o2 = ld_pair(beta + col);
-        const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
-          sts_pair(at + half * 8 * 128,
-                   __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
-                                         (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+        for (int i = 0; i < 64; ++i) {
+          const float d = acc[j][i] - mu[(i / 2) % 2];
+          s[(i / 2) % 2] += d * d;
         }
+      float* red_q = red + kWG * kTM;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
       }
-    fence_proxy_async();  // the stores, to TMA
-    named_bar_sync<128>(2 + wg);
-    if (threadIdx.x % 128 == 0) {
-      for (int b = kOwnBlocks * wg; b < kOwnBlocks * (wg + 1); ++b)
-        mrd::tma_store_2d(&y_map, base + kOffA + b * kBlockBytes, b * kKC, row0);
-      mrd::tma_store_commit();
-      mrd::tma_store_wait();
+      named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        rstd[half] = rsqrtf((P::kPair ? pair_total(red_q, peer_red + 4 * kWG * kTM, peer_bar + 8,
+                                                   base + P::kBarStats + 8, rank, r, half == 0)
+                                      : red_q[r] + red_q[kTM + r]) *
+                                (1.0f / kH) +
+                            eps);
+      }
+      // y as bf16 over x (each thread rewrites the elements it read), then
+      // this consumer's column blocks go out by TMA
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int nb = 0; nb < 16; ++nb) {
+          const int col = col0 + kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 g2 = ld_pair(gamma + col);
+          const float2 o2 = ld_pair(beta + col);
+          const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+            sts_pair(at + half * 8 * 128,
+                     __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
+                                           (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+          }
+        }
+      fence_proxy_async();  // the stores, to TMA
+      named_bar_sync<128>(2 + wg);
+      if (threadIdx.x % 128 == 0) {
+        for (int b = own0; b < own0 + kOwnBlocks; ++b)
+          mrd::tma_store_2d(&y_map, base + P::kOffA + b * kBlockBytes, b * kKC, row0);
+        mrd::tma_store_commit();
+        mrd::tma_store_wait();
+      }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
     }
   }
 }
 
+template <int kH>
 cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* bo,
                    const bf16* gamma, const bf16* beta, void* y, void* scratch, int M,
                    int slices, float eps, cudaStream_t stream) {
+  using P = AttnOut<kH>;
   const bool split = slices > 1;
   CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
   if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
       !make_map(&wo_map, wo, kH, kH, kN) ||
       (!split && (!make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel<kH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+                                         static_cast<int>(P::kSmemBytes));
   if (err != cudaSuccess) return err;
   auto* part = static_cast<float*>(scratch);
-  attn_out_ln_kernel<<<dim3((M + kTM - 1) / kTM, slices), kThreads, kSmemBytes, stream>>>(
-      ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part, M, kChunks / slices, eps);
+  const dim3 grid((M + kTM - 1) / kTM, slices, P::kGroups);
+  if constexpr (P::kPair) {
+    // the two column groups of a row tile and slice as one cluster
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = P::kGroups;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = P::kSmemBytes;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, attn_out_ln_kernel<kH>, ctx_map, x_map, wo_map, y_map,
+                             bo, gamma, beta, part, M, P::kChunks / slices, eps);
+    if (err != cudaSuccess) return err;
+  } else {
+    attn_out_ln_kernel<kH><<<grid, kThreads, P::kSmemBytes, stream>>>(
+        ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part, M, P::kChunks / slices, eps);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  split_reduce<bf16, false><<<(M + 7) / 8, 256, 0, stream>>>(
+  split_reduce<kH, bf16, false><<<(M + 7) / 8, 256, 0, stream>>>(
       part, slices, static_cast<const bf16*>(x), bo, gamma, beta, nullptr, nullptr,
       static_cast<bf16*>(y), M, eps);
   return cudaGetLastError();
+}
+
+template <int kH>
+int attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void* bo,
+                     const void* gamma, const void* beta, void* y, void* scratch, int M,
+                     int slices, float eps, void* stream) {
+  using P = AttnOut<kH>;
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  if (slices < 1 || P::kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
+  return static_cast<int>(launch<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M,
+                                     slices, eps, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory per block of the attention-output kernel.
-int mrd_attn_out_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// Dynamic shared memory per block of the attention-output kernel (H = 768,
+// 1,024).
+int mrd_attn_out_smem_bytes() { return static_cast<int>(AttnOut<768>::kSmemBytes); }
+int mrd_attn_out_smem_bytes_h1024() { return static_cast<int>(AttnOut<1024>::kSmemBytes); }
 
 // y = LN(x + ctx Wo^T + bo) on `stream`. Pointers are device pointers,
 // 16-byte aligned; ctx, x and y are [M, 768] row-major, wo is [768 out,
@@ -437,12 +582,16 @@ int mrd_attn_out_smem_bytes() { return static_cast<int>(kSmemBytes); }
 int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void* bo,
                          const void* gamma, const void* beta, void* y, void* scratch, int M,
                          int slices, float eps, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (slices < 1 || kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
-  return static_cast<int>(launch(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M, slices,
-                                 eps, static_cast<cudaStream_t>(stream)));
+  return attn_out_ln_bf16<768>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps, stream);
+}
+
+// The same at H = 1,024: [M, 1,024] rows, wo [1,024, 1,024], `slices` a
+// divisor of the 16 k chunks, scratch f32 [slices, M, 1,024].
+int mrd_attn_out_ln_bf16_h1024(const void* ctx, const void* x, const void* wo, const void* bo,
+                               const void* gamma, const void* beta, void* y, void* scratch,
+                               int M, int slices, float eps, void* stream) {
+  return attn_out_ln_bf16<1024>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,
+                                stream);
 }
 
 }  // extern "C"

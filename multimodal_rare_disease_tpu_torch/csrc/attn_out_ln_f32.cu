@@ -1,8 +1,11 @@
 // K3 in f32: the post-LN BERT attention-output sublayer of a model whose
 // compute dtype is float32, written by hand for Hopper (sm_90a):
 //
-//   y = LN(x + ctx . Wo^T + bo)   ctx, x: [M, 768] f32; Wo: [768, 768] f32 in
+//   y = LN(x + ctx . Wo^T + bo)   ctx, x: [M, H] f32; Wo: [H, H] f32 in
 //                                 torch.nn.Linear's [out, in]
+//
+// H is a template parameter, built for 768 (BERT-base) and 1,024
+// (BERT-large): 6 or 8 column tiles of the GEMM, 24 or 32 k-tiles.
 //
 // The function is the Pallas body run in f32
 // (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): an
@@ -24,12 +27,12 @@
 //
 // Design: gemm_tf32x3.cuh's GEMM, which K1-f32 and K2-f32 run, with A split
 // on the chip. One call is three launches on the caller's stream:
-//   1. split_weight: Wo^T [768 out, 768 in] into its exact TF32 planes
+//   1. split_weight: Wo^T [H out, H in] into its exact TF32 planes
 //      (2.4 MB read, 4.7 MB written). Every call splits it anew: nothing is
 //      cached, so nothing goes stale after a train step;
 //   2. gemm_tf32x3<kPartial, kSplitA>: ctx . Wo^T into f32 partials
-//      [S, M, 768], 6 column tiles x ceil(M / 128) row tiles, the k loop of
-//      24 k-tiles in S slices of at least 8 when the output tiles would
+//      [S, M, H], H / 128 column tiles x ceil(M / 128) row tiles, the k loop
+//      of H / 32 k-tiles in S slices of at least 8 when the output tiles would
 //      leave SMs idle (kernels/attn_out.py::attn_out_plan_f32; S = 1 at the
 //      packed batch, 3 at a single request's 64 rows). ctx is read from
 //      device memory once, as f32, by TMA, and each consumer warpgroup
@@ -55,15 +58,12 @@
 
 namespace {
 
-constexpr int kK = kF32H;                                   // Wo^T's k: 768
-constexpr long long kWoVecs = static_cast<long long>(kF32H) * kK / 4;
-constexpr int kWoBlocks = static_cast<int>(
-    (kWoVecs + kSplitThreads * kSplitVecs - 1) / (kSplitThreads * kSplitVecs));
-
-// Stage 1: Wo^T [768, 768] into its planes w_hi, w_lo, float4 by float4
+// Stage 1: Wo^T [kH, kH] into its planes w_hi, w_lo, float4 by float4
+template <int kH>
 __global__ void __launch_bounds__(kSplitThreads)
 split_weight(const float* __restrict__ wot, float* __restrict__ w_hi,
              float* __restrict__ w_lo) {
+  constexpr long long kWoVecs = static_cast<long long>(kH) * kH / 4;
   const long long first =
       static_cast<long long>(blockIdx.x) * kSplitThreads * kSplitVecs + threadIdx.x;
 #pragma unroll
@@ -75,6 +75,35 @@ split_weight(const float* __restrict__ wot, float* __restrict__ w_hi,
     reinterpret_cast<float4*>(w_hi)[q] = hi;
     reinterpret_cast<float4*>(w_lo)[q] = lo;
   }
+}
+
+template <int kH>
+int attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const void* bo,
+                    const void* gamma, const void* beta, void* y, void* scratch, int M,
+                    int slices, float eps, void* stream) {
+  static_assert(kWholeTiles<kH>, "whole tiles");
+  constexpr int kK = kH;  // Wo^T's k
+  constexpr long long kWoVecs = static_cast<long long>(kH) * kK / 4;
+  constexpr int kWoBlocks = static_cast<int>(
+      (kWoVecs + kSplitThreads * kSplitVecs - 1) / (kSplitThreads * kSplitVecs));
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  if (slices < 1 || (kK / kBK) % slices != 0 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w_hi = static_cast<float*>(scratch);
+  float* w_lo = w_hi + kH * kK;
+  float* partial = w_lo + kH * kK;
+  split_weight<kH><<<kWoBlocks, kSplitThreads, 0, s>>>(f(wo), w_hi, w_lo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<kPartial, true>(f(ctx), nullptr, w_hi, w_lo, nullptr, partial, nullptr, M,
+                                    kH, kK, slices, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_reduce_f32<kH, false><<<(M + 7) / 8, kSplitThreads, 0, s>>>(
+      partial, slices, f(x), f(bo), f(gamma), f(beta), nullptr, nullptr,
+      static_cast<float*>(y), M, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -94,24 +123,16 @@ int mrd_attn_out_f32_smem_bytes() { return static_cast<int>(kSmemBytes); }
 int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const void* bo,
                         const void* gamma, const void* beta, void* y, void* scratch, int M,
                         int slices, float eps, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (slices < 1 || (kK / kBK) % slices != 0 || scratch == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w_hi = static_cast<float*>(scratch);
-  float* w_lo = w_hi + kF32H * kK;
-  float* partial = w_lo + kF32H * kK;
-  split_weight<<<kWoBlocks, kSplitThreads, 0, s>>>(f(wo), w_hi, w_lo);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<kPartial, true>(f(ctx), nullptr, w_hi, w_lo, nullptr, partial, nullptr, M,
-                                    kF32H, kK, slices, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  split_reduce_f32<false><<<(M + 7) / 8, kSplitThreads, 0, s>>>(
-      partial, slices, f(x), f(bo), f(gamma), f(beta), nullptr, nullptr,
-      static_cast<float*>(y), M, eps);
-  return static_cast<int>(cudaGetLastError());
+  return attn_out_ln_f32<768>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps, stream);
+}
+
+// The same at H = 1,024: [M, 1,024] rows, wo [1,024, 1,024], `slices` a
+// divisor of the 32 k-tiles, scratch 2 1,024 1,024 + slices M 1,024.
+int mrd_attn_out_ln_f32_h1024(const void* ctx, const void* x, const void* wo, const void* bo,
+                              const void* gamma, const void* beta, void* y, void* scratch,
+                              int M, int slices, float eps, void* stream) {
+  return attn_out_ln_f32<1024>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,
+                               stream);
 }
 
 }  // extern "C"

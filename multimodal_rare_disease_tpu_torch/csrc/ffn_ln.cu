@@ -1,14 +1,16 @@
 // K1 and K2: the post-LN BERT FFN sublayer, written by hand for Hopper
-// (sm_90a). One kernel template, `kInputLN`:
+// (sm_90a). One kernel template over the hidden width H (768, BERT-base, and
+// 1,024, BERT-large; the design below is written for 768, and H = 1,024's
+// changes follow it) and `kInputLN`:
 //
-//   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, 768] bf16, the unnormalized
+//   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, H] bf16, the unnormalized
 //                                               attention residual
-//   K2 (kInputLN = false): x = the input rows [M, 768] bf16 as they are (the
+//   K2 (kInputLN = false): x = the input rows [M, H] bf16 as they are (the
 //                          already-normalized output of K3, attn_out_ln.cu)
 //
-//   h = bf16(GELU(x . W1 + b1))              W1: [768, F] bf16, f32 accumulator,
+//   h = bf16(GELU(x . W1 + b1))              W1: [H, F] bf16, f32 accumulator,
 //                                               exact-erf GELU in f32
-//   y = bf16(LN2(f32(x) + h . W2 + b2))      W2: [F, 768] bf16
+//   y = bf16(LN2(f32(x) + h . W2 + b2))      W2: [F, H] bf16
 //
 // LayerNorm statistics are two-pass in f32 (eps given, 1e-12 for BERT).
 // Biases and LayerNorm parameters are widened to f32 on load. K2 reads them
@@ -67,6 +69,41 @@
 // The weights are read in the layout of torch.nn.Linear ([out, in],
 // row-major): W1^T [F, H] and W2^T [H, F] are the K-major B operands of the
 // two products, which wgmma takes without a transpose.
+//
+// H = 1,024 (BERT-large, F = 4,096). The design above does not fit twice
+// over: a [64, 1,024] f32 accumulator is 256 floats a thread in the two
+// stage-2 warpgroups (the limit is 255 registers; the tile is the SM's
+// whole register file), and the 128-KB x tile beside the rings (h 16 KB,
+// W1 48 KB, W2 64 KB) is 256 KB against 227 KB. So a row tile is cut into
+// two column groups of 512 output columns, one block each (grid z), and
+// the two blocks run as a cluster of two that shares h:
+//   - each block builds the whole x tile (LN0 for K1): stage 1's A operand
+//     spans all of H;
+//   - stage 1 of block r (its rank in the cluster) runs the pass of 32
+//     chunk columns 32 r .. + 32 only, and stores its bf16 GELU values into
+//     the chunk buffer of both blocks, the peer's over distributed shared
+//     memory (st.shared::cluster), then arrives on both blocks' full
+//     barrier (256 arrivals: both stage-1 warpgroups) after a proxy fence
+//     of the cluster's shared memory; stage 2 waits on it with cluster
+//     acquire. A block's empty barrier takes the releases of both blocks'
+//     stage-2 warpgroups (4), since its stage 1 writes into both. So each
+//     block runs half of the stage-1 products, and stage 2 for its own 512
+//     columns: two warpgroups of [64, 256], 128 accumulator floats a thread;
+//   - shared memory: the x tile (128 KB), the two GELU chunks (16 KB), the
+//     W1 ring in 4 slots of [32 f x 64 k] (4 KB each, the block's half of
+//     a chunk in 16 of them) and the W2 ring as above (4 slots of 16 KB):
+//     224 KB;
+//   - LN2 over the pair: each stage-2 warpgroup adds b2 and x (the whole x
+//     tile is in each block) to its [64, 256], and the row sums of its
+//     columns go into both blocks' exchange (the W1 ring's slots, idle by
+//     then) with an arrival on the peer's barrier; each block adds the four
+//     partials of a row in one order, so both get the same mean, and the
+//     centred sums of squares go the same way; then each block writes y
+//     for its 512 columns. With F split (small M), each block stores its
+//     f32 partial instead and split_reduce finishes the rows, as above;
+//   - a cluster barrier after the barriers' initialization (before any
+//     remote access) and before exit (no block leaves while its peer may
+//     still write to it).
 
 #include <cuda.h>
 
@@ -93,14 +130,12 @@ using mrd::sw128_offset;
 using mrd::tma_load_2d;
 using mrd::warp_sum;
 
-constexpr int kH = 768;                      // hidden width (BERT-base)
 constexpr int kTM = 64;                      // rows per block (wgmma M)
 constexpr int kFC = 64;                      // F chunk per loop step
 constexpr int kS2 = 2;                       // stage-2 warpgroups (0 and 1)
 constexpr int kS1WG = kS2;                   // the stage-1 warpgroup (2)
 constexpr int kThreads = 128 * (kS2 + 1);
 constexpr int kS2Threads = 128 * kS2;
-constexpr int kHalf = kH / kS2;              // 384 output columns per stage-2 WG
 // registers per thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 =
 // 384 x 168, the registers the block is launched with. Stage 2 needs its
 // 192 accumulator registers pinned at R24 .. R215 and a few above; with
@@ -108,46 +143,70 @@ constexpr int kHalf = kH / kS2;              // 384 output columns per stage-2 W
 constexpr int kS2Regs = 224;
 constexpr int kS1Regs = 56;
 
-// W1 tiles [32 f][128 k] (stage 1 takes a chunk as two halves of 32
-// columns, 6 tiles each) and W2 tiles [128 h][64 f] (tile u of a chunk
-// goes to stage-2 WG u % 2), each ring refilled by its consumers
+// W1 tiles [32 f][kW1K k] (stage 1 takes a chunk as two halves of 32
+// columns) and W2 tiles [128 h][64 f] (tile u of a chunk goes to stage-2
+// WG u % 2), each ring refilled by its consumers
 constexpr int kS1N = 32;                     // chunk columns per stage-1 pass
-constexpr int kW1K = 128;                    // k (= H) columns of a W1 tile
-constexpr int kW1PerHalf = kH / kW1K;        // 6
-constexpr int kW1PerChunk = 2 * kW1PerHalf;  // 12
 constexpr int kW2N = 128;                    // h rows of a W2 tile
-constexpr int kW2PerChunk = kH / kW2N;       // 6
-constexpr int kW1Stages = 6;
 constexpr int kW2Stages = 4;
 constexpr int kHStages = 2;                  // GELU chunks between the stages
+constexpr uint32_t kBlockBytes = kTM * 128;  // [64][64] bf16, 8 KB
+constexpr uint32_t kW1BoxBytes = kS1N * 128; // a [32][64] bf16 box, 4 KB
+constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB
 
-// shared memory, from a 1024-byte aligned base: the x tile as 12 column
-// blocks of [64 rows][64 bf16], the GELU chunks, the two weight rings, the
-// barriers and the LN2 exchange
-constexpr uint32_t kBlockBytes = kTM * 128;              // [64][64] bf16, 8 KB
-constexpr uint32_t kW1Bytes = kS1N * kW1K * 2;           // 8 KB
-constexpr uint32_t kW2Bytes = kW2N * kFC * 2;            // 16 KB
-constexpr uint32_t kOffX = 0;
-constexpr uint32_t kOffH = kOffX + (kH / 64) * kBlockBytes;
-constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
-constexpr uint32_t kOffW2 = kOffW1 + kW1Stages * kW1Bytes;
-// the rings' full barriers (TMA bytes) and the GELU chunks' full and
-// empty barriers, 8 bytes each
-constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
-constexpr uint32_t kBarW2Full = kBarW1Full + 8 * kW1Stages;
-constexpr uint32_t kBarHFull = kBarW2Full + 8 * kW2Stages;
-constexpr uint32_t kBarHEmpty = kBarHFull + 8 * kHStages;
-constexpr uint32_t kOffRed = kBarHEmpty + 8 * kHStages;  // float [2][2][64]
-constexpr uint32_t kSmemBytes = kOffRed + 2 * kS2 * kTM * 4 + 1024;
+// The shape of the kernel at hidden width kH: 768 as the header sets out,
+// 1,024 in two column groups of 512 (one block each).
+template <int kH>
+struct Ffn {
+  static constexpr int kGroups = kH == 768 ? 1 : 2;    // blocks per row tile
+  static constexpr bool kPair = kGroups == 2;          // a cluster sharing h
+  static constexpr int kCols = kH / kGroups;           // output columns per block
+  static constexpr int kHalf = kCols / kS2;            // 384 / 256 per stage-2 WG
+  static constexpr int kW1K = kH == 768 ? 128 : 64;    // k (= H) columns of a W1 tile
+  static constexpr int kW1Boxes = kW1K / 64;           // TMA boxes per W1 tile
+  static constexpr int kW1PerHalf = kH / kW1K;         // 6 / 16
+  // W1 tiles a block loads per chunk: both halves, or its own half
+  static constexpr int kW1PerChunk = kPair ? kW1PerHalf : 2 * kW1PerHalf;  // 12 / 16
+  static constexpr int kW2PerChunk = kCols / kW2N;     // 6 / 4
+  static constexpr int kW1Stages = kH == 768 ? 6 : 4;
+  static constexpr uint32_t kW1Bytes = kW1Boxes * kW1BoxBytes;  // 8 / 4 KB
 
-static_assert(kW1Bytes == 2 * kS1N * 128, "W1 tile: two [32][64] boxes");
-static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
-static_assert(kW2Stages % kS2 == 0, "tile g + kW2Stages has the owner of tile g");
-static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0, "1024-byte swizzle atoms");
+  // shared memory, from a 1024-byte aligned base: the x tile as kH / 64
+  // column blocks of [64 rows][64 bf16], the GELU chunks, the two weight
+  // rings, the barriers and (fused LN2 only) the LN2 exchange
+  static constexpr uint32_t kOffX = 0;
+  static constexpr uint32_t kOffH = kOffX + (kH / 64) * kBlockBytes;
+  static constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
+  static constexpr uint32_t kOffW2 = kOffW1 + kW1Stages * kW1Bytes;
+  // the rings' full barriers (TMA bytes) and the GELU chunks' full and
+  // empty barriers, 8 bytes each
+  static constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
+  static constexpr uint32_t kBarW2Full = kBarW1Full + 8 * kW1Stages;
+  static constexpr uint32_t kBarHFull = kBarW2Full + 8 * kW2Stages;
+  static constexpr uint32_t kBarHEmpty = kBarHFull + 8 * kHStages;
+  // the pair's LN2 exchange: barriers of the peer's row sums and centred
+  // squares; the values go into the W1 ring, idle by then (kOffW1: float
+  // [2: sums, squares][2 ranks][2 WGs][64 rows])
+  static constexpr uint32_t kBarStats = kBarHEmpty + 8 * kHStages;
+  static constexpr uint32_t kOffRed = kBarStats + (kPair ? 16 : 0);  // float [2][2][64]
+  static constexpr uint32_t kSmemBytes = kOffRed + (kPair ? 0 : 2 * kS2 * kTM * 4) + 1024;
+  // arrivals on a GELU chunk's full barrier (every stage-1 thread that
+  // writes it) and empty barrier (every stage-2 warpgroup that reads it)
+  static constexpr int kHFullArrivals = kPair ? 2 * 128 : 128;
+  static constexpr int kHEmptyArrivals = kPair ? 2 * kS2 : kS2;
+
+  static_assert(kH % 256 == 0 && kCols % (kS2 * kW2N) == 0, "whole W2 tiles per WG");
+  static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
+  static_assert(kW2Stages % kS2 == 0, "tile g + kW2Stages has the owner of tile g");
+  static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0 && kW1Bytes % 1024 == 0,
+                "1024-byte swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
+  static_assert(!kPair || kW1Stages * kW1Bytes >= 2 * 2 * kS2 * kTM * 4,
+                "room for LN2's exchange in the W1 ring");
+};
+
 static_assert(2 * 128 * kS2Regs + 128 * kS1Regs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
-static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
-static_assert(kH == kRowH, "rows.cuh is written for the same width");
 
 // columns c and c + 1 (c even) of row r of a swizzled tile, as f32
 __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int c) {
@@ -155,59 +214,80 @@ __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int 
       tile + sw128_offset(r, c >> 3, kBlockBytes) + (c & 7) * 2));
 }
 
-// Issue W1 tile g of the slice (chunk c_begin + g / 12, half (g / 6) % 2,
-// k-slice g % 6: W1^T[f .. f + 32, 128 t .. + 128]) into its ring slot.
+// Issue W1 tile g of the slice (chunk c_begin + g / kW1PerChunk, half
+// (g / kW1PerHalf) % 2, or the pair's `rank`, k-slice t = g % kW1PerHalf:
+// W1^T[f .. f + 32, kW1K t .. + kW1K]) into its ring slot, one [32][64] box
+// per 64 of k.
+template <int kH>
 __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, int c_begin,
-                                        int g) {
-  const int t = g % kW1PerHalf;
-  const int f = (c_begin + g / kW1PerChunk) * kFC + kS1N * ((g / kW1PerHalf) % 2);
-  const uint32_t slot = g % kW1Stages;
-  const uint32_t bar = base + kBarW1Full + 8 * slot;
-  const uint32_t dst = base + kOffW1 + slot * kW1Bytes;
-  mbar_arrive_expect_tx(bar, kW1Bytes);
-  tma_load_2d(dst, map, bar, t * kW1K, f);
-  tma_load_2d(dst + kW1Bytes / 2, map, bar, t * kW1K + 64, f);
+                                        int rank, int g) {
+  using P = Ffn<kH>;
+  const int t = g % P::kW1PerHalf;
+  int f;
+  if constexpr (P::kPair)  // the block's own half of the chunk, one box a tile
+    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * rank;
+  else
+    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * ((g / P::kW1PerHalf) % 2);
+  const uint32_t slot = g % P::kW1Stages;
+  const uint32_t bar = base + P::kBarW1Full + 8 * slot;
+  const uint32_t dst = base + P::kOffW1 + slot * P::kW1Bytes;
+  mbar_arrive_expect_tx(bar, P::kW1Bytes);
+  tma_load_2d(dst, map, bar, t * P::kW1K, f);
+  if constexpr (!P::kPair) tma_load_2d(dst + P::kW1Bytes / 2, map, bar, t * P::kW1K + 64, f);
 }
 
-// Issue W2 tile g of the slice (chunk c_begin + g / 6, tile u = g % 6:
-// W2^T[h0 .. h0 + 128, f0 .. f0 + 64]) into its ring slot.
+// Issue W2 tile g of the slice (chunk c_begin + g / kW2PerChunk, tile u =
+// g % kW2PerChunk: W2^T[h0 .. h0 + 128, f0 .. f0 + 64], h0 in the block's
+// column group from col0) into its ring slot.
+template <int kH>
 __device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, int c_begin,
-                                        int g) {
-  const int u = g % kW2PerChunk;
+                                        int col0, int g) {
+  using P = Ffn<kH>;
+  const int u = g % P::kW2PerChunk;
   const uint32_t slot = g % kW2Stages;
-  const uint32_t bar = base + kBarW2Full + 8 * slot;
+  const uint32_t bar = base + P::kBarW2Full + 8 * slot;
   mbar_arrive_expect_tx(bar, kW2Bytes);
-  tma_load_2d(base + kOffW2 + slot * kW2Bytes, map, bar, (c_begin + g / kW2PerChunk) * kFC,
-              kHalf * (u % kS2) + kW2N * (u / kS2));
+  if constexpr (P::kPair)
+    tma_load_2d(base + P::kOffW2 + slot * kW2Bytes, map, bar,
+                (c_begin + g / P::kW2PerChunk) * kFC,
+                col0 + P::kHalf * (u % kS2) + kW2N * (u / kS2));
+  else
+    tma_load_2d(base + P::kOffW2 + slot * kW2Bytes, map, bar,
+                (c_begin + g / P::kW2PerChunk) * kFC, P::kHalf * (u % kS2) + kW2N * (u / kS2));
 }
 
 // Stage 2 of chunk k (counted from the slice's first) for warpgroup wg:
-// ACC[:, 384 wg .. +384] += h . W2[chunk, ...], from W2 tiles u = 2 j + wg.
-// Both stage-2 WGs wait on every W2 tile, the other one's included, so each
-// waits on every round of every slot in order and the parity waits are
+// ACC[:, kHalf wg .. + kHalf] += h . W2[chunk, ...], from W2 tiles u = 2 j +
+// wg. Both stage-2 WGs wait on every W2 tile, the other one's included, so
+// each waits on every round of every slot in order and the parity waits are
 // exact. A tile's own WG refills its slot with tile g + 4 (same owner) once
 // its products are done; that cannot run two rounds ahead of the other WG,
 // whose next tile it has to wait for first. kFirst: the slice's first
 // chunk, whose first step writes the accumulators without reading them.
-template <bool kFirst>
-__device__ __forceinline__ void s2_chunk(float (&acc)[kW2PerChunk / kS2][64], Ring& w2,
-                                         const CUtensorMap* w2_map, uint32_t base,
-                                         int c_begin, int n_w2, int k, int wg, bool leader) {
+template <int kH, bool kFirst>
+__device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2][64],
+                                         Ring& w2, const CUtensorMap* w2_map, uint32_t base,
+                                         int c_begin, int col0, int n_w2, int k, int wg,
+                                         bool leader, int rank) {
+  using P = Ffn<kH>;
   const int hs = k % kHStages;
-  mbar_wait(base + kBarHFull + 8 * hs, (k / kHStages) & 1);
+  if constexpr (P::kPair)  // both blocks' stage 1 wrote the chunk
+    mrd::mbar_wait_cluster(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
+  else
+    mbar_wait(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
   int prev = 0;  // the W2 tile of the group in flight
 #pragma unroll
-  for (int j = 0; j < kW2PerChunk / kS2; ++j) {
+  for (int j = 0; j < P::kW2PerChunk / kS2; ++j) {
     uint32_t mine = 0;
 #pragma unroll
     for (int o = 0; o < kS2; ++o) {
-      mbar_wait(base + kBarW2Full + 8 * w2.slot, w2.phase);
+      mbar_wait(base + P::kBarW2Full + 8 * w2.slot, w2.phase);
       if (o == wg) mine = w2.slot;
       w2.next<kW2Stages>();
     }
-    const int g = k * kW2PerChunk + kS2 * j + wg;
-    const uint32_t a0 = opaque(base) + kOffH + hs * kBlockBytes;
-    const uint32_t b0 = opaque(base) + kOffW2 + mine * kW2Bytes;
+    const int g = k * P::kW2PerChunk + kS2 * j + wg;
+    const uint32_t a0 = opaque(base) + P::kOffH + hs * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW2 + mine * kW2Bytes;
     mrd::fence_operand(acc[j]);
     mrd::wgmma_fence();
 #pragma unroll
@@ -222,25 +302,30 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[kW2PerChunk / kS2][64], Ri
     mrd::fence_operand(acc[j]);
     if (j > 0) {
       mrd::wgmma_wait<1>();
-      if (leader && prev + kW2Stages < n_w2) load_w2(w2_map, base, c_begin, prev + kW2Stages);
+      if (leader && prev + kW2Stages < n_w2)
+        load_w2<kH>(w2_map, base, c_begin, col0, prev + kW2Stages);
     }
     prev = g;
   }
   mrd::wgmma_wait<0>();
 #pragma unroll
-  for (int j = 0; j < kW2PerChunk / kS2; ++j) mrd::fence_operand(acc[j]);
+  for (int j = 0; j < P::kW2PerChunk / kS2; ++j) mrd::fence_operand(acc[j]);
   if (leader) {
-    if (prev + kW2Stages < n_w2) load_w2(w2_map, base, c_begin, prev + kW2Stages);
-    mbar_arrive(base + kBarHEmpty + 8 * hs);
+    if (prev + kW2Stages < n_w2) load_w2<kH>(w2_map, base, c_begin, col0, prev + kW2Stages);
+    mbar_arrive(base + P::kBarHEmpty + 8 * hs);
+    // the peer's stage 1 writes this slot too
+    if constexpr (P::kPair)
+      mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHEmpty + 8 * hs, rank ^ 1));
   }
 }
 
 // V: the type of the bias and LayerNorm vectors (float or bf16; bf16 only
 // for K2); kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0
-// unused). Grid: (row tiles, slices of F); with one slice the block applies
-// LN2 and writes y, with several it writes its f32 partial of h . W2 to
-// `partial` [slices, M, H] and split_reduce (rows.cuh) finishes the rows.
-template <typename V, bool kInputLN>
+// unused). Grid: (row tiles, slices of F, column groups); with one slice
+// and one group the block applies LN2 and writes y, otherwise it writes its
+// f32 partial of h . W2 to `partial` [slices, M, kH] and split_reduce
+// (rows.cuh) finishes the rows.
+template <int kH, typename V, bool kInputLN>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
               const __grid_constant__ CUtensorMap w2_map,  // W2^T [H, F]
@@ -254,6 +339,7 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
               bf16* __restrict__ y,                        // [M, H]
               float* __restrict__ partial,                 // [slices, M, H]
               int M, int chunks_per_slice, float eps) {
+  using P = Ffn<kH>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -262,34 +348,45 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   const int c_begin = blockIdx.y * chunks_per_slice;
   const int c_end = c_begin + chunks_per_slice;
   const long long row0 = static_cast<long long>(blockIdx.x) * kTM;
+  // the pair's rank (its column group: grid z, the cluster's z) and the
+  // block's first output column
+  const int rank = P::kPair ? static_cast<int>(mrd::cluster_ctarank()) : 0;
+  const int col0 = rank * P::kCols;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  const int n_w1 = chunks_per_slice * kW1PerChunk;  // tiles of this slice
-  const int n_w2 = chunks_per_slice * kW2PerChunk;
+  const int n_w1 = chunks_per_slice * P::kW1PerChunk;  // tiles of this slice
+  const int n_w2 = chunks_per_slice * P::kW2PerChunk;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kW1Stages; ++s) mbar_init(base + kBarW1Full + 8 * s, 1);
-    for (int s = 0; s < kW2Stages; ++s) mbar_init(base + kBarW2Full + 8 * s, 1);
+    for (int s = 0; s < P::kW1Stages; ++s) mbar_init(base + P::kBarW1Full + 8 * s, 1);
+    for (int s = 0; s < kW2Stages; ++s) mbar_init(base + P::kBarW2Full + 8 * s, 1);
     for (int s = 0; s < kHStages; ++s) {
-      mbar_init(base + kBarHFull + 8 * s, 128);  // every stage-1 thread
-      mbar_init(base + kBarHEmpty + 8 * s, kS2);
+      mbar_init(base + P::kBarHFull + 8 * s, P::kHFullArrivals);
+      mbar_init(base + P::kBarHEmpty + 8 * s, P::kHEmptyArrivals);
     }
+    if constexpr (P::kPair)  // every stage-2 thread of the peer, per exchange
+      for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kS2Threads);
     fence_barrier_init();
     // fill both rings; from here on, consumers refill the slots they free
-    for (int g = 0; g < kW1Stages && g < n_w1; ++g) load_w1(&w1_map, base, c_begin, g);
-    for (int g = 0; g < kW2Stages && g < n_w2; ++g) load_w2(&w2_map, base, c_begin, g);
+    for (int g = 0; g < P::kW1Stages && g < n_w1; ++g)
+      load_w1<kH>(&w1_map, base, c_begin, rank, g);
+    for (int g = 0; g < kW2Stages && g < n_w2; ++g)
+      load_w2<kH>(&w2_map, base, c_begin, col0, g);
   }
   // prologue, all 12 warps: the bf16 x tile, one warp per row
   for (int r = warp; r < kTM; r += kThreads / 32) {
-    uint4 g[kRowGroupsPerLane];
-    load_x_row<V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+    uint4 g[kRowGroupsPerLane<kH>];
+    load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane; ++j)
-      *reinterpret_cast<uint4*>(smem + kOffX + sw128_offset(r, lane + 32 * j, kBlockBytes)) =
+    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
+      *reinterpret_cast<uint4*>(smem + P::kOffX + sw128_offset(r, lane + 32 * j, kBlockBytes)) =
           g[j];
   }
   fence_proxy_async();
-  __syncthreads();
+  if constexpr (P::kPair)
+    mrd::cluster_sync();  // both blocks' barriers are initialized
+  else
+    __syncthreads();
 
   const int role = threadIdx.x / 128;
   const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
@@ -303,23 +400,27 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     for (int c = c_begin; c < c_end; ++c) {
       const int k = c - c_begin;
       const int hs = k % kHStages;
-      unsigned char* hbuf = smem + kOffH + hs * kBlockBytes;
+      unsigned char* hbuf = smem + P::kOffH + hs * kBlockBytes;
+      // the pair: the peer's copy of the chunk buffer
+      const uint32_t peer_h =
+          P::kPair ? mrd::map_to_rank(base + P::kOffH + hs * kBlockBytes, rank ^ 1) : 0;
+      // the pair runs its own half only
 #pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
+      for (int half = P::kPair ? rank : 0; half < (P::kPair ? rank + 1 : 2); ++half) {
         // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
         // flight while the next tile's wait and issue proceed
         float p[16];
 #pragma unroll
-        for (int t = 0; t < kW1PerHalf; ++t, ++g) {
-          mbar_wait(base + kBarW1Full + 8 * w1.slot, w1.phase);
-          const uint32_t a0 = opaque(base) + kOffX + 2 * t * kBlockBytes;
-          const uint32_t b0 = opaque(base) + kOffW1 + w1.slot * kW1Bytes;
+        for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
+          mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
+          const uint32_t a0 = opaque(base) + P::kOffX + P::kW1Boxes * t * kBlockBytes;
+          const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
           if (t > 0) mrd::fence_operand(p);
           mrd::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kW1K / 16; ++kk) {
+          for (int kk = 0; kk < P::kW1K / 16; ++kk) {
             const uint64_t da = sw128_desc(a0 + (kk / 4) * kBlockBytes + (kk % 4) * 32);
-            const uint64_t db = sw128_desc(b0 + (kk / 4) * (kW1Bytes / 2) + (kk % 4) * 32);
+            const uint64_t db = sw128_desc(b0 + (kk / 4) * kW1BoxBytes + (kk % 4) * 32);
             if (t == 0 && kk == 0)
               mrd::wgmma_m64n32k16_first(p, da, db);
             else
@@ -329,17 +430,21 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
           mrd::fence_operand(p);
           if (t > 0) {
             mrd::wgmma_wait<1>();
-            if (leader && g - 1 + kW1Stages < n_w1)
-              load_w1(&w1_map, base, c_begin, g - 1 + kW1Stages);
+            if (leader && g - 1 + P::kW1Stages < n_w1)
+              load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
           }
-          w1.next<kW1Stages>();
+          w1.next<P::kW1Stages>();
         }
         mrd::wgmma_wait<0>();
         mrd::fence_operand(p);
-        if (leader && g - 1 + kW1Stages < n_w1) load_w1(&w1_map, base, c_begin, g - 1 + kW1Stages);
+        if (leader && g - 1 + P::kW1Stages < n_w1)
+          load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
         // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
-        // stage 2 has released it
-        if (half == 0) mbar_wait(base + kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+        // stage 2 (the pair: of both blocks) has released it
+        if constexpr (P::kPair)
+          mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+        else if (half == 0)
+          mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
 #pragma unroll
         for (int nb = 0; nb < kS1N / 8; ++nb) {
           const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
@@ -350,31 +455,50 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
             const int r = wrow + 8 * hr;
             const float v0 = p[4 * nb + 2 * hr] + bb0;
             const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
-            *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
-                                               (col & 7) * 2) =
-                __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                      0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+            if constexpr (P::kPair) {  // into both blocks' chunk buffers
+              const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
+              const __nv_bfloat162 hv =
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + at) = hv;
+              mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
+                                                 (col & 7) * 2) =
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+            }
           }
         }
       }
-      fence_proxy_async();  // the stores, to stage 2's wgmma
-      mbar_arrive(base + kBarHFull + 8 * hs);
+      if constexpr (P::kPair) {
+        // the stores to both blocks, to both blocks' stage-2 wgmma
+        mrd::fence_proxy_async_cluster();
+        mbar_arrive(base + P::kBarHFull + 8 * hs);
+        mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
+      } else {
+        fence_proxy_async();  // the stores, to stage 2's wgmma
+        mbar_arrive(base + P::kBarHFull + 8 * hs);
+      }
     }
+    if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
   } else {
-    // ---- stage 2, warpgroup wg: ACC[:, 384 wg .. +384] += h . W2[chunk, ...]
+    // ---- stage 2, warpgroup wg: ACC[:, col0 + kHalf wg .. + kHalf] +=
+    // h . W2[chunk, ...]
     mrd::setmaxnreg_inc<kS2Regs>();
     const int wg = role;
-    float acc[kW2PerChunk / kS2][64];  // [64, 384] f32: n128 tiles
+    float acc[P::kW2PerChunk / kS2][64];  // [64, kHalf] f32: n128 tiles
     Ring w2;
-    s2_chunk<true>(acc, w2, &w2_map, base, c_begin, n_w2, 0, wg, leader);
+    s2_chunk<kH, true>(acc, w2, &w2_map, base, c_begin, col0, n_w2, 0, wg, leader, rank);
     for (int k = 1; k < chunks_per_slice; ++k)
-      s2_chunk<false>(acc, w2, &w2_map, base, c_begin, n_w2, k, wg, leader);
+      s2_chunk<kH, false>(acc, w2, &w2_map, base, c_begin, col0, n_w2, k, wg, leader, rank);
 
     // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
-    // per n8 block nb of tile j the columns 384 wg + 128 j + 8 nb + 2 (lane % 4)
-    // and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half, col + e)
-    const unsigned char* xt = smem + kOffX;
-    float* red = reinterpret_cast<float*>(smem + kOffRed);
+    // per n8 block nb of tile j the columns col0 + kHalf wg + 128 j + 8 nb +
+    // 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
+    // col + e)
+    const unsigned char* xt = smem + P::kOffX;
+    float* red = reinterpret_cast<float*>(smem + P::kOffRed);
     if (gridDim.y > 1) {  // split-F: the f32 partial of the valid rows
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -382,111 +506,221 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
         if (gr < M) {
           float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
 #pragma unroll
-          for (int j = 0; j < kW2PerChunk / kS2; ++j)
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
             for (int nb = 0; nb < 16; ++nb) {
-              const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+              const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
               *reinterpret_cast<float2*>(dst + col) =
                   make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
             }
         }
       }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
       return;
     }
-    // + b2 + x, and the row sums of this warpgroup's 384 columns
-    float s[2] = {0.0f, 0.0f};
+    if constexpr (P::kPair) {
+      // LN2 over the pair: + b2 + x, then the row sums of this warpgroup's
+      // 256 columns into both blocks' exchange, the mean of all four, the
+      // centred squares the same way, and y for the block's columns. Each
+      // exchange is a store to this block's and the peer's values and an
+      // arrival on the peer's barrier; both blocks add the four partials in
+      // one order, so they share the statistics bit for bit
+      float* stats = reinterpret_cast<float*>(smem + P::kOffW1);
+      const uint32_t peer_stats = mrd::map_to_rank(base + P::kOffW1, rank ^ 1);
+      const uint32_t peer_bar = mrd::map_to_rank(base + P::kBarStats, rank ^ 1);
+      const int mine = (rank * kS2 + wg) * kTM;  // this warpgroup's rows
+      float s[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kW2PerChunk / kS2; ++j)
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
-        const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
-        const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
+        for (int nb = 0; nb < 16; ++nb) {
+          const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = pair_at(xt, wrow + 8 * half, col);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + bb0 + x2.x;
+            a1 = a1 + bb1 + x2.y;
+            s[half] += a0 + a1;
+          }
+        }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {  // sums, then centred squares
+        float* vals = stats + step * 2 * kS2 * kTM;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const float2 x2 = pair_at(xt, wrow + 8 * half, col);
-          float& a0 = acc[j][4 * nb + 2 * half];
-          float& a1 = acc[j][4 * nb + 2 * half + 1];
-          a0 = a0 + bb0 + x2.x;
-          a1 = a1 + bb1 + x2.y;
-          s[half] += a0 + a1;
+          s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+          s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+          const int at = step * 2 * kS2 * kTM + mine + wrow + 8 * half;
+          if (lane % 4 == 0) {
+            stats[at] = s[half];
+            mrd::st_cluster_b32(peer_stats + 4 * at, __float_as_uint(s[half]));
+          }
+        }
+        mrd::mbar_arrive_remote(peer_bar + 8 * step);
+        named_bar_sync<kS2Threads>(1);  // this block's two warpgroups
+        mrd::mbar_wait_cluster(base + P::kBarStats + 8 * step, 0);  // the peer's
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow + 8 * half;
+          const float total = (vals[r] + vals[kTM + r]) + (vals[2 * kTM + r] + vals[3 * kTM + r]);
+          if (step == 0) {
+            mu[half] = total * (1.0f / kH);
+            s[half] = 0.0f;
+          } else {
+            rstd[half] = rsqrtf(total * (1.0f / kH) + eps);
+          }
+        }
+        if (step == 0) {
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int i = 0; i < 64; ++i) {
+              const float d = acc[j][i] - mu[(i / 2) % 2];
+              s[(i / 2) % 2] += d * d;
+            }
         }
       }
-    float mu[2], rstd[2];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
-      if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
-    }
-    named_bar_sync<kS2Threads>(1);
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          bf16* dst = y + gr * kH;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wrow + 8 * half;
-      mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
-      s[half] = 0.0f;
-    }
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-    for (int j = 0; j < kW2PerChunk / kS2; ++j)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const float d = acc[j][i] - mu[(i / 2) % 2];
-        s[(i / 2) % 2] += d * d;
+            for (int nb = 0; nb < 16; ++nb) {
+              const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+              const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+              *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+                  (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
+                  (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
+                      ld_f32(beta + col + 1));
+            }
+        }
       }
-    float* red_q = red + kS2 * kTM;
+      mrd::cluster_sync();  // the peer is done with this block
+    } else {
+      // + b2 + x, and the row sums of this warpgroup's kHalf columns
+      float s[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
-      s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
-      if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
-    }
-    named_bar_sync<kS2Threads>(1);
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wrow + 8 * half;
-      rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
-    }
+        for (int nb = 0; nb < 16; ++nb) {
+          const int col = P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long gr = row0 + wrow + 8 * half;
-      if (gr < M) {
-        bf16* dst = y + gr * kH;
-#pragma unroll
-        for (int j = 0; j < kW2PerChunk / kS2; ++j)
-#pragma unroll
-          for (int nb = 0; nb < 16; ++nb) {
-            const int col = kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
-            const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
-            *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-                (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
-                (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
-                    ld_f32(beta + col + 1));
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = pair_at(xt, wrow + 8 * half, col);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + bb0 + x2.x;
+            a1 = a1 + bb1 + x2.y;
+            s[half] += a0 + a1;
           }
+        }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kS2Threads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
+        s[half] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float d = acc[j][i] - mu[(i / 2) % 2];
+          s[(i / 2) % 2] += d * d;
+        }
+      float* red_q = red + kS2 * kTM;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kS2Threads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          bf16* dst = y + gr * kH;
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int nb = 0; nb < 16; ++nb) {
+              const int col = P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+              const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+              *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+                  (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
+                  (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
+                      ld_f32(beta + col + 1));
+            }
+        }
       }
     }
   }
 }
 
-template <typename V, bool kInputLN>
+template <int kH, typename V, bool kInputLN>
 cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, const void* beta, const void* g0,
                    const void* o0, void* y, void* scratch, int M, int F, int slices,
                    float eps, cudaStream_t stream) {
+  using P = Ffn<kH>;
   CUtensorMap w1_map, w2_map;
   if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, kW2N))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<V, kInputLN>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<kH, V, kInputLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+                                         static_cast<int>(P::kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTM - 1) / kTM, slices);
+  const dim3 grid((M + kTM - 1) / kTM, slices, P::kGroups);
   const auto vec = [](const void* p) { return static_cast<const V*>(p); };
   const auto* zb = static_cast<const bf16*>(z);
-  ffn_ln_kernel<V, kInputLN><<<grid, kThreads, kSmemBytes, stream>>>(
-      w1_map, w2_map, zb, vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
-      static_cast<bf16*>(y), static_cast<float*>(scratch), M, F / kFC / slices, eps);
+  if constexpr (P::kPair) {
+    // the two column groups of a row tile and slice as one cluster
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = P::kGroups;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = P::kSmemBytes;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, ffn_ln_kernel<kH, V, kInputLN>, w1_map, w2_map, zb,
+                             vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
+                             static_cast<bf16*>(y), static_cast<float*>(scratch), M,
+                             F / kFC / slices, eps);
+    if (err != cudaSuccess) return err;
+  } else {
+    ffn_ln_kernel<kH, V, kInputLN><<<grid, kThreads, P::kSmemBytes, stream>>>(
+        w1_map, w2_map, zb, vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
+        static_cast<bf16*>(y), static_cast<float*>(scratch), M, F / kFC / slices, eps);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return err;
-  split_reduce<V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
+  split_reduce<kH, V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
       static_cast<const float*>(scratch), slices, zb, vec(b2), vec(gamma), vec(beta),
       vec(g0), vec(o0), static_cast<bf16*>(y), M, eps);
   return cudaGetLastError();
@@ -498,12 +732,41 @@ cudaError_t check_args(int M, int F, int slices, const void* scratch) {
   return cudaSuccess;
 }
 
+template <int kH>
+int pre_ln_bf16(const void* z, const void* w1t, const void* b1, const void* w2t,
+                const void* b2, const void* gamma, const void* beta, const void* g0,
+                const void* o0, void* y, void* scratch, int M, int F, int slices, float eps,
+                int vec_bf16, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      vec_bf16 ? launch<kH, bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
+                                        M, F, slices, eps, s)
+               : launch<kH, float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
+                                         M, F, slices, eps, s));
+}
+
+template <int kH>
+int ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+            const void* gamma, const void* beta, void* y, void* scratch, int M, int F,
+            int slices, float eps, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  return static_cast<int>(launch<kH, bf16, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
+                                                  nullptr, y, scratch, M, F, slices, eps,
+                                                  static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory per block of the FFN kernel.
-int mrd_ffn_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// Dynamic shared memory per block of the FFN kernel (H = 768, 1,024).
+int mrd_ffn_smem_bytes() { return static_cast<int>(Ffn<768>::kSmemBytes); }
+int mrd_ffn_smem_bytes_h1024() { return static_cast<int>(Ffn<1024>::kSmemBytes); }
 
 const char* mrd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -511,24 +774,17 @@ const char* mrd_error_string(int err) {
 
 // K1: y = LN2(x + GELU(x W1 + b1) W2 + b2), x = LN0(z), on `stream`.
 // Pointers are device pointers, 16-byte aligned; w1t is [F, H] and w2t is
-// [H, F], row-major. The six vectors are f32, or bf16 when vec_bf16 is
-// non-zero. `slices` > 1 splits F into that many slices (F a multiple of
-// 64 * slices) and needs `scratch`, f32 [slices, M, H]. Returns the
-// cudaError_t of the launches (0 on success). Allocates nothing.
+// [H, F], row-major, H = 768. The six vectors are f32, or bf16 when
+// vec_bf16 is non-zero. `slices` > 1 splits F into that many slices (F a
+// multiple of 64 * slices) and needs `scratch`, f32 [slices, M, H]. Returns
+// the cudaError_t of the launches (0 on success). Allocates nothing.
 int mrd_ffn_pre_ln_bf16(const void* z, const void* w1t, const void* b1,
                         const void* w2t, const void* b2, const void* gamma,
                         const void* beta, const void* g0, const void* o0,
                         void* y, void* scratch, int M, int F, int slices, float eps,
                         int vec_bf16, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t bad = check_args(M, F, slices, scratch);
-  if (bad != cudaSuccess) return static_cast<int>(bad);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      vec_bf16 ? launch<bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M,
-                                    F, slices, eps, s)
-               : launch<float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
-                                     M, F, slices, eps, s));
+  return pre_ln_bf16<768>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
+                          eps, vec_bf16, stream);
 }
 
 // K2: y = LN(x + GELU(x W1 + b1) W2 + b2) with x the input rows as they are,
@@ -537,12 +793,26 @@ int mrd_ffn_pre_ln_bf16(const void* z, const void* w1t, const void* b1,
 int mrd_ffn_ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t,
                     const void* b2, const void* gamma, const void* beta, void* y,
                     void* scratch, int M, int F, int slices, float eps, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t bad = check_args(M, F, slices, scratch);
-  if (bad != cudaSuccess) return static_cast<int>(bad);
-  return static_cast<int>(launch<bf16, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
-                                              nullptr, y, scratch, M, F, slices, eps,
-                                              static_cast<cudaStream_t>(stream)));
+  return ln_bf16<768>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,
+                      stream);
+}
+
+// K1 and K2 at H = 1,024: as the two above, with `scratch` (f32 [slices, M,
+// 1,024]) needed at every launch.
+int mrd_ffn_pre_ln_bf16_h1024(const void* z, const void* w1t, const void* b1,
+                              const void* w2t, const void* b2, const void* gamma,
+                              const void* beta, const void* g0, const void* o0, void* y,
+                              void* scratch, int M, int F, int slices, float eps,
+                              int vec_bf16, void* stream) {
+  return pre_ln_bf16<1024>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
+                           eps, vec_bf16, stream);
+}
+
+int mrd_ffn_ln_bf16_h1024(const void* x, const void* w1t, const void* b1, const void* w2t,
+                          const void* b2, const void* gamma, const void* beta, void* y,
+                          void* scratch, int M, int F, int slices, float eps, void* stream) {
+  return ln_bf16<1024>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,
+                       stream);
 }
 
 }  // extern "C"

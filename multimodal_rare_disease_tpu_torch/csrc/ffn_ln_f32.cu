@@ -1,13 +1,14 @@
 // K1 and K2 in f32: the post-LN BERT FFN sublayer of a model whose compute
-// dtype is float32, written by hand for Hopper (sm_90a). One template,
+// dtype is float32, written by hand for Hopper (sm_90a). One template over
+// the hidden width H (built for 768, BERT-base, and 1,024, BERT-large) and
 // `kInputLN`:
 //
-//   K1 (kInputLN = true):  x = LN0(z)   z: [M, 768] f32, the unnormalized
+//   K1 (kInputLN = true):  x = LN0(z)   z: [M, H] f32, the unnormalized
 //                                          attention residual
 //   K2 (kInputLN = false): x = z        (the output of K3, attn_out_ln_f32.cu)
 //
-//   h = GELU(x . W1 + b1)               W1: [768, F] f32, exact-erf GELU
-//   y = LN2(x + h . W2 + b2)            W2: [F, 768] f32
+//   h = GELU(x . W1 + b1)               W1: [H, F] f32, exact-erf GELU
+//   y = LN2(x + h . W2 + b2)            W2: [F, H] f32
 //
 // The function is the Pallas body run in f32
 // (multimodal_rare_disease_tpu/ops/pallas/ffn.py:72-133): f32 operands and
@@ -34,13 +35,13 @@
 // written and read at 3.35 TB/s) against the 0.94-ms bound, so one call is
 // a sequence of launches on the caller's stream:
 //   1. split_operands: x = LN0(z) (K1) or z (K2), by load_row_f32, as the
-//      TF32 planes x_hi, x_lo [M, 768]; and W1^T, W2^T (nn.Linear's [out,
+//      TF32 planes x_hi, x_lo [M, H]; and W1^T, W2^T (nn.Linear's [out,
 //      in] layout, read as they are) as w_hi, w_lo planes. Every call splits
 //      the weights anew (56.6 MB of traffic, ~0.02 ms): nothing is cached,
 //      so nothing goes stale after a train step;
 //   2. gemm_tf32x3<kGelu>: h = GELU(x . W1 + b1), stored as its planes
 //      h_hi, h_lo [M, F];
-//   3. gemm_tf32x3<kPartial>: h . W2 into f32 partials [S, M, 768], S
+//   3. gemm_tf32x3<kPartial>: h . W2 into f32 partials [S, M, H], S
 //      slices of F's k loop when the output tiles would leave SMs idle
 //      (kernels/ffn.py::ffn_plan_f32);
 //   4. split_reduce_f32: y = LN2(sum of the S partials in slice order + b2
@@ -48,7 +49,10 @@
 //      split. No atomics: the same bits on every launch.
 // The GEMM (both products) and the reduce pass are gemm_tf32x3.cuh's, shared
 // with attn_out_ln_f32.cu (K3-f32); both operands of each product arrive here
-// as planes that stage 1 or the GELU epilogue wrote.
+// as planes that stage 1 or the GELU epilogue wrote. The GEMM tiles any
+// width by 128-column output tiles and 32-deep k-tiles, so H = 1,024 is the
+// same launches with 8 column tiles (6 at 768) and 32 k-tiles in the first
+// product; its scratch at M = 16,384 and F = 4,096 is 805 MB per call.
 
 #include <cuda.h>
 
@@ -58,9 +62,9 @@
 namespace {
 
 // Stage 1. Blocks [0, row_blocks): one warp per row, x = LN0(z) (K1) or z
-// (K2) into x_hi, x_lo [M, 768]. The blocks after them: the weights, W1^T
-// [F, 768] then W2^T [768, F], float4 by float4 into their planes.
-template <bool kInputLN>
+// (K2) into x_hi, x_lo [M, kH]. The blocks after them: the weights, W1^T
+// [F, kH] then W2^T [kH, F], float4 by float4 into their planes.
+template <int kH, bool kInputLN>
 __global__ void __launch_bounds__(kSplitThreads)
 split_operands(const float* __restrict__ z, const float* __restrict__ g0,
                const float* __restrict__ o0, float* __restrict__ x_hi,
@@ -73,19 +77,19 @@ split_operands(const float* __restrict__ z, const float* __restrict__ g0,
     const long long gr = static_cast<long long>(blockIdx.x) * (kSplitThreads / 32) +
                          threadIdx.x / 32;
     if (gr >= M) return;
-    float4 v[kF32RowVecs];
-    load_row_f32<kInputLN>(z, gr, M, g0, o0, eps, lane, v);
+    float4 v[kF32RowVecs<kH>];
+    load_row_f32<kH, kInputLN>(z, gr, M, g0, o0, eps, lane, v);
 #pragma unroll
-    for (int j = 0; j < kF32RowVecs; ++j) {
+    for (int j = 0; j < kF32RowVecs<kH>; ++j) {
       float4 hi, lo;
       split4(v[j], hi, lo);
-      const long long at = gr * kF32H + 4 * (lane + 32 * j);
+      const long long at = gr * kH + 4 * (lane + 32 * j);
       *reinterpret_cast<float4*>(x_hi + at) = hi;
       *reinterpret_cast<float4*>(x_lo + at) = lo;
     }
     return;
   }
-  const long long per = static_cast<long long>(F) * kF32H / 4;  // float4s per matrix
+  const long long per = static_cast<long long>(F) * kH / 4;  // float4s per matrix
   const long long first =
       (static_cast<long long>(blockIdx.x) - row_blocks) * kSplitThreads * kSplitVecs +
       threadIdx.x;
@@ -103,11 +107,11 @@ split_operands(const float* __restrict__ z, const float* __restrict__ g0,
 }
 
 // The scratch buffer of one call, carved in this order (f32 elements; every
-// piece a multiple of 768 floats, so 16-byte aligned as TMA needs)
+// piece a multiple of 128 floats, so 16-byte aligned as TMA needs)
 struct Scratch {
   float *x_hi, *x_lo, *w1_hi, *w1_lo, *w2_hi, *w2_lo, *h_hi, *h_lo, *partial;
-  Scratch(float* p, long long M, long long F) {
-    const long long x = M * kF32H, w = F * kF32H, h = M * F;
+  Scratch(float* p, long long M, long long F, long long H) {
+    const long long x = M * H, w = F * H, h = M * F;
     x_hi = p;
     x_lo = x_hi + x;
     w1_hi = x_lo + x;
@@ -120,28 +124,29 @@ struct Scratch {
   }
 };
 
-template <bool kInputLN>
+template <int kH, bool kInputLN>
 cudaError_t launch_f32(const float* z, const float* w1t, const float* b1, const float* w2t,
                        const float* b2, const float* gamma, const float* beta, const float* g0,
                        const float* o0, float* y, float* scratch, int M, int F, int slices,
                        float eps, cudaStream_t stream) {
-  const Scratch s(scratch, M, F);
+  static_assert(kWholeTiles<kH>, "whole tiles");
+  const Scratch s(scratch, M, F, kH);
   const int row_blocks = (M + kSplitThreads / 32 - 1) / (kSplitThreads / 32);
-  const long long w_vecs = 2LL * F * kF32H / 4;
+  const long long w_vecs = 2LL * F * kH / 4;
   const int w_blocks = static_cast<int>((w_vecs + kSplitThreads * kSplitVecs - 1) /
                                         (kSplitThreads * kSplitVecs));
-  split_operands<kInputLN><<<row_blocks + w_blocks, kSplitThreads, 0, stream>>>(
+  split_operands<kH, kInputLN><<<row_blocks + w_blocks, kSplitThreads, 0, stream>>>(
       z, g0, o0, s.x_hi, s.x_lo, w1t, w2t, s.w1_hi, s.w1_lo, s.w2_hi, s.w2_lo, M, F,
       row_blocks, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_gemm<kGelu>(s.x_hi, s.x_lo, s.w1_hi, s.w1_lo, b1, s.h_hi, s.h_lo, M, F, kF32H,
-                           1, stream);
+  err = launch_gemm<kGelu>(s.x_hi, s.x_lo, s.w1_hi, s.w1_lo, b1, s.h_hi, s.h_lo, M, F, kH, 1,
+                           stream);
   if (err != cudaSuccess) return err;
   err = launch_gemm<kPartial>(s.h_hi, s.h_lo, s.w2_hi, s.w2_lo, nullptr, s.partial, nullptr,
-                              M, kF32H, F, slices, stream);
+                              M, kH, F, slices, stream);
   if (err != cudaSuccess) return err;
-  split_reduce_f32<kInputLN><<<(M + 7) / 8, kSplitThreads, 0, stream>>>(
+  split_reduce_f32<kH, kInputLN><<<(M + 7) / 8, kSplitThreads, 0, stream>>>(
       s.partial, slices, z, b2, gamma, beta, g0, o0, y, M, eps);
   return cudaGetLastError();
 }
@@ -154,6 +159,33 @@ cudaError_t check_args_f32(int F, int slices, const void* scratch) {
 }
 
 const float* f32p(const void* p) { return static_cast<const float*>(p); }
+
+template <int kH>
+int pre_ln_f32(const void* z, const void* w1t, const void* b1, const void* w2t,
+               const void* b2, const void* gamma, const void* beta, const void* g0,
+               const void* o0, void* y, void* scratch, int M, int F, int slices, float eps,
+               void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args_f32(F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  return static_cast<int>(launch_f32<kH, true>(
+      f32p(z), f32p(w1t), f32p(b1), f32p(w2t), f32p(b2), f32p(gamma), f32p(beta), f32p(g0),
+      f32p(o0), static_cast<float*>(y), static_cast<float*>(scratch), M, F, slices, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
+template <int kH>
+int ln_f32(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+           const void* gamma, const void* beta, void* y, void* scratch, int M, int F,
+           int slices, float eps, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args_f32(F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  return static_cast<int>(launch_f32<kH, false>(
+      f32p(x), f32p(w1t), f32p(b1), f32p(w2t), f32p(b2), f32p(gamma), f32p(beta), nullptr,
+      nullptr, static_cast<float*>(y), static_cast<float*>(scratch), M, F, slices, eps,
+      static_cast<cudaStream_t>(stream)));
+}
 
 }  // namespace
 
@@ -173,13 +205,8 @@ int mrd_ffn_pre_ln_f32(const void* z, const void* w1t, const void* b1, const voi
                        const void* b2, const void* gamma, const void* beta, const void* g0,
                        const void* o0, void* y, void* scratch, int M, int F, int slices,
                        float eps, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t bad = check_args_f32(F, slices, scratch);
-  if (bad != cudaSuccess) return static_cast<int>(bad);
-  return static_cast<int>(launch_f32<true>(
-      f32p(z), f32p(w1t), f32p(b1), f32p(w2t), f32p(b2), f32p(gamma), f32p(beta), f32p(g0),
-      f32p(o0), static_cast<float*>(y), static_cast<float*>(scratch), M, F, slices, eps,
-      static_cast<cudaStream_t>(stream)));
+  return pre_ln_f32<768>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
+                         eps, stream);
 }
 
 // K2 in f32: y = LN(x + GELU(x W1 + b1) W2 + b2) with x the input rows as
@@ -188,13 +215,23 @@ int mrd_ffn_pre_ln_f32(const void* z, const void* w1t, const void* b1, const voi
 int mrd_ffn_ln_f32(const void* x, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, const void* beta, void* y, void* scratch,
                    int M, int F, int slices, float eps, void* stream) {
-  if (M <= 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t bad = check_args_f32(F, slices, scratch);
-  if (bad != cudaSuccess) return static_cast<int>(bad);
-  return static_cast<int>(launch_f32<false>(
-      f32p(x), f32p(w1t), f32p(b1), f32p(w2t), f32p(b2), f32p(gamma), f32p(beta), nullptr,
-      nullptr, static_cast<float*>(y), static_cast<float*>(scratch), M, F, slices, eps,
-      static_cast<cudaStream_t>(stream)));
+  return ln_f32<768>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps, stream);
+}
+
+// K1 and K2 in f32 at H = 1,024: as the two above with 1,024 in place of
+// 768 (the rows, the weights' H side, the vectors but b1, the scratch).
+int mrd_ffn_pre_ln_f32_h1024(const void* z, const void* w1t, const void* b1, const void* w2t,
+                             const void* b2, const void* gamma, const void* beta,
+                             const void* g0, const void* o0, void* y, void* scratch, int M,
+                             int F, int slices, float eps, void* stream) {
+  return pre_ln_f32<1024>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
+                          eps, stream);
+}
+
+int mrd_ffn_ln_f32_h1024(const void* x, const void* w1t, const void* b1, const void* w2t,
+                         const void* b2, const void* gamma, const void* beta, void* y,
+                         void* scratch, int M, int F, int slices, float eps, void* stream) {
+  return ln_f32<1024>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps, stream);
 }
 
 }  // extern "C"

@@ -97,8 +97,9 @@ static_assert(kSplitAVecs * 16 * 128 * kWG == kTileBytes, "the split covers the 
 static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
 static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
-static_assert(kF32H == kRowH && kF32H % kBN == 0 && kF32H % kBK == 0,
-              "the header's width, whole tiles");
+// the hidden widths a caller may instantiate its passes for: whole tiles
+template <int kH>
+constexpr bool kWholeTiles = kH % kBN == 0 && kH % kBK == 0;
 
 enum Epilogue { kGelu, kPartial };
 
@@ -310,25 +311,26 @@ gemm_tf32x3(const __grid_constant__ CUtensorMap a_hi_map,
 // y = LN(sum_s partial[s] + b + x), the slices summed in order 0 .. S-1, x
 // from load_row_f32 (LN0 of z for K1, z itself for K2 and K3). One warp per
 // row, 8 rows per block.
-template <bool kInputLN>
+template <int kH, bool kInputLN>
 __global__ void __launch_bounds__(kSplitThreads)
 split_reduce_f32(const float* __restrict__ partial, int slices, const float* __restrict__ z,
                  const float* __restrict__ b2, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const float* __restrict__ g0,
                  const float* __restrict__ o0, float* __restrict__ y, int M, float eps) {
+  static_assert(kWholeTiles<kH>, "whole tiles");
   const int lane = threadIdx.x % 32;
   const long long gr = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   if (gr >= M) return;
-  float4 v[kF32RowVecs];
-  load_row_f32<kInputLN>(z, gr, M, g0, o0, eps, lane, v);
+  float4 v[kF32RowVecs<kH>];
+  load_row_f32<kH, kInputLN>(z, gr, M, g0, o0, eps, lane, v);
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kF32RowVecs; ++j) {
+  for (int j = 0; j < kF32RowVecs<kH>; ++j) {
     const int c = 4 * (lane + 32 * j);
-    float4 acc = *reinterpret_cast<const float4*>(partial + gr * kF32H + c);
+    float4 acc = *reinterpret_cast<const float4*>(partial + gr * kH + c);
     for (int sl = 1; sl < slices; ++sl) {
       const float4 a = *reinterpret_cast<const float4*>(
-          partial + (sl * static_cast<long long>(M) + gr) * kF32H + c);
+          partial + (sl * static_cast<long long>(M) + gr) * kH + c);
       acc = make_float4(acc.x + a.x, acc.y + a.y, acc.z + a.z, acc.w + a.w);
     }
     const float4 b = *reinterpret_cast<const float4*>(b2 + c);
@@ -336,20 +338,20 @@ split_reduce_f32(const float* __restrict__ partial, int slices, const float* __r
                        acc.w + b.w + v[j].w);
     s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
   }
-  const float mu = mrd::warp_sum(s) * (1.0f / kF32H);
+  const float mu = mrd::warp_sum(s) * (1.0f / kH);
   float q = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kF32RowVecs; ++j) {
+  for (int j = 0; j < kF32RowVecs<kH>; ++j) {
     const float4 d = make_float4(v[j].x - mu, v[j].y - mu, v[j].z - mu, v[j].w - mu);
     q += (d.x * d.x + d.y * d.y) + (d.z * d.z + d.w * d.w);
   }
-  const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kF32H) + eps);
+  const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
 #pragma unroll
-  for (int j = 0; j < kF32RowVecs; ++j) {
+  for (int j = 0; j < kF32RowVecs<kH>; ++j) {
     const int c = 4 * (lane + 32 * j);
     const float4 g = *reinterpret_cast<const float4*>(gamma + c);
     const float4 o = *reinterpret_cast<const float4*>(beta + c);
-    *reinterpret_cast<float4*>(y + gr * kF32H + c) =
+    *reinterpret_cast<float4*>(y + gr * kH + c) =
         make_float4((v[j].x - mu) * rstd * g.x + o.x, (v[j].y - mu) * rstd * g.y + o.y,
                     (v[j].z - mu) * rstd * g.z + o.z, (v[j].w - mu) * rstd * g.w + o.w);
   }

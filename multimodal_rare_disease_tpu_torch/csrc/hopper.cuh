@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the FFN and attention-output kernels
 // (ffn_ln.cu, attn_out_ln.cu, ffn_ln_f32.cu): mbarrier rings fed by TMA tile
 // loads, TMA tile stores, warpgroup matrix multiplies (wgmma, bf16 and TF32)
-// on operands in 128-byte-swizzled shared memory, named barriers and
-// register rebalancing between warpgroups. Inline PTX only; no library.
+// on operands in 128-byte-swizzled shared memory, named barriers, register
+// rebalancing between warpgroups, and the distributed shared memory of a
+// cluster. Inline PTX only; no library.
 // Every shared-memory address below is a 32-bit address in the shared
 // window (smem_addr), every tile base is 1024-byte aligned.
 
@@ -84,6 +85,75 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// ---- clusters: distributed shared memory between the blocks of a cluster
+// (the H = 1,024 FFN kernel's pair, ffn_ln.cu)
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address in block `rank`'s shared memory of this block's `addr`
+// (same layout in every block of the kernel)
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// a 4-byte store to another block's shared memory (an address of map_to_rank)
+__device__ __forceinline__ void st_cluster_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// an f32 load from another block's shared memory (an address of map_to_rank)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// arrive on another block's mbarrier (an address of map_to_rank), making
+// this thread's earlier writes visible to the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// mbar_wait for a barrier that blocks of the cluster arrive on: the writes
+// they made before arriving are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait_cluster(bar, parity)) {
+  }
+}
+
+// generic-proxy writes to this block's or another block's shared memory
+// become visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+}
+
+// every thread of every block of the cluster meets here
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // ---- TMA
 
 // Copy the box at (c0 = column, c1 = row) of the tensor that `map`
@@ -95,6 +165,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// tma_load_2d into every block of the cluster in `mask` (bit i: rank i), at
+// the same shared-memory offset, completing on each block's mbarrier at
+// `bar`'s offset; each of them expects the bytes on its own barrier.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 

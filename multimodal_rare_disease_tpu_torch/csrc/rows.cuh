@@ -1,10 +1,12 @@
-// Pieces shared by the port's 768-wide row kernels (ffn_ln.cu, attn_out_ln.cu):
-// the residual row as three 16-byte groups per lane (with LN0 for K1), the
-// second pass of the split paths (y = LN(sum of f32 partials + b + x), the
-// partials summed in slice order, so no atomics and the same bits on every
-// launch) and the TMA tensor maps of row-major bf16 and f32 matrices (the
-// f32 ones for ffn_ln_f32.cu). Everything is in an anonymous namespace: each
-// source that includes it gets its own copy.
+// Pieces shared by the port's bf16 row kernels (ffn_ln.cu, attn_out_ln.cu),
+// templates over the hidden width kH (768 for BERT-base, 1,024 for
+// BERT-large; any multiple of 256): the residual row as kH / 256 16-byte
+// groups per lane (with LN0 for K1), the second pass of the split paths
+// (y = LN(sum of f32 partials + b + x), the partials summed in slice order,
+// so no atomics and the same bits on every launch) and the TMA tensor maps
+// of row-major bf16 and f32 matrices (the f32 ones for the f32 kernels).
+// Both LayerNorms are two-pass in f32. Everything is in an anonymous
+// namespace: each source that includes it gets its own copy.
 
 #pragma once
 
@@ -14,31 +16,33 @@
 
 namespace {
 
-constexpr int kRowH = 768;                       // hidden width (BERT-base)
-constexpr int kRowGroupsPerLane = kRowH / 8 / 32;  // 16-byte groups per lane: 3
+// 16-byte groups per lane of a kH-wide bf16 row: 3 at 768, 4 at 1,024
+template <int kH>
+constexpr int kRowGroupsPerLane = kH / 8 / 32;
 
-// x row `gr` as three 16-byte groups per lane (columns 8 (lane + 32 j) ..
-// + 8): LN0 of z in f32, rounded to bf16 (K1), or z itself (K2, K3); zeros
-// past M. One warp per row; the main kernels and the split reduction both
-// take x from here, so they see the same bits.
-template <typename V, bool kInputLN>
+// x row `gr` as kRowGroupsPerLane<kH> 16-byte groups per lane (columns
+// 8 (lane + 32 j) .. + 8): LN0 of z in f32, rounded to bf16 (K1), or z
+// itself (K2, K3); zeros past M. One warp per row; the main kernels and the
+// split reduction both take x from here, so they see the same bits.
+template <int kH, typename V, bool kInputLN>
 __device__ __forceinline__ void load_x_row(const mrd::bf16* __restrict__ z, long long gr,
                                            int M, const V* __restrict__ g0,
                                            const V* __restrict__ o0, float eps, int lane,
-                                           uint4 (&out)[kRowGroupsPerLane]) {
+                                           uint4 (&out)[kRowGroupsPerLane<kH>]) {
+  static_assert(kH % 256 == 0, "whole 16-byte groups per lane");
   if (gr >= M) {
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane; ++j) out[j] = make_uint4(0, 0, 0, 0);
+    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) out[j] = make_uint4(0, 0, 0, 0);
     return;
   }
-  const uint4* src = reinterpret_cast<const uint4*>(z + gr * kRowH);
+  const uint4* src = reinterpret_cast<const uint4*>(z + gr * kH);
 #pragma unroll
-  for (int j = 0; j < kRowGroupsPerLane; ++j) out[j] = src[lane + 32 * j];
+  for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) out[j] = src[lane + 32 * j];
   if constexpr (kInputLN) {
-    float v[kRowGroupsPerLane][8];
+    float v[kRowGroupsPerLane<kH>][8];
     float s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane; ++j) {
+    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -48,15 +52,15 @@ __device__ __forceinline__ void load_x_row(const mrd::bf16* __restrict__ z, long
         s += f.x + f.y;
       }
     }
-    const float mu = mrd::warp_sum(s) * (1.0f / kRowH);
+    const float mu = mrd::warp_sum(s) * (1.0f / kH);
     float q = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane; ++j)
+    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
 #pragma unroll
       for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
-    const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kRowH) + eps);
+    const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane; ++j) {
+    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
       __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out[j]);
       const int c = 8 * (lane + 32 * j);
 #pragma unroll
@@ -74,7 +78,7 @@ __device__ __forceinline__ void load_x_row(const mrd::bf16* __restrict__ z, long
 // The split paths' second pass: y = LN(sum_s partial[s] + b + x), the
 // slices summed in order 0 .. S-1, x from load_x_row (LN0 of z for K1).
 // One warp per row, 8 rows per block.
-template <typename V, bool kInputLN>
+template <int kH, typename V, bool kInputLN>
 __global__ void __launch_bounds__(256)
 split_reduce(const float* __restrict__ partial, int slices, const mrd::bf16* __restrict__ z,
              const V* __restrict__ b, const V* __restrict__ gamma,
@@ -83,18 +87,18 @@ split_reduce(const float* __restrict__ partial, int slices, const mrd::bf16* __r
   const int lane = threadIdx.x % 32;
   const long long gr = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   if (gr >= M) return;
-  uint4 xg[kRowGroupsPerLane];
-  load_x_row<V, kInputLN>(z, gr, M, g0, o0, eps, lane, xg);
-  float v[kRowGroupsPerLane][8];
+  uint4 xg[kRowGroupsPerLane<kH>];
+  load_x_row<kH, V, kInputLN>(z, gr, M, g0, o0, eps, lane, xg);
+  float v[kRowGroupsPerLane<kH>][8];
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kRowGroupsPerLane; ++j) {
+  for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
     const int c = 8 * (lane + 32 * j);
-    const float4* src = reinterpret_cast<const float4*>(partial + gr * kRowH + c);
+    const float4* src = reinterpret_cast<const float4*>(partial + gr * kH + c);
     float4 lo = src[0], hi = src[1];
     for (int sl = 1; sl < slices; ++sl) {
       const float4* ps = reinterpret_cast<const float4*>(
-          partial + (sl * static_cast<long long>(M) + gr) * kRowH + c);
+          partial + (sl * static_cast<long long>(M) + gr) * kH + c);
       const float4 a = ps[0], bb = ps[1];
       lo = make_float4(lo.x + a.x, lo.y + a.y, lo.z + a.z, lo.w + a.w);
       hi = make_float4(hi.x + bb.x, hi.y + bb.y, hi.z + bb.z, hi.w + bb.w);
@@ -109,15 +113,15 @@ split_reduce(const float* __restrict__ partial, int slices, const mrd::bf16* __r
       s += v[j][2 * e] + v[j][2 * e + 1];
     }
   }
-  const float mu = mrd::warp_sum(s) * (1.0f / kRowH);
+  const float mu = mrd::warp_sum(s) * (1.0f / kH);
   float q = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kRowGroupsPerLane; ++j)
+  for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
 #pragma unroll
     for (int e = 0; e < 8; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
-  const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kRowH) + eps);
+  const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
 #pragma unroll
-  for (int j = 0; j < kRowGroupsPerLane; ++j) {
+  for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
     const int c = 8 * (lane + 32 * j);
     uint4 out;
     __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
@@ -129,7 +133,7 @@ split_reduce(const float* __restrict__ partial, int slices, const mrd::bf16* __r
           (v[j][2 * e + 1] - mu) * rstd * mrd::ld_f32(gamma + cc + 1) +
               mrd::ld_f32(beta + cc + 1));
     }
-    *reinterpret_cast<uint4*>(y + gr * kRowH + c) = out;
+    *reinterpret_cast<uint4*>(y + gr * kH + c) = out;
   }
 }
 

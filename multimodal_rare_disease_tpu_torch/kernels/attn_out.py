@@ -16,13 +16,20 @@ is not rounded, bo and the residual are added in f32, and the two-pass
 LayerNorm runs in f32 (unlike the JAX `attn_out_ln_reference`, which
 rounds the projection and the residual sum to the compute dtype first).
 
+Both sources are templates over the hidden width, built for
+`ffn.KERNEL_WIDTHS` (768, BERT-base; 1,024, BERT-large), each width with
+C entries and launch counters of its own (`LAUNCHES`, `LAUNCHES_1024`).
+
 When the output tiles would fill fewer blocks than the card has SMs (a
-single request's 64 rows), the bf16 kernel splits the 12 k chunks of the
-product into slices, each block writes an f32 partial of ctx @ wo for
+single request's 64 rows), the bf16 kernel splits the H / 64 k chunks of
+the product into slices, each block writes an f32 partial of ctx @ wo for
 its slice, and a second kernel (the FFN kernel's split reduction) sums
-the partials in slice order before bo, the residual and LN. The f32
-GEMM always writes f32 partials (one slice at the packed batch) and
-splits its 24 k-tiles the same way below 132 output tiles.
+the partials in slice order before bo, the residual and LN. At H = 1,024
+a row tile's columns are cut into two groups of 512, one block each, run
+as a cluster that shares ctx (TMA multicast) and the LayerNorm's row
+statistics (distributed shared memory). The f32 GEMM always writes f32
+partials (one slice at the packed batch) and splits its H / 32 k-tiles
+the same way below 132 output tiles.
 `attn_out_plan` and `attn_out_plan_f32` choose the slices by
 `ffn.split_plan`'s and `ffn.gemm_plan_f32`'s rules, and
 `attn_out_ln_plain(..., slices=S)` emulates the split sum in the
@@ -45,12 +52,15 @@ import torch
 
 from multimodal_rare_disease_tpu_torch.kernels import build
 from multimodal_rare_disease_tpu_torch.kernels.ffn import (
+    KERNEL_WIDTHS,
     ROUTE_BF16,
     ROUTE_F32,
     ROUTE_PLAIN,
     F32Plan,
     RowPlan,
+    count_launch,
     dot_f32,
+    entry,
     gemm_plan_f32,
     ln_f32,
     no_autograd,
@@ -59,34 +69,36 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
 )
 
 FORCE_PLAIN = False
-# launches of the bf16 and of the f32 CUDA kernel (incremented only where
-# it is launched)
+# launches of the bf16 and of the f32 CUDA kernel at H = 768, and the same
+# at H = 1,024 (incremented only where each is launched)
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_1024 = 0
+LAUNCHES_F32_1024 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
-# the tiling csrc/attn_out_ln.cu was written for (see its header); the f32
+# the k chunk csrc/attn_out_ln.cu was written for (see its header); the f32
 # kernel's GEMM tiles as `ffn.gemm_plan_f32` says
-KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 
 
-def attn_out_plan(m: int, n_sm: int) -> RowPlan:
-    """The launch of the kernel for m rows on a card with n_sm SMs:
-    `split_plan` over the 12 k chunks of the 768-wide product."""
-    return split_plan(m, KERNEL_HIDDEN // KERNEL_CHUNK, n_sm)
+def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
+    """The launch of the kernel for m rows at a built hidden width on a
+    card with n_sm SMs: `split_plan` over the hidden / 64 k chunks of the
+    product (12 at 768, 16 at 1,024)."""
+    return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 
 @functools.lru_cache(maxsize=4096)
-def attn_out_plan_f32(m: int, n_sm: int) -> F32Plan:
-    """The launch of the f32 kernel for m rows on a card with n_sm SMs:
-    `gemm_plan_f32` over the 24 k-tiles of the 768-wide product (at most
-    3 slices of 8), and the scratch of one call: Wo^T's TF32 planes
-    (2 * 768 * 768) and the f32 partials [slices, m, 768]. Cached, as
-    `split_plan`."""
-    tiles, slices, k_tiles = gemm_plan_f32(m, KERNEL_HIDDEN, n_sm)
-    h = KERNEL_HIDDEN
+def attn_out_plan_f32(m: int, n_sm: int, hidden: int = 768) -> F32Plan:
+    """The launch of the f32 kernel for m rows at a built hidden width on
+    a card with n_sm SMs: `gemm_plan_f32` over the hidden / 32 k-tiles of
+    the product (at most hidden / 256 slices of 8), and the scratch of one
+    call: Wo^T's TF32 planes (2 * hidden^2) and the f32 partials [slices,
+    m, hidden]. Cached, as `split_plan`."""
+    tiles, slices, k_tiles = gemm_plan_f32(m, hidden, n_sm, hidden)
+    h = hidden
     return F32Plan(tiles, slices, k_tiles, 2 * h * h + slices * m * h)
 
 
@@ -94,8 +106,9 @@ def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
     """Shape/dtype gate of the CUDA kernels: they tile rows (64 in bf16,
     128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling), and they are
-    compiled for H = 768, in bf16 and in f32."""
-    return (m >= 1 and hidden == KERNEL_HIDDEN
+    compiled for the widths of `ffn.KERNEL_WIDTHS` (768 and 1,024), in
+    bf16 and in f32."""
+    return (m >= 1 and hidden in KERNEL_WIDTHS
             and dtype in (torch.bfloat16, torch.float32))
 
 
@@ -155,7 +168,6 @@ def fused_attn_out_ln(ctx2d: torch.Tensor, x2d: torch.Tensor,
 
 
 def _launch(ctx, x, wo, bo, gamma, beta, eps):
-    global LAUNCHES
     dev = ctx.device
     m, hidden = ctx.shape
     if x.shape != ctx.shape or wo.shape != (hidden, hidden):
@@ -179,23 +191,22 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
                          "aligned")
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
-    plan = attn_out_plan(m, sm_count(dev))
+    fn = entry(lib, "mrd_attn_out_ln_bf16", hidden)
+    plan = attn_out_plan(m, sm_count(dev), hidden)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mrd_attn_out_ln_bf16(
-            ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
-            *(v.data_ptr() for v in vecs), y.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, m,
-            plan.slices, float(eps), stream)
+        err = fn(ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
+                 *(v.data_ptr() for v in vecs), y.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None, m,
+                 plan.slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_bf16")
-    LAUNCHES += 1
+    count_launch(globals(), "LAUNCHES", hidden)
     return y
 
 
 def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
-    global LAUNCHES_F32
     dev = ctx.device
     m, hidden = ctx.shape
     if x.shape != ctx.shape or wo.shape != (hidden, hidden):
@@ -222,14 +233,14 @@ def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
         raise ValueError("fused_attn_out_ln: wo must be 16-byte aligned")
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
-    plan = attn_out_plan_f32(m, sm_count(dev))
+    fn = entry(lib, "mrd_attn_out_ln_f32", hidden)
+    plan = attn_out_plan_f32(m, sm_count(dev), hidden)
     scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mrd_attn_out_ln_f32(
-            ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
-            *(v.data_ptr() for v in vecs), y.data_ptr(), scratch.data_ptr(),
-            m, plan.slices, float(eps), stream)
+        err = fn(ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
+                 *(v.data_ptr() for v in vecs), y.data_ptr(),
+                 scratch.data_ptr(), m, plan.slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_f32")
-    LAUNCHES_F32 += 1
+    count_launch(globals(), "LAUNCHES_F32", hidden)
     return y

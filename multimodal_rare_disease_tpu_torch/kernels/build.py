@@ -142,17 +142,23 @@ def check_device(device: torch.device) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     f3 = ctypes.POINTER(ctypes.c_float)
-    sigs = {
+    # the row kernels' entries at H = 768, each with a twin at H = 1,024
+    # (name + "_h1024", the same arguments)
+    rows = {
         "mrd_ffn_pre_ln_bf16": [p] * 11 + [i, i, i, f, i, p],
         "mrd_ffn_ln_bf16": [p] * 9 + [i, i, i, f, p],
         "mrd_attn_out_ln_bf16": [p] * 8 + [i, i, f, p],
         "mrd_ffn_pre_ln_f32": [p] * 11 + [i, i, i, f, p],
         "mrd_ffn_ln_f32": [p] * 9 + [i, i, i, f, p],
         "mrd_attn_out_ln_f32": [p] * 8 + [i, i, f, p],
-        "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
-        "mrd_error_string": [i],
         "mrd_ffn_smem_bytes": [],
         "mrd_attn_out_smem_bytes": [],
+    }
+    sigs = {
+        **rows,
+        **{f"{name}_h1024": argtypes for name, argtypes in rows.items()},
+        "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
+        "mrd_error_string": [i],
         "mrd_ffn_f32_smem_bytes": [],
         "mrd_attn_out_f32_smem_bytes": [],
     }

@@ -11,7 +11,13 @@ replace its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel` (K2):
 per block) and `csrc/ffn_ln_f32.cu` for f32 (a sequence of launches:
 the operands split into TF32 planes, the two products as 3xTF32 wgmma
 GEMMs fed by TMA, with h through device memory, and a LayerNorm pass);
-`ffn_ln_plain` is the same math in PyTorch.
+`ffn_ln_plain` is the same math in PyTorch. Both sources are templates
+over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base) and
+1,024 (BERT-large), each width with C entries of its own. At 1,024 a
+row tile's 1,024 output columns are cut into two groups of 512, one
+bf16 block each (`KERNEL_GROUPS`), run as a cluster of two that shares
+the GELU chunk and LN2's row statistics over distributed shared
+memory.
 
 When the output tiles would fill fewer blocks than the card has SMs,
 the bf16 kernel splits F into slices and the f32 one the k loop of
@@ -48,20 +54,33 @@ _SQRT1_2 = 0.7071067811865476
 
 FORCE_PLAIN = False
 # launches of the bf16 CUDA kernel with (K1) and without (K2) the input
-# LayerNorm, and of the f32 one, incremented only where it is launched
+# LayerNorm, and of the f32 one, at H = 768; the same at H = 1,024
+# (`_1024`); each incremented only where its kernel is launched
 LAUNCHES_K1 = 0
 LAUNCHES_K2 = 0
 LAUNCHES_K1_F32 = 0
 LAUNCHES_K2_F32 = 0
+LAUNCHES_K1_1024 = 0
+LAUNCHES_K2_1024 = 0
+LAUNCHES_K1_F32_1024 = 0
+LAUNCHES_K2_F32_1024 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
+
+# The hidden widths the CUDA kernels of K1, K2 and K3 (kernels/attn_out.py)
+# are built for, in bf16 and in f32, each with the column groups a bf16 row
+# tile is cut into (one block each; two run as a cluster that shares the
+# LayerNorm's row statistics). Any other width takes the counted plain
+# version. A width's C entries and launch counters carry no suffix at 768,
+# `_h<width>` and `_<width>` otherwise.
+KERNEL_GROUPS = {768: 1, 1024: 2}
+KERNEL_WIDTHS = tuple(KERNEL_GROUPS)
 
 # the tiling csrc/ffn_ln.cu (bf16) and the f32 GEMM of csrc/ffn_ln_f32.cu
 # and csrc/attn_out_ln_f32.cu (csrc/gemm_tf32x3.cuh) were written for (see
 # their headers): bf16 F chunks and row tiles; the f32 GEMM's output tiles
 # (rows x columns) and k-tiles, and the fewest k-tiles a slice of a split
 # k loop keeps
-KERNEL_HIDDEN = 768
 KERNEL_CHUNK = 64
 KERNEL_ROWS = 64
 KERNEL_F32_ROWS = 128
@@ -74,10 +93,11 @@ ROUTE_BF16, ROUTE_F32, ROUTE_PLAIN = "bf16", "f32", "plain"
 
 
 class RowPlan(NamedTuple):
-    """How one call of a 64-row tile kernel is launched: `tiles` blocks
-    of 64 rows times `slices` slices of its k loop, each of `chunks`
-    chunks of 64; `scratch` is the shape of the f32 partials buffer,
-    None without a split."""
+    """How one call of a 64-row tile kernel is launched: `tiles` tiles
+    of 64 rows (each `KERNEL_GROUPS[hidden]` blocks) times `slices`
+    slices of its k loop, each of `chunks` chunks of 64; `scratch` is the
+    shape of the f32 partials buffer, None where the blocks apply the
+    LayerNorm themselves."""
     tiles: int
     slices: int
     chunks: int
@@ -101,61 +121,64 @@ def split_slices(tiles: int, n_chunks: int, n_sm: int,
 
 @functools.lru_cache(maxsize=4096)
 def split_plan(m: int, n_chunks: int, n_sm: int,
-               rows: int = KERNEL_ROWS) -> RowPlan:
+               rows: int = KERNEL_ROWS, hidden: int = 768) -> RowPlan:
     """The launch of a row tile kernel (FFN: the F chunks; K3, the
-    attention-output kernel: the 12 k chunks) for m rows in tiles of
-    `rows` on a card with n_sm SMs: `split_slices` over the row tiles.
-    Cached: a launch asks for it on every call, with few distinct row
-    counts."""
+    attention-output kernel: the hidden / 64 k chunks) for m rows in tiles
+    of `rows` at a built width `hidden` on a card with n_sm SMs:
+    `split_slices` over the blocks (row tiles times the width's column
+    groups). Cached: a launch asks for it on every call, with few
+    distinct row counts."""
     tiles = -(-m // rows)
-    slices = split_slices(tiles, n_chunks, n_sm)
-    scratch = (slices, m, KERNEL_HIDDEN) if slices > 1 else None
+    slices = split_slices(tiles * KERNEL_GROUPS[hidden], n_chunks, n_sm)
+    scratch = (slices, m, hidden) if slices > 1 else None
     return RowPlan(tiles, slices, n_chunks // slices, scratch)
 
 
-def ffn_plan(m: int, f: int, n_sm: int) -> RowPlan:
-    """The launch of the bf16 FFN kernel for m rows and intermediate
-    width f: `split_plan` over the f / 64 chunks of F."""
-    return split_plan(m, f // KERNEL_CHUNK, n_sm)
+def ffn_plan(m: int, f: int, n_sm: int, hidden: int = 768) -> RowPlan:
+    """The launch of the bf16 FFN kernel for m rows, hidden width
+    `hidden` and intermediate width f: `split_plan` over the f / 64
+    chunks of F."""
+    return split_plan(m, f // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 
 class F32Plan(NamedTuple):
     """How one call of an f32 kernel's 3xTF32 GEMM (csrc/gemm_tf32x3.cuh)
-    with 768 output columns is launched: `tiles` row tiles of 128 (times 6
-    column tiles of 128), the k loop in `slices` slices of `k_tiles`
-    k-tiles of 32 each; `scratch` f32 elements of the call's scratch
-    buffer. The FFN (`ffn_plan_f32`): the TF32 planes (hi, lo) of x
-    [m, 768], of W1^T and W2^T (f * 768 each) and of h [m, f], and the
-    partials [slices, m, 768] of h @ w2, the product that is split. K3
-    (`attn_out.attn_out_plan_f32`): the planes of Wo^T [768, 768] and
-    the partials of ctx @ wo."""
+    with H output columns is launched: `tiles` row tiles of 128 (times
+    H / 128 column tiles of 128), the k loop in `slices` slices of
+    `k_tiles` k-tiles of 32 each; `scratch` f32 elements of the call's
+    scratch buffer. The FFN (`ffn_plan_f32`): the TF32 planes (hi, lo) of
+    x [m, H], of W1^T and W2^T (f * H each) and of h [m, f], and the
+    partials [slices, m, H] of h @ w2, the product that is split. K3
+    (`attn_out.attn_out_plan_f32`): the planes of Wo^T [H, H] and the
+    partials of ctx @ wo."""
     tiles: int
     slices: int
     k_tiles: int
     scratch: int
 
 
-def gemm_plan_f32(m: int, k: int, n_sm: int) -> Tuple[int, int, int]:
-    """(row tiles, slices, k-tiles per slice) of the 3xTF32 GEMM with 768
-    output columns and a k loop of k / 32 k-tiles, for m rows on a card
-    with n_sm SMs: `split_slices` over its output tiles, with at least
-    KERNEL_F32_MIN_K_TILES k-tiles per slice (a block's fixed cost, the
-    prologue of its 3-stage ring and its epilogue, is a few k-tiles'
+def gemm_plan_f32(m: int, k: int, n_sm: int,
+                  hidden: int = 768) -> Tuple[int, int, int]:
+    """(row tiles, slices, k-tiles per slice) of the 3xTF32 GEMM with
+    `hidden` output columns and a k loop of k / 32 k-tiles, for m rows on
+    a card with n_sm SMs: `split_slices` over its output tiles, with at
+    least KERNEL_F32_MIN_K_TILES k-tiles per slice (a block's fixed cost,
+    the prologue of its 3-stage ring and its epilogue, is a few k-tiles'
     time)."""
     tiles = -(-m // KERNEL_F32_ROWS)
     n_k = k // KERNEL_F32_K
-    slices = split_slices(tiles * (KERNEL_HIDDEN // KERNEL_F32_COLS), n_k,
+    slices = split_slices(tiles * (hidden // KERNEL_F32_COLS), n_k,
                           n_sm, max(1, n_k // KERNEL_F32_MIN_K_TILES))
     return tiles, slices, n_k // slices
 
 
 @functools.lru_cache(maxsize=4096)
-def ffn_plan_f32(m: int, f: int, n_sm: int) -> F32Plan:
-    """The launch of the f32 FFN kernels for m rows and intermediate
-    width f: `gemm_plan_f32` of the second product (k = f). Cached, as
-    `split_plan`."""
-    tiles, slices, k_tiles = gemm_plan_f32(m, f, n_sm)
-    h = KERNEL_HIDDEN
+def ffn_plan_f32(m: int, f: int, n_sm: int, hidden: int = 768) -> F32Plan:
+    """The launch of the f32 FFN kernels for m rows, hidden width
+    `hidden` and intermediate width f: `gemm_plan_f32` of the second
+    product (k = f). Cached, as `split_plan`."""
+    tiles, slices, k_tiles = gemm_plan_f32(m, f, n_sm, hidden)
+    h = hidden
     return F32Plan(tiles, slices, k_tiles,
                    2 * m * h + 4 * f * h + 2 * m * f + slices * m * h)
 
@@ -165,12 +188,13 @@ def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
     """Shape/dtype gate of the CUDA kernels. They tile rows (64 in bf16,
     128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling and does not
-    apply); they are compiled for the BERT-base width and walk F in
-    chunks of 64 in bf16 (which also keeps W2's rows a multiple of TMA's
-    16 bytes) and in output tiles of 128 in f32."""
+    apply); they are compiled for the hidden widths of KERNEL_WIDTHS
+    (BERT-base's 768 and BERT-large's 1,024) and walk F in chunks of 64
+    in bf16 (which also keeps W2's rows a multiple of TMA's 16 bytes)
+    and in output tiles of 128 in f32."""
     chunk = {torch.bfloat16: KERNEL_CHUNK,
              torch.float32: KERNEL_F32_COLS}.get(dtype)
-    return (chunk is not None and m >= 1 and hidden == KERNEL_HIDDEN
+    return (chunk is not None and m >= 1 and hidden in KERNEL_WIDTHS
             and intermediate > 0 and intermediate % chunk == 0)
 
 
@@ -288,8 +312,23 @@ def no_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
             f"requires grad; run it under torch.no_grad()")
 
 
+def entry(lib, name: str, hidden: int):
+    """The C entry `name` of the kernel built for `hidden` (768: `name`;
+    1,024: `name`_h1024); a width the build has no kernel for raises
+    before any launch."""
+    if hidden not in KERNEL_GROUPS:
+        raise ValueError(f"{name}: no kernel is built for hidden width "
+                         f"{hidden} (built: {KERNEL_WIDTHS})")
+    return getattr(lib, name if hidden == 768 else f"{name}_h{hidden}")
+
+
+def count_launch(module_globals: dict, counter: str, hidden: int) -> None:
+    """Add one to the launch counter of the kernel built for `hidden`
+    (`counter`, or `counter`_1024) in `module_globals`."""
+    module_globals[counter if hidden == 768 else f"{counter}_{hidden}"] += 1
+
+
 def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
-    global LAUNCHES_K1, LAUNCHES_K2
     input_ln = g0 is not None
     dev = z.device
     m, hidden = z.shape
@@ -319,7 +358,9 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
         raise ValueError("fused_ffn_ln: bias/LayerNorm vectors do not match")
     y = torch.empty_like(z)
     lib = build.load_library(dev)
-    plan = ffn_plan(m, f, sm_count(dev))
+    fn = entry(lib, "mrd_ffn_pre_ln_bf16" if input_ln else "mrd_ffn_ln_bf16",
+               hidden)
+    plan = ffn_plan(m, f, sm_count(dev), hidden)
     scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
                if plan.scratch else None)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
@@ -328,21 +369,17 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if input_ln:
-            err = lib.mrd_ffn_pre_ln_bf16(*ptrs, *tail,
-                                          int(vec_dtype == bf), stream)
+            err = fn(*ptrs, *tail, int(vec_dtype == bf), stream)
         else:
-            err = lib.mrd_ffn_ln_bf16(*ptrs, *tail, stream)
-    if input_ln:
-        build.check_launch(lib, err, "ffn_pre_ln_bf16")
-        LAUNCHES_K1 += 1
-    else:
-        build.check_launch(lib, err, "ffn_ln_bf16")
-        LAUNCHES_K2 += 1
+            err = fn(*ptrs, *tail, stream)
+    build.check_launch(lib, err, "ffn_pre_ln_bf16" if input_ln
+                       else "ffn_ln_bf16")
+    count_launch(globals(), "LAUNCHES_K1" if input_ln else "LAUNCHES_K2",
+                 hidden)
     return y
 
 
 def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
-    global LAUNCHES_K1_F32, LAUNCHES_K2_F32
     input_ln = g0 is not None
     dev = z.device
     m, hidden = z.shape
@@ -370,22 +407,19 @@ def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
         raise ValueError("fused_ffn_ln: weights must be 16-byte aligned")
     y = torch.empty_like(z)
     lib = build.load_library(dev)
-    plan = ffn_plan_f32(m, f, sm_count(dev))
+    fn = entry(lib, "mrd_ffn_pre_ln_f32" if input_ln else "mrd_ffn_ln_f32",
+               hidden)
+    plan = ffn_plan_f32(m, f, sm_count(dev), hidden)
     scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
     tail = (y.data_ptr(), scratch.data_ptr(), m, f, plan.slices, float(eps))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if input_ln:
-            err = lib.mrd_ffn_pre_ln_f32(*ptrs, *tail, stream)
-        else:
-            err = lib.mrd_ffn_ln_f32(*ptrs, *tail, stream)
-    if input_ln:
-        build.check_launch(lib, err, "ffn_pre_ln_f32")
-        LAUNCHES_K1_F32 += 1
-    else:
-        build.check_launch(lib, err, "ffn_ln_f32")
-        LAUNCHES_K2_F32 += 1
+        err = fn(*ptrs, *tail, stream)
+    build.check_launch(lib, err, "ffn_pre_ln_f32" if input_ln
+                       else "ffn_ln_f32")
+    count_launch(globals(), "LAUNCHES_K1_F32" if input_ln
+                 else "LAUNCHES_K2_F32", hidden)
     return y
 
 

@@ -45,10 +45,11 @@ _FFN_ROUTES = [
     (F32, [BF16] * 6, 64, 768, 3072, True, PLAIN),
     (F32, [F32] * 5 + [BF16], 64, 768, 3072, True, PLAIN),
     (F32, [BF16] * 4, 64, 768, 3072, False, PLAIN),
-    # widths other than 768, F off the chunk, other dtypes, no rows
+    # widths other than the built 768 and 1,024, F off the chunk, other
+    # dtypes, no rows; BERT-large's 1,024 takes its kernel
     (F32, [F32] * 6, 64, 512, 3072, True, PLAIN),
     (F32, [F32] * 4, 64, 128, 256, False, PLAIN),
-    (BF16, [BF16] * 6, 64, 1024, 4096, True, PLAIN),
+    (BF16, [BF16] * 6, 64, 1024, 4096, True, BF),
     (F32, [F32] * 6, 64, 768, 3000, True, PLAIN),
     (F32, [F32] * 6, 64, 768, 3072 - 64, True, PLAIN),  # f32: tiles of 128
     (BF16, [BF16] * 6, 64, 768, 3072 - 64, True, BF),   # bf16: chunks of 64
@@ -62,7 +63,7 @@ _FFN_ROUTES = [
 def test_ffn_route(x, vecs, m, h, f, input_ln, want):
     assert k1.ffn_route(x, vecs, m, h, f, input_ln) == want
     assert k1.ffn_ln_fusible(m, h, f, x) == (
-        want != PLAIN or x in (BF16, F32) and m >= 1 and h == 768
+        want != PLAIN or x in (BF16, F32) and m >= 1 and h in (768, 1024)
         and f % (64 if x == BF16 else 128) == 0)
 
 

@@ -12,9 +12,11 @@ with its K1 launches, a VAE step on the card against the CPU, the
 sharded predict of two gloo ranks sharing the card, and the int8
 products (`models/quant.py`) on the card bit-equal to the CPU, with a
 quantized BERT layer that launches no kernel, `entry.py`'s
-`entry()` with its K1 launches, and the f32 forms of K1-K3 (an f32
+`entry()` with its K1 launches, the f32 forms of K1-K3 (an f32
 model's kernels) against their plain versions with TF32 off, with an
-f32 model's predict launching them. Every test here is marked `gpu` and
+f32 model's predict launching them, and the forms of K1-K3 built for
+BERT-large's H = 1,024 in bf16 and f32 (the tests named `h1024`), with a
+BERT-large-width predict launching them. Every test here is marked `gpu` and
 skips without a CUDA device; the file imports neither jax nor the JAX
 package, so it runs on a machine that has only torch:
 
@@ -1032,3 +1034,146 @@ def test_f32_predict_launches_the_f32_kernels(cuda, fused_attn_out):
     probs = np.array([list(r["all_probabilities"].values()) for r in res])
     plain = np.array([list(r["all_probabilities"].values()) for r in ref])
     assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 1e-4
+
+
+# ---- H = 1,024 (BERT-large): the forms of K1-K3 built for that width, in
+# bf16 and f32, held to the limits of the H = 768 cases
+
+def _h1024_counts():
+    return (kffn.LAUNCHES_K1_1024, kffn.LAUNCHES_K2_1024, k3.LAUNCHES_1024,
+            kffn.LAUNCHES_K1_F32_1024, kffn.LAUNCHES_K2_F32_1024,
+            k3.LAUNCHES_F32_1024, kffn.PLAIN_ON_CUDA, k3.PLAIN_ON_CUDA)
+
+
+def _h1024_inputs(m, dev, seed, dtype, h=1024, f=4096):
+    """z (also x), ctx, (w1, w2), wo and the vectors, all in `dtype` (the
+    model's), at the scales of _ffn_inputs."""
+    t = _rng_tensor(np.random.default_rng(seed), dev)
+    vec = dict(b1=t((f,), 0.5, dtype=dtype), b2=t((h,), 0.5, dtype=dtype),
+               gamma=t((h,), 0.25, 1.0, dtype=dtype),
+               beta=t((h,), 0.5, dtype=dtype),
+               pre_gamma=t((h,), 0.25, 1.0, dtype=dtype),
+               pre_beta=t((h,), 0.5, dtype=dtype))
+    return (t((m, h), 1.0, dtype=dtype), t((m, h), 1.0, dtype=dtype),
+            (t((h, f), 0.05, dtype=dtype), t((f, h), 0.05, dtype=dtype)),
+            t((h, h), 0.05, dtype=dtype), vec)
+
+
+def _limits(dtype):
+    return ((_MAX_ATOL, _MEAN_ATOL) if dtype == torch.bfloat16
+            else (_F32_MAX_ATOL, _F32_MEAN_ATOL))
+
+
+# the single request (1, then its length bucket 64: the split paths), the
+# 1,024 CLS rows, the packed batch and a ragged tile past it
+_H1024_ROWS = [1, 64, 1024, 16384, 16385]
+
+
+@pytest.mark.parametrize("m", _H1024_ROWS)
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_h1024_ffn_kernel_matches_plain(cuda, dtype, input_ln, m):
+    z, _, w, _, vec = _h1024_inputs(m, cuda, m + input_ln, dtype)
+    before = _h1024_counts()
+    with _tf32(False):
+        got = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+        want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+    moved = tuple(a - b for a, b in zip(_h1024_counts(), before))
+    slot = (0 if input_ln else 1) + (3 if dtype == torch.float32 else 0)
+    assert moved == tuple(int(i == slot) for i in range(8))
+    worst, mean = _diff(got, want)
+    tol = _limits(dtype)
+    assert worst <= tol[0] and mean <= tol[1], (worst, mean)
+
+
+@pytest.mark.parametrize("m", _H1024_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_h1024_attn_out_kernel_matches_plain(cuda, dtype, m):
+    x, ctx, _, wo, vec = _h1024_inputs(m, cuda, 100 + m, dtype)
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    before = _h1024_counts()
+    with _tf32(False):
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+    moved = tuple(a - b for a, b in zip(_h1024_counts(), before))
+    slot = 2 if dtype == torch.bfloat16 else 5
+    assert moved == tuple(int(i == slot) for i in range(8))
+    worst, mean = _diff(got, want)
+    tol = _limits(dtype)
+    assert worst <= tol[0] and mean <= tol[1], (worst, mean)
+
+
+@pytest.mark.parametrize("m", [1024, 16384], ids=["split", "whole"])
+def test_h1024_kernels_are_deterministic(cuda, m):
+    # each pair adds a row's four LayerNorm partials over distributed
+    # shared memory in one order; the split paths store f32 partials that
+    # split_reduce sums in slice order; no atomics: the same bits on every
+    # launch
+    z, ctx, w, wo, vec = _h1024_inputs(m, cuda, 9, torch.bfloat16)
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    for input_ln in (True, False):
+        first = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+        assert torch.equal(first, _ffn(kffn.fused_ffn_ln, z, w, vec,
+                                       input_ln))
+    first = _attn(k3.fused_attn_out_ln, ctx, z, wo, v3)
+    assert torch.equal(first, _attn(k3.fused_attn_out_ln, ctx, z, wo, v3))
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (kffn.ffn_plan(m, 4096, n_sm, 1024).slices > 1) == (m == 1024)
+
+
+@pytest.mark.parametrize("name", ["b1", "b2", "gamma", "beta", "pre_gamma",
+                                  "pre_beta"])
+def test_h1024_check_fails_a_kernel_that_drops_a_vector(cuda, name):
+    # the pair's LN2 over distributed shared memory carries every term
+    z, _, w, _, vec = _h1024_inputs(256, cuda, 7, torch.bfloat16)
+    dropped = {**vec, name: _neutral(name, vec[name])}
+    worst, mean = _diff(_ffn(kffn.fused_ffn_ln, z, w, dropped),
+                        _ffn(kffn.ffn_ln_plain, z, w, vec))
+    assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("fused_attn_out", [False, True],
+                         ids=["default", "fused_attn_out"])
+def test_h1024_predict_launches_the_h1024_kernels(cuda, fused_attn_out):
+    """A BERT-large-width model (H = 1,024, 16 heads, F = 4,096; 2 layers
+    here) in bf16, predict_batch at B=8: K1 at H = 1,024 in both layers,
+    or K3 and K2 in layer 0 and K1 in the CLS-only last one (K4 for the
+    images at image_size), no H = 768 kernel and nothing on the plain
+    gate; within phase 4's 2.5e-3 of every kernel forced off."""
+    from multimodal_rare_disease_tpu_torch.config import resolve_config
+    from multimodal_rare_disease_tpu_torch.inference.predictor import (
+        MultimodalPredictor,
+    )
+    from multimodal_rare_disease_tpu_torch.inference.seeded_batch import (
+        seeded_requests,
+    )
+    from multimodal_rare_disease_tpu_torch.models.classifier import (
+        create_model,
+    )
+
+    over = ({"text_encoder.fused_attn_out": True, "data.image_size": 256}
+            if fused_attn_out else {})
+    cfg = resolve_config("default", {
+        **over, "text_encoder.hidden_size": 1024,
+        "text_encoder.num_layers": 2, "text_encoder.num_heads": 16,
+        "text_encoder.intermediate_size": 4096,
+        "text_encoder.max_position_embeddings": 512})
+    pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
+                               cuda)
+    images, texts = seeded_requests(8, seed=0)
+    before = (_counts(), _h1024_counts())
+    res = pred.predict_batch(images, texts)
+    torch.cuda.synchronize()
+    got = (tuple(a - b for a, b in zip(_counts(), before[0])),
+           tuple(a - b for a, b in zip(_h1024_counts(), before[1])))
+    with _all_plain():
+        ref = pred.predict_batch(images, texts)
+    if fused_attn_out:
+        assert got == ((0, 0, 0, 1, 0, 0, 0), (1, 1, 1, 0, 0, 0, 0, 0))
+    else:
+        assert got == ((0,) * 7, (2, 0, 0, 0, 0, 0, 0, 0))
+    probs = np.array([list(r["all_probabilities"].values()) for r in res])
+    plain = np.array([list(r["all_probabilities"].values()) for r in ref])
+    assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 2.5e-3
