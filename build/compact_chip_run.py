@@ -1,0 +1,52 @@
+"""Phase 18 of chip_smoke.py alone (K1-K3 at the compact widths H = 512,
+256 and 128, in bf16 and f32, and BERT-Medium, BERT-Mini and BERT-Tiny
+through `predict_batch` at B=256), after the kernels' build and their
+ptxas check, then the card tests of the compact widths and of K1/K2 at
+intermediate widths other than 4H at every built width.
+
+    python3 build/compact_chip_run.py  # from the repository root, on a card
+"""
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from multimodal_rare_disease_tpu_torch.inference import (  # noqa: E402
+    seeded_batch,
+)
+from multimodal_rare_disease_tpu_torch.kernels import build  # noqa: E402
+
+dev = torch.device("cuda:0")
+torch.cuda.set_device(dev)
+card = chip_smoke.card_line()
+print(card, torch.__version__, torch.version.cuda, flush=True)
+t0 = time.perf_counter()
+lib_path = build.build()
+build.load_library(dev)
+faults = chip_smoke.ptxas_faults((lib_path.parent / "ptxas.log").read_text())
+print(f"build {time.perf_counter() - t0:.1f} s (nvcc "
+      f"{build.last_build_seconds:.1f} s); ptxas spills or C75xx: "
+      f"{faults or 'none'}", flush=True)
+if faults:
+    raise SystemExit(1)
+images, texts = seeded_batch.seeded_requests(chip_smoke.BATCH, seed=0)
+clock = chip_smoke.timing_helpers(images, texts)
+launches, times = chip_smoke.compact_widths(dev, card, images, texts,
+                                            clock.in_turns, clock.p50_ms,
+                                            clock.serve)
+print({k: v for k, v in launches.items() if v}, flush=True)
+print(times, flush=True)
+cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu",
+       "tests/test_torch_gpu.py", "-q", "-p", "no:cacheprovider", "-k",
+       "h512 or h256 or h128 or other_intermediate"]
+t0 = time.perf_counter()
+r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+print(" ".join(cmd[1:]), "rc", r.returncode, r.stdout[-3000:],
+      r.stderr[-3000:], f"{time.perf_counter() - t0:.1f} s", flush=True)
+raise SystemExit(r.returncode)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh, int8, f32 and BERT-large-width paths and its `entry()`
-forward once on one NVIDIA Hopper card.
+rank-mesh, int8, f32, BERT-large-width and compact-width paths and its
+`entry()` forward once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -183,6 +183,12 @@ non-zero):
    round on the default path) and in f32 (the f32 forms; within
    PROB_ATOL_F32_KERNELS of every kernel forced off, top-1 256/256), and
    the p50 of each.
+18. the compact widths (google-research/bert's BERT-Medium, BERT-Mini and
+   BERT-Tiny: H = 512, 256 and 128, F = 4H, heads of 64, 8, 4 and 2
+   layers, the uncased vocabulary of 30,522; `COMPACT_OVER`): phase 17 at
+   each of them, at full width and depth (K1 8 / 4 / 2 per default
+   forward; K3 and K2 7 / 3 / 1 and K1 1 and K4 1 per fused one), the
+   MicroBatcher round at H = 512 only.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -337,12 +343,18 @@ def plain_kernels():
             mod.FORCE_PLAIN = False
 
 
+# the hidden widths other than BERT-base's 768 whose forms of K1-K3 have
+# launch counters of their own: BERT-large's (phase 17) and the compact
+# BERTs' (phase 18)
+OTHER_WIDTHS = (1024, 512, 256, 128)
+ROW_KEYS = ("K1", "K2", "K3", "K1_f32", "K2_f32", "K3_f32")
 # the launch counts: K1-K4 (the bf16 kernels, and K4 in either output
-# dtype), their f32 forms, the H = 1,024 forms of K1-K3 in bf16 and f32,
-# and the calls the gates sent to plain on CUDA
-COUNT_KEYS = ("K1", "K2", "K3", "K4", "K1_f32", "K2_f32", "K3_f32",
-              "K1_1024", "K2_1024", "K3_1024", "K1_f32_1024", "K2_f32_1024",
-              "K3_f32_1024", "plain_on_cuda")
+# dtype), their f32 forms, the forms of K1-K3 in bf16 and f32 at each of
+# OTHER_WIDTHS (`<key>_<width>`), and the calls the gates sent to plain on
+# CUDA
+COUNT_KEYS = (("K1", "K2", "K3", "K4", "K1_f32", "K2_f32", "K3_f32")
+              + tuple(f"{k}_{w}" for w in OTHER_WIDTHS for k in ROW_KEYS)
+              + ("plain_on_cuda",))
 
 
 def count_dict(**counts):
@@ -352,32 +364,39 @@ def count_dict(**counts):
     return {k: counts.get(k, 0) for k in COUNT_KEYS}
 
 
+def launch_counters():
+    """{count key: (module, counter name)} of every kernel's launch
+    counter: K1 / K2 (and their f32 forms) in kernels/ffn.py, K3 in
+    kernels/attn_out.py, K4 in kernels/image.py, each width's with the
+    width's suffix."""
+    ffn, attn_out, image = kernel_modules()
+    counters = {"K4": (image, "LAUNCHES")}
+    for w in ("",) + tuple(f"_{w}" for w in OTHER_WIDTHS):
+        counters.update({
+            f"K1{w}": (ffn, f"LAUNCHES_K1{w}"),
+            f"K2{w}": (ffn, f"LAUNCHES_K2{w}"),
+            f"K3{w}": (attn_out, f"LAUNCHES{w}"),
+            f"K1_f32{w}": (ffn, f"LAUNCHES_K1_F32{w}"),
+            f"K2_f32{w}": (ffn, f"LAUNCHES_K2_F32{w}"),
+            f"K3_f32{w}": (attn_out, f"LAUNCHES_F32{w}")})
+    return counters
+
+
 def launch_counts():
     """The launches of each kernel and the calls the gates sent to plain
     on CUDA, as a count_dict."""
-    ffn, attn_out, image = kernel_modules()
+    mods = kernel_modules()
     return count_dict(
-        K1=ffn.LAUNCHES_K1, K2=ffn.LAUNCHES_K2, K3=attn_out.LAUNCHES,
-        K4=image.LAUNCHES, K1_f32=ffn.LAUNCHES_K1_F32,
-        K2_f32=ffn.LAUNCHES_K2_F32, K3_f32=attn_out.LAUNCHES_F32,
-        K1_1024=ffn.LAUNCHES_K1_1024, K2_1024=ffn.LAUNCHES_K2_1024,
-        K3_1024=attn_out.LAUNCHES_1024,
-        K1_f32_1024=ffn.LAUNCHES_K1_F32_1024,
-        K2_f32_1024=ffn.LAUNCHES_K2_F32_1024,
-        K3_f32_1024=attn_out.LAUNCHES_F32_1024,
-        plain_on_cuda=(ffn.PLAIN_ON_CUDA + attn_out.PLAIN_ON_CUDA
-                       + image.PLAIN_ON_CUDA))
+        **{k: getattr(mod, name) for k, (mod, name)
+           in launch_counters().items()},
+        plain_on_cuda=sum(mod.PLAIN_ON_CUDA for mod in mods))
 
 
 def reset_counts():
-    ffn, attn_out, image = kernel_modules()
-    ffn.LAUNCHES_K1 = ffn.LAUNCHES_K2 = ffn.PLAIN_ON_CUDA = 0
-    ffn.LAUNCHES_K1_F32 = ffn.LAUNCHES_K2_F32 = 0
-    ffn.LAUNCHES_K1_1024 = ffn.LAUNCHES_K2_1024 = 0
-    ffn.LAUNCHES_K1_F32_1024 = ffn.LAUNCHES_K2_F32_1024 = 0
-    attn_out.LAUNCHES = attn_out.LAUNCHES_F32 = attn_out.PLAIN_ON_CUDA = 0
-    attn_out.LAUNCHES_1024 = attn_out.LAUNCHES_F32_1024 = 0
-    image.LAUNCHES = image.PLAIN_ON_CUDA = 0
+    for mod, name in launch_counters().values():
+        setattr(mod, name, 0)
+    for mod in kernel_modules():
+        mod.PLAIN_ON_CUDA = 0
 
 
 def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
@@ -2977,22 +2996,39 @@ LARGE_OVER = {"text_encoder.hidden_size": 1024, "text_encoder.num_layers": 24,
               "text_encoder.num_heads": 16,
               "text_encoder.intermediate_size": 4096,
               "text_encoder.max_position_embeddings": 512}
-# the row counts each H = 1,024 kernel is held to its plain version at:
-# the single request (1, then its length bucket 64), the 1,024 CLS rows,
-# the packed batch and a ragged 128-row tile past it
+# the row counts each form of K1-K3 at phases 17 and 18's widths is held to
+# its plain version at: the single request (1, then its length bucket 64),
+# the 1,024 CLS rows, the packed batch and a ragged 128-row tile past it
 LARGE_ROWS = (1, 64, 1024, 16384, 16385)
+# phase 18: the compact widths, google-research/bert's BERT-Medium
+# (uncased_L-8_H-512_A-8), BERT-Mini (uncased_L-4_H-256_A-4) and BERT-Tiny
+# (uncased_L-2_H-128_A-2) from the "Well-Read Students Learn Better"
+# release (Turc et al. 2019): F = 4H, heads of 64, the uncased vocabulary
+# of 30,522, 512 positions; full width and depth, seeded weights (no
+# compact checkpoint is in the repository), as `text_encoder.*` overrides
+COMPACT_OVER = {
+    name: {"text_encoder.hidden_size": h, "text_encoder.num_layers": layers,
+           "text_encoder.num_heads": h // 64,
+           "text_encoder.intermediate_size": 4 * h,
+           "text_encoder.max_position_embeddings": 512,
+           "text_encoder.vocab_size": 30522}
+    for name, h, layers in (("BERT-Medium", 512, 8), ("BERT-Mini", 256, 4),
+                            ("BERT-Tiny", 128, 2))}
 
 
-def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
-    """Phase 17: the H = 1,024 forms of K1-K3 in bf16 and f32 against
-    their plain versions, timed beside their bounds; the 24-layer,
-    1,024-wide text tower through `predict_batch` at B=256 on the default
-    and the fused-sublayer paths, in bf16 and in f32, each against the
-    same weights with every kernel forced off (the bf16 paths also
-    against the f32 model); one MicroBatcher round on the bf16 default
-    path. Returns the launches of its counted runs and, per new kernel
-    key, (max|diff|, dev ms, plain ms, (b2b ms, plain b2b ms), bound ms,
-    bound by)."""
+def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
+                serve=None):
+    """The forms of K1-K3 at the hidden width of `over` (overrides of the
+    default config; one of OTHER_WIDTHS) in bf16 and f32 against their
+    plain versions at LARGE_ROWS, timed at the packed count beside their
+    bounds; the text tower of `over` through `predict_batch` at B=256 on
+    the default and the fused-sublayer paths, in bf16 and in f32, each
+    against the same weights with every kernel forced off (the bf16 paths
+    also against the f32 model); with `serve`, one MicroBatcher round on
+    the bf16 default path. Returns (the launches of its counted runs,
+    {key: (max|diff|, dev ms, plain ms, (b2b ms, plain b2b ms), bound ms,
+    bound by)} of each form, the text of its report, the seconds of the
+    kernel checks)."""
     import numpy as np
     import torch
 
@@ -3007,11 +3043,11 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
     k1, k3, _ = kernel_modules()
     t_phase = time.perf_counter()
     totals = count_dict()
-    cfg = resolve_config("default", LARGE_OVER)
+    cfg = resolve_config("default", over)
     te = cfg.text_encoder
     h, f, n_layers = te.hidden_size, te.intermediate_size, te.num_layers
     bf, f32 = torch.bfloat16, torch.float32
-    gen = torch.Generator().manual_seed(17)
+    gen = torch.Generator().manual_seed(seed)
 
     def rnd(shape, scale, offset=0.0, dtype=f32):
         return (torch.randn(shape, generator=gen) * scale + offset).to(
@@ -3031,7 +3067,7 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
     try:
         for dt, tol in ((bf, (ROW_ATOL, ROW_MEAN_ATOL)),
                         (f32, (ROW_F32_ATOL, ROW_F32_MEAN_ATOL))):
-            sfx = "_1024" if dt == bf else "_f32_1024"
+            sfx = f"_{h}" if dt == bf else f"_f32_{h}"
             # drawn in nn.Linear's [out, in] and passed as [in, out] views,
             # as BertLayer passes them; the vectors in the model's dtype
             w1, w2 = rnd((f, h), 0.05, dtype=dt).t(), rnd((h, f), 0.05,
@@ -3087,16 +3123,16 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
          torch.backends.cudnn.allow_tf32) = tf32
     t_a = time.perf_counter() - t_phase
 
-    # ---- b: the 24-layer tower through predict_batch at B=256
+    # ---- b: the tower through predict_batch at B=256
     over_fused = {"text_encoder.fused_attn_out": True, "data.image_size": 256}
-    lines, p50s = [], {}
-    for tag, over, want in (
-            ("default", {}, dict(K1_1024=n_layers)),
-            ("fused", over_fused, dict(K1_1024=1, K2_1024=n_layers - 1,
-                                       K3_1024=n_layers - 1, K4=1))):
-        cfg_b = resolve_config("default", {**LARGE_OVER, **over})
+    lines, served_lines, p50s = [], [], {}
+    for tag, over_b, want in (
+            ("default", {}, {f"K1_{h}": n_layers}),
+            ("fused", over_fused, {f"K1_{h}": 1, f"K2_{h}": n_layers - 1,
+                                   f"K3_{h}": n_layers - 1, "K4": 1})):
+        cfg_b = resolve_config("default", {**over, **over_b})
         cfg_32 = resolve_config("default", {
-            **LARGE_OVER, **over, "training.compute_dtype": "float32"})
+            **over, **over_b, "training.compute_dtype": "float32"})
         pb = MultimodalPredictor(cfg_b, create_model(cfg_b, device="cpu",
                                                      seed=0), dev)
         probs = {}
@@ -3105,32 +3141,33 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
                                  pb.class_names)
         got = launch_counts()
         if got != count_dict(**want) or pb.packed_calls != 1:
-            fail(f"BERT-large {tag} bf16 path launches {got} (packed "
+            fail(f"H={h} {tag} bf16 path launches {got} (packed "
                  f"{pb.packed_calls}), want {want}")
         for k in totals:
             totals[k] += got[k]
         with plain_kernels():
             probs["bf16 off"] = probs_of(pb.predict_batch(images, texts),
                                          pb.class_names)
-        if tag == "default":
+        if tag == "default" and serve is not None:
             n_ans, calls, n_classic, served = serve(pb, n_concurrent=4,
                                                     n_single=1)
             if served != count_dict(**{k: v * calls for k, v in
                                        want.items()}):
-                fail(f"BERT-large serving: launches {served} for {calls} "
+                fail(f"H={h} serving: launches {served} for {calls} "
                      f"forwards")
             for k in totals:
                 totals[k] += served[k]
-            serve_line = (f"MicroBatcher: {n_ans} requests in {calls} "
-                          f"forwards ({n_classic} classic), launches "
-                          f"{served}")
+            served_lines.append(
+                f"MicroBatcher: {n_ans} requests in {calls} forwards "
+                f"({n_classic} classic), launches "
+                f"{ {k: v for k, v in served.items() if v} }")
         p50s[f"{tag} bf16"] = p50_ms(pb)[0]
         del pb
         torch.cuda.empty_cache()
         # the f32 model: its kernels (K1-K3 in f32), and the same model with
         # every kernel forced off, which is also the bf16 path's f32
         # reference; TF32 off for both
-        want32 = {(k.replace("_1024", "_f32_1024") if k != "K4" else k): v
+        want32 = {(k.replace(f"_{h}", f"_f32_{h}") if k != "K4" else k): v
                   for k, v in want.items()}
         p32 = MultimodalPredictor(cfg_32, create_model(cfg_32, device="cpu",
                                                        seed=0), dev)
@@ -3142,8 +3179,7 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
                                     p32.class_names)
             got = launch_counts()
             if got != count_dict(**want32) or p32.packed_calls != 1:
-                fail(f"BERT-large {tag} f32 path launches {got}, want "
-                     f"{want32}")
+                fail(f"H={h} {tag} f32 path launches {got}, want {want32}")
             for k in totals:
                 totals[k] += got[k]
             with plain_kernels():
@@ -3159,7 +3195,7 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
             if p.shape != (BATCH, cfg_b.num_classes) \
                     or not np.isfinite(p).all() \
                     or np.abs(p.sum(1) - 1.0).max() > 1e-3:
-                fail(f"BERT-large {tag} {k}: bad probabilities {p.shape}")
+                fail(f"H={h} {tag} {k}: bad probabilities {p.shape}")
         d = {name: float(np.abs(probs[a] - probs[b]).max())
              for name, a, b in (("bf16 vs off", "bf16", "bf16 off"),
                                 ("bf16 vs f32", "bf16", "f32 off"),
@@ -3168,14 +3204,14 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
                 for name, a, b in (("bf16", "bf16", "bf16 off"),
                                    ("f32", "f32", "f32 off"))}
         if d["bf16 vs off"] > PROB_ATOL_PLAIN:
-            fail(f"BERT-large {tag}: kernel and plain probabilities differ "
-                 f"by {d['bf16 vs off']}")
+            fail(f"H={h} {tag}: kernel and plain probabilities differ by "
+                 f"{d['bf16 vs off']}")
         if d["bf16 vs f32"] > PROB_ATOL_F32:
-            fail(f"BERT-large {tag}: kernel path is {d['bf16 vs f32']} from "
-                 f"the f32 reference")
+            fail(f"H={h} {tag}: kernel path is {d['bf16 vs f32']} from the "
+                 f"f32 reference")
         if d["f32 vs off"] > PROB_ATOL_F32_KERNELS or top1["f32"] != BATCH:
-            fail(f"BERT-large {tag} f32: max|dprob| {d['f32 vs off']} from "
-                 f"the kernels-off f32 run, top-1 {top1['f32']}/{BATCH}")
+            fail(f"H={h} {tag} f32: max|dprob| {d['f32 vs off']} from the "
+                 f"kernels-off f32 run, top-1 {top1['f32']}/{BATCH}")
         lines.append((
             f"{tag}: launches bf16 {want}, f32 {want32}; max|dprob| bf16 "
             f"kernels vs off {d['bf16 vs off']:.3e} (tolerance "
@@ -3195,21 +3231,52 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
              f"MB, K3 "
              f"{k3.attn_out_plan_f32(16384, n_sm, h).scratch * 4 / 1e6:.1f}"
              f" MB")
-    print(f"[17 BERT-large] {card} | H={h}, F={f}, {te.num_heads} heads, "
-          f"{n_layers} layers, vocab {te.vocab_size} | kernels vs plain "
-          f"(max|diff| / mean|diff|): " + "; ".join(
-              f"{k}: " + ", ".join(f"M={m} {e[0]:.3e} / {e[1]:.3e}"
-                                   for m, e in v.items())
-              for k, v in errs.items())
-          + " | at M=16384, dev ms vs plain (bound, share): " + "; ".join(
-              f"{k} {t[0]:.4f} vs {t[1]:.4f} ({t[2]}; bound "
-              f"{forms[k][2][0]:.4f} ms, {forms[k][2][1]}, "
-              f"{forms[k][2][0] / t[0]:.1%})" for k, t in times.items())
-          + f" | {plans} | " + " || ".join(lines + [serve_line])
-          + f" | kernel checks {t_a:.1f} s, phase 17 took "
-          f"{time.perf_counter() - t_phase:.1f} s")
+    text = (f"H={h}, F={f}, {te.num_heads} heads, {n_layers} layers, vocab "
+            f"{te.vocab_size} | kernels vs plain (max|diff| / mean|diff|): "
+            + "; ".join(f"{k}: " + ", ".join(
+                f"M={m} {e[0]:.3e} / {e[1]:.3e}" for m, e in v.items())
+                for k, v in errs.items())
+            + " | at M=16384, dev ms vs plain (bound, share): " + "; ".join(
+                f"{k} {t[0]:.4f} vs {t[1]:.4f} ({t[2]}; bound "
+                f"{forms[k][2][0]:.4f} ms, {forms[k][2][1]}, "
+                f"{forms[k][2][0] / t[0]:.1%})" for k, t in times.items())
+            + f" | {plans} | " + " || ".join(lines + served_lines))
     return totals, {k: (max(e[0] for e in errs[k].values()), t[0], t[1],
-                        t[3], *forms[k][2]) for k, t in times.items()}
+                        t[3], *forms[k][2]) for k, t in times.items()}, \
+        text, t_a
+
+
+def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 17: `width_phase` at BERT-large width (LARGE_OVER), with one
+    MicroBatcher round. Returns its launches and its forms' readings."""
+    t_phase = time.perf_counter()
+    totals, times, text, t_a = width_phase(dev, LARGE_OVER, 17, images,
+                                           texts, in_turns, p50_ms, serve)
+    print(f"[17 BERT-large] {card} | {text} | kernel checks {t_a:.1f} s, "
+          f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return totals, times
+
+
+def compact_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 18: `width_phase` at each of COMPACT_OVER's towers, with one
+    MicroBatcher round at H = 512. Returns the launches of its counted
+    runs and every form's readings."""
+    t_phase = time.perf_counter()
+    totals, times = count_dict(), {}
+    for i, (name, over) in enumerate(COMPACT_OVER.items()):
+        t0 = time.perf_counter()
+        got, got_times, text, t_a = width_phase(
+            dev, over, 18 + i, images, texts, in_turns, p50_ms,
+            serve if over["text_encoder.hidden_size"] == 512 else None)
+        for k in totals:
+            totals[k] += got[k]
+        times.update(got_times)
+        print(f"[18 compact widths] {card} | {name}: {text} | kernel checks "
+              f"{t_a:.1f} s, {name} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"[18 compact widths] {card} | phase 18 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals, times
 
 
 def timing_helpers(images, texts):
@@ -4038,6 +4105,12 @@ def main() -> int:
     main17, times17 = bert_large(dev, card, images, texts, in_turns, p50_ms,
                                  serve)
 
+    # ---- 18. the compact widths: K1-K3 at H = 512, 256 and 128 in bf16
+    # and f32, BERT-Medium, -Mini and -Tiny through predict_batch
+    torch.cuda.empty_cache()
+    main18, times18 = compact_widths(dev, card, images, texts, in_turns,
+                                     p50_ms, serve)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -4082,7 +4155,20 @@ def main() -> int:
          *times17["K2_f32_1024"], None),
         ("attn_out_ln_f32_h1024", "attn_out_ln_f32.cu", "attn_out.py:38",
          "K3_f32_1024", *times17["K3_f32_1024"], None),
-    ]
+    ] + [
+        # the compact widths' instantiations, checked and timed in phase
+        # 18; none has one PyTorch call either
+        (f"{name}_h{w}", source, replaces, f"{key}_{w}",
+         *times18[f"{key}_{w}"], None)
+        for w in (512, 256, 128)
+        for name, source, replaces, key in (
+            ("ffn_pre_ln_bf16", "ffn_ln.cu", "ffn.py:72", "K1"),
+            ("ffn_ln_bf16", "ffn_ln.cu", "ffn.py:103", "K2"),
+            ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3"),
+            ("ffn_pre_ln_f32", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32"),
+            ("ffn_ln_f32", "ffn_ln_f32.cu", "ffn.py:103", "K2_f32"),
+            ("attn_out_ln_f32", "attn_out_ln_f32.cu", "attn_out.py:38",
+             "K3_f32"))]
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,
@@ -4090,12 +4176,12 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13, 14, 15, 16 and 17 (their counted runs; 13's
-        # on every rank)
+        # 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (their counted runs;
+        # 13's on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
                      + main13[k] + main14[k] + main15[k] + main16[k]
-                     + main17[k]),
+                     + main17[k] + main18[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

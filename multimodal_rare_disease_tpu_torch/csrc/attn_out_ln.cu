@@ -4,8 +4,9 @@
 //   y = bf16(LN(f32(x) + ctx . Wo^T + bo))   ctx, x: [M, H] bf16; Wo: [H, H]
 //                                             bf16 in torch.nn.Linear's [out, in]
 //
-// H is a template parameter, built for 768 (BERT-base; the design below) and
-// 1,024 (BERT-large; its changes at the end of this header).
+// H is a template parameter, built for 768 (BERT-base; the design below),
+// 1,024 (BERT-large) and 512, 256 and 128 (the compact BERTs); their
+// changes are at the end of this header.
 //
 // The product accumulates in f32 and is not rounded; bo and the residual x
 // are added in f32 before the two-pass f32 LayerNorm (eps given, 1e-12 for
@@ -84,6 +85,15 @@
 //     multicast or remote access) and before exit.
 // With the k chunks split (small M), each block stores its f32 partial and
 // split_reduce finishes the rows, as above.
+//
+// H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
+// -Tiny): one block per row tile, as at 768, with 8, 4 and 2 k chunks and
+// consumers of [64, 256], [64, 128] and [64, 64]. At 128 a consumer's 64
+// columns are less than one n128 Wo tile, so Wo streams as [64 out x 64 k]
+// tiles (8 KB) and the consumers run wgmma m64n64k16; the two consumers,
+// their register split and the LN exchange stay as they are. Each width's
+// variant is under `if constexpr`, so the 768 and 1,024 code is compiled
+// as it was.
 
 #include <cuda.h>
 
@@ -109,7 +119,6 @@ using mrd::tma_load_2d;
 
 constexpr int kTM = 64;                   // rows per block (wgmma M)
 constexpr int kKC = 64;                   // k chunk: one ctx column block
-constexpr int kN = 128;                   // output columns of a Wo tile (wgmma N)
 constexpr int kWG = 2;                    // consumer warpgroups (0, 1); the producer is 2
 constexpr int kThreads = 128 * (kWG + 1);
 constexpr int kConsumerThreads = 128 * kWG;
@@ -117,19 +126,24 @@ constexpr int kXLag = 2;                  // x block c loads after chunk c + 2's
 constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
 constexpr uint32_t kBlockBytes = kTM * 128;                    // 8 KB
-constexpr uint32_t kTileBytes = kN * kKC * 2;                  // 16 KB
 
 // The shape of the kernel at hidden width kH: 768 as the header sets out,
-// 1,024 in two column groups of 512 (one block each).
+// 1,024 in two column groups of 512 (one block each), 512, 256 and 128 as
+// 768 with narrower consumers.
 template <int kH>
 struct AttnOut {
-  static constexpr int kGroups = kH == 768 ? 1 : 2;  // blocks per row tile
+  static_assert(kH == 128 || kH == 256 || kH == 512 || kH == 768 || kH == 1024,
+                "a width the kernel is built for");
+  static constexpr int kGroups = kH == 1024 ? 2 : 1;  // blocks per row tile
   static constexpr bool kPair = kGroups == 2;        // a cluster sharing ctx and LN
   static constexpr int kCols = kH / kGroups;         // output columns per block
   static constexpr int kChunks = kH / kKC;           // 12 / 16
   static constexpr int kHalf = kCols / kWG;          // 384 / 256 output columns per consumer
+  static constexpr int kN = kH == 128 ? 64 : 128;    // output columns of a Wo tile (wgmma N)
+  static constexpr int kAcc = kN / 2;                // accumulator floats per Wo tile
+  static constexpr uint32_t kTileBytes = kN * kKC * 2;  // 16 KB (8 KB at 128)
   static constexpr int kTiles = kHalf / kN;          // 3 / 2 Wo tiles per consumer and chunk
-  static constexpr int kStages = kH == 768 ? 4 : 3;  // Wo ring slots per consumer
+  static constexpr int kStages = kH == 1024 ? 3 : 4;  // Wo ring slots per consumer
 
   // shared memory, from a 1024-byte aligned base: the row tile (ctx, then
   // x, then y) as kChunks column blocks of [64 rows][64 bf16], the two Wo
@@ -215,9 +229,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtens
         const uint32_t s = wg * P::kStages + ring[wg].slot;
         mbar_wait(base + P::kBarWEmpty + 8 * s, ring[wg].phase ^ 1);
         const uint32_t full = base + P::kBarWFull + 8 * s;
-        const uint32_t dst = base + P::kOffW + s * kTileBytes;
-        const int n0 = col0 + P::kHalf * wg + kN * j;
-        mbar_arrive_expect_tx(full, kTileBytes);
+        const uint32_t dst = base + P::kOffW + s * P::kTileBytes;
+        const int n0 = col0 + P::kHalf * wg + P::kN * j;
+        mbar_arrive_expect_tx(full, P::kTileBytes);
         tma_load_2d(dst, wo_map, full, c * kKC, n0);
         ring[wg].next<P::kStages>();
       }
@@ -234,7 +248,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtens
 // previous chunk's ctx block). kFirst: the slice's first chunk, whose first
 // step writes the accumulators without reading them.
 template <int kH, bool kFirst>
-__device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][64], Ring& ring,
+__device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][AttnOut<kH>::kAcc],
+                                              Ring& ring,
                                               uint32_t& prev, uint32_t base, int c, int wg,
                                               bool signal) {
   using P = AttnOut<kH>;
@@ -244,16 +259,22 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][
     const uint32_t s = wg * P::kStages + ring.slot;
     mbar_wait(base + P::kBarWFull + 8 * s, ring.phase);
     const uint32_t a0 = opaque(base) + P::kOffA + c * kBlockBytes;
-    const uint32_t b0 = opaque(base) + P::kOffW + s * kTileBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW + s * P::kTileBytes;
     mrd::fence_operand(acc[j]);
     mrd::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKC / 16; ++kk) {
       const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
-      if (kFirst && kk == 0)
+      if constexpr (P::kN == 64) {  // H = 128: [64, 64] per consumer
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n64k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {
         mrd::wgmma_m64n128k16_first(acc[j], da, db);
-      else
+      } else {
         mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
     }
     mrd::wgmma_commit();
     mrd::fence_operand(acc[j]);
@@ -350,7 +371,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
     mrd::setmaxnreg_inc<kConsumerRegs>();
     const int wg = threadIdx.x / 128;
     const bool signal = lane == 0;  // one arrival per warp
-    float acc[P::kTiles][64];  // [64, kHalf] f32: n128 tiles
+    float acc[P::kTiles][P::kAcc];  // [64, kHalf] f32: n128 (n64) tiles
     Ring ring;
     uint32_t prev = 0;  // the slot of the group in flight
     consume_chunk<kH, true>(acc, ring, prev, base, c_begin, wg, signal);
@@ -378,8 +399,8 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
 #pragma unroll
           for (int j = 0; j < P::kTiles; ++j)
 #pragma unroll
-            for (int nb = 0; nb < 16; ++nb) {
-              const int col = col0 + P::kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+            for (int nb = 0; nb < P::kN / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
               *reinterpret_cast<float2*>(dst + col) =
                   make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
             }
@@ -403,7 +424,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
       const uint32_t peer_bar =
           P::kPair ? mrd::map_to_rank(base + P::kBarStats, rank ^ 1) : 0;
       // This thread's x / y elements in the swizzled tile: columns 8 nb + 2
-      // (lane % 4) .. + 1 of this consumer's column block 2 j + nb / 8 lie
+      // (lane % 4) .. + 1 of this consumer's column block (kN / 64) j + nb / 8 lie
       // in the 16-byte group nb % 8 of their row, which the swizzle moves to
       // group (nb % 8) ^ (row % 8). Rows wrow and wrow + 8 share row % 8, so
       // eight bases serve every element, at constant offsets: a block is 8
@@ -419,10 +440,10 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
 #pragma unroll
       for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-        for (int nb = 0; nb < 16; ++nb) {
-          const int col = col0 + kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+        for (int nb = 0; nb < P::kN / 8; ++nb) {
+          const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
           const float2 b2 = ld_pair(bo + col);
-          const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+          const uint32_t at = xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const float2 x2 = lds_pair(at + half * 8 * 128);
@@ -453,7 +474,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
 #pragma unroll
       for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < P::kAcc; ++i) {
           const float d = acc[j][i] - mu[(i / 2) % 2];
           s[(i / 2) % 2] += d * d;
         }
@@ -479,11 +500,11 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
 #pragma unroll
       for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-        for (int nb = 0; nb < 16; ++nb) {
-          const int col = col0 + kHalf * wg + kN * j + 8 * nb + 2 * (lane % 4);
+        for (int nb = 0; nb < P::kN / 8; ++nb) {
+          const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
           const float2 g2 = ld_pair(gamma + col);
           const float2 o2 = ld_pair(beta + col);
-          const uint32_t at = xo[nb % 8] + (2 * j + nb / 8) * kBlockBytes;
+          const uint32_t at = xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
@@ -513,7 +534,7 @@ cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* b
   const bool split = slices > 1;
   CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
   if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
-      !make_map(&wo_map, wo, kH, kH, kN) ||
+      !make_map(&wo_map, wo, kH, kH, P::kN) ||
       (!split && (!make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel<kH>,
@@ -568,10 +589,9 @@ int attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void*
 
 extern "C" {
 
-// Dynamic shared memory per block of the attention-output kernel (H = 768,
-// 1,024).
+// Dynamic shared memory per block of the attention-output kernel (H = 768;
+// the other widths' entries below).
 int mrd_attn_out_smem_bytes() { return static_cast<int>(AttnOut<768>::kSmemBytes); }
-int mrd_attn_out_smem_bytes_h1024() { return static_cast<int>(AttnOut<1024>::kSmemBytes); }
 
 // y = LN(x + ctx Wo^T + bo) on `stream`. Pointers are device pointers,
 // 16-byte aligned; ctx, x and y are [M, 768] row-major, wo is [768 out,
@@ -585,13 +605,24 @@ int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const v
   return attn_out_ln_bf16<768>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps, stream);
 }
 
-// The same at H = 1,024: [M, 1,024] rows, wo [1,024, 1,024], `slices` a
-// divisor of the 16 k chunks, scratch f32 [slices, M, 1,024].
-int mrd_attn_out_ln_bf16_h1024(const void* ctx, const void* x, const void* wo, const void* bo,
-                               const void* gamma, const void* beta, void* y, void* scratch,
-                               int M, int slices, float eps, void* stream) {
-  return attn_out_ln_bf16<1024>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,
-                                stream);
-}
+// The same and the shared memory per block at the other built widths H:
+// `name`_h<H>, [M, H] rows, wo [H, H], `slices` a divisor of the H / 64 k
+// chunks, scratch f32 [slices, M, H].
+#define MRD_ATTN_OUT_WIDTH(kH)                                                               \
+  int mrd_attn_out_smem_bytes_h##kH() {                                                      \
+    return static_cast<int>(AttnOut<kH>::kSmemBytes);                                        \
+  }                                                                                          \
+  int mrd_attn_out_ln_bf16_h##kH(const void* ctx, const void* x, const void* wo,             \
+                                 const void* bo, const void* gamma, const void* beta,        \
+                                 void* y, void* scratch, int M, int slices, float eps,       \
+                                 void* stream) {                                             \
+    return attn_out_ln_bf16<kH>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,     \
+                                stream);                                                     \
+  }
+
+MRD_ATTN_OUT_WIDTH(128)
+MRD_ATTN_OUT_WIDTH(256)
+MRD_ATTN_OUT_WIDTH(512)
+MRD_ATTN_OUT_WIDTH(1024)
 
 }  // extern "C"

@@ -4,8 +4,9 @@
 //   y = LN(x + ctx . Wo^T + bo)   ctx, x: [M, H] f32; Wo: [H, H] f32 in
 //                                 torch.nn.Linear's [out, in]
 //
-// H is a template parameter, built for 768 (BERT-base) and 1,024
-// (BERT-large): 6 or 8 column tiles of the GEMM, 24 or 32 k-tiles.
+// H is a template parameter, built for 768 (BERT-base), 1,024 (BERT-large)
+// and 512, 256 and 128 (the compact BERTs): H / 128 column tiles of the
+// GEMM (6, 8, 4, 2, 1) and H / 32 k-tiles (24, 32, 16, 8, 4).
 //
 // The function is the Pallas body run in f32
 // (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): an
@@ -126,13 +127,20 @@ int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const vo
   return attn_out_ln_f32<768>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps, stream);
 }
 
-// The same at H = 1,024: [M, 1,024] rows, wo [1,024, 1,024], `slices` a
-// divisor of the 32 k-tiles, scratch 2 1,024 1,024 + slices M 1,024.
-int mrd_attn_out_ln_f32_h1024(const void* ctx, const void* x, const void* wo, const void* bo,
-                              const void* gamma, const void* beta, void* y, void* scratch,
-                              int M, int slices, float eps, void* stream) {
-  return attn_out_ln_f32<1024>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,
-                               stream);
-}
+// The same at the other built widths H: `name`_h<H>, [M, H] rows, wo [H, H],
+// `slices` a divisor of the H / 32 k-tiles, scratch 2 H H + slices M H.
+#define MRD_ATTN_OUT_F32_WIDTH(kH)                                                           \
+  int mrd_attn_out_ln_f32_h##kH(const void* ctx, const void* x, const void* wo,              \
+                                const void* bo, const void* gamma, const void* beta,         \
+                                void* y, void* scratch, int M, int slices, float eps,        \
+                                void* stream) {                                              \
+    return attn_out_ln_f32<kH>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,      \
+                               stream);                                                      \
+  }
+
+MRD_ATTN_OUT_F32_WIDTH(128)
+MRD_ATTN_OUT_F32_WIDTH(256)
+MRD_ATTN_OUT_F32_WIDTH(512)
+MRD_ATTN_OUT_F32_WIDTH(1024)
 
 }  // extern "C"

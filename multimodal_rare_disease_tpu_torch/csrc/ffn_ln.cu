@@ -1,7 +1,8 @@
 // K1 and K2: the post-LN BERT FFN sublayer, written by hand for Hopper
-// (sm_90a). One kernel template over the hidden width H (768, BERT-base, and
-// 1,024, BERT-large; the design below is written for 768, and H = 1,024's
-// changes follow it) and `kInputLN`:
+// (sm_90a). One kernel template over the hidden width H (768, BERT-base,
+// 1,024, BERT-large, and 512, 256 and 128, the compact BERTs; the design
+// below is written for 768, and the other widths' changes follow it) and
+// `kInputLN`:
 //
 //   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, H] bf16, the unnormalized
 //                                               attention residual
@@ -104,6 +105,22 @@
 //   - a cluster barrier after the barriers' initialization (before any
 //     remote access) and before exit (no block leaves while its peer may
 //     still write to it).
+//
+// H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
+// -Tiny, F = 4H). One block per row tile, as at 768; the x tile (64, 32 or
+// 16 KB) leaves shared memory to spare. What changes is the width of the
+// stage-2 warpgroups' slices: [64, 256], [64, 128] and [64, 64], that is
+// 2, 1 and 1 W2 tiles per warpgroup and chunk. At 128 a warpgroup's 64
+// columns are less than one n128 tile, so W2 streams as [64 h x 64 f]
+// tiles (8 KB) into the same 4-slot ring and stage 2 runs wgmma
+// m64n64k16; keeping two stage-2 warpgroups (rather than one) keeps the
+// register split, the named barriers and LN2's exchange as they are. The
+// x row of a 128-wide tile is half a 16-byte group per lane, so the
+// prologue and split_reduce read it as one 8-byte group per lane
+// (rows.cuh's narrow forms). Stage 1 (kW1K 128, 6 W1 slots) is 768's; at
+// these widths it does twice the work of each stage-2 warpgroup, as at
+// 768. Each width's variant is under `if constexpr`, so the 768 and
+// 1,024 code is compiled as it was.
 
 #include <cuda.h>
 
@@ -144,31 +161,35 @@ constexpr int kS2Regs = 224;
 constexpr int kS1Regs = 56;
 
 // W1 tiles [32 f][kW1K k] (stage 1 takes a chunk as two halves of 32
-// columns) and W2 tiles [128 h][64 f] (tile u of a chunk goes to stage-2
+// columns) and W2 tiles [kW2N h][64 f] (tile u of a chunk goes to stage-2
 // WG u % 2), each ring refilled by its consumers
 constexpr int kS1N = 32;                     // chunk columns per stage-1 pass
-constexpr int kW2N = 128;                    // h rows of a W2 tile
 constexpr int kW2Stages = 4;
 constexpr int kHStages = 2;                  // GELU chunks between the stages
 constexpr uint32_t kBlockBytes = kTM * 128;  // [64][64] bf16, 8 KB
 constexpr uint32_t kW1BoxBytes = kS1N * 128; // a [32][64] bf16 box, 4 KB
-constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB
 
 // The shape of the kernel at hidden width kH: 768 as the header sets out,
-// 1,024 in two column groups of 512 (one block each).
+// 1,024 in two column groups of 512 (one block each), 512, 256 and 128 as
+// 768 with narrower stage-2 slices.
 template <int kH>
 struct Ffn {
-  static constexpr int kGroups = kH == 768 ? 1 : 2;    // blocks per row tile
+  static_assert(kH == 128 || kH == 256 || kH == 512 || kH == 768 || kH == 1024,
+                "a width the kernel is built for");
+  static constexpr int kGroups = kH == 1024 ? 2 : 1;   // blocks per row tile
   static constexpr bool kPair = kGroups == 2;          // a cluster sharing h
   static constexpr int kCols = kH / kGroups;           // output columns per block
   static constexpr int kHalf = kCols / kS2;            // 384 / 256 per stage-2 WG
-  static constexpr int kW1K = kH == 768 ? 128 : 64;    // k (= H) columns of a W1 tile
+  static constexpr int kW1K = kH == 1024 ? 64 : 128;   // k (= H) columns of a W1 tile
   static constexpr int kW1Boxes = kW1K / 64;           // TMA boxes per W1 tile
   static constexpr int kW1PerHalf = kH / kW1K;         // 6 / 16
   // W1 tiles a block loads per chunk: both halves, or its own half
   static constexpr int kW1PerChunk = kPair ? kW1PerHalf : 2 * kW1PerHalf;  // 12 / 16
+  static constexpr int kW2N = kH == 128 ? 64 : 128;    // h rows of a W2 tile (wgmma N)
+  static constexpr int kAcc = kW2N / 2;                // accumulator floats per W2 tile
+  static constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB (8 KB at 128)
   static constexpr int kW2PerChunk = kCols / kW2N;     // 6 / 4
-  static constexpr int kW1Stages = kH == 768 ? 6 : 4;
+  static constexpr int kW1Stages = kH == 1024 ? 4 : 6;
   static constexpr uint32_t kW1Bytes = kW1Boxes * kW1BoxBytes;  // 8 / 4 KB
 
   // shared memory, from a 1024-byte aligned base: the x tile as kH / 64
@@ -195,10 +216,11 @@ struct Ffn {
   static constexpr int kHFullArrivals = kPair ? 2 * 128 : 128;
   static constexpr int kHEmptyArrivals = kPair ? 2 * kS2 : kS2;
 
-  static_assert(kH % 256 == 0 && kCols % (kS2 * kW2N) == 0, "whole W2 tiles per WG");
+  static_assert(kCols % (kS2 * kW2N) == 0, "whole W2 tiles per WG");
   static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
   static_assert(kW2Stages % kS2 == 0, "tile g + kW2Stages has the owner of tile g");
-  static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0 && kW1Bytes % 1024 == 0,
+  static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0 && kW1Bytes % 1024 == 0 &&
+                    kW2Bytes % 1024 == 0,
                 "1024-byte swizzle atoms");
   static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
   static_assert(!kPair || kW1Stages * kW1Bytes >= 2 * 2 * kS2 * kTM * 4,
@@ -237,7 +259,7 @@ __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, i
 }
 
 // Issue W2 tile g of the slice (chunk c_begin + g / kW2PerChunk, tile u =
-// g % kW2PerChunk: W2^T[h0 .. h0 + 128, f0 .. f0 + 64], h0 in the block's
+// g % kW2PerChunk: W2^T[h0 .. h0 + kW2N, f0 .. f0 + 64], h0 in the block's
 // column group from col0) into its ring slot.
 template <int kH>
 __device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, int c_begin,
@@ -246,14 +268,15 @@ __device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, i
   const int u = g % P::kW2PerChunk;
   const uint32_t slot = g % kW2Stages;
   const uint32_t bar = base + P::kBarW2Full + 8 * slot;
-  mbar_arrive_expect_tx(bar, kW2Bytes);
+  mbar_arrive_expect_tx(bar, P::kW2Bytes);
   if constexpr (P::kPair)
-    tma_load_2d(base + P::kOffW2 + slot * kW2Bytes, map, bar,
+    tma_load_2d(base + P::kOffW2 + slot * P::kW2Bytes, map, bar,
                 (c_begin + g / P::kW2PerChunk) * kFC,
-                col0 + P::kHalf * (u % kS2) + kW2N * (u / kS2));
+                col0 + P::kHalf * (u % kS2) + P::kW2N * (u / kS2));
   else
-    tma_load_2d(base + P::kOffW2 + slot * kW2Bytes, map, bar,
-                (c_begin + g / P::kW2PerChunk) * kFC, P::kHalf * (u % kS2) + kW2N * (u / kS2));
+    tma_load_2d(base + P::kOffW2 + slot * P::kW2Bytes, map, bar,
+                (c_begin + g / P::kW2PerChunk) * kFC,
+                P::kHalf * (u % kS2) + P::kW2N * (u / kS2));
 }
 
 // Stage 2 of chunk k (counted from the slice's first) for warpgroup wg:
@@ -265,7 +288,7 @@ __device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, i
 // whose next tile it has to wait for first. kFirst: the slice's first
 // chunk, whose first step writes the accumulators without reading them.
 template <int kH, bool kFirst>
-__device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2][64],
+__device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2][Ffn<kH>::kAcc],
                                          Ring& w2, const CUtensorMap* w2_map, uint32_t base,
                                          int c_begin, int col0, int n_w2, int k, int wg,
                                          bool leader, int rank) {
@@ -287,16 +310,22 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
     }
     const int g = k * P::kW2PerChunk + kS2 * j + wg;
     const uint32_t a0 = opaque(base) + P::kOffH + hs * kBlockBytes;
-    const uint32_t b0 = opaque(base) + P::kOffW2 + mine * kW2Bytes;
+    const uint32_t b0 = opaque(base) + P::kOffW2 + mine * P::kW2Bytes;
     mrd::fence_operand(acc[j]);
     mrd::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFC / 16; ++kk) {
       const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
-      if (kFirst && kk == 0)
+      if constexpr (P::kW2N == 64) {  // H = 128: [64, 64] per warpgroup
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n64k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {
         mrd::wgmma_m64n128k16_first(acc[j], da, db);
-      else
+      } else {
         mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
     }
     mrd::wgmma_commit();
     mrd::fence_operand(acc[j]);
@@ -375,12 +404,18 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   }
   // prologue, all 12 warps: the bf16 x tile, one warp per row
   for (int r = warp; r < kTM; r += kThreads / 32) {
-    uint4 g[kRowGroupsPerLane<kH>];
-    load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+    if constexpr (kH % 256 != 0) {  // H = 128: one 8-byte group per lane
+      *reinterpret_cast<uint2*>(smem + P::kOffX + sw128_offset(r, lane / 2, kBlockBytes) +
+                                8 * (lane % 2)) =
+          load_x_row_narrow<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane);
+    } else {
+      uint4 g[kRowGroupsPerLane<kH>];
+      load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
-    for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
-      *reinterpret_cast<uint4*>(smem + P::kOffX + sw128_offset(r, lane + 32 * j, kBlockBytes)) =
-          g[j];
+      for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
+        *reinterpret_cast<uint4*>(smem + P::kOffX +
+                                  sw128_offset(r, lane + 32 * j, kBlockBytes)) = g[j];
+    }
   }
   fence_proxy_async();
   if constexpr (P::kPair)
@@ -487,7 +522,7 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     // h . W2[chunk, ...]
     mrd::setmaxnreg_inc<kS2Regs>();
     const int wg = role;
-    float acc[P::kW2PerChunk / kS2][64];  // [64, kHalf] f32: n128 tiles
+    float acc[P::kW2PerChunk / kS2][P::kAcc];  // [64, kHalf] f32: n128 (n64) tiles
     Ring w2;
     s2_chunk<kH, true>(acc, w2, &w2_map, base, c_begin, col0, n_w2, 0, wg, leader, rank);
     for (int k = 1; k < chunks_per_slice; ++k)
@@ -508,8 +543,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
           for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-            for (int nb = 0; nb < 16; ++nb) {
-              const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
               *reinterpret_cast<float2*>(dst + col) =
                   make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
             }
@@ -533,8 +568,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
       for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-        for (int nb = 0; nb < 16; ++nb) {
-          const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+        for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+          const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
           const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
@@ -578,7 +613,7 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
           for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-            for (int i = 0; i < 64; ++i) {
+            for (int i = 0; i < P::kAcc; ++i) {
               const float d = acc[j][i] - mu[(i / 2) % 2];
               s[(i / 2) % 2] += d * d;
             }
@@ -592,8 +627,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
           for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-            for (int nb = 0; nb < 16; ++nb) {
-              const int col = col0 + P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
               const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
               *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
                   (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
@@ -609,8 +644,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
       for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-        for (int nb = 0; nb < 16; ++nb) {
-          const int col = P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+        for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+          const int col = P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
           const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
@@ -639,7 +674,7 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
       for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < P::kAcc; ++i) {
           const float d = acc[j][i] - mu[(i / 2) % 2];
           s[(i / 2) % 2] += d * d;
         }
@@ -664,8 +699,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
 #pragma unroll
           for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
 #pragma unroll
-            for (int nb = 0; nb < 16; ++nb) {
-              const int col = P::kHalf * wg + kW2N * j + 8 * nb + 2 * (lane % 4);
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
               const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
               *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
                   (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
@@ -685,7 +720,7 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
                    float eps, cudaStream_t stream) {
   using P = Ffn<kH>;
   CUtensorMap w1_map, w2_map;
-  if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, kW2N))
+  if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, P::kW2N))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<kH, V, kInputLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -764,9 +799,9 @@ int ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t, con
 
 extern "C" {
 
-// Dynamic shared memory per block of the FFN kernel (H = 768, 1,024).
+// Dynamic shared memory per block of the FFN kernel (H = 768; the other
+// widths' entries below).
 int mrd_ffn_smem_bytes() { return static_cast<int>(Ffn<768>::kSmemBytes); }
-int mrd_ffn_smem_bytes_h1024() { return static_cast<int>(Ffn<1024>::kSmemBytes); }
 
 const char* mrd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -797,22 +832,30 @@ int mrd_ffn_ln_bf16(const void* x, const void* w1t, const void* b1, const void* 
                       stream);
 }
 
-// K1 and K2 at H = 1,024: as the two above, with `scratch` (f32 [slices, M,
-// 1,024]) needed at every launch.
-int mrd_ffn_pre_ln_bf16_h1024(const void* z, const void* w1t, const void* b1,
-                              const void* w2t, const void* b2, const void* gamma,
-                              const void* beta, const void* g0, const void* o0, void* y,
-                              void* scratch, int M, int F, int slices, float eps,
-                              int vec_bf16, void* stream) {
-  return pre_ln_bf16<1024>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
-                           eps, vec_bf16, stream);
-}
+// K1, K2 and the shared memory per block at the other built widths H:
+// `name`_h<H>, as the three above with H in place of 768 (at 1,024,
+// `scratch`, f32 [slices, M, 1,024], is needed at every launch).
+#define MRD_FFN_WIDTH(kH)                                                                    \
+  int mrd_ffn_smem_bytes_h##kH() { return static_cast<int>(Ffn<kH>::kSmemBytes); }          \
+  int mrd_ffn_pre_ln_bf16_h##kH(const void* z, const void* w1t, const void* b1,              \
+                                const void* w2t, const void* b2, const void* gamma,          \
+                                const void* beta, const void* g0, const void* o0, void* y,   \
+                                void* scratch, int M, int F, int slices, float eps,          \
+                                int vec_bf16, void* stream) {                                \
+    return pre_ln_bf16<kH>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F,       \
+                           slices, eps, vec_bf16, stream);                                   \
+  }                                                                                          \
+  int mrd_ffn_ln_bf16_h##kH(const void* x, const void* w1t, const void* b1, const void* w2t, \
+                            const void* b2, const void* gamma, const void* beta, void* y,    \
+                            void* scratch, int M, int F, int slices, float eps,              \
+                            void* stream) {                                                  \
+    return ln_bf16<kH>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,      \
+                       stream);                                                              \
+  }
 
-int mrd_ffn_ln_bf16_h1024(const void* x, const void* w1t, const void* b1, const void* w2t,
-                          const void* b2, const void* gamma, const void* beta, void* y,
-                          void* scratch, int M, int F, int slices, float eps, void* stream) {
-  return ln_bf16<1024>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,
-                       stream);
-}
+MRD_FFN_WIDTH(128)
+MRD_FFN_WIDTH(256)
+MRD_FFN_WIDTH(512)
+MRD_FFN_WIDTH(1024)
 
 }  // extern "C"

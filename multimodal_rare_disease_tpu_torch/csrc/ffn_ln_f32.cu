@@ -1,7 +1,7 @@
 // K1 and K2 in f32: the post-LN BERT FFN sublayer of a model whose compute
 // dtype is float32, written by hand for Hopper (sm_90a). One template over
-// the hidden width H (built for 768, BERT-base, and 1,024, BERT-large) and
-// `kInputLN`:
+// the hidden width H (built for 768, BERT-base, 1,024, BERT-large, and 512,
+// 256 and 128, the compact BERTs) and `kInputLN`:
 //
 //   K1 (kInputLN = true):  x = LN0(z)   z: [M, H] f32, the unnormalized
 //                                          attention residual
@@ -52,7 +52,10 @@
 // as planes that stage 1 or the GELU epilogue wrote. The GEMM tiles any
 // width by 128-column output tiles and 32-deep k-tiles, so H = 1,024 is the
 // same launches with 8 column tiles (6 at 768) and 32 k-tiles in the first
-// product; its scratch at M = 16,384 and F = 4,096 is 805 MB per call.
+// product; its scratch at M = 16,384 and F = 4,096 is 805 MB per call. H =
+// 512, 256 and 128 are the same launches with 4, 2 and 1 column tiles of
+// h . W2 and 16, 8 and 4 k-tiles in x . W1 (one window of the register
+// total or less).
 
 #include <cuda.h>
 
@@ -218,20 +221,29 @@ int mrd_ffn_ln_f32(const void* x, const void* w1t, const void* b1, const void* w
   return ln_f32<768>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps, stream);
 }
 
-// K1 and K2 in f32 at H = 1,024: as the two above with 1,024 in place of
-// 768 (the rows, the weights' H side, the vectors but b1, the scratch).
-int mrd_ffn_pre_ln_f32_h1024(const void* z, const void* w1t, const void* b1, const void* w2t,
-                             const void* b2, const void* gamma, const void* beta,
-                             const void* g0, const void* o0, void* y, void* scratch, int M,
-                             int F, int slices, float eps, void* stream) {
-  return pre_ln_f32<1024>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F, slices,
-                          eps, stream);
-}
+// K1 and K2 in f32 at the other built widths H: `name`_h<H>, as the two
+// above with H in place of 768 (the rows, the weights' H side, the vectors
+// but b1, the scratch).
+#define MRD_FFN_F32_WIDTH(kH)                                                                \
+  int mrd_ffn_pre_ln_f32_h##kH(const void* z, const void* w1t, const void* b1,               \
+                               const void* w2t, const void* b2, const void* gamma,           \
+                               const void* beta, const void* g0, const void* o0, void* y,    \
+                               void* scratch, int M, int F, int slices, float eps,           \
+                               void* stream) {                                               \
+    return pre_ln_f32<kH>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F,        \
+                          slices, eps, stream);                                              \
+  }                                                                                          \
+  int mrd_ffn_ln_f32_h##kH(const void* x, const void* w1t, const void* b1, const void* w2t,  \
+                           const void* b2, const void* gamma, const void* beta, void* y,     \
+                           void* scratch, int M, int F, int slices, float eps,               \
+                           void* stream) {                                                   \
+    return ln_f32<kH>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,       \
+                      stream);                                                               \
+  }
 
-int mrd_ffn_ln_f32_h1024(const void* x, const void* w1t, const void* b1, const void* w2t,
-                         const void* b2, const void* gamma, const void* beta, void* y,
-                         void* scratch, int M, int F, int slices, float eps, void* stream) {
-  return ln_f32<1024>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps, stream);
-}
+MRD_FFN_F32_WIDTH(128)
+MRD_FFN_F32_WIDTH(256)
+MRD_FFN_F32_WIDTH(512)
+MRD_FFN_F32_WIDTH(1024)
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // The residual row of the port's f32 kernels, with LN0 for K1: the split
 // and reduce passes of ffn_ln_f32.cu and the reduce pass of
 // attn_out_ln_f32.cu (gemm_tf32x3.cuh) read it. A template over the hidden
-// width kH (768 for BERT-base, 1,024 for BERT-large; any multiple of 128).
+// width kH (768 for BERT-base, 1,024 for BERT-large, 512, 256 and 128 for
+// the compact BERTs; any multiple of 128).
 // Everything is in f32 (LN0 two-pass) and in an anonymous namespace: each
 // source that includes it gets its own copy.
 
@@ -11,7 +12,7 @@
 
 namespace {
 
-// float4s per lane of a kH-wide row: 6 at 768, 8 at 1,024
+// float4s per lane of a kH-wide row: 6 at 768, 8 at 1,024, 1 at 128
 template <int kH>
 constexpr int kF32RowVecs = kH / 4 / 32;
 

@@ -17,8 +17,9 @@ LayerNorm runs in f32 (unlike the JAX `attn_out_ln_reference`, which
 rounds the projection and the residual sum to the compute dtype first).
 
 Both sources are templates over the hidden width, built for
-`ffn.KERNEL_WIDTHS` (768, BERT-base; 1,024, BERT-large), each width with
-C entries and launch counters of its own (`LAUNCHES`, `LAUNCHES_1024`).
+`ffn.KERNEL_WIDTHS` (768, BERT-base; 1,024, BERT-large; 512, 256 and 128,
+the compact BERTs), each width with C entries and launch counters of its
+own (`LAUNCHES` at 768, `LAUNCHES_<width>` otherwise).
 
 When the output tiles would fill fewer blocks than the card has SMs (a
 single request's 64 rows), the bf16 kernel splits the H / 64 k chunks of
@@ -70,11 +71,17 @@ from multimodal_rare_disease_tpu_torch.kernels.ffn import (
 
 FORCE_PLAIN = False
 # launches of the bf16 and of the f32 CUDA kernel at H = 768, and the same
-# at H = 1,024 (incremented only where each is launched)
+# at the other built widths (incremented only where each is launched)
 LAUNCHES = 0
 LAUNCHES_F32 = 0
 LAUNCHES_1024 = 0
 LAUNCHES_F32_1024 = 0
+LAUNCHES_512 = 0
+LAUNCHES_F32_512 = 0
+LAUNCHES_256 = 0
+LAUNCHES_F32_256 = 0
+LAUNCHES_128 = 0
+LAUNCHES_F32_128 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
@@ -86,7 +93,7 @@ KERNEL_CHUNK = 64
 def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
     """The launch of the kernel for m rows at a built hidden width on a
     card with n_sm SMs: `split_plan` over the hidden / 64 k chunks of the
-    product (12 at 768, 16 at 1,024)."""
+    product (12 at 768, 16 at 1,024, 8 / 4 / 2 at 512 / 256 / 128)."""
     return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 
@@ -106,8 +113,8 @@ def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
     """Shape/dtype gate of the CUDA kernels: they tile rows (64 in bf16,
     128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling), and they are
-    compiled for the widths of `ffn.KERNEL_WIDTHS` (768 and 1,024), in
-    bf16 and in f32."""
+    compiled for the widths of `ffn.KERNEL_WIDTHS` (128, 256, 512, 768
+    and 1,024), in bf16 and in f32."""
     return (m >= 1 and hidden in KERNEL_WIDTHS
             and dtype in (torch.bfloat16, torch.float32))
 

@@ -37,6 +37,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v")
 REQUIRED_CAPABILITY = (9, 0)
+# the hidden widths the row kernels (K1-K3, bf16 and f32) are instantiated
+# for: csrc's MRD_*_WIDTH entries and 768; kernels/ffn.py::KERNEL_WIDTHS
+ROW_WIDTHS = (128, 256, 512, 768, 1024)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -142,8 +145,8 @@ def check_device(device: torch.device) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     f3 = ctypes.POINTER(ctypes.c_float)
-    # the row kernels' entries at H = 768, each with a twin at H = 1,024
-    # (name + "_h1024", the same arguments)
+    # the row kernels' entries at H = 768, each with a twin at every other
+    # built width (name + "_h<width>", the same arguments)
     rows = {
         "mrd_ffn_pre_ln_bf16": [p] * 11 + [i, i, i, f, i, p],
         "mrd_ffn_ln_bf16": [p] * 9 + [i, i, i, f, p],
@@ -156,7 +159,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     }
     sigs = {
         **rows,
-        **{f"{name}_h1024": argtypes for name, argtypes in rows.items()},
+        **{f"{name}_h{width}": argtypes for name, argtypes in rows.items()
+           for width in ROW_WIDTHS if width != 768},
         "mrd_normalize_u8": [p, p, ctypes.c_longlong, f3, f3, i, i, p],
         "mrd_error_string": [i],
         "mrd_ffn_f32_smem_bytes": [],

@@ -12,12 +12,13 @@ per block) and `csrc/ffn_ln_f32.cu` for f32 (a sequence of launches:
 the operands split into TF32 planes, the two products as 3xTF32 wgmma
 GEMMs fed by TMA, with h through device memory, and a LayerNorm pass);
 `ffn_ln_plain` is the same math in PyTorch. Both sources are templates
-over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base) and
-1,024 (BERT-large), each width with C entries of its own. At 1,024 a
+over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base), 1,024
+(BERT-large) and 512, 256 and 128 (google-research/bert's BERT-Medium,
+-Mini and -Tiny), each width with C entries of its own. At 1,024 a
 row tile's 1,024 output columns are cut into two groups of 512, one
 bf16 block each (`KERNEL_GROUPS`), run as a cluster of two that shares
 the GELU chunk and LN2's row statistics over distributed shared
-memory.
+memory; every other width is one block per row tile.
 
 When the output tiles would fill fewer blocks than the card has SMs,
 the bf16 kernel splits F into slices and the f32 one the k loop of
@@ -54,8 +55,8 @@ _SQRT1_2 = 0.7071067811865476
 
 FORCE_PLAIN = False
 # launches of the bf16 CUDA kernel with (K1) and without (K2) the input
-# LayerNorm, and of the f32 one, at H = 768; the same at H = 1,024
-# (`_1024`); each incremented only where its kernel is launched
+# LayerNorm, and of the f32 one, at H = 768; the same at the other built
+# widths (`_<width>`); each incremented only where its kernel is launched
 LAUNCHES_K1 = 0
 LAUNCHES_K2 = 0
 LAUNCHES_K1_F32 = 0
@@ -64,6 +65,18 @@ LAUNCHES_K1_1024 = 0
 LAUNCHES_K2_1024 = 0
 LAUNCHES_K1_F32_1024 = 0
 LAUNCHES_K2_F32_1024 = 0
+LAUNCHES_K1_512 = 0
+LAUNCHES_K2_512 = 0
+LAUNCHES_K1_F32_512 = 0
+LAUNCHES_K2_F32_512 = 0
+LAUNCHES_K1_256 = 0
+LAUNCHES_K2_256 = 0
+LAUNCHES_K1_F32_256 = 0
+LAUNCHES_K2_F32_256 = 0
+LAUNCHES_K1_128 = 0
+LAUNCHES_K2_128 = 0
+LAUNCHES_K1_F32_128 = 0
+LAUNCHES_K2_F32_128 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
@@ -72,8 +85,9 @@ PLAIN_ON_CUDA = 0
 # tile is cut into (one block each; two run as a cluster that shares the
 # LayerNorm's row statistics). Any other width takes the counted plain
 # version. A width's C entries and launch counters carry no suffix at 768,
-# `_h<width>` and `_<width>` otherwise.
-KERNEL_GROUPS = {768: 1, 1024: 2}
+# `_h<width>` and `_<width>` otherwise (`build.ROW_WIDTHS` binds the
+# entries of the same widths).
+KERNEL_GROUPS = {128: 1, 256: 1, 512: 1, 768: 1, 1024: 2}
 KERNEL_WIDTHS = tuple(KERNEL_GROUPS)
 
 # the tiling csrc/ffn_ln.cu (bf16) and the f32 GEMM of csrc/ffn_ln_f32.cu
@@ -189,7 +203,8 @@ def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
     128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling and does not
     apply); they are compiled for the hidden widths of KERNEL_WIDTHS
-    (BERT-base's 768 and BERT-large's 1,024) and walk F in chunks of 64
+    (BERT-base's 768, BERT-large's 1,024 and the compact BERTs' 512, 256
+    and 128) and walk F in chunks of 64
     in bf16 (which also keeps W2's rows a multiple of TMA's 16 bytes)
     and in output tiles of 128 in f32."""
     chunk = {torch.bfloat16: KERNEL_CHUNK,
@@ -314,8 +329,8 @@ def no_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
 
 def entry(lib, name: str, hidden: int):
     """The C entry `name` of the kernel built for `hidden` (768: `name`;
-    1,024: `name`_h1024); a width the build has no kernel for raises
-    before any launch."""
+    any other built width: `name`_h<hidden>); a width the build has no
+    kernel for raises before any launch."""
     if hidden not in KERNEL_GROUPS:
         raise ValueError(f"{name}: no kernel is built for hidden width "
                          f"{hidden} (built: {KERNEL_WIDTHS})")
@@ -324,7 +339,7 @@ def entry(lib, name: str, hidden: int):
 
 def count_launch(module_globals: dict, counter: str, hidden: int) -> None:
     """Add one to the launch counter of the kernel built for `hidden`
-    (`counter`, or `counter`_1024) in `module_globals`."""
+    (`counter` at 768, `counter`_<hidden> otherwise) in `module_globals`."""
     module_globals[counter if hidden == 768 else f"{counter}_{hidden}"] += 1
 
 

@@ -101,7 +101,8 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k1.ffn_ln_fusible(m, 768, 3072, bf)
                for m in (1, 31, 37, 63, 64, 65, 24576))
     assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
-    assert not k1.ffn_ln_fusible(64, 512, 3072, bf)      # built for H=768
+    assert not k1.ffn_ln_fusible(64, 384, 1536, bf)      # not a built width
+    assert k1.ffn_ln_fusible(64, 512, 2048, bf)          # BERT-Medium's
     assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
     # f32 at H = 768: the f32 kernels (128-row tiles, F in output tiles
     # of 128)
@@ -109,8 +110,9 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k1.ffn_ln_fusible(m, 768, 3072, f32)
                for m in (1, 31, 127, 128, 129, 1024, 16385))
     assert not k1.ffn_ln_fusible(0, 768, 3072, f32)
-    assert not k1.ffn_ln_fusible(64, 512, 3072, f32)     # built for H=768
-    assert not k1.ffn_ln_fusible(64, 128, 256, f32)
+    assert not k1.ffn_ln_fusible(64, 384, 1536, f32)     # not a built width
+    assert k1.ffn_ln_fusible(64, 128, 256, f32)          # BERT-Tiny's H
+    assert not k1.ffn_ln_fusible(64, 128, 192, f32)      # tiles of 128
     assert not k1.ffn_ln_fusible(64, 768, 3072 - 64, f32)  # tiles of 128
     assert not k1.ffn_ln_fusible(64, 768, 3072, torch.float16)
     # mixed dtypes stay outside the kernels: f32 rows with bf16 vectors,

@@ -15,10 +15,13 @@ quantized BERT layer that launches no kernel, `entry.py`'s
 `entry()` with its K1 launches, the f32 forms of K1-K3 (an f32
 model's kernels) against their plain versions with TF32 off, with an
 f32 model's predict launching them, and the forms of K1-K3 built for
-BERT-large's H = 1,024 in bf16 and f32 (the tests named `h1024`), with a
-BERT-large-width predict launching them. Every test here is marked `gpu` and
-skips without a CUDA device; the file imports neither jax nor the JAX
-package, so it runs on a machine that has only torch:
+BERT-large's H = 1,024 and the compact BERTs' 512, 256 and 128 in bf16
+and f32 (the `test_width_*` tests, their ids naming the width: `h1024`,
+`h512`, ...), with a predict at each width launching them and K1/K2 at
+intermediate widths other than 4H at every built width. Every test here
+is marked `gpu` and skips without a CUDA device; the file imports
+neither jax nor the JAX package, so it runs on a machine that has only
+torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -1036,16 +1039,30 @@ def test_f32_predict_launches_the_f32_kernels(cuda, fused_attn_out):
     assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 1e-4
 
 
-# ---- H = 1,024 (BERT-large): the forms of K1-K3 built for that width, in
-# bf16 and f32, held to the limits of the H = 768 cases
+# ---- the widths built besides 768: BERT-large's H = 1,024 and the compact
+# BERTs' 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
+# -Tiny), each with F = 4H: the forms of K1-K3 built for each width, in
+# bf16 and f32, held to the limits of the H = 768 cases (the tests' ids
+# name the width: `h1024`, `h512`, `h256`, `h128`)
 
-def _h1024_counts():
-    return (kffn.LAUNCHES_K1_1024, kffn.LAUNCHES_K2_1024, k3.LAUNCHES_1024,
-            kffn.LAUNCHES_K1_F32_1024, kffn.LAUNCHES_K2_F32_1024,
-            k3.LAUNCHES_F32_1024, kffn.PLAIN_ON_CUDA, k3.PLAIN_ON_CUDA)
+_WIDTHS = {1024: 4096, 512: 2048, 256: 1024, 128: 512}
+_by_width = pytest.mark.parametrize("h", list(_WIDTHS),
+                                    ids=[f"h{h}" for h in _WIDTHS])
 
 
-def _h1024_inputs(m, dev, seed, dtype, h=1024, f=4096):
+def _width_counts(h):
+    """K1, K2, K3, K1-f32, K2-f32 and K3-f32 launches at width h, and the
+    two modules' plain-on-CUDA counts."""
+    sfx = "" if h == 768 else f"_{h}"
+    return (getattr(kffn, f"LAUNCHES_K1{sfx}"),
+            getattr(kffn, f"LAUNCHES_K2{sfx}"), getattr(k3, f"LAUNCHES{sfx}"),
+            getattr(kffn, f"LAUNCHES_K1_F32{sfx}"),
+            getattr(kffn, f"LAUNCHES_K2_F32{sfx}"),
+            getattr(k3, f"LAUNCHES_F32{sfx}"), kffn.PLAIN_ON_CUDA,
+            k3.PLAIN_ON_CUDA)
+
+
+def _width_inputs(m, dev, seed, dtype, h, f):
     """z (also x), ctx, (w1, w2), wo and the vectors, all in `dtype` (the
     model's), at the scales of _ffn_inputs."""
     t = _rng_tensor(np.random.default_rng(seed), dev)
@@ -1064,22 +1081,16 @@ def _limits(dtype):
             else (_F32_MAX_ATOL, _F32_MEAN_ATOL))
 
 
-# the single request (1, then its length bucket 64: the split paths), the
-# 1,024 CLS rows, the packed batch and a ragged tile past it
-_H1024_ROWS = [1, 64, 1024, 16384, 16385]
-
-
-@pytest.mark.parametrize("m", _H1024_ROWS)
-@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-def test_h1024_ffn_kernel_matches_plain(cuda, dtype, input_ln, m):
-    z, _, w, _, vec = _h1024_inputs(m, cuda, m + input_ln, dtype)
-    before = _h1024_counts()
+def _check_ffn(cuda, h, f, dtype, input_ln, m, seed):
+    """K1 (input_ln) or K2 at width h and intermediate width f against its
+    plain version: one launch of that form and nothing else, within the
+    limits of its dtype."""
+    z, _, w, _, vec = _width_inputs(m, cuda, seed, dtype, h, f)
+    before = _width_counts(h)
     with _tf32(False):
         got = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
         want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
-    moved = tuple(a - b for a, b in zip(_h1024_counts(), before))
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
     slot = (0 if input_ln else 1) + (3 if dtype == torch.float32 else 0)
     assert moved == tuple(int(i == slot) for i in range(8))
     worst, mean = _diff(got, want)
@@ -1087,17 +1098,53 @@ def test_h1024_ffn_kernel_matches_plain(cuda, dtype, input_ln, m):
     assert worst <= tol[0] and mean <= tol[1], (worst, mean)
 
 
-@pytest.mark.parametrize("m", _H1024_ROWS)
+# the single request (1, then its length bucket 64: the split paths), the
+# 1,024 CLS rows, the packed batch and a ragged tile past it
+_WIDTH_ROWS = [1, 64, 1024, 16384, 16385]
+
+
+@pytest.mark.parametrize("m", _WIDTH_ROWS)
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_h1024_attn_out_kernel_matches_plain(cuda, dtype, m):
-    x, ctx, _, wo, vec = _h1024_inputs(m, cuda, 100 + m, dtype)
+@_by_width
+def test_width_ffn_kernel_matches_plain(cuda, h, dtype, input_ln, m):
+    _check_ffn(cuda, h, _WIDTHS[h], dtype, input_ln, m, m + input_ln)
+
+
+# F other than 4H at every built width, 768 included: the gates take any F
+# in chunks of 64 (bf16) or tiles of 128 (f32). One chunk; 24 chunks; 47
+# chunks, which only 1 or 47 slices divide (47 at a single request's 64
+# rows); f32 12 column tiles of h . W1
+_OTHER_F = [(torch.bfloat16, 64), (torch.bfloat16, 1536),
+            (torch.bfloat16, 3008), (torch.float32, 1536)]
+
+
+@pytest.mark.parametrize("m", [64, 16384])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+@pytest.mark.parametrize("dtype,f", _OTHER_F,
+                         ids=[f"{'bf16' if d == torch.bfloat16 else 'f32'}"
+                              f"-f{f}" for d, f in _OTHER_F])
+@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024],
+                         ids=["h128", "h256", "h512", "h768", "h1024"])
+def test_width_ffn_kernel_at_other_intermediate_widths(cuda, h, dtype, f,
+                                                       input_ln, m):
+    _check_ffn(cuda, h, f, dtype, input_ln, m, 7 * m + f + input_ln)
+
+
+@pytest.mark.parametrize("m", _WIDTH_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@_by_width
+def test_width_attn_out_kernel_matches_plain(cuda, h, dtype, m):
+    x, ctx, _, wo, vec = _width_inputs(m, cuda, 100 + m, dtype, h,
+                                       _WIDTHS[h])
     v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
-    before = _h1024_counts()
+    before = _width_counts(h)
     with _tf32(False):
         got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
         want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
-    moved = tuple(a - b for a, b in zip(_h1024_counts(), before))
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
     slot = 2 if dtype == torch.bfloat16 else 5
     assert moved == tuple(int(i == slot) for i in range(8))
     worst, mean = _diff(got, want)
@@ -1106,12 +1153,14 @@ def test_h1024_attn_out_kernel_matches_plain(cuda, dtype, m):
 
 
 @pytest.mark.parametrize("m", [1024, 16384], ids=["split", "whole"])
-def test_h1024_kernels_are_deterministic(cuda, m):
-    # each pair adds a row's four LayerNorm partials over distributed
-    # shared memory in one order; the split paths store f32 partials that
-    # split_reduce sums in slice order; no atomics: the same bits on every
-    # launch
-    z, ctx, w, wo, vec = _h1024_inputs(m, cuda, 9, torch.bfloat16)
+@_by_width
+def test_width_kernels_are_deterministic(cuda, h, m):
+    # the pair at 1,024 adds a row's four LayerNorm partials over
+    # distributed shared memory in one order, a single block its two; the
+    # split paths store f32 partials that split_reduce sums in slice
+    # order; no atomics: the same bits on every launch
+    f = _WIDTHS[h]
+    z, ctx, w, wo, vec = _width_inputs(m, cuda, 9, torch.bfloat16, h, f)
     v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
     for input_ln in (True, False):
         first = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
@@ -1120,14 +1169,17 @@ def test_h1024_kernels_are_deterministic(cuda, m):
     first = _attn(k3.fused_attn_out_ln, ctx, z, wo, v3)
     assert torch.equal(first, _attn(k3.fused_attn_out_ln, ctx, z, wo, v3))
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert (kffn.ffn_plan(m, 4096, n_sm, 1024).slices > 1) == (m == 1024)
+    assert (kffn.ffn_plan(m, f, n_sm, h).slices > 1) == (m == 1024)
 
 
 @pytest.mark.parametrize("name", ["b1", "b2", "gamma", "beta", "pre_gamma",
                                   "pre_beta"])
-def test_h1024_check_fails_a_kernel_that_drops_a_vector(cuda, name):
-    # the pair's LN2 over distributed shared memory carries every term
-    z, _, w, _, vec = _h1024_inputs(256, cuda, 7, torch.bfloat16)
+@_by_width
+def test_width_check_fails_a_kernel_that_drops_a_vector(cuda, h, name):
+    # LN2 (at 1,024 the pair's, over distributed shared memory) carries
+    # every term
+    z, _, w, _, vec = _width_inputs(256, cuda, 7, torch.bfloat16, h,
+                                    _WIDTHS[h])
     dropped = {**vec, name: _neutral(name, vec[name])}
     worst, mean = _diff(_ffn(kffn.fused_ffn_ln, z, w, dropped),
                         _ffn(kffn.ffn_ln_plain, z, w, vec))
@@ -1136,12 +1188,14 @@ def test_h1024_check_fails_a_kernel_that_drops_a_vector(cuda, name):
 
 @pytest.mark.parametrize("fused_attn_out", [False, True],
                          ids=["default", "fused_attn_out"])
-def test_h1024_predict_launches_the_h1024_kernels(cuda, fused_attn_out):
-    """A BERT-large-width model (H = 1,024, 16 heads, F = 4,096; 2 layers
-    here) in bf16, predict_batch at B=8: K1 at H = 1,024 in both layers,
-    or K3 and K2 in layer 0 and K1 in the CLS-only last one (K4 for the
-    images at image_size), no H = 768 kernel and nothing on the plain
-    gate; within phase 4's 2.5e-3 of every kernel forced off."""
+@_by_width
+def test_width_predict_launches_the_width_kernels(cuda, h, fused_attn_out):
+    """A model at width h (heads of 64, F = 4H; 2 layers here, BERT-Tiny's
+    full depth at 128) in bf16, predict_batch at B=8: K1 at width h in
+    both layers, or K3 and K2 in layer 0 and K1 in the CLS-only last one
+    (K4 for the images at image_size), no H = 768 kernel and nothing on
+    the plain gate; within phase 4's 2.5e-3 of every kernel forced
+    off."""
     from multimodal_rare_disease_tpu_torch.config import resolve_config
     from multimodal_rare_disease_tpu_torch.inference.predictor import (
         MultimodalPredictor,
@@ -1156,18 +1210,18 @@ def test_h1024_predict_launches_the_h1024_kernels(cuda, fused_attn_out):
     over = ({"text_encoder.fused_attn_out": True, "data.image_size": 256}
             if fused_attn_out else {})
     cfg = resolve_config("default", {
-        **over, "text_encoder.hidden_size": 1024,
-        "text_encoder.num_layers": 2, "text_encoder.num_heads": 16,
-        "text_encoder.intermediate_size": 4096,
+        **over, "text_encoder.hidden_size": h,
+        "text_encoder.num_layers": 2, "text_encoder.num_heads": h // 64,
+        "text_encoder.intermediate_size": _WIDTHS[h],
         "text_encoder.max_position_embeddings": 512})
     pred = MultimodalPredictor(cfg, create_model(cfg, device="cpu", seed=0),
                                cuda)
     images, texts = seeded_requests(8, seed=0)
-    before = (_counts(), _h1024_counts())
+    before = (_counts(), _width_counts(h))
     res = pred.predict_batch(images, texts)
     torch.cuda.synchronize()
     got = (tuple(a - b for a, b in zip(_counts(), before[0])),
-           tuple(a - b for a, b in zip(_h1024_counts(), before[1])))
+           tuple(a - b for a, b in zip(_width_counts(h), before[1])))
     with _all_plain():
         ref = pred.predict_batch(images, texts)
     if fused_attn_out:
