@@ -1,9 +1,11 @@
-"""Phase 17 of chip_smoke.py alone (K1-K3 at BERT-large width, H = 1,024,
-in bf16 and f32, and the 24-layer tower through `predict_batch` at
-B=256), after the kernels' build and their ptxas check, then the card
-tests of the H = 1,024 kernels.
+"""One width phase of chip_smoke.py alone, after the kernels' build and
+their ptxas check, then the card tests of that phase's widths: phase 17
+(BERT-large, H = 1,024), 18 (the compact BERTs, H = 512, 256, 128, with
+K1/K2 at intermediate widths other than 4H at every built width) or 19
+(the odd multiples of 128: MiniLM-L12-H384, H = 640 and 896).
 
-    python3 build/bert_large_chip_run.py  # from the repository root, on a card
+    python3 build/widths_chip_run.py [17|18|19]  # default 19; from the
+                                                 # repository root, on a card
 """
 import subprocess
 import sys
@@ -21,6 +23,13 @@ from multimodal_rare_disease_tpu_torch.inference import (  # noqa: E402
 )
 from multimodal_rare_disease_tpu_torch.kernels import build  # noqa: E402
 
+# phase -> (its function in chip_smoke.py, the card tests' -k expression)
+PHASES = {17: (chip_smoke.bert_large, "h1024"),
+          18: (chip_smoke.compact_widths,
+               "h512 or h256 or h128 or other_intermediate"),
+          19: (chip_smoke.odd_widths, "h384 or h640 or h896")}
+
+phase, tests = PHASES[int(sys.argv[1]) if len(sys.argv) > 1 else 19]
 dev = torch.device("cuda:0")
 torch.cuda.set_device(dev)
 card = chip_smoke.card_line()
@@ -36,14 +45,12 @@ if faults:
     raise SystemExit(1)
 images, texts = seeded_batch.seeded_requests(chip_smoke.BATCH, seed=0)
 clock = chip_smoke.timing_helpers(images, texts)
-launches, times = chip_smoke.bert_large(dev, card, images, texts,
-                                        clock.in_turns, clock.p50_ms,
-                                        clock.serve)
-print(launches, flush=True)
+launches, times = phase(dev, card, images, texts, clock.in_turns,
+                        clock.p50_ms, clock.serve)
+print({k: v for k, v in launches.items() if v}, flush=True)
 print(times, flush=True)
 cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu",
-       "tests/test_torch_gpu.py", "-q", "-p", "no:cacheprovider", "-k",
-       "h1024"]
+       "tests/test_torch_gpu.py", "-q", "-p", "no:cacheprovider", "-k", tests]
 t0 = time.perf_counter()
 r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
 print(" ".join(cmd[1:]), "rc", r.returncode, r.stdout[-3000:],

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Hold the H = 768 (BERT-base) and H = 1,024 (BERT-large) kernels of this
-tree against the tree before the compact widths (H = 512, 256, 128) were
+"""Hold the kernels of the widths this tree's parent built (H = 768,
+BERT-base; 1,024, BERT-large; 512, 256 and 128, the compact BERTs) against
+that tree, from before the odd multiples of 128 (H = 384, 640, 896) were
 added beside them, in one process on one card: the same machine code, the
 same bits and the same times.
 
     mkdir -p build/widths_old                    # the earlier tree, once
-    git archive 8bfa2ed | tar -x -C build/widths_old
+    git archive 48324f6 | tar -x -C build/widths_old
     python3 build/widths_old_vs_new.py [M ...]   # default M: 1024 16384
 
-As build/h768_old_vs_new.py, whose helpers it uses, at both widths: each
+As build/h768_old_vs_new.py, whose helpers it uses, at every width: each
 tree's package is imported from its own directory and builds its own
 kernels there; the SASS of every kernel function of the earlier tree's
 library (`cuobjdump -sass`, addresses and constants masked) is compared
@@ -37,9 +38,10 @@ import torch
 from h768_old_vs_new import PKG, ROOT, TIME_TOL, import_tree, per_call_ms, \
     sleep_cycles_per_ms
 
-OLD_COMMIT = "8bfa2ed"
-# width -> F of the two models the earlier tree served: BERT-base, BERT-large
-WIDTHS = {768: 3072, 1024: 4096}
+OLD_COMMIT = "48324f6"
+# width -> F (= 4H) of the models the earlier tree served: BERT-base,
+# BERT-large, BERT-Medium, -Mini and -Tiny
+WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512}
 
 
 def sass(lib: Path) -> dict:

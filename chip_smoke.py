@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh, int8, f32, BERT-large-width and compact-width paths and its
-`entry()` forward once on one NVIDIA Hopper card.
+rank-mesh, int8, f32, BERT-large-width, compact-width and odd-width paths
+and its `entry()` forward once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -189,6 +189,12 @@ non-zero):
    each of them, at full width and depth (K1 8 / 4 / 2 per default
    forward; K3 and K2 7 / 3 / 1 and K1 1 and K4 1 per fused one), the
    MicroBatcher round at H = 512 only.
+19. the odd multiples of 128 below 1,024 (H = 384, 640 and 896; `ODD_OVER`):
+   phase 17 at microsoft/MiniLM-L12-H384's widths at full width and depth
+   (12 layers, 12 heads of 32, F = 1,536, the uncased vocabulary of
+   30,522; K1 12 per default forward, K3 11, K2 11, K1 1 and K4 1 per
+   fused one; one MicroBatcher round), and at H = 640 and 896 (heads of
+   64, F = 4H), which no published encoder has, at 4 layers.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -344,9 +350,9 @@ def plain_kernels():
 
 
 # the hidden widths other than BERT-base's 768 whose forms of K1-K3 have
-# launch counters of their own: BERT-large's (phase 17) and the compact
-# BERTs' (phase 18)
-OTHER_WIDTHS = (1024, 512, 256, 128)
+# launch counters of their own: BERT-large's (phase 17), the compact
+# BERTs' (phase 18) and the odd multiples of 128 (phase 19)
+OTHER_WIDTHS = (1024, 512, 256, 128, 384, 640, 896)
 ROW_KEYS = ("K1", "K2", "K3", "K1_f32", "K2_f32", "K3_f32")
 # the launch counts: K1-K4 (the bf16 kernels, and K4 in either output
 # dtype), their f32 forms, the forms of K1-K3 in bf16 and f32 at each of
@@ -3016,6 +3022,29 @@ COMPACT_OVER = {
                             ("BERT-Tiny", 128, 2))}
 
 
+# phase 19: the odd multiples of 128 below 1,024. microsoft/MiniLM-L12-H384
+# (Wang et al. 2020, "MiniLM: Deep Self-Attention Distillation"), a
+# post-LN BERT of this package's layer at full width and depth: H = 384, 12
+# heads of 32, F = 1,536, 12 layers, the uncased vocabulary of 30,522; and
+# the widths 640 and 896, which no published encoder has (heads of 64, F =
+# 4H), at 4 layers to keep the phase short: every form of K1-K3 at a width
+# runs in each of its layers alike. Seeded weights, as `text_encoder.*`
+# overrides of the default config
+ODD_OVER = {
+    "MiniLM-L12-H384": {"text_encoder.hidden_size": 384,
+                        "text_encoder.num_layers": 12,
+                        "text_encoder.num_heads": 12,
+                        "text_encoder.intermediate_size": 1536,
+                        "text_encoder.max_position_embeddings": 512,
+                        "text_encoder.vocab_size": 30522},
+    **{f"H={h}": {"text_encoder.hidden_size": h,
+                  "text_encoder.num_layers": 4,
+                  "text_encoder.num_heads": h // 64,
+                  "text_encoder.intermediate_size": 4 * h,
+                  "text_encoder.max_position_embeddings": 512,
+                  "text_encoder.vocab_size": 30522} for h in (640, 896)}}
+
+
 def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                 serve=None):
     """The forms of K1-K3 at the hidden width of `over` (overrides of the
@@ -3257,26 +3286,44 @@ def bert_large(dev, card: str, images, texts, in_turns, p50_ms, serve):
     return totals, times
 
 
-def compact_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
-    """Phase 18: `width_phase` at each of COMPACT_OVER's towers, with one
-    MicroBatcher round at H = 512. Returns the launches of its counted
-    runs and every form's readings."""
+def width_towers(dev, card: str, images, texts, in_turns, p50_ms, serve,
+                 phase: int, tag: str, towers: dict, serve_width: int,
+                 seed: int):
+    """`width_phase` at each of `towers` (name: overrides; the i-th drawn
+    from seed + i) for phase `phase` (printed as `tag`), with one
+    MicroBatcher round at H = `serve_width`. Returns the launches of its
+    counted runs and every form's readings."""
     t_phase = time.perf_counter()
     totals, times = count_dict(), {}
-    for i, (name, over) in enumerate(COMPACT_OVER.items()):
+    for i, (name, over) in enumerate(towers.items()):
         t0 = time.perf_counter()
         got, got_times, text, t_a = width_phase(
-            dev, over, 18 + i, images, texts, in_turns, p50_ms,
-            serve if over["text_encoder.hidden_size"] == 512 else None)
+            dev, over, seed + i, images, texts, in_turns, p50_ms,
+            serve if over["text_encoder.hidden_size"] == serve_width
+            else None)
         for k in totals:
             totals[k] += got[k]
         times.update(got_times)
-        print(f"[18 compact widths] {card} | {name}: {text} | kernel checks "
+        print(f"[{phase} {tag}] {card} | {name}: {text} | kernel checks "
               f"{t_a:.1f} s, {name} took {time.perf_counter() - t0:.1f} s",
               flush=True)
-    print(f"[18 compact widths] {card} | phase 18 took "
+    print(f"[{phase} {tag}] {card} | phase {phase} took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return totals, times
+
+
+def compact_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 18: `width_towers` over COMPACT_OVER's towers, with one
+    MicroBatcher round at H = 512."""
+    return width_towers(dev, card, images, texts, in_turns, p50_ms, serve,
+                        18, "compact widths", COMPACT_OVER, 512, 18)
+
+
+def odd_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 19: `width_towers` over ODD_OVER's towers, with one
+    MicroBatcher round on MiniLM-L12-H384."""
+    return width_towers(dev, card, images, texts, in_turns, p50_ms, serve,
+                        19, "odd widths", ODD_OVER, 384, 190)
 
 
 def timing_helpers(images, texts):
@@ -4111,6 +4158,13 @@ def main() -> int:
     main18, times18 = compact_widths(dev, card, images, texts, in_turns,
                                      p50_ms, serve)
 
+    # ---- 19. the odd widths: K1-K3 at H = 384, 640 and 896 in bf16 and
+    # f32, MiniLM-L12-H384 and the 640- and 896-wide towers through
+    # predict_batch
+    torch.cuda.empty_cache()
+    main19, times19 = odd_widths(dev, card, images, texts, in_turns, p50_ms,
+                                 serve)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -4125,9 +4179,9 @@ def main() -> int:
         # library_ms: one PyTorch call that computes the same function.
         # K1-K3 have none: LayerNorm, the products, GELU and the residual
         # are separate calls
-        ("ffn_pre_ln_bf16", "ffn_ln.cu", "ffn.py:72", "K1", k1_err, k1_ms,
+        ("ffn_pre_ln_bf16", "ffn_ln.cuh", "ffn.py:72", "K1", k1_err, k1_ms,
          k1_plain_ms, k1_b2b, k1_bound, k1_by, None),
-        ("ffn_ln_bf16", "ffn_ln.cu", "ffn.py:103", "K2", k2_err, k2_ms,
+        ("ffn_ln_bf16", "ffn_ln.cuh", "ffn.py:103", "K2", k2_err, k2_ms,
          k2_plain_ms, k2_b2b, k2_bound, k2_by, None),
         ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3",
          k3_err, k3_ms, k3_plain_ms, k3_b2b, k3_bound, k3_by, None),
@@ -4143,9 +4197,9 @@ def main() -> int:
          k3_32_err, *times32["K3_f32"][:5], None),
         # the H = 1,024 instantiations (BERT-large), checked and timed in
         # phase 17; none has one PyTorch call either
-        ("ffn_pre_ln_bf16_h1024", "ffn_ln.cu", "ffn.py:72", "K1_1024",
+        ("ffn_pre_ln_bf16_h1024", "ffn_ln.cuh", "ffn.py:72", "K1_1024",
          *times17["K1_1024"], None),
-        ("ffn_ln_bf16_h1024", "ffn_ln.cu", "ffn.py:103", "K2_1024",
+        ("ffn_ln_bf16_h1024", "ffn_ln.cuh", "ffn.py:103", "K2_1024",
          *times17["K2_1024"], None),
         ("attn_out_ln_bf16_h1024", "attn_out_ln.cu", "attn_out.py:38",
          "K3_1024", *times17["K3_1024"], None),
@@ -4156,14 +4210,14 @@ def main() -> int:
         ("attn_out_ln_f32_h1024", "attn_out_ln_f32.cu", "attn_out.py:38",
          "K3_f32_1024", *times17["K3_f32_1024"], None),
     ] + [
-        # the compact widths' instantiations, checked and timed in phase
-        # 18; none has one PyTorch call either
+        # the compact and the odd widths' instantiations, checked and timed
+        # in phases 18 and 19; none has one PyTorch call either
         (f"{name}_h{w}", source, replaces, f"{key}_{w}",
-         *times18[f"{key}_{w}"], None)
-        for w in (512, 256, 128)
+         *{**times18, **times19}[f"{key}_{w}"], None)
+        for w in (512, 256, 128, 384, 640, 896)
         for name, source, replaces, key in (
-            ("ffn_pre_ln_bf16", "ffn_ln.cu", "ffn.py:72", "K1"),
-            ("ffn_ln_bf16", "ffn_ln.cu", "ffn.py:103", "K2"),
+            ("ffn_pre_ln_bf16", "ffn_ln.cuh", "ffn.py:72", "K1"),
+            ("ffn_ln_bf16", "ffn_ln.cuh", "ffn.py:103", "K2"),
             ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3"),
             ("ffn_pre_ln_f32", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32"),
             ("ffn_ln_f32", "ffn_ln_f32.cu", "ffn.py:103", "K2_f32"),
@@ -4176,12 +4230,12 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (their counted runs;
-        # 13's on every rank)
+        # 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (their counted
+        # runs; 13's on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
                      + main13[k] + main14[k] + main15[k] + main16[k]
-                     + main17[k] + main18[k]),
+                     + main17[k] + main18[k] + main19[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

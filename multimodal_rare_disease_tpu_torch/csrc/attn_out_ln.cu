@@ -5,8 +5,8 @@
 //                                             bf16 in torch.nn.Linear's [out, in]
 //
 // H is a template parameter, built for 768 (BERT-base; the design below),
-// 1,024 (BERT-large) and 512, 256 and 128 (the compact BERTs); their
-// changes are at the end of this header.
+// 1,024 (BERT-large), 512, 256 and 128 (the compact BERTs), 384 (MiniLM),
+// 640 and 896; their changes are at the end of this header.
 //
 // The product accumulates in f32 and is not rounded; bo and the residual x
 // are added in f32 before the two-pass f32 LayerNorm (eps given, 1e-12 for
@@ -94,6 +94,20 @@
 // their register split and the LN exchange stay as they are. Each width's
 // variant is under `if constexpr`, so the 768 and 1,024 code is compiled
 // as it was.
+//
+// H = 384, 640 and 896, the odd multiples of 128 below 1,024. 384 and 640
+// are one block per row tile with consumers of [64, 192] and [64, 320]:
+// Wo tiles of 64 as at 128, 3 and 5 per consumer and chunk. At 896 a
+// consumer of [64, 448] would need 224 accumulator floats a thread, so 896
+// is 1,024's pair with 448 columns per block (ctx multicast, LN over
+// distributed shared memory; 14 k chunks, 3 Wo slots of 14 KB per
+// consumer). Its consumers own 224 contiguous columns each, as two Wo
+// tiles of 112 on wgmma m64n112k16 (64 does not divide 224). 224 columns
+// end in the middle of a 64-column block, so the consumers share the
+// block they meet in: each waits for x in every block its columns touch,
+// finds its elements from eight group bases that start at its first
+// column's group, and the block's y goes out by TMA from one thread once
+// both consumers have written it.
 
 #include <cuda.h>
 
@@ -128,22 +142,25 @@ constexpr int kProducerRegs = 40;
 constexpr uint32_t kBlockBytes = kTM * 128;                    // 8 KB
 
 // The shape of the kernel at hidden width kH: 768 as the header sets out,
-// 1,024 in two column groups of 512 (one block each), 512, 256 and 128 as
-// 768 with narrower consumers.
+// 1,024 and 896 in two column groups of 512 and 448 (one block each), 512,
+// 384, 256 and 128 as 768 with narrower consumers.
 template <int kH>
 struct AttnOut {
-  static_assert(kH == 128 || kH == 256 || kH == 512 || kH == 768 || kH == 1024,
+  static_assert(kH == 128 || kH == 256 || kH == 384 || kH == 512 || kH == 640 ||
+                    kH == 768 || kH == 896 || kH == 1024,
                 "a width the kernel is built for");
-  static constexpr int kGroups = kH == 1024 ? 2 : 1;  // blocks per row tile
+  static constexpr int kGroups = kH >= 896 ? 2 : 1;  // blocks per row tile
   static constexpr bool kPair = kGroups == 2;        // a cluster sharing ctx and LN
   static constexpr int kCols = kH / kGroups;         // output columns per block
   static constexpr int kChunks = kH / kKC;           // 12 / 16
   static constexpr int kHalf = kCols / kWG;          // 384 / 256 output columns per consumer
-  static constexpr int kN = kH == 128 ? 64 : 128;    // output columns of a Wo tile (wgmma N)
+  // output columns of a Wo tile (wgmma N): 64 at the odd multiples of 128
+  // below 896, 112 at 896
+  static constexpr int kN = kH == 896 ? 112 : kH % 256 != 0 ? 64 : 128;
   static constexpr int kAcc = kN / 2;                // accumulator floats per Wo tile
   static constexpr uint32_t kTileBytes = kN * kKC * 2;  // 16 KB (8 KB at 128)
   static constexpr int kTiles = kHalf / kN;          // 3 / 2 Wo tiles per consumer and chunk
-  static constexpr int kStages = kH == 1024 ? 3 : 4;  // Wo ring slots per consumer
+  static constexpr int kStages = kPair ? 3 : 4;      // Wo ring slots per consumer
 
   // shared memory, from a 1024-byte aligned base: the row tile (ctx, then
   // x, then y) as kChunks column blocks of [64 rows][64 bf16], the two Wo
@@ -265,11 +282,16 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][
 #pragma unroll
     for (int kk = 0; kk < kKC / 16; ++kk) {
       const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
-      if constexpr (P::kN == 64) {  // H = 128: [64, 64] per consumer
+      if constexpr (P::kN == 64) {  // H = 128, 384, 640: n64 tiles
         if (kFirst && kk == 0)
           mrd::wgmma_m64n64k16_first(acc[j], da, db);
         else
           mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if constexpr (P::kN == 112) {  // H = 896: n112 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n112k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n112k16(acc[j], da, db, 1);
       } else if (kFirst && kk == 0) {
         mrd::wgmma_m64n128k16_first(acc[j], da, db);
       } else {
@@ -287,6 +309,22 @@ __device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][
     }
     prev = s;
     ring.next<P::kStages>();
+  }
+}
+
+// The shared-memory address of this thread's elements of tile j, n8 block
+// nb in the row tile, from the epilogue's eight group bases `xo`. Where a
+// consumer's columns fill whole column blocks, xo[k] is group k of its
+// first block; at 896 xo[k] is the k-th group from its first column's, so
+// the group counted from there, G, lies at xo[G % 8], G / 8 blocks on.
+template <int kH>
+__device__ __forceinline__ uint32_t tile_at(const uint32_t (&xo)[8], int j, int nb) {
+  using P = AttnOut<kH>;
+  if constexpr (P::kHalf % kKC != 0) {
+    const int g = P::kN / 8 * j + nb;
+    return xo[g % 8] + g / 8 * kBlockBytes;
+  } else {
+    return xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
   }
 }
 
@@ -412,11 +450,15 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
     {
       constexpr int kHalf = P::kHalf, kTiles = P::kTiles;
       constexpr int kOwnBlocks = kHalf / kKC;  // 6 / 4 column blocks of x / y per consumer
+      // 896: the consumers' 224 columns meet inside a column block
+      constexpr bool kShared = kHalf % kKC != 0;
       // this consumer's first column block
       const int own0 = P::kPair ? col0 / kKC + kOwnBlocks * wg : kOwnBlocks * wg;
       // x's column blocks of this consumer's columns have replaced ctx's
       for (int b = 0; b < kOwnBlocks; ++b)
         mbar_wait(base + P::kBarAFull + 8 * (own0 + b), 1);
+      if constexpr (kShared)  // and the block its columns end in
+        mbar_wait(base + P::kBarAFull + 8 * (own0 + kOwnBlocks), 1);
       float* red = reinterpret_cast<float*>(smem + P::kOffRed);
       // the pair: the peer's red and the barriers of its two exchanges
       const uint32_t peer_red =
@@ -431,10 +473,19 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
       // KB, a row 128 bytes (ptxas keeps one address per element live from
       // the x reads to the y writes otherwise, and spills)
       uint32_t xo[8];
+      if constexpr (kShared) {
+        // from the group of the consumer's first column, s0 of block own0
+        const int s0 = kHalf * wg % kKC / 8;
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        xo[k] = base + P::kOffA + own0 * kBlockBytes + wrow * 128 +
-                ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+        for (int k = 0; k < 8; ++k)
+          xo[k] = base + P::kOffA + (own0 + (s0 + k) / 8) * kBlockBytes + wrow * 128 +
+                  ((((s0 + k) % 8) ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          xo[k] = base + P::kOffA + own0 * kBlockBytes + wrow * 128 +
+                  ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+      }
       // + bo + x, and the row sums of this consumer's kHalf columns
       float s[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -443,7 +494,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
         for (int nb = 0; nb < P::kN / 8; ++nb) {
           const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
           const float2 b2 = ld_pair(bo + col);
-          const uint32_t at = xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
+          const uint32_t at = tile_at<kH>(xo, j, nb);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const float2 x2 = lds_pair(at + half * 8 * 128);
@@ -504,7 +555,7 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
           const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
           const float2 g2 = ld_pair(gamma + col);
           const float2 o2 = ld_pair(beta + col);
-          const uint32_t at = xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
+          const uint32_t at = tile_at<kH>(xo, j, nb);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
@@ -514,12 +565,24 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
           }
         }
       fence_proxy_async();  // the stores, to TMA
-      named_bar_sync<128>(2 + wg);
-      if (threadIdx.x % 128 == 0) {
-        for (int b = own0; b < own0 + kOwnBlocks; ++b)
-          mrd::tma_store_2d(&y_map, base + P::kOffA + b * kBlockBytes, b * kKC, row0);
-        mrd::tma_store_commit();
-        mrd::tma_store_wait();
+      if constexpr (kShared) {
+        // both consumers have written the block they share: one thread
+        // stores the block's column blocks
+        named_bar_sync<kConsumerThreads>(2);
+        if (threadIdx.x == 0) {
+          for (int b = col0 / kKC; b < (col0 + P::kCols) / kKC; ++b)
+            mrd::tma_store_2d(&y_map, base + P::kOffA + b * kBlockBytes, b * kKC, row0);
+          mrd::tma_store_commit();
+          mrd::tma_store_wait();
+        }
+      } else {
+        named_bar_sync<128>(2 + wg);
+        if (threadIdx.x % 128 == 0) {
+          for (int b = own0; b < own0 + kOwnBlocks; ++b)
+            mrd::tma_store_2d(&y_map, base + P::kOffA + b * kBlockBytes, b * kKC, row0);
+          mrd::tma_store_commit();
+          mrd::tma_store_wait();
+        }
       }
       if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
     }
@@ -622,7 +685,10 @@ int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const v
 
 MRD_ATTN_OUT_WIDTH(128)
 MRD_ATTN_OUT_WIDTH(256)
+MRD_ATTN_OUT_WIDTH(384)
 MRD_ATTN_OUT_WIDTH(512)
+MRD_ATTN_OUT_WIDTH(640)
+MRD_ATTN_OUT_WIDTH(896)
 MRD_ATTN_OUT_WIDTH(1024)
 
 }  // extern "C"

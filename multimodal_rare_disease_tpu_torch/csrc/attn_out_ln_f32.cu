@@ -4,9 +4,10 @@
 //   y = LN(x + ctx . Wo^T + bo)   ctx, x: [M, H] f32; Wo: [H, H] f32 in
 //                                 torch.nn.Linear's [out, in]
 //
-// H is a template parameter, built for 768 (BERT-base), 1,024 (BERT-large)
-// and 512, 256 and 128 (the compact BERTs): H / 128 column tiles of the
-// GEMM (6, 8, 4, 2, 1) and H / 32 k-tiles (24, 32, 16, 8, 4).
+// H is a template parameter, built for 768 (BERT-base), 1,024 (BERT-large),
+// 512, 256 and 128 (the compact BERTs), 384 (MiniLM), 640 and 896: H / 128
+// column tiles of the GEMM (6, 8, 4, 2, 1, 3, 5, 7) and H / 32 k-tiles
+// (24, 32, 16, 8, 4, 12, 20, 28).
 //
 // The function is the Pallas body run in f32
 // (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): an
@@ -140,7 +141,10 @@ int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const vo
 
 MRD_ATTN_OUT_F32_WIDTH(128)
 MRD_ATTN_OUT_F32_WIDTH(256)
+MRD_ATTN_OUT_F32_WIDTH(384)
 MRD_ATTN_OUT_F32_WIDTH(512)
+MRD_ATTN_OUT_F32_WIDTH(640)
+MRD_ATTN_OUT_F32_WIDTH(896)
 MRD_ATTN_OUT_F32_WIDTH(1024)
 
 }  // extern "C"

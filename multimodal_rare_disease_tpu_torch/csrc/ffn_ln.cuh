@@ -1,0 +1,855 @@
+// K1 and K2: the post-LN BERT FFN sublayer, written by hand for Hopper
+// (sm_90a). One kernel template over the hidden width H (768, BERT-base,
+// 1,024, BERT-large, 512, 256 and 128, the compact BERTs, 384, MiniLM, and
+// 640 and 896; the design below is written for 768, and the other widths'
+// changes follow it) and
+// `kInputLN`:
+//
+//   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, H] bf16, the unnormalized
+//                                               attention residual
+//   K2 (kInputLN = false): x = the input rows [M, H] bf16 as they are (the
+//                          already-normalized output of K3, attn_out_ln.cu)
+//
+//   h = bf16(GELU(x . W1 + b1))              W1: [H, F] bf16, f32 accumulator,
+//                                               exact-erf GELU in f32
+//   y = bf16(LN2(f32(x) + h . W2 + b2))      W2: [F, H] bf16
+//
+// LayerNorm statistics are two-pass in f32 (eps given, 1e-12 for BERT).
+// Biases and LayerNorm parameters are widened to f32 on load. K2 reads them
+// as bf16 (a model cast to bf16 passes its own); K1 as f32 or bf16.
+//
+// Replaces multimodal_rare_disease_tpu/ops/pallas/ffn.py::_ffn_pre_ln_kernel
+// (K1, reached through _fused_ffn_pre_ln_impl and fused_ffn_ln(pre_gamma=...))
+// and ::_ffn_ln_kernel (K2, through _fused_ffn_ln_impl and fused_ffn_ln
+// without pre_gamma). The two differ only in the prologue.
+//
+// What bounds it on the H100: the operations. One call is 4*M*768*F flops
+// (155 GFLOP at M = 16,384 and F = 3072: 0.156 ms at the bf16 tensor-core
+// peak) against 60-85 MB of device-memory traffic, and the [M, F]
+// intermediate never goes to device memory. What a design has to beat is
+// the weight stream and the register file: every block that owns a tile of
+// rows reads all of W1 and W2 (9.4 MB) from L2, so the rows per block set
+// the L2-to-SM traffic (4.8 GB per call at 32 rows per block, 2.4 GB at
+// 64); only wgmma reaches the tensor-core rate; LN2 needs whole
+// 768-wide rows, so a 64-row tile keeps a [64, 768] f32 accumulator, three
+// quarters of the SM's registers; and few rows leave SMs idle.
+//
+// Design:
+//   - a block owns 64 rows (one wgmma M) and three warpgroups of 128
+//     threads: two for stage 2 and one for stage 1. setmaxnreg gives each
+//     stage-2 warpgroup 224 registers (its 192 accumulator registers stay
+//     pinned; at 208 ptxas swaps one 64-register block through local memory
+//     every chunk) and stage 1 the remaining 56;
+//   - the weights stream by TMA (cp.async.bulk.tensor, tensor maps passed
+//     as __grid_constant__ parameters) into two rings of 128-byte-swizzled
+//     shared memory with an mbarrier per slot: W1 tiles [32 f x 128 k] (6
+//     slots of 8 KB) for stage 1, W2 tiles [128 h x 64 f] (4 slots of 16 KB)
+//     for stage 2. There is no producer warp: thread 0 fills both rings and
+//     a slot's consumer refills it once its products are done;
+//   - the bf16 x tile [64, 768] (96 KB) stays in shared memory in the same
+//     swizzled layout, written by all threads in the prologue (LN0 of z for
+//     K1, the rows themselves for K2; zeros past M). It is stage 1's A
+//     operand and the epilogue's residual;
+//   - stage 1, per F chunk of 64 and in two passes of 32 columns:
+//     x . W1[:, cols] with wgmma m64n32k16 (A and B from shared memory),
+//     + b1, exact-erf GELU in f32, bf16 into one of two [64, 64] chunk
+//     buffers in the swizzled layout, handed to stage 2 by full/empty
+//     mbarriers, so stage 1 runs up to two chunks ahead;
+//   - stage 2, split by output columns: warpgroup wg accumulates its 384
+//     columns of chunk . W2[chunk, :] with wgmma m64n128k16 into a [64, 384]
+//     f32 accumulator, one wgmma group in flight;
+//   - epilogue from registers: + b2 + x, then LN2 with per-row partial sums
+//     exchanged between the two stage-2 warpgroups through shared memory
+//     (two-pass), and a bf16 store of the valid rows.
+// Split-F path for small M: when the row tiles would fill fewer blocks than
+// the card has SMs, the launch adds a grid dimension of S slices of F (S
+// chosen by kernels/ffn.py::ffn_plan). Each block then runs its slice's
+// chunks only and stores its f32 partial of h . W2 for the valid rows into a
+// scratch buffer [S, M, 768]; a second kernel sums the S partials in slice
+// order, adds b2 and x (LN0 recomputed for K1, by the same code) and applies
+// LN2. No atomics: the result is the same bits on every launch.
+// The weights are read in the layout of torch.nn.Linear ([out, in],
+// row-major): W1^T [F, H] and W2^T [H, F] are the K-major B operands of the
+// two products, which wgmma takes without a transpose.
+//
+// H = 1,024 (BERT-large, F = 4,096). The design above does not fit twice
+// over: a [64, 1,024] f32 accumulator is 256 floats a thread in the two
+// stage-2 warpgroups (the limit is 255 registers; the tile is the SM's
+// whole register file), and the 128-KB x tile beside the rings (h 16 KB,
+// W1 48 KB, W2 64 KB) is 256 KB against 227 KB. So a row tile is cut into
+// two column groups of 512 output columns, one block each (grid z), and
+// the two blocks run as a cluster of two that shares h:
+//   - each block builds the whole x tile (LN0 for K1): stage 1's A operand
+//     spans all of H;
+//   - stage 1 of block r (its rank in the cluster) runs the pass of 32
+//     chunk columns 32 r .. + 32 only, and stores its bf16 GELU values into
+//     the chunk buffer of both blocks, the peer's over distributed shared
+//     memory (st.shared::cluster), then arrives on both blocks' full
+//     barrier (256 arrivals: both stage-1 warpgroups) after a proxy fence
+//     of the cluster's shared memory; stage 2 waits on it with cluster
+//     acquire. A block's empty barrier takes the releases of both blocks'
+//     stage-2 warpgroups (4), since its stage 1 writes into both. So each
+//     block runs half of the stage-1 products, and stage 2 for its own 512
+//     columns: two warpgroups of [64, 256], 128 accumulator floats a thread;
+//   - shared memory: the x tile (128 KB), the two GELU chunks (16 KB), the
+//     W1 ring in 4 slots of [32 f x 64 k] (4 KB each, the block's half of
+//     a chunk in 16 of them) and the W2 ring as above (4 slots of 16 KB):
+//     224 KB;
+//   - LN2 over the pair: each stage-2 warpgroup adds b2 and x (the whole x
+//     tile is in each block) to its [64, 256], and the row sums of its
+//     columns go into both blocks' exchange (the W1 ring's slots, idle by
+//     then) with an arrival on the peer's barrier; each block adds the four
+//     partials of a row in one order, so both get the same mean, and the
+//     centred sums of squares go the same way; then each block writes y
+//     for its 512 columns. With F split (small M), each block stores its
+//     f32 partial instead and split_reduce finishes the rows, as above;
+//   - a cluster barrier after the barriers' initialization (before any
+//     remote access) and before exit (no block leaves while its peer may
+//     still write to it).
+//
+// H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
+// -Tiny, F = 4H). One block per row tile, as at 768; the x tile (64, 32 or
+// 16 KB) leaves shared memory to spare. What changes is the width of the
+// stage-2 warpgroups' slices: [64, 256], [64, 128] and [64, 64], that is
+// 2, 1 and 1 W2 tiles per warpgroup and chunk. At 128 a warpgroup's 64
+// columns are less than one n128 tile, so W2 streams as [64 h x 64 f]
+// tiles (8 KB) into the same 4-slot ring and stage 2 runs wgmma
+// m64n64k16; keeping two stage-2 warpgroups (rather than one) keeps the
+// register split, the named barriers and LN2's exchange as they are. The
+// x row of a 128-wide tile is half a 16-byte group per lane, so the
+// prologue and split_reduce read it as one 8-byte group per lane
+// (rows.cuh's narrow forms). Stage 1 (kW1K 128, 6 W1 slots) is 768's; at
+// these widths it does twice the work of each stage-2 warpgroup, as at
+// 768. Each width's variant is under `if constexpr`, so the 768 and
+// 1,024 code is compiled as it was.
+//
+// H = 384 (microsoft/MiniLM-L12-H384, F = 1,536), 640 and 896 (F = 4H),
+// the odd multiples of 128 below 1,024. A row is an odd number of half
+// 16-byte groups per lane, so the prologue and split_reduce read it in
+// kH / 128 8-byte groups per lane (rows.cuh's narrow forms, 128's
+// generalized). 384 and 640 are one block per row tile with stage-2 slices
+// of [64, 192] and [64, 320]: W2 tiles of 64 as at 128, 3 and 5 per
+// warpgroup and chunk, still alternating. At 896 a block's [64, 448] f32
+// accumulator would be 224 floats a thread in each stage-2 warpgroup, all
+// of the 224 registers it has, so 896 is 1,024's cluster pair with 448
+// output columns per block (x tile 112 KB, W1 ring 16 KB, W2 ring 56 KB:
+// 201 KB). Its stage-2 warpgroups own 224 contiguous columns each, as two
+// W2 tiles of 112 on wgmma m64n112k16: four tiles a chunk that alternate
+// between the warpgroups, like 1,024's four of 128, where tiles of 64 (3.5
+// a warpgroup) do not divide 224 and tiles of 32 would take 14 barrier
+// waits a chunk on a ring of 4-KB slots.
+//
+// This header holds the kernel and the macro of its C entries; ffn_ln.cu
+// instantiates it at 768, 1,024, 512, 256 and 128, and ffn_ln_odd.cu at
+// 384, 640 and 896: two sources, which build.py's nvccs compile in
+// parallel.
+
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "rows.cuh"
+
+namespace {
+
+using mrd::bf16;
+using mrd::fence_barrier_init;
+using mrd::fence_proxy_async;
+using mrd::ld_f32;
+using mrd::mbar_arrive;
+using mrd::mbar_arrive_expect_tx;
+using mrd::mbar_init;
+using mrd::mbar_wait;
+using mrd::named_bar_sync;
+using mrd::opaque;
+using mrd::Ring;
+using mrd::smem_addr;
+using mrd::sw128_desc;
+using mrd::sw128_offset;
+using mrd::tma_load_2d;
+using mrd::warp_sum;
+
+constexpr int kTM = 64;                      // rows per block (wgmma M)
+constexpr int kFC = 64;                      // F chunk per loop step
+constexpr int kS2 = 2;                       // stage-2 warpgroups (0 and 1)
+constexpr int kS1WG = kS2;                   // the stage-1 warpgroup (2)
+constexpr int kThreads = 128 * (kS2 + 1);
+constexpr int kS2Threads = 128 * kS2;
+// registers per thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 =
+// 384 x 168, the registers the block is launched with. Stage 2 needs its
+// 192 accumulator registers pinned at R24 .. R215 and a few above; with
+// fewer, ptxas swaps an accumulator through local memory every chunk
+constexpr int kS2Regs = 224;
+constexpr int kS1Regs = 56;
+
+// W1 tiles [32 f][kW1K k] (stage 1 takes a chunk as two halves of 32
+// columns) and W2 tiles [kW2N h][64 f] (tile u of a chunk goes to stage-2
+// WG u % 2), each ring refilled by its consumers
+constexpr int kS1N = 32;                     // chunk columns per stage-1 pass
+constexpr int kW2Stages = 4;
+constexpr int kHStages = 2;                  // GELU chunks between the stages
+constexpr uint32_t kBlockBytes = kTM * 128;  // [64][64] bf16, 8 KB
+constexpr uint32_t kW1BoxBytes = kS1N * 128; // a [32][64] bf16 box, 4 KB
+
+// The shape of the kernel at hidden width kH: 768 as the header sets out,
+// 1,024 and 896 in two column groups of 512 and 448 (one block each), 512,
+// 384, 256 and 128 as 768 with narrower stage-2 slices.
+template <int kH>
+struct Ffn {
+  static_assert(kH == 128 || kH == 256 || kH == 384 || kH == 512 || kH == 640 ||
+                    kH == 768 || kH == 896 || kH == 1024,
+                "a width the kernel is built for");
+  static constexpr int kGroups = kH >= 896 ? 2 : 1;    // blocks per row tile
+  static constexpr bool kPair = kGroups == 2;          // a cluster sharing h
+  static constexpr int kCols = kH / kGroups;           // output columns per block
+  static constexpr int kHalf = kCols / kS2;            // 384 / 256 per stage-2 WG
+  static constexpr int kW1K = kPair ? 64 : 128;        // k (= H) columns of a W1 tile
+  static constexpr int kW1Boxes = kW1K / 64;           // TMA boxes per W1 tile
+  static constexpr int kW1PerHalf = kH / kW1K;         // 6 / 16
+  // W1 tiles a block loads per chunk: both halves, or its own half
+  static constexpr int kW1PerChunk = kPair ? kW1PerHalf : 2 * kW1PerHalf;  // 12 / 16
+  // h rows of a W2 tile (wgmma N): 64 at the odd multiples of 128 below
+  // 896, 112 at 896
+  static constexpr int kW2N = kH == 896 ? 112 : kH % 256 != 0 ? 64 : 128;
+  static constexpr int kAcc = kW2N / 2;                // accumulator floats per W2 tile
+  static constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB (8 KB at 128)
+  static constexpr int kW2PerChunk = kCols / kW2N;     // 6 / 4
+  static constexpr int kW1Stages = kPair ? 4 : 6;
+  static constexpr uint32_t kW1Bytes = kW1Boxes * kW1BoxBytes;  // 8 / 4 KB
+
+  // shared memory, from a 1024-byte aligned base: the x tile as kH / 64
+  // column blocks of [64 rows][64 bf16], the GELU chunks, the two weight
+  // rings, the barriers and (fused LN2 only) the LN2 exchange
+  static constexpr uint32_t kOffX = 0;
+  static constexpr uint32_t kOffH = kOffX + (kH / 64) * kBlockBytes;
+  static constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
+  static constexpr uint32_t kOffW2 = kOffW1 + kW1Stages * kW1Bytes;
+  // the rings' full barriers (TMA bytes) and the GELU chunks' full and
+  // empty barriers, 8 bytes each
+  static constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
+  static constexpr uint32_t kBarW2Full = kBarW1Full + 8 * kW1Stages;
+  static constexpr uint32_t kBarHFull = kBarW2Full + 8 * kW2Stages;
+  static constexpr uint32_t kBarHEmpty = kBarHFull + 8 * kHStages;
+  // the pair's LN2 exchange: barriers of the peer's row sums and centred
+  // squares; the values go into the W1 ring, idle by then (kOffW1: float
+  // [2: sums, squares][2 ranks][2 WGs][64 rows])
+  static constexpr uint32_t kBarStats = kBarHEmpty + 8 * kHStages;
+  static constexpr uint32_t kOffRed = kBarStats + (kPair ? 16 : 0);  // float [2][2][64]
+  static constexpr uint32_t kSmemBytes = kOffRed + (kPair ? 0 : 2 * kS2 * kTM * 4) + 1024;
+  // arrivals on a GELU chunk's full barrier (every stage-1 thread that
+  // writes it) and empty barrier (every stage-2 warpgroup that reads it)
+  static constexpr int kHFullArrivals = kPair ? 2 * 128 : 128;
+  static constexpr int kHEmptyArrivals = kPair ? 2 * kS2 : kS2;
+
+  static_assert(kCols % (kS2 * kW2N) == 0, "whole W2 tiles per WG");
+  static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
+  static_assert(kW2Stages % kS2 == 0, "tile g + kW2Stages has the owner of tile g");
+  static_assert(kOffW1 % 1024 == 0 && kOffW2 % 1024 == 0 && kW1Bytes % 1024 == 0 &&
+                    kW2Bytes % 1024 == 0,
+                "1024-byte swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
+  static_assert(!kPair || kW1Stages * kW1Bytes >= 2 * 2 * kS2 * kTM * 4,
+                "room for LN2's exchange in the W1 ring");
+};
+
+static_assert(2 * 128 * kS2Regs + 128 * kS1Regs == kThreads * 168,
+              "setmaxnreg must hand over exactly the registers it frees");
+
+// columns c and c + 1 (c even) of row r of a swizzled tile, as f32
+__device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int c) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      tile + sw128_offset(r, c >> 3, kBlockBytes) + (c & 7) * 2));
+}
+
+// Issue W1 tile g of the slice (chunk c_begin + g / kW1PerChunk, half
+// (g / kW1PerHalf) % 2, or the pair's `rank`, k-slice t = g % kW1PerHalf:
+// W1^T[f .. f + 32, kW1K t .. + kW1K]) into its ring slot, one [32][64] box
+// per 64 of k.
+template <int kH>
+__device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, int c_begin,
+                                        int rank, int g) {
+  using P = Ffn<kH>;
+  const int t = g % P::kW1PerHalf;
+  int f;
+  if constexpr (P::kPair)  // the block's own half of the chunk, one box a tile
+    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * rank;
+  else
+    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * ((g / P::kW1PerHalf) % 2);
+  const uint32_t slot = g % P::kW1Stages;
+  const uint32_t bar = base + P::kBarW1Full + 8 * slot;
+  const uint32_t dst = base + P::kOffW1 + slot * P::kW1Bytes;
+  mbar_arrive_expect_tx(bar, P::kW1Bytes);
+  tma_load_2d(dst, map, bar, t * P::kW1K, f);
+  if constexpr (!P::kPair) tma_load_2d(dst + P::kW1Bytes / 2, map, bar, t * P::kW1K + 64, f);
+}
+
+// Issue W2 tile g of the slice (chunk c_begin + g / kW2PerChunk, tile u =
+// g % kW2PerChunk: W2^T[h0 .. h0 + kW2N, f0 .. f0 + 64], h0 in the block's
+// column group from col0) into its ring slot.
+template <int kH>
+__device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, int c_begin,
+                                        int col0, int g) {
+  using P = Ffn<kH>;
+  const int u = g % P::kW2PerChunk;
+  const uint32_t slot = g % kW2Stages;
+  const uint32_t bar = base + P::kBarW2Full + 8 * slot;
+  mbar_arrive_expect_tx(bar, P::kW2Bytes);
+  if constexpr (P::kPair)
+    tma_load_2d(base + P::kOffW2 + slot * P::kW2Bytes, map, bar,
+                (c_begin + g / P::kW2PerChunk) * kFC,
+                col0 + P::kHalf * (u % kS2) + P::kW2N * (u / kS2));
+  else
+    tma_load_2d(base + P::kOffW2 + slot * P::kW2Bytes, map, bar,
+                (c_begin + g / P::kW2PerChunk) * kFC,
+                P::kHalf * (u % kS2) + P::kW2N * (u / kS2));
+}
+
+// Stage 2 of chunk k (counted from the slice's first) for warpgroup wg:
+// ACC[:, kHalf wg .. + kHalf] += h . W2[chunk, ...], from W2 tiles u = 2 j +
+// wg. Both stage-2 WGs wait on every W2 tile, the other one's included, so
+// each waits on every round of every slot in order and the parity waits are
+// exact. A tile's own WG refills its slot with tile g + 4 (same owner) once
+// its products are done; that cannot run two rounds ahead of the other WG,
+// whose next tile it has to wait for first. kFirst: the slice's first
+// chunk, whose first step writes the accumulators without reading them.
+template <int kH, bool kFirst>
+__device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2][Ffn<kH>::kAcc],
+                                         Ring& w2, const CUtensorMap* w2_map, uint32_t base,
+                                         int c_begin, int col0, int n_w2, int k, int wg,
+                                         bool leader, int rank) {
+  using P = Ffn<kH>;
+  const int hs = k % kHStages;
+  if constexpr (P::kPair)  // both blocks' stage 1 wrote the chunk
+    mrd::mbar_wait_cluster(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
+  else
+    mbar_wait(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
+  int prev = 0;  // the W2 tile of the group in flight
+#pragma unroll
+  for (int j = 0; j < P::kW2PerChunk / kS2; ++j) {
+    uint32_t mine = 0;
+#pragma unroll
+    for (int o = 0; o < kS2; ++o) {
+      mbar_wait(base + P::kBarW2Full + 8 * w2.slot, w2.phase);
+      if (o == wg) mine = w2.slot;
+      w2.next<kW2Stages>();
+    }
+    const int g = k * P::kW2PerChunk + kS2 * j + wg;
+    const uint32_t a0 = opaque(base) + P::kOffH + hs * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW2 + mine * P::kW2Bytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if constexpr (P::kW2N == 64) {  // H = 128, 384, 640: n64 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n64k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if constexpr (P::kW2N == 112) {  // H = 896: n112 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n112k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n112k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      } else {
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (j > 0) {
+      mrd::wgmma_wait<1>();
+      if (leader && prev + kW2Stages < n_w2)
+        load_w2<kH>(w2_map, base, c_begin, col0, prev + kW2Stages);
+    }
+    prev = g;
+  }
+  mrd::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < P::kW2PerChunk / kS2; ++j) mrd::fence_operand(acc[j]);
+  if (leader) {
+    if (prev + kW2Stages < n_w2) load_w2<kH>(w2_map, base, c_begin, col0, prev + kW2Stages);
+    mbar_arrive(base + P::kBarHEmpty + 8 * hs);
+    // the peer's stage 1 writes this slot too
+    if constexpr (P::kPair)
+      mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHEmpty + 8 * hs, rank ^ 1));
+  }
+}
+
+// V: the type of the bias and LayerNorm vectors (float or bf16; bf16 only
+// for K2); kInputLN: K1 (LN0 of z in the prologue) or K2 (z is x; g0, o0
+// unused). Grid: (row tiles, slices of F, column groups); with one slice
+// and one group the block applies LN2 and writes y, otherwise it writes its
+// f32 partial of h . W2 to `partial` [slices, M, kH] and split_reduce
+// (rows.cuh) finishes the rows.
+template <int kH, typename V, bool kInputLN>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
+              const __grid_constant__ CUtensorMap w2_map,  // W2^T [H, F]
+              const bf16* __restrict__ z,                  // [M, H]
+              const V* __restrict__ b1,                    // [F]
+              const V* __restrict__ b2,                    // [H]
+              const V* __restrict__ gamma,
+              const V* __restrict__ beta,
+              const V* __restrict__ g0,                    // LN0 scale [H] (K1)
+              const V* __restrict__ o0,                    // LN0 bias [H] (K1)
+              bf16* __restrict__ y,                        // [M, H]
+              float* __restrict__ partial,                 // [slices, M, H]
+              int M, int chunks_per_slice, float eps) {
+  using P = Ffn<kH>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int c_begin = blockIdx.y * chunks_per_slice;
+  const int c_end = c_begin + chunks_per_slice;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTM;
+  // the pair's rank (its column group: grid z, the cluster's z) and the
+  // block's first output column
+  const int rank = P::kPair ? static_cast<int>(mrd::cluster_ctarank()) : 0;
+  const int col0 = rank * P::kCols;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  const int n_w1 = chunks_per_slice * P::kW1PerChunk;  // tiles of this slice
+  const int n_w2 = chunks_per_slice * P::kW2PerChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kW1Stages; ++s) mbar_init(base + P::kBarW1Full + 8 * s, 1);
+    for (int s = 0; s < kW2Stages; ++s) mbar_init(base + P::kBarW2Full + 8 * s, 1);
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(base + P::kBarHFull + 8 * s, P::kHFullArrivals);
+      mbar_init(base + P::kBarHEmpty + 8 * s, P::kHEmptyArrivals);
+    }
+    if constexpr (P::kPair)  // every stage-2 thread of the peer, per exchange
+      for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kS2Threads);
+    fence_barrier_init();
+    // fill both rings; from here on, consumers refill the slots they free
+    for (int g = 0; g < P::kW1Stages && g < n_w1; ++g)
+      load_w1<kH>(&w1_map, base, c_begin, rank, g);
+    for (int g = 0; g < kW2Stages && g < n_w2; ++g)
+      load_w2<kH>(&w2_map, base, c_begin, col0, g);
+  }
+  // prologue, all 12 warps: the bf16 x tile, one warp per row
+  for (int r = warp; r < kTM; r += kThreads / 32) {
+    if constexpr (kH % 256 != 0) {  // 8-byte groups: columns 4 (lane + 32 j) ..
+      uint2 g[kRowGroups8<kH>];
+      load_x_row_narrow<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+#pragma unroll
+      for (int j = 0; j < kRowGroups8<kH>; ++j)
+        *reinterpret_cast<uint2*>(smem + P::kOffX +
+                                  sw128_offset(r, lane / 2 + 16 * j, kBlockBytes) +
+                                  8 * (lane % 2)) = g[j];
+    } else {
+      uint4 g[kRowGroupsPerLane<kH>];
+      load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+#pragma unroll
+      for (int j = 0; j < kRowGroupsPerLane<kH>; ++j)
+        *reinterpret_cast<uint4*>(smem + P::kOffX +
+                                  sw128_offset(r, lane + 32 * j, kBlockBytes)) = g[j];
+    }
+  }
+  fence_proxy_async();
+  if constexpr (P::kPair)
+    mrd::cluster_sync();  // both blocks' barriers are initialized
+  else
+    __syncthreads();
+
+  const int role = threadIdx.x / 128;
+  const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
+  const bool leader = threadIdx.x % 128 == 0;
+  if (role == kS1WG) {
+    // ---- stage 1: the GELU chunk h = bf16(GELU(x . W1[:, chunk] + b1)),
+    // in two passes of 32 columns
+    mrd::setmaxnreg_dec<kS1Regs>();
+    Ring w1;
+    int g = 0;  // W1 tiles consumed
+    for (int c = c_begin; c < c_end; ++c) {
+      const int k = c - c_begin;
+      const int hs = k % kHStages;
+      unsigned char* hbuf = smem + P::kOffH + hs * kBlockBytes;
+      // the pair: the peer's copy of the chunk buffer
+      const uint32_t peer_h =
+          P::kPair ? mrd::map_to_rank(base + P::kOffH + hs * kBlockBytes, rank ^ 1) : 0;
+      // the pair runs its own half only
+#pragma unroll 1
+      for (int half = P::kPair ? rank : 0; half < (P::kPair ? rank + 1 : 2); ++half) {
+        // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
+        // flight while the next tile's wait and issue proceed
+        float p[16];
+#pragma unroll
+        for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
+          mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
+          const uint32_t a0 = opaque(base) + P::kOffX + P::kW1Boxes * t * kBlockBytes;
+          const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
+          if (t > 0) mrd::fence_operand(p);
+          mrd::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < P::kW1K / 16; ++kk) {
+            const uint64_t da = sw128_desc(a0 + (kk / 4) * kBlockBytes + (kk % 4) * 32);
+            const uint64_t db = sw128_desc(b0 + (kk / 4) * kW1BoxBytes + (kk % 4) * 32);
+            if (t == 0 && kk == 0)
+              mrd::wgmma_m64n32k16_first(p, da, db);
+            else
+              mrd::wgmma_m64n32k16(p, da, db, 1);
+          }
+          mrd::wgmma_commit();
+          mrd::fence_operand(p);
+          if (t > 0) {
+            mrd::wgmma_wait<1>();
+            if (leader && g - 1 + P::kW1Stages < n_w1)
+              load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+          }
+          w1.next<P::kW1Stages>();
+        }
+        mrd::wgmma_wait<0>();
+        mrd::fence_operand(p);
+        if (leader && g - 1 + P::kW1Stages < n_w1)
+          load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+        // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
+        // stage 2 (the pair: of both blocks) has released it
+        if constexpr (P::kPair)
+          mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+        else if (half == 0)
+          mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+#pragma unroll
+        for (int nb = 0; nb < kS1N / 8; ++nb) {
+          const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b1 + c * kFC + col);
+          const float bb1 = ld_f32(b1 + c * kFC + col + 1);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = wrow + 8 * hr;
+            const float v0 = p[4 * nb + 2 * hr] + bb0;
+            const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
+            if constexpr (P::kPair) {  // into both blocks' chunk buffers
+              const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
+              const __nv_bfloat162 hv =
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + at) = hv;
+              mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
+                                                 (col & 7) * 2) =
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+            }
+          }
+        }
+      }
+      if constexpr (P::kPair) {
+        // the stores to both blocks, to both blocks' stage-2 wgmma
+        mrd::fence_proxy_async_cluster();
+        mbar_arrive(base + P::kBarHFull + 8 * hs);
+        mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
+      } else {
+        fence_proxy_async();  // the stores, to stage 2's wgmma
+        mbar_arrive(base + P::kBarHFull + 8 * hs);
+      }
+    }
+    if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
+  } else {
+    // ---- stage 2, warpgroup wg: ACC[:, col0 + kHalf wg .. + kHalf] +=
+    // h . W2[chunk, ...]
+    mrd::setmaxnreg_inc<kS2Regs>();
+    const int wg = role;
+    float acc[P::kW2PerChunk / kS2][P::kAcc];  // [64, kHalf] f32: n128 (n64) tiles
+    Ring w2;
+    s2_chunk<kH, true>(acc, w2, &w2_map, base, c_begin, col0, n_w2, 0, wg, leader, rank);
+    for (int k = 1; k < chunks_per_slice; ++k)
+      s2_chunk<kH, false>(acc, w2, &w2_map, base, c_begin, col0, n_w2, k, wg, leader, rank);
+
+    // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
+    // per n8 block nb of tile j the columns col0 + kHalf wg + 128 j + 8 nb +
+    // 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
+    // col + e)
+    const unsigned char* xt = smem + P::kOffX;
+    float* red = reinterpret_cast<float*>(smem + P::kOffRed);
+    if (gridDim.y > 1) {  // split-F: the f32 partial of the valid rows
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
+            }
+        }
+      }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
+      return;
+    }
+    if constexpr (P::kPair) {
+      // LN2 over the pair: + b2 + x, then the row sums of this warpgroup's
+      // 256 columns into both blocks' exchange, the mean of all four, the
+      // centred squares the same way, and y for the block's columns. Each
+      // exchange is a store to this block's and the peer's values and an
+      // arrival on the peer's barrier; both blocks add the four partials in
+      // one order, so they share the statistics bit for bit
+      float* stats = reinterpret_cast<float*>(smem + P::kOffW1);
+      const uint32_t peer_stats = mrd::map_to_rank(base + P::kOffW1, rank ^ 1);
+      const uint32_t peer_bar = mrd::map_to_rank(base + P::kBarStats, rank ^ 1);
+      const int mine = (rank * kS2 + wg) * kTM;  // this warpgroup's rows
+      float s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+        for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+          const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = pair_at(xt, wrow + 8 * half, col);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + bb0 + x2.x;
+            a1 = a1 + bb1 + x2.y;
+            s[half] += a0 + a1;
+          }
+        }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {  // sums, then centred squares
+        float* vals = stats + step * 2 * kS2 * kTM;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+          s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+          const int at = step * 2 * kS2 * kTM + mine + wrow + 8 * half;
+          if (lane % 4 == 0) {
+            stats[at] = s[half];
+            mrd::st_cluster_b32(peer_stats + 4 * at, __float_as_uint(s[half]));
+          }
+        }
+        mrd::mbar_arrive_remote(peer_bar + 8 * step);
+        named_bar_sync<kS2Threads>(1);  // this block's two warpgroups
+        mrd::mbar_wait_cluster(base + P::kBarStats + 8 * step, 0);  // the peer's
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow + 8 * half;
+          const float total = (vals[r] + vals[kTM + r]) + (vals[2 * kTM + r] + vals[3 * kTM + r]);
+          if (step == 0) {
+            mu[half] = total * (1.0f / kH);
+            s[half] = 0.0f;
+          } else {
+            rstd[half] = rsqrtf(total * (1.0f / kH) + eps);
+          }
+        }
+        if (step == 0) {
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int i = 0; i < P::kAcc; ++i) {
+              const float d = acc[j][i] - mu[(i / 2) % 2];
+              s[(i / 2) % 2] += d * d;
+            }
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          bf16* dst = y + gr * kH;
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
+              const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+              *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+                  (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
+                  (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
+                      ld_f32(beta + col + 1));
+            }
+        }
+      }
+      mrd::cluster_sync();  // the peer is done with this block
+    } else {
+      // + b2 + x, and the row sums of this warpgroup's kHalf columns
+      float s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+        for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+          const int col = P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
+          const float bb0 = ld_f32(b2 + col), bb1 = ld_f32(b2 + col + 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = pair_at(xt, wrow + 8 * half, col);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + bb0 + x2.x;
+            a1 = a1 + bb1 + x2.y;
+            s[half] += a0 + a1;
+          }
+        }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kS2Threads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
+        s[half] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+        for (int i = 0; i < P::kAcc; ++i) {
+          const float d = acc[j][i] - mu[(i / 2) % 2];
+          s[(i / 2) % 2] += d * d;
+        }
+      float* red_q = red + kS2 * kTM;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kS2Threads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          bf16* dst = y + gr * kH;
+#pragma unroll
+          for (int j = 0; j < P::kW2PerChunk / kS2; ++j)
+#pragma unroll
+            for (int nb = 0; nb < P::kW2N / 8; ++nb) {
+              const int col = P::kHalf * wg + P::kW2N * j + 8 * nb + 2 * (lane % 4);
+              const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+              *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+                  (a0 - mu[half]) * rstd[half] * ld_f32(gamma + col) + ld_f32(beta + col),
+                  (a1 - mu[half]) * rstd[half] * ld_f32(gamma + col + 1) +
+                      ld_f32(beta + col + 1));
+            }
+        }
+      }
+    }
+  }
+}
+
+template <int kH, typename V, bool kInputLN>
+cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w2t,
+                   const void* b2, const void* gamma, const void* beta, const void* g0,
+                   const void* o0, void* y, void* scratch, int M, int F, int slices,
+                   float eps, cudaStream_t stream) {
+  using P = Ffn<kH>;
+  CUtensorMap w1_map, w2_map;
+  if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, P::kW2N))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<kH, V, kInputLN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(P::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kTM - 1) / kTM, slices, P::kGroups);
+  const auto vec = [](const void* p) { return static_cast<const V*>(p); };
+  const auto* zb = static_cast<const bf16*>(z);
+  if constexpr (P::kPair) {
+    // the two column groups of a row tile and slice as one cluster
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = P::kGroups;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = P::kSmemBytes;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, ffn_ln_kernel<kH, V, kInputLN>, w1_map, w2_map, zb,
+                             vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
+                             static_cast<bf16*>(y), static_cast<float*>(scratch), M,
+                             F / kFC / slices, eps);
+    if (err != cudaSuccess) return err;
+  } else {
+    ffn_ln_kernel<kH, V, kInputLN><<<grid, kThreads, P::kSmemBytes, stream>>>(
+        w1_map, w2_map, zb, vec(b1), vec(b2), vec(gamma), vec(beta), vec(g0), vec(o0),
+        static_cast<bf16*>(y), static_cast<float*>(scratch), M, F / kFC / slices, eps);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  split_reduce<kH, V, kInputLN><<<(M + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(scratch), slices, zb, vec(b2), vec(gamma), vec(beta),
+      vec(g0), vec(o0), static_cast<bf16*>(y), M, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t check_args(int M, int F, int slices, const void* scratch) {
+  if (F <= 0 || slices < 1 || F % (kFC * slices) != 0) return cudaErrorInvalidValue;
+  if (slices > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int kH>
+int pre_ln_bf16(const void* z, const void* w1t, const void* b1, const void* w2t,
+                const void* b2, const void* gamma, const void* beta, const void* g0,
+                const void* o0, void* y, void* scratch, int M, int F, int slices, float eps,
+                int vec_bf16, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      vec_bf16 ? launch<kH, bf16, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
+                                        M, F, slices, eps, s)
+               : launch<kH, float, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch,
+                                         M, F, slices, eps, s));
+}
+
+template <int kH>
+int ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+            const void* gamma, const void* beta, void* y, void* scratch, int M, int F,
+            int slices, float eps, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t bad = check_args(M, F, slices, scratch);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  return static_cast<int>(launch<kH, bf16, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
+                                                  nullptr, y, scratch, M, F, slices, eps,
+                                                  static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// The C entries of K1, K2 and the shared memory per block at a built width
+// H other than 768: `name`_h<H>, as ffn_ln.cu's mrd_ffn_smem_bytes,
+// mrd_ffn_pre_ln_bf16 and mrd_ffn_ln_bf16 with H in place of 768.
+#define MRD_FFN_WIDTH(kH)                                                                    \
+  int mrd_ffn_smem_bytes_h##kH() { return static_cast<int>(Ffn<kH>::kSmemBytes); }          \
+  int mrd_ffn_pre_ln_bf16_h##kH(const void* z, const void* w1t, const void* b1,              \
+                                const void* w2t, const void* b2, const void* gamma,          \
+                                const void* beta, const void* g0, const void* o0, void* y,   \
+                                void* scratch, int M, int F, int slices, float eps,          \
+                                int vec_bf16, void* stream) {                                \
+    return pre_ln_bf16<kH>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y, scratch, M, F,       \
+                           slices, eps, vec_bf16, stream);                                   \
+  }                                                                                          \
+  int mrd_ffn_ln_bf16_h##kH(const void* x, const void* w1t, const void* b1, const void* w2t, \
+                            const void* b2, const void* gamma, const void* beta, void* y,    \
+                            void* scratch, int M, int F, int slices, float eps,              \
+                            void* stream) {                                                  \
+    return ln_bf16<kH>(x, w1t, b1, w2t, b2, gamma, beta, y, scratch, M, F, slices, eps,      \
+                       stream);                                                              \
+  }

@@ -1,7 +1,8 @@
 // K1 and K2 in f32: the post-LN BERT FFN sublayer of a model whose compute
 // dtype is float32, written by hand for Hopper (sm_90a). One template over
-// the hidden width H (built for 768, BERT-base, 1,024, BERT-large, and 512,
-// 256 and 128, the compact BERTs) and `kInputLN`:
+// the hidden width H (built for 768, BERT-base, 1,024, BERT-large, 512,
+// 256 and 128, the compact BERTs, 384, MiniLM, and 640 and 896) and
+// `kInputLN`:
 //
 //   K1 (kInputLN = true):  x = LN0(z)   z: [M, H] f32, the unnormalized
 //                                          attention residual
@@ -55,7 +56,8 @@
 // product; its scratch at M = 16,384 and F = 4,096 is 805 MB per call. H =
 // 512, 256 and 128 are the same launches with 4, 2 and 1 column tiles of
 // h . W2 and 16, 8 and 4 k-tiles in x . W1 (one window of the register
-// total or less).
+// total or less); 384, 640 and 896 with 3, 5 and 7 column tiles and 12,
+// 20 and 28 k-tiles.
 
 #include <cuda.h>
 
@@ -243,7 +245,10 @@ int mrd_ffn_ln_f32(const void* x, const void* w1t, const void* b1, const void* w
 
 MRD_FFN_F32_WIDTH(128)
 MRD_FFN_F32_WIDTH(256)
+MRD_FFN_F32_WIDTH(384)
 MRD_FFN_F32_WIDTH(512)
+MRD_FFN_F32_WIDTH(640)
+MRD_FFN_F32_WIDTH(896)
 MRD_FFN_F32_WIDTH(1024)
 
 }  // extern "C"

@@ -1,8 +1,9 @@
-// Pieces shared by the port's bf16 row kernels (ffn_ln.cu, attn_out_ln.cu),
+// Pieces shared by the port's bf16 row kernels (ffn_ln.cuh, attn_out_ln.cu),
 // templates over the hidden width kH (768 for BERT-base, 1,024 for
-// BERT-large, 512 / 256 / 128 for the compact BERTs): the residual row as
-// kH / 256 16-byte groups per lane, or at kH = 128 one 8-byte group per
-// lane (with LN0 for K1), the second pass of the split paths
+// BERT-large, 512 / 256 / 128 for the compact BERTs, 384 for MiniLM, and
+// 640 and 896): the residual row as kH / 256 16-byte groups per lane, or,
+// where kH is an odd multiple of 128, kH / 128 8-byte groups per lane
+// (with LN0 for K1), the second pass of the split paths
 // (y = LN(sum of f32 partials + b + x), the partials summed in slice order,
 // so no atomics and the same bits on every launch) and the TMA tensor maps
 // of row-major bf16 and f32 matrices (the f32 ones for the f32 kernels).
@@ -18,7 +19,7 @@
 namespace {
 
 // 16-byte groups per lane of a kH-wide bf16 row: 3 at 768, 4 at 1,024 (a
-// multiple of 256; 128 takes the narrow forms below)
+// multiple of 256; the odd multiples of 128 take the narrow forms below)
 template <int kH>
 constexpr int kRowGroupsPerLane = kH / 8 / 32;
 
@@ -77,53 +78,72 @@ __device__ __forceinline__ void load_x_row(const mrd::bf16* __restrict__ z, long
   }
 }
 
-// The narrow form of load_x_row for a 128-wide row, which has half a
-// 16-byte group per lane: one 8-byte group per lane (columns 4 lane .. + 4),
-// LN0 of z in f32 rounded to bf16 (K1) or z itself; zeros past M. The same
-// arithmetic as load_x_row, so the main kernel and the split reduction see
-// the same bits.
+// The narrow form of load_x_row for a row of an odd number of 128-column
+// blocks (128, 384, 640, 896), which has an odd number of half 16-byte
+// groups per lane: kRowGroups8<kH> 8-byte groups per lane (columns
+// 4 (lane + 32 j) .. + 4), LN0 of z in f32 rounded to bf16 (K1) or z
+// itself; zeros past M. The same arithmetic as load_x_row, so the main
+// kernel and the split reduction see the same bits.
+template <int kH>
+constexpr int kRowGroups8 = kH / 4 / 32;
+
 template <int kH, typename V, bool kInputLN>
-__device__ __forceinline__ uint2 load_x_row_narrow(const mrd::bf16* __restrict__ z,
-                                                   long long gr, int M,
-                                                   const V* __restrict__ g0,
-                                                   const V* __restrict__ o0, float eps,
-                                                   int lane) {
-  static_assert(kH == 4 * 32, "one 8-byte group per lane");
-  if (gr >= M) return make_uint2(0, 0);
-  uint2 out = reinterpret_cast<const uint2*>(z + gr * kH)[lane];
-  if constexpr (kInputLN) {
-    float v[4];
-    float s = 0.0f;
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out);
+__device__ __forceinline__ void load_x_row_narrow(const mrd::bf16* __restrict__ z,
+                                                  long long gr, int M,
+                                                  const V* __restrict__ g0,
+                                                  const V* __restrict__ o0, float eps, int lane,
+                                                  uint2 (&out)[kRowGroups8<kH>]) {
+  static_assert(kH % 256 == 128, "an odd number of half 16-byte groups per lane");
+  if (gr >= M) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      v[2 * e] = f.x;
-      v[2 * e + 1] = f.y;
-      s += f.x + f.y;
+    for (int j = 0; j < kRowGroups8<kH>; ++j) out[j] = make_uint2(0, 0);
+    return;
+  }
+  const uint2* src = reinterpret_cast<const uint2*>(z + gr * kH);
+#pragma unroll
+  for (int j = 0; j < kRowGroups8<kH>; ++j) out[j] = src[lane + 32 * j];
+  if constexpr (kInputLN) {
+    float v[kRowGroups8<kH>][4];
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kRowGroups8<kH>; ++j) {
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        v[j][2 * e] = f.x;
+        v[j][2 * e + 1] = f.y;
+        s += f.x + f.y;
+      }
     }
     const float mu = mrd::warp_sum(s) * (1.0f / kH);
     float q = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) q += (v[e] - mu) * (v[e] - mu);
-    const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
-    __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(&out);
-    const int c = 4 * lane;
+    for (int j = 0; j < kRowGroups8<kH>; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int cc = c + 2 * e;
-      w[e] = __floats2bfloat162_rn(
-          (v[2 * e] - mu) * rstd * mrd::ld_f32(g0 + cc) + mrd::ld_f32(o0 + cc),
-          (v[2 * e + 1] - mu) * rstd * mrd::ld_f32(g0 + cc + 1) + mrd::ld_f32(o0 + cc + 1));
+      for (int e = 0; e < 4; ++e) q += (v[j][e] - mu) * (v[j][e] - mu);
+    const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
+#pragma unroll
+    for (int j = 0; j < kRowGroups8<kH>; ++j) {
+      __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(&out[j]);
+      const int c = 4 * (lane + 32 * j);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = c + 2 * e;
+        w[e] = __floats2bfloat162_rn(
+            (v[j][2 * e] - mu) * rstd * mrd::ld_f32(g0 + cc) + mrd::ld_f32(o0 + cc),
+            (v[j][2 * e + 1] - mu) * rstd * mrd::ld_f32(g0 + cc + 1) +
+                mrd::ld_f32(o0 + cc + 1));
+      }
     }
   }
-  return out;
 }
 
-// split_reduce's row at H = 128 and 256: the lane's kH / 32 values, in
-// runs of 8 columns 8 (lane + 32 j) .. + 8 (at 128 one run of 4, 4 lane ..
-// + 4); the partials summed in slice order first and x read after them,
-// then the arithmetic of the 768 form.
+// split_reduce's row at H = 256 and at the odd multiples of 128 (128, 384,
+// 640, 896): the lane's kH / 32 values, in runs of 8 columns 8 (lane +
+// 32 j) .. + 8 (at the odd multiples runs of 4, 4 (lane + 32 j) .. + 4);
+// the partials summed in slice order first and x read after them, then
+// the arithmetic of the 768 form.
 template <int kH, typename V, bool kInputLN>
 __device__ __forceinline__ void split_reduce_compact(
     const float* __restrict__ partial, int slices, const mrd::bf16* __restrict__ z,
@@ -131,7 +151,7 @@ __device__ __forceinline__ void split_reduce_compact(
     const V* __restrict__ g0, const V* __restrict__ o0, mrd::bf16* __restrict__ y, int M,
     float eps, long long gr, int lane) {
   constexpr int kE = kH / 32;               // values per lane
-  constexpr int kRun = kH == 128 ? 4 : 8;   // consecutive columns of a run
+  constexpr int kRun = kH % 256 == 0 ? 8 : 4;  // consecutive columns of a run
   constexpr int kRuns = kE / kRun;
   const auto col = [lane](int i) { return kRun * (lane + 32 * (i / kRun)) + i % kRun; };
   float v[kE];
@@ -153,10 +173,14 @@ __device__ __forceinline__ void split_reduce_compact(
     }
   // x as kE / 2 words of two bf16
   uint32_t xw[kE / 2];
-  if constexpr (kH == 128) {
-    const uint2 g = load_x_row_narrow<kH, V, kInputLN>(z, gr, M, g0, o0, eps, lane);
-    xw[0] = g.x;
-    xw[1] = g.y;
+  if constexpr (kH % 256 != 0) {
+    uint2 g[kRowGroups8<kH>];
+    load_x_row_narrow<kH, V, kInputLN>(z, gr, M, g0, o0, eps, lane, g);
+#pragma unroll
+    for (int j = 0; j < kRowGroups8<kH>; ++j) {
+      xw[2 * j] = g[j].x;
+      xw[2 * j + 1] = g[j].y;
+    }
   } else {
     uint4 g[kRowGroupsPerLane<kH>];
     load_x_row<kH, V, kInputLN>(z, gr, M, g0, o0, eps, lane, g);
@@ -191,8 +215,11 @@ __device__ __forceinline__ void split_reduce_compact(
         (v[2 * p + 1] - mu) * rstd * mrd::ld_f32(gamma + c + 1) + mrd::ld_f32(beta + c + 1));
     out[p] = *reinterpret_cast<const uint32_t*>(&o);
   }
-  if constexpr (kH == 128) {
-    *reinterpret_cast<uint2*>(y + gr * kH + col(0)) = make_uint2(out[0], out[1]);
+  if constexpr (kH % 256 != 0) {
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r)
+      *reinterpret_cast<uint2*>(y + gr * kH + col(kRun * r)) =
+          make_uint2(out[2 * r], out[2 * r + 1]);
   } else {
 #pragma unroll
     for (int r = 0; r < kRuns; ++r)
@@ -215,8 +242,9 @@ split_reduce(const float* __restrict__ partial, int slices, const mrd::bf16* __r
   if (gr >= M) return;
   // the form below spilled 4 bytes at H = 256 (V bf16, no LN0: K2 and K3)
   // and split_reduce_compact at 512 (ptxas on the H100's toolkit), so
-  // 128 and 256 take the compact form and 512 this one
-  if constexpr (kH == 128 || kH == 256) {
+  // 256 takes the compact form and 512 this one; the odd multiples of 128
+  // have no whole 16-byte groups per lane and take the compact form too
+  if constexpr (kH % 256 != 0 || kH == 256) {
     split_reduce_compact<kH, V, kInputLN>(partial, slices, z, b, gamma, beta, g0, o0, y, M, eps,
                                           gr, lane);
   } else {

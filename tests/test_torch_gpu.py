@@ -15,10 +15,11 @@ quantized BERT layer that launches no kernel, `entry.py`'s
 `entry()` with its K1 launches, the f32 forms of K1-K3 (an f32
 model's kernels) against their plain versions with TF32 off, with an
 f32 model's predict launching them, and the forms of K1-K3 built for
-BERT-large's H = 1,024 and the compact BERTs' 512, 256 and 128 in bf16
-and f32 (the `test_width_*` tests, their ids naming the width: `h1024`,
-`h512`, ...), with a predict at each width launching them and K1/K2 at
-intermediate widths other than 4H at every built width. Every test here
+BERT-large's H = 1,024, the compact BERTs' 512, 256 and 128, MiniLM's 384
+and for 640 and 896 in bf16 and f32 (the `test_width_*` tests, their ids
+naming the width: `h1024`, `h512`, ...), with a predict at each width
+launching them and K1/K2 at intermediate widths other than 4H at every
+built width. Every test here
 is marked `gpu` and skips without a CUDA device; the file imports
 neither jax nor the JAX package, so it runs on a machine that has only
 torch:
@@ -1039,13 +1040,15 @@ def test_f32_predict_launches_the_f32_kernels(cuda, fused_attn_out):
     assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 1e-4
 
 
-# ---- the widths built besides 768: BERT-large's H = 1,024 and the compact
+# ---- the widths built besides 768: BERT-large's H = 1,024, the compact
 # BERTs' 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
-# -Tiny), each with F = 4H: the forms of K1-K3 built for each width, in
-# bf16 and f32, held to the limits of the H = 768 cases (the tests' ids
-# name the width: `h1024`, `h512`, `h256`, `h128`)
+# -Tiny), MiniLM's 384 (microsoft/MiniLM-L12-H384), 640 and 896, each with
+# F = 4H: the forms of K1-K3 built for each width, in bf16 and f32, held to
+# the limits of the H = 768 cases (the tests' ids name the width: `h1024`,
+# `h512`, `h256`, `h128`, `h384`, `h640`, `h896`)
 
-_WIDTHS = {1024: 4096, 512: 2048, 256: 1024, 128: 512}
+_WIDTHS = {1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536, 640: 2560,
+           896: 3584}
 _by_width = pytest.mark.parametrize("h", list(_WIDTHS),
                                     ids=[f"h{h}" for h in _WIDTHS])
 
@@ -1098,9 +1101,10 @@ def _check_ffn(cuda, h, f, dtype, input_ln, m, seed):
     assert worst <= tol[0] and mean <= tol[1], (worst, mean)
 
 
-# the single request (1, then its length bucket 64: the split paths), the
-# 1,024 CLS rows, the packed batch and a ragged tile past it
-_WIDTH_ROWS = [1, 64, 1024, 16384, 16385]
+# the single request (1, then its length bucket 64: the split paths), a
+# ragged 64-row tile, the 1,024 CLS rows, the packed batch and a ragged tile
+# past it
+_WIDTH_ROWS = [1, 37, 64, 1024, 16384, 16385]
 
 
 @pytest.mark.parametrize("m", _WIDTH_ROWS)
@@ -1125,8 +1129,9 @@ _OTHER_F = [(torch.bfloat16, 64), (torch.bfloat16, 1536),
 @pytest.mark.parametrize("dtype,f", _OTHER_F,
                          ids=[f"{'bf16' if d == torch.bfloat16 else 'f32'}"
                               f"-f{f}" for d, f in _OTHER_F])
-@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024],
-                         ids=["h128", "h256", "h512", "h768", "h1024"])
+@pytest.mark.parametrize("h", [128, 256, 384, 512, 640, 768, 896, 1024],
+                         ids=["h128", "h256", "h384", "h512", "h640", "h768",
+                              "h896", "h1024"])
 def test_width_ffn_kernel_at_other_intermediate_widths(cuda, h, dtype, f,
                                                        input_ln, m):
     _check_ffn(cuda, h, f, dtype, input_ln, m, 7 * m + f + input_ln)
@@ -1155,7 +1160,7 @@ def test_width_attn_out_kernel_matches_plain(cuda, h, dtype, m):
 @pytest.mark.parametrize("m", [1024, 16384], ids=["split", "whole"])
 @_by_width
 def test_width_kernels_are_deterministic(cuda, h, m):
-    # the pair at 1,024 adds a row's four LayerNorm partials over
+    # the pairs at 1,024 and 896 add a row's four LayerNorm partials over
     # distributed shared memory in one order, a single block its two; the
     # split paths store f32 partials that split_reduce sums in slice
     # order; no atomics: the same bits on every launch
