@@ -1,11 +1,14 @@
 """One width phase of chip_smoke.py alone, after the kernels' build and
 their ptxas check, then the card tests of that phase's widths: phase 17
 (BERT-large, H = 1,024), 18 (the compact BERTs, H = 512, 256, 128, with
-K1/K2 at intermediate widths other than 4H at every built width) or 19
-(the odd multiples of 128: MiniLM-L12-H384, H = 640 and 896).
+K1/K2 at intermediate widths other than 4H at every built width), 19
+(the odd multiples of 128: MiniLM-L12-H384, H = 640 and 896) or 20 (the
+widths above 1,024: the 24-layer tower at microsoft/deberta-v2-xlarge's
+widths, H = 1,536, and H = 1,152, 1,280 and 1,408).
 
-    python3 build/widths_chip_run.py [17|18|19]  # default 19; from the
-                                                 # repository root, on a card
+    python3 build/widths_chip_run.py [17|18|19|20]  # default 20; from the
+                                                    # repository root, on a
+                                                    # card
 """
 import subprocess
 import sys
@@ -27,9 +30,10 @@ from multimodal_rare_disease_tpu_torch.kernels import build  # noqa: E402
 PHASES = {17: (chip_smoke.bert_large, "h1024"),
           18: (chip_smoke.compact_widths,
                "h512 or h256 or h128 or other_intermediate"),
-          19: (chip_smoke.odd_widths, "h384 or h640 or h896")}
+          19: (chip_smoke.odd_widths, "h384 or h640 or h896"),
+          20: (chip_smoke.wide_widths, "h1152 or h1280 or h1408 or h1536")}
 
-phase, tests = PHASES[int(sys.argv[1]) if len(sys.argv) > 1 else 19]
+phase, tests = PHASES[int(sys.argv[1]) if len(sys.argv) > 1 else 20]
 dev = torch.device("cuda:0")
 torch.cuda.set_device(dev)
 card = chip_smoke.card_line()

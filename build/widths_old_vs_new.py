@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Hold the kernels of the widths this tree's parent built (H = 768,
-BERT-base; 1,024, BERT-large; 512, 256 and 128, the compact BERTs) against
-that tree, from before the odd multiples of 128 (H = 384, 640, 896) were
-added beside them, in one process on one card: the same machine code, the
-same bits and the same times.
+BERT-base; 1,024, BERT-large; 512, 256 and 128, the compact BERTs; 384,
+640 and 896, the odd multiples of 128) against that tree, from before the
+widths above 1,024 (H = 1,152, 1,280, 1,408, 1,536) were added beside
+them, in one process on one card: the same machine code, the same bits and
+the same times.
 
     mkdir -p build/widths_old                    # the earlier tree, once
-    git archive 48324f6 | tar -x -C build/widths_old
+    git archive aba7f33 | tar -x -C build/widths_old
     python3 build/widths_old_vs_new.py [M ...]   # default M: 1024 16384
 
 As build/h768_old_vs_new.py, whose helpers it uses, at every width: each
@@ -15,7 +16,7 @@ kernels there; the SASS of every kernel function of the earlier tree's
 library (`cuobjdump -sass`, addresses and constants masked) is compared
 with the function of the same name and template arguments in this tree's;
 then for each width, M and each of K1 (bf16 vectors and f32 ones), K2,
-K3, K1-f32, K2-f32 and K3-f32, on the same inputs, both outputs must be
+K3, K1-f32, K2-f32 and K3-f32, on the same tensors, both outputs must be
 equal bit for bit and the CUDA-event device time per call over 20 calls
 queued behind a spinning card, taken in turns old, new, new, old, must
 agree within 3%. Prints the card's name and power limit, one line per
@@ -38,10 +39,11 @@ import torch
 from h768_old_vs_new import PKG, ROOT, TIME_TOL, import_tree, per_call_ms, \
     sleep_cycles_per_ms
 
-OLD_COMMIT = "48324f6"
-# width -> F (= 4H) of the models the earlier tree served: BERT-base,
-# BERT-large, BERT-Medium, -Mini and -Tiny
-WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512}
+OLD_COMMIT = "aba7f33"
+# width -> F of the models the earlier tree served: BERT-base, BERT-large,
+# BERT-Medium, -Mini and -Tiny, MiniLM-L12-H384 (F = 1,536), 640 and 896
+WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536,
+          640: 2560, 896: 3584}
 
 
 def sass(lib: Path) -> dict:
@@ -75,9 +77,9 @@ def sass(lib: Path) -> dict:
     return out
 
 
-def calls(tree, dt, h, m, gen, dev):
-    """{kernel: a call of it through `tree`'s wrappers} at width h on
-    inputs drawn from `gen` (the same draws for both trees)."""
+def inputs(dt, h, m, gen, dev):
+    """z, ctx, W1 and W2, Wo and the vectors at width h, drawn from `gen`
+    in `dt` on `dev`."""
     f = WIDTHS[h]
 
     def rnd(shape, scale, offset=0.0, dtype=dt):
@@ -90,6 +92,14 @@ def calls(tree, dt, h, m, gen, dev):
     vec = dict(b1=rnd((f,), 0.5), b2=rnd((h,), 0.5),
                gamma=rnd((h,), 0.25, 1.0), beta=rnd((h,), 0.5),
                pre_gamma=rnd((h,), 0.25, 1.0), pre_beta=rnd((h,), 0.5))
+    return z, c, w1, w2, wo, vec
+
+
+def calls(tree, dt, z, c, w1, w2, wo, vec):
+    """{kernel: a call of it through `tree`'s wrappers} on `inputs`'
+    tensors. Both trees get the same tensors: where each drew its own
+    copies of the same values, the copies' places in device memory moved
+    some kernels' times by up to 8% with the same machine code (H100)."""
     a = (z, w1, vec["b1"], w2, vec["b2"], vec["gamma"], vec["beta"])
     ln0 = dict(pre_gamma=vec["pre_gamma"], pre_beta=vec["pre_beta"])
     a3 = (c, z, wo, vec["b2"], vec["gamma"], vec["beta"])
@@ -134,11 +144,13 @@ def main() -> int:
         if not same:
             bad.append(f"SASS {k}")
     cyc = sleep_cycles_per_ms()
-    fns = {(h, m, dt): {name: calls(t, dt, h, m,
-                                    torch.Generator().manual_seed(h + m), dev)
-                        for name, t in trees.items()}
-           for h in WIDTHS for m in rows
-           for dt in (torch.bfloat16, torch.float32)}
+    fns = {}
+    for h in WIDTHS:
+        for m in rows:
+            for dt in (torch.bfloat16, torch.float32):
+                x = inputs(dt, h, m, torch.Generator().manual_seed(h + m), dev)
+                fns[(h, m, dt)] = {name: calls(t, dt, *x)
+                                   for name, t in trees.items()}
     for by_tree in fns.values():  # warm-up: every call of both trees
         for tree_fns in by_tree.values():
             for fn in tree_fns.values():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch package's serving, evaluation, training, data-tool,
-rank-mesh, int8, f32, BERT-large-width, compact-width and odd-width paths
-and its `entry()` forward once on one NVIDIA Hopper card.
+rank-mesh, int8, f32, BERT-large-width, compact-width, odd-width and
+wide-width paths and its `entry()` forward once on one NVIDIA Hopper card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
@@ -195,6 +195,13 @@ non-zero):
    30,522; K1 12 per default forward, K3 11, K2 11, K1 1 and K4 1 per
    fused one; one MicroBatcher round), and at H = 640 and 896 (heads of
    64, F = 4H), which no published encoder has, at 4 layers.
+20. above BERT-large width (H = 1,152, 1,280, 1,408 and 1,536; `WIDE_OVER`):
+   phase 17 at microsoft/deberta-v2-xlarge's widths and depth with this
+   package's BERT layer (H = 1,536, F = 6,144, 24 heads of 64, 24 layers,
+   the vocabulary of 128,100; K1 24 per default forward, K3 23, K2 23, K1
+   1 and K4 1 per fused one; one MicroBatcher round), and at H = 1,152,
+   1,280 and 1,408 (18, 20 and 22 heads of 64, F = 4H), which no published
+   encoder has, at 2 layers.
 
 Kernel times are CUDA-event times of 20 calls back to back, read two
 ways: queued while the card spins (torch.cuda._sleep), so that the events
@@ -351,8 +358,9 @@ def plain_kernels():
 
 # the hidden widths other than BERT-base's 768 whose forms of K1-K3 have
 # launch counters of their own: BERT-large's (phase 17), the compact
-# BERTs' (phase 18) and the odd multiples of 128 (phase 19)
-OTHER_WIDTHS = (1024, 512, 256, 128, 384, 640, 896)
+# BERTs' (phase 18), the odd multiples of 128 (phase 19) and the widths
+# above 1,024 (phase 20)
+OTHER_WIDTHS = (1024, 512, 256, 128, 384, 640, 896, 1152, 1280, 1408, 1536)
 ROW_KEYS = ("K1", "K2", "K3", "K1_f32", "K2_f32", "K3_f32")
 # the launch counts: K1-K4 (the bf16 kernels, and K4 in either output
 # dtype), their f32 forms, the forms of K1-K3 in bf16 and f32 at each of
@@ -3045,6 +3053,34 @@ ODD_OVER = {
                   "text_encoder.vocab_size": 30522} for h in (640, 896)}}
 
 
+# phase 20: the widths above BERT-large. microsoft/deberta-v2-xlarge (He
+# et al. 2021, "DeBERTa"), the published post-LN encoder whose FFN (erf
+# GELU) and attention-output sublayers are this package's, at its widths
+# and depth: H = 1,536, F = 6,144, 24 heads of 64, 24 layers, the
+# vocabulary of 128,100, 512 positions; its disentangled attention is not
+# this package's, so this is a BERT tower at those widths, not DeBERTa.
+# And 1,152, 1,280 and 1,408 (heads of 64, F = 4H), which no published
+# encoder has, at 2 layers: every form of K1-K3 at a width runs in each of
+# its layers alike, and at 4 layers, as phase 19's 640 and 896, the phase
+# took 128.5 s and the whole smoke a quarter longer than phases 1-19 (494
+# s on the H100). Seeded weights, as `text_encoder.*` overrides of the
+# default config
+WIDE_OVER = {
+    "DeBERTa-v2-xlarge widths": {"text_encoder.hidden_size": 1536,
+                                 "text_encoder.num_layers": 24,
+                                 "text_encoder.num_heads": 24,
+                                 "text_encoder.intermediate_size": 6144,
+                                 "text_encoder.max_position_embeddings": 512,
+                                 "text_encoder.vocab_size": 128100},
+    **{f"H={h}": {"text_encoder.hidden_size": h,
+                  "text_encoder.num_layers": 2,
+                  "text_encoder.num_heads": h // 64,
+                  "text_encoder.intermediate_size": 4 * h,
+                  "text_encoder.max_position_embeddings": 512,
+                  "text_encoder.vocab_size": 30522}
+       for h in (1152, 1280, 1408)}}
+
+
 def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                 serve=None):
     """The forms of K1-K3 at the hidden width of `over` (overrides of the
@@ -3326,6 +3362,13 @@ def odd_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
                         19, "odd widths", ODD_OVER, 384, 190)
 
 
+def wide_widths(dev, card: str, images, texts, in_turns, p50_ms, serve):
+    """Phase 20: `width_towers` over WIDE_OVER's towers, with one
+    MicroBatcher round on the 1,536-wide tower."""
+    return width_towers(dev, card, images, texts, in_turns, p50_ms, serve,
+                        20, "wide widths", WIDE_OVER, 1536, 200)
+
+
 def timing_helpers(images, texts):
     """The serving round and the clocks of the phases, on phase 4's
     batch (`images`, `texts`): serve(p, n_concurrent, n_single), the
@@ -3506,9 +3549,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc, one per source in "
           f"parallel, {build.last_build_seconds:.2f} s) | smem/block FFN "
           f"{lib.mrd_ffn_smem_bytes()} B (H=1024: "
-          f"{lib.mrd_ffn_smem_bytes_h1024()} B), attn-out "
+          f"{lib.mrd_ffn_smem_bytes_h1024()} B, H=1536: "
+          f"{lib.mrd_ffn_smem_bytes_h1536()} B), attn-out "
           f"{lib.mrd_attn_out_smem_bytes()} B (H=1024: "
-          f"{lib.mrd_attn_out_smem_bytes_h1024()} B), f32 FFN "
+          f"{lib.mrd_attn_out_smem_bytes_h1024()} B, H=1536: "
+          f"{lib.mrd_attn_out_smem_bytes_h1536()} B), f32 FFN "
           f"{lib.mrd_ffn_f32_smem_bytes()} B, f32 attn-out "
           f"{lib.mrd_attn_out_f32_smem_bytes()} B | "
           f"{'; '.join(regs) or 'no ptxas report'} | no spills, no C75xx "
@@ -4165,6 +4210,13 @@ def main() -> int:
     main19, times19 = odd_widths(dev, card, images, texts, in_turns, p50_ms,
                                  serve)
 
+    # ---- 20. the wide widths: K1-K3 at H = 1,152, 1,280, 1,408 and 1,536
+    # in bf16 and f32, the 24-layer 1,536-wide tower and the 2-layer
+    # others through predict_batch
+    torch.cuda.empty_cache()
+    main20, times20 = wide_widths(dev, card, images, texts, in_turns, p50_ms,
+                                  serve)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
                      "matplotlib", "seaborn", "PIL", "pandas",
@@ -4183,7 +4235,7 @@ def main() -> int:
          k1_plain_ms, k1_b2b, k1_bound, k1_by, None),
         ("ffn_ln_bf16", "ffn_ln.cuh", "ffn.py:103", "K2", k2_err, k2_ms,
          k2_plain_ms, k2_b2b, k2_bound, k2_by, None),
-        ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3",
+        ("attn_out_ln_bf16", "attn_out_ln.cuh", "attn_out.py:38", "K3",
          k3_err, k3_ms, k3_plain_ms, k3_b2b, k3_bound, k3_by, None),
         ("normalize_u8", "normalize_u8.cu", "image_kernels.py:37", "K4",
          k4_err, k4_ms, k4_plain_ms, k4_b2b, k4_bound, k4_by, k4_lib_ms),
@@ -4201,7 +4253,7 @@ def main() -> int:
          *times17["K1_1024"], None),
         ("ffn_ln_bf16_h1024", "ffn_ln.cuh", "ffn.py:103", "K2_1024",
          *times17["K2_1024"], None),
-        ("attn_out_ln_bf16_h1024", "attn_out_ln.cu", "attn_out.py:38",
+        ("attn_out_ln_bf16_h1024", "attn_out_ln.cuh", "attn_out.py:38",
          "K3_1024", *times17["K3_1024"], None),
         ("ffn_pre_ln_f32_h1024", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32_1024",
          *times17["K1_f32_1024"], None),
@@ -4210,15 +4262,16 @@ def main() -> int:
         ("attn_out_ln_f32_h1024", "attn_out_ln_f32.cu", "attn_out.py:38",
          "K3_f32_1024", *times17["K3_f32_1024"], None),
     ] + [
-        # the compact and the odd widths' instantiations, checked and timed
-        # in phases 18 and 19; none has one PyTorch call either
+        # the compact, the odd and the wide widths' instantiations, checked
+        # and timed in phases 18, 19 and 20; none has one PyTorch call
+        # either
         (f"{name}_h{w}", source, replaces, f"{key}_{w}",
-         *{**times18, **times19}[f"{key}_{w}"], None)
-        for w in (512, 256, 128, 384, 640, 896)
+         *{**times18, **times19, **times20}[f"{key}_{w}"], None)
+        for w in (512, 256, 128, 384, 640, 896, 1152, 1280, 1408, 1536)
         for name, source, replaces, key in (
             ("ffn_pre_ln_bf16", "ffn_ln.cuh", "ffn.py:72", "K1"),
             ("ffn_ln_bf16", "ffn_ln.cuh", "ffn.py:103", "K2"),
-            ("attn_out_ln_bf16", "attn_out_ln.cu", "attn_out.py:38", "K3"),
+            ("attn_out_ln_bf16", "attn_out_ln.cuh", "attn_out.py:38", "K3"),
             ("ffn_pre_ln_f32", "ffn_ln_f32.cu", "ffn.py:72", "K1_f32"),
             ("ffn_ln_f32", "ffn_ln_f32.cu", "ffn.py:103", "K2_f32"),
             ("attn_out_ln_f32", "attn_out_ln_f32.cu", "attn_out.py:38",
@@ -4230,12 +4283,12 @@ def main() -> int:
         "source": src + source,
         "replaces": tpu + replaces,
         # launches on the main paths: phases 4, 5, 7 (both of its runs),
-        # 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (their counted
+        # 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (their counted
         # runs; 13's on every rank)
         "launches": (main4[k] + serve5[k] + main7[k] + serve7[k]
                      + main9[k] + main10[k] + main11[k] + main12[k]
                      + main13[k] + main14[k] + main15[k] + main16[k]
-                     + main17[k] + main18[k] + main19[k]),
+                     + main17[k] + main18[k] + main19[k] + main20[k]),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

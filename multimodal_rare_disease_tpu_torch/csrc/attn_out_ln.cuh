@@ -1,0 +1,805 @@
+// K3: the post-LN BERT attention-output sublayer, written by hand for Hopper
+// (sm_90a):
+//
+//   y = bf16(LN(f32(x) + ctx . Wo^T + bo))   ctx, x: [M, H] bf16; Wo: [H, H]
+//                                             bf16 in torch.nn.Linear's [out, in]
+//
+// H is a template parameter, built for 768 (BERT-base; the design below),
+// 1,024 (BERT-large), 512, 256 and 128 (the compact BERTs), 384 (MiniLM),
+// 640 and 896, and 1,152, 1,280, 1,408 and 1,536; their changes are at the
+// end of this comment. This header holds the kernel and the macro of its C
+// entries; attn_out_ln.cu instantiates it up to 1,024 and
+// attn_out_ln_wide.cu above, so that build.py's nvccs compile the two in
+// parallel.
+//
+// The product accumulates in f32 and is not rounded; bo and the residual x
+// are added in f32 before the two-pass f32 LayerNorm (eps given, 1e-12 for
+// BERT). bo and the LayerNorm parameters are bf16 (a model cast to bf16
+// passes its own), widened to f32 on load.
+//
+// Replaces multimodal_rare_disease_tpu/ops/pallas/attn_out.py::
+// _attn_out_ln_kernel (reached through _fused_attn_out_ln_impl and
+// fused_attn_out_ln), with its numerics contract (attn_out.py:12-17).
+//
+// What bounds it on the H100: at the packed batch of 256 documents (M =
+// 16,384) one call moves 76.7 MB (ctx, x and y, 25.2 MB each, plus Wo) and
+// does 2*M*768*768 = 19.3 GFLOP: 0.0229 ms at 3.35 TB/s against 0.0195 ms
+// at the bf16 tensor-core peak. The two are close, so the product has to run
+// near the tensor-core rate, which only wgmma reaches. Every block that owns
+// a tile of rows reads all of Wo (1.18 MB) from L2, so the rows per block
+// set the L2-to-SM traffic: 604 MB per call at 32 rows, 302 MB at 64. LN
+// needs whole 768-wide rows, so a 64-row tile keeps a [64, 768] f32
+// accumulator in registers.
+// Few rows (a single request's 64) leave all but one SM idle.
+//
+// Design:
+//   - a block owns 64 rows (one wgmma M) and three warpgroups: two consumers
+//     and one producer. setmaxnreg gives each consumer 232 registers (its 192
+//     accumulator registers stay pinned) and the producer 40: 2 x 128 x 232 +
+//     128 x 40 = 384 x 168, the registers the block is launched with;
+//   - the ctx tile [64, 768] (96 KB) is loaded by TMA as 12 column blocks of
+//     [64][64] in the 128-byte swizzle layout, one mbarrier each: wgmma's A
+//     operand, read through sw128_desc. Rows past M read as zeros;
+//   - consumer wg owns output columns 384 wg .. +384: per k chunk of 64 it
+//     takes three Wo tiles [128 out x 64 k] (nn.Linear's [out, in] rows are
+//     the K-major B operand, no transpose) and runs wgmma m64n128k16 into its
+//     [64, 384] f32 accumulator, one wgmma group in flight;
+//   - one producer thread issues every TMA load. Wo streams through a ring of
+//     4 slots of 16 KB per consumer with full (TMA bytes) and empty (one
+//     arrival per consumer warp) mbarriers; the consumers only arrive on
+//     "empty", so neither side waits for the other to refill;
+//   - the residual x goes into the freed ctx blocks: once both consumers are
+//     done with k chunk c, ctx block c is dead and the producer loads x's
+//     column block c into it (two chunks behind the Wo stream), so x arrives
+//     in the same swizzled layout while the product runs, at no extra shared
+//     memory and with no uncoalesced loads;
+//   - the epilogue works from the registers: + bo + x (from shared memory),
+//     then LN with per-row partial sums exchanged between the two consumers
+//     through shared memory (two-pass); y is written as bf16 over x in shared
+//     memory and stored by TMA, which skips the rows past M.
+// Split-K path for few rows: when the row tiles would fill fewer blocks than
+// the card has SMs, the launch adds a grid dimension of S slices of the 12 k
+// chunks (S chosen by kernels/attn_out.py::attn_out_plan). Each block then
+// runs its slice's chunks only and stores its f32 partial of ctx . Wo^T for
+// the valid rows into a scratch buffer [S, M, 768]; split_reduce (rows.cuh,
+// shared with the FFN kernel) sums the S partials in slice order, adds bo and
+// x and applies LN. No atomics: the result is the same bits on every launch.
+// A cluster of two blocks that share each Wo tile by TMA multicast halves the
+// L2 reads of Wo; on the H100 it took longer than this design (PERF.md), so
+// it is not built here.
+//
+// H = 1,024: consumers of [64, 512] would need 256 accumulator floats a
+// thread, and the 128-KB ctx tile beside the two 64-KB Wo rings is 256 KB
+// against 227 KB. So a row tile is cut into two column groups of 512 output
+// columns, one block each (grid z), run as a cluster of two:
+//   - both blocks need the whole ctx tile (16 column blocks, the product's
+//     k): block r's producer loads the column blocks c with c % 2 == r by
+//     TMA multicast into both blocks, and each block's producer expects
+//     the bytes of every block on its own barrier;
+//   - the consumers run [64, 256] each (128 accumulator floats), with Wo
+//     rings of 3 slots (224 KB in all), and x's column blocks of the
+//     block's own columns replace ctx's as above;
+//   - LN over the pair: the row sums of each consumer's 256 columns go into
+//     the block's own exchange, an arrival on the peer's barrier says they
+//     are there, and each block reads the peer's over distributed shared
+//     memory (ld.shared::cluster) and adds the four partials of a row in
+//     one order, so both get the same mean; the centred squares the same
+//     way; each block then writes y for its 512 columns by TMA;
+//   - a cluster barrier after the barriers' initialization (before any
+//     multicast or remote access) and before exit.
+// With the k chunks split (small M), each block stores its f32 partial and
+// split_reduce finishes the rows, as above.
+//
+// H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
+// -Tiny): one block per row tile, as at 768, with 8, 4 and 2 k chunks and
+// consumers of [64, 256], [64, 128] and [64, 64]. At 128 a consumer's 64
+// columns are less than one n128 Wo tile, so Wo streams as [64 out x 64 k]
+// tiles (8 KB) and the consumers run wgmma m64n64k16; the two consumers,
+// their register split and the LN exchange stay as they are. Each width's
+// variant is under `if constexpr`, so the 768 and 1,024 code is compiled
+// as it was.
+//
+// H = 384, 640 and 896, the odd multiples of 128 below 1,024. 384 and 640
+// are one block per row tile with consumers of [64, 192] and [64, 320]:
+// Wo tiles of 64 as at 128, 3 and 5 per consumer and chunk. At 896 a
+// consumer of [64, 448] would need 224 accumulator floats a thread, so 896
+// is 1,024's pair with 448 columns per block (ctx multicast, LN over
+// distributed shared memory; 14 k chunks, 3 Wo slots of 14 KB per
+// consumer). Its consumers own 224 contiguous columns each, as two Wo
+// tiles of 112 on wgmma m64n112k16 (64 does not divide 224). 224 columns
+// end in the middle of a 64-column block, so the consumers share the
+// block they meet in: each waits for x in every block its columns touch,
+// finds its elements from eight group bases that start at its first
+// column's group, and the block's y goes out by TMA from one thread once
+// both consumers have written it.
+//
+// H = 1,152, 1,280, 1,408 and 1,536 (above BERT-large; 1,536 is
+// microsoft/deberta-v2-xlarge's width): 1,024's pair, but the row tile no
+// longer stays resident: at 1,536 the ctx tile alone is 192 KB, and two
+// Wo rings of 2 x 16 KB beside it make 256 KB. So ctx streams through a
+// ring of 4 column blocks (8 KB each; full and empty barriers, the empty
+// one taking every consumer warp), and x and y keep only the block's own
+// columns, in a region of their own (96 KB at 1,536) that x fills by TMA
+// from the third chunk on. Each block loads every ctx block itself: a
+// multicast into both blocks' rings would need each slot's release from
+// both blocks' consumers, and would save a block 64 x H of its L2 reads
+// against the H x H / 2 of Wo it reads (4% at 1,536). The consumers own
+// 288, 320, 352 and 384 columns, as Wo tiles of 96, 64, 88 and 128
+// (1,152's and 1,408's consumers meet inside a column block, as 896's
+// do); the LN over the pair, the y stores and the split path are 1,024's.
+// Shared memory at 1,536: x 96 KB, ctx ring 32, Wo rings 96: 224 KB.
+
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "rows.cuh"
+
+namespace {
+
+using mrd::bf16;
+using mrd::fence_barrier_init;
+using mrd::fence_proxy_async;
+using mrd::mbar_arrive;
+using mrd::mbar_arrive_expect_tx;
+using mrd::mbar_init;
+using mrd::mbar_wait;
+using mrd::named_bar_sync;
+using mrd::opaque;
+using mrd::Ring;
+using mrd::smem_addr;
+using mrd::sts_pair;
+using mrd::sw128_desc;
+using mrd::tma_load_2d;
+
+constexpr int kTM = 64;                   // rows per block (wgmma M)
+constexpr int kKC = 64;                   // k chunk: one ctx column block
+constexpr int kWG = 2;                    // consumer warpgroups (0, 1); the producer is 2
+constexpr int kThreads = 128 * (kWG + 1);
+constexpr int kConsumerThreads = 128 * kWG;
+constexpr int kXLag = 2;                  // x block c loads after chunk c + 2's Wo tiles
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr uint32_t kBlockBytes = kTM * 128;                    // 8 KB
+
+// The shape of the kernel at hidden width kH: 768 as the header sets out,
+// 1,024 and 896 in two column groups of 512 and 448 (one block each), 512,
+// 384, 256 and 128 as 768 with narrower consumers, and the widths above
+// 1,024 as 1,024's pair with ctx streamed (kWide).
+template <int kH>
+struct AttnOut {
+  static_assert(kH == 128 || kH == 256 || kH == 384 || kH == 512 || kH == 640 ||
+                    kH == 768 || kH == 896 || kH == 1024 || kH == 1152 || kH == 1280 ||
+                    kH == 1408 || kH == 1536,
+                "a width the kernel is built for");
+  static constexpr int kGroups = kH >= 896 ? 2 : 1;  // blocks per row tile
+  static constexpr bool kPair = kGroups == 2;        // a cluster sharing ctx and LN
+  static constexpr bool kWide = kH > 1024;           // ctx streamed, x and y the block's own
+  static constexpr int kCols = kH / kGroups;         // output columns per block
+  static constexpr int kChunks = kH / kKC;           // 12 / 16
+  static constexpr int kHalf = kCols / kWG;          // 384 / 256 output columns per consumer
+  // output columns of a Wo tile (wgmma N): 64 where a consumer's columns
+  // are an odd multiple of 64, 112 at 896, 96 at 1,152, 88 at 1,408
+  static constexpr int kN = kH == 896    ? 112
+                            : kH == 1152 ? 96
+                            : kH == 1408 ? 88
+                                         : (kHalf % 128 != 0 ? 64 : 128);
+  static constexpr int kAcc = kN / 2;                // accumulator floats per Wo tile
+  static constexpr uint32_t kTileBytes = kN * kKC * 2;  // 16 KB (8 KB at 128)
+  static constexpr int kTiles = kHalf / kN;          // 3 / 2 Wo tiles per consumer and chunk
+  static constexpr int kStages = kPair ? 3 : 4;      // Wo ring slots per consumer
+  // kWide: x's column blocks a block holds, and the ctx ring's slots
+  static constexpr int kOwn = kCols / kKC;
+  static constexpr int kCtxStages = 4;
+
+  // shared memory, from a 1024-byte aligned base: the row tile (ctx, then
+  // x, then y) as kChunks column blocks of [64 rows][64 bf16] (kWide: x,
+  // then y, as kOwn blocks, then the ctx ring), the two Wo rings, the
+  // barriers and the LN exchange
+  static constexpr uint32_t kOffA = 0;
+  static constexpr uint32_t kOffC = kOffA + (kWide ? kOwn : kChunks) * kBlockBytes;
+  static constexpr uint32_t kOffW = kOffC + (kWide ? kCtxStages * kBlockBytes : 0);
+  // per column block: full (TMA bytes; phase 0 ctx, phase 1 x) and empty
+  // (every consumer warp, once it is done with ctx); kWide: per block of x
+  // a full barrier, then the ctx ring's full and empty barriers; per Wo
+  // slot: full and empty
+  static constexpr uint32_t kBarAFull = kOffW + kWG * kStages * kTileBytes;
+  static constexpr uint32_t kBarAEmpty = kBarAFull + 8 * (kWide ? kOwn : kChunks);
+  static constexpr uint32_t kBarCFull = kBarAEmpty;
+  static constexpr uint32_t kBarCEmpty = kBarCFull + 8 * kCtxStages;
+  static constexpr uint32_t kBarWFull = kBarAEmpty + 8 * (kWide ? 2 * kCtxStages : kChunks);
+  static constexpr uint32_t kBarWEmpty = kBarWFull + 8 * kWG * kStages;
+  // the pair's LN exchange: the barriers that the peer's row sums and
+  // centred squares are in its `red`
+  static constexpr uint32_t kBarStats = kBarWEmpty + 8 * kWG * kStages;
+  static constexpr uint32_t kOffRed = kBarStats + (kPair ? 16 : 0);  // float [2][2][64]
+  static constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
+
+  static_assert(kH % kKC == 0 && kHalf % kN == 0, "whole Wo tiles per consumer");
+  static_assert(kOffW % 1024 == 0 && kBlockBytes % 1024 == 0 && kTileBytes % 1024 == 0,
+                "1024-byte swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
+};
+
+static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs == kThreads * 168,
+              "setmaxnreg must hand over exactly the registers it frees");
+
+// columns c, c + 1 (c even) of a bf16 row, as f32
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// two bf16 at a shared-memory address, as f32 (mrd::sts_pair stores them)
+__device__ __forceinline__ float2 lds_pair(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// x's column block c into the row tile, over ctx's, once both consumers are
+// done with it (fused LN only; the pair: the block's own columns only)
+template <int kH>
+__device__ __forceinline__ void load_x(const CUtensorMap* x_map, uint32_t base, int row0,
+                                       int c, int col0) {
+  using P = AttnOut<kH>;
+  if constexpr (P::kPair)
+    if (c * kKC < col0 || c * kKC >= col0 + P::kCols) return;
+  mbar_wait(base + P::kBarAEmpty + 8 * c, 0);
+  mbar_arrive_expect_tx(base + P::kBarAFull + 8 * c, kBlockBytes);
+  tma_load_2d(base + P::kOffA + c * kBlockBytes, x_map, base + P::kBarAFull + 8 * c, c * kKC,
+              row0);
+}
+
+// The producer thread: per chunk of the slice, ctx's column block and the
+// Wo tiles of the block's columns (from col0; consumer 0's and 1's in turn),
+// then x's blocks two chunks behind (tiled path only; kWide: x's blocks of
+// the block's columns, from the third chunk on).
+template <int kH>
+__device__ __forceinline__ void produce(const CUtensorMap* ctx_map, const CUtensorMap* x_map,
+                                        const CUtensorMap* wo_map, uint32_t base, int row0,
+                                        int col0, int c_begin, int n_chunks, bool split) {
+  using P = AttnOut<kH>;
+  Ring ring[kWG];
+  for (int k = 0; k < n_chunks; ++k) {
+    const int c = c_begin + k;
+    if constexpr (P::kWide) {
+      // ctx's column block c into ring slot k % kCtxStages, once both
+      // consumers are done with the slot's previous block
+      const uint32_t s = k % P::kCtxStages;
+      const uint32_t full = base + P::kBarCFull + 8 * s;
+      mbar_wait(base + P::kBarCEmpty + 8 * s, ((k / P::kCtxStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(full, kBlockBytes);
+      tma_load_2d(base + P::kOffC + s * kBlockBytes, ctx_map, full, c * kKC, row0);
+    } else {
+      mbar_arrive_expect_tx(base + P::kBarAFull + 8 * c, kBlockBytes);
+      if constexpr (P::kPair) {  // every other ctx block, into both blocks
+        if (c % 2 == col0 / P::kCols)
+          mrd::tma_load_2d_multicast(base + P::kOffA + c * kBlockBytes, ctx_map,
+                                     base + P::kBarAFull + 8 * c, c * kKC, row0, 0x3);
+      } else {
+        tma_load_2d(base + P::kOffA + c * kBlockBytes, ctx_map, base + P::kBarAFull + 8 * c,
+                    c * kKC, row0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P::kTiles; ++j)
+#pragma unroll
+      for (int wg = 0; wg < kWG; ++wg) {
+        const uint32_t s = wg * P::kStages + ring[wg].slot;
+        mbar_wait(base + P::kBarWEmpty + 8 * s, ring[wg].phase ^ 1);
+        const uint32_t full = base + P::kBarWFull + 8 * s;
+        const uint32_t dst = base + P::kOffW + s * P::kTileBytes;
+        const int n0 = col0 + P::kHalf * wg + P::kN * j;
+        mbar_arrive_expect_tx(full, P::kTileBytes);
+        tma_load_2d(dst, wo_map, full, c * kKC, n0);
+        ring[wg].next<P::kStages>();
+      }
+    if constexpr (P::kWide) {
+      // x's block b of the block's columns into its own space, two chunks
+      // in (the tiled path runs all 2 kOwn chunks)
+      const int b = k - kXLag;
+      if (!split && b >= 0 && b < P::kOwn) {
+        mbar_arrive_expect_tx(base + P::kBarAFull + 8 * b, kBlockBytes);
+        tma_load_2d(base + P::kOffA + b * kBlockBytes, x_map, base + P::kBarAFull + 8 * b,
+                    col0 + b * kKC, row0);
+      }
+    } else {
+      if (!split && k >= kXLag) load_x<kH>(x_map, base, row0, c - kXLag, col0);
+    }
+  }
+  if constexpr (!P::kWide)
+    if (!split)
+      for (int k = n_chunks - kXLag; k < n_chunks; ++k)
+        load_x<kH>(x_map, base, row0, c_begin + k, col0);
+}
+
+// Consumer wg's share of k chunk c: ACC[:, kHalf wg + 128 j ..] += ctx[:, chunk]
+// . Wo^T[chunk, ...] for j < kTiles. After each group is issued, the
+// previous one is retired and its slot released (and, at j = 0, the
+// previous chunk's ctx block). kFirst: the slice's first chunk, whose first
+// step writes the accumulators without reading them.
+template <int kH, bool kFirst>
+__device__ __forceinline__ void consume_chunk(float (&acc)[AttnOut<kH>::kTiles][AttnOut<kH>::kAcc],
+                                              Ring& ring,
+                                              uint32_t& prev, uint32_t base, int c, int wg,
+                                              bool signal) {
+  using P = AttnOut<kH>;
+  mbar_wait(base + P::kBarAFull + 8 * c, 0);
+#pragma unroll
+  for (int j = 0; j < P::kTiles; ++j) {
+    const uint32_t s = wg * P::kStages + ring.slot;
+    mbar_wait(base + P::kBarWFull + 8 * s, ring.phase);
+    const uint32_t a0 = opaque(base) + P::kOffA + c * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW + s * P::kTileBytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if constexpr (P::kN == 64) {  // H = 128, 384, 640: n64 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n64k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if constexpr (P::kN == 112) {  // H = 896: n112 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n112k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n112k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      } else {
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (!kFirst || j > 0) {
+      mrd::wgmma_wait<1>();
+      if (signal) {
+        mbar_arrive(base + P::kBarWEmpty + 8 * prev);
+        if (j == 0) mbar_arrive(base + P::kBarAEmpty + 8 * (c - 1));
+      }
+    }
+    prev = s;
+    ring.next<P::kStages>();
+  }
+}
+
+// consume_chunk for kWide: the ctx block of the slice's k-th chunk is in
+// ring slot k % kCtxStages, and the slot of chunk k - 1 goes back once the
+// first group of chunk k is issued and the previous one retired.
+template <int kH, bool kFirst>
+__device__ __forceinline__ void consume_chunk_wide(
+    float (&acc)[AttnOut<kH>::kTiles][AttnOut<kH>::kAcc], Ring& ring, uint32_t& prev,
+    uint32_t base, int k, int wg, bool signal) {
+  using P = AttnOut<kH>;
+  const uint32_t cs = k % P::kCtxStages;
+  mbar_wait(base + P::kBarCFull + 8 * cs, (k / P::kCtxStages) & 1);
+#pragma unroll
+  for (int j = 0; j < P::kTiles; ++j) {
+    const uint32_t s = wg * P::kStages + ring.slot;
+    mbar_wait(base + P::kBarWFull + 8 * s, ring.phase);
+    const uint32_t a0 = opaque(base) + P::kOffC + cs * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW + s * P::kTileBytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if constexpr (P::kN == 64) {  // H = 1,280: n64 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n64k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[j], da, db, 1);
+      } else if constexpr (P::kN == 96) {  // H = 1,152: n96 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n96k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n96k16(acc[j], da, db, 1);
+      } else if constexpr (P::kN == 88) {  // H = 1,408: n88 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n88k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n88k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      } else {
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (!kFirst || j > 0) {
+      mrd::wgmma_wait<1>();
+      if (signal) {
+        mbar_arrive(base + P::kBarWEmpty + 8 * prev);
+        if (j == 0) mbar_arrive(base + P::kBarCEmpty + 8 * ((k - 1) % P::kCtxStages));
+      }
+    }
+    prev = s;
+    ring.next<P::kStages>();
+  }
+}
+
+// The shared-memory address of this thread's elements of tile j, n8 block
+// nb in the row tile, from the epilogue's eight group bases `xo`. Where a
+// consumer's columns fill whole column blocks, xo[k] is group k of its
+// first block; at 896 xo[k] is the k-th group from its first column's, so
+// the group counted from there, G, lies at xo[G % 8], G / 8 blocks on.
+template <int kH>
+__device__ __forceinline__ uint32_t tile_at(const uint32_t (&xo)[8], int j, int nb) {
+  using P = AttnOut<kH>;
+  if constexpr (P::kHalf % kKC != 0) {
+    const int g = P::kN / 8 * j + nb;
+    return xo[g % 8] + g / 8 * kBlockBytes;
+  } else {
+    return xo[nb % 8] + (P::kN / kKC * j + nb / 8) * kBlockBytes;
+  }
+}
+
+// The pair's total of one row's four partials (this block's two consumers'
+// in `red`, the peer's in its red at `peer_red`): on the first of a
+// thread's two rows, it first says that this block's values are in place
+// (an arrival on the peer's barrier `peer_bar`, after the consumers' named
+// barrier) and waits for the peer's (`bar`). Both blocks add rank 0's two
+// values, then rank 1's, so they share the total bit for bit.
+__device__ __forceinline__ float pair_total(const float* red, uint32_t peer_red,
+                                            uint32_t peer_bar, uint32_t bar, int rank, int r,
+                                            bool first) {
+  if (first) {
+    mrd::mbar_arrive_remote(peer_bar);
+    mrd::mbar_wait_cluster(bar, 0);
+  }
+  const float own = red[r] + red[kTM + r];
+  const float peer = mrd::ld_cluster_f32(peer_red + 4 * r) +
+                     mrd::ld_cluster_f32(peer_red + 4 * (kTM + r));
+  return rank == 0 ? own + peer : peer + own;
+}
+
+// Grid: (row tiles, slices of the kChunks k chunks, column groups; the
+// pair: clusters of the two groups). With one slice the block applies LN
+// (the pair: over both blocks) and writes y; otherwise it writes its f32
+// partial of ctx . Wo^T to `partial` [slices, M, H] and split_reduce
+// finishes the rows.
+template <int kH>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
+                   const __grid_constant__ CUtensorMap x_map,    // x [M, H] (tiled path)
+                   const __grid_constant__ CUtensorMap wo_map,   // Wo [H out, H in]
+                   const __grid_constant__ CUtensorMap y_map,    // y [M, H] (tiled path)
+                   const bf16* __restrict__ bo,                  // [H]
+                   const bf16* __restrict__ gamma,
+                   const bf16* __restrict__ beta,
+                   float* __restrict__ partial,                  // [slices, M, H]
+                   int M, int chunks_per_slice, float eps) {
+  using P = AttnOut<kH>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const bool split = gridDim.y > 1;
+  const int c_begin = blockIdx.y * chunks_per_slice;
+  const int row0 = blockIdx.x * kTM;
+  // the pair's rank (its column group: grid z, the cluster's z) and the
+  // block's first output column
+  const int rank = P::kPair ? static_cast<int>(mrd::cluster_ctarank()) : 0;
+  const int col0 = rank * P::kCols;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    if constexpr (P::kWide) {
+      for (int b = 0; b < P::kOwn; ++b) mbar_init(base + P::kBarAFull + 8 * b, 1);
+      for (int s = 0; s < P::kCtxStages; ++s) {
+        mbar_init(base + P::kBarCFull + 8 * s, 1);
+        mbar_init(base + P::kBarCEmpty + 8 * s, kConsumerThreads / 32);
+      }
+    } else {
+      for (int c = 0; c < P::kChunks; ++c) {
+        mbar_init(base + P::kBarAFull + 8 * c, 1);
+        mbar_init(base + P::kBarAEmpty + 8 * c, kConsumerThreads / 32);
+      }
+    }
+    for (int s = 0; s < kWG * P::kStages; ++s) {
+      mbar_init(base + P::kBarWFull + 8 * s, 1);
+      mbar_init(base + P::kBarWEmpty + 8 * s, 4);  // the consumer's warps
+    }
+    if constexpr (P::kPair)  // every consumer thread of the peer, per exchange
+      for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kConsumerThreads);
+    fence_barrier_init();
+  }
+  if constexpr (P::kPair)
+    mrd::cluster_sync();  // both blocks' barriers are initialized
+  else
+    __syncthreads();
+
+  if (threadIdx.x / 128 == kWG) {
+    // ---- the producer warpgroup: one thread issues every TMA load
+    mrd::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads)
+      produce<kH>(&ctx_map, &x_map, &wo_map, base, row0, col0, c_begin, chunks_per_slice,
+                  split);
+    if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
+  } else {
+    // ---- consumer wg: ACC[:, col0 + kHalf wg .. + kHalf] = ctx . Wo^T[:, ...]
+    mrd::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const bool signal = lane == 0;  // one arrival per warp
+    float acc[P::kTiles][P::kAcc];  // [64, kHalf] f32: n128 (n64) tiles
+    Ring ring;
+    uint32_t prev = 0;  // the slot of the group in flight
+    if constexpr (P::kWide) {
+      consume_chunk_wide<kH, true>(acc, ring, prev, base, 0, wg, signal);
+      for (int k = 1; k < chunks_per_slice; ++k)
+        consume_chunk_wide<kH, false>(acc, ring, prev, base, k, wg, signal);
+    } else {
+      consume_chunk<kH, true>(acc, ring, prev, base, c_begin, wg, signal);
+      for (int k = 1; k < chunks_per_slice; ++k)
+        consume_chunk<kH, false>(acc, ring, prev, base, c_begin + k, wg, signal);
+    }
+    mrd::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < P::kTiles; ++j) mrd::fence_operand(acc[j]);
+    if (signal) {
+      mbar_arrive(base + P::kBarWEmpty + 8 * prev);
+      if constexpr (P::kWide)
+        mbar_arrive(base + P::kBarCEmpty + 8 * ((chunks_per_slice - 1) % P::kCtxStages));
+      else
+        mbar_arrive(base + P::kBarAEmpty + 8 * (c_begin + chunks_per_slice - 1));
+    }
+
+    // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
+    // per n8 block nb of tile j the columns col0 + kHalf wg + 128 j + 8 nb +
+    // 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
+    // col + e)
+    const int wrow = 16 * (warp % 4) + lane / 4;
+    if (split) {  // the f32 partial of the valid rows
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gr = row0 + wrow + 8 * half;
+        if (gr < M) {
+          float* dst = partial + (static_cast<long long>(blockIdx.y) * M + gr) * kH;
+#pragma unroll
+          for (int j = 0; j < P::kTiles; ++j)
+#pragma unroll
+            for (int nb = 0; nb < P::kN / 8; ++nb) {
+              const int col = col0 + P::kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[j][4 * nb + 2 * half], acc[j][4 * nb + 2 * half + 1]);
+            }
+        }
+      }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
+      return;
+    }
+    {
+      constexpr int kHalf = P::kHalf, kTiles = P::kTiles;
+      constexpr int kOwnBlocks = kHalf / kKC;  // 6 / 4 column blocks of x / y per consumer
+      // 896: the consumers' 224 columns meet inside a column block
+      constexpr bool kShared = kHalf % kKC != 0;
+      // this consumer's first column block
+      const int own0 = P::kPair ? col0 / kKC + kOwnBlocks * wg : kOwnBlocks * wg;
+      // the row tile's column blocks and their full barriers, by global
+      // column block (kWide: the block holds its own columns' blocks only,
+      // from col0, and x is their first phase, not ctx)
+      uint32_t xbase = base + P::kOffA, xbar = base + P::kBarAFull;
+      if constexpr (P::kWide) {
+        xbase -= col0 / kKC * kBlockBytes;
+        xbar -= col0 / kKC * 8;
+      }
+      constexpr uint32_t kXPhase = P::kWide ? 0 : 1;
+      // x's column blocks of this consumer's columns have replaced ctx's
+      for (int b = 0; b < kOwnBlocks; ++b)
+        mbar_wait(xbar + 8 * (own0 + b), kXPhase);
+      if constexpr (kShared)  // and the block its columns end in
+        mbar_wait(xbar + 8 * (own0 + kOwnBlocks), kXPhase);
+      float* red = reinterpret_cast<float*>(smem + P::kOffRed);
+      // the pair: the peer's red and the barriers of its two exchanges
+      const uint32_t peer_red =
+          P::kPair ? mrd::map_to_rank(base + P::kOffRed, rank ^ 1) : 0;
+      const uint32_t peer_bar =
+          P::kPair ? mrd::map_to_rank(base + P::kBarStats, rank ^ 1) : 0;
+      // This thread's x / y elements in the swizzled tile: columns 8 nb + 2
+      // (lane % 4) .. + 1 of this consumer's column block (kN / 64) j + nb / 8 lie
+      // in the 16-byte group nb % 8 of their row, which the swizzle moves to
+      // group (nb % 8) ^ (row % 8). Rows wrow and wrow + 8 share row % 8, so
+      // eight bases serve every element, at constant offsets: a block is 8
+      // KB, a row 128 bytes (ptxas keeps one address per element live from
+      // the x reads to the y writes otherwise, and spills)
+      uint32_t xo[8];
+      if constexpr (kShared) {
+        // from the group of the consumer's first column, s0 of block own0
+        const int s0 = kHalf * wg % kKC / 8;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          xo[k] = xbase + (own0 + (s0 + k) / 8) * kBlockBytes + wrow * 128 +
+                  ((((s0 + k) % 8) ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          xo[k] = xbase + own0 * kBlockBytes + wrow * 128 +
+                  ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+      }
+      // + bo + x, and the row sums of this consumer's kHalf columns
+      float s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int nb = 0; nb < P::kN / 8; ++nb) {
+          const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 b2 = ld_pair(bo + col);
+          const uint32_t at = tile_at<kH>(xo, j, nb);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = lds_pair(at + half * 8 * 128);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + b2.x + x2.x;
+            a1 = a1 + b2.y + x2.y;
+            s[half] += a0 + a1;
+          }
+        }
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        mu[half] = (P::kPair ? pair_total(red, peer_red, peer_bar, base + P::kBarStats, rank,
+                                          r, half == 0)
+                             : red[r] + red[kTM + r]) *
+                   (1.0f / kH);
+        s[half] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int i = 0; i < P::kAcc; ++i) {
+          const float d = acc[j][i] - mu[(i / 2) % 2];
+          s[(i / 2) % 2] += d * d;
+        }
+      float* red_q = red + kWG * kTM;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+        if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+      }
+      named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wrow + 8 * half;
+        rstd[half] = rsqrtf((P::kPair ? pair_total(red_q, peer_red + 4 * kWG * kTM, peer_bar + 8,
+                                                   base + P::kBarStats + 8, rank, r, half == 0)
+                                      : red_q[r] + red_q[kTM + r]) *
+                                (1.0f / kH) +
+                            eps);
+      }
+      // y as bf16 over x (each thread rewrites the elements it read), then
+      // this consumer's column blocks go out by TMA
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int nb = 0; nb < P::kN / 8; ++nb) {
+          const int col = col0 + kHalf * wg + P::kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 g2 = ld_pair(gamma + col);
+          const float2 o2 = ld_pair(beta + col);
+          const uint32_t at = tile_at<kH>(xo, j, nb);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+            sts_pair(at + half * 8 * 128,
+                     __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
+                                           (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+          }
+        }
+      fence_proxy_async();  // the stores, to TMA
+      if constexpr (kShared) {
+        // both consumers have written the block they share: one thread
+        // stores the block's column blocks
+        named_bar_sync<kConsumerThreads>(2);
+        if (threadIdx.x == 0) {
+          for (int b = col0 / kKC; b < (col0 + P::kCols) / kKC; ++b)
+            mrd::tma_store_2d(&y_map, xbase + b * kBlockBytes, b * kKC, row0);
+          mrd::tma_store_commit();
+          mrd::tma_store_wait();
+        }
+      } else {
+        named_bar_sync<128>(2 + wg);
+        if (threadIdx.x % 128 == 0) {
+          for (int b = own0; b < own0 + kOwnBlocks; ++b)
+            mrd::tma_store_2d(&y_map, xbase + b * kBlockBytes, b * kKC, row0);
+          mrd::tma_store_commit();
+          mrd::tma_store_wait();
+        }
+      }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
+    }
+  }
+}
+
+template <int kH>
+cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* bo,
+                   const bf16* gamma, const bf16* beta, void* y, void* scratch, int M,
+                   int slices, float eps, cudaStream_t stream) {
+  using P = AttnOut<kH>;
+  const bool split = slices > 1;
+  CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
+  if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
+      !make_map(&wo_map, wo, kH, kH, P::kN) ||
+      (!split && (!make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_out_ln_kernel<kH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(P::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  auto* part = static_cast<float*>(scratch);
+  const dim3 grid((M + kTM - 1) / kTM, slices, P::kGroups);
+  if constexpr (P::kPair) {
+    // the two column groups of a row tile and slice as one cluster
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = P::kGroups;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = P::kSmemBytes;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, attn_out_ln_kernel<kH>, ctx_map, x_map, wo_map, y_map,
+                             bo, gamma, beta, part, M, P::kChunks / slices, eps);
+    if (err != cudaSuccess) return err;
+  } else {
+    attn_out_ln_kernel<kH><<<grid, kThreads, P::kSmemBytes, stream>>>(
+        ctx_map, x_map, wo_map, y_map, bo, gamma, beta, part, M, P::kChunks / slices, eps);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  split_reduce<kH, bf16, false><<<(M + 7) / 8, 256, 0, stream>>>(
+      part, slices, static_cast<const bf16*>(x), bo, gamma, beta, nullptr, nullptr,
+      static_cast<bf16*>(y), M, eps);
+  return cudaGetLastError();
+}
+
+template <int kH>
+int attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void* bo,
+                     const void* gamma, const void* beta, void* y, void* scratch, int M,
+                     int slices, float eps, void* stream) {
+  using P = AttnOut<kH>;
+  if (M <= 0) return static_cast<int>(cudaSuccess);
+  if (slices < 1 || P::kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
+  return static_cast<int>(launch<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M,
+                                     slices, eps, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// The C entries of K3 and the shared memory per block at a built width H
+// other than 768: `name`_h<H>, as attn_out_ln.cu's mrd_attn_out_smem_bytes
+// and mrd_attn_out_ln_bf16 with [M, H] rows, wo [H, H], `slices` a divisor
+// of the H / 64 k chunks and scratch f32 [slices, M, H].
+#define MRD_ATTN_OUT_WIDTH(kH)                                                               \
+  int mrd_attn_out_smem_bytes_h##kH() {                                                      \
+    return static_cast<int>(AttnOut<kH>::kSmemBytes);                                        \
+  }                                                                                          \
+  int mrd_attn_out_ln_bf16_h##kH(const void* ctx, const void* x, const void* wo,             \
+                                 const void* bo, const void* gamma, const void* beta,        \
+                                 void* y, void* scratch, int M, int slices, float eps,       \
+                                 void* stream) {                                             \
+    return attn_out_ln_bf16<kH>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps,     \
+                                stream);                                                     \
+  }

@@ -5,9 +5,10 @@
 //                                 torch.nn.Linear's [out, in]
 //
 // H is a template parameter, built for 768 (BERT-base), 1,024 (BERT-large),
-// 512, 256 and 128 (the compact BERTs), 384 (MiniLM), 640 and 896: H / 128
-// column tiles of the GEMM (6, 8, 4, 2, 1, 3, 5, 7) and H / 32 k-tiles
-// (24, 32, 16, 8, 4, 12, 20, 28).
+// 512, 256 and 128 (the compact BERTs), 384 (MiniLM), 640 and 896, and
+// 1,152, 1,280, 1,408 and 1,536: H / 128 column tiles of the GEMM (6, 8,
+// 4, 2, 1, 3, 5, 7, 9, 10, 11, 12) and H / 32 k-tiles (24, 32, 16, 8, 4,
+// 12, 20, 28, 36, 40, 44, 48).
 //
 // The function is the Pallas body run in f32
 // (multimodal_rare_disease_tpu/ops/pallas/attn_out.py:38-47): an
@@ -146,5 +147,9 @@ MRD_ATTN_OUT_F32_WIDTH(512)
 MRD_ATTN_OUT_F32_WIDTH(640)
 MRD_ATTN_OUT_F32_WIDTH(896)
 MRD_ATTN_OUT_F32_WIDTH(1024)
+MRD_ATTN_OUT_F32_WIDTH(1152)
+MRD_ATTN_OUT_F32_WIDTH(1280)
+MRD_ATTN_OUT_F32_WIDTH(1408)
+MRD_ATTN_OUT_F32_WIDTH(1536)
 
 }  // extern "C"

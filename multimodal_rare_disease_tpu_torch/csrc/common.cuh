@@ -1,4 +1,4 @@
-// Helpers shared by the port's row-tile kernels (ffn_ln.cuh, attn_out_ln.cu):
+// Helpers shared by the port's row-tile kernels (ffn_ln.cuh, attn_out_ln.cuh):
 // warp reductions, 16-byte cp.async copies into shared memory with group
 // commit/wait (the weight ring), and loads of the bias / LayerNorm vectors as
 // f32 or bf16.

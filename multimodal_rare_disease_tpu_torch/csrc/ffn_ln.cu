@@ -1,6 +1,7 @@
 // K1 and K2 in bf16: the C entries of ffn_ln.cuh's kernel at H = 768 and
 // at 128, 256, 512 and 1,024; the odd multiples of 128 (384, 640, 896)
-// are in ffn_ln_odd.cu.
+// are in ffn_ln_odd.cu, the widths above 1,024 in ffn_ln_wide.cu and
+// ffn_ln_wide2.cu.
 
 #include "ffn_ln.cuh"
 

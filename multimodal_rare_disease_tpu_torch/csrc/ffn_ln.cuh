@@ -1,8 +1,8 @@
 // K1 and K2: the post-LN BERT FFN sublayer, written by hand for Hopper
 // (sm_90a). One kernel template over the hidden width H (768, BERT-base,
-// 1,024, BERT-large, 512, 256 and 128, the compact BERTs, 384, MiniLM, and
-// 640 and 896; the design below is written for 768, and the other widths'
-// changes follow it) and
+// 1,024, BERT-large, 512, 256 and 128, the compact BERTs, 384, MiniLM, 640
+// and 896, and 1,152, 1,280, 1,408 and 1,536; the design below is written
+// for 768, and the other widths' changes follow it) and
 // `kInputLN`:
 //
 //   K1 (kInputLN = true):  x = bf16(LN0(z))  z: [M, H] bf16, the unnormalized
@@ -139,9 +139,35 @@
 // a warpgroup) do not divide 224 and tiles of 32 would take 14 barrier
 // waits a chunk on a ring of 4-KB slots.
 //
+// H = 1,152, 1,280, 1,408 and 1,536 (F = 4H; 1,536 is
+// microsoft/deberta-v2-xlarge's width), above BERT-large. 1,024's pair
+// does not stretch: each of its blocks keeps the whole x tile, since stage
+// 1's A operand spans all of H, and 2 * 64 * H bytes is 192 KB at 1,536,
+// which leaves no room for the rings. So each block of the pair keeps
+// only x's columns of its own output half (64 * H bytes, 96 KB at 1,536;
+// K1's LN0 still reads whole z rows for its statistics and writes the
+// block's half), and stage 1 splits k instead of the chunk's columns. Per
+// GELU chunk of 64, block r first computes the f32 partial
+// x[:, half r] . W1[half r, chunk] of the peer's 32 chunk columns and
+// stores it into the peer's partials slot over distributed shared memory
+// ([64, 32] f32, two slots: a full barrier in the receiver and an empty
+// barrier in the sender, 128 remote arrivals each), then the partial of
+// its own 32 columns, to which it adds the peer's (two terms: the same
+// bits in either order), + b1, GELU, and bf16 into both blocks' chunk
+// buffers, as at 1,024. A block's stage 1 runs as many products as at
+// 1,024 (64 x 64 x H / 2 per chunk against 64 x 32 x H). Stage 2, LN2's
+// exchange, the epilogue (its residual needs only the block's own columns
+// of x, which is what the block holds) and the split-F path are 1,024's.
+// The stage-2 warpgroups own 288, 320, 352 and 384 columns, as W2 tiles of
+// 96, 64, 88 and 128 (wgmma m64n96k16, m64n64k16, m64n88k16, m64n128k16),
+// and 1,152 and 1,408 read rows in 8-byte groups (9 and 11 a lane). Shared
+// memory at 1,536: x 96 KB, GELU chunks 16, W1 ring 16, partials 16, W2
+// ring 64: 208 KB.
+//
 // This header holds the kernel and the macro of its C entries; ffn_ln.cu
-// instantiates it at 768, 1,024, 512, 256 and 128, and ffn_ln_odd.cu at
-// 384, 640 and 896: two sources, which build.py's nvccs compile in
+// instantiates it at 768, 1,024, 512, 256 and 128, ffn_ln_odd.cu at 384,
+// 640 and 896, ffn_ln_wide.cu at 1,152 and 1,280 and ffn_ln_wide2.cu at
+// 1,408 and 1,536: four sources, which build.py's nvccs compile in
 // parallel.
 
 #pragma once
@@ -195,37 +221,51 @@ constexpr uint32_t kW1BoxBytes = kS1N * 128; // a [32][64] bf16 box, 4 KB
 
 // The shape of the kernel at hidden width kH: 768 as the header sets out,
 // 1,024 and 896 in two column groups of 512 and 448 (one block each), 512,
-// 384, 256 and 128 as 768 with narrower stage-2 slices.
+// 384, 256 and 128 as 768 with narrower stage-2 slices, and the widths
+// above 1,024 as 1,024's pair with x split by output halves (kWide).
 template <int kH>
 struct Ffn {
   static_assert(kH == 128 || kH == 256 || kH == 384 || kH == 512 || kH == 640 ||
-                    kH == 768 || kH == 896 || kH == 1024,
+                    kH == 768 || kH == 896 || kH == 1024 || kH == 1152 || kH == 1280 ||
+                    kH == 1408 || kH == 1536,
                 "a width the kernel is built for");
   static constexpr int kGroups = kH >= 896 ? 2 : 1;    // blocks per row tile
   static constexpr bool kPair = kGroups == 2;          // a cluster sharing h
+  static constexpr bool kWide = kH > 1024;             // a pair that splits x and k
   static constexpr int kCols = kH / kGroups;           // output columns per block
   static constexpr int kHalf = kCols / kS2;            // 384 / 256 per stage-2 WG
   static constexpr int kW1K = kPair ? 64 : 128;        // k (= H) columns of a W1 tile
   static constexpr int kW1Boxes = kW1K / 64;           // TMA boxes per W1 tile
-  static constexpr int kW1PerHalf = kH / kW1K;         // 6 / 16
-  // W1 tiles a block loads per chunk: both halves, or its own half
-  static constexpr int kW1PerChunk = kPair ? kW1PerHalf : 2 * kW1PerHalf;  // 12 / 16
-  // h rows of a W2 tile (wgmma N): 64 at the odd multiples of 128 below
-  // 896, 112 at 896
-  static constexpr int kW2N = kH == 896 ? 112 : kH % 256 != 0 ? 64 : 128;
+  // the columns of x (stage 1's k) a block holds: all of H, or its own half
+  static constexpr int kXCols = kWide ? kCols : kH;
+  static constexpr int kW1PerHalf = kXCols / kW1K;     // 6 / 16 / 9-12
+  // W1 tiles a block loads per chunk: both halves, or its own half, or
+  // (kWide) both halves over its k
+  static constexpr int kW1PerChunk = kPair && !kWide ? kW1PerHalf : 2 * kW1PerHalf;
+  // h rows of a W2 tile (wgmma N): 64 where a warpgroup's columns are an
+  // odd multiple of 64, 112 at 896, 96 at 1,152, 88 at 1,408
+  static constexpr int kW2N = kH == 896    ? 112
+                              : kH == 1152 ? 96
+                              : kH == 1408 ? 88
+                                           : (kHalf % 128 != 0 ? 64 : 128);
   static constexpr int kAcc = kW2N / 2;                // accumulator floats per W2 tile
   static constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB (8 KB at 128)
   static constexpr int kW2PerChunk = kCols / kW2N;     // 6 / 4
   static constexpr int kW1Stages = kPair ? 4 : 6;
   static constexpr uint32_t kW1Bytes = kW1Boxes * kW1BoxBytes;  // 8 / 4 KB
+  // kWide: the stage-1 partials the pair exchanges, a slot per GELU chunk
+  // buffer of [64 rows, 32 columns] f32 in fragment order
+  static constexpr uint32_t kPBytes = kTM * kS1N * 4;  // 8 KB
 
-  // shared memory, from a 1024-byte aligned base: the x tile as kH / 64
-  // column blocks of [64 rows][64 bf16], the GELU chunks, the two weight
-  // rings, the barriers and (fused LN2 only) the LN2 exchange
+  // shared memory, from a 1024-byte aligned base: the x tile as kXCols /
+  // 64 column blocks of [64 rows][64 bf16], the GELU chunks, the W1 ring,
+  // (kWide) the partials, the W2 ring, the barriers and (fused LN2 only)
+  // the LN2 exchange
   static constexpr uint32_t kOffX = 0;
-  static constexpr uint32_t kOffH = kOffX + (kH / 64) * kBlockBytes;
+  static constexpr uint32_t kOffH = kOffX + (kXCols / 64) * kBlockBytes;
   static constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
-  static constexpr uint32_t kOffW2 = kOffW1 + kW1Stages * kW1Bytes;
+  static constexpr uint32_t kOffP = kOffW1 + kW1Stages * kW1Bytes;
+  static constexpr uint32_t kOffW2 = kOffP + (kWide ? kHStages * kPBytes : 0);
   // the rings' full barriers (TMA bytes) and the GELU chunks' full and
   // empty barriers, 8 bytes each
   static constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
@@ -236,7 +276,11 @@ struct Ffn {
   // squares; the values go into the W1 ring, idle by then (kOffW1: float
   // [2: sums, squares][2 ranks][2 WGs][64 rows])
   static constexpr uint32_t kBarStats = kBarHEmpty + 8 * kHStages;
-  static constexpr uint32_t kOffRed = kBarStats + (kPair ? 16 : 0);  // float [2][2][64]
+  // kWide: the partials slots' full (the peer's stores, in the receiver)
+  // and empty (the peer's reads, in the sender) barriers
+  static constexpr uint32_t kBarPFull = kBarStats + (kPair ? 16 : 0);
+  static constexpr uint32_t kBarPEmpty = kBarPFull + 8 * kHStages;
+  static constexpr uint32_t kOffRed = kBarPFull + (kWide ? 16 * kHStages : 0);  // float [2][2][64]
   static constexpr uint32_t kSmemBytes = kOffRed + (kPair ? 0 : 2 * kS2 * kTM * 4) + 1024;
   // arrivals on a GELU chunk's full barrier (every stage-1 thread that
   // writes it) and empty barrier (every stage-2 warpgroup that reads it)
@@ -264,16 +308,19 @@ __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int 
 }
 
 // Issue W1 tile g of the slice (chunk c_begin + g / kW1PerChunk, half
-// (g / kW1PerHalf) % 2, or the pair's `rank`, k-slice t = g % kW1PerHalf:
-// W1^T[f .. f + 32, kW1K t .. + kW1K]) into its ring slot, one [32][64] box
-// per 64 of k.
+// (g / kW1PerHalf) % 2, or the pair's `rank`, or (kWide) the peer's half
+// and then `rank`'s, k-slice t = g % kW1PerHalf: W1^T[f .. f + 32,
+// kW1K t .. + kW1K], kWide from the block's first column) into its ring
+// slot, one [32][64] box per 64 of k.
 template <int kH>
 __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, int c_begin,
                                         int rank, int g) {
   using P = Ffn<kH>;
   const int t = g % P::kW1PerHalf;
   int f;
-  if constexpr (P::kPair)  // the block's own half of the chunk, one box a tile
+  if constexpr (P::kWide)  // the peer's half, then the block's own, one box a tile
+    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * (rank ^ ((g / P::kW1PerHalf) % 2) ^ 1);
+  else if constexpr (P::kPair)  // the block's own half of the chunk, one box a tile
     f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * rank;
   else
     f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * ((g / P::kW1PerHalf) % 2);
@@ -281,7 +328,10 @@ __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, i
   const uint32_t bar = base + P::kBarW1Full + 8 * slot;
   const uint32_t dst = base + P::kOffW1 + slot * P::kW1Bytes;
   mbar_arrive_expect_tx(bar, P::kW1Bytes);
-  tma_load_2d(dst, map, bar, t * P::kW1K, f);
+  if constexpr (P::kWide)  // k over the block's own columns of x
+    tma_load_2d(dst, map, bar, rank * P::kCols + t * P::kW1K, f);
+  else
+    tma_load_2d(dst, map, bar, t * P::kW1K, f);
   if constexpr (!P::kPair) tma_load_2d(dst + P::kW1Bytes / 2, map, bar, t * P::kW1K + 64, f);
 }
 
@@ -353,6 +403,16 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
           mrd::wgmma_m64n112k16_first(acc[j], da, db);
         else
           mrd::wgmma_m64n112k16(acc[j], da, db, 1);
+      } else if constexpr (P::kW2N == 96) {  // H = 1,152: n96 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n96k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n96k16(acc[j], da, db, 1);
+      } else if constexpr (P::kW2N == 88) {  // H = 1,408: n88 tiles
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n88k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n88k16(acc[j], da, db, 1);
       } else if (kFirst && kk == 0) {
         mrd::wgmma_m64n128k16_first(acc[j], da, db);
       } else {
@@ -378,6 +438,109 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
     if constexpr (P::kPair)
       mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHEmpty + 8 * hs, rank ^ 1));
   }
+}
+
+// Stage 1 of the kWide pair, block `rank`: per chunk of the slice, the f32
+// partial over the block's own k (its columns of x) of the peer's 32 chunk
+// columns, stored into the peer's partials slot, then of its own 32, to
+// which it adds the peer's partial of them once it has arrived; + b1,
+// exact-erf GELU, bf16 into both blocks' chunk buffers once both blocks'
+// stage 2 has released the slot. The partials go in fragment order
+// (element i of thread t at 128 i + t), which is the same in both blocks,
+// and are read one at a time inside the GELU loop, through 32-bit shared
+// addresses: this warpgroup has 56 registers, 16 of them the partial.
+template <int kH, typename V>
+__device__ __forceinline__ void s1_wide(const CUtensorMap* w1_map, const V* __restrict__ b1,
+                                        uint32_t base, int c_begin, int c_end, int n_w1,
+                                        int rank, int warp, int lane, bool leader) {
+  using P = Ffn<kH>;
+  const int tid = threadIdx.x % 128;
+  const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
+  Ring w1;
+  int g = 0;  // W1 tiles consumed
+  for (int c = c_begin; c < c_end; ++c) {
+    const int k = c - c_begin;
+    const int hs = k % kHStages;  // the chunk buffer and the partials slot
+    const uint32_t round = (k / kHStages) & 1;
+    const uint32_t peer_part = mrd::map_to_rank(base + P::kOffP + hs * P::kPBytes, rank ^ 1);
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {  // the peer's columns, then this block's
+      // P[64, 32] = x[:, own columns] . W1[own rows, 32 columns], one wgmma
+      // group in flight while the next tile's wait and issue proceed
+      float p[16];
+#pragma unroll
+      for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
+        mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
+        const uint32_t a0 = opaque(base) + P::kOffX + t * kBlockBytes;
+        const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
+        if (t > 0) mrd::fence_operand(p);
+        mrd::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < P::kW1K / 16; ++kk) {
+          const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+          if (t == 0 && kk == 0)
+            mrd::wgmma_m64n32k16_first(p, da, db);
+          else
+            mrd::wgmma_m64n32k16(p, da, db, 1);
+        }
+        mrd::wgmma_commit();
+        mrd::fence_operand(p);
+        if (t > 0) {
+          mrd::wgmma_wait<1>();
+          if (leader && g - 1 + P::kW1Stages < n_w1)
+            load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+        }
+        w1.next<P::kW1Stages>();
+      }
+      mrd::wgmma_wait<0>();
+      mrd::fence_operand(p);
+      if (leader && g - 1 + P::kW1Stages < n_w1)
+        load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+      if (pass == 0) {
+        // into the peer's slot, once the peer has read its previous round
+        mrd::mbar_wait_cluster(base + P::kBarPEmpty + 8 * hs, round ^ 1);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          mrd::st_cluster_b32(peer_part + 4 * (128 * i + tid), __float_as_uint(p[i]));
+        mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarPFull + 8 * hs, rank ^ 1));
+        continue;
+      }
+      // + the peer's partial of these columns (two terms: the same bits in
+      // either order) + b1, exact-erf GELU in f32, bf16 into both blocks'
+      // chunk buffers once both blocks' stage 2 has released the slot;
+      // then the partials slot goes back
+      mrd::mbar_wait_cluster(base + P::kBarPFull + 8 * hs, round);
+      mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, round ^ 1);
+      const uint32_t part = base + P::kOffP + hs * P::kPBytes + 4 * tid;
+      const uint32_t hbuf = base + P::kOffH + hs * kBlockBytes;
+      const uint32_t peer_h = mrd::map_to_rank(hbuf, rank ^ 1);
+#pragma unroll
+      for (int nb = 0; nb < kS1N / 8; ++nb) {
+        const int col = kS1N * rank + 8 * nb + 2 * (lane % 4);
+        const float bb0 = ld_f32(b1 + c * kFC + col);
+        const float bb1 = ld_f32(b1 + c * kFC + col + 1);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = wrow + 8 * hr;
+          const int i = 4 * nb + 2 * hr;
+          const float v0 = p[i] + mrd::ld_shared_f32(part + 4 * 128 * i) + bb0;
+          const float v1 = p[i + 1] + mrd::ld_shared_f32(part + 4 * 128 * (i + 1)) + bb1;
+          const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
+          const __nv_bfloat162 hv =
+              __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                    0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+          mrd::sts_pair(hbuf + at, hv);
+          mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
+        }
+      }
+      mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarPEmpty + 8 * hs, rank ^ 1));
+    }
+    // the stores to both blocks, to both blocks' stage-2 wgmma
+    mrd::fence_proxy_async_cluster();
+    mbar_arrive(base + P::kBarHFull + 8 * hs);
+    mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
+  }
+  mrd::cluster_sync();  // the peer is done with this block
 }
 
 // V: the type of the bias and LayerNorm vectors (float or bf16; bf16 only
@@ -427,6 +590,11 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     }
     if constexpr (P::kPair)  // every stage-2 thread of the peer, per exchange
       for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kS2Threads);
+    if constexpr (P::kWide)  // every stage-1 thread of the peer, per round of a slot
+      for (int s = 0; s < kHStages; ++s) {
+        mbar_init(base + P::kBarPFull + 8 * s, 128);
+        mbar_init(base + P::kBarPEmpty + 8 * s, 128);
+      }
     fence_barrier_init();
     // fill both rings; from here on, consumers refill the slots they free
     for (int g = 0; g < P::kW1Stages && g < n_w1; ++g)
@@ -436,7 +604,29 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   }
   // prologue, all 12 warps: the bf16 x tile, one warp per row
   for (int r = warp; r < kTM; r += kThreads / 32) {
-    if constexpr (kH % 256 != 0) {  // 8-byte groups: columns 4 (lane + 32 j) ..
+    if constexpr (P::kWide) {
+      // the whole row (LN0's statistics), this block's columns into the tile
+      if constexpr (kH % 256 != 0) {
+        uint2 g[kRowGroups8<kH>];
+        load_x_row_narrow<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+#pragma unroll
+        for (int j = 0; j < kRowGroups8<kH>; ++j) {
+          const int q = lane + 32 * j - col0 / 4;  // the 8-byte group in the block's columns
+          if (q >= 0 && q < P::kCols / 4)
+            *reinterpret_cast<uint2*>(smem + P::kOffX + sw128_offset(r, q / 2, kBlockBytes) +
+                                      8 * (q % 2)) = g[j];
+        }
+      } else {
+        uint4 g[kRowGroupsPerLane<kH>];
+        load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+#pragma unroll
+        for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
+          const int q = lane + 32 * j - col0 / 8;  // the 16-byte group in the block's columns
+          if (q >= 0 && q < P::kCols / 8)
+            *reinterpret_cast<uint4*>(smem + P::kOffX + sw128_offset(r, q, kBlockBytes)) = g[j];
+        }
+      }
+    } else if constexpr (kH % 256 != 0) {  // 8-byte groups: columns 4 (lane + 32 j) ..
       uint2 g[kRowGroups8<kH>];
       load_x_row_narrow<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
@@ -466,93 +656,97 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     // ---- stage 1: the GELU chunk h = bf16(GELU(x . W1[:, chunk] + b1)),
     // in two passes of 32 columns
     mrd::setmaxnreg_dec<kS1Regs>();
-    Ring w1;
-    int g = 0;  // W1 tiles consumed
-    for (int c = c_begin; c < c_end; ++c) {
-      const int k = c - c_begin;
-      const int hs = k % kHStages;
-      unsigned char* hbuf = smem + P::kOffH + hs * kBlockBytes;
-      // the pair: the peer's copy of the chunk buffer
-      const uint32_t peer_h =
-          P::kPair ? mrd::map_to_rank(base + P::kOffH + hs * kBlockBytes, rank ^ 1) : 0;
-      // the pair runs its own half only
+    if constexpr (P::kWide) {
+      s1_wide<kH, V>(&w1_map, b1, base, c_begin, c_end, n_w1, rank, warp, lane, leader);
+    } else {
+      Ring w1;
+      int g = 0;  // W1 tiles consumed
+      for (int c = c_begin; c < c_end; ++c) {
+        const int k = c - c_begin;
+        const int hs = k % kHStages;
+        unsigned char* hbuf = smem + P::kOffH + hs * kBlockBytes;
+        // the pair: the peer's copy of the chunk buffer
+        const uint32_t peer_h =
+            P::kPair ? mrd::map_to_rank(base + P::kOffH + hs * kBlockBytes, rank ^ 1) : 0;
+        // the pair runs its own half only
 #pragma unroll 1
-      for (int half = P::kPair ? rank : 0; half < (P::kPair ? rank + 1 : 2); ++half) {
-        // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
-        // flight while the next tile's wait and issue proceed
-        float p[16];
+        for (int half = P::kPair ? rank : 0; half < (P::kPair ? rank + 1 : 2); ++half) {
+          // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
+          // flight while the next tile's wait and issue proceed
+          float p[16];
 #pragma unroll
-        for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
-          mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
-          const uint32_t a0 = opaque(base) + P::kOffX + P::kW1Boxes * t * kBlockBytes;
-          const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
-          if (t > 0) mrd::fence_operand(p);
-          mrd::wgmma_fence();
+          for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
+            mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
+            const uint32_t a0 = opaque(base) + P::kOffX + P::kW1Boxes * t * kBlockBytes;
+            const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
+            if (t > 0) mrd::fence_operand(p);
+            mrd::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < P::kW1K / 16; ++kk) {
-            const uint64_t da = sw128_desc(a0 + (kk / 4) * kBlockBytes + (kk % 4) * 32);
-            const uint64_t db = sw128_desc(b0 + (kk / 4) * kW1BoxBytes + (kk % 4) * 32);
-            if (t == 0 && kk == 0)
-              mrd::wgmma_m64n32k16_first(p, da, db);
-            else
-              mrd::wgmma_m64n32k16(p, da, db, 1);
+            for (int kk = 0; kk < P::kW1K / 16; ++kk) {
+              const uint64_t da = sw128_desc(a0 + (kk / 4) * kBlockBytes + (kk % 4) * 32);
+              const uint64_t db = sw128_desc(b0 + (kk / 4) * kW1BoxBytes + (kk % 4) * 32);
+              if (t == 0 && kk == 0)
+                mrd::wgmma_m64n32k16_first(p, da, db);
+              else
+                mrd::wgmma_m64n32k16(p, da, db, 1);
+            }
+            mrd::wgmma_commit();
+            mrd::fence_operand(p);
+            if (t > 0) {
+              mrd::wgmma_wait<1>();
+              if (leader && g - 1 + P::kW1Stages < n_w1)
+                load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+            }
+            w1.next<P::kW1Stages>();
           }
-          mrd::wgmma_commit();
+          mrd::wgmma_wait<0>();
           mrd::fence_operand(p);
-          if (t > 0) {
-            mrd::wgmma_wait<1>();
-            if (leader && g - 1 + P::kW1Stages < n_w1)
-              load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
-          }
-          w1.next<P::kW1Stages>();
-        }
-        mrd::wgmma_wait<0>();
-        mrd::fence_operand(p);
-        if (leader && g - 1 + P::kW1Stages < n_w1)
-          load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
-        // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
-        // stage 2 (the pair: of both blocks) has released it
-        if constexpr (P::kPair)
-          mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
-        else if (half == 0)
-          mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+          if (leader && g - 1 + P::kW1Stages < n_w1)
+            load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+          // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
+          // stage 2 (the pair: of both blocks) has released it
+          if constexpr (P::kPair)
+            mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+          else if (half == 0)
+            mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
 #pragma unroll
-        for (int nb = 0; nb < kS1N / 8; ++nb) {
-          const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
-          const float bb0 = ld_f32(b1 + c * kFC + col);
-          const float bb1 = ld_f32(b1 + c * kFC + col + 1);
+          for (int nb = 0; nb < kS1N / 8; ++nb) {
+            const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
+            const float bb0 = ld_f32(b1 + c * kFC + col);
+            const float bb1 = ld_f32(b1 + c * kFC + col + 1);
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int r = wrow + 8 * hr;
-            const float v0 = p[4 * nb + 2 * hr] + bb0;
-            const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
-            if constexpr (P::kPair) {  // into both blocks' chunk buffers
-              const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
-              const __nv_bfloat162 hv =
-                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
-              *reinterpret_cast<__nv_bfloat162*>(hbuf + at) = hv;
-              mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
-            } else {
-              *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
-                                                 (col & 7) * 2) =
-                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+            for (int hr = 0; hr < 2; ++hr) {
+              const int r = wrow + 8 * hr;
+              const float v0 = p[4 * nb + 2 * hr] + bb0;
+              const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
+              if constexpr (P::kPair) {  // into both blocks' chunk buffers
+                const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
+                const __nv_bfloat162 hv =
+                    __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                          0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+                *reinterpret_cast<__nv_bfloat162*>(hbuf + at) = hv;
+                mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
+                                                   (col & 7) * 2) =
+                    __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                          0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
+              }
             }
           }
         }
+        if constexpr (P::kPair) {
+          // the stores to both blocks, to both blocks' stage-2 wgmma
+          mrd::fence_proxy_async_cluster();
+          mbar_arrive(base + P::kBarHFull + 8 * hs);
+          mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
+        } else {
+          fence_proxy_async();  // the stores, to stage 2's wgmma
+          mbar_arrive(base + P::kBarHFull + 8 * hs);
+        }
       }
-      if constexpr (P::kPair) {
-        // the stores to both blocks, to both blocks' stage-2 wgmma
-        mrd::fence_proxy_async_cluster();
-        mbar_arrive(base + P::kBarHFull + 8 * hs);
-        mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
-      } else {
-        fence_proxy_async();  // the stores, to stage 2's wgmma
-        mbar_arrive(base + P::kBarHFull + 8 * hs);
-      }
+      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
     }
-    if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
   } else {
     // ---- stage 2, warpgroup wg: ACC[:, col0 + kHalf wg .. + kHalf] +=
     // h . W2[chunk, ...]
@@ -569,6 +763,9 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     // 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
     // col + e)
     const unsigned char* xt = smem + P::kOffX;
+    // kWide: the tile holds x's columns col0 .. + kCols, at whose blocks
+    // pair_at then lands for the global column
+    if constexpr (P::kWide) xt -= col0 / 64 * kBlockBytes;
     float* red = reinterpret_cast<float*>(smem + P::kOffRed);
     if (gridDim.y > 1) {  // split-F: the f32 partial of the valid rows
 #pragma unroll

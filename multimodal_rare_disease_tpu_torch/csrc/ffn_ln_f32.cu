@@ -1,7 +1,8 @@
 // K1 and K2 in f32: the post-LN BERT FFN sublayer of a model whose compute
 // dtype is float32, written by hand for Hopper (sm_90a). One template over
 // the hidden width H (built for 768, BERT-base, 1,024, BERT-large, 512,
-// 256 and 128, the compact BERTs, 384, MiniLM, and 640 and 896) and
+// 256 and 128, the compact BERTs, 384, MiniLM, 640 and 896, and 1,152,
+// 1,280, 1,408 and 1,536) and
 // `kInputLN`:
 //
 //   K1 (kInputLN = true):  x = LN0(z)   z: [M, H] f32, the unnormalized
@@ -57,7 +58,9 @@
 // 512, 256 and 128 are the same launches with 4, 2 and 1 column tiles of
 // h . W2 and 16, 8 and 4 k-tiles in x . W1 (one window of the register
 // total or less); 384, 640 and 896 with 3, 5 and 7 column tiles and 12,
-// 20 and 28 k-tiles.
+// 20 and 28 k-tiles; 1,152, 1,280, 1,408 and 1,536 with 9, 10, 11 and 12
+// column tiles and 36, 40, 44 and 48 k-tiles (at 1,536, F = 6,144 and M =
+// 16,384 the scratch is 1.26 GB per call).
 
 #include <cuda.h>
 
@@ -250,5 +253,9 @@ MRD_FFN_F32_WIDTH(512)
 MRD_FFN_F32_WIDTH(640)
 MRD_FFN_F32_WIDTH(896)
 MRD_FFN_F32_WIDTH(1024)
+MRD_FFN_F32_WIDTH(1152)
+MRD_FFN_F32_WIDTH(1280)
+MRD_FFN_F32_WIDTH(1408)
+MRD_FFN_F32_WIDTH(1536)
 
 }  // extern "C"

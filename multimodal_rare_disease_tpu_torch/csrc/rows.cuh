@@ -1,7 +1,8 @@
-// Pieces shared by the port's bf16 row kernels (ffn_ln.cuh, attn_out_ln.cu),
+// Pieces shared by the port's bf16 row kernels (ffn_ln.cuh, attn_out_ln.cuh),
 // templates over the hidden width kH (768 for BERT-base, 1,024 for
-// BERT-large, 512 / 256 / 128 for the compact BERTs, 384 for MiniLM, and
-// 640 and 896): the residual row as kH / 256 16-byte groups per lane, or,
+// BERT-large, 512 / 256 / 128 for the compact BERTs, 384 for MiniLM, 640
+// and 896, and 1,152 to 1,536): the residual row as kH / 256 16-byte
+// groups per lane, or,
 // where kH is an odd multiple of 128, kH / 128 8-byte groups per lane
 // (with LN0 for K1), the second pass of the split paths
 // (y = LN(sum of f32 partials + b + x), the partials summed in slice order,
@@ -18,8 +19,9 @@
 
 namespace {
 
-// 16-byte groups per lane of a kH-wide bf16 row: 3 at 768, 4 at 1,024 (a
-// multiple of 256; the odd multiples of 128 take the narrow forms below)
+// 16-byte groups per lane of a kH-wide bf16 row: 3 at 768, 4 at 1,024, 6
+// at 1,536 (a multiple of 256; the odd multiples of 128 take the narrow
+// forms below)
 template <int kH>
 constexpr int kRowGroupsPerLane = kH / 8 / 32;
 
@@ -79,8 +81,8 @@ __device__ __forceinline__ void load_x_row(const mrd::bf16* __restrict__ z, long
 }
 
 // The narrow form of load_x_row for a row of an odd number of 128-column
-// blocks (128, 384, 640, 896), which has an odd number of half 16-byte
-// groups per lane: kRowGroups8<kH> 8-byte groups per lane (columns
+// blocks (128, 384, 640, 896, 1,152, 1,408), which has an odd number of
+// half 16-byte groups per lane: kRowGroups8<kH> 8-byte groups per lane (columns
 // 4 (lane + 32 j) .. + 4), LN0 of z in f32 rounded to bf16 (K1) or z
 // itself; zeros past M. The same arithmetic as load_x_row, so the main
 // kernel and the split reduction see the same bits.
@@ -140,8 +142,8 @@ __device__ __forceinline__ void load_x_row_narrow(const mrd::bf16* __restrict__ 
 }
 
 // split_reduce's row at H = 256 and at the odd multiples of 128 (128, 384,
-// 640, 896): the lane's kH / 32 values, in runs of 8 columns 8 (lane +
-// 32 j) .. + 8 (at the odd multiples runs of 4, 4 (lane + 32 j) .. + 4);
+// 640, 896, 1,152, 1,408): the lane's kH / 32 values, in runs of 8 columns
+// 8 (lane + 32 j) .. + 8 (at the odd multiples runs of 4, 4 (lane + 32 j) .. + 4);
 // the partials summed in slice order first and x read after them, then
 // the arithmetic of the 768 form.
 template <int kH, typename V, bool kInputLN>

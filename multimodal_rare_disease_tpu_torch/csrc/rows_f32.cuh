@@ -2,7 +2,8 @@
 // and reduce passes of ffn_ln_f32.cu and the reduce pass of
 // attn_out_ln_f32.cu (gemm_tf32x3.cuh) read it. A template over the hidden
 // width kH (768 for BERT-base, 1,024 for BERT-large, 512, 256 and 128 for
-// the compact BERTs, 384 for MiniLM, 640 and 896; any multiple of 128).
+// the compact BERTs, 384 for MiniLM, 640 and 896, and 1,152 to 1,536; any
+// multiple of 128).
 // Everything is in f32 (LN0 two-pass) and in an anonymous namespace: each
 // source that includes it gets its own copy.
 

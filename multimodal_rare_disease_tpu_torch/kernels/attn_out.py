@@ -18,18 +18,22 @@ rounds the projection and the residual sum to the compute dtype first).
 
 Both sources are templates over the hidden width, built for
 `ffn.KERNEL_WIDTHS` (768, BERT-base; 1,024, BERT-large; 512, 256 and 128,
-the compact BERTs; 384, MiniLM; 640 and 896), each width with C entries
-and launch counters of its own (`LAUNCHES` at 768, `LAUNCHES_<width>`
-otherwise).
+the compact BERTs; 384, MiniLM; 640 and 896; 1,152, 1,280, 1,408 and
+1,536), each width with C entries and launch counters of its own
+(`LAUNCHES` at 768, `LAUNCHES_<width>` otherwise); the bf16 kernel is
+`csrc/attn_out_ln.cuh`, instantiated by `csrc/attn_out_ln.cu` and
+`csrc/attn_out_ln_wide.cu`.
 
 When the output tiles would fill fewer blocks than the card has SMs (a
 single request's 64 rows), the bf16 kernel splits the H / 64 k chunks of
 the product into slices, each block writes an f32 partial of ctx @ wo for
 its slice, and a second kernel (the FFN kernel's split reduction) sums
-the partials in slice order before bo, the residual and LN. At H = 1,024
-and 896 a row tile's columns are cut into two groups of 512 or 448, one
-block each, run as a cluster that shares ctx (TMA multicast) and the
-LayerNorm's row statistics (distributed shared memory). The f32 GEMM always writes f32
+the partials in slice order before bo, the residual and LN. From H = 896
+up a row tile's columns are cut into two groups of H / 2, one block
+each, run as a cluster that shares the LayerNorm's row statistics
+(distributed shared memory) and, at 896 and 1,024, ctx (TMA multicast);
+above 1,024 each block streams ctx through a ring and keeps only its own
+columns of x and y. The f32 GEMM always writes f32
 partials (one slice at the packed batch) and splits its H / 32 k-tiles
 the same way below 132 output tiles.
 `attn_out_plan` and `attn_out_plan_f32` choose the slices by
@@ -89,6 +93,14 @@ LAUNCHES_640 = 0
 LAUNCHES_F32_640 = 0
 LAUNCHES_896 = 0
 LAUNCHES_F32_896 = 0
+LAUNCHES_1152 = 0
+LAUNCHES_F32_1152 = 0
+LAUNCHES_1280 = 0
+LAUNCHES_F32_1280 = 0
+LAUNCHES_1408 = 0
+LAUNCHES_F32_1408 = 0
+LAUNCHES_1536 = 0
+LAUNCHES_F32_1536 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
@@ -101,7 +113,8 @@ def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
     """The launch of the kernel for m rows at a built hidden width on a
     card with n_sm SMs: `split_plan` over the hidden / 64 k chunks of the
     product (12 at 768, 16 at 1,024, 8 / 4 / 2 at 512 / 256 / 128, 6 /
-    10 / 14 at 384 / 640 / 896)."""
+    10 / 14 at 384 / 640 / 896, 18 / 20 / 22 / 24 at 1,152 / 1,280 /
+    1,408 / 1,536)."""
     return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 
@@ -122,7 +135,7 @@ def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
     128 in f32) and mask the ragged tile, so any m >= 1 works (the TPU's
     m >= 32, m % 16 == 0 came from its (8, 128) tiling), and they are
     compiled for the widths of `ffn.KERNEL_WIDTHS` (every multiple of 128
-    up to 1,024), in bf16 and in f32."""
+    up to 1,536), in bf16 and in f32."""
     return (m >= 1 and hidden in KERNEL_WIDTHS
             and dtype in (torch.bfloat16, torch.float32))
 

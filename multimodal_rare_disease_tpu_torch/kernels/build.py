@@ -39,7 +39,8 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 REQUIRED_CAPABILITY = (9, 0)
 # the hidden widths the row kernels (K1-K3, bf16 and f32) are instantiated
 # for: csrc's MRD_*_WIDTH entries and 768; kernels/ffn.py::KERNEL_WIDTHS
-ROW_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024)
+ROW_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024, 1152, 1280, 1408,
+              1536)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None

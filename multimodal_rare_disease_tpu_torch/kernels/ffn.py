@@ -8,18 +8,23 @@ Counterpart of `multimodal_rare_disease_tpu/ops/pallas/ffn.py`, whose
 Pallas kernels run in the model's compute dtype. Two CUDA sources
 replace its `_ffn_pre_ln_kernel` (K1) and `_ffn_ln_kernel` (K2):
 `csrc/ffn_ln.cuh` for bf16 (one fused kernel, wgmma fed by TMA, 64 rows
-per block; instantiated by `csrc/ffn_ln.cu` and `csrc/ffn_ln_odd.cu`) and `csrc/ffn_ln_f32.cu` for f32 (a sequence of launches:
+per block; instantiated by `csrc/ffn_ln.cu`, `csrc/ffn_ln_odd.cu`,
+`csrc/ffn_ln_wide.cu` and `csrc/ffn_ln_wide2.cu`) and `csrc/ffn_ln_f32.cu`
+for f32 (a sequence of launches:
 the operands split into TF32 planes, the two products as 3xTF32 wgmma
 GEMMs fed by TMA, with h through device memory, and a LayerNorm pass);
 `ffn_ln_plain` is the same math in PyTorch. Both sources are templates
 over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base), 1,024
 (BERT-large), 512, 256 and 128 (google-research/bert's BERT-Medium,
--Mini and -Tiny), 384 (microsoft/MiniLM-L12-H384), and 640 and 896,
-each width with C entries of its own. At 1,024 and 896 a row tile's
-output columns are cut into two groups of 512 or 448, one bf16 block
-each (`KERNEL_GROUPS`), run as a cluster of two that shares the GELU
-chunk and LN2's row statistics over distributed shared memory; every
-other width is one block per row tile.
+-Mini and -Tiny), 384 (microsoft/MiniLM-L12-H384), 640 and 896, and
+1,152, 1,280, 1,408 and 1,536 (microsoft/deberta-v2-xlarge's width),
+each width with C entries of its own. From 896 up a row tile's output
+columns are cut into two groups of H / 2, one bf16 block each
+(`KERNEL_GROUPS`), run as a cluster of two that shares the GELU chunk and
+LN2's row statistics over distributed shared memory; above 1,024 each
+block also keeps only its half of x and the pair exchanges the f32
+partials of x @ w1 over its halves. Every other width is one block per
+row tile.
 
 When the output tiles would fill fewer blocks than the card has SMs,
 the bf16 kernel splits F into slices and the f32 one the k loop of
@@ -90,6 +95,22 @@ LAUNCHES_K1_896 = 0
 LAUNCHES_K2_896 = 0
 LAUNCHES_K1_F32_896 = 0
 LAUNCHES_K2_F32_896 = 0
+LAUNCHES_K1_1152 = 0
+LAUNCHES_K2_1152 = 0
+LAUNCHES_K1_F32_1152 = 0
+LAUNCHES_K2_F32_1152 = 0
+LAUNCHES_K1_1280 = 0
+LAUNCHES_K2_1280 = 0
+LAUNCHES_K1_F32_1280 = 0
+LAUNCHES_K2_F32_1280 = 0
+LAUNCHES_K1_1408 = 0
+LAUNCHES_K2_1408 = 0
+LAUNCHES_K1_F32_1408 = 0
+LAUNCHES_K2_F32_1408 = 0
+LAUNCHES_K1_1536 = 0
+LAUNCHES_K2_1536 = 0
+LAUNCHES_K1_F32_1536 = 0
+LAUNCHES_K2_F32_1536 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
 
@@ -99,9 +120,11 @@ PLAIN_ON_CUDA = 0
 # LayerNorm's row statistics). Any other width takes the counted plain
 # version. A width's C entries and launch counters carry no suffix at 768,
 # `_h<width>` and `_<width>` otherwise (`build.ROW_WIDTHS` binds the
-# entries of the same widths).
+# entries of the same widths). Widths from 1,664 up stay plain: the JAX
+# package's bf16 Pallas FFN itself stops fitting its VMEM limit there
+# (ROADMAP Queue 2).
 KERNEL_GROUPS = {128: 1, 256: 1, 384: 1, 512: 1, 640: 1, 768: 1, 896: 2,
-                 1024: 2}
+                 1024: 2, 1152: 2, 1280: 2, 1408: 2, 1536: 2}
 KERNEL_WIDTHS = tuple(KERNEL_GROUPS)
 
 # the tiling csrc/ffn_ln.cuh (bf16) and the f32 GEMM of csrc/ffn_ln_f32.cu
@@ -218,8 +241,8 @@ def ffn_ln_fusible(m: int, hidden: int, intermediate: int,
     m >= 32, m % 16 == 0 came from its (8, 128) tiling and does not
     apply); they are compiled for the hidden widths of KERNEL_WIDTHS
     (BERT-base's 768, BERT-large's 1,024, the compact BERTs' 512, 256
-    and 128, MiniLM's 384, and 640 and 896: every multiple of 128 up to
-    1,024) and walk F in chunks of 64
+    and 128, MiniLM's 384, 640 and 896, and 1,152 to 1,536: every
+    multiple of 128 up to 1,536) and walk F in chunks of 64
     in bf16 (which also keeps W2's rows a multiple of TMA's 16 bytes)
     and in output tiles of 128 in f32."""
     chunk = {torch.bfloat16: KERNEL_CHUNK,

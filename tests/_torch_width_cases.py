@@ -1,12 +1,13 @@
-"""The checks that tests/test_torch_bert_large.py and
-tests/test_torch_odd_widths.py run at each hidden width the torch package
+"""The checks that tests/test_torch_bert_large.py,
+tests/test_torch_odd_widths.py and tests/test_torch_wide_widths.py run at
+each hidden width the torch package
 builds K1, K2 and K3 for besides BERT-base's 768: the plain versions
 against the JAX package's Pallas kernels run in interpret mode, the split
 emulations, the gates, the launch plans and scratch sizes, the device
 rule on the CPU, and the port's classifier at the width against the JAX
 model on the same weights, in f32. Each test file holds its widths'
-expected plans and parametrizes thin tests over these checks; the two
-files run on separate workers of the tier-1 run."""
+expected plans and parametrizes thin tests over these checks; the files
+run on separate workers of the tier-1 run."""
 
 import jax
 import jax.numpy as jnp
@@ -29,13 +30,18 @@ from multimodal_rare_disease_tpu_torch.models.convert import (
 BF, F32 = torch.bfloat16, torch.float32
 # hidden width -> (heads, intermediate width F): BERT-large, the compact
 # BERT-Medium, -Mini and -Tiny (heads of 64, F = 4H), MiniLM-L12-H384 (12
-# heads of 32, F = 1,536) and the widths 640 and 896 (heads of 64, F = 4H)
+# heads of 32, F = 1,536), the widths 640 and 896 (heads of 64, F = 4H),
+# and 1,152, 1,280, 1,408 and 1,536 (heads of 64, F = 4H; 1,536 is
+# microsoft/deberta-v2-xlarge's width)
 WIDTHS = {1024: (16, 4096), 512: (8, 2048), 256: (4, 1024), 128: (2, 512),
-          384: (12, 1536), 640: (10, 2560), 896: (14, 3584)}
-# every width the kernels are built for, and widths above 1,024 that stay
-# on the counted plain version
-BUILT = (128, 256, 384, 512, 640, 768, 896, 1024)
-UNBUILT = (1152, 1280, 1536)
+          384: (12, 1536), 640: (10, 2560), 896: (14, 3584),
+          1152: (18, 4608), 1280: (20, 5120), 1408: (22, 5632),
+          1536: (24, 6144)}
+# every width the kernels are built for, and widths above 1,536 that stay
+# on the counted plain version (the JAX package's bf16 Pallas FFN stops
+# fitting its VMEM limit there)
+BUILT = (128, 256, 384, 512, 640, 768, 896, 1024, 1152, 1280, 1408, 1536)
+UNBUILT = (1664, 2048)
 # f32: the Pallas kernel's erf polynomial (|err| <= 1.5e-7) against exact
 # erf, and summation order; bf16: roundings of x, the GELU chunk and y from
 # f32 sums taken in another order, one bf16 ulp apart at most. The JAX
@@ -165,7 +171,7 @@ def check_bf16_plan(h, m, tiles, slices, chunks, k3_slices, k3_chunks):
     f = WIDTHS[h][1]
     plan = k1.ffn_plan(m, f, 132, h)
     assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
-    # each block (at 1,024 and 896 each pair, its row statistics over
+    # each block (from 896 up each pair, its row statistics over
     # distributed shared memory) applies the LayerNorm itself unless the k
     # loop is split
     assert plan.scratch == (None if slices == 1 else (slices, m, h))

@@ -77,7 +77,7 @@ def test_fusible_gate_follows_the_cuda_tiling():
     # any row count: TMA zero-fills and clips the ragged 64-row tile
     assert all(k3.attn_out_ln_fusible(m, 768, bf) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, bf)
-    assert not k3.attn_out_ln_fusible(64, 1152, bf)    # not a built width
+    assert not k3.attn_out_ln_fusible(64, 1664, bf)    # not a built width
     assert k3.attn_out_ln_fusible(64, 384, bf)         # MiniLM's
     assert k3.attn_out_ln_fusible(64, 512, bf)         # BERT-Medium's
     # f32 at H = 768: the f32 kernel (128-row tiles, TMA zero-fills and
@@ -85,7 +85,7 @@ def test_fusible_gate_follows_the_cuda_tiling():
     f32 = torch.float32
     assert all(k3.attn_out_ln_fusible(m, 768, f32) for m in (1, 8, 37, 16384))
     assert not k3.attn_out_ln_fusible(0, 768, f32)
-    assert not k3.attn_out_ln_fusible(64, 1152, f32)   # not a built width
+    assert not k3.attn_out_ln_fusible(64, 2048, f32)   # not a built width
     assert k3.attn_out_ln_fusible(64, 640, f32)        # an odd multiple of 128
     assert k3.attn_out_ln_fusible(64, 512, f32)        # BERT-Medium's
     assert not k3.attn_out_ln_fusible(64, 768, torch.float16)

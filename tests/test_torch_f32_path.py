@@ -45,10 +45,10 @@ _FFN_ROUTES = [
     (F32, [BF16] * 6, 64, 768, 3072, True, PLAIN),
     (F32, [F32] * 5 + [BF16], 64, 768, 3072, True, PLAIN),
     (F32, [BF16] * 4, 64, 768, 3072, False, PLAIN),
-    # the compact BERTs' 512 and 128, BERT-large's 1,024 and MiniLM's 384
-    # and 640 (cases 20-21) take their kernels; widths outside
-    # KERNEL_WIDTHS (the last cases), F off the chunk, other dtypes and no
-    # rows do not
+    # the compact BERTs' 512 and 128, BERT-large's 1,024, MiniLM's 384, 640
+    # (cases 20-21) and the widths above 1,024 (cases 25-26) take their
+    # kernels; widths outside KERNEL_WIDTHS (cases 23-24), F off the
+    # chunk, other dtypes and no rows do not
     (F32, [F32] * 6, 64, 512, 3072, True, FP),
     (F32, [F32] * 4, 64, 128, 256, False, FP),
     (BF16, [BF16] * 6, 64, 1024, 4096, True, BF),
@@ -60,8 +60,10 @@ _FFN_ROUTES = [
     (F32, [F32] * 6, 64, 384, 1536, True, FP),
     (BF16, [BF16] * 4, 64, 640, 2560, False, BF),
     (BF16, [BF16] * 6, 64, 256, 1024, True, BF),
-    (F32, [F32] * 6, 64, 1152, 4608, True, PLAIN),
-    (BF16, [BF16] * 4, 64, 1280, 5120, False, PLAIN),
+    (F32, [F32] * 6, 64, 1664, 6656, True, PLAIN),
+    (BF16, [BF16] * 4, 64, 2048, 8192, False, PLAIN),
+    (F32, [F32] * 6, 64, 1152, 4608, True, FP),
+    (BF16, [BF16] * 4, 64, 1408, 5632, False, BF),
 ]
 
 
@@ -71,7 +73,8 @@ def test_ffn_route(x, vecs, m, h, f, input_ln, want):
     assert k1.ffn_route(x, vecs, m, h, f, input_ln) == want
     assert k1.ffn_ln_fusible(m, h, f, x) == (
         want != PLAIN or x in (BF16, F32) and m >= 1
-        and h in (128, 256, 384, 512, 640, 768, 896, 1024)
+        and h in (128, 256, 384, 512, 640, 768, 896, 1024, 1152, 1280,
+                  1408, 1536)
         and f % (64 if x == BF16 else 128) == 0)
 
 
@@ -92,8 +95,10 @@ _ATTN_ROUTES = [
     (F32, F32, [F32] * 3, 0, 768, PLAIN),
     (F32, F32, [F32] * 3, 64, 384, FP),
     (BF16, BF16, [BF16] * 3, 64, 896, BF),
-    (F32, F32, [F32] * 3, 64, 1152, PLAIN),
-    (BF16, BF16, [BF16] * 3, 64, 1536, PLAIN),
+    (F32, F32, [F32] * 3, 64, 1664, PLAIN),
+    (BF16, BF16, [BF16] * 3, 64, 2048, PLAIN),
+    (F32, F32, [F32] * 3, 64, 1280, FP),
+    (BF16, BF16, [BF16] * 3, 64, 1536, BF),
 ]
 
 

@@ -101,7 +101,7 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k1.ffn_ln_fusible(m, 768, 3072, bf)
                for m in (1, 31, 37, 63, 64, 65, 24576))
     assert not k1.ffn_ln_fusible(0, 768, 3072, bf)
-    assert not k1.ffn_ln_fusible(64, 1152, 4608, bf)     # not a built width
+    assert not k1.ffn_ln_fusible(64, 1664, 6656, bf)     # not a built width
     assert k1.ffn_ln_fusible(64, 384, 1536, bf)          # MiniLM's
     assert k1.ffn_ln_fusible(64, 512, 2048, bf)          # BERT-Medium's
     assert not k1.ffn_ln_fusible(64, 768, 3000, bf)      # F in chunks of 64
@@ -111,7 +111,7 @@ def test_fusible_gate_follows_the_cuda_tiling():
     assert all(k1.ffn_ln_fusible(m, 768, 3072, f32)
                for m in (1, 31, 127, 128, 129, 1024, 16385))
     assert not k1.ffn_ln_fusible(0, 768, 3072, f32)
-    assert not k1.ffn_ln_fusible(64, 1152, 4608, f32)    # not a built width
+    assert not k1.ffn_ln_fusible(64, 2048, 8192, f32)    # not a built width
     assert k1.ffn_ln_fusible(64, 896, 3584, f32)         # a pair's width
     assert k1.ffn_ln_fusible(64, 128, 256, f32)          # BERT-Tiny's H
     assert not k1.ffn_ln_fusible(64, 128, 192, f32)      # tiles of 128
@@ -213,7 +213,8 @@ def test_build_is_keyed_by_the_sources():
     assert p.name == build.LIB_NAME
     assert p.parent.parent == build.BUILD_DIR
     assert {s.name for s in build.sources()} >= {
-        "ffn_ln.cu", "ffn_ln_odd.cu", "attn_out_ln.cu", "normalize_u8.cu",
+        "ffn_ln.cu", "ffn_ln_odd.cu", "ffn_ln_wide.cu", "ffn_ln_wide2.cu",
+        "attn_out_ln.cu", "attn_out_ln_wide.cu", "normalize_u8.cu",
         "ffn_ln_f32.cu", "attn_out_ln_f32.cu"}
 
 
@@ -221,8 +222,8 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
     # a header-only edit must not reuse a library built before it
     from multimodal_rare_disease_tpu_torch.kernels import build
 
-    headers = ["common.cuh", "ffn_ln.cuh", "gemm_tf32x3.cuh", "hopper.cuh",
-               "rows.cuh", "rows_f32.cuh"]
+    headers = ["attn_out_ln.cuh", "common.cuh", "ffn_ln.cuh", "gemm_tf32x3.cuh",
+               "hopper.cuh", "rows.cuh", "rows_f32.cuh"]
     assert [h.name for h in build.headers()] == headers
     for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_bytes(src.read_bytes())

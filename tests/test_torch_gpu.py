@@ -1042,13 +1042,15 @@ def test_f32_predict_launches_the_f32_kernels(cuda, fused_attn_out):
 
 # ---- the widths built besides 768: BERT-large's H = 1,024, the compact
 # BERTs' 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
-# -Tiny), MiniLM's 384 (microsoft/MiniLM-L12-H384), 640 and 896, each with
-# F = 4H: the forms of K1-K3 built for each width, in bf16 and f32, held to
-# the limits of the H = 768 cases (the tests' ids name the width: `h1024`,
-# `h512`, `h256`, `h128`, `h384`, `h640`, `h896`)
+# -Tiny), MiniLM's 384 (microsoft/MiniLM-L12-H384), 640 and 896, and
+# 1,152, 1,280, 1,408 and 1,536 (microsoft/deberta-v2-xlarge's width),
+# each with F = 4H: the forms of K1-K3 built for each width, in bf16 and
+# f32, held to the limits of the H = 768 cases (the tests' ids name the
+# width: `h1024`, `h512`, `h256`, `h128`, `h384`, `h640`, `h896`, `h1152`,
+# `h1280`, `h1408`, `h1536`)
 
 _WIDTHS = {1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536, 640: 2560,
-           896: 3584}
+           896: 3584, 1152: 4608, 1280: 5120, 1408: 5632, 1536: 6144}
 _by_width = pytest.mark.parametrize("h", list(_WIDTHS),
                                     ids=[f"h{h}" for h in _WIDTHS])
 
@@ -1129,9 +1131,11 @@ _OTHER_F = [(torch.bfloat16, 64), (torch.bfloat16, 1536),
 @pytest.mark.parametrize("dtype,f", _OTHER_F,
                          ids=[f"{'bf16' if d == torch.bfloat16 else 'f32'}"
                               f"-f{f}" for d, f in _OTHER_F])
-@pytest.mark.parametrize("h", [128, 256, 384, 512, 640, 768, 896, 1024],
+@pytest.mark.parametrize("h", [128, 256, 384, 512, 640, 768, 896, 1024,
+                               1152, 1280, 1408, 1536],
                          ids=["h128", "h256", "h384", "h512", "h640", "h768",
-                              "h896", "h1024"])
+                              "h896", "h1024", "h1152", "h1280", "h1408",
+                              "h1536"])
 def test_width_ffn_kernel_at_other_intermediate_widths(cuda, h, dtype, f,
                                                        input_ln, m):
     _check_ffn(cuda, h, f, dtype, input_ln, m, 7 * m + f + input_ln)
