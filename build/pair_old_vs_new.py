@@ -1,0 +1,211 @@
+#!/usr/bin/env python3
+"""Hold the bf16 FFN kernel's redesigned cluster-pair forms (K1 and K2 at H =
+896, 1,024, 1,152, 1,280, 1,408 and 1,536: at 896 and 1,024 the pair's
+blocks take turns at whole GELU chunks, above 1,024 stage 2 applies the
+GELU to the two blocks' partials) against the tree before them, and every
+other kernel against that tree's, in one process on one card.
+
+    mkdir -p build/pair_old                      # the earlier tree, once
+    git archive be933b6 | tar -x -C build/pair_old
+    python3 build/pair_old_vs_new.py [M ...]     # default M: 1024 16384
+
+As build/widths_old_vs_new.py, whose helpers it uses: each tree's package
+is imported from its own directory and builds its own kernels there.
+
+- SASS: every kernel function of the earlier tree's library (cuobjdump,
+  addresses and constants masked) against the function of the same name
+  and template arguments in this tree's, except `ffn_ln_kernel` at the
+  pair widths, which this tree redesigned: identical, or the script fails.
+- Bits: at each M, every kernel outside the pair forms on the same
+  tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
+  and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
+  twelve, K4 on 256 images of 256 x 256): equal bit for bit, or it fails.
+- The pair forms: K1 (f32 vectors, as the earlier tree's timings took it; and bf16
+  vectors) and K2 at each pair width and M, both trees within the bf16
+  limits of their plain version (5e-2 max, 1e-4 mean |diff|, bf16 products
+  with f32 sums); their bits are compared and printed: equal where stage 1
+  adds its products in the earlier tree's order (one chain, 1,408 and
+  1,536), not where its chains reorder them (896-1,280). Device time per
+  call (CUDA events over 20 calls queued behind a spinning card) in turns
+  old, new, new, old.
+
+Prints the card's name and power limit, one line per function and per
+reading, and a JSON line of all readings; exits non-zero if any SASS or
+bits outside the pair forms differ or a pair form leaves its limits.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from types import SimpleNamespace
+
+import torch
+
+import widths_old_vs_new
+from h768_old_vs_new import PKG, ROOT, per_call_ms, sleep_cycles_per_ms
+from widths_old_vs_new import calls, inputs, sass
+
+OLD_COMMIT = "be933b6"
+# width -> F: every built width, F = 4H but MiniLM's 1,536 and BERT-base's
+WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536,
+          640: 2560, 896: 3584, 1152: 4608, 1280: 5120, 1408: 5632,
+          1536: 6144}
+PAIRS = (896, 1024, 1152, 1280, 1408, 1536)
+widths_old_vs_new.WIDTHS = WIDTHS  # `inputs` draws F from it
+ROW_ATOL, ROW_MEAN_ATOL = 5e-2, 1e-4
+
+
+def import_tree(root: Path) -> SimpleNamespace:
+    """The kernel modules (attn_out, build, ffn, image) of the package
+    under `root`, bound to each other and not to this tree's."""
+    def own():
+        return {k: sys.modules.pop(k) for k in list(sys.modules)
+                if k == PKG or k.startswith(PKG + ".")}
+
+    saved = own()
+    sys.path.insert(0, str(root))
+    try:
+        mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
+                for n in ("attn_out", "build", "ffn", "image")}
+    finally:
+        sys.path.remove(str(root))
+        own()
+        sys.modules.update(saved)
+    return SimpleNamespace(**mods)
+
+
+def pair_form(key: str) -> bool:
+    return key.startswith("(anonymous namespace)::ffn_ln_kernel<") and any(
+        key.startswith(f"(anonymous namespace)::ffn_ln_kernel<{h},")
+        for h in PAIRS)
+
+
+def main() -> int:
+    rows = [int(a) for a in sys.argv[1:]] or [1024, 16384]
+    old_root = ROOT / "build" / "pair_old"
+    if not (old_root / PKG / "kernels" / "ffn.py").is_file():
+        raise SystemExit(f"{old_root} is missing: mkdir -p build/pair_old "
+                         f"&& git archive {OLD_COMMIT} | tar -x -C "
+                         f"build/pair_old")
+    trees = {"new": import_tree(ROOT), "old": import_tree(old_root)}
+    with ThreadPoolExecutor(len(trees)) as ex:  # each runs its own nvccs
+        list(ex.map(lambda t: t.build.build(), trees.values()))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, torch.__version__, torch.version.cuda, flush=True)
+    readings, bad = {}, []
+    code = {n: sass(t.build.library_path()) for n, t in trees.items()}
+    n_same = n_kept = 0
+    for k, old_code in code["old"].items():
+        if pair_form(k):
+            readings[f"SASS {k}"] = "redesigned"
+            continue
+        same = code["new"].get(k) == old_code
+        n_kept += 1
+        n_same += same
+        readings[f"SASS {k}"] = same
+        if not same:
+            print(f"SASS {k}: {len(old_code)} instructions (new "
+                  f"{len(code['new'].get(k, []))}), identical {same}",
+                  flush=True)
+            bad.append(f"SASS {k}")
+    print(f"SASS outside the pair forms: {n_same}/{n_kept} functions "
+          f"identical", flush=True)
+
+    # ---- bits of every form outside the pair forms
+    n_equal = n_forms = 0
+    for h in WIDTHS:
+        for m in rows:
+            for dt in (torch.bfloat16, torch.float32):
+                x = inputs(dt, h, m, torch.Generator().manual_seed(h + m), dev)
+                by_tree = {n: calls(t, dt, *x) for n, t in trees.items()}
+                for k in by_tree["new"]:
+                    if h in PAIRS and dt == torch.bfloat16 and k != "K3":
+                        continue
+                    same = torch.equal(by_tree["new"][k](),
+                                       by_tree["old"][k]())
+                    n_forms += 1
+                    n_equal += same
+                    readings[f"bits {k} H={h} M={m}"] = same
+                    if not same:
+                        print(f"{k} H={h} M={m}: outputs differ", flush=True)
+                        bad.append(f"bits {k} H={h} M={m}")
+    u8 = torch.randint(0, 256, (256, 256, 256, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(4)).to(dev)
+    same = torch.equal(trees["new"].image.fused_normalize_u8(u8,
+                                                             torch.bfloat16),
+                       trees["old"].image.fused_normalize_u8(u8,
+                                                             torch.bfloat16))
+    n_forms += 1
+    n_equal += same
+    readings["bits K4"] = same
+    if not same:
+        bad.append("bits K4")
+    print(f"bits outside the pair forms: {n_equal}/{n_forms} readings "
+          f"equal", flush=True)
+
+    # ---- the pair forms: limits against the plain version, bits, times
+    cyc = sleep_cycles_per_ms()
+    for h in PAIRS:
+        for m in rows:
+            x = inputs(torch.bfloat16, h, m,
+                       torch.Generator().manual_seed(h + m), dev)
+            z, _, w1, w2, _, vec = x
+            by_tree = {n: calls(t, torch.bfloat16, *x)
+                       for n, t in trees.items()}
+            a32 = (z, w1, vec["b1"].float(), w2, vec["b2"].float(),
+                   vec["gamma"].float(), vec["beta"].float())
+            ln32 = dict(pre_gamma=vec["pre_gamma"].float(),
+                        pre_beta=vec["pre_beta"].float())
+            a = (z, w1, vec["b1"], w2, vec["b2"], vec["gamma"], vec["beta"])
+            plain = {
+                "K1": lambda: trees["new"].ffn.ffn_ln_plain(
+                    *a, input_ln=True, pre_gamma=vec["pre_gamma"],
+                    pre_beta=vec["pre_beta"]),
+                "K1 f32 vectors": lambda: trees["new"].ffn.ffn_ln_plain(
+                    *a32, input_ln=True, **ln32),
+                "K2": lambda: trees["new"].ffn.ffn_ln_plain(
+                    *a, input_ln=False)}
+            for k, want_fn in plain.items():
+                new, old = by_tree["new"][k], by_tree["old"][k]
+                want = want_fn().float()
+                got = {n: fn().float() for n, fn in (("new", new),
+                                                     ("old", old))}
+                errs = {n: ((g - want).abs().max().item(),
+                            (g - want).abs().mean().item())
+                        for n, g in got.items()}
+                same = torch.equal(got["new"], got["old"])
+                ok = all(e[0] <= ROW_ATOL and e[1] <= ROW_MEAN_ATOL
+                         for e in errs.values())
+                t_old_a, t_new_a = per_call_ms(old, cyc), per_call_ms(new, cyc)
+                t_new_b, t_old_b = per_call_ms(new, cyc), per_call_ms(old, cyc)
+                t_new, t_old = (t_new_a + t_new_b) / 2, (t_old_a + t_old_b) / 2
+                readings[f"{k} H={h} M={m}"] = dict(
+                    bit_equal=same, err_new=errs["new"], err_old=errs["old"],
+                    new_ms=t_new, old_ms=t_old, ratio=t_new / t_old,
+                    runs=[t_old_a, t_new_a, t_new_b, t_old_b])
+                print(f"{k} H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
+                      f"{errs['new'][1]:.3e} (old {errs['old'][0]:.3e} / "
+                      f"{errs['old'][1]:.3e}), bit-equal to old {same}; dev ms "
+                      f"new {t_new:.4f} old {t_old:.4f} (new/old "
+                      f"{t_new / t_old:.4f}; runs old {t_old_a:.4f} new "
+                      f"{t_new_a:.4f} new {t_new_b:.4f} old {t_old_b:.4f}) "
+                      f"{'ok' if ok else 'OFF'}", flush=True)
+                if not ok:
+                    bad.append(f"{k} H={h} M={m}")
+    print(json.dumps({"card": card, "readings": readings, "off": bad}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3081,6 +3081,31 @@ WIDE_OVER = {
        for h in (1152, 1280, 1408)}}
 
 
+# the pair forms' K1 / K2 dev ms at M = 16,384 before their redesign
+# (commit be933b6's phases 17, 19 and 20, PERF.md; H100 80GB HBM3, 700 W),
+# printed beside this run's: the same card compares the two only in turns
+# (build/pair_old_vs_new.py)
+PAIR_BEFORE_MS = {896: (1.0754, 1.0600), 1024: (1.2703, 1.2418),
+                  1152: (2.0423, 1.9544), 1280: (2.4710, 2.3707),
+                  1408: (2.7383, 2.5856), 1536: (3.0806, 3.0508)}
+
+
+def resident_clusters(dev, h: int) -> int:
+    """The clusters of the bf16 FFN kernel's launch at pair width h that
+    the card holds at once (cudaOccupancyMaxActiveClusters), for the
+    report: the launch plan counts the SMs, all of which the H100's 66
+    pairs fill."""
+    import torch
+
+    from multimodal_rare_disease_tpu_torch.kernels import build, ffn
+
+    with torch.cuda.device(dev):
+        n = ffn.entry(build.load_library(dev), "mrd_ffn_max_clusters", h)()
+    if n <= 0:
+        fail(f"H={h}: cudaOccupancyMaxActiveClusters failed ({n})")
+    return n
+
+
 def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                 serve=None):
     """The forms of K1-K3 at the hidden width of `over` (overrides of the
@@ -3287,9 +3312,17 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
             f"bf16 {p50s[tag + ' bf16']:.2f} ms, f32 "
             f"{p50s[tag + ' f32']:.2f} ms"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pair = ""
+    if h in PAIR_BEFORE_MS:  # the pair forms, beside their earlier times
+        pair = (f"clusters of {k1.KERNEL_GROUPS[h]} resident at once "
+                f"{resident_clusters(dev, h)}; K1 / K2 dev ms {times[f'K1_{h}'][0]:.4f} / "
+                f"{times[f'K2_{h}'][0]:.4f} against be933b6's "
+                f"{PAIR_BEFORE_MS[h][0]} / {PAIR_BEFORE_MS[h][1]} (new/old "
+                f"{times[f'K1_{h}'][0] / PAIR_BEFORE_MS[h][0]:.3f} / "
+                f"{times[f'K2_{h}'][0] / PAIR_BEFORE_MS[h][1]:.3f}) | ")
     plans = (f"bf16 FFN {k1.ffn_plan(16384, f, n_sm, h).slices} / "
-             f"{k1.ffn_plan(1024, f, n_sm, h).slices} slices at M=16384 / "
-             f"1024, K3 {k3.attn_out_plan(16384, n_sm, h).slices} / "
+             f"{k1.ffn_plan(1024, f, n_sm, h).slices} slices at "
+             f"M=16384 / 1024, K3 {k3.attn_out_plan(16384, n_sm, h).slices} / "
              f"{k3.attn_out_plan(64, n_sm, h).slices} at 16384 / 64; f32 "
              f"scratch per call at M=16384: FFN "
              f"{k1.ffn_plan_f32(16384, f, n_sm, h).scratch * 4 / 1e6:.1f} "
@@ -3305,7 +3338,7 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                 f"{k} {t[0]:.4f} vs {t[1]:.4f} ({t[2]}; bound "
                 f"{forms[k][2][0]:.4f} ms, {forms[k][2][1]}, "
                 f"{forms[k][2][0] / t[0]:.1%})" for k, t in times.items())
-            + f" | {plans} | " + " || ".join(lines + served_lines))
+            + f" | {pair}{plans} | " + " || ".join(lines + served_lines))
     return totals, {k: (max(e[0] for e in errs[k].values()), t[0], t[1],
                         t[3], *forms[k][2]) for k, t in times.items()}, \
         text, t_a

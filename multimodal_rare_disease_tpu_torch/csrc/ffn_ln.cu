@@ -11,6 +11,10 @@ extern "C" {
 // widths' entries below).
 int mrd_ffn_smem_bytes() { return static_cast<int>(Ffn<768>::kSmemBytes); }
 
+// The clusters the card holds at once (0: H = 768 launches no cluster; the
+// pair widths' entries below).
+int mrd_ffn_max_clusters() { return max_clusters<768>(); }
+
 const char* mrd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -75,26 +75,41 @@
 // H = 1,024 (BERT-large, F = 4,096). The design above does not fit twice
 // over: a [64, 1,024] f32 accumulator is 256 floats a thread in the two
 // stage-2 warpgroups (the limit is 255 registers; the tile is the SM's
-// whole register file), and the 128-KB x tile beside the rings (h 16 KB,
-// W1 48 KB, W2 64 KB) is 256 KB against 227 KB. So a row tile is cut into
-// two column groups of 512 output columns, one block each (grid z), and
-// the two blocks run as a cluster of two that shares h:
-//   - each block builds the whole x tile (LN0 for K1): stage 1's A operand
-//     spans all of H;
-//   - stage 1 of block r (its rank in the cluster) runs the pass of 32
-//     chunk columns 32 r .. + 32 only, and stores its bf16 GELU values into
-//     the chunk buffer of both blocks, the peer's over distributed shared
-//     memory (st.shared::cluster), then arrives on both blocks' full
-//     barrier (256 arrivals: both stage-1 warpgroups) after a proxy fence
-//     of the cluster's shared memory; stage 2 waits on it with cluster
-//     acquire. A block's empty barrier takes the releases of both blocks'
-//     stage-2 warpgroups (4), since its stage 1 writes into both. So each
-//     block runs half of the stage-1 products, and stage 2 for its own 512
-//     columns: two warpgroups of [64, 256], 128 accumulator floats a thread;
-//   - shared memory: the x tile (128 KB), the two GELU chunks (16 KB), the
-//     W1 ring in 4 slots of [32 f x 64 k] (4 KB each, the block's half of
-//     a chunk in 16 of them) and the W2 ring as above (4 slots of 16 KB):
-//     224 KB;
+// whole register file), and the 128-KB x tile beside the rings is more
+// than 227 KB. So a row tile is cut into two column groups of 512 output
+// columns, one block each (grid z), run as a cluster of two (a pair) that
+// shares the GELU chunks and LN2's row statistics.
+// What bounds the pair on the H100 is stage 1, not the weight stream
+// (build/pair_probe.py's floors, PERF.md section 6): with the design before
+// this one the W1 + W2 stream alone took 42-46% of the kernel's time, at
+// 6.9-7.9 TB/s from L2, and stage 1 alone 85-92%. A wgmma m64n32k16 step
+// costs ~64-120 clk whatever the number of independent accumulators (16 at
+// the tensor-core rate), and a thread that stored into the peer's shared
+// memory waits ~1,100-1,300 clk for the stores to land at its next release
+// (the cluster proxy fence and the arrival on the peer's barrier), once or
+// twice a chunk. A cluster of four that would multicast each weight tile
+// to two row tiles halves a stream that does not bind, and the H100 holds
+// 30 such clusters (120 SMs) against 66 pairs. So (kAlt, at 896 and
+// 1,024):
+//   - the pair's blocks take turns at whole GELU chunks: block r computes
+//     chunks r, r + 2, ... of the slice over all of H (each block builds
+//     the whole x tile, LN0 for K1) with wgmma m64n64k16 on W1 tiles of
+//     [64 f x 64 k] (8 KB, 4 slots), half the steps of two m64n32 passes
+//     for the same products, in 2 chains of independent accumulators;
+//   - + b1, exact-erf GELU, bf16 into chunk buffer r of its own shared
+//     memory; each thread's stores go to its own stage 2 as an arrival,
+//     and to the peer as one bulk copy of the 8-KB buffer (cp.async.bulk
+//     shared::cta to shared::cluster) that no thread waits for: the peer's
+//     full barrier expects its bytes (one arrival of its stage 2, each
+//     round). A buffer's empty barrier takes the releases of both blocks'
+//     stage-2 warpgroups (4);
+//   - each stage-2 warpgroup waits for its own W2 tiles only: chunks that
+//     arrive from the peer can set one warpgroup a ring slot's round ahead
+//     of the other's wait, which the old all-tiles wait read as the wrong
+//     round (this design's first card run deadlocked on it);
+//   - the registers: stage 2 keeps 184 (its 128 accumulator floats), stage
+//     1 the 136 left; W2 streams as [64 h x 64 f] tiles (4 slots of 8 KB):
+//     x 128 KB + chunks 16 + W1 ring 32 + W2 ring 32 = 208 KB;
 //   - LN2 over the pair: each stage-2 warpgroup adds b2 and x (the whole x
 //     tile is in each block) to its [64, 256], and the row sums of its
 //     columns go into both blocks' exchange (the W1 ring's slots, idle by
@@ -106,6 +121,10 @@
 //   - a cluster barrier after the barriers' initialization (before any
 //     remote access) and before exit (no block leaves while its peer may
 //     still write to it).
+// Stage 1 still paces the pair: a turn of two chunks takes ~8,500 clk,
+// products ~4,700 of it and the GELU ~2,500, and stage 2 ~4,400 a chunk
+// (pair_probe.py's timeline). PERF.md section 6 has the times against the
+// design before (build/pair_old_vs_new.py).
 //
 // H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
 // -Tiny, F = 4H). One block per row tile, as at 768; the x tile (64, 32 or
@@ -132,37 +151,53 @@
 // warpgroup and chunk, still alternating. At 896 a block's [64, 448] f32
 // accumulator would be 224 floats a thread in each stage-2 warpgroup, all
 // of the 224 registers it has, so 896 is 1,024's cluster pair with 448
-// output columns per block (x tile 112 KB, W1 ring 16 KB, W2 ring 56 KB:
-// 201 KB). Its stage-2 warpgroups own 224 contiguous columns each, as two
-// W2 tiles of 112 on wgmma m64n112k16: four tiles a chunk that alternate
+// output columns per block (x tile 112 KB, W1 ring 32 KB, W2 ring 56 KB:
+// 216 KB; stage 2 176 registers, stage 1 152). Its stage-2 warpgroups own
+// 224 contiguous columns each, as two W2 tiles of 112 on wgmma
+// m64n112k16: four tiles a chunk that alternate
 // between the warpgroups, like 1,024's four of 128, where tiles of 64 (3.5
 // a warpgroup) do not divide 224 and tiles of 32 would take 14 barrier
 // waits a chunk on a ring of 4-KB slots.
 //
 // H = 1,152, 1,280, 1,408 and 1,536 (F = 4H; 1,536 is
-// microsoft/deberta-v2-xlarge's width), above BERT-large. 1,024's pair
-// does not stretch: each of its blocks keeps the whole x tile, since stage
-// 1's A operand spans all of H, and 2 * 64 * H bytes is 192 KB at 1,536,
-// which leaves no room for the rings. So each block of the pair keeps
-// only x's columns of its own output half (64 * H bytes, 96 KB at 1,536;
-// K1's LN0 still reads whole z rows for its statistics and writes the
-// block's half), and stage 1 splits k instead of the chunk's columns. Per
-// GELU chunk of 64, block r first computes the f32 partial
-// x[:, half r] . W1[half r, chunk] of the peer's 32 chunk columns and
-// stores it into the peer's partials slot over distributed shared memory
-// ([64, 32] f32, two slots: a full barrier in the receiver and an empty
-// barrier in the sender, 128 remote arrivals each), then the partial of
-// its own 32 columns, to which it adds the peer's (two terms: the same
-// bits in either order), + b1, GELU, and bf16 into both blocks' chunk
-// buffers, as at 1,024. A block's stage 1 runs as many products as at
-// 1,024 (64 x 64 x H / 2 per chunk against 64 x 32 x H). Stage 2, LN2's
-// exchange, the epilogue (its residual needs only the block's own columns
-// of x, which is what the block holds) and the split-F path are 1,024's.
-// The stage-2 warpgroups own 288, 320, 352 and 384 columns, as W2 tiles of
-// 96, 64, 88 and 128 (wgmma m64n96k16, m64n64k16, m64n88k16, m64n128k16),
-// and 1,152 and 1,408 read rows in 8-byte groups (9 and 11 a lane). Shared
-// memory at 1,536: x 96 KB, GELU chunks 16, W1 ring 16, partials 16, W2
-// ring 64: 208 KB.
+// microsoft/deberta-v2-xlarge's width), above BERT-large (kWide). 1,024's
+// pair does not stretch: each of its blocks keeps the whole x tile, since
+// stage 1's A operand spans all of H, and 2 * 64 * H bytes is 192 KB at
+// 1,536, which leaves no room for the rings. So each block of the pair
+// keeps only x's columns of its own output half (64 * H bytes, 96 KB at
+// 1,536; K1's LN0 still reads whole z rows for its statistics, in
+// load_x_row_ln0's three passes over the packed row, and writes the
+// block's half), and stage 1 splits k instead of the chunk's columns:
+//   - per GELU chunk of 64, block r computes the f32 partial x[:, half r]
+//     . W1[half r, chunk] of the peer's 32 chunk columns and sends it into
+//     the peer's partials slot as st.async stores ([64, 32] f32, two
+//     slots; the receiver's full barrier counts the bytes, one arrival of
+//     its stage 2 expects them), then the partial of its own 32 columns
+//     into its own-partial slot; no thread waits for a store to land;
+//   - stage 2 (both warpgroups, idle most of a chunk) adds the two
+//     partials (own first: the same bits in both blocks' order), + b1,
+//     exact-erf GELU, and writes the block's half of the chunk buffer,
+//     which is two [64, 32] halves in the 64-byte swizzle, so that each is
+//     contiguous: one bulk copy sends it into the peer's buffer, whose full
+//     barrier expects its bytes, and stage 2's wgmma reads the buffer
+//     through 64-byte-swizzle descriptors (s2_step). The partials slots go
+//     back to stage 1 (own) and the peer (its empty barrier) after the
+//     GELU, and a buffer's empty barrier takes the peer's two releases;
+//   - stage 1 has 56 registers at 1,408 and 1,536 (stage 2's 224 hold its
+//     176 or 192 accumulator floats), and any state beyond the partial and
+//     the ring spills there: one accumulator chain, the ring slot and
+//     parity taken from the tile index, one copy of the pass for both
+//     halves. At 1,152 and 1,280 stage 2 keeps 200, stage 1 104, for 4 and
+//     2 chains.
+// Stage 2, LN2's exchange, the epilogue (its residual needs only the
+// block's own columns of x, which is what the block holds) and the split-F
+// path are 1,024's. The stage-2 warpgroups own 288, 320, 352 and 384
+// columns, as W2 tiles of 96, 64, 88 and 128 (wgmma m64n96k16, m64n64k16,
+// m64n88k16, m64n128k16), and 1,152 and 1,408 read rows in 8-byte groups
+// (9 and 11 a lane). Shared memory at 1,536: x 96 KB, GELU chunks 16, W1
+// ring 16, partials 16, own partials 16, W2 ring 64: 224 KB. Stage 1's
+// two passes still pace the pair at 1,536, ~10,000 of the ~10,700 clk a
+// chunk (pair_probe.py's timeline); PERF.md section 6 has the times.
 //
 // This header holds the kernel and the macro of its C entries; ffn_ln.cu
 // instantiates it at 768, 1,024, 512, 256 and 128, ffn_ln_odd.cu at 384,
@@ -232,6 +267,8 @@ struct Ffn {
   static constexpr int kGroups = kH >= 896 ? 2 : 1;    // blocks per row tile
   static constexpr bool kPair = kGroups == 2;          // a cluster sharing h
   static constexpr bool kWide = kH > 1024;             // a pair that splits x and k
+  // 896 and 1,024: the pair's blocks take turns at whole GELU chunks
+  static constexpr bool kAlt = kPair && !kWide;
   static constexpr int kCols = kH / kGroups;           // output columns per block
   static constexpr int kHalf = kCols / kS2;            // 384 / 256 per stage-2 WG
   static constexpr int kW1K = kPair ? 64 : 128;        // k (= H) columns of a W1 tile
@@ -239,12 +276,14 @@ struct Ffn {
   // the columns of x (stage 1's k) a block holds: all of H, or its own half
   static constexpr int kXCols = kWide ? kCols : kH;
   static constexpr int kW1PerHalf = kXCols / kW1K;     // 6 / 16 / 9-12
-  // W1 tiles a block loads per chunk: both halves, or its own half, or
-  // (kWide) both halves over its k
-  static constexpr int kW1PerChunk = kPair && !kWide ? kW1PerHalf : 2 * kW1PerHalf;
+  // W1 tiles a block loads per chunk: both halves, or (kWide) both halves
+  // over its k, or (kAlt) the chunk's 64 columns in one tile over all of H,
+  // for the chunks the block takes
+  static constexpr int kW1PerChunk = kAlt ? kW1PerHalf : 2 * kW1PerHalf;
   // h rows of a W2 tile (wgmma N): 64 where a warpgroup's columns are an
   // odd multiple of 64, 112 at 896, 96 at 1,152, 88 at 1,408
   static constexpr int kW2N = kH == 896    ? 112
+                              : kH == 1024 ? 64
                               : kH == 1152 ? 96
                               : kH == 1408 ? 88
                                            : (kHalf % 128 != 0 ? 64 : 128);
@@ -252,7 +291,20 @@ struct Ffn {
   static constexpr uint32_t kW2Bytes = kW2N * kFC * 2;  // 16 KB (8 KB at 128)
   static constexpr int kW2PerChunk = kCols / kW2N;     // 6 / 4
   static constexpr int kW1Stages = kPair ? 4 : 6;
-  static constexpr uint32_t kW1Bytes = kW1Boxes * kW1BoxBytes;  // 8 / 4 KB
+  // the pairs' stage 1: independent accumulator chains a pass spreads its
+  // k16 steps over, and the registers of a stage-2 and the stage-1
+  // warpgroup after setmaxnreg (stage 2: its accumulator floats and ~32
+  // more; at 1,408 and 1,536 the 56 left to stage 1 hold one chain)
+  static constexpr int kChains = !kPair ? 1 : kAlt ? 2 : kH == 1152 ? 4 : kH == 1280 ? 2 : 1;
+  static constexpr int kRegs2 = kH == 896                  ? 176
+                                : kH == 1024                 ? 184
+                                : kH == 1152 || kH == 1280 ? 200
+                                                             : kS2Regs;
+  static constexpr int kRegs1 = 3 * 168 - 2 * kRegs2;
+  // chunk columns a stage-1 product covers (wgmma N), and the W1 tiles: [32
+  // f x 128 k] (8 KB), the pairs' [kS1Cols f x 64 k] (kAlt 8 KB, kWide 4)
+  static constexpr int kS1Cols = kAlt ? kFC : kS1N;
+  static constexpr uint32_t kW1Bytes = kPair ? kS1Cols * 128 : kW1Boxes * kW1BoxBytes;
   // kWide: the stage-1 partials the pair exchanges, a slot per GELU chunk
   // buffer of [64 rows, 32 columns] f32 in fragment order
   static constexpr uint32_t kPBytes = kTM * kS1N * 4;  // 8 KB
@@ -265,7 +317,9 @@ struct Ffn {
   static constexpr uint32_t kOffH = kOffX + (kXCols / 64) * kBlockBytes;
   static constexpr uint32_t kOffW1 = kOffH + kHStages * kBlockBytes;
   static constexpr uint32_t kOffP = kOffW1 + kW1Stages * kW1Bytes;
-  static constexpr uint32_t kOffW2 = kOffP + (kWide ? kHStages * kPBytes : 0);
+  // kWide: this block's own partial of its columns (stage 1 to stage 2)
+  static constexpr uint32_t kOffO = kOffP + (kWide ? kHStages * kPBytes : 0);
+  static constexpr uint32_t kOffW2 = kOffO + (kWide ? kHStages * kPBytes : 0);
   // the rings' full barriers (TMA bytes) and the GELU chunks' full and
   // empty barriers, 8 bytes each
   static constexpr uint32_t kBarW1Full = kOffW2 + kW2Stages * kW2Bytes;
@@ -276,16 +330,22 @@ struct Ffn {
   // squares; the values go into the W1 ring, idle by then (kOffW1: float
   // [2: sums, squares][2 ranks][2 WGs][64 rows])
   static constexpr uint32_t kBarStats = kBarHEmpty + 8 * kHStages;
-  // kWide: the partials slots' full (the peer's stores, in the receiver)
-  // and empty (the peer's reads, in the sender) barriers
+  // kWide: the partials slots' full (the peer's stores, in the receiver,
+  // counted in bytes) and empty (the peer's reads, in the sender) barriers,
+  // and the own partial's
   static constexpr uint32_t kBarPFull = kBarStats + (kPair ? 16 : 0);
   static constexpr uint32_t kBarPEmpty = kBarPFull + 8 * kHStages;
-  static constexpr uint32_t kOffRed = kBarPFull + (kWide ? 16 * kHStages : 0);  // float [2][2][64]
+  static constexpr uint32_t kBarOFull = kBarPEmpty + 8 * kHStages;
+  static constexpr uint32_t kBarOEmpty = kBarOFull + 8 * kHStages;
+  static constexpr uint32_t kOffRed = kBarPFull + (kWide ? 32 * kHStages : 0);  // float [2][2][64]
   static constexpr uint32_t kSmemBytes = kOffRed + (kPair ? 0 : 2 * kS2 * kTM * 4) + 1024;
   // arrivals on a GELU chunk's full barrier (every stage-1 thread that
-  // writes it) and empty barrier (every stage-2 warpgroup that reads it)
-  static constexpr int kHFullArrivals = kPair ? 2 * 128 : 128;
-  static constexpr int kHEmptyArrivals = kPair ? 2 * kS2 : kS2;
+  // writes it; kAlt: the peer's chunks arrive as bytes, expected by one
+  // arrival, and kWide's buffer takes only the peer's half that way) and
+  // empty barrier (every stage-2 warpgroup that reads it: kAlt both
+  // blocks', kWide the peer's, whose copy of this block's half it frees)
+  static constexpr int kHFullArrivals = 128;
+  static constexpr int kHEmptyArrivals = kAlt ? 2 * kS2 : kS2;
 
   static_assert(kCols % (kS2 * kW2N) == 0, "whole W2 tiles per WG");
   static_assert(kW2PerChunk % kS2 == 0, "W2 tiles alternate between stage-2 WGs");
@@ -296,10 +356,85 @@ struct Ffn {
   static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
   static_assert(!kPair || kW1Stages * kW1Bytes >= 2 * 2 * kS2 * kTM * 4,
                 "room for LN2's exchange in the W1 ring");
+  static_assert(kRegs1 >= 24 && kRegs1 % 8 == 0 && kRegs1 <= 168 && kRegs2 >= 168 &&
+                    kRegs2 <= 256 && kRegs2 % 8 == 0,
+                "setmaxnreg hands over exactly the registers it frees");
+  static_assert(4 * kW1PerHalf >= kChains, "every chain starts in a pass");
 };
 
 static_assert(2 * 128 * kS2Regs + 128 * kS1Regs == kThreads * 168,
               "setmaxnreg must hand over exactly the registers it frees");
+
+// kWide's K1 prologue: x row `gr` = bf16(LN0(z)) as rows.cuh's load_x_row
+// (kH % 256 == 0, uint4 groups of 8) or load_x_row_narrow (uint2 groups of
+// 4) give it, by the same arithmetic in the same order, so split_reduce,
+// which takes x from those, sees the same bits. It keeps only the packed
+// row and converts it again for each of the three passes (sum, centred
+// squares, the normalized values): the loaders' f32 copy of a 1,536-wide
+// row beside the packed one spilled the kernel's registers.
+template <int kH, typename V, typename G>
+__device__ __forceinline__ void load_x_row_ln0(const mrd::bf16* __restrict__ z, long long gr,
+                                               int M, const V* __restrict__ g0,
+                                               const V* __restrict__ o0, float eps, int lane,
+                                               G (&out)[kH * 2 / sizeof(G) / 32]) {
+  constexpr int kGroups = kH * 2 / sizeof(G) / 32;  // per lane
+  constexpr int kPairs = sizeof(G) / 4;            // bf16 pairs per group
+  if (gr >= M) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) out[j] = G{};
+    return;
+  }
+  const G* src = reinterpret_cast<const G*>(z + gr * kH);
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) out[j] = src[lane + 32 * j];
+  // the row again for each pass, not a copy of it held across them
+  const auto fresh = [&] {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      uint32_t* w = reinterpret_cast<uint32_t*>(&out[j]);
+#pragma unroll
+      for (int e = 0; e < kPairs; ++e) asm volatile("" : "+r"(w[e]));
+    }
+  };
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      s += f.x + f.y;
+    }
+  }
+  const float mu = mrd::warp_sum(s) * (1.0f / kH);
+  fresh();
+  float q = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&out[j]);
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      q += (f.x - mu) * (f.x - mu);
+      q += (f.y - mu) * (f.y - mu);
+    }
+  }
+  const float rstd = rsqrtf(mrd::warp_sum(q) * (1.0f / kH) + eps);
+  fresh();
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out[j]);
+    const int c = 2 * kPairs * (lane + 32 * j);
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      const int cc = c + 2 * e;
+      const float2 f = __bfloat1622float2(p[e]);
+      p[e] = __floats2bfloat162_rn(
+          (f.x - mu) * rstd * mrd::ld_f32(g0 + cc) + mrd::ld_f32(o0 + cc),
+          (f.y - mu) * rstd * mrd::ld_f32(g0 + cc + 1) + mrd::ld_f32(o0 + cc + 1));
+    }
+  }
+}
 
 // columns c and c + 1 (c even) of row r of a swizzled tile, as f32
 __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int c) {
@@ -308,10 +443,10 @@ __device__ __forceinline__ float2 pair_at(const unsigned char* tile, int r, int 
 }
 
 // Issue W1 tile g of the slice (chunk c_begin + g / kW1PerChunk, half
-// (g / kW1PerHalf) % 2, or the pair's `rank`, or (kWide) the peer's half
-// and then `rank`'s, k-slice t = g % kW1PerHalf: W1^T[f .. f + 32,
-// kW1K t .. + kW1K], kWide from the block's first column) into its ring
-// slot, one [32][64] box per 64 of k.
+// (g / kW1PerHalf) % 2, or (kWide) the peer's half and then `rank`'s, or
+// (kAlt) the whole of the block's every other chunk; k-slice t = g %
+// kW1PerHalf: W1^T[f .. f + kS1Cols, kW1K t .. + kW1K], kWide from the
+// block's first column) into its ring slot, one box per 64 of k.
 template <int kH>
 __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, int c_begin,
                                         int rank, int g) {
@@ -320,8 +455,8 @@ __device__ __forceinline__ void load_w1(const CUtensorMap* map, uint32_t base, i
   int f;
   if constexpr (P::kWide)  // the peer's half, then the block's own, one box a tile
     f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * (rank ^ ((g / P::kW1PerHalf) % 2) ^ 1);
-  else if constexpr (P::kPair)  // the block's own half of the chunk, one box a tile
-    f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * rank;
+  else if constexpr (P::kAlt)  // the block's chunks c_begin + rank, + 2, ..., whole
+    f = (c_begin + 2 * (g / P::kW1PerChunk) + rank) * kFC;
   else
     f = (c_begin + g / P::kW1PerChunk) * kFC + kS1N * ((g / P::kW1PerHalf) % 2);
   const uint32_t slot = g % P::kW1Stages;
@@ -356,14 +491,143 @@ __device__ __forceinline__ void load_w2(const CUtensorMap* map, uint32_t base, i
                 P::kHalf * (u % kS2) + P::kW2N * (u / kS2));
 }
 
+// One k16 step of stage 2 on a W2 tile of kN columns (kWide's widths):
+// D (+)= A . B, overwriting D on the slice's first step.
+template <int kN>
+__device__ __forceinline__ void s2_step(float (&d)[kN / 2], uint64_t da, uint64_t db,
+                                        bool first) {
+  if constexpr (kN == 64) {
+    if (first)
+      mrd::wgmma_m64n64k16_first(d, da, db);
+    else
+      mrd::wgmma_m64n64k16(d, da, db, 1);
+  } else if constexpr (kN == 88) {
+    if (first)
+      mrd::wgmma_m64n88k16_first(d, da, db);
+    else
+      mrd::wgmma_m64n88k16(d, da, db, 1);
+  } else if constexpr (kN == 96) {
+    if (first)
+      mrd::wgmma_m64n96k16_first(d, da, db);
+    else
+      mrd::wgmma_m64n96k16(d, da, db, 1);
+  } else {
+    if (first)
+      mrd::wgmma_m64n128k16_first(d, da, db);
+    else
+      mrd::wgmma_m64n128k16(d, da, db, 1);
+  }
+}
+
+// kWide, the stage-2 warpgroups of block `rank` at chunk k (slice chunk c):
+// the block's half of the GELU chunk, h[:, 32 rank .. + 32] = bf16(GELU(
+// own partial + the peer's partial + b1)), from the partials stage 1 and
+// the peer's stage 1 stored, into the half of chunk buffer hs (64-byte
+// swizzled), once the peer is done with the buffer's previous round (and
+// so the bulk copy of that round has read the half); then warpgroup 0's
+// leader hands the partials slots back and copies the half into the peer's
+// buffer (one bulk copy, counted on the peer's full barrier). Thread s
+// takes stage-1 fragment elements i = 2 m, 2 m + 1 of stage-1 thread t = s
+// % 128, m = 4 (s / 128) .. + 3: the column pairs of rows 16 (t / 32) + (t
+// % 32) / 4 (+ 8). The two terms are added in the stage-1 order: own
+// partial, then the peer's.
+template <int kH, typename V>
+__device__ __forceinline__ void s2_gelu(uint32_t base, const V* __restrict__ b1, int c, int k,
+                                        int chunks, int rank, int wg, bool leader) {
+  using P = Ffn<kH>;
+  const int hs = k % kHStages;
+  const uint32_t round = (k / kHStages) & 1;
+  mbar_wait(base + P::kBarOFull + 8 * hs, round);
+  mrd::mbar_wait_cluster(base + P::kBarPFull + 8 * hs, round);
+  if (wg == 0 && leader) {
+    if (k + kHStages < chunks)  // the peer's partial of chunk k + 2
+      mbar_arrive_expect_tx(base + P::kBarPFull + 8 * hs, P::kPBytes);
+    // the peer has released the buffer's last round, so the bulk copy that
+    // sent this half then has read it (and the peer's half may be written)
+    mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, round ^ 1);
+  }
+  // both warpgroups are done with the buffer's last round, and its copy
+  named_bar_sync<kS2Threads>(1);
+  const int s = threadIdx.x;      // 0 .. 255
+  const int t = s % 128, w = t / 32, l = t % 32;
+  const uint32_t own = base + P::kOffO + hs * P::kPBytes + 4 * t;
+  const uint32_t peer = base + P::kOffP + hs * P::kPBytes + 4 * t;
+  const uint32_t half = base + P::kOffH + hs * kBlockBytes + rank * (kBlockBytes / 2);
+#pragma unroll 1
+  for (int m = 4 * (s / 128); m < 4 * (s / 128) + 4; ++m) {
+    const int i = 2 * m;
+    const int r = 16 * w + l / 4 + 8 * (m % 2), col = 8 * (m / 2) + 2 * (l % 4);
+    const float v0 = mrd::ld_shared_f32(own + 4 * 128 * i) +
+                     mrd::ld_shared_f32(peer + 4 * 128 * i) +
+                     ld_f32(b1 + c * kFC + kS1N * rank + col);
+    const float v1 = mrd::ld_shared_f32(own + 4 * 128 * (i + 1)) +
+                     mrd::ld_shared_f32(peer + 4 * 128 * (i + 1)) +
+                     ld_f32(b1 + c * kFC + kS1N * rank + col + 1);
+    mrd::sts_pair(half + mrd::sw64_offset(r, m / 2) + (col & 7) * 2,
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f))));
+  }
+  fence_proxy_async();            // the half, to the wgmma and the bulk copy
+  named_bar_sync<kS2Threads>(1);  // every thread's half written, partials read
+  if (wg == 0 && leader) {
+    mbar_arrive(base + P::kBarOEmpty + 8 * hs);
+    mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarPEmpty + 8 * hs, rank ^ 1));
+    mrd::bulk_copy_to_rank(mrd::map_to_rank(half, rank ^ 1), half, kBlockBytes / 2,
+                           mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
+  }
+}
+
+// W1 tiles of a slice of `chunks` chunks that block `rank` loads: kAlt's
+// blocks take every other chunk (block 0 the first), the others all.
+template <int kH>
+__device__ __forceinline__ int w1_tiles(int chunks, int rank) {
+  using P = Ffn<kH>;
+  if constexpr (P::kAlt)
+    return (chunks + 1 - rank) / 2 * P::kW1PerChunk;
+  else
+    return chunks * P::kW1PerChunk;
+}
+
+// A pair's stage 2 takes GELU chunk k (buffer hs): it waits for the
+// chunk's block (kAlt: this block's stage 1 for buffer `rank`, the bulk
+// copy from the peer for the other) or, kWide, for the peer's half (the
+// own half is this stage 2's, s2_gelu); warpgroup 0 then expects the
+// peer's next copy into this buffer.
+template <int kH>
+__device__ __forceinline__ void take_h(uint32_t base, int hs, int k, int chunks, int rank,
+                                       int wg, bool leader) {
+  using P = Ffn<kH>;
+  mrd::mbar_wait_cluster(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
+  if constexpr (P::kWide) {  // the peer's half of chunk k + 2
+    if (wg == 0 && leader && k + kHStages < chunks)
+      mbar_arrive_expect_tx(base + P::kBarHFull + 8 * hs, kBlockBytes / 2);
+  } else if (hs != rank && wg == 0 && leader && k + kHStages < chunks) {
+    mbar_arrive_expect_tx(base + P::kBarHFull + 8 * hs, kBlockBytes);
+  }
+}
+
+// A pair's stage-2 warpgroup is done with chunk buffer hs: an arrival on
+// the empty barrier of the block that writes it (kAlt: the block of rank
+// hs; kWide: the peer, whose bulk copy writes its half).
+template <int kH>
+__device__ __forceinline__ void release_h(uint32_t base, int hs, int rank) {
+  using P = Ffn<kH>;
+  if (P::kAlt && hs == rank)
+    mbar_arrive(base + P::kBarHEmpty + 8 * hs);
+  else
+    mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHEmpty + 8 * hs, rank ^ 1));
+}
+
 // Stage 2 of chunk k (counted from the slice's first) for warpgroup wg:
 // ACC[:, kHalf wg .. + kHalf] += h . W2[chunk, ...], from W2 tiles u = 2 j +
-// wg. Both stage-2 WGs wait on every W2 tile, the other one's included, so
-// each waits on every round of every slot in order and the parity waits are
-// exact. A tile's own WG refills its slot with tile g + 4 (same owner) once
-// its products are done; that cannot run two rounds ahead of the other WG,
-// whose next tile it has to wait for first. kFirst: the slice's first
-// chunk, whose first step writes the accumulators without reading them.
+// wg. Both stage-2 WGs of a one-block width wait on every W2 tile, the
+// other one's included, so each waits on every round of every slot in
+// order and the parity waits are exact. A tile's own WG refills its slot
+// with tile g + 4 (same owner) once its products are done; that cannot run
+// two rounds ahead of the other WG, whose next tile it has to wait for
+// first. The pairs' WGs wait for their own tiles only (see below). kFirst:
+// the slice's first chunk, whose first step writes the accumulators
+// without reading them.
 template <int kH, bool kFirst>
 __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2][Ffn<kH>::kAcc],
                                          Ring& w2, const CUtensorMap* w2_map, uint32_t base,
@@ -371,19 +635,34 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
                                          bool leader, int rank) {
   using P = Ffn<kH>;
   const int hs = k % kHStages;
-  if constexpr (P::kPair)  // both blocks' stage 1 wrote the chunk
-    mrd::mbar_wait_cluster(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
+  if constexpr (P::kPair)
+    take_h<kH>(base, hs, k, n_w2 / P::kW2PerChunk, rank, wg, leader);
   else
     mbar_wait(base + P::kBarHFull + 8 * hs, (k / kHStages) & 1);
   int prev = 0;  // the W2 tile of the group in flight
 #pragma unroll
   for (int j = 0; j < P::kW2PerChunk / kS2; ++j) {
     uint32_t mine = 0;
+    if constexpr (P::kPair) {
+      // the pairs: each warpgroup waits for its own tiles only, every round
+      // of the slots of its parity in order, so its waits stay exact however
+      // far the other warpgroup runs ahead (a chunk buffer from the peer can
+      // reach one warpgroup's wait well before the other's)
 #pragma unroll
-    for (int o = 0; o < kS2; ++o) {
-      mbar_wait(base + P::kBarW2Full + 8 * w2.slot, w2.phase);
-      if (o == wg) mine = w2.slot;
-      w2.next<kW2Stages>();
+      for (int o = 0; o < kS2; ++o) {
+        if (o == wg) {
+          mbar_wait(base + P::kBarW2Full + 8 * w2.slot, w2.phase);
+          mine = w2.slot;
+        }
+        w2.next<kW2Stages>();
+      }
+    } else {
+#pragma unroll
+      for (int o = 0; o < kS2; ++o) {
+        mbar_wait(base + P::kBarW2Full + 8 * w2.slot, w2.phase);
+        if (o == wg) mine = w2.slot;
+        w2.next<kW2Stages>();
+      }
     }
     const int g = k * P::kW2PerChunk + kS2 * j + wg;
     const uint32_t a0 = opaque(base) + P::kOffH + hs * kBlockBytes;
@@ -392,6 +671,12 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
     mrd::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFC / 16; ++kk) {
+      if constexpr (P::kWide) {  // the chunk buffer: two 64-byte swizzled halves
+        s2_step<P::kW2N>(acc[j],
+                         mrd::sw64_desc(a0 + (kk / 2) * (kBlockBytes / 2) + (kk % 2) * 32),
+                         sw128_desc(b0 + kk * 32), kFirst && kk == 0);
+        continue;
+      }
       const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
       if constexpr (P::kW2N == 64) {  // H = 128, 384, 640: n64 tiles
         if (kFirst && kk == 0)
@@ -433,112 +718,169 @@ __device__ __forceinline__ void s2_chunk(float (&acc)[Ffn<kH>::kW2PerChunk / kS2
   for (int j = 0; j < P::kW2PerChunk / kS2; ++j) mrd::fence_operand(acc[j]);
   if (leader) {
     if (prev + kW2Stages < n_w2) load_w2<kH>(w2_map, base, c_begin, col0, prev + kW2Stages);
-    mbar_arrive(base + P::kBarHEmpty + 8 * hs);
-    // the peer's stage 1 writes this slot too
     if constexpr (P::kPair)
-      mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHEmpty + 8 * hs, rank ^ 1));
+      release_h<kH>(base, hs, rank);
+    else
+      mbar_arrive(base + P::kBarHEmpty + 8 * hs);
   }
+}
+
+// One pass of a pair's stage 1: P[64, kS1Cols] = x[:, the block's k] .
+// W1^T's [kS1Cols f x 64 k] tiles g .. g + kW1PerHalf - 1 of the W1 ring
+// (refilled as they are used). A tile is four k16 steps of wgmma
+// m64n<kS1Cols>k16, short against the latency of the product each adds
+// to, so the pass spreads its steps over kChains accumulators (step s on
+// chain s % kChains, issued in turn) and adds them into acc[0] in one
+// order at the end: kChains products in flight. One wgmma group (a tile)
+// stays in flight while the next tile's wait and issue proceed; a tile's
+// slot is refilled once its group is done.
+template <int kH>
+__device__ __forceinline__ void s1_pass(float (&acc)[Ffn<kH>::kChains][Ffn<kH>::kS1Cols / 2],
+                                        int& g, const CUtensorMap* w1_map, uint32_t base,
+                                        int c_begin, int rank, int n_w1, bool leader) {
+  using P = Ffn<kH>;
+  constexpr int kC = P::kChains;
+  constexpr int kN = P::kS1Cols / 2;  // accumulator floats a thread
+#pragma unroll
+  for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
+    // tile g's ring slot and the parity of its round, from g itself (no
+    // ring position kept beside it: stage 1 has 56 registers at 1,536)
+    const uint32_t slot = g % P::kW1Stages;
+    mbar_wait(base + P::kBarW1Full + 8 * slot, (g / P::kW1Stages) & 1);
+    const uint32_t a0 = opaque(base) + P::kOffX + t * kBlockBytes;
+    const uint32_t b0 = opaque(base) + P::kOffW1 + slot * P::kW1Bytes;
+    if (t > 0) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) mrd::fence_operand(acc[c]);
+    }
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int step = 4 * t + kk;
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if constexpr (P::kS1Cols == 64) {
+        if (step < kC)
+          mrd::wgmma_m64n64k16_first(acc[step % kC], da, db);
+        else
+          mrd::wgmma_m64n64k16(acc[step % kC], da, db, 1);
+      } else if (step < kC) {
+        mrd::wgmma_m64n32k16_first(acc[step % kC], da, db);
+      } else {
+        mrd::wgmma_m64n32k16(acc[step % kC], da, db, 1);
+      }
+    }
+    mrd::wgmma_commit();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) mrd::fence_operand(acc[c]);
+    if (t > 0) {  // tile t - 1 is done: refill its slot
+      mrd::wgmma_wait<1>();
+      if (leader && g - 1 + P::kW1Stages < n_w1)
+        load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+    }
+  }
+  mrd::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kC; ++c) mrd::fence_operand(acc[c]);
+  if (leader && g - 1 + P::kW1Stages < n_w1)  // the pass's last tile
+    load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    if constexpr (kC == 4)
+      acc[0][i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+    else if constexpr (kC == 2)
+      acc[0][i] = acc[0][i] + acc[1][i];
+  }
+}
+
+// Stage 1 of the pair at 896 and 1,024 (kAlt), block `rank`: the blocks
+// take turns at the slice's GELU chunks, block r at chunks r, r + 2, ...,
+// which go to chunk buffer r (hs = rank). Per chunk: P[64, 64] = x . W1[:,
+// chunk] over all of H (s1_pass, wgmma m64n64k16), + b1, exact-erf GELU in
+// f32, bf16 into the block's chunk buffer once both blocks' stage 2 has
+// released it; the stores go to this block's stage 2 as an arrival of each
+// thread, and to the peer's as one bulk copy of the 8-KB buffer into the
+// peer's, whose full barrier counts the bytes. No thread waits for a store
+// to another block's shared memory to land.
+template <int kH, typename V>
+__device__ __forceinline__ void s1_alt(const CUtensorMap* w1_map, const V* __restrict__ b1,
+                                       uint32_t base, int c_begin, int c_end, int n_w1,
+                                       int rank, int warp, int lane, bool leader) {
+  using P = Ffn<kH>;
+  const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
+  const uint32_t hbuf = base + P::kOffH + rank * kBlockBytes;
+  int g = 0;  // W1 tiles consumed
+  for (int c = c_begin + rank; c < c_end; c += 2) {
+    const int k = c - c_begin;
+    float acc[P::kChains][32];
+    float(&p)[32] = acc[0];
+    s1_pass<kH>(acc, g, w1_map, base, c_begin, rank, n_w1, leader);
+    mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * rank, ((k / kHStages) & 1) ^ 1);
+#pragma unroll
+    for (int nb = 0; nb < kFC / 8; ++nb) {
+      const int col = 8 * nb + 2 * (lane % 4);
+      const float bb0 = ld_f32(b1 + c * kFC + col);
+      const float bb1 = ld_f32(b1 + c * kFC + col + 1);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wrow + 8 * hr;
+        const float v0 = p[4 * nb + 2 * hr] + bb0;
+        const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
+        mrd::sts_pair(hbuf + sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2,
+                      __floats2bfloat162_rn(
+                          0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                          0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f))));
+      }
+    }
+    fence_proxy_async();  // the stores, to the wgmma and the bulk copy
+    mbar_arrive(base + P::kBarHFull + 8 * rank);
+    named_bar_sync<128>(2);  // every stage-1 thread's stores
+    if (leader)
+      mrd::bulk_copy_to_rank(mrd::map_to_rank(hbuf, rank ^ 1), hbuf, kBlockBytes,
+                             mrd::map_to_rank(base + P::kBarHFull + 8 * rank, rank ^ 1));
+  }
+  mrd::cluster_sync();  // the peer is done with this block
 }
 
 // Stage 1 of the kWide pair, block `rank`: per chunk of the slice, the f32
 // partial over the block's own k (its columns of x) of the peer's 32 chunk
-// columns, stored into the peer's partials slot, then of its own 32, to
-// which it adds the peer's partial of them once it has arrived; + b1,
-// exact-erf GELU, bf16 into both blocks' chunk buffers once both blocks'
-// stage 2 has released the slot. The partials go in fragment order
-// (element i of thread t at 128 i + t), which is the same in both blocks,
-// and are read one at a time inside the GELU loop, through 32-bit shared
-// addresses: this warpgroup has 56 registers, 16 of them the partial.
-template <int kH, typename V>
-__device__ __forceinline__ void s1_wide(const CUtensorMap* w1_map, const V* __restrict__ b1,
-                                        uint32_t base, int c_begin, int c_end, int n_w1,
-                                        int rank, int warp, int lane, bool leader) {
+// columns, sent into the peer's partials slot as st.async stores (counted
+// in bytes on the peer's barrier; no thread waits for them to land), then
+// of its own 32, stored into the block's own-partial slot for its stage 2,
+// which adds the two and applies b1 and the GELU (s2_gelu). Both go in
+// fragment order (element i of thread t at 128 i + t), the same in both
+// blocks. This warpgroup has 56 registers at 1,536, 16 of them the partial.
+template <int kH>
+__device__ __forceinline__ void s1_wide(const CUtensorMap* w1_map, uint32_t base, int c_begin,
+                                        int c_end, int n_w1, int rank, bool leader) {
   using P = Ffn<kH>;
   const int tid = threadIdx.x % 128;
-  const int wrow = 16 * (warp % 4) + lane / 4;  // this thread's first row
-  Ring w1;
   int g = 0;  // W1 tiles consumed
   for (int c = c_begin; c < c_end; ++c) {
     const int k = c - c_begin;
-    const int hs = k % kHStages;  // the chunk buffer and the partials slot
+    const int hs = k % kHStages;  // the partials slots
     const uint32_t round = (k / kHStages) & 1;
-    const uint32_t peer_part = mrd::map_to_rank(base + P::kOffP + hs * P::kPBytes, rank ^ 1);
 #pragma unroll 1
-    for (int pass = 0; pass < 2; ++pass) {  // the peer's columns, then this block's
-      // P[64, 32] = x[:, own columns] . W1[own rows, 32 columns], one wgmma
-      // group in flight while the next tile's wait and issue proceed
-      float p[16];
-#pragma unroll
-      for (int t = 0; t < P::kW1PerHalf; ++t, ++g) {
-        mbar_wait(base + P::kBarW1Full + 8 * w1.slot, w1.phase);
-        const uint32_t a0 = opaque(base) + P::kOffX + t * kBlockBytes;
-        const uint32_t b0 = opaque(base) + P::kOffW1 + w1.slot * P::kW1Bytes;
-        if (t > 0) mrd::fence_operand(p);
-        mrd::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < P::kW1K / 16; ++kk) {
-          const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
-          if (t == 0 && kk == 0)
-            mrd::wgmma_m64n32k16_first(p, da, db);
-          else
-            mrd::wgmma_m64n32k16(p, da, db, 1);
-        }
-        mrd::wgmma_commit();
-        mrd::fence_operand(p);
-        if (t > 0) {
-          mrd::wgmma_wait<1>();
-          if (leader && g - 1 + P::kW1Stages < n_w1)
-            load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
-        }
-        w1.next<P::kW1Stages>();
-      }
-      mrd::wgmma_wait<0>();
-      mrd::fence_operand(p);
-      if (leader && g - 1 + P::kW1Stages < n_w1)
-        load_w1<kH>(w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
+    for (int pass = 0; pass < 2; ++pass) {
+      // the peer's 32 columns, into its slot once it has read the last
+      // round; then this block's, into its own slot once stage 2 has
+      float acc[P::kChains][16];
+      s1_pass<kH>(acc, g, w1_map, base, c_begin, rank, n_w1, leader);
       if (pass == 0) {
-        // into the peer's slot, once the peer has read its previous round
         mrd::mbar_wait_cluster(base + P::kBarPEmpty + 8 * hs, round ^ 1);
+        const uint32_t peer_part =
+            mrd::map_to_rank(base + P::kOffP + hs * P::kPBytes + 4 * tid, rank ^ 1);
+        const uint32_t peer_full = mrd::map_to_rank(base + P::kBarPFull + 8 * hs, rank ^ 1);
 #pragma unroll
         for (int i = 0; i < 16; ++i)
-          mrd::st_cluster_b32(peer_part + 4 * (128 * i + tid), __float_as_uint(p[i]));
-        mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarPFull + 8 * hs, rank ^ 1));
-        continue;
-      }
-      // + the peer's partial of these columns (two terms: the same bits in
-      // either order) + b1, exact-erf GELU in f32, bf16 into both blocks'
-      // chunk buffers once both blocks' stage 2 has released the slot;
-      // then the partials slot goes back
-      mrd::mbar_wait_cluster(base + P::kBarPFull + 8 * hs, round);
-      mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, round ^ 1);
-      const uint32_t part = base + P::kOffP + hs * P::kPBytes + 4 * tid;
-      const uint32_t hbuf = base + P::kOffH + hs * kBlockBytes;
-      const uint32_t peer_h = mrd::map_to_rank(hbuf, rank ^ 1);
+          mrd::st_async_f32(peer_part + 4 * 128 * i, acc[0][i], peer_full);
+      } else {
+        mbar_wait(base + P::kBarOEmpty + 8 * hs, round ^ 1);
+        const uint32_t own = base + P::kOffO + hs * P::kPBytes + 4 * tid;
 #pragma unroll
-      for (int nb = 0; nb < kS1N / 8; ++nb) {
-        const int col = kS1N * rank + 8 * nb + 2 * (lane % 4);
-        const float bb0 = ld_f32(b1 + c * kFC + col);
-        const float bb1 = ld_f32(b1 + c * kFC + col + 1);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wrow + 8 * hr;
-          const int i = 4 * nb + 2 * hr;
-          const float v0 = p[i] + mrd::ld_shared_f32(part + 4 * 128 * i) + bb0;
-          const float v1 = p[i + 1] + mrd::ld_shared_f32(part + 4 * 128 * (i + 1)) + bb1;
-          const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
-          const __nv_bfloat162 hv =
-              __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                    0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
-          mrd::sts_pair(hbuf + at, hv);
-          mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
-        }
+        for (int i = 0; i < 16; ++i) mrd::sts_f32(own + 4 * 128 * i, acc[0][i]);
+        mbar_arrive(base + P::kBarOFull + 8 * hs);
       }
-      mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarPEmpty + 8 * hs, rank ^ 1));
     }
-    // the stores to both blocks, to both blocks' stage-2 wgmma
-    mrd::fence_proxy_async_cluster();
-    mbar_arrive(base + P::kBarHFull + 8 * hs);
-    mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
   }
   mrd::cluster_sync();  // the peer is done with this block
 }
@@ -585,20 +927,38 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
     for (int s = 0; s < P::kW1Stages; ++s) mbar_init(base + P::kBarW1Full + 8 * s, 1);
     for (int s = 0; s < kW2Stages; ++s) mbar_init(base + P::kBarW2Full + 8 * s, 1);
     for (int s = 0; s < kHStages; ++s) {
-      mbar_init(base + P::kBarHFull + 8 * s, P::kHFullArrivals);
+      if constexpr (P::kWide)  // the peer's half arrives as one copy
+        mbar_init(base + P::kBarHFull + 8 * s, 1);
+      else if constexpr (P::kAlt)  // the peer's buffer arrives as one copy
+        mbar_init(base + P::kBarHFull + 8 * s, s == rank ? P::kHFullArrivals : 1);
+      else
+        mbar_init(base + P::kBarHFull + 8 * s, P::kHFullArrivals);
       mbar_init(base + P::kBarHEmpty + 8 * s, P::kHEmptyArrivals);
     }
     if constexpr (P::kPair)  // every stage-2 thread of the peer, per exchange
       for (int s = 0; s < 2; ++s) mbar_init(base + P::kBarStats + 8 * s, kS2Threads);
-    if constexpr (P::kWide)  // every stage-1 thread of the peer, per round of a slot
+    if constexpr (P::kWide)  // the partials: the peer's as bytes, the block's own
       for (int s = 0; s < kHStages; ++s) {
-        mbar_init(base + P::kBarPFull + 8 * s, 128);
-        mbar_init(base + P::kBarPEmpty + 8 * s, 128);
+        mbar_init(base + P::kBarPFull + 8 * s, 1);
+        mbar_init(base + P::kBarPEmpty + 8 * s, 1);
+        mbar_init(base + P::kBarOFull + 8 * s, 128);
+        mbar_init(base + P::kBarOEmpty + 8 * s, 1);
+        if (s < chunks_per_slice) {  // the first round of the peer's bytes
+          mbar_arrive_expect_tx(base + P::kBarPFull + 8 * s, P::kPBytes);
+          mbar_arrive_expect_tx(base + P::kBarHFull + 8 * s, kBlockBytes / 2);
+        }
       }
     fence_barrier_init();
     // fill both rings; from here on, consumers refill the slots they free
-    for (int g = 0; g < P::kW1Stages && g < n_w1; ++g)
-      load_w1<kH>(&w1_map, base, c_begin, rank, g);
+    if constexpr (P::kAlt) {
+      for (int g = 0; g < P::kW1Stages && g < w1_tiles<kH>(chunks_per_slice, rank); ++g)
+        load_w1<kH>(&w1_map, base, c_begin, rank, g);
+      if (chunks_per_slice > (rank ^ 1))  // the peer's first chunk, by bulk copy
+        mbar_arrive_expect_tx(base + P::kBarHFull + 8 * (rank ^ 1), kBlockBytes);
+    } else {
+      for (int g = 0; g < P::kW1Stages && g < n_w1; ++g)
+        load_w1<kH>(&w1_map, base, c_begin, rank, g);
+    }
     for (int g = 0; g < kW2Stages && g < n_w2; ++g)
       load_w2<kH>(&w2_map, base, c_begin, col0, g);
   }
@@ -608,7 +968,10 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
       // the whole row (LN0's statistics), this block's columns into the tile
       if constexpr (kH % 256 != 0) {
         uint2 g[kRowGroups8<kH>];
-        load_x_row_narrow<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+        if constexpr (kInputLN)
+          load_x_row_ln0<kH, V>(z, row0 + r, M, g0, o0, eps, lane, g);
+        else
+          load_x_row_narrow<kH, V, false>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
         for (int j = 0; j < kRowGroups8<kH>; ++j) {
           const int q = lane + 32 * j - col0 / 4;  // the 8-byte group in the block's columns
@@ -618,7 +981,10 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
         }
       } else {
         uint4 g[kRowGroupsPerLane<kH>];
-        load_x_row<kH, V, kInputLN>(z, row0 + r, M, g0, o0, eps, lane, g);
+        if constexpr (kInputLN)
+          load_x_row_ln0<kH, V>(z, row0 + r, M, g0, o0, eps, lane, g);
+        else
+          load_x_row<kH, V, false>(z, row0 + r, M, g0, o0, eps, lane, g);
 #pragma unroll
         for (int j = 0; j < kRowGroupsPerLane<kH>; ++j) {
           const int q = lane + 32 * j - col0 / 8;  // the 16-byte group in the block's columns
@@ -655,9 +1021,12 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
   if (role == kS1WG) {
     // ---- stage 1: the GELU chunk h = bf16(GELU(x . W1[:, chunk] + b1)),
     // in two passes of 32 columns
-    mrd::setmaxnreg_dec<kS1Regs>();
+    mrd::setmaxnreg_dec<P::kRegs1>();
     if constexpr (P::kWide) {
-      s1_wide<kH, V>(&w1_map, b1, base, c_begin, c_end, n_w1, rank, warp, lane, leader);
+      s1_wide<kH>(&w1_map, base, c_begin, c_end, n_w1, rank, leader);
+    } else if constexpr (P::kAlt) {
+      s1_alt<kH, V>(&w1_map, b1, base, c_begin, c_end, w1_tiles<kH>(chunks_per_slice, rank),
+                    rank, warp, lane, leader);
     } else {
       Ring w1;
       int g = 0;  // W1 tiles consumed
@@ -665,10 +1034,11 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
         const int k = c - c_begin;
         const int hs = k % kHStages;
         unsigned char* hbuf = smem + P::kOffH + hs * kBlockBytes;
-        // the pair: the peer's copy of the chunk buffer
+        // (kPair is false here; the expressions on it are kept as they were
+        // written when this loop served the pairs too, since another form of
+        // the same math moves ptxas's schedule of the one-block widths)
         const uint32_t peer_h =
             P::kPair ? mrd::map_to_rank(base + P::kOffH + hs * kBlockBytes, rank ^ 1) : 0;
-        // the pair runs its own half only
 #pragma unroll 1
         for (int half = P::kPair ? rank : 0; half < (P::kPair ? rank + 1 : 2); ++half) {
           // P[64, 32] = x . W1[:, f0 + 32 half .. +32], one wgmma group in
@@ -704,11 +1074,8 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
           if (leader && g - 1 + P::kW1Stages < n_w1)
             load_w1<kH>(&w1_map, base, c_begin, rank, g - 1 + P::kW1Stages);
           // + b1, exact-erf GELU in f32, bf16 into the chunk's H slot once
-          // stage 2 (the pair: of both blocks) has released it
-          if constexpr (P::kPair)
-            mrd::mbar_wait_cluster(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
-          else if (half == 0)
-            mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
+          // stage 2 has released it
+          if (half == 0) mbar_wait(base + P::kBarHEmpty + 8 * hs, ((k / kHStages) & 1) ^ 1);
 #pragma unroll
           for (int nb = 0; nb < kS1N / 8; ++nb) {
             const int col = kS1N * half + 8 * nb + 2 * (lane % 4);
@@ -719,44 +1086,32 @@ ffn_ln_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1^T [F, H]
               const int r = wrow + 8 * hr;
               const float v0 = p[4 * nb + 2 * hr] + bb0;
               const float v1 = p[4 * nb + 2 * hr + 1] + bb1;
-              if constexpr (P::kPair) {  // into both blocks' chunk buffers
-                const uint32_t at = sw128_offset(r, col >> 3, kBlockBytes) + (col & 7) * 2;
-                const __nv_bfloat162 hv =
-                    __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                          0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
-                *reinterpret_cast<__nv_bfloat162*>(hbuf + at) = hv;
-                mrd::st_cluster_b32(peer_h + at, *reinterpret_cast<const uint32_t*>(&hv));
-              } else {
-                *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
-                                                   (col & 7) * 2) =
-                    __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
-                                          0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
-              }
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + sw128_offset(r, col >> 3, kBlockBytes) +
+                                                 (col & 7) * 2) =
+                  __floats2bfloat162_rn(0.5f * v0 * (1.0f + erff(v0 * 0.70710678118654752f)),
+                                        0.5f * v1 * (1.0f + erff(v1 * 0.70710678118654752f)));
             }
           }
         }
-        if constexpr (P::kPair) {
-          // the stores to both blocks, to both blocks' stage-2 wgmma
-          mrd::fence_proxy_async_cluster();
-          mbar_arrive(base + P::kBarHFull + 8 * hs);
-          mrd::mbar_arrive_remote(mrd::map_to_rank(base + P::kBarHFull + 8 * hs, rank ^ 1));
-        } else {
-          fence_proxy_async();  // the stores, to stage 2's wgmma
-          mbar_arrive(base + P::kBarHFull + 8 * hs);
-        }
+        fence_proxy_async();  // the stores, to stage 2's wgmma
+        mbar_arrive(base + P::kBarHFull + 8 * hs);
       }
-      if constexpr (P::kPair) mrd::cluster_sync();  // the peer is done with this block
     }
   } else {
     // ---- stage 2, warpgroup wg: ACC[:, col0 + kHalf wg .. + kHalf] +=
     // h . W2[chunk, ...]
-    mrd::setmaxnreg_inc<kS2Regs>();
+    mrd::setmaxnreg_inc<P::kRegs2>();
     const int wg = role;
     float acc[P::kW2PerChunk / kS2][P::kAcc];  // [64, kHalf] f32: n128 (n64) tiles
     Ring w2;
+    if constexpr (P::kWide)
+      s2_gelu<kH, V>(base, b1, c_begin, 0, chunks_per_slice, rank, wg, leader);
     s2_chunk<kH, true>(acc, w2, &w2_map, base, c_begin, col0, n_w2, 0, wg, leader, rank);
-    for (int k = 1; k < chunks_per_slice; ++k)
+    for (int k = 1; k < chunks_per_slice; ++k) {
+      if constexpr (P::kWide)
+        s2_gelu<kH, V>(base, b1, c_begin + k, k, chunks_per_slice, rank, wg, leader);
       s2_chunk<kH, false>(acc, w2, &w2_map, base, c_begin, col0, n_w2, k, wg, leader, rank);
+    }
 
     // ---- epilogue. Thread (warp, lane) holds rows wrow and wrow + 8, and
     // per n8 block nb of tile j the columns col0 + kHalf wg + 128 j + 8 nb +
@@ -953,7 +1308,7 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
                    float eps, cudaStream_t stream) {
   using P = Ffn<kH>;
   CUtensorMap w1_map, w2_map;
-  if (!make_map(&w1_map, w1t, F, kH, kS1N) || !make_map(&w2_map, w2t, kH, F, P::kW2N))
+  if (!make_map(&w1_map, w1t, F, kH, P::kS1Cols) || !make_map(&w2_map, w2t, kH, F, P::kW2N))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel<kH, V, kInputLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -994,6 +1349,37 @@ cudaError_t launch(const void* z, const void* w1t, const void* b1, const void* w
   return cudaGetLastError();
 }
 
+// The clusters of a pair form's launch (H >= 896) that the card holds at
+// once, cudaOccupancyMaxActiveClusters at the block's shared memory, which
+// chip_smoke.py prints; the launch plan does not read it (the H100 holds 66
+// pairs: all of its SMs). 0 at the one-block widths, which launch no
+// cluster; negative on an error.
+template <int kH>
+int max_clusters() {
+  using P = Ffn<kH>;
+  if constexpr (!P::kPair) {
+    return 0;
+  } else {
+    const auto fn = ffn_ln_kernel<kH, bf16, true>;
+    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(P::kSmemBytes)) != cudaSuccess)
+      return -1;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = P::kGroups;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(256, 1, P::kGroups);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = P::kSmemBytes;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int n = 0;
+    return cudaOccupancyMaxActiveClusters(&n, fn, &config) == cudaSuccess ? n : -2;
+  }
+}
+
 cudaError_t check_args(int M, int F, int slices, const void* scratch) {
   if (F <= 0 || slices < 1 || F % (kFC * slices) != 0) return cudaErrorInvalidValue;
   if (slices > 1 && scratch == nullptr) return cudaErrorInvalidValue;
@@ -1030,11 +1416,13 @@ int ln_bf16(const void* x, const void* w1t, const void* b1, const void* w2t, con
 
 }  // namespace
 
-// The C entries of K1, K2 and the shared memory per block at a built width
-// H other than 768: `name`_h<H>, as ffn_ln.cu's mrd_ffn_smem_bytes,
-// mrd_ffn_pre_ln_bf16 and mrd_ffn_ln_bf16 with H in place of 768.
+// The C entries of K1, K2, the shared memory per block and the resident
+// clusters at a built width H other than 768: `name`_h<H>, as ffn_ln.cu's
+// mrd_ffn_smem_bytes, mrd_ffn_max_clusters, mrd_ffn_pre_ln_bf16 and
+// mrd_ffn_ln_bf16 with H in place of 768.
 #define MRD_FFN_WIDTH(kH)                                                                    \
   int mrd_ffn_smem_bytes_h##kH() { return static_cast<int>(Ffn<kH>::kSmemBytes); }          \
+  int mrd_ffn_max_clusters_h##kH() { return max_clusters<kH>(); }                           \
   int mrd_ffn_pre_ln_bf16_h##kH(const void* z, const void* w1t, const void* b1,              \
                                 const void* w2t, const void* b2, const void* gamma,          \
                                 const void* beta, const void* g0, const void* o0, void* y,   \

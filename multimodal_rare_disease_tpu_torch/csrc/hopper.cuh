@@ -109,13 +109,16 @@ __device__ __forceinline__ void st_cluster_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// an f32 load from, and two bf16 stored to, this block's shared memory at
-// an address of the shared window (smem_addr): 32-bit addresses, where a
-// generic pointer would keep a 64-bit one live
+// an f32 load from, and an f32 or two bf16 stored to, this block's shared
+// memory at an address of the shared window (smem_addr): 32-bit addresses,
+// where a generic pointer would keep a 64-bit one live
 __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 __device__ __forceinline__ void sts_pair(uint32_t addr, __nv_bfloat162 v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v))
@@ -157,15 +160,34 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   }
 }
 
-// generic-proxy writes to this block's or another block's shared memory
-// become visible to the async proxy (wgmma)
-__device__ __forceinline__ void fence_proxy_async_cluster() {
-  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
-}
-
 // every thread of every block of the cluster meets here
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of this block's shared memory at `src` to
+// another block's at `dst` (an address of map_to_rank), through the async
+// proxy; completion is counted in bytes on that block's mbarrier at `bar`
+// (also an address of map_to_rank), which expects them. Issued by one
+// thread, which does not wait for it.
+__device__ __forceinline__ void bulk_copy_to_rank(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A 4-byte store to another block's shared memory (an address of
+// map_to_rank) that completes on that block's mbarrier at `bar` (also an
+// address of map_to_rank), which counts its bytes; the storing thread
+// does not wait for it.
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "f"(v), "r"(bar)
+               : "memory");
 }
 
 // ---- TMA
@@ -260,6 +282,20 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for an operand in the 64-byte swizzle layout: rows of 32 bf16
+// (64 bytes), 8-row atoms of 512 bytes; `addr` plus 32 bytes per 16-wide
+// step along K inside the 64-byte row.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// Byte offset of the 16-byte group `g` (columns 8g .. 8g+7, g < 4) of row
+// `r` in a [rows, 32] bf16 tile in the 64-byte swizzle layout.
+__device__ __forceinline__ uint32_t sw64_offset(int r, int g) {
+  return r * 64 + ((g ^ ((r >> 1) & 3)) << 4);
 }
 
 // Byte offset of the 16-byte group `g` (columns 8g .. 8g+7) of row `r` in a

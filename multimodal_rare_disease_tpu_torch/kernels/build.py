@@ -156,6 +156,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "mrd_ffn_ln_f32": [p] * 9 + [i, i, i, f, p],
         "mrd_attn_out_ln_f32": [p] * 8 + [i, i, f, p],
         "mrd_ffn_smem_bytes": [],
+        "mrd_ffn_max_clusters": [],
         "mrd_attn_out_smem_bytes": [],
     }
     sigs = {

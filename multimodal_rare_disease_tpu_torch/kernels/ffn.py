@@ -20,11 +20,12 @@ over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base), 1,024
 1,152, 1,280, 1,408 and 1,536 (microsoft/deberta-v2-xlarge's width),
 each width with C entries of its own. From 896 up a row tile's output
 columns are cut into two groups of H / 2, one bf16 block each
-(`KERNEL_GROUPS`), run as a cluster of two that shares the GELU chunk and
-LN2's row statistics over distributed shared memory; above 1,024 each
-block also keeps only its half of x and the pair exchanges the f32
-partials of x @ w1 over its halves. Every other width is one block per
-row tile.
+(`KERNEL_GROUPS`), run as a cluster of two (a pair) that shares the GELU
+chunks and LN2's row statistics over distributed shared memory: at 896
+and 1,024 the two blocks take turns at whole chunks and copy each to the
+other; above 1,024 each block keeps only its half of x, and the pair
+exchanges the f32 partials of x @ w1 over its halves. Every other width
+is one block per row tile.
 
 When the output tiles would fill fewer blocks than the card has SMs,
 the bf16 kernel splits F into slices and the f32 one the k loop of

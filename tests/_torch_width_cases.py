@@ -185,6 +185,23 @@ def check_bf16_plan(h, m, tiles, slices, chunks, k3_slices, k3_chunks):
     assert k1.ffn_plan(m, 3072, 132) == k1.ffn_plan(m, 3072, 132, 768)
 
 
+def check_pair_plan(h, f, m, tiles, slices, chunks):
+    """The bf16 FFN's plan at a pair width (two column groups, launched as
+    clusters of two) for m rows and intermediate width f (any whole number
+    of chunks): the SM count's plan, which the H100's 66 resident pairs
+    fill (build/pair_probe.py). K3's plan at the width is not the FFN's."""
+    plan = k1.ffn_plan(m, f, 132, h)
+    assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
+    # a ragged last tile is a tile: its rows past m are neither read nor
+    # written
+    assert tiles == -(-m // 64)
+    assert plan.scratch == (None if slices == 1 else (slices, m, h))
+    # whole slices of whole chunks
+    assert slices * chunks == f // 64
+    assert k3.attn_out_plan(m, 132, h) == k1.split_plan(m, h // 64, 132,
+                                                        hidden=h)
+
+
 def check_f32_plan(h, m, tiles, slices, k_tiles, k3_slices, k3_k_tiles):
     f = WIDTHS[h][1]
     plan = k1.ffn_plan_f32(m, f, 132, h)

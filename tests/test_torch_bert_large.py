@@ -25,6 +25,7 @@ from _torch_width_cases import (
     check_f32_plan,
     check_ffn_plain,
     check_gates,
+    check_pair_plan,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -84,7 +85,7 @@ def test_wrappers_refuse_a_width_the_build_lacks(h):
 _PLANS = {
     1024: [(1, 1, 64, 1, 16, 1), (64, 1, 64, 1, 16, 1),
            (1024, 16, 4, 16, 4, 4), (4096, 64, 64, 1, 1, 16),
-           (16384, 256, 1, 64, 1, 16)],
+           (16384, 256, 1, 64, 1, 16), (16385, 257, 1, 64, 1, 16)],
     512: [(1, 1, 32, 1, 8, 1), (64, 1, 32, 1, 8, 1), (1024, 16, 8, 4, 8, 1),
           (4096, 64, 2, 16, 2, 4), (16384, 256, 1, 32, 1, 8)],
     256: [(1, 1, 16, 1, 4, 1), (64, 1, 16, 1, 4, 1), (1024, 16, 8, 2, 4, 1),
@@ -100,6 +101,25 @@ _PLAN_CASES = [(h, *p) for h, ps in _PLANS.items() for p in ps]
                          ids=[f"h{p[0]}-m{p[1]}" for p in _PLAN_CASES])
 def test_bf16_plans(h, m, tiles, slices, chunks, k3_slices, k3_chunks):
     check_bf16_plan(h, m, tiles, slices, chunks, k3_slices, k3_chunks)
+
+
+# (m, row tiles, slices, chunks per slice) of the bf16 FFN at the pair
+# widths with F = 4H - 64, an odd number of chunks, from a single
+# request's row to the ragged tile past the packed batch: below a wave the
+# plan takes slices of one chunk, where the second block of a pair that
+# takes turns at chunks (896, 1,024) has none
+_PAIR_PLANS = {
+    (1024, 4032): [(1, 1, 63, 1), (64, 1, 63, 1), (1024, 16, 63, 1),
+                   (16384, 256, 1, 63), (16385, 257, 1, 63)],
+}
+_PAIR_CASES = [(h, f, *p) for (h, f), ps in _PAIR_PLANS.items() for p in ps]
+
+
+@pytest.mark.parametrize("h,f,m,tiles,slices,chunks", _PAIR_CASES,
+                         ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
+                              for p in _PAIR_CASES])
+def test_bf16_pair_plans_odd_chunks(h, f, m, tiles, slices, chunks):
+    check_pair_plan(h, f, m, tiles, slices, chunks)
 
 
 # (m, row tiles, FFN slices, k-tiles, K3 slices, k-tiles) of the f32

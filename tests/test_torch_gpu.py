@@ -1118,6 +1118,26 @@ def test_width_ffn_kernel_matches_plain(cuda, h, dtype, input_ln, m):
     _check_ffn(cuda, h, _WIDTHS[h], dtype, input_ln, m, m + input_ln)
 
 
+# the pair forms at odd counts: 17 row tiles (1,088 rows, F split in
+# slices), the 257 of a ragged tile past the packed batch, and an odd
+# number of F chunks (F = 4H - 64), which at 896 and 1,024 gives the
+# pair's first block one chunk more than the second (the blocks take turns
+# at chunks), and at a single request's 64 rows leaves slices of one chunk,
+# where the second block has none
+_PAIR_ODD = [(1088, 0), (16385, 0), (16385, 64), (64, 64)]
+
+
+@pytest.mark.parametrize("m,less", _PAIR_ODD,
+                         ids=[f"m{m}-f{'4h' if not d else '4h-64'}"
+                              for m, d in _PAIR_ODD])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+@pytest.mark.parametrize("h", [1024, 1536], ids=["h1024", "h1536"])
+def test_pair_ffn_kernel_at_odd_tile_and_chunk_counts(cuda, h, input_ln, m,
+                                                      less):
+    _check_ffn(cuda, h, 4 * h - less, torch.bfloat16, input_ln, m,
+               3 * m + less + input_ln)
+
+
 # F other than 4H at every built width, 768 included: the gates take any F
 # in chunks of 64 (bf16) or tiles of 128 (f32). One chunk; 24 chunks; 47
 # chunks, which only 1 or 47 slices divide (47 at a single request's 64

@@ -26,6 +26,7 @@ from _torch_width_cases import (
     check_f32_plan,
     check_ffn_plain,
     check_gates,
+    check_pair_plan,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -84,16 +85,16 @@ def test_wrappers_refuse_a_width_the_build_lacks(h):
 _PLANS = {
     1152: [(1, 1, 36, 2, 18, 1), (64, 1, 36, 2, 18, 1),
            (1024, 16, 4, 18, 18, 1), (4096, 64, 36, 2, 1, 18),
-           (16384, 256, 1, 72, 1, 18)],
+           (16384, 256, 1, 72, 1, 18), (16385, 257, 1, 72, 1, 18)],
     1280: [(1, 1, 40, 2, 20, 1), (64, 1, 40, 2, 20, 1),
            (1024, 16, 4, 20, 4, 5), (4096, 64, 40, 2, 1, 20),
-           (16384, 256, 1, 80, 1, 20)],
+           (16384, 256, 1, 80, 1, 20), (16385, 257, 1, 80, 1, 20)],
     1408: [(1, 1, 44, 2, 22, 1), (64, 1, 44, 2, 22, 1),
            (1024, 16, 4, 22, 11, 2), (4096, 64, 44, 2, 1, 22),
-           (16384, 256, 1, 88, 1, 22)],
+           (16384, 256, 1, 88, 1, 22), (16385, 257, 1, 88, 1, 22)],
     1536: [(1, 1, 48, 2, 24, 1), (64, 1, 48, 2, 24, 1),
            (1024, 16, 4, 24, 4, 6), (4096, 64, 48, 2, 1, 24),
-           (16384, 256, 1, 96, 1, 24)],
+           (16384, 256, 1, 96, 1, 24), (16385, 257, 1, 96, 1, 24)],
 }
 _PLAN_CASES = [(h, *p) for h, ps in _PLANS.items() for p in ps]
 
@@ -103,6 +104,31 @@ _PLAN_CASES = [(h, *p) for h, ps in _PLANS.items() for p in ps]
                          ids=[f"h{p[0]}-m{p[1]}" for p in _PLAN_CASES])
 def test_bf16_plans(h, m, tiles, slices, chunks, k3_slices, k3_chunks):
     check_bf16_plan(h, m, tiles, slices, chunks, k3_slices, k3_chunks)
+
+
+# (m, row tiles, slices, chunks per slice) of the bf16 FFN at the pair
+# widths with F = 4H - 64, an odd number of chunks, from a single
+# request's row to the ragged tile past the packed batch: below a wave the
+# plan takes slices of one chunk, where the second block of a pair that
+# takes turns at chunks (896, 1,024) has none
+_PAIR_PLANS = {
+    (1152, 4544): [(1, 1, 71, 1), (64, 1, 71, 1), (1024, 16, 71, 1),
+                   (16384, 256, 1, 71), (16385, 257, 1, 71)],
+    (1280, 5056): [(1, 1, 79, 1), (64, 1, 79, 1), (1024, 16, 79, 1),
+                   (16384, 256, 1, 79), (16385, 257, 1, 79)],
+    (1408, 5568): [(1, 1, 87, 1), (64, 1, 87, 1), (1024, 16, 87, 1),
+                   (16384, 256, 1, 87), (16385, 257, 1, 87)],
+    (1536, 6080): [(1, 1, 95, 1), (64, 1, 95, 1), (1024, 16, 95, 1),
+                   (16384, 256, 1, 95), (16385, 257, 1, 95)],
+}
+_PAIR_CASES = [(h, f, *p) for (h, f), ps in _PAIR_PLANS.items() for p in ps]
+
+
+@pytest.mark.parametrize("h,f,m,tiles,slices,chunks", _PAIR_CASES,
+                         ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
+                              for p in _PAIR_CASES])
+def test_bf16_pair_plans_odd_chunks(h, f, m, tiles, slices, chunks):
+    check_pair_plan(h, f, m, tiles, slices, chunks)
 
 
 # (m, row tiles, FFN slices, k-tiles, K3 slices, k-tiles) of the f32
