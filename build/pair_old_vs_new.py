@@ -1,41 +1,45 @@
 #!/usr/bin/env python3
-"""Hold the bf16 FFN kernel's redesigned cluster-pair forms (K1 and K2 at H =
-896, 1,024, 1,152, 1,280, 1,408 and 1,536: at 896 and 1,024 the pair's
-blocks take turns at whole GELU chunks, above 1,024 stage 2 applies the
-GELU to the two blocks' partials) against the tree before them, and every
-other kernel against that tree's, in one process on one card.
+"""Hold redesigned forms of the bf16 FFN kernel (K1 and K2 at the widths
+given) against an earlier tree, and every other kernel against that
+tree's, in one process on one card.
 
-    mkdir -p build/pair_old                      # the earlier tree, once
-    git archive be933b6 | tar -x -C build/pair_old
-    python3 build/pair_old_vs_new.py [M ...]     # default M: 1024 16384
+    mkdir -p build/old_4b349d5                   # the earlier tree, once
+    git archive 4b349d5 | tar -x -C build/old_4b349d5
+    python3 build/pair_old_vs_new.py [--old COMMIT] [--old-dir DIR]
+        [--widths H ...] [--rows M ...]
 
-As build/widths_old_vs_new.py, whose helpers it uses: each tree's package
-is imported from its own directory and builds its own kernels there.
+Defaults: the tree before the one-block forms' redesign (4b349d5) in
+build/old_<commit>, the five one-block widths (128, 256, 384, 512, 640)
+and M = 64, 1,024 and 16,384. The cluster-pair forms' redesign was held
+to its parent with `--old be933b6 --old-dir build/pair_old --widths 896
+1024 1152 1280 1408 1536 --rows 1024 16384`. As build/widths_old_vs_new.py,
+whose helpers it uses: each tree's package is imported from its own
+directory and builds its own kernels there.
 
 - SASS: every kernel function of the earlier tree's library (cuobjdump,
   addresses and constants masked) against the function of the same name
   and template arguments in this tree's, except `ffn_ln_kernel` at the
-  pair widths, which this tree redesigned: identical, or the script fails.
-- Bits: at each M, every kernel outside the pair forms on the same
+  redesigned widths: identical, or the script fails.
+- Bits: at each M, every kernel outside the redesigned forms on the same
   tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
   and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
   twelve, K4 on 256 images of 256 x 256): equal bit for bit, or it fails.
-- The pair forms: K1 (f32 vectors, as the earlier tree's timings took it; and bf16
-  vectors) and K2 at each pair width and M, both trees within the bf16
-  limits of their plain version (5e-2 max, 1e-4 mean |diff|, bf16 products
-  with f32 sums); their bits are compared and printed: equal where stage 1
-  adds its products in the earlier tree's order (one chain, 1,408 and
-  1,536), not where its chains reorder them (896-1,280). Device time per
-  call (CUDA events over 20 calls queued behind a spinning card) in turns
-  old, new, new, old.
+- The redesigned forms: K1 (f32 vectors, as the earlier timings took it;
+  and bf16 vectors) and K2 at each width and M, both trees within the bf16
+  limits of their plain version (5e-2 max, 1e-4 mean |diff|, bf16
+  products with f32 sums); their bits are compared and printed. Device
+  time per call (CUDA events over 20 calls queued behind a spinning card)
+  in turns old, new, new, old, and new / old.
 
 Prints the card's name and power limit, one line per function and per
 reading, and a JSON line of all readings; exits non-zero if any SASS or
-bits outside the pair forms differ or a pair form leaves its limits.
+bits outside the redesigned forms differ or a redesigned form leaves its
+limits.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import json
 import subprocess
@@ -50,12 +54,12 @@ import widths_old_vs_new
 from h768_old_vs_new import PKG, ROOT, per_call_ms, sleep_cycles_per_ms
 from widths_old_vs_new import calls, inputs, sass
 
-OLD_COMMIT = "be933b6"
+OLD_COMMIT = "4b349d5"
+REDESIGNED = (128, 256, 384, 512, 640)
 # width -> F: every built width, F = 4H but MiniLM's 1,536 and BERT-base's
 WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536,
           640: 2560, 896: 3584, 1152: 4608, 1280: 5120, 1408: 5632,
           1536: 6144}
-PAIRS = (896, 1024, 1152, 1280, 1408, 1536)
 widths_old_vs_new.WIDTHS = WIDTHS  # `inputs` draws F from it
 ROW_ATOL, ROW_MEAN_ATOL = 5e-2, 1e-4
 
@@ -79,19 +83,25 @@ def import_tree(root: Path) -> SimpleNamespace:
     return SimpleNamespace(**mods)
 
 
-def pair_form(key: str) -> bool:
-    return key.startswith("(anonymous namespace)::ffn_ln_kernel<") and any(
-        key.startswith(f"(anonymous namespace)::ffn_ln_kernel<{h},")
-        for h in PAIRS)
+def redesigned_form(key: str, widths) -> bool:
+    return any(key.startswith(f"(anonymous namespace)::ffn_ln_kernel<{h},")
+               for h in widths)
 
 
 def main() -> int:
-    rows = [int(a) for a in sys.argv[1:]] or [1024, 16384]
-    old_root = ROOT / "build" / "pair_old"
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", default=OLD_COMMIT, help="the earlier commit")
+    ap.add_argument("--old-dir", type=Path,
+                    help="its tree (default build/old_<commit>)")
+    ap.add_argument("--widths", type=int, nargs="*", default=REDESIGNED,
+                    help="the widths whose bf16 FFN forms were redesigned")
+    ap.add_argument("--rows", type=int, nargs="*", default=[64, 1024, 16384])
+    args = ap.parse_args()
+    rows, redesigned = args.rows, tuple(args.widths)
+    old_root = args.old_dir or ROOT / "build" / f"old_{args.old}"
     if not (old_root / PKG / "kernels" / "ffn.py").is_file():
-        raise SystemExit(f"{old_root} is missing: mkdir -p build/pair_old "
-                         f"&& git archive {OLD_COMMIT} | tar -x -C "
-                         f"build/pair_old")
+        raise SystemExit(f"{old_root} is missing: mkdir -p {old_root} "
+                         f"&& git archive {args.old} | tar -x -C {old_root}")
     trees = {"new": import_tree(ROOT), "old": import_tree(old_root)}
     with ThreadPoolExecutor(len(trees)) as ex:  # each runs its own nvccs
         list(ex.map(lambda t: t.build.build(), trees.values()))
@@ -107,7 +117,7 @@ def main() -> int:
     code = {n: sass(t.build.library_path()) for n, t in trees.items()}
     n_same = n_kept = 0
     for k, old_code in code["old"].items():
-        if pair_form(k):
+        if redesigned_form(k, redesigned):
             readings[f"SASS {k}"] = "redesigned"
             continue
         same = code["new"].get(k) == old_code
@@ -119,10 +129,10 @@ def main() -> int:
                   f"{len(code['new'].get(k, []))}), identical {same}",
                   flush=True)
             bad.append(f"SASS {k}")
-    print(f"SASS outside the pair forms: {n_same}/{n_kept} functions "
+    print(f"SASS outside the redesigned forms: {n_same}/{n_kept} functions "
           f"identical", flush=True)
 
-    # ---- bits of every form outside the pair forms
+    # ---- bits of every form outside the redesigned forms
     n_equal = n_forms = 0
     for h in WIDTHS:
         for m in rows:
@@ -130,7 +140,7 @@ def main() -> int:
                 x = inputs(dt, h, m, torch.Generator().manual_seed(h + m), dev)
                 by_tree = {n: calls(t, dt, *x) for n, t in trees.items()}
                 for k in by_tree["new"]:
-                    if h in PAIRS and dt == torch.bfloat16 and k != "K3":
+                    if h in redesigned and dt == torch.bfloat16 and k != "K3":
                         continue
                     same = torch.equal(by_tree["new"][k](),
                                        by_tree["old"][k]())
@@ -151,12 +161,12 @@ def main() -> int:
     readings["bits K4"] = same
     if not same:
         bad.append("bits K4")
-    print(f"bits outside the pair forms: {n_equal}/{n_forms} readings "
+    print(f"bits outside the redesigned forms: {n_equal}/{n_forms} readings "
           f"equal", flush=True)
 
-    # ---- the pair forms: limits against the plain version, bits, times
+    # ---- the redesigned forms: limits against the plain version, bits, times
     cyc = sleep_cycles_per_ms()
-    for h in PAIRS:
+    for h in redesigned:
         for m in rows:
             x = inputs(torch.bfloat16, h, m,
                        torch.Generator().manual_seed(h + m), dev)
@@ -203,7 +213,8 @@ def main() -> int:
                       f"{'ok' if ok else 'OFF'}", flush=True)
                 if not ok:
                     bad.append(f"{k} H={h} M={m}")
-    print(json.dumps({"card": card, "readings": readings, "off": bad}))
+    print(json.dumps({"card": card, "old": args.old, "widths": redesigned,
+                      "readings": readings, "off": bad}))
     return 1 if bad else 0
 
 

@@ -3010,7 +3010,7 @@ LARGE_OVER = {"text_encoder.hidden_size": 1024, "text_encoder.num_layers": 24,
               "text_encoder.num_heads": 16,
               "text_encoder.intermediate_size": 4096,
               "text_encoder.max_position_embeddings": 512}
-# the row counts each form of K1-K3 at phases 17 and 18's widths is held to
+# the row counts each form of K1-K3 at phases 17 to 20's widths is held to
 # its plain version at: the single request (1, then its length bucket 64),
 # the 1,024 CLS rows, the packed batch and a ragged 128-row tile past it
 LARGE_ROWS = (1, 64, 1024, 16384, 16385)
@@ -3088,6 +3088,12 @@ WIDE_OVER = {
 PAIR_BEFORE_MS = {896: (1.0754, 1.0600), 1024: (1.2703, 1.2418),
                   1152: (2.0423, 1.9544), 1280: (2.4710, 2.3707),
                   1408: (2.7383, 2.5856), 1536: (3.0806, 3.0508)}
+# the one-block forms' below 768 before their redesign (commit 4b349d5's
+# phases 18 and 19, PERF.md; H100 80GB HBM3, 700 W), printed the same way
+# (build/pair_old_vs_new.py compares them in turns)
+NARROW_BEFORE_MS = {128: (0.0543, 0.0505), 256: (0.1094, 0.1071),
+                    384: (0.1896, 0.1872), 512: (0.2884, 0.2828),
+                    640: (0.4360, 0.4317)}
 
 
 def resident_clusters(dev, h: int) -> int:
@@ -3313,13 +3319,18 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
             f"{p50s[tag + ' f32']:.2f} ms"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     pair = ""
-    if h in PAIR_BEFORE_MS:  # the pair forms, beside their earlier times
+    if h in PAIR_BEFORE_MS:
         pair = (f"clusters of {k1.KERNEL_GROUPS[h]} resident at once "
-                f"{resident_clusters(dev, h)}; K1 / K2 dev ms {times[f'K1_{h}'][0]:.4f} / "
-                f"{times[f'K2_{h}'][0]:.4f} against be933b6's "
-                f"{PAIR_BEFORE_MS[h][0]} / {PAIR_BEFORE_MS[h][1]} (new/old "
-                f"{times[f'K1_{h}'][0] / PAIR_BEFORE_MS[h][0]:.3f} / "
-                f"{times[f'K2_{h}'][0] / PAIR_BEFORE_MS[h][1]:.3f}) | ")
+                f"{resident_clusters(dev, h)}; ")
+    # the redesigned forms, beside their earlier times
+    for before, commit in ((PAIR_BEFORE_MS, "be933b6"),
+                           (NARROW_BEFORE_MS, "4b349d5")):
+        if h in before:
+            pair += (f"K1 / K2 dev ms {times[f'K1_{h}'][0]:.4f} / "
+                     f"{times[f'K2_{h}'][0]:.4f} against {commit}'s "
+                     f"{before[h][0]} / {before[h][1]} (new/old "
+                     f"{times[f'K1_{h}'][0] / before[h][0]:.3f} / "
+                     f"{times[f'K2_{h}'][0] / before[h][1]:.3f}) | ")
     plans = (f"bf16 FFN {k1.ffn_plan(16384, f, n_sm, h).slices} / "
              f"{k1.ffn_plan(1024, f, n_sm, h).slices} slices at "
              f"M=16384 / 1024, K3 {k3.attn_out_plan(16384, n_sm, h).slices} / "

@@ -185,11 +185,12 @@ def check_bf16_plan(h, m, tiles, slices, chunks, k3_slices, k3_chunks):
     assert k1.ffn_plan(m, 3072, 132) == k1.ffn_plan(m, 3072, 132, 768)
 
 
-def check_pair_plan(h, f, m, tiles, slices, chunks):
-    """The bf16 FFN's plan at a pair width (two column groups, launched as
-    clusters of two) for m rows and intermediate width f (any whole number
-    of chunks): the SM count's plan, which the H100's 66 resident pairs
-    fill (build/pair_probe.py). K3's plan at the width is not the FFN's."""
+def check_ffn_plan(h, f, m, tiles, slices, chunks):
+    """The bf16 FFN's plan at width h for m rows and intermediate width f
+    (any whole number of chunks): the SM count's plan, one block per row
+    tile below 896, two (column groups, launched as clusters of two, which
+    the H100's 66 resident pairs fill: build/pair_probe.py) from 896 up.
+    K3's plan at the width is not the FFN's."""
     plan = k1.ffn_plan(m, f, 132, h)
     assert (plan.tiles, plan.slices, plan.chunks) == (tiles, slices, chunks)
     # a ragged last tile is a tile: its rows past m are neither read nor

@@ -25,7 +25,7 @@ from _torch_width_cases import (
     check_f32_plan,
     check_ffn_plain,
     check_gates,
-    check_pair_plan,
+    check_ffn_plan,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -119,7 +119,35 @@ _PAIR_CASES = [(h, f, *p) for (h, f), ps in _PAIR_PLANS.items() for p in ps]
                          ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
                               for p in _PAIR_CASES])
 def test_bf16_pair_plans_odd_chunks(h, f, m, tiles, slices, chunks):
-    check_pair_plan(h, f, m, tiles, slices, chunks)
+    check_ffn_plan(h, f, m, tiles, slices, chunks)
+
+
+# (m, row tiles, slices, chunks per slice) of the bf16 FFN's one-block
+# forms at odd counts: F = 4H - 64 (7, 15 and 31 chunks, a prime or an odd
+# number of them: slices of one chunk below a wave, the whole odd count in
+# one slice at the ragged tile past the packed batch) and F = 4H at the odd
+# tile counts of a request's 65, 127 and 129 rows and at 17 tiles (1,088
+# rows), where H = 128 takes 4 slices of 2 chunks
+_NARROW_PLANS = {
+    (128, 448): [(1, 1, 7, 1), (65, 2, 7, 1), (127, 2, 7, 1), (129, 3, 7, 1),
+                 (1088, 17, 7, 1), (16385, 257, 1, 7)],
+    (256, 960): [(1, 1, 15, 1), (129, 3, 15, 1), (1088, 17, 15, 1),
+                 (16385, 257, 1, 15)],
+    (512, 1984): [(1, 1, 31, 1), (129, 3, 31, 1), (1088, 17, 31, 1),
+                  (16385, 257, 1, 31)],
+    (128, 512): [(65, 2, 8, 1), (127, 2, 8, 1), (129, 3, 8, 1),
+                 (1088, 17, 4, 2)],
+    (512, 2048): [(65, 2, 32, 1), (129, 3, 32, 1), (1088, 17, 32, 1)],
+}
+_NARROW_CASES = [(h, f, *p) for (h, f), ps in _NARROW_PLANS.items()
+                 for p in ps]
+
+
+@pytest.mark.parametrize("h,f,m,tiles,slices,chunks", _NARROW_CASES,
+                         ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
+                              for p in _NARROW_CASES])
+def test_bf16_narrow_plans_odd_counts(h, f, m, tiles, slices, chunks):
+    check_ffn_plan(h, f, m, tiles, slices, chunks)
 
 
 # (m, row tiles, FFN slices, k-tiles, K3 slices, k-tiles) of the f32

@@ -1138,6 +1138,32 @@ def test_pair_ffn_kernel_at_odd_tile_and_chunk_counts(cuda, h, input_ln, m,
                3 * m + less + input_ln)
 
 
+# the one-block forms below 768 at odd counts: an odd number of F chunks
+# (F = 4H - 64) in one slice (16,385 rows, 257 tiles) and in slices (1,088
+# rows, 17 tiles; 65, 127 and 129 rows, one and two tiles), which reuse
+# stage 1's products slots and the GELU chunk buffers an odd number of
+# times; and F = 4H at the odd tile counts. Each launch twice, with the
+# same bits both times (no atomics).
+_NARROW_ODD = [(16385, 64), (1088, 64), (65, 64), (127, 64), (129, 64),
+               (65, 0), (127, 0), (129, 0), (1088, 0)]
+
+
+@pytest.mark.parametrize("m,less", _NARROW_ODD,
+                         ids=[f"m{m}-f{'4h' if not d else '4h-64'}"
+                              for m, d in _NARROW_ODD])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+@pytest.mark.parametrize("h", [128, 256, 384, 512, 640],
+                         ids=["h128", "h256", "h384", "h512", "h640"])
+def test_narrow_ffn_kernel_at_odd_tile_and_chunk_counts(cuda, h, input_ln, m,
+                                                        less):
+    _check_ffn(cuda, h, 4 * h - less, torch.bfloat16, input_ln, m,
+               5 * m + less + input_ln)
+    z, _, w, _, vec = _width_inputs(m, cuda, 5 * m + less + input_ln,
+                                    torch.bfloat16, h, 4 * h - less)
+    first = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+    assert torch.equal(first, _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln))
+
+
 # F other than 4H at every built width, 768 included: the gates take any F
 # in chunks of 64 (bf16) or tiles of 128 (f32). One chunk; 24 chunks; 47
 # chunks, which only 1 or 47 slices divide (47 at a single request's 64

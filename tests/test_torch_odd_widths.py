@@ -24,7 +24,7 @@ from _torch_width_cases import (
     check_f32_plan,
     check_ffn_plain,
     check_gates,
-    check_pair_plan,
+    check_ffn_plan,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -117,7 +117,32 @@ _PAIR_CASES = [(h, f, *p) for (h, f), ps in _PAIR_PLANS.items() for p in ps]
                          ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
                               for p in _PAIR_CASES])
 def test_bf16_pair_plans_odd_chunks(h, f, m, tiles, slices, chunks):
-    check_pair_plan(h, f, m, tiles, slices, chunks)
+    check_ffn_plan(h, f, m, tiles, slices, chunks)
+
+
+# (m, row tiles, slices, chunks per slice) of the bf16 FFN's one-block
+# forms at odd counts: F = 4H - 64 (23 and 39 chunks: slices of one chunk
+# below a wave but 13 slices of 3 at 640's 17 tiles, the whole count in
+# one slice past the packed batch) and MiniLM's F = 1,536 and 640's 4H at
+# the odd tile counts of a request's 65, 127 and 129 rows and at 17 tiles
+_NARROW_PLANS = {
+    (384, 1472): [(1, 1, 23, 1), (65, 2, 23, 1), (129, 3, 23, 1),
+                  (1088, 17, 23, 1), (16385, 257, 1, 23)],
+    (640, 2496): [(1, 1, 39, 1), (127, 2, 39, 1), (1088, 17, 13, 3),
+                  (16385, 257, 1, 39)],
+    (384, 1536): [(65, 2, 24, 1), (127, 2, 24, 1), (129, 3, 24, 1),
+                  (1088, 17, 6, 4)],
+    (640, 2560): [(65, 2, 40, 1), (129, 3, 40, 1), (1088, 17, 20, 2)],
+}
+_NARROW_CASES = [(h, f, *p) for (h, f), ps in _NARROW_PLANS.items()
+                 for p in ps]
+
+
+@pytest.mark.parametrize("h,f,m,tiles,slices,chunks", _NARROW_CASES,
+                         ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
+                              for p in _NARROW_CASES])
+def test_bf16_narrow_plans_odd_counts(h, f, m, tiles, slices, chunks):
+    check_ffn_plan(h, f, m, tiles, slices, chunks)
 
 
 # (m, row tiles, FFN slices, k-tiles, K3 slices, k-tiles) of the f32

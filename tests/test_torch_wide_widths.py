@@ -26,7 +26,7 @@ from _torch_width_cases import (
     check_f32_plan,
     check_ffn_plain,
     check_gates,
-    check_pair_plan,
+    check_ffn_plan,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -128,7 +128,7 @@ _PAIR_CASES = [(h, f, *p) for (h, f), ps in _PAIR_PLANS.items() for p in ps]
                          ids=[f"h{p[0]}-f{p[1]}-m{p[2]}"
                               for p in _PAIR_CASES])
 def test_bf16_pair_plans_odd_chunks(h, f, m, tiles, slices, chunks):
-    check_pair_plan(h, f, m, tiles, slices, chunks)
+    check_ffn_plan(h, f, m, tiles, slices, chunks)
 
 
 # (m, row tiles, FFN slices, k-tiles, K3 slices, k-tiles) of the f32
