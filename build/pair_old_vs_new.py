@@ -1,31 +1,38 @@
 #!/usr/bin/env python3
 """Hold redesigned forms of the bf16 FFN kernel (K1 and K2 at the widths
-given) against an earlier tree, and every other kernel against that
-tree's, in one process on one card.
+given) or, with --k3, of the bf16 attention-output kernel (K3) against an
+earlier tree, and every other kernel against that tree's, in one process
+on one card.
 
     mkdir -p build/old_4b349d5                   # the earlier tree, once
     git archive 4b349d5 | tar -x -C build/old_4b349d5
     python3 build/pair_old_vs_new.py [--old COMMIT] [--old-dir DIR]
-        [--widths H ...] [--rows M ...]
+        [--widths H ...] [--rows M ...] [--k3]
 
 Defaults: the tree before the one-block forms' redesign (4b349d5) in
 build/old_<commit>, the five one-block widths (128, 256, 384, 512, 640)
 and M = 64, 1,024 and 16,384. The cluster-pair forms' redesign was held
 to its parent with `--old be933b6 --old-dir build/pair_old --widths 896
-1024 1152 1280 1408 1536 --rows 1024 16384`. As build/widths_old_vs_new.py,
+1024 1152 1280 1408 1536 --rows 1024 16384`, K3's cluster forms with
+`--k3 --old 5b7b4dc --old-dir build/old_5b7b4dc --widths 896 1024 1152
+1280 1408 1536 --rows 64 1024 16384`. As build/widths_old_vs_new.py,
 whose helpers it uses: each tree's package is imported from its own
 directory and builds its own kernels there.
 
 - SASS: every kernel function of the earlier tree's library (cuobjdump,
   addresses and constants masked) against the function of the same name
-  and template arguments in this tree's, except `ffn_ln_kernel` at the
-  redesigned widths: identical, or the script fails.
+  and template arguments in this tree's, except `ffn_ln_kernel` (with
+  --k3, `attn_out_ln_kernel`) at the redesigned widths: identical, or the
+  script fails; those are printed, and the functions only this tree has.
 - Bits: at each M, every kernel outside the redesigned forms on the same
   tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
   and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
   twelve, K4 on 256 images of 256 x 256): equal bit for bit, or it fails.
 - The redesigned forms: K1 (f32 vectors, as the earlier timings took it;
-  and bf16 vectors) and K2 at each width and M, both trees within the bf16
+  and bf16 vectors) and K2 (with --k3: K3, beside the classic bf16 chain
+  it stands for, `F.linear` + the residual add + `F.layer_norm`, and
+  `F.linear` alone, in the same turns) at each width and M, both trees
+  within the bf16
   limits of their plain version (5e-2 max, 1e-4 mean |diff|, bf16
   products with f32 sums); their bits are compared and printed. Device
   time per call (CUDA events over 20 calls queued behind a spinning card)
@@ -49,6 +56,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import torch
+import torch.nn.functional as F
 
 import widths_old_vs_new
 from h768_old_vs_new import PKG, ROOT, per_call_ms, sleep_cycles_per_ms
@@ -83,9 +91,52 @@ def import_tree(root: Path) -> SimpleNamespace:
     return SimpleNamespace(**mods)
 
 
-def redesigned_form(key: str, widths) -> bool:
-    return any(key.startswith(f"(anonymous namespace)::ffn_ln_kernel<{h},")
+def redesigned_form(key: str, widths, k3: bool) -> bool:
+    kernel = "attn_out_ln_kernel<{}>" if k3 else "ffn_ln_kernel<{},"
+    return any(key.startswith("(anonymous namespace)::" + kernel.format(h))
                for h in widths)
+
+
+def chain_calls(c, z, wo, vec):
+    """The classic bf16 chain K3 stands for, and F.linear alone."""
+    h = c.shape[1]
+    return {"chain": lambda: F.layer_norm(
+                F.linear(c, wo.t(), vec["b2"]) + z, (h,), vec["gamma"],
+                vec["beta"], 1e-12),
+            "linear": lambda: F.linear(c, wo.t(), vec["b2"])}
+
+
+def check_k3(trees, by_tree, x, h, m, cyc, readings, bad):
+    """K3 of both trees at width h and m rows against the plain version,
+    their bits, and their device times in turns (old, new, chain, linear,
+    then the same in reverse)."""
+    z, c, _, _, wo, vec = x
+    new, old = by_tree["new"]["K3"], by_tree["old"]["K3"]
+    want = trees["new"].attn_out.attn_out_ln_plain(
+        c, z, wo, vec["b2"], vec["gamma"], vec["beta"]).float()
+    got = {"new": new().float(), "old": old().float()}
+    errs = {n: ((g - want).abs().max().item(), (g - want).abs().mean().item())
+            for n, g in got.items()}
+    same = torch.equal(got["new"], got["old"])
+    again = torch.equal(got["new"], new().float())
+    ok = again and all(e[0] <= ROW_ATOL and e[1] <= ROW_MEAN_ATOL
+                       for e in errs.values())
+    fns = {"old": old, "new": new, **chain_calls(c, z, wo, vec)}
+    runs = {n: [] for n in fns}
+    for n in list(fns) + list(fns)[::-1]:
+        runs[n].append(per_call_ms(fns[n], cyc))
+    ms = {n: sum(v) / len(v) for n, v in runs.items()}
+    readings[f"K3 H={h} M={m}"] = dict(
+        bit_equal=same, same_bits_twice=again, err_new=errs["new"],
+        err_old=errs["old"], ms=ms, ratio=ms["new"] / ms["old"], runs=runs)
+    print(f"K3 H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
+          f"{errs['new'][1]:.3e} (old {errs['old'][0]:.3e} / "
+          f"{errs['old'][1]:.3e}), bit-equal to old {same}, same bits twice "
+          f"{again}; dev ms new {ms['new']:.4f} old {ms['old']:.4f} (new/old "
+          f"{ms['new'] / ms['old']:.4f}); chain {ms['chain']:.4f}, F.linear "
+          f"{ms['linear']:.4f} {'ok' if ok else 'OFF'}", flush=True)
+    if not ok:
+        bad.append(f"K3 H={h} M={m}")
 
 
 def main() -> int:
@@ -96,6 +147,8 @@ def main() -> int:
     ap.add_argument("--widths", type=int, nargs="*", default=REDESIGNED,
                     help="the widths whose bf16 FFN forms were redesigned")
     ap.add_argument("--rows", type=int, nargs="*", default=[64, 1024, 16384])
+    ap.add_argument("--k3", action="store_true",
+                    help="the redesigned forms are K3's (bf16), not K1/K2's")
     args = ap.parse_args()
     rows, redesigned = args.rows, tuple(args.widths)
     old_root = args.old_dir or ROOT / "build" / f"old_{args.old}"
@@ -116,9 +169,13 @@ def main() -> int:
     readings, bad = {}, []
     code = {n: sass(t.build.library_path()) for n, t in trees.items()}
     n_same = n_kept = 0
+    for k in code["new"].keys() - code["old"].keys():
+        print(f"SASS {k}: only in this tree", flush=True)
     for k, old_code in code["old"].items():
-        if redesigned_form(k, redesigned):
-            readings[f"SASS {k}"] = "redesigned"
+        if redesigned_form(k, redesigned, args.k3):
+            same = code["new"].get(k) == old_code
+            readings[f"SASS {k}"] = f"redesigned (identical {same})"
+            print(f"SASS {k} (redesigned form): identical {same}", flush=True)
             continue
         same = code["new"].get(k) == old_code
         n_kept += 1
@@ -140,7 +197,8 @@ def main() -> int:
                 x = inputs(dt, h, m, torch.Generator().manual_seed(h + m), dev)
                 by_tree = {n: calls(t, dt, *x) for n, t in trees.items()}
                 for k in by_tree["new"]:
-                    if h in redesigned and dt == torch.bfloat16 and k != "K3":
+                    if (h in redesigned and dt == torch.bfloat16
+                            and (k == "K3") == args.k3):
                         continue
                     same = torch.equal(by_tree["new"][k](),
                                        by_tree["old"][k]())
@@ -178,6 +236,9 @@ def main() -> int:
             ln32 = dict(pre_gamma=vec["pre_gamma"].float(),
                         pre_beta=vec["pre_beta"].float())
             a = (z, w1, vec["b1"], w2, vec["b2"], vec["gamma"], vec["beta"])
+            if args.k3:
+                check_k3(trees, by_tree, x, h, m, cyc, readings, bad)
+                continue
             plain = {
                 "K1": lambda: trees["new"].ffn.ffn_ln_plain(
                     *a, input_ln=True, pre_gamma=vec["pre_gamma"],
@@ -214,6 +275,7 @@ def main() -> int:
                 if not ok:
                     bad.append(f"{k} H={h} M={m}")
     print(json.dumps({"card": card, "old": args.old, "widths": redesigned,
+                      "k3": args.k3,
                       "readings": readings, "off": bad}))
     return 1 if bad else 0
 

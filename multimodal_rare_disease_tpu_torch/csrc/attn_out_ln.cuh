@@ -128,6 +128,28 @@
 // (1,152's and 1,408's consumers meet inside a column block, as 896's
 // do); the LN over the pair, the y stores and the split path are 1,024's.
 // Shared memory at 1,536: x 96 KB, ctx ring 32, Wo rings 96: 224 KB.
+//
+// The whole k loop from H = 896 up: the cluster of four (attn_out_quad_kernel).
+// In the pair each block reads its half of Wo from L2 for 64 rows: 64 FLOP
+// a byte, and on the H100 the Wo stream alone took 58-65% of the pair's
+// time and a tile's epilogue 31-46% (PERF.md). So a block owns 128
+// rows (64 a consumer) and a quarter of the columns, the pair's consumer
+// slice: both consumers run wgmma on the same Wo tile, each on its own
+// rows of ctx ([128][64] a chunk, through a ring of its own), so each Wo
+// byte serves 128 rows and L2 sends an SM 64 KB a chunk at 1,536, not 104.
+// The four quarters of a group of 128 rows are one cluster; the LN sends
+// each row's partials to the peers by st.async and adds the four as (q0 +
+// q1) + (q2 + q3), the pair's order, so the bits are the pair's. Only 30
+// clusters of four fit the H100 at once (66 pairs), so the grid is
+// persistent: each cluster walks the row groups, its producer loading the
+// next group's ctx and Wo while the consumers finish the last one, and the
+// y store of one group is waited for during the next. x and y sit in
+// [128][32] blocks in the 64-byte swizzle layout (a quarter is a multiple
+// of 32 columns, not of 64), x loaded one block a chunk. 1,280's consumers
+// take two n160 tiles (the pair's five n64 tiles ran at ~100 clk a step).
+// Where 30 clusters take more rounds than 66 pairs take waves by more
+// than a group's lower cost makes up (quad_clusters: below ~8,448 rows at
+// 896, 1,024 and 1,536), and on the split path, the pair runs.
 
 #pragma once
 
@@ -236,6 +258,13 @@ __device__ __forceinline__ float2 lds_pair(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// two bf16 to a shared-memory address (as mrd::sts_pair) without a memory
+// clobber: the cluster of four's epilogue loads gamma and beta beside y's
+// stores
+__device__ __forceinline__ void sts_pair_free(uint32_t addr, __nv_bfloat162 v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v)));
 }
 
 // x's column block c into the row tile, over ctx's, once both consumers are
@@ -727,12 +756,511 @@ attn_out_ln_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
   }
 }
 
+// ---- the cluster of four: the whole-K path from H = 896 up
+
+// one quarter's row partials of a LayerNorm exchange of the cluster of
+// four ([consumer][64] f32), and the bytes a consumer's exchange barrier
+// takes: the three peers' partials of its 64 rows
+constexpr uint32_t kQuadExBytes = kWG * kTM * 4;
+constexpr uint32_t kQuadExRecv = 3 * kTM * 4;
+
+// The shape of the cluster-of-four kernel at hidden width kH: a block owns
+// 128 rows (64 a consumer) and a quarter of the output columns (kQ, the
+// pair's kHalf), so each Wo tile it takes serves 128 rows. Shared memory:
+// x, then y, as [128 rows][32 columns] blocks in the 64-byte swizzle
+// layout (kQ is a multiple of 32, not always of 64), the ctx ring ([128
+// rows][64] a chunk; 2, 3 or 4 slots, whichever lets the producer run the
+// most tiles ahead), the Wo ring (as many tiles as fit, at most 8), the
+// LayerNorm exchange and the barriers.
+template <int kH>
+struct AttnOutQuad {
+  static_assert(AttnOut<kH>::kPair, "a width of the cluster forms");
+  static constexpr int kRows = 2 * kTM;                 // rows a block: 64 a consumer
+  static constexpr int kQ = kH / 4;                     // output columns a block
+  static constexpr int kChunks = kH / kKC;
+  // Wo tile width (wgmma N): the pair's, but n160 at 1,280 (n64 steps cost
+  // ~100 clk whatever the chains: PERF.md)
+  static constexpr int kN = kH == 1280 ? 160 : AttnOut<kH>::kN;
+  static constexpr int kAcc = kN / 2;
+  static constexpr int kTiles = kQ / kN;
+  static constexpr uint32_t kTileBytes = kN * kKC * 2;
+  static constexpr int kXCols = 32;
+  static constexpr uint32_t kXBlockBytes = kRows * kXCols * 2;  // 8 KB
+  static constexpr int kXBlocks = kQ / kXCols;
+  static constexpr uint32_t kCtxBytes = kRows * kKC * 2;        // 16 KB
+  // x's blocks load one a chunk, after the tiles of chunks kXFrom .. +
+  // kXBlocks - 1 (all of x at once held back the tiles behind it by 3-8k
+  // clk); the group before's y store is waited for three chunks earlier
+  static constexpr int kXFrom = kChunks - kXBlocks - 1;
+  static constexpr int kXFree = kXFrom - 3;
+  static constexpr uint32_t kOffX = 0;
+  static constexpr uint32_t kOffC = kOffX + kXBlocks * kXBlockBytes;
+  // the rings' share of shared memory, and the Wo tiles it leaves beside
+  // s ctx slots
+  static constexpr uint32_t kRingBytes = 208 * 1024 - kOffC;
+  static constexpr int wo_tiles(int s) {
+    return (kRingBytes - s * kCtxBytes) / kTileBytes < 8
+               ? (kRingBytes - s * kCtxBytes) / kTileBytes
+               : 8;
+  }
+  // tiles the producer may run ahead of the consumers with s ctx slots:
+  // s - 1 chunks of ctx, one tile less than the Wo ring
+  static constexpr int ahead(int s) {
+    return (s - 1) * kTiles < wo_tiles(s) - 1 ? (s - 1) * kTiles : wo_tiles(s) - 1;
+  }
+  static constexpr int kCtxStages = ahead(4) > ahead(3) && ahead(4) > ahead(2) ? 4
+                                    : ahead(3) > ahead(2)                     ? 3
+                                                                              : 2;
+  static constexpr int kStages = wo_tiles(kCtxStages);
+  static constexpr uint32_t kOffW = kOffC + kCtxStages * kCtxBytes;
+  // the LayerNorm exchange, f32 [buffer][sums, centred squares][quarter
+  // from][consumer][64 rows], which the peers' st.async stores fill
+  static constexpr uint32_t kOffRed = kOffW + kStages * kTileBytes;
+  // ctx and Wo slots: full (TMA bytes) and empty (every consumer warp); x:
+  // full (TMA bytes) and empty (each consumer's y store); the exchange:
+  // [buffer][sums, centred squares][consumer], each armed by its consumer
+  // for the three peers' bytes
+  static constexpr uint32_t kBarCFull = kOffRed + 2 * 2 * 4 * kQuadExBytes;
+  static constexpr uint32_t kBarCEmpty = kBarCFull + 8 * kCtxStages;
+  static constexpr uint32_t kBarWFull = kBarCEmpty + 8 * kCtxStages;
+  static constexpr uint32_t kBarWEmpty = kBarWFull + 8 * kStages;
+  static constexpr uint32_t kBarXFull = kBarWEmpty + 8 * kStages;
+  static constexpr uint32_t kBarXEmpty = kBarXFull + 8;
+  static constexpr uint32_t kBarStats = kBarXEmpty + 8;
+  static constexpr uint32_t kSmemBytes = kBarStats + 8 * 2 * 2 * kWG + 1024;
+
+  // a group's time, in percent of a pair's 64-row tile, for launch's
+  // choice between the two forms: K3's time at M = 16,384 (5 rounds)
+  // against the pair's (3.88 waves) on the H100 (PERF.md), rounded
+  // up at 896, where a third round at 8,448 rows only ties the pair
+  static constexpr int kGroupCost = kH == 896    ? 68
+                                    : kH == 1024 ? 71
+                                    : kH == 1152 ? 60
+                                    : kH == 1280 ? 47
+                                    : kH == 1408 ? 56
+                                                 : 73;
+
+  static_assert(kQ % kN == 0 && kQ % kXCols == 0, "whole tiles and x blocks a block");
+  static_assert(kOffC % 1024 == 0 && kOffW % 1024 == 0 && kTileBytes % 1024 == 0,
+                "1024-byte swizzle atoms");
+  static_assert(kStages > kTiles, "a Wo ring deeper than one chunk");
+  static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
+};
+
+// A row-major bf16 [rows, cols] matrix in boxes of [box_rows, 32] in the
+// 64-byte swizzle layout (the cluster of four's x and y).
+bool make_map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, 32, box_rows,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The producer thread of the cluster of four: for each row group of the
+// block (every gridDim.x-th from blockIdx.x), per chunk ctx's [128 rows][64]
+// block and the Wo tiles of the block's quarter, and from chunk kXFrom on
+// one of x's blocks of the quarter, once the group before has stored its y.
+template <int kH>
+__device__ __forceinline__ void produce_quad(const CUtensorMap* ctx_map, const CUtensorMap* x_map,
+                                             const CUtensorMap* wo_map, uint32_t base, int q,
+                                             int n_groups) {
+  using Q = AttnOutQuad<kH>;
+  Ring cr, wr;
+  int it = 0;
+  for (int g = blockIdx.x; g < n_groups; g += gridDim.x, ++it) {
+    const int row0 = g * Q::kRows;
+    for (int k = 0; k < Q::kChunks; ++k) {
+      const uint32_t cfull = base + Q::kBarCFull + 8 * cr.slot;
+      mbar_wait(base + Q::kBarCEmpty + 8 * cr.slot, cr.phase ^ 1);
+      mbar_arrive_expect_tx(cfull, Q::kCtxBytes);
+      tma_load_2d(base + Q::kOffC + cr.slot * Q::kCtxBytes, ctx_map, cfull, k * kKC, row0);
+      cr.next<Q::kCtxStages>();
+#pragma unroll
+      for (int j = 0; j < Q::kTiles; ++j) {
+        const uint32_t wfull = base + Q::kBarWFull + 8 * wr.slot;
+        mbar_wait(base + Q::kBarWEmpty + 8 * wr.slot, wr.phase ^ 1);
+        mbar_arrive_expect_tx(wfull, Q::kTileBytes);
+        tma_load_2d(base + Q::kOffW + wr.slot * Q::kTileBytes, wo_map, wfull, k * kKC,
+                    q * Q::kQ + Q::kN * j);
+        wr.next<Q::kStages>();
+      }
+      const int b = k - Q::kXFrom;  // x's block of this chunk
+      if (b == 0) {
+        if (it > 0) mbar_wait(base + Q::kBarXEmpty, (it - 1) & 1);
+        mbar_arrive_expect_tx(base + Q::kBarXFull, Q::kXBlocks * Q::kXBlockBytes);
+      }
+      if (b >= 0 && b < Q::kXBlocks)
+        tma_load_2d(base + Q::kOffX + b * Q::kXBlockBytes, x_map, base + Q::kBarXFull,
+                    q * Q::kQ + b * Q::kXCols, row0);
+    }
+  }
+}
+
+// Consumer wg's share of one chunk of the cluster of four: ACC[64 rows of
+// wg, the block's kQ columns] += ctx[rows, chunk] . Wo^T[chunk, columns],
+// kTiles wgmma groups on the chunk's ctx slot (this consumer's 64 rows) and
+// the Wo tiles in turn. After each group is issued the one before is
+// retired and its Wo slot released, and at the first group the previous
+// chunk's ctx slot. kFirst: a group's first chunk, whose first step writes
+// the accumulators without reading them. (A ring's previous slot is the
+// one before its current: nothing else is kept across chunks.)
+template <int kH, bool kFirst>
+__device__ __forceinline__ void consume_quad(
+    float (&acc)[AttnOutQuad<kH>::kTiles][AttnOutQuad<kH>::kAcc], Ring& cr, Ring& wr,
+    uint32_t base, int wg, bool signal) {
+  using Q = AttnOutQuad<kH>;
+  mbar_wait(base + Q::kBarCFull + 8 * cr.slot, cr.phase);
+  const uint32_t a0 = opaque(base) + Q::kOffC + cr.slot * Q::kCtxBytes + wg * kBlockBytes;
+#pragma unroll
+  for (int j = 0; j < Q::kTiles; ++j) {
+    mbar_wait(base + Q::kBarWFull + 8 * wr.slot, wr.phase);
+    const uint32_t b0 = opaque(base) + Q::kOffW + wr.slot * Q::kTileBytes;
+    mrd::fence_operand(acc[j]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if constexpr (Q::kN == 160) {  // H = 1,280
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n160k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n160k16(acc[j], da, db, 1);
+      } else if constexpr (Q::kN == 112) {  // H = 896
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n112k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n112k16(acc[j], da, db, 1);
+      } else if constexpr (Q::kN == 96) {  // H = 1,152
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n96k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n96k16(acc[j], da, db, 1);
+      } else if constexpr (Q::kN == 88) {  // H = 1,408
+        if (kFirst && kk == 0)
+          mrd::wgmma_m64n88k16_first(acc[j], da, db);
+        else
+          mrd::wgmma_m64n88k16(acc[j], da, db, 1);
+      } else if (kFirst && kk == 0) {  // H = 1,024, 1,536
+        mrd::wgmma_m64n128k16_first(acc[j], da, db);
+      } else {
+        mrd::wgmma_m64n128k16(acc[j], da, db, 1);
+      }
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[j]);
+    if (!kFirst || j > 0) {
+      mrd::wgmma_wait<1>();
+      if (signal) {
+        mbar_arrive(base + Q::kBarWEmpty + 8 * (wr.slot == 0 ? Q::kStages - 1 : wr.slot - 1));
+        if (j == 0)
+          mbar_arrive(base + Q::kBarCEmpty +
+                      8 * (cr.slot == 0 ? Q::kCtxStages - 1 : cr.slot - 1));
+      }
+    }
+    wr.next<Q::kStages>();
+  }
+  cr.next<Q::kCtxStages>();
+}
+
+// A row's total over the cluster's four quarters for one LayerNorm
+// exchange, for the thread's two rows (wrow, wrow + 8; `s` its quarter's
+// partials, the same in the four lanes of a row). `red` is this block's
+// exchange for the consumer's rows, [quarter from][64], and `bar` its
+// barrier, armed for the three peers' bytes: the writers (lane % 4 == 0)
+// store theirs into each peer's `red` by st.async, counted on the peer's
+// barrier, and once this block's has every peer's, each thread reads its
+// rows'. The barrier is armed again for its next use (two groups on).
+// Every block adds (quarter 0 + quarter 1) + (quarter 2 + quarter 3), the
+// pair's order (rank 0's two consumers, then rank 1's), so they share the
+// total bit for bit.
+__device__ __forceinline__ void quad_total(float (&s)[2], uint32_t red, uint32_t bar,
+                                           uint32_t parity, int q, int lane, int wrow,
+                                           bool rearm, bool arms) {
+  const uint32_t mine = red + q * kQuadExBytes + 4 * wrow;
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int p = 1; p < 4; ++p) {
+      const uint32_t peer = (q + p) % 4;
+      const uint32_t at = mrd::map_to_rank(mine, peer), peer_bar = mrd::map_to_rank(bar, peer);
+      mrd::st_async_f32(at, s[0], peer_bar);
+      mrd::st_async_f32(at + 8 * 4, s[1], peer_bar);
+    }
+  }
+  mrd::mbar_wait_cluster(bar, parity);
+  if (rearm && arms) mbar_arrive_expect_tx(bar, kQuadExRecv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float v[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      v[p] = p == q ? s[half]
+                    : mrd::ld_shared_f32(red + p * kQuadExBytes +
+                                         4 * (wrow + 8 * half));
+    s[half] = (v[0] + v[1]) + (v[2] + v[3]);
+  }
+}
+
+// Grid: (clusters, 1, 4), clusters of the four column quarters (grid z);
+// each cluster walks the row groups of 128 rows from blockIdx.x in steps
+// of gridDim.x. Per group each block runs the whole k loop for its
+// quarter, adds bo and x, takes the LayerNorm's row statistics over the
+// cluster and stores y.
+template <int kH>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_out_quad_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H], [128][64] boxes
+                     const __grid_constant__ CUtensorMap x_map,    // x [M, H], [128][32] boxes
+                     const __grid_constant__ CUtensorMap wo_map,   // Wo [H out, H in]
+                     const __grid_constant__ CUtensorMap y_map,    // y [M, H], [64][32] boxes
+                     const bf16* __restrict__ bo,                  // [H]
+                     const bf16* __restrict__ gamma,
+                     const bf16* __restrict__ beta,
+                     int M, float eps) {
+  using Q = AttnOutQuad<kH>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int q = static_cast<int>(mrd::cluster_ctarank());  // the block's quarter (grid z)
+  const int n_groups = (M + Q::kRows - 1) / Q::kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Q::kCtxStages; ++s) {
+      mbar_init(base + Q::kBarCFull + 8 * s, 1);
+      mbar_init(base + Q::kBarCEmpty + 8 * s, kConsumerThreads / 32);
+    }
+    for (int s = 0; s < Q::kStages; ++s) {
+      mbar_init(base + Q::kBarWFull + 8 * s, 1);
+      mbar_init(base + Q::kBarWEmpty + 8 * s, kConsumerThreads / 32);
+    }
+    mbar_init(base + Q::kBarXFull, 1);
+    mbar_init(base + Q::kBarXEmpty, kWG);
+    // the exchange barriers, armed for the first two groups
+    for (int s = 0; s < 2 * 2 * kWG; ++s) {
+      mbar_init(base + Q::kBarStats + 8 * s, 1);
+      mbar_arrive_expect_tx(base + Q::kBarStats + 8 * s, kQuadExRecv);
+    }
+    fence_barrier_init();
+  }
+  mrd::cluster_sync();  // every block's barriers are initialized
+
+  if (threadIdx.x / 128 == kWG) {
+    // ---- the producer warpgroup: one thread issues every TMA load
+    mrd::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads)
+      produce_quad<kH>(&ctx_map, &x_map, &wo_map, base, q, n_groups);
+  } else {
+    // ---- consumer wg: rows 64 wg .. + 64 of each group, the block's quarter
+    mrd::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128;
+    const bool signal = lane == 0;  // one arrival per warp
+    float acc[Q::kTiles][Q::kAcc];
+    Ring cr, wr;
+    for (int it = 0;; ++it) {
+      const int g = blockIdx.x + it * gridDim.x;
+      if (g >= n_groups) break;
+      consume_quad<kH, true>(acc, cr, wr, base, wg, signal);
+      for (int k = 1; k < Q::kChunks; ++k) {
+        consume_quad<kH, false>(acc, cr, wr, base, wg, signal);
+        if (k == Q::kXFree && it > 0 && threadIdx.x % 128 == 0) {
+          // the group before's y has left x's space
+          mrd::tma_store_wait();
+          mbar_arrive(base + Q::kBarXEmpty);
+        }
+      }
+      mrd::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < Q::kTiles; ++j) mrd::fence_operand(acc[j]);
+      if (signal) {  // the group's last Wo and ctx slots
+        mbar_arrive(base + Q::kBarWEmpty + 8 * (wr.slot == 0 ? Q::kStages - 1 : wr.slot - 1));
+        mbar_arrive(base + Q::kBarCEmpty + 8 * (cr.slot == 0 ? Q::kCtxStages - 1 : cr.slot - 1));
+      }
+
+      // ---- epilogue: + bo + x, the LayerNorm over the cluster, y.
+      // Thread (warp, lane) holds rows wrow and wrow + 8 of the consumer's
+      // 64 and, per n8 block nb of tile j, the quarter's columns kN j + 8 nb
+      // + 2 (lane % 4) and + 1: acc[j][4 nb + 2 half + e] is (wrow + 8 half,
+      // col + e). In x's blocks the 16-byte group G = kN / 8 j + nb of its
+      // row lies at group G % 4 of block G / 4, which the swizzle moves to
+      // (G % 4) ^ ((row / 2) % 4): rows wrow and wrow + 8 (and both
+      // consumers' rows) share it, so four bases serve every element at
+      // constant offsets.
+      const int wrow = 16 * (warp % 4) + lane / 4;
+      uint32_t xo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xo[i] = base + Q::kOffX + (wg * kTM + wrow) * 64 + ((i ^ ((wrow >> 1) & 3)) << 4) +
+                (lane % 4) * 4;
+      mbar_wait(base + Q::kBarXFull, it & 1);
+      // this group's exchange buffer and barriers (this consumer's), their
+      // phase, and whether they serve the group two on
+      const uint32_t buf = it & 1, parity = (it >> 1) & 1;
+      const uint32_t bar = base + Q::kBarStats + 8 * (buf * 2 * kWG + wg);
+      const uint32_t red_b = base + Q::kOffRed + wg * kTM * 4 + buf * 2 * 4 * kQuadExBytes;
+      const bool rearm = g + 2 * static_cast<int>(gridDim.x) < n_groups;
+      const bool arms = threadIdx.x % 128 == 0;
+      float s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < Q::kTiles; ++j)
+#pragma unroll
+        for (int nb = 0; nb < Q::kN / 8; ++nb) {
+          const int col = q * Q::kQ + Q::kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 b2 = ld_pair(bo + col);
+          const int G = Q::kN / 8 * j + nb;
+          const uint32_t at = xo[G % 4] + G / 4 * Q::kXBlockBytes;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 x2 = lds_pair(at + half * 8 * 64);
+            float& a0 = acc[j][4 * nb + 2 * half];
+            float& a1 = acc[j][4 * nb + 2 * half + 1];
+            a0 = a0 + b2.x + x2.x;
+            a1 = a1 + b2.y + x2.y;
+            s[half] += a0 + a1;
+          }
+        }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      }
+      quad_total(s, red_b, bar, parity, q, lane, wrow, rearm, arms);
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mu[half] = s[half] * (1.0f / kH);
+        s[half] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < Q::kTiles; ++j)
+#pragma unroll
+        for (int i = 0; i < Q::kAcc; ++i) {
+          const float d = acc[j][i] - mu[(i / 2) % 2];
+          s[(i / 2) % 2] += d * d;
+        }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+        s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+      }
+      quad_total(s, red_b + 4 * kQuadExBytes, bar + 8 * kWG, parity, q, lane, wrow, rearm,
+                 arms);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) rstd[half] = rsqrtf(s[half] * (1.0f / kH) + eps);
+      // y as bf16 over x (each thread rewrites the elements it read), then
+      // this consumer's 64 rows go out by TMA; x's space is released once
+      // they have been read, a few chunks into the next group
+#pragma unroll
+      for (int j = 0; j < Q::kTiles; ++j)
+#pragma unroll
+        for (int nb = 0; nb < Q::kN / 8; ++nb) {
+          const int col = q * Q::kQ + Q::kN * j + 8 * nb + 2 * (lane % 4);
+          const float2 g2 = ld_pair(gamma + col);
+          const float2 o2 = ld_pair(beta + col);
+          const int G = Q::kN / 8 * j + nb;
+          const uint32_t at = xo[G % 4] + G / 4 * Q::kXBlockBytes;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float a0 = acc[j][4 * nb + 2 * half], a1 = acc[j][4 * nb + 2 * half + 1];
+            sts_pair_free(at + half * 8 * 64,
+                          __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
+                                                (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+          }
+        }
+      fence_proxy_async();  // the stores, to TMA
+      named_bar_sync<128>(2 + wg);
+      if (threadIdx.x % 128 == 0) {
+        for (int b = 0; b < Q::kXBlocks; ++b)
+          mrd::tma_store_2d(&y_map, base + Q::kOffX + b * Q::kXBlockBytes + wg * kTM * 64,
+                            q * Q::kQ + b * Q::kXCols, g * Q::kRows + wg * kTM);
+        mrd::tma_store_commit();
+      }
+    }
+    if (threadIdx.x % 128 == 0) mrd::tma_store_wait();
+  }
+  mrd::cluster_sync();  // no peer reads this block's exchange or arrives on its barriers
+}
+
+// A launch of blocks of kThreads with `smem` bytes of shared memory each,
+// in clusters of `size` along grid z, on `stream`
+void cluster_launch(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr, dim3 grid, int size,
+                    uint32_t smem, cudaStream_t stream) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = size;
+  config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+}
+
+// Clusters of `size` blocks of `kernel` (`smem` bytes of shared memory a
+// block) that the card holds at once, or 0 if the runtime cannot say.
+template <typename Kernel>
+int resident_clusters(Kernel kernel, int size, uint32_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  cluster_launch(config, attr, dim3(1, 1, size), size, smem, nullptr);
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &config) == cudaSuccess ? n : 0;
+}
+
+// The clusters of four to launch for the whole k loop of M rows at width
+// kH, or 0 where the pair is faster: the four's rounds of row groups over
+// the resident clusters, each kGroupCost percent of a pair's tile, against
+// the pair's waves of 64-row tiles over the resident pairs (30 and 66 on
+// the H100; read once). As many as the card holds, at most one per group.
+template <int kH>
+int quad_clusters(int M) {
+  using Q = AttnOutQuad<kH>;
+  static const int quads = resident_clusters(attn_out_quad_kernel<kH>, 4, Q::kSmemBytes);
+  static const int pairs = resident_clusters(attn_out_ln_kernel<kH>, 2, AttnOut<kH>::kSmemBytes);
+  if (quads < 1 || pairs < 1) return 0;
+  const int groups = (M + Q::kRows - 1) / Q::kRows;
+  const int tiles = (M + kTM - 1) / kTM;
+  if ((groups + quads - 1) / quads * Q::kGroupCost >= (tiles + pairs - 1) / pairs * 100) return 0;
+  return groups < quads ? groups : quads;
+}
+
+// The cluster-of-four kernel at width kH in `clusters` clusters on `stream`.
+template <int kH>
+cudaError_t launch_quad(const void* ctx, const void* x, const void* wo, const bf16* bo,
+                        const bf16* gamma, const bf16* beta, void* y, int M, float eps,
+                        int clusters, cudaStream_t stream) {
+  using Q = AttnOutQuad<kH>;
+  CUtensorMap ctx_map, wo_map, x_map, y_map;
+  if (!make_map(&ctx_map, ctx, M, kH, Q::kRows) || !make_map(&wo_map, wo, kH, kH, Q::kN) ||
+      !make_map_sw64(&x_map, x, M, kH, Q::kRows) || !make_map_sw64(&y_map, y, M, kH, kTM))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(attn_out_quad_kernel<kH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(Q::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  cluster_launch(config, attr, dim3(clusters, 1, 4), 4, Q::kSmemBytes, stream);
+  return cudaLaunchKernelEx(&config, attn_out_quad_kernel<kH>, ctx_map, x_map, wo_map, y_map,
+                            bo, gamma, beta, M, eps);
+}
+
 template <int kH>
 cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* bo,
                    const bf16* gamma, const bf16* beta, void* y, void* scratch, int M,
                    int slices, float eps, cudaStream_t stream) {
   using P = AttnOut<kH>;
   const bool split = slices > 1;
+  if constexpr (P::kPair) {  // the whole k loop: the cluster of four where it is faster
+    const int clusters = split ? 0 : quad_clusters<kH>(M);
+    if (clusters > 0) {
+      const cudaError_t err =
+          launch_quad<kH>(ctx, x, wo, bo, gamma, beta, y, M, eps, clusters, stream);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    }
+  }
   CUtensorMap ctx_map, wo_map, x_map{}, y_map{};  // x and y by TMA on the tiled path only
   if (!make_map(&ctx_map, ctx, M, kH, kTM) ||
       !make_map(&wo_map, wo, kH, kH, P::kN) ||
@@ -746,18 +1274,9 @@ cudaError_t launch(const void* ctx, const void* x, const void* wo, const bf16* b
   const dim3 grid((M + kTM - 1) / kTM, slices, P::kGroups);
   if constexpr (P::kPair) {
     // the two column groups of a row tile and slice as one cluster
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = P::kGroups;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = grid;
-    config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = P::kSmemBytes;
-    config.stream = stream;
-    config.attrs = attr;
-    config.numAttrs = 1;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t config;
+    cluster_launch(config, attr, grid, P::kGroups, P::kSmemBytes, stream);
     err = cudaLaunchKernelEx(&config, attn_out_ln_kernel<kH>, ctx_map, x_map, wo_map, y_map,
                              bo, gamma, beta, part, M, P::kChunks / slices, eps);
     if (err != cudaSuccess) return err;

@@ -329,10 +329,11 @@ EncodeTiled encode_tiled() {
 
 // Tensor map of a row-major [rows, cols] matrix of `elem`-byte values,
 // read (or written) in boxes of [box_rows, box_cols] in the 128-byte
-// swizzle layout (box_cols * elem = 128). Rows past `rows` read as zeros and
-// are not written.
+// swizzle layout (box_cols * elem = 128), or the 64-byte one (box_cols *
+// elem = 64). Rows past `rows` read as zeros and are not written.
 bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
-                 int rows, int cols, int box_cols, int box_rows) {
+                 int rows, int cols, int box_cols, int box_rows,
+                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -341,8 +342,7 @@ bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const voi
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

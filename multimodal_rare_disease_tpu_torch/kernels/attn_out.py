@@ -29,11 +29,13 @@ single request's 64 rows), the bf16 kernel splits the H / 64 k chunks of
 the product into slices, each block writes an f32 partial of ctx @ wo for
 its slice, and a second kernel (the FFN kernel's split reduction) sums
 the partials in slice order before bo, the residual and LN. From H = 896
-up a row tile's columns are cut into two groups of H / 2, one block
-each, run as a cluster that shares the LayerNorm's row statistics
-(distributed shared memory) and, at 896 and 1,024, ctx (TMA multicast);
-above 1,024 each block streams ctx through a ring and keeps only its own
-columns of x and y. The f32 GEMM always writes f32
+up the whole k loop runs, where it is faster (the packed batch), on
+persistent clusters of four blocks, one per quarter of the columns, that
+walk groups of 128 rows (each Wo tile a block takes serves 128 rows) and
+share the LayerNorm's row statistics over distributed shared memory;
+otherwise, and on the split path, on a cluster pair of two column groups
+of H / 2 (at 896 and 1,024 sharing ctx by TMA multicast, above 1,024
+streaming it). The f32 GEMM always writes f32
 partials (one slice at the packed batch) and splits its H / 32 k-tiles
 the same way below 132 output tiles.
 `attn_out_plan` and `attn_out_plan_f32` choose the slices by
@@ -114,7 +116,11 @@ def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
     card with n_sm SMs: `split_plan` over the hidden / 64 k chunks of the
     product (12 at 768, 16 at 1,024, 8 / 4 / 2 at 512 / 256 / 128, 6 /
     10 / 14 at 384 / 640 / 896, 18 / 20 / 22 / 24 at 1,152 / 1,280 /
-    1,408 / 1,536)."""
+    1,408 / 1,536), two blocks a tile from 896 up. With one slice the
+    kernel there runs as clusters of four over groups of two tiles, as
+    many as the card holds at once, where their rounds take less time than
+    the pairs' waves (csrc/attn_out_ln.cuh::quad_clusters): the same blocks
+    a tile."""
     return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 

@@ -1286,3 +1286,55 @@ def test_width_predict_launches_the_width_kernels(cuda, h, fused_attn_out):
     probs = np.array([list(r["all_probabilities"].values()) for r in res])
     plain = np.array([list(r["all_probabilities"].values()) for r in ref])
     assert np.isfinite(probs).all() and np.abs(probs - plain).max() <= 2.5e-3
+
+
+# K3's cluster forms (H = 896-1,536). At the packed batch the whole k loop
+# runs on the persistent clusters of four (a block: 128 rows by a quarter
+# of the columns): 16,384 rows, a ragged last tile, and 64 x 257 rows,
+# whose last group of 128 has a 64-row tile past M; 8,448 rows, where the
+# launch may take the pair instead (fewer waves); a single request's 64
+# rows take the pair's split path. Each launch twice, with the same bits (the
+# row statistics are summed over the cluster in one order, no atomics).
+_CLUSTER_WIDTHS = [896, 1024, 1152, 1280, 1408, 1536]
+_by_cluster_width = pytest.mark.parametrize(
+    "h", _CLUSTER_WIDTHS, ids=[f"h{h}" for h in _CLUSTER_WIDTHS])
+
+
+@pytest.mark.parametrize("m", [16384, 16384 - 37, 64 * 257, 8448, 64])
+@_by_cluster_width
+def test_cluster_attn_out_kernel_matches_plain(cuda, h, m):
+    x, ctx, _, wo, vec = _width_inputs(m, cuda, 300 + m, torch.bfloat16, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    before = _width_counts(h)
+    got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+    again = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
+    assert moved == (0, 0, 2, 0, 0, 0, 0, 0)
+    assert torch.equal(got, again)
+    worst, mean = _diff(got, want)
+    assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (k3.attn_out_plan(m, n_sm, h).slices > 1) == (m == 64)
+
+
+@pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
+@_by_cluster_width
+def test_cluster_attn_out_check_fails_a_kernel_that_drops_a_term(cuda, h,
+                                                                 name):
+    # the packed batch's 16,384 rows, 128 groups of 128 over the resident
+    # clusters of four (each walks four or five); a neutral bo / gamma /
+    # beta, or a zero residual x, stands for a kernel that leaves the term
+    # out
+    x, ctx, _, wo, vec = _width_inputs(16384, cuda, 11, torch.bfloat16, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+    if name == "x":
+        got = _attn(k3.fused_attn_out_ln, ctx, torch.zeros_like(x), wo, v3)
+    else:
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo,
+                    {**v3, name: _neutral(name, v3[name])})
+    worst, mean = _diff(got, want)
+    assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
