@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Hold redesigned forms of the bf16 FFN kernel (K1 and K2 at the widths
-given) or, with --k3, of the bf16 attention-output kernel (K3) against an
-earlier tree, and every other kernel against that tree's, in one process
-on one card.
+given) or, with --k3, of the bf16 attention-output kernel (K3), or with
+--k3f32 of its f32 form (K3-f32), against an earlier tree, and every other
+kernel against that tree's, in one process on one card.
 
     mkdir -p build/old_4b349d5                   # the earlier tree, once
     git archive 4b349d5 | tar -x -C build/old_4b349d5
     python3 build/pair_old_vs_new.py [--old COMMIT] [--old-dir DIR]
-        [--widths H ...] [--rows M ...] [--k3]
+        [--widths H ...] [--rows M ...] [--k3 | --k3f32]
 
 Defaults: the tree before the one-block forms' redesign (4b349d5) in
 build/old_<commit>, the five one-block widths (128, 256, 384, 512, 640)
@@ -15,15 +15,18 @@ and M = 64, 1,024 and 16,384. The cluster-pair forms' redesign was held
 to its parent with `--old be933b6 --old-dir build/pair_old --widths 896
 1024 1152 1280 1408 1536 --rows 1024 16384`, K3's cluster forms with
 `--k3 --old 5b7b4dc --old-dir build/old_5b7b4dc --widths 896 1024 1152
-1280 1408 1536 --rows 64 1024 16384`. As build/widths_old_vs_new.py,
+1280 1408 1536 --rows 64 1024 16384`, K3-f32's narrow forms with
+`--k3f32 --old 6b702b9 --old-dir build/old_6b702b9 --rows 64 2048 4224
+16384 16385`. As build/widths_old_vs_new.py,
 whose helpers it uses: each tree's package is imported from its own
 directory and builds its own kernels there.
 
 - SASS: every kernel function of the earlier tree's library (cuobjdump,
   addresses and constants masked) against the function of the same name
   and template arguments in this tree's, except `ffn_ln_kernel` (with
-  --k3, `attn_out_ln_kernel`) at the redesigned widths: identical, or the
-  script fails; those are printed, and the functions only this tree has.
+  --k3, `attn_out_ln_kernel`; with --k3f32 none: its new pass is a
+  function of its own) at the redesigned widths: identical, or the script
+  fails; those are printed, and the functions only this tree has.
 - Bits: at each M, every kernel outside the redesigned forms on the same
   tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
   and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
@@ -31,10 +34,11 @@ directory and builds its own kernels there.
 - The redesigned forms: K1 (f32 vectors, as the earlier timings took it;
   and bf16 vectors) and K2 (with --k3: K3, beside the classic bf16 chain
   it stands for, `F.linear` + the residual add + `F.layer_norm`, and
-  `F.linear` alone, in the same turns) at each width and M, both trees
-  within the bf16
-  limits of their plain version (5e-2 max, 1e-4 mean |diff|, bf16
-  products with f32 sums); their bits are compared and printed. Device
+  `F.linear` alone, in the same turns; with --k3f32: K3-f32 beside the
+  classic f32 chain and `F.linear` in f32) at each width and M, both
+  trees within the limits of their plain version (bf16: 5e-2 max, 1e-4
+  mean |diff|, bf16 products with f32 sums; f32 with TF32 off: 1e-4 and
+  1e-5); their bits are compared and max |new - old| printed. Device
   time per call (CUDA events over 20 calls queued behind a spinning card)
   in turns old, new, new, old, and new / old.
 
@@ -49,6 +53,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +75,7 @@ WIDTHS = {768: 3072, 1024: 4096, 512: 2048, 256: 1024, 128: 512, 384: 1536,
           1536: 6144}
 widths_old_vs_new.WIDTHS = WIDTHS  # `inputs` draws F from it
 ROW_ATOL, ROW_MEAN_ATOL = 5e-2, 1e-4
+F32_ATOL, F32_MEAN_ATOL = 1e-4, 1e-5
 
 
 def import_tree(root: Path) -> SimpleNamespace:
@@ -106,37 +112,41 @@ def chain_calls(c, z, wo, vec):
             "linear": lambda: F.linear(c, wo.t(), vec["b2"])}
 
 
-def check_k3(trees, by_tree, x, h, m, cyc, readings, bad):
-    """K3 of both trees at width h and m rows against the plain version,
-    their bits, and their device times in turns (old, new, chain, linear,
-    then the same in reverse)."""
+def check_k3(trees, by_tree, x, h, m, cyc, readings, bad, key="K3",
+             limits=(ROW_ATOL, ROW_MEAN_ATOL)):
+    """K3 (or `key`, K3-f32) of both trees at width h and m rows against
+    the plain version, their bits, and their device times in turns (old,
+    new, chain, linear, then the same in reverse)."""
     z, c, _, _, wo, vec = x
-    new, old = by_tree["new"]["K3"], by_tree["old"]["K3"]
+    new, old = by_tree["new"][key], by_tree["old"][key]
     want = trees["new"].attn_out.attn_out_ln_plain(
         c, z, wo, vec["b2"], vec["gamma"], vec["beta"]).float()
     got = {"new": new().float(), "old": old().float()}
     errs = {n: ((g - want).abs().max().item(), (g - want).abs().mean().item())
             for n, g in got.items()}
     same = torch.equal(got["new"], got["old"])
+    apart = (got["new"] - got["old"]).abs().max().item()
     again = torch.equal(got["new"], new().float())
-    ok = again and all(e[0] <= ROW_ATOL and e[1] <= ROW_MEAN_ATOL
+    ok = again and all(e[0] <= limits[0] and e[1] <= limits[1]
                        for e in errs.values())
     fns = {"old": old, "new": new, **chain_calls(c, z, wo, vec)}
     runs = {n: [] for n in fns}
     for n in list(fns) + list(fns)[::-1]:
         runs[n].append(per_call_ms(fns[n], cyc))
     ms = {n: sum(v) / len(v) for n, v in runs.items()}
-    readings[f"K3 H={h} M={m}"] = dict(
-        bit_equal=same, same_bits_twice=again, err_new=errs["new"],
-        err_old=errs["old"], ms=ms, ratio=ms["new"] / ms["old"], runs=runs)
-    print(f"K3 H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
+    readings[f"{key} H={h} M={m}"] = dict(
+        bit_equal=same, max_new_old=apart, same_bits_twice=again,
+        err_new=errs["new"], err_old=errs["old"], ms=ms,
+        ratio=ms["new"] / ms["old"], runs=runs)
+    print(f"{key} H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
           f"{errs['new'][1]:.3e} (old {errs['old'][0]:.3e} / "
-          f"{errs['old'][1]:.3e}), bit-equal to old {same}, same bits twice "
-          f"{again}; dev ms new {ms['new']:.4f} old {ms['old']:.4f} (new/old "
+          f"{errs['old'][1]:.3e}), bit-equal to old {same} (max |new - old| "
+          f"{apart:.3e}), same bits twice {again}; dev ms new "
+          f"{ms['new']:.4f} old {ms['old']:.4f} (new/old "
           f"{ms['new'] / ms['old']:.4f}); chain {ms['chain']:.4f}, F.linear "
           f"{ms['linear']:.4f} {'ok' if ok else 'OFF'}", flush=True)
     if not ok:
-        bad.append(f"K3 H={h} M={m}")
+        bad.append(f"{key} H={h} M={m}")
 
 
 def main() -> int:
@@ -149,6 +159,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, nargs="*", default=[64, 1024, 16384])
     ap.add_argument("--k3", action="store_true",
                     help="the redesigned forms are K3's (bf16), not K1/K2's")
+    ap.add_argument("--k3f32", action="store_true",
+                    help="the redesigned forms are K3-f32's")
     args = ap.parse_args()
     rows, redesigned = args.rows, tuple(args.widths)
     old_root = args.old_dir or ROOT / "build" / f"old_{args.old}"
@@ -172,7 +184,7 @@ def main() -> int:
     for k in code["new"].keys() - code["old"].keys():
         print(f"SASS {k}: only in this tree", flush=True)
     for k, old_code in code["old"].items():
-        if redesigned_form(k, redesigned, args.k3):
+        if not args.k3f32 and redesigned_form(k, redesigned, args.k3):
             same = code["new"].get(k) == old_code
             readings[f"SASS {k}"] = f"redesigned (identical {same})"
             print(f"SASS {k} (redesigned form): identical {same}", flush=True)
@@ -188,6 +200,13 @@ def main() -> int:
             bad.append(f"SASS {k}")
     print(f"SASS outside the redesigned forms: {n_same}/{n_kept} functions "
           f"identical", flush=True)
+    log = (trees["new"].build.library_path().parent / "ptxas.log").read_text()
+    spills = [ln.strip() for ln in log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    readings["ptxas spill lines"] = spills
+    print(f"ptxas: {len(spills)} lines with spill bytes", flush=True)
+    if spills:
+        bad.append("ptxas spills")
 
     # ---- bits of every form outside the redesigned forms
     n_equal = n_forms = 0
@@ -197,8 +216,9 @@ def main() -> int:
                 x = inputs(dt, h, m, torch.Generator().manual_seed(h + m), dev)
                 by_tree = {n: calls(t, dt, *x) for n, t in trees.items()}
                 for k in by_tree["new"]:
-                    if (h in redesigned and dt == torch.bfloat16
-                            and (k == "K3") == args.k3):
+                    if h in redesigned and (
+                            k == "K3-f32" if args.k3f32 else
+                            dt == torch.bfloat16 and (k == "K3") == args.k3):
                         continue
                     same = torch.equal(by_tree["new"][k](),
                                        by_tree["old"][k]())
@@ -226,6 +246,13 @@ def main() -> int:
     cyc = sleep_cycles_per_ms()
     for h in redesigned:
         for m in rows:
+            if args.k3f32:
+                x = inputs(torch.float32, h, m,
+                           torch.Generator().manual_seed(h + m), dev)
+                check_k3(trees, {n: calls(t, torch.float32, *x)
+                                 for n, t in trees.items()}, x, h, m, cyc,
+                         readings, bad, "K3-f32", (F32_ATOL, F32_MEAN_ATOL))
+                continue
             x = inputs(torch.bfloat16, h, m,
                        torch.Generator().manual_seed(h + m), dev)
             z, _, w1, w2, _, vec = x
@@ -275,7 +302,7 @@ def main() -> int:
                 if not ok:
                     bad.append(f"{k} H={h} M={m}")
     print(json.dumps({"card": card, "old": args.old, "widths": redesigned,
-                      "k3": args.k3,
+                      "k3": args.k3, "k3f32": args.k3f32,
                       "readings": readings, "off": bad}))
     return 1 if bad else 0
 

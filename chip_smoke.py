@@ -194,7 +194,10 @@ non-zero):
    (12 layers, 12 heads of 32, F = 1,536, the uncased vocabulary of
    30,522; K1 12 per default forward, K3 11, K2 11, K1 1 and K4 1 per
    fused one; one MicroBatcher round), and at H = 640 and 896 (heads of
-   64, F = 4H), which no published encoder has, at 4 layers.
+   64, F = 4H), which no published encoder has, at 4 layers. Phases 18
+   and 19 print K3-f32's time at 128-640 beside 6b702b9's three-launch
+   form and the form the launch took (the pass over whole rows at the
+   packed batch).
 20. above BERT-large width (H = 1,152, 1,280, 1,408 and 1,536; `WIDE_OVER`):
    phase 17 at microsoft/deberta-v2-xlarge's widths and depth with this
    package's BERT layer (H = 1,536, F = 6,144, 24 heads of 64, 24 layers,
@@ -3094,6 +3097,12 @@ PAIR_BEFORE_MS = {896: (1.0754, 1.0600), 1024: (1.2703, 1.2418),
 NARROW_BEFORE_MS = {128: (0.0543, 0.0505), 256: (0.1094, 0.1071),
                     384: (0.1896, 0.1872), 512: (0.2884, 0.2828),
                     640: (0.4360, 0.4317)}
+# K3-f32's dev ms at M = 16,384 before its narrow forms took the pass over
+# whole rows (the three-launch form of commit 6b702b9, PERF.md; H100 80GB
+# HBM3, 700 W), printed the same way (build/pair_old_vs_new.py --k3f32
+# compares them in turns)
+F32_NARROW_BEFORE_MS = {128: 0.0237, 256: 0.0498, 384: 0.0879, 512: 0.1278,
+                        640: 0.1790}
 
 
 def resident_clusters(dev, h: int) -> int:
@@ -3331,6 +3340,18 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                      f"{before[h][0]} / {before[h][1]} (new/old "
                      f"{times[f'K1_{h}'][0] / before[h][0]:.3f} / "
                      f"{times[f'K2_{h}'][0] / before[h][1]:.3f}) | ")
+    # K3-f32's clusters of the pass over whole rows the card holds at once
+    # (128-640), its plan at the packed batch
+    resident = (k3.f32_rows_clusters(dev, h) if h in k3.ROWS_F32_WIDTHS
+                else 0)
+    plan32 = k3.attn_out_plan_f32(16384, n_sm, h, resident)
+    if h in F32_NARROW_BEFORE_MS:
+        t32, before = times[f"K3_f32_{h}"][0], F32_NARROW_BEFORE_MS[h]
+        pair += (f"K3-f32 dev ms {t32:.4f} against 6b702b9's {before} "
+                 f"(new/old {t32 / before:.3f}), taking "
+                 + (f"the pass over whole rows (clusters of {h // 128}, "
+                    f"{resident} resident at once)"
+                    if plan32.rows else "the three launches") + " | ")
     plans = (f"bf16 FFN {k1.ffn_plan(16384, f, n_sm, h).slices} / "
              f"{k1.ffn_plan(1024, f, n_sm, h).slices} slices at "
              f"M=16384 / 1024, K3 {k3.attn_out_plan(16384, n_sm, h).slices} / "
@@ -3338,7 +3359,7 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
              f"scratch per call at M=16384: FFN "
              f"{k1.ffn_plan_f32(16384, f, n_sm, h).scratch * 4 / 1e6:.1f} "
              f"MB, K3 "
-             f"{k3.attn_out_plan_f32(16384, n_sm, h).scratch * 4 / 1e6:.1f}"
+             f"{plan32.scratch * 4 / 1e6:.1f}"
              f" MB")
     text = (f"H={h}, F={f}, {te.num_heads} heads, {n_layers} layers, vocab "
             f"{te.vocab_size} | kernels vs plain (max|diff| / mean|diff|): "
@@ -4308,8 +4329,12 @@ def main() -> int:
     ] + [
         # the compact, the odd and the wide widths' instantiations, checked
         # and timed in phases 18, 19 and 20; none has one PyTorch call
-        # either
-        (f"{name}_h{w}", source, replaces, f"{key}_{w}",
+        # either. K3-f32 at 128-640 runs the pass over whole rows of
+        # attn_out_rows_f32.cuh (built by attn_out_ln_f32.cu) at the packed
+        # batch
+        (f"{name}_h{w}",
+         "attn_out_rows_f32.cuh" if key == "K3_f32" and w <= 640 else source,
+         replaces, f"{key}_{w}",
          *{**times18, **times19, **times20}[f"{key}_{w}"], None)
         for w in (512, 256, 128, 384, 640, 896, 1152, 1280, 1408, 1536)
         for name, source, replaces, key in (

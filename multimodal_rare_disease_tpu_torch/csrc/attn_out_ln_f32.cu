@@ -49,6 +49,11 @@
 //      product;
 //   3. split_reduce_f32<false>: y = LN(sum of the S partials in slice order
 //      + bo + x). No atomics: the same bits on every launch.
+// At H = 128-640 a call with `slices` 0 (kernels/attn_out.py::
+// f32_rows_form: where it is faster, the packed batch among them) is two
+// launches instead: split_weight, then attn_out_rows_f32.cuh's one pass over
+// whole rows (the LayerNorm in the product's epilogue, no partials), whose
+// pre-LayerNorm sums are step 2's and 3's bit for bit.
 // Rows past M read as zeros (TMA) and are not stored. Numerics: the 3xTF32
 // products of K1-f32 (on the H100, within 2.4e-6-2.0e-5 max and 5.2e-7-
 // 9.0e-7 mean of the plain f32 version for K1-f32); the sums of each window
@@ -57,6 +62,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "attn_out_rows_f32.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace {
@@ -90,7 +96,8 @@ int attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const void* 
   constexpr int kWoBlocks = static_cast<int>(
       (kWoVecs + kSplitThreads * kSplitVecs - 1) / (kSplitThreads * kSplitVecs));
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (slices < 1 || (kK / kBK) % slices != 0 || scratch == nullptr)
+  if (slices < (kH <= 640 ? 0 : 1) || (slices > 0 && (kK / kBK) % slices != 0) ||
+      scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -100,6 +107,13 @@ int attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const void* 
   split_weight<kH><<<kWoBlocks, kSplitThreads, 0, s>>>(f(wo), w_hi, w_lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kH <= 640) {
+    if (slices == 0) {
+      err = launch_rows<kH>(f(ctx), f(x), w_hi, w_lo, f(bo), f(gamma), f(beta),
+                            static_cast<float*>(y), M, eps, s);
+      return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+    }
+  }
   err = launch_gemm<kPartial, true>(f(ctx), nullptr, w_hi, w_lo, nullptr, partial, nullptr, M,
                                     kH, kK, slices, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -130,7 +144,8 @@ int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const vo
 }
 
 // The same at the other built widths H: `name`_h<H>, [M, H] rows, wo [H, H],
-// `slices` a divisor of the H / 32 k-tiles, scratch 2 H H + slices M H.
+// `slices` a divisor of the H / 32 k-tiles, scratch 2 H H + slices M H; at
+// H = 128-640 `slices` 0 takes the pass over whole rows, scratch 2 H H.
 #define MRD_ATTN_OUT_F32_WIDTH(kH)                                                           \
   int mrd_attn_out_ln_f32_h##kH(const void* ctx, const void* x, const void* wo,              \
                                 const void* bo, const void* gamma, const void* beta,         \
@@ -140,11 +155,18 @@ int mrd_attn_out_ln_f32(const void* ctx, const void* x, const void* wo, const vo
                                stream);                                                      \
   }
 
-MRD_ATTN_OUT_F32_WIDTH(128)
-MRD_ATTN_OUT_F32_WIDTH(256)
-MRD_ATTN_OUT_F32_WIDTH(384)
-MRD_ATTN_OUT_F32_WIDTH(512)
-MRD_ATTN_OUT_F32_WIDTH(640)
+// and at H = 128-640 the clusters of that pass the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 if the runtime cannot say): a launch
+// takes as many, at most one per row tile of 128
+#define MRD_ATTN_OUT_F32_ROWS(kH)                                                            \
+  MRD_ATTN_OUT_F32_WIDTH(kH)                                                                 \
+  int mrd_attn_out_f32_clusters_h##kH() { return rows_resident<kH>(); }
+
+MRD_ATTN_OUT_F32_ROWS(128)
+MRD_ATTN_OUT_F32_ROWS(256)
+MRD_ATTN_OUT_F32_ROWS(384)
+MRD_ATTN_OUT_F32_ROWS(512)
+MRD_ATTN_OUT_F32_ROWS(640)
 MRD_ATTN_OUT_F32_WIDTH(896)
 MRD_ATTN_OUT_F32_WIDTH(1024)
 MRD_ATTN_OUT_F32_WIDTH(1152)

@@ -9,7 +9,10 @@ its `_attn_out_ln_kernel`: `csrc/attn_out_ln.cu` for bf16 (wgmma on 64-row
 tiles, Wo streamed by TMA from a producer warpgroup) and
 `csrc/attn_out_ln_f32.cu` for f32 (three launches: Wo split into TF32
 planes, the f32 FFN's 3xTF32 wgmma GEMM fed by TMA with ctx split into its
-planes in shared memory, and a LayerNorm pass over its f32 partials);
+planes in shared memory, and a LayerNorm pass over its f32 partials; at H
+= 128-640, where `f32_rows_form` takes it, two: Wo's planes, then one pass
+over whole rows by clusters of H / 128 blocks with the LayerNorm in the
+product's epilogue, `csrc/attn_out_rows_f32.cuh`);
 `attn_out_ln_plain` is the same math in PyTorch, under
 the TPU module's numerics contract: the product accumulates in f32 and
 is not rounded, bo and the residual are added in f32, and the two-pass
@@ -35,9 +38,10 @@ walk groups of 128 rows (each Wo tile a block takes serves 128 rows) and
 share the LayerNorm's row statistics over distributed shared memory;
 otherwise, and on the split path, on a cluster pair of two column groups
 of H / 2 (at 896 and 1,024 sharing ctx by TMA multicast, above 1,024
-streaming it). The f32 GEMM always writes f32
-partials (one slice at the packed batch) and splits its H / 32 k-tiles
-the same way below 132 output tiles.
+streaming it). The f32 GEMM writes f32 partials (one slice at the packed
+batch) and splits its H / 32 k-tiles the same way below 132 output
+tiles; at H = 128-640 the pass over whole rows, which writes only y,
+runs instead where its rounds of clusters cost less (`f32_rows_form`).
 `attn_out_plan` and `attn_out_plan_f32` choose the slices by
 `ffn.split_plan`'s and `ffn.gemm_plan_f32`'s rules, and
 `attn_out_ln_plain(..., slices=S)` emulates the split sum in the
@@ -60,6 +64,8 @@ import torch
 
 from multimodal_rare_disease_tpu_torch.kernels import build
 from multimodal_rare_disease_tpu_torch.kernels.ffn import (
+    KERNEL_F32_COLS,
+    KERNEL_F32_ROWS,
     KERNEL_WIDTHS,
     ROUTE_BF16,
     ROUTE_F32,
@@ -109,6 +115,19 @@ PLAIN_ON_CUDA = 0
 # the k chunk csrc/attn_out_ln.cu was written for (see its header); the f32
 # kernel's GEMM tiles as `ffn.gemm_plan_f32` says
 KERNEL_CHUNK = 64
+# the widths whose f32 kernel has the pass over whole rows
+# (csrc/attn_out_rows_f32.cuh): clusters of hidden / 128 blocks
+ROWS_F32_WIDTHS = (128, 256, 384, 512, 640)
+# the pass against the three launches, in percent of one wave of the
+# three-launch GEMM's 128 x 128 tiles, from each launch's time on the H100
+# at 64 to 16,384 rows (build/attn_out_f32_probe.py; PERF.md §6): the
+# pass's first round of clusters ~105, each further round ~88 (the next
+# tile's loads overlap the last one's epilogue); the reduce pass ~10 plus
+# ~1.1 a row tile
+ROWS_FIRST_ROUND = 105
+ROWS_ROUND = 88
+REDUCE_FIXED = 10
+REDUCE_PER_10_TILES = 11
 
 
 def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
@@ -124,16 +143,53 @@ def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
     return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
 
 
+def f32_rows_form(m: int, hidden: int, n_sm: int, resident: int,
+                  slices: int) -> bool:
+    """Whether a call of the f32 kernel for m rows takes the pass over
+    whole rows (csrc/attn_out_rows_f32.cuh) on a card with n_sm SMs that
+    holds `resident` of its clusters at once (`f32_rows_clusters`; 0: not
+    known, never): at the widths that have one, when the plan leaves the k
+    loop whole (`slices` 1; with more, a single request's 64 rows at 512
+    and 640, the three launches spread it over more SMs than a row tile's
+    cluster has), and when its rounds of clusters over the row tiles cost
+    no more than the three launches' waves of 128 x 128 tiles and their
+    reduce pass (ROWS_FIRST_ROUND ..: at 512 the 33 row tiles of 4,224
+    rows are two rounds of 30 clusters against one wave of 132 tiles)."""
+    if hidden not in ROWS_F32_WIDTHS or slices != 1 or resident < 1:
+        return False
+    tiles = -(-m // KERNEL_F32_ROWS)
+    rounds = -(-tiles // resident)
+    waves = -(-tiles * (hidden // KERNEL_F32_COLS) // n_sm)
+    return (ROWS_FIRST_ROUND + ROWS_ROUND * (rounds - 1)
+            <= 100 * waves + REDUCE_FIXED + REDUCE_PER_10_TILES * tiles // 10)
+
+
 @functools.lru_cache(maxsize=4096)
-def attn_out_plan_f32(m: int, n_sm: int, hidden: int = 768) -> F32Plan:
+def attn_out_plan_f32(m: int, n_sm: int, hidden: int = 768,
+                      resident: int = 0) -> F32Plan:
     """The launch of the f32 kernel for m rows at a built hidden width on
     a card with n_sm SMs: `gemm_plan_f32` over the hidden / 32 k-tiles of
-    the product (at most hidden / 256 slices of 8), and the scratch of one
-    call: Wo^T's TF32 planes (2 * hidden^2) and the f32 partials [slices,
+    the product (at most hidden / 256 slices of 8), the form
+    (`f32_rows_form`, with `resident` clusters of the pass over whole
+    rows), and the scratch of one call: Wo^T's TF32 planes (2 * hidden^2)
+    and, unless the pass over whole rows runs, the f32 partials [slices,
     m, hidden]. Cached, as `split_plan`."""
     tiles, slices, k_tiles = gemm_plan_f32(m, hidden, n_sm, hidden)
     h = hidden
-    return F32Plan(tiles, slices, k_tiles, 2 * h * h + slices * m * h)
+    rows = f32_rows_form(m, h, n_sm, resident, slices)
+    return F32Plan(tiles, slices, k_tiles,
+                   2 * h * h + (0 if rows else slices * m * h), rows)
+
+
+@functools.lru_cache(maxsize=64)
+def f32_rows_clusters(dev: torch.device, hidden: int) -> int:
+    """The clusters of the pass over whole rows at `hidden` (one of
+    ROWS_F32_WIDTHS) that the card holds at once
+    (cudaOccupancyMaxActiveClusters): a launch takes as many, at most one
+    per row tile of 128. Read once per card and width."""
+    lib = build.load_library(dev)
+    with torch.cuda.device(dev):
+        return getattr(lib, f"mrd_attn_out_f32_clusters_h{hidden}")()
 
 
 def attn_out_ln_fusible(m: int, hidden: int, dtype: torch.dtype) -> bool:
@@ -268,13 +324,17 @@ def _launch_f32(ctx, x, wo, bo, gamma, beta, eps):
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
     fn = entry(lib, "mrd_attn_out_ln_f32", hidden)
-    plan = attn_out_plan_f32(m, sm_count(dev), hidden)
+    resident = (f32_rows_clusters(dev, hidden)
+                if hidden in ROWS_F32_WIDTHS else 0)
+    plan = attn_out_plan_f32(m, sm_count(dev), hidden, resident)
     scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # slices 0: the pass over whole rows
         err = fn(ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
                  *(v.data_ptr() for v in vecs), y.data_ptr(),
-                 scratch.data_ptr(), m, plan.slices, float(eps), stream)
+                 scratch.data_ptr(), m, 0 if plan.rows else plan.slices,
+                 float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_f32")
     count_launch(globals(), "LAUNCHES_F32", hidden)
     return y

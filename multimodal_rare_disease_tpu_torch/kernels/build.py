@@ -167,6 +167,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "mrd_error_string": [i],
         "mrd_ffn_f32_smem_bytes": [],
         "mrd_attn_out_f32_smem_bytes": [],
+        # K3-f32's pass over whole rows (attn_out.ROWS_F32_WIDTHS)
+        **{f"mrd_attn_out_f32_clusters_h{width}": []
+           for width in ROW_WIDTHS if width <= 640},
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -202,11 +202,13 @@ class F32Plan(NamedTuple):
     x [m, H], of W1^T and W2^T (f * H each) and of h [m, f], and the
     partials [slices, m, H] of h @ w2, the product that is split. K3
     (`attn_out.attn_out_plan_f32`): the planes of Wo^T [H, H] and the
-    partials of ctx @ wo."""
+    partials of ctx @ wo, or, where `rows` (its pass over whole rows,
+    `attn_out.f32_rows_form`), the planes alone."""
     tiles: int
     slices: int
     k_tiles: int
     scratch: int
+    rows: bool = False
 
 
 def gemm_plan_f32(m: int, k: int, n_sm: int,

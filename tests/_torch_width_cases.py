@@ -203,6 +203,11 @@ def check_ffn_plan(h, f, m, tiles, slices, chunks):
                                                         hidden=h)
 
 
+# clusters of K3-f32's pass over whole rows that the H100 holds at once
+# (cudaOccupancyMaxActiveClusters, PERF.md)
+H100_ROWS_CLUSTERS = {128: 132, 256: 66, 384: 39, 512: 30, 640: 22}
+
+
 def check_f32_plan(h, m, tiles, slices, k_tiles, k3_slices, k3_k_tiles):
     f = WIDTHS[h][1]
     plan = k1.ffn_plan_f32(m, f, 132, h)
@@ -211,16 +216,21 @@ def check_f32_plan(h, m, tiles, slices, k_tiles, k3_slices, k3_k_tiles):
     # the TF32 planes of x, the weights and h, and one partial per slice
     assert plan.scratch == (2 * m * h + 4 * f * h + 2 * m * f
                             + slices * m * h)
-    plan3 = k3.attn_out_plan_f32(m, 132, h)
+    plan3 = k3.attn_out_plan_f32(m, 132, h, H100_ROWS_CLUSTERS.get(h, 0))
     assert (plan3.tiles, plan3.slices, plan3.k_tiles) == (tiles, k3_slices,
                                                            k3_k_tiles)
-    assert plan3.scratch == 2 * h * h + k3_slices * m * h
+    # Wo's planes, and the partials unless the pass over whole rows runs
+    # (H = 128-640 with one slice, at these row counts)
+    rows = h <= 640 and k3_slices == 1
+    assert plan3.rows == rows
+    assert plan3.scratch == 2 * h * h + (0 if rows else k3_slices * m * h)
 
 
 def check_scratch(h, ffn_bytes, k3_bytes):
     assert k1.ffn_plan_f32(16384, WIDTHS[h][1], 132, h).scratch * 4 \
         == ffn_bytes
-    assert k3.attn_out_plan_f32(16384, 132, h).scratch * 4 == k3_bytes
+    assert k3.attn_out_plan_f32(16384, 132, h, H100_ROWS_CLUSTERS.get(
+        h, 0)).scratch * 4 == k3_bytes
 
 
 def check_cpu_rule(h, input_ln):

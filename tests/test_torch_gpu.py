@@ -1338,3 +1338,88 @@ def test_cluster_attn_out_check_fails_a_kernel_that_drops_a_term(cuda, h,
                     {**v3, name: _neutral(name, v3[name])})
     worst, mean = _diff(got, want)
     assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)
+
+
+# K3-f32's narrow forms (H = 128-640). Where the plan leaves the k loop
+# whole, a call is one pass over whole rows: persistent clusters of H / 128
+# blocks, each block 128 rows by 128 columns, the LayerNorm's row sums
+# exchanged over distributed shared memory (csrc/attn_out_rows_f32.cuh):
+# the packed batch's 16,384 rows, a ragged last tile (16,347), 33 row tiles
+# (4,224: two rounds at 640; the three-launch form at 512, whose one wave
+# of tiles beats two rounds of clusters there), an Evaluator batch (2,048;
+# the three-launch form at 512, whose plan splits the k loop there) and a
+# single request's 64 rows (the three-launch form at 512 and 640). Each
+# launch twice, with the same bits (the blocks' partials are added in rank
+# order; no atomics).
+_NARROW_WIDTHS = [128, 256, 384, 512, 640]
+_by_narrow_width = pytest.mark.parametrize(
+    "h", _NARROW_WIDTHS, ids=[f"f32narrow-h{h}" for h in _NARROW_WIDTHS])
+
+
+@pytest.mark.parametrize("m", [16384, 16347, 4224, 2048, 64])
+@_by_narrow_width
+def test_f32_narrow_attn_out_kernel_matches_plain(cuda, h, m):
+    x, ctx, _, wo, vec = _width_inputs(m, cuda, 500 + m, torch.float32, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    before = _width_counts(h)
+    with _tf32(False):
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        again = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
+    assert moved == (0, 0, 0, 0, 0, 2, 0, 0)
+    assert torch.equal(got, again)
+    worst, mean = _diff(got, want)
+    assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = k3.f32_rows_clusters(cuda, h)
+    assert resident >= 1
+    assert k3.attn_out_plan_f32(m, n_sm, h, resident).rows == (
+        h <= 384 or m >= 16347 or (h == 640 and m >= 2048))
+
+
+@pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
+@_by_narrow_width
+def test_f32_narrow_check_fails_a_kernel_that_drops_a_term(cuda, h, name):
+    # the packed batch's 128 row tiles over the resident clusters; a
+    # neutral bo / gamma / beta, or a zero residual x, stands for a kernel
+    # that leaves the term out: the f32 limits must refuse it
+    x, ctx, _, wo, vec = _width_inputs(16384, cuda, 13, torch.float32, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    with _tf32(False):
+        want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+        if name == "x":
+            got = _attn(k3.fused_attn_out_ln, ctx, torch.zeros_like(x), wo,
+                        v3)
+        else:
+            got = _attn(k3.fused_attn_out_ln, ctx, x, wo,
+                        {**v3, name: _neutral(name, v3[name])})
+    worst, mean = _diff(got, want)
+    assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("left_out", [0, -1], ids=["first", "last"])
+@pytest.mark.parametrize("h", _NARROW_WIDTHS[1:],
+                         ids=[f"f32narrow-h{h}" for h in _NARROW_WIDTHS[1:]])
+def test_f32_narrow_check_fails_a_block_left_out_of_the_exchange(cuda, h,
+                                                                 left_out):
+    # the pre-LayerNorm rows, summed in f32 by torch, normalized with row
+    # statistics that miss one block's 128 columns, as a cluster whose
+    # exchange left a peer's partials out would, held against the kernel:
+    # the f32 limits must refuse it
+    x, ctx, _, wo, vec = _width_inputs(16384, cuda, 17, torch.float32, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    with _tf32(False):
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        z = ctx @ wo + v3["bo"] + x
+    cols = torch.ones(h, dtype=torch.bool, device=cuda)
+    block = (h // 128 + left_out) % (h // 128)
+    cols[128 * block:128 * (block + 1)] = False
+    mu = z[:, cols].sum(1, keepdim=True) / h
+    var = ((z - mu)[:, cols] ** 2).sum(1, keepdim=True) / h
+    wrong = (z - mu) * torch.rsqrt(var + 1e-12) * v3["gamma"] + v3["beta"]
+    worst, mean = _diff(wrong, got)
+    assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)

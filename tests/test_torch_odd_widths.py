@@ -171,8 +171,9 @@ def test_f32_plans_and_scratch(h, m, tiles, slices, k_tiles, k3_slices,
 
 
 # bytes of scratch per K1-f32 / K2-f32 call and per K3-f32 call at M =
-# 16,384 (PERF.md)
-_SCRATCH = {384: (286_261_248, 26_345_472), 640: (487_587_840, 45_219_840),
+# 16,384 (PERF.md); K3-f32 at 384 and 640 takes its pass over whole rows
+# there, which needs Wo's planes alone (2 H^2 f32)
+_SCRATCH = {384: (286_261_248, 1_179_648), 640: (487_587_840, 3_276_800),
             896: (697_303_040, 65_142_784)}
 
 
