@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Hold redesigned forms of the bf16 FFN kernel (K1 and K2 at the widths
 given) or, with --k3, of the bf16 attention-output kernel (K3), or with
---k3f32 of its f32 form (K3-f32), against an earlier tree, and every other
-kernel against that tree's, in one process on one card.
+--k3f32 of its f32 form (K3-f32), or with --ffnf32 of the f32 FFN (K1-f32
+and K2-f32), against an earlier tree, and every other kernel against that
+tree's, in one process on one card.
 
     mkdir -p build/old_4b349d5                   # the earlier tree, once
     git archive 4b349d5 | tar -x -C build/old_4b349d5
     python3 build/pair_old_vs_new.py [--old COMMIT] [--old-dir DIR]
-        [--widths H ...] [--rows M ...] [--k3 | --k3f32]
+        [--widths H ...] [--rows M ...] [--k3 | --k3f32 | --ffnf32]
 
 Defaults: the tree before the one-block forms' redesign (4b349d5) in
 build/old_<commit>, the five one-block widths (128, 256, 384, 512, 640)
@@ -17,16 +18,20 @@ to its parent with `--old be933b6 --old-dir build/pair_old --widths 896
 `--k3 --old 5b7b4dc --old-dir build/old_5b7b4dc --widths 896 1024 1152
 1280 1408 1536 --rows 64 1024 16384`, K3-f32's narrow forms with
 `--k3f32 --old 6b702b9 --old-dir build/old_6b702b9 --rows 64 2048 4224
-16384 16385`. As build/widths_old_vs_new.py,
+16384 16385`. `--ffnf32` alone sets the f32 FFN's one-pass form's
+comparison: the tree before it (5e786d2) in build/old_5e786d2, widths 128
+and 256, M = 64, 1,024, 2,048, 4,224, 8,192, 16,384 and 16,385 (each
+overridable). As build/widths_old_vs_new.py,
 whose helpers it uses: each tree's package is imported from its own
 directory and builds its own kernels there.
 
 - SASS: every kernel function of the earlier tree's library (cuobjdump,
   addresses and constants masked) against the function of the same name
   and template arguments in this tree's, except `ffn_ln_kernel` (with
-  --k3, `attn_out_ln_kernel`; with --k3f32 none: its new pass is a
-  function of its own) at the redesigned widths: identical, or the script
-  fails; those are printed, and the functions only this tree has.
+  --k3, `attn_out_ln_kernel`; with --k3f32 and --ffnf32 none: the new
+  passes are functions of their own) at the redesigned widths: identical,
+  or the script fails; those are printed, and the functions only this
+  tree has.
 - Bits: at each M, every kernel outside the redesigned forms on the same
   tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
   and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
@@ -35,7 +40,8 @@ directory and builds its own kernels there.
   and bf16 vectors) and K2 (with --k3: K3, beside the classic bf16 chain
   it stands for, `F.linear` + the residual add + `F.layer_norm`, and
   `F.linear` alone, in the same turns; with --k3f32: K3-f32 beside the
-  classic f32 chain and `F.linear` in f32) at each width and M, both
+  classic f32 chain and `F.linear` in f32; with --ffnf32: K1-f32 and
+  K2-f32, and max and mean |new - old|) at each width and M, both
   trees within the limits of their plain version (bf16: 5e-2 max, 1e-4
   mean |diff|, bf16 products with f32 sums; f32 with TF32 off: 1e-4 and
   1e-5); their bits are compared and max |new - old| printed. Device
@@ -149,6 +155,43 @@ def check_k3(trees, by_tree, x, h, m, cyc, readings, bad, key="K3",
         bad.append(f"{key} H={h} M={m}")
 
 
+def check_ffn(by_tree, plain, h, m, cyc, readings, bad, limits):
+    """Each FFN form of `plain` ({key: its plain call}) through both trees
+    at width h and m rows against the plain version (`limits`: max and
+    mean |diff|), their bits, max / mean |new - old| and the same bits on a
+    second launch, and their device times in turns (old, new, new, old)."""
+    for key, want_fn in plain.items():
+        new, old = by_tree["new"][key], by_tree["old"][key]
+        want = want_fn().float()
+        got = {"new": new().float(), "old": old().float()}
+        errs = {n: ((g - want).abs().max().item(),
+                    (g - want).abs().mean().item()) for n, g in got.items()}
+        d = (got["new"] - got["old"]).abs()
+        apart = (d.max().item(), d.mean().item())
+        same = torch.equal(got["new"], got["old"])
+        again = torch.equal(got["new"], new().float())
+        ok = again and all(e[0] <= limits[0] and e[1] <= limits[1]
+                           for e in errs.values())
+        t_old_a, t_new_a = per_call_ms(old, cyc), per_call_ms(new, cyc)
+        t_new_b, t_old_b = per_call_ms(new, cyc), per_call_ms(old, cyc)
+        t_new, t_old = (t_new_a + t_new_b) / 2, (t_old_a + t_old_b) / 2
+        readings[f"{key} H={h} M={m}"] = dict(
+            bit_equal=same, max_new_old=apart[0], mean_new_old=apart[1],
+            same_bits_twice=again, err_new=errs["new"], err_old=errs["old"],
+            new_ms=t_new, old_ms=t_old, ratio=t_new / t_old,
+            runs=[t_old_a, t_new_a, t_new_b, t_old_b])
+        print(f"{key} H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
+              f"{errs['new'][1]:.3e} (old {errs['old'][0]:.3e} / "
+              f"{errs['old'][1]:.3e}), bit-equal to old {same} (max / mean "
+              f"|new - old| {apart[0]:.3e} / {apart[1]:.3e}), same bits "
+              f"twice {again}; dev ms new {t_new:.4f} old {t_old:.4f} "
+              f"(new/old {t_new / t_old:.4f}; runs old {t_old_a:.4f} new "
+              f"{t_new_a:.4f} new {t_new_b:.4f} old {t_old_b:.4f}) "
+              f"{'ok' if ok else 'OFF'}", flush=True)
+        if not ok:
+            bad.append(f"{key} H={h} M={m}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", default=OLD_COMMIT, help="the earlier commit")
@@ -161,7 +204,17 @@ def main() -> int:
                     help="the redesigned forms are K3's (bf16), not K1/K2's")
     ap.add_argument("--k3f32", action="store_true",
                     help="the redesigned forms are K3-f32's")
+    ap.add_argument("--ffnf32", action="store_true",
+                    help="the redesigned forms are K1-f32's and K2-f32's")
     args = ap.parse_args()
+    if args.ffnf32:  # its defaults, where not given
+        given = set(sys.argv[1:])
+        if "--old" not in given:
+            args.old = "5e786d2"
+        if "--widths" not in given:
+            args.widths = [128, 256]
+        if "--rows" not in given:
+            args.rows = [64, 1024, 2048, 4224, 8192, 16384, 16385]
     rows, redesigned = args.rows, tuple(args.widths)
     old_root = args.old_dir or ROOT / "build" / f"old_{args.old}"
     if not (old_root / PKG / "kernels" / "ffn.py").is_file():
@@ -184,7 +237,8 @@ def main() -> int:
     for k in code["new"].keys() - code["old"].keys():
         print(f"SASS {k}: only in this tree", flush=True)
     for k, old_code in code["old"].items():
-        if not args.k3f32 and redesigned_form(k, redesigned, args.k3):
+        if not (args.k3f32 or args.ffnf32) and redesigned_form(
+                k, redesigned, args.k3):
             same = code["new"].get(k) == old_code
             readings[f"SASS {k}"] = f"redesigned (identical {same})"
             print(f"SASS {k} (redesigned form): identical {same}", flush=True)
@@ -218,6 +272,7 @@ def main() -> int:
                 for k in by_tree["new"]:
                     if h in redesigned and (
                             k == "K3-f32" if args.k3f32 else
+                            k in ("K1-f32", "K2-f32") if args.ffnf32 else
                             dt == torch.bfloat16 and (k == "K3") == args.k3):
                         continue
                     same = torch.equal(by_tree["new"][k](),
@@ -246,12 +301,26 @@ def main() -> int:
     cyc = sleep_cycles_per_ms()
     for h in redesigned:
         for m in rows:
-            if args.k3f32:
+            if args.k3f32 or args.ffnf32:
                 x = inputs(torch.float32, h, m,
                            torch.Generator().manual_seed(h + m), dev)
-                check_k3(trees, {n: calls(t, torch.float32, *x)
-                                 for n, t in trees.items()}, x, h, m, cyc,
-                         readings, bad, "K3-f32", (F32_ATOL, F32_MEAN_ATOL))
+                by_tree = {n: calls(t, torch.float32, *x)
+                           for n, t in trees.items()}
+                if args.ffnf32:
+                    z, _, w1, w2, _, vec = x
+                    a = (z, w1, vec["b1"], w2, vec["b2"], vec["gamma"],
+                         vec["beta"])
+                    ln0 = dict(pre_gamma=vec["pre_gamma"],
+                               pre_beta=vec["pre_beta"])
+                    plain = {"K1-f32": lambda: trees["new"].ffn.ffn_ln_plain(
+                                 *a, input_ln=True, **ln0),
+                             "K2-f32": lambda: trees["new"].ffn.ffn_ln_plain(
+                                 *a, input_ln=False)}
+                    check_ffn(by_tree, plain, h, m, cyc, readings, bad,
+                              (F32_ATOL, F32_MEAN_ATOL))
+                else:
+                    check_k3(trees, by_tree, x, h, m, cyc, readings, bad,
+                             "K3-f32", (F32_ATOL, F32_MEAN_ATOL))
                 continue
             x = inputs(torch.bfloat16, h, m,
                        torch.Generator().manual_seed(h + m), dev)
@@ -274,35 +343,11 @@ def main() -> int:
                     *a32, input_ln=True, **ln32),
                 "K2": lambda: trees["new"].ffn.ffn_ln_plain(
                     *a, input_ln=False)}
-            for k, want_fn in plain.items():
-                new, old = by_tree["new"][k], by_tree["old"][k]
-                want = want_fn().float()
-                got = {n: fn().float() for n, fn in (("new", new),
-                                                     ("old", old))}
-                errs = {n: ((g - want).abs().max().item(),
-                            (g - want).abs().mean().item())
-                        for n, g in got.items()}
-                same = torch.equal(got["new"], got["old"])
-                ok = all(e[0] <= ROW_ATOL and e[1] <= ROW_MEAN_ATOL
-                         for e in errs.values())
-                t_old_a, t_new_a = per_call_ms(old, cyc), per_call_ms(new, cyc)
-                t_new_b, t_old_b = per_call_ms(new, cyc), per_call_ms(old, cyc)
-                t_new, t_old = (t_new_a + t_new_b) / 2, (t_old_a + t_old_b) / 2
-                readings[f"{k} H={h} M={m}"] = dict(
-                    bit_equal=same, err_new=errs["new"], err_old=errs["old"],
-                    new_ms=t_new, old_ms=t_old, ratio=t_new / t_old,
-                    runs=[t_old_a, t_new_a, t_new_b, t_old_b])
-                print(f"{k} H={h} M={m}: new vs plain {errs['new'][0]:.3e} / "
-                      f"{errs['new'][1]:.3e} (old {errs['old'][0]:.3e} / "
-                      f"{errs['old'][1]:.3e}), bit-equal to old {same}; dev ms "
-                      f"new {t_new:.4f} old {t_old:.4f} (new/old "
-                      f"{t_new / t_old:.4f}; runs old {t_old_a:.4f} new "
-                      f"{t_new_a:.4f} new {t_new_b:.4f} old {t_old_b:.4f}) "
-                      f"{'ok' if ok else 'OFF'}", flush=True)
-                if not ok:
-                    bad.append(f"{k} H={h} M={m}")
+            check_ffn(by_tree, plain, h, m, cyc, readings, bad,
+                      (ROW_ATOL, ROW_MEAN_ATOL))
     print(json.dumps({"card": card, "old": args.old, "widths": redesigned,
                       "k3": args.k3, "k3f32": args.k3f32,
+                      "ffnf32": args.ffnf32,
                       "readings": readings, "off": bad}))
     return 1 if bad else 0
 

@@ -188,7 +188,10 @@ non-zero):
    layers, the uncased vocabulary of 30,522; `COMPACT_OVER`): phase 17 at
    each of them, at full width and depth (K1 8 / 4 / 2 per default
    forward; K3 and K2 7 / 3 / 1 and K1 1 and K4 1 per fused one), the
-   MicroBatcher round at H = 512 only.
+   MicroBatcher round at H = 512 only. At 256 and 128 it also times K1-f32
+   and K2-f32 at the packed batch in their one-pass form against the four
+   launches forced, in turns, and fails unless the f32 towers' packed-row
+   launches took the one-pass form and the CLS layer's the four launches.
 19. the odd multiples of 128 below 1,024 (H = 384, 640 and 896; `ODD_OVER`):
    phase 17 at microsoft/MiniLM-L12-H384's widths at full width and depth
    (12 layers, 12 heads of 32, F = 1,536, the uncased vocabulary of
@@ -3103,6 +3106,27 @@ NARROW_BEFORE_MS = {128: (0.0543, 0.0505), 256: (0.1094, 0.1071),
 # compares them in turns)
 F32_NARROW_BEFORE_MS = {128: 0.0237, 256: 0.0498, 384: 0.0879, 512: 0.1278,
                         640: 0.1790}
+# K1-f32 / K2-f32's dev ms at M = 16,384 before the one-pass form at 128
+# and 256 (the four launches of commit 5e786d2, PERF.md; H100 80GB HBM3,
+# 700 W), printed the same way (build/pair_old_vs_new.py --ffnf32
+# compares them in turns)
+F32_FFN_BEFORE_MS = {128: (0.1043, 0.1025), 256: (0.2408, 0.2389)}
+
+
+def forced_f32_rows(call, rows: bool):
+    """`call` with K1-f32 / K2-f32's form forced (kernels/ffn.py's
+    FORCE_F32_ROWS): the one-pass form where `rows`, else the four
+    launches."""
+    ffn = kernel_modules()[0]
+
+    def forced():
+        old = ffn.FORCE_F32_ROWS
+        ffn.FORCE_F32_ROWS = rows
+        try:
+            return call()
+        finally:
+            ffn.FORCE_F32_ROWS = old
+    return forced
 
 
 def resident_clusters(dev, h: int) -> int:
@@ -3223,6 +3247,13 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                         forms[key] = (kern, plain, bound)
         times = {key: in_turns(kern, plain)
                  for key, (kern, plain, _) in forms.items()}
+        # K1-f32 / K2-f32 at 128 and 256: the form the rule takes at the
+        # packed batch (the one-pass form) against the four launches forced,
+        # in turns
+        rows_vs_four = {
+            key: in_turns(forms[key][0], forced_f32_rows(forms[key][0], False))
+            for key in (f"K1_f32_{h}", f"K2_f32_{h}")
+            if h in k1.ROWS_F32_WIDTHS}
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -3280,11 +3311,22 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
         torch.backends.cudnn.allow_tf32 = False
         try:
             reset_counts()
+            rows0 = k1.ROWS_F32_CALLS
             probs["f32"] = probs_of(p32.predict_batch(images, texts),
                                     p32.class_names)
             got = launch_counts()
             if got != count_dict(**want32) or p32.packed_calls != 1:
                 fail(f"H={h} {tag} f32 path launches {got}, want {want32}")
+            # the K1-f32 / K2-f32 launches that took the one-pass form (the
+            # packed rows' layers at 128 and 256)
+            n_ffn32 = got[f"K1_f32_{h}"] + got[f"K2_f32_{h}"]
+            n_rows = k1.ROWS_F32_CALLS - rows0
+            if h in k1.ROWS_F32_WIDTHS and not 0 < n_rows < n_ffn32:
+                fail(f"H={h} {tag} f32 path: {n_rows} of {n_ffn32} K1-f32 / "
+                     f"K2-f32 launches took the one-pass form")
+            forms32 = (f"; f32 K1 / K2 launches {n_ffn32}, {n_rows} in the "
+                       f"one-pass form, {n_ffn32 - n_rows} in the four "
+                       f"launches" if h in k1.ROWS_F32_WIDTHS else "")
             for k in totals:
                 totals[k] += got[k]
             with plain_kernels():
@@ -3325,7 +3367,7 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
             f"(tolerance {PROB_ATOL_F32_KERNELS}); top-1 bf16 = off "
             f"{top1['bf16']}/{BATCH}, f32 = off {top1['f32']}/{BATCH}; p50 "
             f"bf16 {p50s[tag + ' bf16']:.2f} ms, f32 "
-            f"{p50s[tag + ' f32']:.2f} ms"))
+            f"{p50s[tag + ' f32']:.2f} ms{forms32}"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     pair = ""
     if h in PAIR_BEFORE_MS:
@@ -3340,6 +3382,14 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                      f"{before[h][0]} / {before[h][1]} (new/old "
                      f"{times[f'K1_{h}'][0] / before[h][0]:.3f} / "
                      f"{times[f'K2_{h}'][0] / before[h][1]:.3f}) | ")
+    # K1-f32 / K2-f32's one-pass form beside the four launches (128, 256)
+    if rows_vs_four:
+        (p1, f1, *_), (p2, f2, *_) = rows_vs_four.values()
+        before = F32_FFN_BEFORE_MS[h]
+        pair += (f"K1-f32 / K2-f32 dev ms at M=16384 in the one-pass form "
+                 f"{p1:.4f} / {p2:.4f} against the four launches' {f1:.4f} / "
+                 f"{f2:.4f} in turns (new/old {p1 / f1:.3f} / {p2 / f2:.3f}; "
+                 f"5e786d2's {before[0]} / {before[1]}) | ")
     # K3-f32's clusters of the pass over whole rows the card holds at once
     # (128-640), its plan at the packed batch
     resident = (k3.f32_rows_clusters(dev, h) if h in k3.ROWS_F32_WIDTHS
@@ -4331,9 +4381,12 @@ def main() -> int:
         # and timed in phases 18, 19 and 20; none has one PyTorch call
         # either. K3-f32 at 128-640 runs the pass over whole rows of
         # attn_out_rows_f32.cuh (built by attn_out_ln_f32.cu) at the packed
-        # batch
+        # batch, K1-f32 and K2-f32 at 128 and 256 the one-pass form of
+        # ffn_rows_f32.cuh (built by ffn_rows_f32.cu)
         (f"{name}_h{w}",
-         "attn_out_rows_f32.cuh" if key == "K3_f32" and w <= 640 else source,
+         "attn_out_rows_f32.cuh" if key == "K3_f32" and w <= 640 else
+         "ffn_rows_f32.cuh" if key in ("K1_f32", "K2_f32") and w <= 256
+         else source,
          replaces, f"{key}_{w}",
          *{**times18, **times19, **times20}[f"{key}_{w}"], None)
         for w in (512, 256, 128, 384, 640, 896, 1152, 1280, 1408, 1536)

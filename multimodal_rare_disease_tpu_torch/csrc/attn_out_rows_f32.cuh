@@ -49,6 +49,7 @@
 
 namespace {
 
+using mrd::fence_regs;
 using mrd::map_to_rank;
 using mrd::st_async_f32;
 
@@ -117,13 +118,6 @@ __device__ __forceinline__ void produce_rows(const CUtensorMap* ctx, const CUten
     for (int b = 0; b < 4; ++b)
       tma_load_2d(base + R::kOffX + b * kTileBytes, x, full, col0 + b * kBK, row0);
   }
-}
-
-// Keeps the compiler from moving or reusing the registers of `a` across
-// this point: a wgmma group reads its A registers while it runs
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(a[i]));
 }
 
 // Consumer wg's share of one k-tile: for each of its 4 k8 steps the thread

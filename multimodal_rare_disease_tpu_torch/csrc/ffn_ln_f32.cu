@@ -49,6 +49,12 @@
 //   4. split_reduce_f32: y = LN2(sum of the S partials in slice order + b2
 //      + x), x again by load_row_f32 (LN0 of z for K1): the bits stage 1
 //      split. No atomics: the same bits on every launch.
+// At H = 128 and 256 a call with `slices` 0 (kernels/ffn.py::f32_rows_form:
+// the packed batch) is two launches instead: split_weights_rows (W1^T's
+// planes, and W2^T's with F permuted within each group of 8), then
+// ffn_rows_f32.cuh's one pass over whole row tiles of 128, which keeps h on
+// the chip and writes only y (built by ffn_rows_f32.cu); its scratch is the
+// weights' planes, 4 F H floats.
 // The GEMM (both products) and the reduce pass are gemm_tf32x3.cuh's, shared
 // with attn_out_ln_f32.cu (K3-f32); both operands of each product arrive here
 // as planes that stage 1 or the GELU epilogue wrote. The GEMM tiles any
@@ -66,6 +72,16 @@
 
 #include "common.cuh"
 #include "gemm_tf32x3.cuh"
+
+namespace mrd {
+// ffn_rows_f32.cu: the one-pass form at h = 128 or 256 (launch_ffn_rows of
+// ffn_rows_f32.cuh)
+cudaError_t ffn_rows_launch(int h, bool input_ln, const float* z, const float* w1t,
+                            const float* b1, const float* w2t, const float* b2,
+                            const float* gamma, const float* beta, const float* g0,
+                            const float* o0, float* y, float* scratch, int M, int F, float eps,
+                            cudaStream_t stream);
+}  // namespace mrd
 
 namespace {
 
@@ -168,12 +184,31 @@ cudaError_t check_args_f32(int F, int slices, const void* scratch) {
 
 const float* f32p(const void* p) { return static_cast<const float*>(p); }
 
+// The one-pass form at H = 128 and 256: F a multiple of 128, scratch 4 F kH
+// floats
+template <int kH, bool kInputLN>
+cudaError_t rows_f32(const void* z, const void* w1t, const void* b1, const void* w2t,
+                     const void* b2, const void* gamma, const void* beta, const void* g0,
+                     const void* o0, void* y, void* scratch, int M, int F, float eps,
+                     void* stream) {
+  if (F <= 0 || F % kBN != 0 || scratch == nullptr) return cudaErrorInvalidValue;
+  return mrd::ffn_rows_launch(kH, kInputLN, f32p(z), f32p(w1t), f32p(b1), f32p(w2t), f32p(b2),
+                              f32p(gamma), f32p(beta), f32p(g0), f32p(o0),
+                              static_cast<float*>(y), static_cast<float*>(scratch), M, F, eps,
+                              static_cast<cudaStream_t>(stream));
+}
+
 template <int kH>
 int pre_ln_f32(const void* z, const void* w1t, const void* b1, const void* w2t,
                const void* b2, const void* gamma, const void* beta, const void* g0,
                const void* o0, void* y, void* scratch, int M, int F, int slices, float eps,
                void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
+  if constexpr (kH <= 256) {
+    if (slices == 0)
+      return static_cast<int>(rows_f32<kH, true>(z, w1t, b1, w2t, b2, gamma, beta, g0, o0, y,
+                                                 scratch, M, F, eps, stream));
+  }
   const cudaError_t bad = check_args_f32(F, slices, scratch);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   return static_cast<int>(launch_f32<kH, true>(
@@ -187,6 +222,11 @@ int ln_f32(const void* x, const void* w1t, const void* b1, const void* w2t, cons
            const void* gamma, const void* beta, void* y, void* scratch, int M, int F,
            int slices, float eps, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
+  if constexpr (kH <= 256) {
+    if (slices == 0)
+      return static_cast<int>(rows_f32<kH, false>(x, w1t, b1, w2t, b2, gamma, beta, nullptr,
+                                                  nullptr, y, scratch, M, F, eps, stream));
+  }
   const cudaError_t bad = check_args_f32(F, slices, scratch);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   return static_cast<int>(launch_f32<kH, false>(
@@ -228,7 +268,8 @@ int mrd_ffn_ln_f32(const void* x, const void* w1t, const void* b1, const void* w
 
 // K1 and K2 in f32 at the other built widths H: `name`_h<H>, as the two
 // above with H in place of 768 (the rows, the weights' H side, the vectors
-// but b1, the scratch).
+// but b1, the scratch); at H = 128 and 256 `slices` 0 takes the one-pass
+// form, scratch 4 F H.
 #define MRD_FFN_F32_WIDTH(kH)                                                                \
   int mrd_ffn_pre_ln_f32_h##kH(const void* z, const void* w1t, const void* b1,               \
                                const void* w2t, const void* b2, const void* gamma,           \

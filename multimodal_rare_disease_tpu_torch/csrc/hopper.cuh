@@ -314,6 +314,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int g, uint32_t block_by
   return (g >> 3) * block_bytes + r * 128 + (((g & 7) ^ (r & 7)) << 4);
 }
 
+// Keeps the compiler from moving or reusing the registers of `a` across
+// this point: a wgmma group with A from registers (the RS form) reads them
+// while it runs
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(a[i]));
+}
+
 // Keeps the compiler from moving or copying the accumulator registers
 // across a wgmma batch: each register is pinned to the same value before
 // and after (CUTLASS's warpgroup_fence_operand).

@@ -12,7 +12,10 @@ per block; instantiated by `csrc/ffn_ln.cu`, `csrc/ffn_ln_odd.cu`,
 `csrc/ffn_ln_wide.cu` and `csrc/ffn_ln_wide2.cu`) and `csrc/ffn_ln_f32.cu`
 for f32 (a sequence of launches:
 the operands split into TF32 planes, the two products as 3xTF32 wgmma
-GEMMs fed by TMA, with h through device memory, and a LayerNorm pass);
+GEMMs fed by TMA, with h through device memory, and a LayerNorm pass; at
+H = 128 and 256, where `f32_rows_form` takes it, two: the weights'
+planes, then one pass over whole row tiles of 128 that keeps h on the
+chip, `csrc/ffn_rows_f32.cuh`, built by `csrc/ffn_rows_f32.cu`);
 `ffn_ln_plain` is the same math in PyTorch. Both sources are templates
 over the hidden width, built for KERNEL_WIDTHS: 768 (BERT-base), 1,024
 (BERT-large), 512, 256 and 128 (google-research/bert's BERT-Medium,
@@ -114,6 +117,9 @@ LAUNCHES_K1_F32_1536 = 0
 LAUNCHES_K2_F32_1536 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
+# the f32 calls above that took the one-pass form (`f32_rows_form`), also
+# counted in their LAUNCHES_K*_F32_<width>
+ROWS_F32_CALLS = 0
 
 # The hidden widths the CUDA kernels of K1, K2 and K3 (kernels/attn_out.py)
 # are built for, in bf16 and in f32, each with the column groups a bf16 row
@@ -142,6 +148,25 @@ KERNEL_F32_MIN_K_TILES = 8
 
 # what `ffn_route` (and `attn_out.attn_out_route`) return
 ROUTE_BF16, ROUTE_F32, ROUTE_PLAIN = "bf16", "f32", "plain"
+
+# the widths whose f32 kernels have the one-pass form
+# (csrc/ffn_rows_f32.cuh): one block per row tile of 128 holds the tile's
+# whole output, h stays on the chip
+ROWS_F32_WIDTHS = (128, 256)
+# the pass against the four launches, in us at F = 4H, from K1-f32's
+# device time on the H100 (700 W) at 64 to 16,385 rows
+# (build/ffn_f32_probe.py; PERF.md §6): a wave of the pass's blocks (one a
+# row tile, at most one an SM) ROWS_WAVE_US; the four launches
+# FOUR_FIXED_US plus FOUR_TILE_US a row tile (the line through 33 and 129
+# tiles; below 33 their fixed part is larger still). The pass takes 56 row
+# tiles and up at 128, 84 and up at 256
+ROWS_WAVE_US = {128: 54.0, 256: 165.0}
+FOUR_FIXED_US = {128: 15.8, 256: 16.5}
+FOUR_TILE_US = {128: 0.686, 256: 1.783}
+# set only by tests and scripts: True sends every f32 call at
+# ROWS_F32_WIDTHS to the pass, False to the four launches; None leaves it
+# to `f32_rows_form`
+FORCE_F32_ROWS: Optional[bool] = None
 
 
 class RowPlan(NamedTuple):
@@ -200,10 +225,11 @@ class F32Plan(NamedTuple):
     `k_tiles` k-tiles of 32 each; `scratch` f32 elements of the call's
     scratch buffer. The FFN (`ffn_plan_f32`): the TF32 planes (hi, lo) of
     x [m, H], of W1^T and W2^T (f * H each) and of h [m, f], and the
-    partials [slices, m, H] of h @ w2, the product that is split. K3
-    (`attn_out.attn_out_plan_f32`): the planes of Wo^T [H, H] and the
-    partials of ctx @ wo, or, where `rows` (its pass over whole rows,
-    `attn_out.f32_rows_form`), the planes alone."""
+    partials [slices, m, H] of h @ w2, the product that is split, or,
+    where `rows` (its one-pass form, `f32_rows_form`), the weights'
+    planes alone. K3 (`attn_out.attn_out_plan_f32`): the planes of Wo^T
+    [H, H] and the partials of ctx @ wo, or, where `rows` (its pass over
+    whole rows, `attn_out.f32_rows_form`), the planes alone."""
     tiles: int
     slices: int
     k_tiles: int
@@ -226,13 +252,36 @@ def gemm_plan_f32(m: int, k: int, n_sm: int,
     return tiles, slices, n_k // slices
 
 
+def f32_rows_form(m: int, f: int, hidden: int, n_sm: int) -> bool:
+    """Whether an f32 FFN call for m rows takes the one-pass form
+    (csrc/ffn_rows_f32.cuh) on a card with n_sm SMs (0: not known, never):
+    at the widths that have one, when its waves of row tiles cost no more
+    than the four launches (ROWS_WAVE_US .., both scaled by f / 4H). At
+    a single request's 64 rows and the 1,024 CLS rows the pass's 1 and 8
+    blocks would leave the card nearly idle for a whole tile's time."""
+    if hidden not in ROWS_F32_WIDTHS or n_sm < 1:
+        return False
+    tiles = -(-m // KERNEL_F32_ROWS)
+    waves = -(-tiles // n_sm)
+    scale = f / (4 * hidden)
+    return (waves * ROWS_WAVE_US[hidden] * scale
+            <= FOUR_FIXED_US[hidden] + FOUR_TILE_US[hidden] * tiles * scale)
+
+
 @functools.lru_cache(maxsize=4096)
-def ffn_plan_f32(m: int, f: int, n_sm: int, hidden: int = 768) -> F32Plan:
+def ffn_plan_f32(m: int, f: int, n_sm: int, hidden: int = 768,
+                 rows: Optional[bool] = None) -> F32Plan:
     """The launch of the f32 FFN kernels for m rows, hidden width
     `hidden` and intermediate width f: `gemm_plan_f32` of the second
-    product (k = f). Cached, as `split_plan`."""
+    product (k = f), and the form: the one-pass form where `rows` (None:
+    `f32_rows_form`; it exists only at ROWS_F32_WIDTHS), whose scratch is
+    the weights' planes alone. Cached, as `split_plan`."""
     tiles, slices, k_tiles = gemm_plan_f32(m, f, n_sm, hidden)
     h = hidden
+    rows = (f32_rows_form(m, f, h, n_sm) if rows is None
+            else rows and h in ROWS_F32_WIDTHS)
+    if rows:
+        return F32Plan(tiles, slices, k_tiles, 4 * f * h, True)
     return F32Plan(tiles, slices, k_tiles,
                    2 * m * h + 4 * f * h + 2 * m * f + slices * m * h)
 
@@ -436,6 +485,7 @@ def _launch(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
 
 
 def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
+    global ROWS_F32_CALLS
     input_ln = g0 is not None
     dev = z.device
     m, hidden = z.shape
@@ -465,10 +515,12 @@ def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
     lib = build.load_library(dev)
     fn = entry(lib, "mrd_ffn_pre_ln_f32" if input_ln else "mrd_ffn_ln_f32",
                hidden)
-    plan = ffn_plan_f32(m, f, sm_count(dev), hidden)
+    plan = ffn_plan_f32(m, f, sm_count(dev), hidden, FORCE_F32_ROWS)
     scratch = torch.empty(plan.scratch, dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (z, w1t, vecs[0], w2t, *vecs[1:])]
-    tail = (y.data_ptr(), scratch.data_ptr(), m, f, plan.slices, float(eps))
+    # slices 0: the one-pass form
+    tail = (y.data_ptr(), scratch.data_ptr(), m, f,
+            0 if plan.rows else plan.slices, float(eps))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, *tail, stream)
@@ -476,6 +528,7 @@ def _launch_f32(z, w1, b1, w2, b2, gamma, beta, g0, o0, eps):
                        else "ffn_ln_f32")
     count_launch(globals(), "LAUNCHES_K1_F32" if input_ln
                  else "LAUNCHES_K2_F32", hidden)
+    ROWS_F32_CALLS += plan.rows
     return y
 
 

@@ -213,8 +213,13 @@ def check_f32_plan(h, m, tiles, slices, k_tiles, k3_slices, k3_k_tiles):
     plan = k1.ffn_plan_f32(m, f, 132, h)
     assert (plan.tiles, plan.slices, plan.k_tiles) == (tiles, slices,
                                                         k_tiles)
-    # the TF32 planes of x, the weights and h, and one partial per slice
-    assert plan.scratch == (2 * m * h + 4 * f * h + 2 * m * f
+    # the TF32 planes of x, the weights and h, and one partial per slice;
+    # at H = 128 and 256 the packed batch takes the one-pass form, whose
+    # scratch is the weights' planes alone
+    ffn_rows = h in (128, 256) and m >= 16384
+    assert plan.rows == ffn_rows
+    assert plan.scratch == (4 * f * h if ffn_rows else
+                            2 * m * h + 4 * f * h + 2 * m * f
                             + slices * m * h)
     plan3 = k3.attn_out_plan_f32(m, 132, h, H100_ROWS_CLUSTERS.get(h, 0))
     assert (plan3.tiles, plan3.slices, plan3.k_tiles) == (tiles, k3_slices,

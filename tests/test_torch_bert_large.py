@@ -180,9 +180,10 @@ def test_f32_plans_and_scratch(h, m, tiles, slices, k_tiles, k3_slices,
 # bytes of scratch per K1-f32 / K2-f32 call and per K3-f32 call at M =
 # 16,384 (PERF.md): 805,306,368 and 75.5 MB at 1,024; K3-f32 at 512, 256
 # and 128 takes its pass over whole rows there, which needs Wo's planes
-# alone (2 H^2 f32)
+# alone (2 H^2 f32), and K1-f32 / K2-f32 at 256 and 128 their one-pass
+# form, which needs the weights' planes alone (4 F H f32)
 _SCRATCH = {1024: (805_306_368, 75_497_472), 512: (385_875_968, 2_097_152),
-            256: (188_743_680, 524_288), 128: (93_323_264, 131_072)}
+            256: (4_194_304, 524_288), 128: (1_048_576, 131_072)}
 
 
 @by_width

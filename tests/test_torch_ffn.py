@@ -223,8 +223,8 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
     from multimodal_rare_disease_tpu_torch.kernels import build
 
     headers = ["attn_out_ln.cuh", "attn_out_rows_f32.cuh", "common.cuh",
-               "ffn_ln.cuh", "gemm_tf32x3.cuh", "hopper.cuh", "rows.cuh",
-               "rows_f32.cuh"]
+               "ffn_ln.cuh", "ffn_rows_f32.cuh", "gemm_tf32x3.cuh",
+               "hopper.cuh", "rows.cuh", "rows_f32.cuh"]
     assert [h.name for h in build.headers()] == headers
     for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_bytes(src.read_bytes())

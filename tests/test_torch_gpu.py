@@ -19,7 +19,10 @@ BERT-large's H = 1,024, the compact BERTs' 512, 256 and 128, MiniLM's 384
 and for 640 and 896 in bf16 and f32 (the `test_width_*` tests, their ids
 naming the width: `h1024`, `h512`, ...), with a predict at each width
 launching them and K1/K2 at intermediate widths other than 4H at every
-built width. Every test here
+built width; K3-f32's pass over whole rows (`-k f32narrow`) and K1-f32's
+and K2-f32's one-pass form at 128 and 256 (`-k f32ffnrows`), forced and
+left to the rule, each with the dropped terms its check must refuse.
+Every test here
 is marked `gpu` and skips without a CUDA device; the file imports
 neither jax nor the JAX package, so it runs on a machine that has only
 torch:
@@ -1422,4 +1425,82 @@ def test_f32_narrow_check_fails_a_block_left_out_of_the_exchange(cuda, h,
     var = ((z - mu)[:, cols] ** 2).sum(1, keepdim=True) / h
     wrong = (z - mu) * torch.rsqrt(var + 1e-12) * v3["gamma"] + v3["beta"]
     worst, mean = _diff(wrong, got)
+    assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
+
+
+# K1-f32's and K2-f32's one-pass form (H = 128 and 256): one block per row
+# tile of 128 that keeps h on the chip (csrc/ffn_rows_f32.cuh). Forced
+# (kffn.FORCE_F32_ROWS) at every row count, and left to the rule, which
+# takes it for the packed batch and past it: a single request (1, then its
+# length bucket 64), the 1,024 CLS rows, the packed batch, a ragged tile
+# past it and 64 x 257 rows. Each launch twice, with the same bits (no
+# atomics).
+_FFN_ROWS_WIDTHS = [128, 256]
+_FFN_ROWS_M = [1, 64, 1024, 16384, 16385, 64 * 257]
+
+
+@contextlib.contextmanager
+def _ffn_rows_forced(forced):
+    old = kffn.FORCE_F32_ROWS
+    kffn.FORCE_F32_ROWS = forced
+    try:
+        yield
+    finally:
+        kffn.FORCE_F32_ROWS = old
+
+
+@pytest.mark.parametrize("form", ["forced", "rule"])
+@pytest.mark.parametrize("m", _FFN_ROWS_M)
+@pytest.mark.parametrize("h", _FFN_ROWS_WIDTHS,
+                         ids=[f"f32ffnrows-h{h}" for h in _FFN_ROWS_WIDTHS])
+@pytest.mark.parametrize("input_ln", [True, False], ids=["k1", "k2"])
+def test_f32_ffn_rows_kernel_matches_plain(cuda, input_ln, h, m, form):
+    z, _, w, _, vec = _width_inputs(m, cuda, 700 + m, torch.float32, h,
+                                    _WIDTHS[h])
+    before = _width_counts(h)
+    with _tf32(False), _ffn_rows_forced(True if form == "forced" else None):
+        got = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+        again = _ffn(kffn.fused_ffn_ln, z, w, vec, input_ln)
+        want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
+    assert moved == (0, 0, 0, 2 * input_ln, 2 * (not input_ln), 0, 0, 0)
+    assert torch.equal(got, again)
+    worst, mean = _diff(got, want)
+    assert worst <= _F32_MAX_ATOL and mean <= _F32_MEAN_ATOL, (worst, mean)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kffn.ffn_plan_f32(m, _WIDTHS[h], n_sm, h).rows == (m >= 16384)
+
+
+_FFN_ROWS_DROPS = [(True, n) for n in ("b2", "gamma", "beta", "ln0",
+                                         "cross")] + \
+    [(False, n) for n in ("b2", "gamma", "beta", "cross")]
+
+
+@pytest.mark.parametrize("input_ln,name", _FFN_ROWS_DROPS,
+                         ids=[f"{'k1' if k else 'k2'}-{n}"
+                              for k, n in _FFN_ROWS_DROPS])
+@pytest.mark.parametrize("h", _FFN_ROWS_WIDTHS,
+                         ids=[f"f32ffnrows-h{h}" for h in _FFN_ROWS_WIDTHS])
+def test_f32_ffn_rows_check_fails_a_kernel_that_drops_a_term(
+        cuda, h, input_ln, name):
+    # the packed batch in the one-pass form; a neutral b2 / gamma / beta,
+    # K1 held to the plain K1 with its input LayerNorm left out (the
+    # kernel's K2 on the same rows), or the TF32 product that drops the
+    # 3xTF32 cross terms (the plain version with TF32 on) stands for a
+    # kernel that leaves the term out: the f32 limits must refuse it
+    z, _, w, _, vec = _width_inputs(16384, cuda, 19, torch.float32, h,
+                                    _WIDTHS[h])
+    with _ffn_rows_forced(True):
+        with _tf32(False):
+            want = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+            if name == "ln0":
+                got = _ffn(kffn.fused_ffn_ln, z, w, vec, False)
+            elif name != "cross":
+                got = _ffn(kffn.fused_ffn_ln, z, w,
+                           {**vec, name: _neutral(name, vec[name])},
+                           input_ln)
+        if name == "cross":
+            with _tf32(True):
+                got = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
+    worst, mean = _diff(got, want)
     assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
