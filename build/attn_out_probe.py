@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """The floors of the bf16 attention-output kernel (K3) on the card, beside
 the kernel itself, at its cluster forms (H = 896, 1,024, 1,152, 1,280,
-1,408 and 1,536).
+1,408 and 1,536) and at two of its one-block widths (128 and 640).
 
     python3 build/attn_out_probe.py [--csrc DIR] [--out DIR] [--widths H ...]
                                     [--rows M ...] [--variants V ...]
-                                    [--trace] [--trap] [--build-only]
-                                    [--check-only]
+                                    [--form parent|overlap] [--trace] [--trap]
+                                    [--build-only] [--check-only]
 
 From `csrc/attn_out_ln.cuh` (or DIR's) it builds one small library per
 width and variant, all nvccs at once, into `build/attn_out_probe/` (or
@@ -35,6 +35,14 @@ the persistent cluster-of-four kernel that runs the whole-K path at these
 widths (`attn_out_quad_kernel`). With --trap every wait loop of the
 copy's `hopper.cuh` traps after 10 s (a deadlock then fails the launch
 instead of hanging the card); it only checks (wgmma serializes under it).
+
+With `--form overlap` every call at 640 asks the C entry for the
+overlapped form (`slices` 0; csrc/attn_out_ln_overlap.cu) at every M, and
+the one-block form the plan gives (`parent`) is timed in the same turns;
+the variants are those of the cluster-of-four kernel, which runs that
+form in clusters of two. At 128, where the header has the tile form
+(attn_out_tile_kernel, the width's only form), every call takes it
+(`slices` 0) whatever --form says, and only the kernel is timed.
 
 For each width it first holds the kernel variant against the package's
 plain version (`attn_out_ln_plain`, f32 sums of bf16 products) at each M,
@@ -74,12 +82,15 @@ sys.path.insert(0, str(ROOT))
 from h768_old_vs_new import per_call_ms, sleep_cycles_per_ms  # noqa: E402
 from pair_probe import OCCUPANCY, nvcc  # noqa: E402
 
-WIDTHS = (896, 1024, 1152, 1280, 1408, 1536)
+WIDTHS = (128, 640, 896, 1024, 1152, 1280, 1408, 1536)
+# the widths whose whole-K path runs on the cluster of four
+QUAD_WIDTHS = (896, 1024, 1152, 1280, 1408, 1536)
 VARIANTS = {"kernel": 0, "stream": 1, "product": 2, "fixed": 4}
 TRACE = 3
 LABEL = {"kernel": "kernel", "stream": "Wo stream alone",
          "product": "product, no Wo stream", "fixed": "tile with no chunk",
-         "chain": "linear + add + layer_norm", "linear": "F.linear alone"}
+         "chain": "linear + add + layer_norm", "linear": "F.linear alone",
+         "parent": "one-block form"}
 ROW_ATOL, ROW_MEAN_ATOL = 5e-2, 1e-4
 # the shared memory a block of each form may take, for the occupancy
 # readings (bytes): 200 KB to the 227 KB limit
@@ -235,9 +246,9 @@ _Q_MMA = "    mrd::fence_operand(acc[j]);\n    mrd::wgmma_fence();\n"
 _Q_COMMIT = ("    mrd::wgmma_commit();\n    mrd::fence_operand(acc[j]);\n"
              "    if (!kFirst || j > 0) {\n")
 _Q_X = "      mbar_wait(base + Q::kBarXFull, it & 1);\n"
-_Q_EX0 = "      quad_total(s, red_b, bar, parity, q, lane, wrow, rearm, arms);\n"
-_Q_EX1 = ("      quad_total(s, red_b + 4 * kQuadExBytes, bar + 8 * kWG, parity, q, lane, "
-          "wrow, rearm,\n                 arms);\n")
+_Q_EX0 = "      quad_total<Q::kSize>(s, red_b, bar, parity, q, lane, wrow, rearm, arms);\n"
+_Q_EX1 = ("      quad_total<Q::kSize>(s, red_b + 4 * kQuadExBytes, bar + 8 * kWG, parity, q, "
+          "lane, wrow,\n                           rearm, arms);\n")
 QUAD_PATCHES = (
     # the producer: x alone (4), one resident Wo tile (2), stamps
     (_Q_ROW0, _Q_ROW0 + r"""    if constexpr (MRD_K3_PROBE == 4) {  // no chunk: x alone
@@ -425,10 +436,21 @@ def bind(path: Path, h: int) -> ctypes.CDLL:
     return lib
 
 
-def plan_slices(h: int, m: int, dev) -> int:
-    """The slices of the k loop the package's plan gives m rows at h."""
+# --form, and whether the header has the tile form at 128 (then the
+# width's only form)
+FORM = "parent"
+TILE_MARK = "attn_out_tile_kernel"
+TILE = False
+
+
+def plan_slices(h: int, m: int, dev, form: str = "") -> int:
+    """The slices of the k loop the package's plan gives m rows at h, or 0:
+    at 640 with --form overlap (the overlapped form), at 128 where the
+    header has the tile form."""
     from multimodal_rare_disease_tpu_torch.kernels import attn_out
 
+    if ((form or FORM) == "overlap" and h == 640) or (TILE and h == 128):
+        return 0
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return attn_out.attn_out_plan(m, n_sm, h).slices
 
@@ -493,8 +515,18 @@ def check(lib: ctypes.CDLL, h: int, m: int, dev) -> dict:
     want = attn_out.attn_out_ln_plain(t["ctx"], t["x"], t["wot"].t(), t["bo"],
                                       t["gamma"], t["beta"], 1e-12)
     d = (first.float() - want.float()).abs()
-    return {"slices": slices, "max": d.max().item(), "mean": d.mean().item(),
-            "same_bits": bool(torch.equal(first, again))}
+    out = {"slices": slices, "max": d.max().item(), "mean": d.mean().item(),
+           "same_bits": bool(torch.equal(first, again))}
+    if slices == 0 and h == 640:  # against the one-block form's bits
+        parent = call(lib, h, t, plan_slices(h, m, dev, "parent"), dev)()
+        torch.cuda.synchronize()
+        differ = (first != parent).nonzero()
+        out["bits_of_parent"] = not len(differ)
+        if len(differ):  # the first element that differs, and by how much
+            r, c = differ[0].tolist()
+            out["first_differing"] = [r, c, first[r, c].item(), parent[r, c].item()]
+            out["n_differing"] = len(differ)
+    return out
 
 
 def wo_bytes(h: int, m: int, quad: bool) -> int:
@@ -520,9 +552,9 @@ def timeline(lib: ctypes.CDLL, h: int, m: int, dev, quad: bool) -> dict:
     buf = np.zeros((4, 2, 128, 8), np.int64)
     if lib.mrd_probe_trace(buf.ctypes.data):
         raise RuntimeError("mrd_probe_trace failed")
-    n = h // 64 // slices
+    n = h // 64 // max(slices, 1)
     out = {}
-    for rank in range(4 if quad else 2):
+    for rank in range(2 if h == 640 and quad else 4 if quad else 2 if h >= 896 else 1):
         for role, name in ((0, "consumer"), (1, "producer")):
             t = buf[rank, role, :n].astype(np.float64)
             steps = [j for j in range(8) if t[:, j].all()]
@@ -565,6 +597,8 @@ def main() -> int:
     ap.add_argument("--widths", type=int, nargs="*", default=list(WIDTHS))
     ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
     ap.add_argument("--rows", type=int, nargs="*", default=[16384, 1024])
+    ap.add_argument("--form", choices=("parent", "overlap"), default="parent",
+                    help="the form of the calls at 128 and 640")
     ap.add_argument("--trace", action="store_true",
                     help="also print one row tile's timeline")
     ap.add_argument("--trap", action="store_true",
@@ -575,6 +609,8 @@ def main() -> int:
                     help="hold the kernel to the plain version, time nothing")
     args = ap.parse_args()
     args.out = args.out.resolve()  # the generated sources include by path
+    global FORM, TILE
+    FORM = args.form
     if "kernel" not in args.variants:
         args.variants.insert(0, "kernel")
     dev = torch.device("cuda:0")
@@ -585,7 +621,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     csrc = args.csrc.resolve()
-    quad = QUAD_MARK in (csrc / "attn_out_ln.cuh").read_text()
+    has_quad = QUAD_MARK in (csrc / "attn_out_ln.cuh").read_text()
+    TILE = TILE_MARK in (csrc / "attn_out_ln.cuh").read_text()
     libs = build(csrc, args.widths, args.variants, args.out, args.trace,
                  args.trap)
     if args.build_only:
@@ -604,19 +641,27 @@ def main() -> int:
         bound = {n: bind(libs[(n, h)], h) for n in args.variants}
         smem = bound["kernel"][f"mrd_attn_out_smem_bytes_h{h}"]()
         row = {"smem_bytes": smem}
+        overlap = args.form == "overlap" and h == 640
+        quad = has_quad and (h in QUAD_WIDTHS or overlap)
+        if TILE and h == 128:  # the tile form has no probe variants
+            bound = {"kernel": bound["kernel"]}
         for m in args.rows:
             e = check(bound["kernel"], h, m, dev)
             ok = (e["max"] <= ROW_ATOL and e["mean"] <= ROW_MEAN_ATOL
                   and e["same_bits"])
             print(f"H={h} M={m} ({e['slices']} slices): max/mean |kernel - "
                   f"plain| {e['max']:.3e} / {e['mean']:.3e}, same bits twice "
-                  f"{e['same_bits']} {'ok' if ok else 'OFF'}", flush=True)
+                  f"{e['same_bits']}"
+                  + (f", bits of the one-block form {e['bits_of_parent']}"
+                     f"{' (first differing ' + str(e['first_differing']) + ' of ' + str(e['n_differing']) + ')' if not e['bits_of_parent'] else ''}"
+                     if "bits_of_parent" in e else "")
+                  + f" {'ok' if ok else 'OFF'}", flush=True)
             row[f"M={m}"] = {"agreement": e}
             if not ok:
                 bad.append(f"H={h} M={m}")
         readings[h] = row
         if args.trap:  # every variant once: a deadlock traps here
-            for n in args.variants[1:]:
+            for n in list(bound)[1:]:
                 for m in args.rows:
                     call(bound[n], h, tensors(h, m, dev), plan_slices(h, m, dev),
                          dev)()
@@ -628,6 +673,9 @@ def main() -> int:
             slices = plan_slices(h, m, dev)
             t = tensors(h, m, dev)
             fns = {n: call(lib, h, t, slices, dev) for n, lib in bound.items()}
+            if overlap:  # the one-block form in the same turns
+                fns["parent"] = call(bound["kernel"], h, t,
+                                     plan_slices(h, m, dev, "parent"), dev)
             if m == 16384:
                 fns.update(chain(t))
             for fn in fns.values():
@@ -639,7 +687,7 @@ def main() -> int:
             for n in names + names[::-1]:
                 runs[n].append(per_call_ms(fns[n], cyc))
             ms = {n: sum(v) / len(v) for n, v in runs.items()}
-            wb = wo_bytes(h, m, quad and slices == 1)
+            wb = wo_bytes(h, m, quad and slices <= 1)
             at = row[f"M={m}"]
             at.update(slices=slices, wo_bytes=wb,
                       ms={n: ms[n] for n in names}, runs=runs,
@@ -651,9 +699,9 @@ def main() -> int:
                 f"kernel variant's time " + ", ".join(
                     f"{wb / ms[n] / 1e9:.2f}" for n in names if n in VARIANTS)
                 + " TB/s", flush=True)
-            if args.trace:
+            if args.trace and not (TILE and h == 128):  # no stamps there
                 at["timeline"] = timeline(bind(libs[("trace", h)], h), h, m,
-                                          dev, quad and slices == 1)
+                                          dev, quad and slices <= 1)
     print(json.dumps({"card": card, "rows": args.rows, "readings": readings,
                       "off": bad}))
     return 1 if bad else 0

@@ -8,7 +8,7 @@ tree's, in one process on one card.
     mkdir -p build/old_4b349d5                   # the earlier tree, once
     git archive 4b349d5 | tar -x -C build/old_4b349d5
     python3 build/pair_old_vs_new.py [--old COMMIT] [--old-dir DIR]
-        [--widths H ...] [--rows M ...] [--k3 | --k3f32 | --ffnf32]
+        [--widths H ...] [--rows M ...] [--turns N] [--k3 | --k3f32 | --ffnf32]
 
 Defaults: the tree before the one-block forms' redesign (4b349d5) in
 build/old_<commit>, the five one-block widths (128, 256, 384, 512, 640)
@@ -18,7 +18,9 @@ to its parent with `--old be933b6 --old-dir build/pair_old --widths 896
 `--k3 --old 5b7b4dc --old-dir build/old_5b7b4dc --widths 896 1024 1152
 1280 1408 1536 --rows 64 1024 16384`, K3-f32's narrow forms with
 `--k3f32 --old 6b702b9 --old-dir build/old_6b702b9 --rows 64 2048 4224
-16384 16385`. `--ffnf32` alone sets the f32 FFN's one-pass form's
+16384 16385`, K3's overlapped forms at 640 and 128 with `--k3 --old
+1a815bf --widths 640 128 --rows 64 1024 4096 8448 16384 16385 --turns
+4`. `--ffnf32` alone sets the f32 FFN's one-pass form's
 comparison: the tree before it (5e786d2) in build/old_5e786d2, widths 128
 and 256, M = 64, 1,024, 2,048, 4,224, 8,192, 16,384 and 16,385 (each
 overridable). As build/widths_old_vs_new.py,
@@ -31,7 +33,9 @@ directory and builds its own kernels there.
   --k3, `attn_out_ln_kernel`; with --k3f32 and --ffnf32 none: the new
   passes are functions of their own) at the redesigned widths: identical,
   or the script fails; those are printed, and the functions only this
-  tree has.
+  tree has. A name that several sources build may lose a copy where
+  another copy keeps the same code (with --k3 at 128, split_reduce: the
+  one-block form that launched K3's copy is gone).
 - Bits: at each M, every kernel outside the redesigned forms on the same
   tensors through both trees' wrappers (K1 with bf16 and f32 vectors, K2
   and K3 at the twelve built widths, K1-f32, K2-f32 and K3-f32 at the
@@ -46,7 +50,9 @@ directory and builds its own kernels there.
   mean |diff|, bf16 products with f32 sums; f32 with TF32 off: 1e-4 and
   1e-5); their bits are compared and max |new - old| printed. Device
   time per call (CUDA events over 20 calls queued behind a spinning card)
-  in turns old, new, new, old, and new / old.
+  in turns old, new, new, old (K3 and K3-f32: old, new, chain, linear,
+  then the same in reverse, `--turns` times: short calls read over more
+  turns), and new / old.
 
 Prints the card's name and power limit, one line per function and per
 reading, and a JSON line of all readings; exits non-zero if any SASS or
@@ -119,10 +125,10 @@ def chain_calls(c, z, wo, vec):
 
 
 def check_k3(trees, by_tree, x, h, m, cyc, readings, bad, key="K3",
-             limits=(ROW_ATOL, ROW_MEAN_ATOL)):
+             limits=(ROW_ATOL, ROW_MEAN_ATOL), turns=1):
     """K3 (or `key`, K3-f32) of both trees at width h and m rows against
     the plain version, their bits, and their device times in turns (old,
-    new, chain, linear, then the same in reverse)."""
+    new, chain, linear, then the same in reverse; `turns` times)."""
     z, c, _, _, wo, vec = x
     new, old = by_tree["new"][key], by_tree["old"][key]
     want = trees["new"].attn_out.attn_out_ln_plain(
@@ -137,7 +143,7 @@ def check_k3(trees, by_tree, x, h, m, cyc, readings, bad, key="K3",
                        for e in errs.values())
     fns = {"old": old, "new": new, **chain_calls(c, z, wo, vec)}
     runs = {n: [] for n in fns}
-    for n in list(fns) + list(fns)[::-1]:
+    for n in (list(fns) + list(fns)[::-1]) * turns:
         runs[n].append(per_call_ms(fns[n], cyc))
     ms = {n: sum(v) / len(v) for n, v in runs.items()}
     readings[f"{key} H={h} M={m}"] = dict(
@@ -200,6 +206,9 @@ def main() -> int:
     ap.add_argument("--widths", type=int, nargs="*", default=REDESIGNED,
                     help="the widths whose bf16 FFN forms were redesigned")
     ap.add_argument("--rows", type=int, nargs="*", default=[64, 1024, 16384])
+    ap.add_argument("--turns", type=int, default=1,
+                    help="K3's and K3-f32's turns of timing (each two runs "
+                         "of every call)")
     ap.add_argument("--k3", action="store_true",
                     help="the redesigned forms are K3's (bf16), not K1/K2's")
     ap.add_argument("--k3f32", action="store_true",
@@ -237,6 +246,15 @@ def main() -> int:
     for k in code["new"].keys() - code["old"].keys():
         print(f"SASS {k}: only in this tree", flush=True)
     for k, old_code in code["old"].items():
+        if (k not in code["new"] and k.endswith("'")
+                and code["new"].get(k.rstrip("'")) == old_code):
+            # one copy fewer of a function that another source still
+            # builds the same (with --k3 at 128: split_reduce, whose K3
+            # copy left with the one-block form)
+            readings[f"SASS {k}"] = "copy removed"
+            print(f"SASS {k}: a copy removed, the same code kept",
+                  flush=True)
+            continue
         if not (args.k3f32 or args.ffnf32) and redesigned_form(
                 k, redesigned, args.k3):
             same = code["new"].get(k) == old_code
@@ -320,7 +338,7 @@ def main() -> int:
                               (F32_ATOL, F32_MEAN_ATOL))
                 else:
                     check_k3(trees, by_tree, x, h, m, cyc, readings, bad,
-                             "K3-f32", (F32_ATOL, F32_MEAN_ATOL))
+                             "K3-f32", (F32_ATOL, F32_MEAN_ATOL), args.turns)
                 continue
             x = inputs(torch.bfloat16, h, m,
                        torch.Generator().manual_seed(h + m), dev)
@@ -333,7 +351,8 @@ def main() -> int:
                         pre_beta=vec["pre_beta"].float())
             a = (z, w1, vec["b1"], w2, vec["b2"], vec["gamma"], vec["beta"])
             if args.k3:
-                check_k3(trees, by_tree, x, h, m, cyc, readings, bad)
+                check_k3(trees, by_tree, x, h, m, cyc, readings, bad,
+                         turns=args.turns)
                 continue
             plain = {
                 "K1": lambda: trees["new"].ffn.ffn_ln_plain(

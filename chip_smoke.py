@@ -200,7 +200,11 @@ non-zero):
    64, F = 4H), which no published encoder has, at 4 layers. Phases 18
    and 19 print K3-f32's time at 128-640 beside 6b702b9's three-launch
    form and the form the launch took (the pass over whole rows at the
-   packed batch).
+   packed batch), K3's at 640 in its overlapped form beside the one-block
+   form forced (in turns) and 1a815bf's time, and K3's at 128 in its tile
+   form (the width's only form) beside 1a815bf's time, and fail unless the
+   fused towers' packed-row K3 launches at 640 took the overlapped form
+   and those at 128 the tile form.
 20. above BERT-large width (H = 1,152, 1,280, 1,408 and 1,536; `WIDE_OVER`):
    phase 17 at microsoft/deberta-v2-xlarge's widths and depth with this
    package's BERT layer (H = 1,536, F = 6,144, 24 heads of 64, 24 layers,
@@ -3111,21 +3115,25 @@ F32_NARROW_BEFORE_MS = {128: 0.0237, 256: 0.0498, 384: 0.0879, 512: 0.1278,
 # 700 W), printed the same way (build/pair_old_vs_new.py --ffnf32
 # compares them in turns)
 F32_FFN_BEFORE_MS = {128: (0.1043, 0.1025), 256: (0.2408, 0.2389)}
+# K3's dev ms at M = 16,384 before its overlapped forms at 128 and 640 (the
+# one-block form of commit 1a815bf, PERF.md; H100 80GB HBM3, 700 W),
+# printed the same way (build/pair_old_vs_new.py --k3 compares them in
+# turns)
+K3_NARROW_BEFORE_MS = {128: 0.0079, 640: 0.0529}
 
 
-def forced_f32_rows(call, rows: bool):
-    """`call` with K1-f32 / K2-f32's form forced (kernels/ffn.py's
-    FORCE_F32_ROWS): the one-pass form where `rows`, else the four
-    launches."""
-    ffn = kernel_modules()[0]
-
+def forced_form(call, module, flag: str, value: bool):
+    """`call` with a kernel module's form flag `flag` set to `value`:
+    kernels/ffn.py's FORCE_F32_ROWS (K1-f32 / K2-f32's one-pass form where
+    True, else the four launches) or kernels/attn_out.py's FORCE_OVERLAP
+    (K3's overlapped form at 640 where True, else the one-block form)."""
     def forced():
-        old = ffn.FORCE_F32_ROWS
-        ffn.FORCE_F32_ROWS = rows
+        old = getattr(module, flag)
+        setattr(module, flag, value)
         try:
             return call()
         finally:
-            ffn.FORCE_F32_ROWS = old
+            setattr(module, flag, old)
     return forced
 
 
@@ -3251,9 +3259,17 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
         # packed batch (the one-pass form) against the four launches forced,
         # in turns
         rows_vs_four = {
-            key: in_turns(forms[key][0], forced_f32_rows(forms[key][0], False))
+            key: in_turns(forms[key][0], forced_form(forms[key][0], k1,
+                                                     "FORCE_F32_ROWS", False))
             for key in (f"K1_f32_{h}", f"K2_f32_{h}")
             if h in k1.ROWS_F32_WIDTHS}
+        # K3 at 640: the form the rule takes at the packed batch (the
+        # overlapped form) against the one-block form forced, in turns (128
+        # has the tile form alone)
+        overlap_vs_parent = {
+            key: in_turns(forms[key][0], forced_form(forms[key][0], k3,
+                                                     "FORCE_OVERLAP", False))
+            for key in (f"K3_{h}",) if h == 640}
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -3273,12 +3289,23 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                                                      seed=0), dev)
         probs = {}
         reset_counts()
+        overlap0 = k3.OVERLAP_CALLS
         probs["bf16"] = probs_of(pb.predict_batch(images, texts),
                                  pb.class_names)
         got = launch_counts()
         if got != count_dict(**want) or pb.packed_calls != 1:
             fail(f"H={h} {tag} bf16 path launches {got} (packed "
                  f"{pb.packed_calls}), want {want}")
+        # the K3 launches that took the overlapped form (at 128 the tile
+        # form): at 128 and 640 every one (each is at the packed rows),
+        # elsewhere none
+        n_overlap = k3.OVERLAP_CALLS - overlap0
+        if n_overlap != (got[f"K3_{h}"] if h in k3.OVERLAP_WIDTHS else 0):
+            fail(f"H={h} {tag} bf16 path: {n_overlap} of {got[f'K3_{h}']} "
+                 f"K3 launches took the overlapped form")
+        forms3 = (f"; K3 launches {got[f'K3_{h}']}, {n_overlap} in the "
+                  + ("tile" if h == 128 else "overlapped") + " form"
+                  if h in k3.OVERLAP_WIDTHS and tag == "fused" else "")
         for k in totals:
             totals[k] += got[k]
         with plain_kernels():
@@ -3367,7 +3394,7 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
             f"(tolerance {PROB_ATOL_F32_KERNELS}); top-1 bf16 = off "
             f"{top1['bf16']}/{BATCH}, f32 = off {top1['f32']}/{BATCH}; p50 "
             f"bf16 {p50s[tag + ' bf16']:.2f} ms, f32 "
-            f"{p50s[tag + ' f32']:.2f} ms{forms32}"))
+            f"{p50s[tag + ' f32']:.2f} ms{forms3}{forms32}"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     pair = ""
     if h in PAIR_BEFORE_MS:
@@ -3390,6 +3417,23 @@ def width_phase(dev, over: dict, seed: int, images, texts, in_turns, p50_ms,
                  f"{p1:.4f} / {p2:.4f} against the four launches' {f1:.4f} / "
                  f"{f2:.4f} in turns (new/old {p1 / f1:.3f} / {p2 / f2:.3f}; "
                  f"5e786d2's {before[0]} / {before[1]}) | ")
+    # K3 at 640: the overlapped form beside the one-block form (forced, in
+    # turns) and beside 1a815bf's time; at 128 the tile form beside
+    # 1a815bf's
+    if overlap_vs_parent:
+        (t3, t3_old, *_), = overlap_vs_parent.values()
+        before = K3_NARROW_BEFORE_MS[h]
+        plan_form = ("overlapped" if k3.launch_slices(16384, h, n_sm) == 0
+                     else "one-block")
+        pair += (f"K3 dev ms at M=16384 in the {plan_form} form "
+                 f"{t3:.4f} against the one-block form's {t3_old:.4f} in turns "
+                 f"(new/old {t3 / t3_old:.3f}; 1a815bf's {before}, "
+                 f"{t3 / before:.3f}) | ")
+    elif h == 128:
+        t3, before = times[f"K3_{h}"][0], K3_NARROW_BEFORE_MS[h]
+        pair += (f"K3 dev ms at M=16384 in the tile form (every row count) "
+                 f"{t3:.4f} against 1a815bf's one-block form's {before} "
+                 f"(new/old {t3 / before:.3f}) | ")
     # K3-f32's clusters of the pass over whole rows the card holds at once
     # (128-640), its plan at the packed batch
     resident = (k3.f32_rows_clusters(dev, h) if h in k3.ROWS_F32_WIDTHS
@@ -4382,10 +4426,12 @@ def main() -> int:
         # either. K3-f32 at 128-640 runs the pass over whole rows of
         # attn_out_rows_f32.cuh (built by attn_out_ln_f32.cu) at the packed
         # batch, K1-f32 and K2-f32 at 128 and 256 the one-pass form of
-        # ffn_rows_f32.cuh (built by ffn_rows_f32.cu)
+        # ffn_rows_f32.cuh (built by ffn_rows_f32.cu), K3 at 128 and 640 the
+        # overlapped forms of attn_out_ln_overlap.cu
         (f"{name}_h{w}",
          "attn_out_rows_f32.cuh" if key == "K3_f32" and w <= 640 else
          "ffn_rows_f32.cuh" if key in ("K1_f32", "K2_f32") and w <= 256
+         else "attn_out_ln_overlap.cu" if key == "K3" and w in (128, 640)
          else source,
          replaces, f"{key}_{w}",
          *{**times18, **times19, **times20}[f"{key}_{w}"], None)

@@ -1,6 +1,7 @@
 // K3 in bf16: the C entries of attn_out_ln.cuh's kernel at H = 768 and at
-// 128, 256, 384, 512, 640, 896 and 1,024; the widths above 1,024 are in
-// attn_out_ln_wide.cu.
+// 256, 384, 512, 896 and 1,024; the widths above 1,024 are in
+// attn_out_ln_wide.cu, 128 and 640 (with their overlapped forms) in
+// attn_out_ln_overlap.cu.
 
 #include "attn_out_ln.cuh"
 
@@ -22,11 +23,9 @@ int mrd_attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const v
   return attn_out_ln_bf16<768>(ctx, x, wo, bo, gamma, beta, y, scratch, M, slices, eps, stream);
 }
 
-MRD_ATTN_OUT_WIDTH(128)
 MRD_ATTN_OUT_WIDTH(256)
 MRD_ATTN_OUT_WIDTH(384)
 MRD_ATTN_OUT_WIDTH(512)
-MRD_ATTN_OUT_WIDTH(640)
 MRD_ATTN_OUT_WIDTH(896)
 MRD_ATTN_OUT_WIDTH(1024)
 

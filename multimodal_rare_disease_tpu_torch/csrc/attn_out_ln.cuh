@@ -7,10 +7,10 @@
 // H is a template parameter, built for 768 (BERT-base; the design below),
 // 1,024 (BERT-large), 512, 256 and 128 (the compact BERTs), 384 (MiniLM),
 // 640 and 896, and 1,152, 1,280, 1,408 and 1,536; their changes are at the
-// end of this comment. This header holds the kernel and the macro of its C
-// entries; attn_out_ln.cu instantiates it up to 1,024 and
-// attn_out_ln_wide.cu above, so that build.py's nvccs compile the two in
-// parallel.
+// end of this comment. This header holds the kernels and the macro of their
+// C entries; attn_out_ln.cu instantiates them up to 1,024 but 128 and 640,
+// attn_out_ln_overlap.cu at 128 and 640 and attn_out_ln_wide.cu above
+// 1,024, so that build.py's nvccs compile the three in parallel.
 //
 // The product accumulates in f32 and is not rounded; bo and the residual x
 // are added in f32 before the two-pass f32 LayerNorm (eps given, 1e-12 for
@@ -93,9 +93,10 @@
 // H = 512, 256 and 128 (google-research/bert's BERT-Medium, -Mini and
 // -Tiny): one block per row tile, as at 768, with 8, 4 and 2 k chunks and
 // consumers of [64, 256], [64, 128] and [64, 64]. At 128 a consumer's 64
-// columns are less than one n128 Wo tile, so Wo streams as [64 out x 64 k]
-// tiles (8 KB) and the consumers run wgmma m64n64k16; the two consumers,
-// their register split and the LN exchange stay as they are. Each width's
+// columns are less than one n128 Wo tile, so Wo is read as [64 out x 64 k]
+// tiles (8 KB) and the consumers run wgmma m64n64k16, in the tile form
+// below (AttnOut<128> gives it these shapes; this kernel is not built at
+// 128); the two consumers, their split and the LN exchange stay. Each width's
 // variant is under `if constexpr`, so the 768 and 1,024 code is compiled
 // as it was.
 //
@@ -150,6 +151,23 @@
 // Where 30 clusters take more rounds than 66 pairs take waves by more
 // than a group's lower cost makes up (quad_clusters: below ~8,448 rows at
 // 896, 1,024 and 1,536), and on the split path, the pair runs.
+//
+// The overlapped form at H = 640 and the tile form at 128
+// (attn_out_ln_overlap.cu builds them; the C entry's `slices` 0 asks for
+// them). The one-block form's tile runs its epilogue, x's round trip and
+// the y store with nothing beside it (43% of its time at 640, 75% at 128
+// on the H100; PERF.md), and at 640 its consumers step through n64 Wo
+// tiles at ~100 clk a step and every 64-row tile reads all of Wo from L2.
+// At 640, where the k loop stays whole (kernels/attn_out.py::overlap_form;
+// the split path keeps the one-block form), the cluster-of-four kernel
+// runs in clusters of two (66 fit the H100): a block owns 128 rows by 320
+// columns, 1,280's quarter, on n160 tiles, and x loads two blocks a chunk;
+// the LN adds half 0 + half 1, the one-block form's order (its consumer
+// 0's columns, then consumer 1's), so y is that form's bits. At 128, at
+// every M (it beat the one-block form's split path too), and the width's
+// only form, attn_out_tile_kernel: the one-block form's tile and epilogue
+// with x in a space of its own, every load issued at the start and no
+// producer warpgroup, three blocks an SM.
 
 #pragma once
 
@@ -766,7 +784,9 @@ constexpr uint32_t kQuadExRecv = 3 * kTM * 4;
 
 // The shape of the cluster-of-four kernel at hidden width kH: a block owns
 // 128 rows (64 a consumer) and a quarter of the output columns (kQ, the
-// pair's kHalf), so each Wo tile it takes serves 128 rows. Shared memory:
+// pair's kHalf), so each Wo tile it takes serves 128 rows. At H = 640 the
+// same kernel runs in clusters of two, a block owning half of the columns
+// (320, 1,280's quarter). Shared memory:
 // x, then y, as [128 rows][32 columns] blocks in the 64-byte swizzle
 // layout (kQ is a multiple of 32, not always of 64), the ctx ring ([128
 // rows][64] a chunk; 2, 3 or 4 slots, whichever lets the producer run the
@@ -774,13 +794,14 @@ constexpr uint32_t kQuadExRecv = 3 * kTM * 4;
 // LayerNorm exchange and the barriers.
 template <int kH>
 struct AttnOutQuad {
-  static_assert(AttnOut<kH>::kPair, "a width of the cluster forms");
+  static_assert(AttnOut<kH>::kPair || kH == 640, "a width of the cluster forms");
+  static constexpr int kSize = kH == 640 ? 2 : 4;      // blocks a cluster
   static constexpr int kRows = 2 * kTM;                 // rows a block: 64 a consumer
-  static constexpr int kQ = kH / 4;                     // output columns a block
+  static constexpr int kQ = kH / kSize;                 // output columns a block
   static constexpr int kChunks = kH / kKC;
-  // Wo tile width (wgmma N): the pair's, but n160 at 1,280 (n64 steps cost
-  // ~100 clk whatever the chains: PERF.md)
-  static constexpr int kN = kH == 1280 ? 160 : AttnOut<kH>::kN;
+  // Wo tile width (wgmma N): the pair's, but n160 at 1,280 and 640 (n64
+  // steps cost ~100 clk whatever the chains: PERF.md)
+  static constexpr int kN = kH == 1280 || kH == 640 ? 160 : AttnOut<kH>::kN;
   static constexpr int kAcc = kN / 2;
   static constexpr int kTiles = kQ / kN;
   static constexpr uint32_t kTileBytes = kN * kKC * 2;
@@ -788,10 +809,13 @@ struct AttnOutQuad {
   static constexpr uint32_t kXBlockBytes = kRows * kXCols * 2;  // 8 KB
   static constexpr int kXBlocks = kQ / kXCols;
   static constexpr uint32_t kCtxBytes = kRows * kKC * 2;        // 16 KB
-  // x's blocks load one a chunk, after the tiles of chunks kXFrom .. +
-  // kXBlocks - 1 (all of x at once held back the tiles behind it by 3-8k
-  // clk); the group before's y store is waited for three chunks earlier
-  static constexpr int kXFrom = kChunks - kXBlocks - 1;
+  // x's blocks load one a chunk (two at 640, whose 10 blocks would
+  // otherwise start before its 10 chunks), after the tiles of chunks
+  // kXFrom .. + kXBlocks / kXPer - 1 (all of x at once held back the tiles
+  // behind it by 3-8k clk); the group before's y store is waited for three
+  // chunks earlier
+  static constexpr int kXPer = kH == 640 ? 2 : 1;
+  static constexpr int kXFrom = kChunks - kXBlocks / kXPer - 1;
   static constexpr int kXFree = kXFrom - 3;
   static constexpr uint32_t kOffX = 0;
   static constexpr uint32_t kOffC = kOffX + kXBlocks * kXBlockBytes;
@@ -828,6 +852,9 @@ struct AttnOutQuad {
   static constexpr uint32_t kBarXEmpty = kBarXFull + 8;
   static constexpr uint32_t kBarStats = kBarXEmpty + 8;
   static constexpr uint32_t kSmemBytes = kBarStats + 8 * 2 * 2 * kWG + 1024;
+  // the bytes a consumer's exchange barrier takes: the peers' partials of
+  // its 64 rows
+  static constexpr uint32_t kExRecv = (kSize - 1) * kTM * 4;
 
   // a group's time, in percent of a pair's 64-row tile, for launch's
   // choice between the two forms: K3's time at M = 16,384 (5 rounds)
@@ -840,7 +867,9 @@ struct AttnOutQuad {
                                     : kH == 1408 ? 56
                                                  : 73;
 
-  static_assert(kQ % kN == 0 && kQ % kXCols == 0, "whole tiles and x blocks a block");
+  static_assert(kQ % kN == 0 && kQ % kXCols == 0 && kXBlocks % kXPer == 0,
+                "whole tiles and x blocks a block");
+  static_assert(kXFrom - 3 >= 1, "the group before's y store waited for in a later chunk");
   static_assert(kOffC % 1024 == 0 && kOffW % 1024 == 0 && kTileBytes % 1024 == 0,
                 "1024-byte swizzle atoms");
   static_assert(kStages > kTiles, "a Wo ring deeper than one chunk");
@@ -882,6 +911,7 @@ __device__ __forceinline__ void produce_quad(const CUtensorMap* ctx_map, const C
                     q * Q::kQ + Q::kN * j);
         wr.next<Q::kStages>();
       }
+      if constexpr (Q::kXPer == 1) {
       const int b = k - Q::kXFrom;  // x's block of this chunk
       if (b == 0) {
         if (it > 0) mbar_wait(base + Q::kBarXEmpty, (it - 1) & 1);
@@ -890,6 +920,18 @@ __device__ __forceinline__ void produce_quad(const CUtensorMap* ctx_map, const C
       if (b >= 0 && b < Q::kXBlocks)
         tma_load_2d(base + Q::kOffX + b * Q::kXBlockBytes, x_map, base + Q::kBarXFull,
                     q * Q::kQ + b * Q::kXCols, row0);
+      } else {  // kXPer of x's blocks a chunk
+        const int b = (k - Q::kXFrom) * Q::kXPer;
+        if (b == 0) {
+          if (it > 0) mbar_wait(base + Q::kBarXEmpty, (it - 1) & 1);
+          mbar_arrive_expect_tx(base + Q::kBarXFull, Q::kXBlocks * Q::kXBlockBytes);
+        }
+        if (b >= 0 && b < Q::kXBlocks)
+#pragma unroll
+          for (int i = 0; i < Q::kXPer; ++i)
+            tma_load_2d(base + Q::kOffX + (b + i) * Q::kXBlockBytes, x_map,
+                        base + Q::kBarXFull, q * Q::kQ + (b + i) * Q::kXCols, row0);
+      }
     }
   }
 }
@@ -960,41 +1002,47 @@ __device__ __forceinline__ void consume_quad(
   cr.next<Q::kCtxStages>();
 }
 
-// A row's total over the cluster's four quarters for one LayerNorm
+// A row's total over the cluster's kSize blocks (four quarters, or at 640
+// two halves) for one LayerNorm
 // exchange, for the thread's two rows (wrow, wrow + 8; `s` its quarter's
 // partials, the same in the four lanes of a row). `red` is this block's
 // exchange for the consumer's rows, [quarter from][64], and `bar` its
-// barrier, armed for the three peers' bytes: the writers (lane % 4 == 0)
+// barrier, armed for the peers' bytes: the writers (lane % 4 == 0)
 // store theirs into each peer's `red` by st.async, counted on the peer's
 // barrier, and once this block's has every peer's, each thread reads its
 // rows'. The barrier is armed again for its next use (two groups on).
 // Every block adds (quarter 0 + quarter 1) + (quarter 2 + quarter 3), the
 // pair's order (rank 0's two consumers, then rank 1's), so they share the
-// total bit for bit.
+// total bit for bit; at 640, half 0 + half 1, the one-block form's order
+// (its consumer 0's columns, then consumer 1's).
+template <int kSize>
 __device__ __forceinline__ void quad_total(float (&s)[2], uint32_t red, uint32_t bar,
                                            uint32_t parity, int q, int lane, int wrow,
                                            bool rearm, bool arms) {
   const uint32_t mine = red + q * kQuadExBytes + 4 * wrow;
   if (lane % 4 == 0) {
 #pragma unroll
-    for (int p = 1; p < 4; ++p) {
-      const uint32_t peer = (q + p) % 4;
+    for (int p = 1; p < kSize; ++p) {
+      const uint32_t peer = (q + p) % kSize;
       const uint32_t at = mrd::map_to_rank(mine, peer), peer_bar = mrd::map_to_rank(bar, peer);
       mrd::st_async_f32(at, s[0], peer_bar);
       mrd::st_async_f32(at + 8 * 4, s[1], peer_bar);
     }
   }
   mrd::mbar_wait_cluster(bar, parity);
-  if (rearm && arms) mbar_arrive_expect_tx(bar, kQuadExRecv);
+  if (rearm && arms) mbar_arrive_expect_tx(bar, (kSize - 1) * kTM * 4);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float v[4];
+    float v[kSize];
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
+    for (int p = 0; p < kSize; ++p)
       v[p] = p == q ? s[half]
                     : mrd::ld_shared_f32(red + p * kQuadExBytes +
                                          4 * (wrow + 8 * half));
-    s[half] = (v[0] + v[1]) + (v[2] + v[3]);
+    if constexpr (kSize == 4)
+      s[half] = (v[0] + v[1]) + (v[2] + v[3]);
+    else
+      s[half] = v[0] + v[1];
   }
 }
 
@@ -1036,7 +1084,7 @@ attn_out_quad_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
     // the exchange barriers, armed for the first two groups
     for (int s = 0; s < 2 * 2 * kWG; ++s) {
       mbar_init(base + Q::kBarStats + 8 * s, 1);
-      mbar_arrive_expect_tx(base + Q::kBarStats + 8 * s, kQuadExRecv);
+      mbar_arrive_expect_tx(base + Q::kBarStats + 8 * s, Q::kExRecv);
     }
     fence_barrier_init();
   }
@@ -1121,7 +1169,7 @@ attn_out_quad_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
         s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
         s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
       }
-      quad_total(s, red_b, bar, parity, q, lane, wrow, rearm, arms);
+      quad_total<Q::kSize>(s, red_b, bar, parity, q, lane, wrow, rearm, arms);
       float mu[2], rstd[2];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -1140,8 +1188,8 @@ attn_out_quad_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
         s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
         s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
       }
-      quad_total(s, red_b + 4 * kQuadExBytes, bar + 8 * kWG, parity, q, lane, wrow, rearm,
-                 arms);
+      quad_total<Q::kSize>(s, red_b + 4 * kQuadExBytes, bar + 8 * kWG, parity, q, lane, wrow,
+                           rearm, arms);
 #pragma unroll
       for (int half = 0; half < 2; ++half) rstd[half] = rsqrtf(s[half] * (1.0f / kH) + eps);
       // y as bf16 over x (each thread rewrites the elements it read), then
@@ -1176,6 +1224,187 @@ attn_out_quad_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
     if (threadIdx.x % 128 == 0) mrd::tma_store_wait();
   }
   mrd::cluster_sync();  // no peer reads this block's exchange or arrives on its barriers
+}
+
+// ---- the tile form at H = 128: several blocks an SM
+
+// The shape of attn_out_tile_kernel at hidden width kH (128): a block owns
+// one 64-row tile, as attn_out_ln_kernel's does, with the same two
+// consumers, column split and epilogue; but its whole input fits in a
+// third of the SM's shared memory, so kBlocks blocks share an SM and one
+// tile's LayerNorm and y store run beside the other tiles' loads. One
+// thread issues every load at the block's start: ctx's column blocks, x's
+// into a space of their own (the one-block form loads x over ctx once the
+// product is done, which put its round trip between the product and the
+// LayerNorm), and every Wo tile of the product ([chunk][consumer]; 32 KB
+// at 128), each chunk's ctx block and Wo tiles on one barrier. No producer
+// warpgroup, no ring; y is written over x and stored by TMA.
+template <int kH>
+struct AttnOutTile {
+  using P = AttnOut<kH>;
+  static_assert(kH == 128, "the width of the tile form");
+  static constexpr int kBlocks = 3;                   // resident blocks an SM
+  static constexpr int kThreads = kConsumerThreads;  // the two consumers
+  static constexpr uint32_t kOffC = 0;
+  static constexpr uint32_t kOffX = kOffC + P::kChunks * kBlockBytes;
+  static constexpr uint32_t kOffW = kOffX + P::kChunks * kBlockBytes;
+  static constexpr uint32_t kBarC = kOffW + P::kChunks * kWG * P::kTileBytes;
+  static constexpr uint32_t kBarX = kBarC + 8 * P::kChunks;
+  static constexpr uint32_t kOffRed = kBarX + 8;  // float [2][2][64]
+  static constexpr uint32_t kSmemBytes = kOffRed + 2 * kWG * kTM * 4 + 1024;
+
+  static_assert(P::kTiles == 1 && P::kHalf == kKC && !P::kPair,
+                "one Wo tile and one column block a consumer");
+  static_assert(kBlocks * (kSmemBytes + 1024) <= 233472, "kBlocks blocks an SM");
+};
+
+// Grid: one block per 64-row tile. The block computes its tile's y = LN(x
+// + ctx . Wo^T + bo) as attn_out_ln_kernel's tiled path does, in the same
+// order, so the bits are those of that form's whole k loop.
+template <int kH>
+__global__ void __launch_bounds__(AttnOutTile<kH>::kThreads, AttnOutTile<kH>::kBlocks)
+attn_out_tile_kernel(const __grid_constant__ CUtensorMap ctx_map,  // ctx [M, H]
+                     const __grid_constant__ CUtensorMap x_map,    // x [M, H]
+                     const __grid_constant__ CUtensorMap wo_map,   // Wo [H out, H in]
+                     const __grid_constant__ CUtensorMap y_map,    // y [M, H]
+                     const bf16* __restrict__ bo,                  // [H]
+                     const bf16* __restrict__ gamma,
+                     const bf16* __restrict__ beta,
+                     float eps) {
+  using T = AttnOutTile<kH>;
+  using P = typename T::P;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int row0 = blockIdx.x * kTM;
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < P::kChunks; ++c) mbar_init(base + T::kBarC + 8 * c, 1);
+    mbar_init(base + T::kBarX, 1);
+    fence_barrier_init();
+    for (int c = 0; c < P::kChunks; ++c) {
+      const uint32_t bar = base + T::kBarC + 8 * c;
+      mbar_arrive_expect_tx(bar, kBlockBytes + kWG * P::kTileBytes);
+      tma_load_2d(base + T::kOffC + c * kBlockBytes, &ctx_map, bar, c * kKC, row0);
+      for (int w = 0; w < kWG; ++w)
+        tma_load_2d(base + T::kOffW + (c * kWG + w) * P::kTileBytes, &wo_map, bar, c * kKC,
+                    P::kHalf * w);
+    }
+    mbar_arrive_expect_tx(base + T::kBarX, P::kChunks * kBlockBytes);
+    for (int c = 0; c < P::kChunks; ++c)
+      tma_load_2d(base + T::kOffX + c * kBlockBytes, &x_map, base + T::kBarX, c * kKC, row0);
+  }
+  __syncthreads();  // the barriers are initialized
+
+  // ---- consumer wg: ACC[:, kHalf wg .. + kHalf] = ctx . Wo^T[:, ...], one
+  // wgmma group a chunk
+  float acc[P::kTiles][P::kAcc];
+#pragma unroll
+  for (int c = 0; c < P::kChunks; ++c) {
+    mbar_wait(base + T::kBarC + 8 * c, 0);
+    const uint32_t a0 = opaque(base) + T::kOffC + c * kBlockBytes;
+    const uint32_t b0 = opaque(base) + T::kOffW + (c * kWG + wg) * P::kTileBytes;
+    mrd::fence_operand(acc[0]);
+    mrd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      const uint64_t da = sw128_desc(a0 + kk * 32), db = sw128_desc(b0 + kk * 32);
+      if (c == 0 && kk == 0)
+        mrd::wgmma_m64n64k16_first(acc[0], da, db);
+      else
+        mrd::wgmma_m64n64k16(acc[0], da, db, 1);
+    }
+    mrd::wgmma_commit();
+    mrd::fence_operand(acc[0]);
+  }
+  mrd::wgmma_wait<0>();
+  mrd::fence_operand(acc[0]);
+
+  // ---- epilogue, as attn_out_ln_kernel's: thread (warp, lane) holds rows
+  // wrow and wrow + 8 and, per n8 block nb, the columns kHalf wg + 8 nb + 2
+  // (lane % 4) and + 1
+  const int wrow = 16 * (warp % 4) + lane / 4;
+  const uint32_t xbase = base + T::kOffX;
+  mbar_wait(base + T::kBarX, 0);
+  float* red = reinterpret_cast<float*>(smem + T::kOffRed);
+  uint32_t xo[8];  // the eight 16-byte groups of the consumer's block, in rows wrow (+ 8)
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    xo[k] = xbase + wg * kBlockBytes + wrow * 128 + ((k ^ (wrow % 8)) << 4) + (lane % 4) * 4;
+  float s[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nb = 0; nb < P::kN / 8; ++nb) {
+    const int col = P::kHalf * wg + 8 * nb + 2 * (lane % 4);
+    const float2 b2 = ld_pair(bo + col);
+    const uint32_t at = tile_at<kH>(xo, 0, nb);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 x2 = lds_pair(at + half * 8 * 128);
+      float& a0 = acc[0][4 * nb + 2 * half];
+      float& a1 = acc[0][4 * nb + 2 * half + 1];
+      a0 = a0 + b2.x + x2.x;
+      a1 = a1 + b2.y + x2.y;
+      s[half] += a0 + a1;
+    }
+  }
+  float mu[2], rstd[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+    s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+    if (lane % 4 == 0) red[wg * kTM + wrow + 8 * half] = s[half];
+  }
+  named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = wrow + 8 * half;
+    mu[half] = (red[r] + red[kTM + r]) * (1.0f / kH);
+    s[half] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < P::kAcc; ++i) {
+    const float d = acc[0][i] - mu[(i / 2) % 2];
+    s[(i / 2) % 2] += d * d;
+  }
+  float* red_q = red + kWG * kTM;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+    s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+    if (lane % 4 == 0) red_q[wg * kTM + wrow + 8 * half] = s[half];
+  }
+  named_bar_sync<kConsumerThreads>(1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = wrow + 8 * half;
+    rstd[half] = rsqrtf((red_q[r] + red_q[kTM + r]) * (1.0f / kH) + eps);
+  }
+  // y as bf16 over x, then this consumer's column block goes out by TMA
+#pragma unroll
+  for (int nb = 0; nb < P::kN / 8; ++nb) {
+    const int col = P::kHalf * wg + 8 * nb + 2 * (lane % 4);
+    const float2 g2 = ld_pair(gamma + col);
+    const float2 o2 = ld_pair(beta + col);
+    const uint32_t at = tile_at<kH>(xo, 0, nb);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float a0 = acc[0][4 * nb + 2 * half], a1 = acc[0][4 * nb + 2 * half + 1];
+      sts_pair(at + half * 8 * 128,
+               __floats2bfloat162_rn((a0 - mu[half]) * rstd[half] * g2.x + o2.x,
+                                     (a1 - mu[half]) * rstd[half] * g2.y + o2.y));
+    }
+  }
+  fence_proxy_async();  // the stores, to TMA
+  named_bar_sync<128>(2 + wg);
+  if (threadIdx.x % 128 == 0) {
+    mrd::tma_store_2d(&y_map, xbase + wg * kBlockBytes, wg * kKC, row0);
+    mrd::tma_store_commit();
+    mrd::tma_store_wait();
+  }
 }
 
 // A launch of blocks of kThreads with `smem` bytes of shared memory each,
@@ -1242,9 +1471,48 @@ cudaError_t launch_quad(const void* ctx, const void* x, const void* wo, const bf
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config;
-  cluster_launch(config, attr, dim3(clusters, 1, 4), 4, Q::kSmemBytes, stream);
+  cluster_launch(config, attr, dim3(clusters, 1, Q::kSize), Q::kSize, Q::kSmemBytes, stream);
   return cudaLaunchKernelEx(&config, attn_out_quad_kernel<kH>, ctx_map, x_map, wo_map, y_map,
                             bo, gamma, beta, M, eps);
+}
+
+// The overlapped form at 640 (`slices` 0 in the C entry): clusters of two
+// of attn_out_quad_kernel, as many as the card holds at once (66 on the
+// H100, read once), at most one per row group.
+template <int kH>
+cudaError_t launch_overlap(const void* ctx, const void* x, const void* wo, const bf16* bo,
+                           const bf16* gamma, const bf16* beta, void* y, int M, float eps,
+                           cudaStream_t stream) {
+  using Q = AttnOutQuad<kH>;
+  static const int clusters = resident_clusters(attn_out_quad_kernel<kH>, Q::kSize, Q::kSmemBytes);
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  const int groups = (M + Q::kRows - 1) / Q::kRows;
+  const cudaError_t err = launch_quad<kH>(ctx, x, wo, bo, gamma, beta, y, M, eps,
+                                          groups < clusters ? groups : clusters, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The tile form at 128, the width's only form: one block per 64-row tile.
+template <int kH>
+cudaError_t launch_tile(const void* ctx, const void* x, const void* wo, const bf16* bo,
+                        const bf16* gamma, const bf16* beta, void* y, int M, float eps,
+                        cudaStream_t stream) {
+  using T = AttnOutTile<kH>;
+  CUtensorMap ctx_map, wo_map, x_map, y_map;
+  if (!make_map(&ctx_map, ctx, M, kH, kTM) || !make_map(&wo_map, wo, kH, kH, AttnOut<kH>::kN) ||
+      !make_map(&x_map, x, M, kH, kTM) || !make_map(&y_map, y, M, kH, kTM))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_out_tile_kernel<kH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::kSmemBytes));
+  if (err == cudaSuccess)  // the shared memory of kBlocks blocks an SM
+    err = cudaFuncSetAttribute(attn_out_tile_kernel<kH>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  attn_out_tile_kernel<kH><<<(M + kTM - 1) / kTM, T::kThreads, T::kSmemBytes, stream>>>(
+      ctx_map, x_map, wo_map, y_map, bo, gamma, beta, eps);
+  return cudaGetLastError();
 }
 
 template <int kH>
@@ -1298,11 +1566,31 @@ int attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void*
                      int slices, float eps, void* stream) {
   using P = AttnOut<kH>;
   if (M <= 0) return static_cast<int>(cudaSuccess);
-  if (slices < 1 || P::kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto v = [](const void* p) { return static_cast<const bf16*>(p); };
-  return static_cast<int>(launch<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M,
-                                     slices, eps, static_cast<cudaStream_t>(stream)));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (kH == 128) {  // the tile form, at every M: `slices` 0
+    if (slices != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_tile<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, M, eps, s));
+  } else {
+    if constexpr (kH == 640)
+      if (slices == 0)  // the overlapped form
+        return static_cast<int>(
+            launch_overlap<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, M, eps, s));
+    if (slices < 1 || P::kChunks % slices != 0 || (slices > 1 && scratch == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch<kH>(ctx, x, wo, v(bo), v(gamma), v(beta), y, scratch, M,
+                                       slices, eps, s));
+  }
+}
+
+// The shared memory a block of the C entry's kernel takes at width kH: at
+// 128 the tile form's.
+template <int kH>
+constexpr uint32_t smem_bytes() {
+  if constexpr (kH == 128)
+    return AttnOutTile<kH>::kSmemBytes;
+  else
+    return AttnOut<kH>::kSmemBytes;
 }
 
 }  // namespace
@@ -1310,10 +1598,12 @@ int attn_out_ln_bf16(const void* ctx, const void* x, const void* wo, const void*
 // The C entries of K3 and the shared memory per block at a built width H
 // other than 768: `name`_h<H>, as attn_out_ln.cu's mrd_attn_out_smem_bytes
 // and mrd_attn_out_ln_bf16 with [M, H] rows, wo [H, H], `slices` a divisor
-// of the H / 64 k chunks and scratch f32 [slices, M, H].
+// of the H / 64 k chunks and scratch f32 [slices, M, H]; at 640 `slices` 0
+// asks for the overlapped form, and at 128 it is the only `slices` taken
+// (the tile form; attn_out_ln_overlap.cu).
 #define MRD_ATTN_OUT_WIDTH(kH)                                                               \
   int mrd_attn_out_smem_bytes_h##kH() {                                                      \
-    return static_cast<int>(AttnOut<kH>::kSmemBytes);                                        \
+    return static_cast<int>(smem_bytes<kH>());                                               \
   }                                                                                          \
   int mrd_attn_out_ln_bf16_h##kH(const void* ctx, const void* x, const void* wo,             \
                                  const void* bo, const void* gamma, const void* beta,        \

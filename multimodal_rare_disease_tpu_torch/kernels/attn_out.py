@@ -24,8 +24,8 @@ Both sources are templates over the hidden width, built for
 the compact BERTs; 384, MiniLM; 640 and 896; 1,152, 1,280, 1,408 and
 1,536), each width with C entries and launch counters of its own
 (`LAUNCHES` at 768, `LAUNCHES_<width>` otherwise); the bf16 kernel is
-`csrc/attn_out_ln.cuh`, instantiated by `csrc/attn_out_ln.cu` and
-`csrc/attn_out_ln_wide.cu`.
+`csrc/attn_out_ln.cuh`, instantiated by `csrc/attn_out_ln.cu`,
+`csrc/attn_out_ln_overlap.cu` (128 and 640) and `csrc/attn_out_ln_wide.cu`.
 
 When the output tiles would fill fewer blocks than the card has SMs (a
 single request's 64 rows), the bf16 kernel splits the H / 64 k chunks of
@@ -38,10 +38,20 @@ walk groups of 128 rows (each Wo tile a block takes serves 128 rows) and
 share the LayerNorm's row statistics over distributed shared memory;
 otherwise, and on the split path, on a cluster pair of two column groups
 of H / 2 (at 896 and 1,024 sharing ctx by TMA multicast, above 1,024
-streaming it). The f32 GEMM writes f32 partials (one slice at the packed
-batch) and splits its H / 32 k-tiles the same way below 132 output
-tiles; at H = 128-640 the pass over whole rows, which writes only y,
-runs instead where its rounds of clusters cost less (`f32_rows_form`).
+streaming it). At H = 640 the whole k loop has an overlapped form
+(`csrc/attn_out_ln_overlap.cu`), taken where `overlap_form` says so: the
+same persistent kernel in clusters of two, each block 128 rows by 320
+columns on n160 Wo tiles, the producer loading the next group while the
+consumers finish the last. At H = 128 every call takes the tile form
+(the same source), the width's only form: one block per 64-row tile with
+x loaded up front beside ctx and all of Wo, three blocks an SM, so that
+one tile's LayerNorm and store overlap the other tiles' loads; it beat
+the split path at every row count it was timed at, so 128 has none.
+Python passes `slices` 0 to the C entry to ask for either
+(`launch_slices`). The f32 GEMM writes f32 partials (one slice at the
+packed batch) and splits its H / 32 k-tiles the same way below 132
+output tiles; at H = 128-640 the pass over whole rows, which writes only
+y, runs instead where its rounds of clusters cost less (`f32_rows_form`).
 `attn_out_plan` and `attn_out_plan_f32` choose the slices by
 `ffn.split_plan`'s and `ffn.gemm_plan_f32`'s rules, and
 `attn_out_ln_plain(..., slices=S)` emulates the split sum in the
@@ -66,6 +76,7 @@ from multimodal_rare_disease_tpu_torch.kernels import build
 from multimodal_rare_disease_tpu_torch.kernels.ffn import (
     KERNEL_F32_COLS,
     KERNEL_F32_ROWS,
+    KERNEL_ROWS,
     KERNEL_WIDTHS,
     ROUTE_BF16,
     ROUTE_F32,
@@ -111,6 +122,10 @@ LAUNCHES_1536 = 0
 LAUNCHES_F32_1536 = 0
 # CUDA calls that the shape/dtype gate sent to the plain version
 PLAIN_ON_CUDA = 0
+# the bf16 calls above that took the overlapped form at 640 (`overlap_form`)
+# or the tile form at 128 (every call there), also counted in their
+# LAUNCHES_<width>
+OVERLAP_CALLS = 0
 
 # the k chunk csrc/attn_out_ln.cu was written for (see its header); the f32
 # kernel's GEMM tiles as `ffn.gemm_plan_f32` says
@@ -128,6 +143,15 @@ ROWS_FIRST_ROUND = 105
 ROWS_ROUND = 88
 REDUCE_FIXED = 10
 REDUCE_PER_10_TILES = 11
+# the widths whose bf16 kernel has the overlapped form
+# (csrc/attn_out_ln_overlap.cu): 640 on persistent clusters of two blocks
+# of 128 rows where `overlap_form` takes it, 128 (the tile form, one block
+# per 64-row tile, three an SM) at every row count
+OVERLAP_WIDTHS = (128, 640)
+# set only by tests and scripts: True sends every bf16 call at 640 to the
+# overlapped form, False to the one-block form; None leaves it to
+# `overlap_form`
+FORCE_OVERLAP = None
 
 
 def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
@@ -139,8 +163,35 @@ def attn_out_plan(m: int, n_sm: int, hidden: int = 768) -> RowPlan:
     kernel there runs as clusters of four over groups of two tiles, as
     many as the card holds at once, where their rounds take less time than
     the pairs' waves (csrc/attn_out_ln.cuh::quad_clusters): the same blocks
-    a tile."""
+    a tile. At 128 no call takes the plan: `launch_slices` sends every one
+    to the tile form."""
     return split_plan(m, hidden // KERNEL_CHUNK, n_sm, hidden=hidden)
+
+
+def overlap_form(hidden: int, slices: int) -> bool:
+    """Whether a bf16 call at 640 takes the overlapped form
+    (csrc/attn_out_ln_overlap.cu): where the plan leaves the k loop whole
+    (`slices` 1: on 132 SMs every count from 7,553 rows, the packed batch
+    among them, and none below). A single request's 64 rows and the other
+    split counts keep the one-block form's split path. On the H100 the
+    form's 66 resident pairs walk the row groups of 128 in as many rounds
+    as the one-block form's 64-row tiles take waves over its 132 SMs, each
+    group cheaper than two tiles."""
+    return hidden == 640 and slices == 1
+
+
+def launch_slices(m: int, hidden: int, n_sm: int) -> int:
+    """The `slices` the bf16 C entry takes for m rows: 0 at 128 (the tile
+    form, the width's only form), 0 at 640 where `overlap_form` (or
+    FORCE_OVERLAP) takes the overlapped form, else the plan's slices of
+    the k loop."""
+    if hidden == 128:
+        return 0
+    slices = attn_out_plan(m, n_sm, hidden).slices
+    if hidden == 640 and (FORCE_OVERLAP if FORCE_OVERLAP is not None
+                          else overlap_form(hidden, slices)):
+        return 0
+    return slices
 
 
 def f32_rows_form(m: int, hidden: int, n_sm: int, resident: int,
@@ -258,6 +309,7 @@ def fused_attn_out_ln(ctx2d: torch.Tensor, x2d: torch.Tensor,
 
 
 def _launch(ctx, x, wo, bo, gamma, beta, eps):
+    global OVERLAP_CALLS
     dev = ctx.device
     m, hidden = ctx.shape
     if x.shape != ctx.shape or wo.shape != (hidden, hidden):
@@ -282,17 +334,20 @@ def _launch(ctx, x, wo, bo, gamma, beta, eps):
     y = torch.empty_like(ctx)
     lib = build.load_library(dev)
     fn = entry(lib, "mrd_attn_out_ln_bf16", hidden)
-    plan = attn_out_plan(m, sm_count(dev), hidden)
-    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
-               if plan.scratch else None)
+    slices = launch_slices(m, hidden, sm_count(dev))
+    # the split path's f32 partials (the plan's scratch)
+    scratch = (torch.empty((slices, m, hidden), dtype=torch.float32,
+                           device=dev) if slices > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # slices 0: the overlapped form at 640, the tile form at 128
         err = fn(ctx.data_ptr(), x.data_ptr(), wot.data_ptr(),
                  *(v.data_ptr() for v in vecs), y.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None, m,
-                 plan.slices, float(eps), stream)
+                 slices, float(eps), stream)
     build.check_launch(lib, err, "attn_out_ln_bf16")
     count_launch(globals(), "LAUNCHES", hidden)
+    OVERLAP_CALLS += slices == 0
     return y
 
 

@@ -231,6 +231,37 @@ def check_f32_plan(h, m, tiles, slices, k_tiles, k3_slices, k3_k_tiles):
     assert plan3.scratch == 2 * h * h + (0 if rows else k3_slices * m * h)
 
 
+def check_overlap_rule(h, m, want):
+    """K3's bf16 form for m rows at h (128 or 640) on 132 SMs: the
+    overlapped form (at 128 the tile form) where `want`, the C entry's
+    `slices` 0, else the one-block form with the plan's slices, which the
+    rule never changes."""
+    plan = k3.attn_out_plan(m, 132, h)
+    assert plan == k1.split_plan(m, h // 64, 132, hidden=h)
+    assert k3.launch_slices(m, h, 132) == (0 if want else plan.slices)
+    if h == 640:
+        assert k3.overlap_form(h, plan.slices) is want
+        # only where the plan leaves the k loop whole: a single request's
+        # 64 rows keep the split path
+        assert want == (plan.slices == 1)
+
+
+def check_overlap_forced(h, forced):
+    """FORCE_OVERLAP sends every bf16 call at 640 to the overlapped form
+    (True) or to the one-block form (False), at any row count; at 128 every
+    call takes the tile form either way, and no call at another width
+    takes either."""
+    old = k3.FORCE_OVERLAP
+    k3.FORCE_OVERLAP = forced
+    try:
+        for m in (1, 64, 1024, 16384, 16385):
+            slices = k3.attn_out_plan(m, 132, h).slices
+            assert k3.launch_slices(m, h, 132) == (
+                0 if h == 128 or (forced and h == 640) else slices)
+    finally:
+        k3.FORCE_OVERLAP = old
+
+
 def check_scratch(h, ffn_bytes, k3_bytes):
     assert k1.ffn_plan_f32(16384, WIDTHS[h][1], 132, h).scratch * 4 \
         == ffn_bytes
@@ -246,7 +277,7 @@ def check_cpu_rule(h, input_ln):
     names = [n for n in dir(k1) if n.startswith("LAUNCHES")] + [
         "PLAIN_ON_CUDA"]
     names3 = [n for n in dir(k3) if n.startswith("LAUNCHES")] + [
-        "PLAIN_ON_CUDA"]
+        "PLAIN_ON_CUDA", "OVERLAP_CALLS"]
     counts = [getattr(k1, n) for n in names] + [getattr(k3, n)
                                                 for n in names3]
     zb = torch.from_numpy(z).to(BF)

@@ -26,6 +26,8 @@ from _torch_width_cases import (
     check_ffn_plain,
     check_gates,
     check_ffn_plan,
+    check_overlap_forced,
+    check_overlap_rule,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -195,6 +197,24 @@ def test_f32_scratch_at_the_packed_batch(h):
 @by_width
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing(h, input_ln):
     check_cpu_rule(h, input_ln)
+
+
+# K3 at 128 (the tile form, one block per 64-row tile, three an SM): every
+# row count takes it, a single request's 64 rows among them; the width has
+# no split path
+_OVERLAP_M = (1, 37, 64, 1024, 4096, 8448, 16384, 16385)
+
+
+@pytest.mark.parametrize("m", _OVERLAP_M,
+                         ids=[f"h128-m{m}" for m in _OVERLAP_M])
+def test_k3_overlap_rule(m):
+    check_overlap_rule(128, m, True)
+
+
+@pytest.mark.parametrize("forced", [True, False], ids=["on", "off"])
+@by_width
+def test_k3_overlap_forced(h, forced):
+    check_overlap_forced(h, forced)
 
 
 # ---- the slice: the classifier at each width, 2 layers (BERT-Tiny's

@@ -214,7 +214,8 @@ def test_build_is_keyed_by_the_sources():
     assert p.parent.parent == build.BUILD_DIR
     assert {s.name for s in build.sources()} >= {
         "ffn_ln.cu", "ffn_ln_odd.cu", "ffn_ln_wide.cu", "ffn_ln_wide2.cu",
-        "attn_out_ln.cu", "attn_out_ln_wide.cu", "normalize_u8.cu",
+        "attn_out_ln.cu", "attn_out_ln_overlap.cu", "attn_out_ln_wide.cu",
+        "normalize_u8.cu",
         "ffn_ln_f32.cu", "attn_out_ln_f32.cu"}
 
 

@@ -21,7 +21,9 @@ naming the width: `h1024`, `h512`, ...), with a predict at each width
 launching them and K1/K2 at intermediate widths other than 4H at every
 built width; K3-f32's pass over whole rows (`-k f32narrow`) and K1-f32's
 and K2-f32's one-pass form at 128 and 256 (`-k f32ffnrows`), forced and
-left to the rule, each with the dropped terms its check must refuse.
+left to the rule, each with the dropped terms its check must refuse, and
+K3's overlapped forms at 128 and 640 (`-k overlap`), forced and left to
+the rule, bit for bit the one-block form's, with the dropped terms.
 Every test here
 is marked `gpu` and skips without a CUDA device; the file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -1504,3 +1506,82 @@ def test_f32_ffn_rows_check_fails_a_kernel_that_drops_a_term(
                 got = _ffn(kffn.ffn_ln_plain, z, w, vec, input_ln)
     worst, mean = _diff(got, want)
     assert worst > _F32_MAX_ATOL and mean > _F32_MEAN_ATOL, (worst, mean)
+
+
+# K3's overlapped form at 640 and tile form at 128
+# (csrc/attn_out_ln_overlap.cu): at 640 persistent clusters of two blocks
+# of 128 rows by 320 columns on n160 Wo tiles, at 128 one block per 64-row
+# tile with x loaded up front, three blocks an SM. At 640 forced
+# (k3.FORCE_OVERLAP) at every row count, and left to the rule, which takes
+# it where the plan leaves the k loop whole (from 7,553 rows) and keeps
+# the one-block form's split path below; at 128 the tile form at every
+# row count, the width's only form. The counts: a single request (1, then
+# its length bucket 64), 37 rows, the 1,024 CLS rows, 4,096, 8,448, the
+# packed batch and a ragged tile past it. Each launch twice, with the same
+# bits, and, at 640 where the one-block form runs the whole k loop too
+# (7,553 rows up), its bits (each element's k16 steps in the same order,
+# the row sums added as there).
+_OVERLAP_WIDTHS = [128, 640]
+_OVERLAP_M = [1, 37, 64, 1024, 4096, 8448, 16384, 16385]
+_OVERLAP_CASES = [(h, m, form) for h in _OVERLAP_WIDTHS for m in _OVERLAP_M
+                  for form in (("forced", "rule") if h == 640 else ("rule",))]
+
+
+@contextlib.contextmanager
+def _overlap_forced(forced):
+    old = k3.FORCE_OVERLAP
+    k3.FORCE_OVERLAP = forced
+    try:
+        yield
+    finally:
+        k3.FORCE_OVERLAP = old
+
+
+@pytest.mark.parametrize("h,m,form", _OVERLAP_CASES,
+                         ids=[f"overlap-h{h}-{m}-{form}"
+                              for h, m, form in _OVERLAP_CASES])
+def test_overlap_attn_out_kernel_matches_plain(cuda, h, m, form):
+    x, ctx, _, wo, vec = _width_inputs(m, cuda, 900 + m, torch.bfloat16, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    before, calls = _width_counts(h), k3.OVERLAP_CALLS
+    with _overlap_forced(True if form == "forced" else None):
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        again = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+    moved = tuple(a - b for a, b in zip(_width_counts(h), before))
+    assert moved == (0, 0, 2, 0, 0, 0, 0, 0)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slices = k3.attn_out_plan(m, n_sm, h).slices
+    taken = h == 128 or form == "forced" or k3.overlap_form(h, slices)
+    assert taken == (h == 128 or form == "forced" or m >= 8448)
+    assert k3.OVERLAP_CALLS - calls == (2 if taken else 0)
+    assert torch.equal(got, again)
+    if h == 640 and slices == 1:  # the one-block form's whole k loop
+        with _overlap_forced(False):
+            parent = _attn(k3.fused_attn_out_ln, ctx, x, wo, v3)
+        assert torch.equal(got, parent)
+    worst, mean = _diff(got, _attn(k3.attn_out_ln_plain, ctx, x, wo, v3))
+    assert worst <= _MAX_ATOL and mean <= _MEAN_ATOL, (worst, mean)
+
+
+@pytest.mark.parametrize("name", ["bo", "gamma", "beta", "x"])
+@pytest.mark.parametrize("h", _OVERLAP_WIDTHS,
+                         ids=[f"overlap-h{h}" for h in _OVERLAP_WIDTHS])
+def test_overlap_check_fails_a_kernel_that_drops_a_term(cuda, h, name):
+    # the packed batch in the overlapped form (at 640 its 128 groups of
+    # 128 rows over the resident clusters of two, two rounds); a neutral bo
+    # / gamma / beta, or a zero residual x, stands for a kernel that leaves
+    # the term out
+    x, ctx, _, wo, vec = _width_inputs(16384, cuda, 23, torch.bfloat16, h,
+                                       _WIDTHS[h])
+    v3 = dict(bo=vec["b2"], gamma=vec["gamma"], beta=vec["beta"])
+    want = _attn(k3.attn_out_ln_plain, ctx, x, wo, v3)
+    calls = k3.OVERLAP_CALLS
+    if name == "x":
+        got = _attn(k3.fused_attn_out_ln, ctx, torch.zeros_like(x), wo, v3)
+    else:
+        got = _attn(k3.fused_attn_out_ln, ctx, x, wo,
+                    {**v3, name: _neutral(name, v3[name])})
+    assert k3.OVERLAP_CALLS == calls + 1
+    worst, mean = _diff(got, want)
+    assert worst > _MAX_ATOL and mean > _MEAN_ATOL, (worst, mean)

@@ -25,6 +25,8 @@ from _torch_width_cases import (
     check_ffn_plain,
     check_gates,
     check_ffn_plan,
+    check_overlap_forced,
+    check_overlap_rule,
     check_scratch,
     check_split_emulations,
     param_widths,
@@ -186,6 +188,26 @@ def test_f32_scratch_at_the_packed_batch(h):
 @by_width
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing(h, input_ln):
     check_cpu_rule(h, input_ln)
+
+
+# K3's overlapped form at 640 (persistent clusters of two): the form the
+# rule takes for m rows, from a single request's row to the ragged tile
+# past the packed batch: every count whose plan leaves the k loop whole
+# (7,553 rows up); below, the one-block form's split path
+_OVERLAP_RULE = [(m, m >= 8448)
+                 for m in (1, 37, 64, 1024, 4096, 8448, 16384, 16385)]
+
+
+@pytest.mark.parametrize("m,want", _OVERLAP_RULE,
+                         ids=[f"h640-m{m}" for m, _ in _OVERLAP_RULE])
+def test_k3_overlap_rule(m, want):
+    check_overlap_rule(640, m, want)
+
+
+@pytest.mark.parametrize("forced", [True, False], ids=["on", "off"])
+@by_width
+def test_k3_overlap_forced(h, forced):
+    check_overlap_forced(h, forced)
 
 
 @pytest.mark.parametrize("fused_attn_out", [False, True],
